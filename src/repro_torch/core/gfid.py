@@ -1,0 +1,84 @@
+"""GFID — Generalized Fully-connected Inspired Dataflow (paper §2.1, §3), in
+PyTorch ops.
+
+`conv2d_gfid` computes a convolution as `H_f * W_f` *shifted GEMM
+accumulations* over the input, never materializing the im2col expansion —
+the same lowering as `repro.core.gfid.conv2d_gfid`. It is the engine's
+"torch" backend and the plain version the hand-written conv kernel is held
+against. `conv2d_reference` is the library's own convolution, the "ref"
+baseline.
+
+Layouts follow the JAX package at every public function: activations NHWC,
+conv weights HWIO, FC weights (n, m).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _check_conv(x: torch.Tensor, w: torch.Tensor, groups: int) -> None:
+    if x.ndim != 4 or w.ndim != 4:
+        raise ValueError(
+            f"expected NHWC x and HWIO w, got {tuple(x.shape)} {tuple(w.shape)}")
+    if x.shape[3] // groups != w.shape[2] or x.shape[3] % groups \
+            or w.shape[3] % groups:
+        raise ValueError(
+            f"groups mismatch: C_in={x.shape[3]}, groups={groups}, "
+            f"w={tuple(w.shape)}")
+
+
+def conv2d_gfid(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                pad: int = 0, groups: int = 1) -> torch.Tensor:
+    """2-D convolution as H_f*W_f shifted GEMM accumulations (valid conv
+    after symmetric zero padding `pad`).
+
+    x: (B, H_in, W_in, C_in) NHWC; w: (H_f, W_f, C_in // groups, C_out)
+    HWIO. Returns (B, H_out, W_out, C_out) in x.dtype, accumulated in fp32.
+    Band (j, i) of the GFID matrix contributes X[:, zS+j, tS+i, :] @ W[j, i]
+    to every output pixel (z, t).
+    """
+    _check_conv(x, w, groups)
+    h_f, w_f, cg, c_out = w.shape
+    if pad:
+        x = F.pad(x, (0, 0, pad, pad, pad, pad))
+    b, h_in, w_in, _ = x.shape
+    h_out = (h_in - h_f) // stride + 1
+    w_out = (w_in - w_f) // stride + 1
+    og = c_out // groups
+    shards = []
+    for g in range(groups):
+        xg = x[..., g * cg:(g + 1) * cg].float()
+        acc = x.new_zeros((b, h_out, w_out, og), dtype=torch.float32)
+        for j in range(h_f):
+            for i in range(w_f):
+                xs = xg[:, j:j + (h_out - 1) * stride + 1:stride,
+                        i:i + (w_out - 1) * stride + 1:stride, :]
+                acc = acc + xs @ w[j, i, :, g * og:(g + 1) * og].float()
+        shards.append(acc)
+    out = torch.cat(shards, dim=-1) if groups > 1 else shards[0]
+    return out.to(x.dtype)
+
+
+def fc_gfid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """FC mode of the engine (paper §4.1.6): x (..., n) @ w (n, m), the
+    degenerate W_f = 1, S = 1 mode, accumulated in fp32."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def conv2d_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                     pad: int = 0, groups: int = 1) -> torch.Tensor:
+    """The library's direct convolution at the NHWC/HWIO surface.
+
+    TF32 is switched off for the call: cuDNN would otherwise round fp32
+    operands to TF32 on the card, about three decimal digits."""
+    _check_conv(x, w, groups)
+    cudnn = torch.backends.cudnn
+    allow_tf32 = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                       stride=stride, padding=pad, groups=groups)
+    finally:
+        cudnn.allow_tf32 = allow_tf32
+    return out.permute(0, 2, 3, 1).contiguous()

@@ -1,0 +1,185 @@
+"""Functional entrypoints of the multi-mode engine.
+
+One call surface for the dense ops (the paper's "conv and FC on the same
+PEs" contract):
+
+    y = engine.conv2d(x, w, stride=2, pad=3, bias=b, act="relu")  # conv modes
+    y = engine.dense(x, w)                            # FC mode, (…,n)@(n,m)
+    y = engine.einsum("bn,nm->bm", x, w)              # FC mode, general
+
+Every call builds the op's `OpSpec` from its static shapes, computes the
+pure `EnginePlan` (cached), records it into any active `tracking()` ledger,
+and dispatches to the selected backend: the plan's backend inside an
+executing `CompiledNet` (program replay), else the ambient `EngineConfig`'s.
+
+Ops run on the device of the tensors they are given.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.engine import dispatch, ledger as ledger_mod, plan as planlib
+from repro_torch.engine.config import current_config
+from repro_torch.kernels.epilogue import check_act
+
+# ---------------------------------------------------------------------------
+# Program capture & replay (used by engine/program.py)
+# ---------------------------------------------------------------------------
+
+
+class _ProgramState(threading.local):
+    def __init__(self) -> None:
+        self.capture: List[List[planlib.OpSpec]] = []
+        self.replay: List["_Cursor"] = []
+
+
+class _Cursor:
+    """Mutable position over a compiled (OpSpec, EnginePlan) sequence."""
+
+    def __init__(self, pairs: Sequence[Tuple[planlib.OpSpec,
+                                             planlib.EnginePlan]]):
+        self.pairs = tuple(pairs)
+        self.index = 0
+
+    def next_for(self, op: planlib.OpSpec) -> planlib.EnginePlan:
+        if self.index >= len(self.pairs):
+            raise RuntimeError(
+                f"compiled program expected {len(self.pairs)} engine ops but "
+                f"a further {op.kind} op was issued — the executed function "
+                "diverged from its captured op sequence (did the input "
+                "shapes change since compile()?)")
+        want, plan = self.pairs[self.index]
+        if want != op:
+            raise RuntimeError(
+                f"compiled program op {self.index} mismatch: planned "
+                f"{want.kind}{want.x_shape}x{want.w_shape}, executing "
+                f"{op.kind}{op.x_shape}x{op.w_shape} — recompile for these "
+                "input shapes")
+        self.index += 1
+        return plan
+
+
+_PROG = _ProgramState()
+
+
+@contextlib.contextmanager
+def capturing(into: List[planlib.OpSpec]) -> Iterator[List[planlib.OpSpec]]:
+    """Record the `OpSpec` of every engine call in the block, in call order
+    (ledgers are paused: a capture is a shape trace, not a run)."""
+    _PROG.capture.append(into)
+    try:
+        with ledger_mod.paused():
+            yield into
+    finally:
+        _PROG.capture.pop()
+
+
+@contextlib.contextmanager
+def replaying(pairs: Sequence[Tuple[planlib.OpSpec, planlib.EnginePlan]],
+              ) -> Iterator[_Cursor]:
+    """Execute the block against a compiled plan sequence: each engine call
+    consumes the next (OpSpec, EnginePlan) pair and runs on the plan's
+    backend. Divergence from the captured sequence raises."""
+    cur = _Cursor(pairs)
+    _PROG.replay.append(cur)
+    try:
+        yield cur
+    finally:
+        _PROG.replay.pop()
+    if cur.index != len(cur.pairs):
+        raise RuntimeError(
+            f"compiled program executed {cur.index} of {len(cur.pairs)} "
+            "planned engine ops — the function diverged from its captured "
+            "op sequence")
+
+
+def _plan_for(op: planlib.OpSpec) -> planlib.EnginePlan:
+    """Capture/replay hook + plan resolution for one issued op."""
+    for ops in _PROG.capture:
+        ops.append(op)
+    if _PROG.replay:
+        return _PROG.replay[-1].next_for(op)
+    name = current_config().backend
+    dispatch.get_backend(name)          # validate before caching a plan
+    return planlib.plan_op(op, name)
+
+
+def _check_epilogue(bias: Optional[torch.Tensor], act: Optional[str],
+                    n_out: int, what: str) -> None:
+    check_act(act)
+    if bias is not None and tuple(bias.shape) != (n_out,):
+        raise ValueError(
+            f"epilogue bias for {what} must have shape ({n_out},) — one "
+            f"entry per output feature; got {tuple(bias.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# Ops
+# ---------------------------------------------------------------------------
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, pad: int = 0,
+           groups: int = 1, bias: Optional[torch.Tensor] = None,
+           act: Optional[str] = None) -> torch.Tensor:
+    """Conv mode. x: (B,H,W,C_in) NHWC; w: (H_f,W_f,C_in/g,C_out) HWIO.
+    Returns (B,H_out,W_out,C_out).
+
+    `bias` ((C_out,)) and `act` ("relu" | "gelu") form the op's fused
+    epilogue: conv+bias+activation is one kernel launch on the "cuda"
+    backend and ordinary post-ops elsewhere."""
+    op = planlib.OpSpec("conv2d", tuple(map(int, x.shape)),
+                        tuple(map(int, w.shape)), stride=int(stride),
+                        pad=int(pad), groups=int(groups))
+    _check_epilogue(bias, act, op.w_shape[3], "conv2d")
+    plan = _plan_for(op)
+    ledger_mod.record(plan)
+    return dispatch.run_op(plan, lambda be, pl: be.conv2d(
+        x, w, pl, stride=stride, pad=pad, groups=groups, bias=bias, act=act))
+
+
+def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
+           bias: Optional[torch.Tensor] = None,
+           act: Optional[str] = None) -> torch.Tensor:
+    """FC mode for any two-operand dense contraction (weights second).
+
+    `bias` ((n_out,), one entry per trailing output feature) and `act`
+    form the fused epilogue; the trailing output label must be a
+    weight-side (w-free) dim for a bias to be well-defined."""
+    op = planlib.OpSpec("dense", tuple(map(int, x.shape)),
+                        tuple(map(int, w.shape)), spec=spec)
+    structure = planlib.parse_einsum(spec, x.ndim, w.ndim)
+    if bias is not None:
+        if not structure.out_labels \
+                or structure.out_labels[-1] not in structure.w_free:
+            raise ValueError(
+                f"epilogue bias on einsum {spec!r}: the trailing output "
+                "label must be a weight-only (w-free) dim to carry a "
+                "per-feature bias")
+        lab = structure.out_labels[-1]
+        n_out = op.w_shape[structure.w_labels.index(lab)]
+        _check_epilogue(bias, act, n_out, f"einsum {spec!r}")
+    else:
+        check_act(act)
+    plan = _plan_for(op)
+    ledger_mod.record(plan)
+    return dispatch.run_op(plan, lambda be, pl: be.einsum(
+        spec, x, w, pl, structure, bias=bias, act=act))
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, *,
+          bias: Optional[torch.Tensor] = None,
+          act: Optional[str] = None) -> torch.Tensor:
+    """FC mode (W_f = 1): x (..., n) @ w (n, m) -> (..., m), with an
+    optional fused bias ((m,)) / activation epilogue."""
+    return einsum(planlib.dense_spec(x.ndim), x, w, bias=bias, act=act)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, *,
+           bias: Optional[torch.Tensor] = None,
+           act: Optional[str] = None) -> torch.Tensor:
+    """FC mode with the result cast back to x's dtype (the reference's
+    `engine.matmul` contract)."""
+    return dense(x, w, bias=bias, act=act).to(x.dtype)

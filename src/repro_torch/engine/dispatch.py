@@ -1,0 +1,115 @@
+"""Backend registry of the multi-mode engine.
+
+A backend implements the engine's op kinds against a precomputed
+`EnginePlan`:
+
+  * ``"cuda"``  — the hand-written Hopper kernels (`repro_torch.kernels`);
+                  the counterpart of the reference's ``"pallas"``. On a CPU
+                  tensor each kernel wrapper runs its plain version.
+  * ``"torch"`` — the GFID shifted-GEMM lowering in PyTorch ops
+                  (`core.gfid`); the counterpart of ``"xla"``.
+  * ``"ref"``   — the library's own convolution and matrix product: the
+                  "direct engine" baseline the paper compares against.
+
+`run_op` calls the planned backend directly. The reference's
+pallas -> xla -> ref degradation chain is not ported: a backend's error
+propagates (see `EngineConfig.fallback`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.core import gfid
+from repro_torch.engine.plan import canonical_gemm
+from repro_torch.kernels import ops
+from repro_torch.kernels.epilogue import apply_epilogue
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineBackend:
+    """One execution strategy for the engine's op kinds. `conv2d` and
+    `einsum` receive the op's `EnginePlan` and the fused-epilogue kwargs
+    (`bias=`, `act=`); `einsum` also receives the literal spec and its
+    parsed `EinsumStructure`."""
+
+    name: str
+    conv2d: Callable[..., torch.Tensor]
+    einsum: Callable[..., torch.Tensor]
+
+
+_REGISTRY: Dict[str, EngineBackend] = {}
+
+
+def register_backend(backend: EngineBackend) -> None:
+    if backend.name in _REGISTRY:
+        raise ValueError(f"backend {backend.name!r} already registered")
+    _REGISTRY[backend.name] = backend
+
+
+def get_backend(name: str) -> EngineBackend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown engine backend {name!r}; registered: "
+                       f"{sorted(_REGISTRY)}") from None
+
+
+def run_op(plan, call):
+    """Execute one planned op: `call(backend, plan)` on the plan's backend."""
+    return call(get_backend(plan.backend), plan)
+
+
+# ---------------------------------------------------------------------------
+# "torch" — GFID shifted-GEMM lowering in PyTorch ops
+# ---------------------------------------------------------------------------
+
+def _torch_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
+    return apply_epilogue(gfid.conv2d_gfid(x, w, stride, pad, groups),
+                          bias, act)
+
+
+def _torch_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
+    return apply_epilogue(torch.einsum(spec, x, w), bias, act)
+
+
+# ---------------------------------------------------------------------------
+# "ref" — the library's direct ops
+# ---------------------------------------------------------------------------
+
+def _ref_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
+    return apply_epilogue(gfid.conv2d_reference(x, w, stride, pad, groups),
+                          bias, act)
+
+
+# ---------------------------------------------------------------------------
+# "cuda" — the hand-written kernels
+# ---------------------------------------------------------------------------
+
+def _cuda_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
+    return ops.gfid_conv2d(x, w, stride=stride, pad=pad, groups=groups,
+                           bias=bias, act=act)
+
+
+def _cuda_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
+    """Canonicalize to (M, K) @ (K, N) for the GEMM kernel. A contraction
+    that does not canonicalize (batched weights) raises: the reference sends
+    it to its XLA lowering, which would hide a library call behind the
+    "cuda" name."""
+    st = structure
+    if not canonical_gemm(st, w.ndim):
+        raise NotImplementedError(
+            f"einsum {spec!r} is not a single (M, K) @ (K, N) GEMM; the "
+            "batched-weight GEMM kernel is not ported (ROADMAP queue 1, "
+            "item 8) — use backend='torch'")
+    c = st.contract[0]
+    xm = torch.movedim(x, st.x_labels.index(c), -1)
+    w2 = w if st.w_labels[0] == c else w.T
+    return ops.gfid_matmul(xm, w2, bias=bias, act=act)
+
+
+register_backend(EngineBackend("cuda", _cuda_conv2d, _cuda_einsum))
+register_backend(EngineBackend("torch", _torch_conv2d, _torch_einsum))
+register_backend(EngineBackend("ref", _ref_conv2d, _torch_einsum))

@@ -1,0 +1,198 @@
+"""EnginePlan — the pure, hashable execution plan of one engine op.
+
+A plan is a function of *op shapes alone* (plus the static knobs stride /
+pad / groups / backend): no tensor data, no mutable state, so it is
+cacheable and usable as a dict key. Each plan carries the paper-side
+schedule (the Table-3 mode and its analytic cost, Eqs. 15-18) — every
+analytic field equals the JAX package's plan for the same op — and the
+Hopper-side schedule: `tiling`, the block tile of the hand-written kernel
+that runs the op on the "cuda" backend.
+
+Einsum planning: a dense contraction `einsum(spec, x, w)` is classified per
+axis label into batch (x, w and out), contraction (x and w, not out),
+x-free and w-free dims. Its FC-mode cost is `fc_cost(n=prod(contract),
+m=prod(w_free))` scaled by every remaining x dim.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Dict, Tuple
+
+from repro_torch.core import analytics, modes
+from repro_torch.kernels.gfid_conv import TILE as CONV_TILE
+from repro_torch.kernels.gfid_matmul import TILE as MATMUL_TILE
+
+Shape = Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class OpSpec:
+    """The shape-complete invocation record of one engine op: one node of a
+    `program.Program` graph, re-plannable under any config via `plan_op`."""
+
+    kind: str                       # "conv2d" | "dense"
+    x_shape: Shape
+    w_shape: Shape
+    spec: str = ""                  # einsum spec ("dense" kind only)
+    stride: int = 1
+    pad: int = 0
+    groups: int = 1
+    name: str = dataclasses.field(default="", compare=False)  # layer label
+
+    def __post_init__(self) -> None:
+        if self.kind not in ("conv2d", "dense"):
+            raise ValueError(f"unknown op kind {self.kind!r}")
+
+
+def plan_op(op: OpSpec, backend: str) -> "EnginePlan":
+    """Plan one `OpSpec` for `backend` (shares the per-op planners' caches)."""
+    if op.kind == "conv2d":
+        return plan_conv2d(op.x_shape, op.w_shape, op.stride, op.pad,
+                           op.groups, backend)
+    return plan_einsum(op.spec, op.x_shape, op.w_shape, backend)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnginePlan:
+    """Everything the engine decided about one op, from shapes alone."""
+
+    kind: str                       # "conv2d" | "dense"
+    backend: str                    # registry name ("cuda" | "torch" | "ref")
+    mode: modes.Mode                # paper mode (W_f, S) with Table-3 schedule
+    tiling: Tuple[int, int, int]    # Hopper block tile of the "cuda" kernel
+    cycles: int                     # MMIE-projected cycles (batch included)
+    ma_words: int                   # MMIE memory accesses, 16-bit words
+    macs: int                       # useful multiply-accumulates
+    note: str = ""                  # plan caveats (decimation, ...)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_conv2d(x_shape: Shape, w_shape: Shape, stride: int, pad: int,
+                groups: int, backend: str) -> EnginePlan:
+    """x: (B, H, W, C_in) NHWC; w: (H_f, W_f, C_in/g, C_out) HWIO."""
+    h_f, w_f, _, c_out = (int(v) for v in w_shape)
+    b, h_in, w_in, c_in = (int(v) for v in x_shape)
+    spec = analytics.ConvLayerSpec("conv2d", h_in, w_in, c_in, c_out,
+                                   h_f, w_f, stride, pad, groups)
+    cost = analytics.conv_cost(spec)
+    note = ""
+    if w_f <= stride:
+        note = "W_f<=S: strided-out pixels decimated, booked at S=1"
+    return EnginePlan(
+        kind="conv2d", backend=backend, mode=cost.mode, tiling=CONV_TILE,
+        cycles=cost.cycles * b, ma_words=cost.ma_total_words * b,
+        macs=cost.macs * b, note=note)
+
+
+@dataclasses.dataclass(frozen=True)
+class EinsumStructure:
+    """Parsed two-operand einsum: per-axis roles, in operand order."""
+
+    x_labels: Tuple[str, ...]
+    w_labels: Tuple[str, ...]
+    out_labels: Tuple[str, ...]
+    batch: Tuple[str, ...]          # in x, w and out
+    contract: Tuple[str, ...]       # in x and w, not out
+    x_free: Tuple[str, ...]         # in x and out only
+    w_free: Tuple[str, ...]         # in w and out only
+
+
+def canonical_gemm(structure: EinsumStructure, w_ndim: int) -> bool:
+    """True when a dense contraction lowers to ONE (M, K) @ (K, N) GEMM:
+    single contract label, plain 2-D weights, no batched dims, output laid
+    out x-free rows then w-free cols — exactly the ops the "cuda" backend's
+    GEMM kernel runs."""
+    return (w_ndim == 2 and len(structure.contract) == 1
+            and not structure.batch
+            and structure.out_labels == structure.x_free + structure.w_free)
+
+
+@functools.lru_cache(maxsize=1024)
+def parse_einsum(spec: str, x_ndim: int, w_ndim: int) -> EinsumStructure:
+    """Parse `spec` for operands of the given ranks. Ellipses in the spec are
+    expanded to reserved per-position labels ("…0", "…1", ...)."""
+    if "->" not in spec:
+        raise ValueError(f"engine.einsum requires an explicit output: {spec!r}")
+    lhs, rhs = spec.split("->")
+    ops = lhs.split(",")
+    if len(ops) != 2:
+        raise ValueError(f"engine.einsum takes exactly two operands: {spec!r}")
+
+    def _splice(sub: str, ell: Tuple[str, ...]) -> Tuple[str, ...]:
+        head, tail = sub.split("...")
+        return tuple(head) + ell + tuple(tail)
+
+    def expand(sub: str, ndim: int) -> Tuple[str, ...]:
+        sub = sub.replace(" ", "")
+        if "..." in sub:
+            n_ell = ndim - len(sub.replace("...", ""))
+            if n_ell < 0:
+                raise ValueError(f"operand rank {ndim} too small for {sub!r}")
+            return _splice(sub, tuple(f"…{i}" for i in range(n_ell)))
+        if len(sub) != ndim:
+            raise ValueError(f"{sub!r} does not match operand rank {ndim}")
+        return tuple(sub)
+
+    x_labels = expand(ops[0], x_ndim)
+    w_labels = expand(ops[1], w_ndim)
+    for labels, side in ((x_labels, "operand 0"), (w_labels, "operand 1")):
+        if len(set(labels)) != len(labels):
+            raise ValueError(
+                f"repeated label within {side} of {spec!r} (a diagonal, "
+                "not a dense contraction the engine can plan)")
+    rhs = rhs.replace(" ", "")
+    if "..." in rhs:
+        # the output ellipsis carries the x-side ellipsis labels (numpy
+        # rule: broadcast dims lead; w never carries an ellipsis here)
+        n_ell = sum(1 for l in x_labels if l.startswith("…"))
+        out_labels = _splice(rhs, tuple(f"…{i}" for i in range(n_ell)))
+    else:
+        out_labels = tuple(rhs)
+
+    xs, ws, os_ = set(x_labels), set(w_labels), set(out_labels)
+    for lab in os_:
+        if lab not in xs | ws:
+            raise ValueError(f"output label {lab!r} missing from inputs: {spec!r}")
+    for lab in xs | ws:
+        if lab not in os_ and not (lab in xs and lab in ws):
+            raise ValueError(
+                f"label {lab!r} is summed within one operand — not a dense "
+                f"contraction the engine can plan: {spec!r}")
+    batch = tuple(l for l in x_labels if l in ws and l in os_)
+    contract = tuple(l for l in x_labels if l in ws and l not in os_)
+    x_free = tuple(l for l in x_labels if l not in ws)
+    w_free = tuple(l for l in w_labels if l not in xs)
+    return EinsumStructure(x_labels, w_labels, out_labels,
+                           batch, contract, x_free, w_free)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_einsum(spec: str, x_shape: Shape, w_shape: Shape,
+                backend: str) -> EnginePlan:
+    """FC-mode plan for a dense contraction `einsum(spec, x, w)`."""
+    st = parse_einsum(spec, len(x_shape), len(w_shape))
+    dims: Dict[str, int] = {}
+    for labels, shape in ((st.x_labels, x_shape), (st.w_labels, w_shape)):
+        for lab, size in zip(labels, shape):
+            if dims.setdefault(lab, int(size)) != int(size):
+                raise ValueError(
+                    f"size mismatch for {lab!r} in {spec!r}: "
+                    f"{dims[lab]} vs {size}")
+    n = math.prod(dims[l] for l in st.contract)
+    m = math.prod(dims[l] for l in st.w_free)
+    reps = math.prod(dims[l] for l in st.batch + st.x_free)
+    fc = analytics.fc_cost(analytics.FCLayerSpec("fc", n, m))
+    return EnginePlan(
+        kind="dense", backend=backend, mode=modes.fc_mode(),
+        tiling=MATMUL_TILE,
+        cycles=fc.cycles * reps, ma_words=fc.ma_total_words * reps,
+        macs=fc.macs * reps,
+        note="" if not st.batch else
+        f"batched weights over {len(st.batch)} dim(s)")
+
+
+def dense_spec(x_ndim: int) -> str:
+    """Canonical `(…, n) @ (n, m)` spec for `engine.dense`."""
+    return "...n,nm->...m"

@@ -1,0 +1,233 @@
+"""Whole-network planning: Program -> compile(cfg) -> CompiledNet.
+
+  * `Program`     — an ordered, shape-complete op graph (a tuple of
+    `plan.OpSpec`s) plus the executable forward it was derived from and the
+    `meta` tensors that stand for its inputs.
+  * `NetworkPlan` — the per-op `EnginePlan`s with the paper's Table-4
+    aggregates (conv @200 MHz vs FC @40 MHz latency, memory-access bytes,
+    performance efficiency), computed from shapes alone.
+  * `compile(program, cfg)` -> `CompiledNet` — plans every op under one
+    frozen `EngineConfig`, exposes `.plan` / `.cost`, and an `.apply(*args)`
+    that runs the forward with each op pinned to its planned backend
+    (strict: divergence from the captured op sequence raises).
+
+The executed op sequence is captured by running the forward on `meta`
+tensors (shapes only, no data, no device) — the analogue of the reference's
+`jax.eval_shape`. Capture and execution both run through `api.capturing` /
+`api.replaying`, so a compiled network and an eager call see the exact same
+planning logic.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import modes
+from repro_torch.engine import api
+from repro_torch.engine.config import EngineConfig, current_config, using_config
+from repro_torch.engine.plan import EnginePlan, OpSpec, plan_op
+
+
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """An ordered, shape-complete engine-op graph for one network.
+
+    `ops` alone determines the `NetworkPlan`; `fn` / `in_avals` (pytrees of
+    `meta` tensors) carry the executable forward for `CompiledNet.apply`
+    and are excluded from equality and hashing."""
+
+    name: str
+    ops: Tuple[OpSpec, ...]
+    fn: Optional[Callable[..., Any]] = dataclasses.field(
+        default=None, compare=False)
+    in_avals: Tuple[Any, ...] = dataclasses.field(default=(), compare=False)
+
+
+def _capture_ops(fn: Callable[..., Any], avals: Tuple[Any, ...],
+                 cfg: EngineConfig) -> Tuple[OpSpec, ...]:
+    """Run `fn` on `meta` tensors under `cfg` and return its engine ops in
+    call order. Every op only allocates `meta` outputs, so nothing runs."""
+    ops: list = []
+    with api.capturing(ops), using_config(cfg), torch.no_grad():
+        fn(*avals)
+    return tuple(ops)
+
+
+# ---------------------------------------------------------------------------
+# NetworkPlan — Table-4 aggregates from plans alone
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NetworkPlan:
+    """Per-op plans plus the paper's network-level rollups (Table 4).
+
+    Aggregation matches `core.analytics.NetworkCost` exactly: conv-side
+    cycles are priced at the 200 MHz conv clock, FC-side (every `dense`
+    plan) at the 40 MHz FC clock; memory accesses are 16-bit words.
+    """
+
+    name: str
+    plans: Tuple[EnginePlan, ...]
+
+    @property
+    def conv_plans(self) -> Tuple[EnginePlan, ...]:
+        return tuple(p for p in self.plans if p.kind == "conv2d")
+
+    @property
+    def fc_plans(self) -> Tuple[EnginePlan, ...]:
+        return tuple(p for p in self.plans if p.kind == "dense")
+
+    @property
+    def conv_cycles(self) -> int:
+        return sum(p.cycles for p in self.conv_plans)
+
+    @property
+    def fc_cycles(self) -> int:
+        return sum(p.cycles for p in self.fc_plans)
+
+    @property
+    def conv_latency_s(self) -> float:
+        return self.conv_cycles / modes.MMIE_CONV_FREQ_HZ
+
+    @property
+    def fc_latency_s(self) -> float:
+        return self.fc_cycles / modes.MMIE_FC_FREQ_HZ
+
+    @property
+    def conv_ma_words(self) -> int:
+        return sum(p.ma_words for p in self.conv_plans)
+
+    @property
+    def fc_ma_words(self) -> int:
+        return sum(p.ma_words for p in self.fc_plans)
+
+    @property
+    def conv_ma_bytes(self) -> int:
+        return self.conv_ma_words * modes.MMIE_WORD_BYTES
+
+    @property
+    def fc_ma_bytes(self) -> int:
+        return self.fc_ma_words * modes.MMIE_WORD_BYTES
+
+    @property
+    def conv_macs(self) -> int:
+        return sum(p.macs for p in self.conv_plans)
+
+    @property
+    def fc_macs(self) -> int:
+        return sum(p.macs for p in self.fc_plans)
+
+    @property
+    def total_macs(self) -> int:
+        return self.conv_macs + self.fc_macs
+
+    @property
+    def conv_perf_efficiency(self) -> float:
+        cyc = self.conv_cycles
+        return self.conv_macs / (modes.MMIE_NUM_PES * cyc) if cyc else 0.0
+
+    @property
+    def fc_perf_efficiency(self) -> float:
+        cyc = self.fc_cycles
+        return self.fc_macs / (modes.MMIE_NUM_PES * cyc) if cyc else 0.0
+
+    def table4_row(self) -> Dict[str, Any]:
+        """The network's Table-4 row, straight off the plan (MMIE analytic
+        model, not a measured time)."""
+        return {
+            "net": self.name,
+            "conv_ms": self.conv_latency_s * 1e3,
+            "fc_ms": self.fc_latency_s * 1e3,
+            "conv_MA_MB": self.conv_ma_bytes / 1e6,
+            "fc_MA_MB": self.fc_ma_bytes / 1e6,
+            "conv_eff": self.conv_perf_efficiency,
+            "fc_eff": self.fc_perf_efficiency,
+        }
+
+
+def plan_network(program: Program,
+                 cfg: Optional[EngineConfig] = None) -> NetworkPlan:
+    """Plan every op of `program` under `cfg` (no execution, no tensors)."""
+    cfg = current_config() if cfg is None else cfg
+    return NetworkPlan(program.name, tuple(plan_op(op, cfg.backend)
+                                           for op in program.ops))
+
+
+# ---------------------------------------------------------------------------
+# compile -> CompiledNet
+# ---------------------------------------------------------------------------
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+class CompiledNet:
+    """A network compiled against one `EngineConfig`.
+
+    .plan   — `NetworkPlan` over the program's op graph (Table-4 analytics).
+    .cost   — the plan's aggregate Table-4 row (dict).
+    .apply  — executor: every engine op runs on its planned backend, in the
+              captured order, on the device of the tensors given (all of
+              them on one device). Executing with shapes that change the op
+              sequence raises (recompile instead).
+    """
+
+    def __init__(self, program: Program, config: EngineConfig,
+                 plan: NetworkPlan,
+                 exec_pairs: Optional[Tuple[Tuple[OpSpec, EnginePlan], ...]]):
+        self.program = program
+        self.config = config
+        self.plan = plan
+        self.exec_pairs = exec_pairs
+
+    @property
+    def cost(self) -> Dict[str, Any]:
+        return self.plan.table4_row()
+
+    def apply(self, *args):
+        if self.program.fn is None:
+            raise ValueError(
+                f"program {self.program.name!r} carries no executable fn "
+                "(analytic op tables only)")
+        devices = {t.device for t in _leaves(args)}
+        if len(devices) != 1:
+            raise ValueError(f"CompiledNet.apply needs every tensor on one "
+                             f"device; got {sorted(map(str, devices))}")
+        with using_config(self.config), api.replaying(self.exec_pairs), \
+                torch.no_grad():
+            return self.program.fn(*args)
+
+    __call__ = apply
+
+    def backends(self) -> Tuple[str, ...]:
+        """Per-op backend assignment of the execution plan, in call order."""
+        pairs = self.exec_pairs if self.exec_pairs is not None else ()
+        return tuple(plan.backend for _, plan in pairs)
+
+
+def compile(program: Program,  # noqa: A001 (mirrors the reference's API)
+            cfg: Optional[EngineConfig] = None) -> CompiledNet:
+    """Plan the whole network under `cfg` and return a `CompiledNet`.
+
+    The analytic plan covers `program.ops` (which may follow the paper's
+    layer counting, e.g. ResNet main-path booking). The execution plan is
+    captured fresh from `program.fn` at the program's `meta` inputs, so
+    `.apply` always matches the real op sequence — including layers the
+    paper's counting omits (projection shortcuts)."""
+    cfg = current_config() if cfg is None else cfg
+    net_plan = plan_network(program, cfg)
+    exec_pairs = None
+    if program.fn is not None:
+        exec_pairs = tuple((op, plan_op(op, cfg.backend))
+                           for op in _capture_ops(program.fn,
+                                                  program.in_avals, cfg))
+    return CompiledNet(program, cfg, net_plan, exec_pairs)

@@ -1,0 +1,165 @@
+"""The port's CNN path on the CPU against the JAX package.
+
+Weights are made with numpy from a seed and moved into both packages (the
+port through `params_from_jax`). The port runs its "cuda" backend on CPU
+tensors, i.e. each kernel wrapper's plain version.
+
+Tolerance: max|port - jax| <= 1e-4 * max|jax logits|: fp32 throughout,
+sums taken in other orders across a deep network.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import engine as jax_engine
+from repro.models import cnn as jax_cnn
+from repro_torch import engine as TE
+from repro_torch.kernels import gfid_conv, gfid_matmul
+from repro_torch.models import cnn as t_cnn
+
+jax.config.update("jax_platform_name", "cpu")
+
+TOL = 1e-4
+
+
+def _numpy_params(convs, fcs, seed):
+    """He-normal weights and small random biases, in the reference's
+    layouts (HWIO conv, (n, m) FC)."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    params = {"conv": {}, "fc": {}}
+    for cd in convs:
+        cg = cd.c_in // cd.groups
+        params["conv"][cd.name] = {
+            "w": normal((cd.k, cd.k, cg, cd.c_out),
+                        (2.0 / (cd.k * cd.k * cg)) ** 0.5),
+            "b": normal((cd.c_out,), 0.05)}
+    for fd in fcs:
+        params["fc"][fd.name] = {"w": normal((fd.n, fd.m), (2.0 / fd.n) ** 0.5),
+                                 "b": normal((fd.m,), 0.05)}
+    return params
+
+
+def _to_jax(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def _close(got, want):
+    got, want = got.numpy(), np.asarray(want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+
+
+def _tiny(mod):
+    """2 convs (the second grouped and strided) + 2 FCs at 32x32x3."""
+    convs = (mod.ConvDef("a", 3, 8, 3, stride=1, pad=1, pool=2),
+             mod.ConvDef("b", 8, 12, 3, stride=2, pad=1, groups=2))
+    fcs = (mod.FCDef("fc1", 8 * 8 * 12, 32), mod.FCDef("fc2", 32, 10,
+                                                        relu=False))
+    return mod.CNNDef("tiny", (32, 32, 3), convs, fcs, "plain")
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch", "ref"])
+def test_tiny_cnn_matches_pallas_forward(backend):
+    net_j, net_t = _tiny(jax_cnn), _tiny(t_cnn)
+    params = _numpy_params(net_j.convs, net_j.fcs, seed=0)
+    x = np.random.default_rng(1).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    with jax_engine.using_config(jax_engine.EngineConfig(backend="pallas",
+                                                         interpret=True)):
+        want = jax_cnn._forward(net_j, _to_jax(params), jnp.asarray(x))
+    with TE.using_config(TE.EngineConfig(backend=backend)), torch.no_grad():
+        got = t_cnn._forward(net_t, t_cnn.params_from_jax(params, "cpu"),
+                             torch.from_numpy(x))
+    _close(got, want)
+
+
+def test_alexnet_full_width_matches_jax_xla():
+    convs, fcs = jax_cnn.ALEXNET_CONVS, jax_cnn.ALEXNET_FCS
+    params = _numpy_params(convs, fcs, seed=2)
+    x = np.random.default_rng(3).standard_normal((1, 227, 227, 3)).astype(
+        np.float32)
+    want = jax_cnn.apply_cnn("alexnet", _to_jax(params), jnp.asarray(x),
+                             backend="xla")
+    compiled = TE.compile(t_cnn.program("alexnet"),
+                          TE.EngineConfig(backend="cuda"))
+    assert compiled.backends() == ("cuda",) * 8
+    got = compiled.apply(t_cnn.params_from_jax(params, "cpu"),
+                         torch.from_numpy(x))
+    _close(got, want)
+
+
+def test_init_cnn_without_a_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None picks it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_cnn.init_cnn("alexnet", seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_cnn.params_from_jax({"fc": {"f": {"w": np.ones((2, 2))}}})
+
+
+def test_init_cnn_is_seeded_and_in_reference_layouts():
+    a = t_cnn.init_cnn("alexnet", seed=5, device="cpu")
+    b = t_cnn.init_cnn("alexnet", seed=5, device="cpu")
+    ref_shapes = jax.tree_util.tree_map(
+        lambda v: tuple(v.shape),
+        jax.eval_shape(lambda k: jax_cnn.init_cnn("alexnet", k),
+                       jax.random.PRNGKey(0)))
+    got_shapes = {kind: {name: {k: tuple(v.shape) for k, v in leaf.items()}
+                         for name, leaf in layers.items()}
+                  for kind, layers in a.items()}
+    assert got_shapes == ref_shapes
+    assert torch.equal(a["fc"]["fc6"]["w"], b["fc"]["fc6"]["w"])
+    assert not torch.equal(
+        a["fc"]["fc6"]["w"],
+        t_cnn.init_cnn("alexnet", seed=6, device="cpu")["fc"]["fc6"]["w"])
+
+
+@pytest.mark.parametrize("knob", [
+    dict(fallback="chain"), dict(precision="int8"), dict(tuning="cached"),
+    dict(parallel=object()), dict(policy="auto"),
+])
+def test_unported_config_knobs_raise_naming_the_roadmap(knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TE.EngineConfig(**knob)
+
+
+def test_eager_apply_matches_compiled_apply():
+    params = t_cnn.init_cnn("alexnet", seed=1, device="cpu")
+    x = torch.randn(1, 227, 227, 3, generator=torch.Generator().manual_seed(0))
+    compiled = TE.compile(t_cnn.program("alexnet"))
+    eager = t_cnn.apply_cnn("alexnet", params, x, backend="cuda")
+    assert torch.equal(eager, compiled.apply(params, x))
+
+
+def test_compiled_replay_is_strict_and_one_device():
+    params = t_cnn.init_cnn("alexnet", seed=0, device="cpu")
+    compiled = TE.compile(t_cnn.program("alexnet", batch=1))
+    with pytest.raises(RuntimeError, match="recompile"):
+        compiled.apply(params, torch.zeros(2, 227, 227, 3))
+    with pytest.raises(ValueError, match="one device"):
+        compiled.apply(params, torch.zeros(1, 227, 227, 3, device="meta"))
+
+
+def test_ledger_records_the_forward_without_launching():
+    net = _tiny(t_cnn)
+    params = t_cnn.params_from_jax(_numpy_params(net.convs, net.fcs, 0),
+                                   "cpu")
+    prog = TE.Program("tiny", (), fn=lambda p, x: t_cnn._forward(net, p, x),
+                      in_avals=(t_cnn._meta_params(net),
+                                torch.empty(2, 32, 32, 3, device="meta")))
+    compiled = TE.compile(prog)
+    before = (gfid_conv.gfid_conv2d_nhwc.launches,
+              gfid_matmul.gfid_matmul.launches)
+    with TE.tracking() as ledger:
+        compiled.apply(params, torch.zeros(2, 32, 32, 3))
+    assert [r.kind for r in ledger] == ["conv2d", "conv2d", "matmul",
+                                       "matmul"]
+    assert ledger.total_macs == sum(p.macs for _, p in compiled.exec_pairs)
+    assert (gfid_conv.gfid_conv2d_nhwc.launches,
+            gfid_matmul.gfid_matmul.launches) == before
