@@ -9,10 +9,13 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
 
   1. the card: name, SM count, `nvidia-smi` name and power limit; TF32 off.
   2. build every kernel of `src/repro_torch/csrc/` (one `nvcc` each, in
-     parallel) into `build/repro_torch/`, timed.
+     parallel) into `build/repro_torch/`, timed, with ptxas's register and
+     shared-memory use.
   3. hold each kernel against its plain PyTorch version on the card at every
-     AlexNet layer shape (batch 1 and 32) and at a few ragged shapes:
-     max|kernel - plain| / max|plain| <= 1e-4.
+     AlexNet layer shape (batch 1 and 32) and at a few ragged shapes. fp32:
+     max|kernel - plain| / max|plain| <= 1e-4. int8 (operands quantized on
+     the card by `core/quant`): max|kernel - plain| == 0 for act None and
+     relu, <= 1e-6 * max|plain| for gelu.
   4. AlexNet (full width, random weights from a seed) end to end through
      `compile(program("alexnet", batch=B), EngineConfig(backend="cuda"))
      .apply(params, x)` at B = 1 and 32: every op on "cuda", 5 conv and 3
@@ -20,12 +23,23 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      1e-4 * max|logits| of the "torch" backend on the same weights, the
      batch-1 Table-4 row equal to tests/goldens/table4_alexnet.json; median ms per
      forward and images/s from CUDA events after warm-up.
-     Then VGG-16 and ResNet-50 at B = 1 the same way: every op on "cuda", one
-     launch per conv and FC op, logits within 1e-4 of the "torch" backend,
-     Table-4 rows equal to their goldens.
+     Then the same under `EngineConfig(backend="cuda", precision="int8")`:
+     every op int8 on "cuda", 5 int8 conv and 3 int8 matmul launches and no
+     fp32 launch per forward, logits bitwise equal to the "torch" backend
+     under int8, SNR against the fp32 logits >= 28 dB, the Table-4 row still
+     the golden; ms per forward, images/s, and the time of the forward's
+     quantization alone (the `core/quant` calls at the path's shapes).
+     Then VGG-16 and ResNet-50 at B = 1, fp32 and int8: every op on "cuda",
+     one launch per conv and FC op, fp32 logits within 1e-4 of the "torch"
+     backend, int8 logits bitwise equal to it, Table-4 rows equal to their
+     goldens. Then AlexNet with `precisions={"fc6": "int8"}` under an fp32
+     config: one int8 matmul launch beside 5 fp32 conv and 2 fp32 matmul
+     launches.
   5. per kernel: its time over the main path's shapes beside its bound, its
-     plain version's time and one library call's time (`F.conv2d` on NCHW,
-     `torch.addmm`, each followed by relu, TF32 off).
+     plain version's time and one library call's time where one PyTorch call
+     computes the same function (`F.conv2d` on NCHW and `torch.addmm`, each
+     followed by relu, TF32 off; `torch._int_mm` for the int8 product where
+     it accepts the shape; none for the int8 conv).
 
 The last lines are the card's name and power limit, a JSON object listing
 the kernels, and `{"ok": true, "device": {...}}`.
@@ -42,11 +56,15 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4                  # max|Δ| / max|reference|, kernels and logits
+GELU_TOL = 1e-6             # int8 kernels with gelu: max|Δ| / max|plain|
+SNR_FLOOR_DB = 28.0         # AlexNet int8 against fp32 (the reference's floor)
 BATCHES = (1, 32)
+OTHER_NETS = ("vgg16", "resnet50")   # driven at batch 1 after AlexNet
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
-# tensor cores, and device-memory bandwidth.
+# tensor cores, int8 in them, and device-memory bandwidth.
 PEAK_FP32_FLOP_S = 67e12
+PEAK_INT8_OP_S = 1979e12
 PEAK_BYTES_S = 3.35e12
 
 
@@ -78,10 +96,10 @@ def time_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
-def bound_ms(n_bytes, flops):
+def bound_ms(n_bytes, ops, peak_ops=PEAK_FP32_FLOP_S):
     """The least time the card could take: bytes over the memory rate or
-    fp32 operations over the fp32 peak, whichever is larger."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / peak_ops
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -137,14 +155,74 @@ def ragged_cases(gen, dev):
     return conv, mm
 
 
+def quantized(kind, kw, quant):
+    """The int8 kernel's kwargs for one fp32 case: operands quantized on the
+    card by the port's `core/quant`, scales shaped as the kernels take them."""
+    kw = dict(kw)
+    x, w = kw.pop("x"), kw.pop("w")
+    if kind == "conv":
+        xq, wq, sx, sw = quant.quantize_conv_operands(x, w)
+        return dict(kw, xq=xq, wq=wq, sx=sx.reshape(-1, 1),
+                    sw=sw.reshape(1, -1))
+    xq, wq, sx, sw = quant.quantize_matmul_operands(x, w)
+    return dict(kw, xq=xq, wq=wq, sx=sx, sw=sw)
+
+
+def ragged_int8_cases(gen, dev, quant):
+    """int8 shapes off the main path: C_in = 3 with stride 4 and pad 2,
+    groups 2, gelu, no bias, rows wider than a pixel tile; K = 1025 (past
+    the 1024 fp32 chunk, not a multiple of 4), N = 1000, N not a multiple of
+    4, one row."""
+    def t(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+    conv = [
+        dict(x=t(2, 31, 31, 3), w=t(11, 11, 3, 20), bias=t(20), stride=4,
+             pad=2, groups=1, act="relu"),
+        dict(x=t(1, 20, 20, 12), w=t(5, 5, 6, 70), bias=t(70), stride=1,
+             pad=2, groups=2, act="relu"),
+        dict(x=t(2, 13, 13, 5), w=t(3, 3, 5, 7), bias=None, stride=2, pad=1,
+             groups=1, act="gelu"),
+        dict(x=t(3, 9, 130, 8), w=t(3, 3, 4, 16), bias=None, stride=1,
+             pad=1, groups=2, act=None),
+    ]
+    mm = [
+        dict(x=t(3, 1025), w=t(1025, 1000), bias=t(1000), act="relu"),
+        dict(x=t(5, 300), w=t(300, 70), bias=t(70), act="gelu"),
+        dict(x=t(17, 257), w=t(257, 129), bias=None, act=None),
+        dict(x=t(1, 1000), w=t(1000, 33), bias=t(33), act=None),
+    ]
+    return ([quantized("conv", kw, quant) for kw in conv],
+            [quantized("fc", kw, quant) for kw in mm])
+
+
+def zero_counts(*wrappers):
+    for fn in wrappers:
+        fn.launches = 0
+
+
+def counts(*wrappers):
+    return tuple(fn.launches for fn in wrappers)
+
+
+def int_mm_accepts(m, k, n):
+    """Whether `torch._int_mm` takes an (m, k) @ (k, n) int8 product on the
+    card: more than 16 rows and k, n multiples of 8."""
+    return m > 16 and k % 8 == 0 and n % 8 == 0
+
+
 def main():
     # -- phase 1: the card ---------------------------------------------------
     require(torch.cuda.is_available(), "no CUDA device: this script runs "
             "only on a GPU")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import engine as E
+    from repro_torch.core import quant
     from repro_torch.kernels import build, gfid_conv, gfid_matmul
     from repro_torch.models import cnn
+
+    conv32, mm32 = gfid_conv.gfid_conv2d_nhwc, gfid_matmul.gfid_matmul
+    conv8, mm8 = gfid_conv.gfid_conv2d_nhwc_int8, gfid_matmul.gfid_matmul_int8
+    all_kernels = (conv32, mm32, conv8, mm8)
 
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -181,40 +259,61 @@ def main():
     # -- phase 3: kernel vs plain on the card ----------------------------------
     gen = torch.Generator().manual_seed(0)
     checks = 0
-    worst = {"gfid_conv2d_nhwc": 0.0, "gfid_matmul": 0.0}    # max |kernel - plain|
-    conv_main, fc_main = {}, {}
+    worst = {}                                  # max |kernel - plain|
+    conv_main, fc_main, conv8_main, fc8_main = {}, {}, {}, {}
     for batch in BATCHES:
         conv_main[batch] = conv_cases(cnn, batch, gen, dev)
         fc_main[batch] = fc_cases(cnn, batch, gen, dev)
+        conv8_main[batch] = [(lbl, spec, quantized("conv", kw, quant))
+                             for lbl, spec, kw in conv_main[batch]]
+        fc8_main[batch] = [(lbl, spec, quantized("fc", kw, quant))
+                           for lbl, spec, kw in fc_main[batch]]
     ragged_conv, ragged_mm = ragged_cases(gen, dev)
-    conv_all = [(lbl, kw) for b in BATCHES for lbl, _, kw in conv_main[b]] \
-        + [(f"ragged conv {i}", kw) for i, kw in enumerate(ragged_conv)]
-    mm_all = [(lbl, kw) for b in BATCHES for lbl, _, kw in fc_main[b]] \
-        + [(f"ragged matmul {i}", kw) for i, kw in enumerate(ragged_mm)]
-    for kname, kernel, plain, cases in (
-            ("gfid_conv2d_nhwc", gfid_conv.gfid_conv2d_nhwc,
-             gfid_conv.gfid_conv2d_nhwc_plain, conv_all),
-            ("gfid_matmul", gfid_matmul.gfid_matmul,
-             gfid_matmul.gfid_matmul_plain, mm_all)):
+    ragged_conv8, ragged_mm8 = ragged_int8_cases(gen, dev, quant)
+
+    def all_cases(main_cases, ragged, what):
+        return [(lbl, kw) for b in BATCHES for lbl, _, kw in main_cases[b]] \
+            + [(f"ragged {what} {i}", kw) for i, kw in enumerate(ragged)]
+
+    for kname, kernel, plain, cases, int8 in (
+            ("gfid_conv2d_nhwc", conv32, gfid_conv.gfid_conv2d_nhwc_plain,
+             all_cases(conv_main, ragged_conv, "conv"), False),
+            ("gfid_matmul", mm32, gfid_matmul.gfid_matmul_plain,
+             all_cases(fc_main, ragged_mm, "matmul"), False),
+            ("gfid_conv2d_nhwc_int8", conv8,
+             gfid_conv.gfid_conv2d_nhwc_int8_plain,
+             all_cases(conv8_main, ragged_conv8, "conv"), True),
+            ("gfid_matmul_int8", mm8, gfid_matmul.gfid_matmul_int8_plain,
+             all_cases(fc8_main, ragged_mm8, "matmul"), True)):
+        worst[kname] = 0.0
         for label, kw in cases:
             got = kernel(**kw)
             want = plain(**kw)
             torch.cuda.synchronize()
-            require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            require(got.shape == want.shape and got.dtype == want.dtype
+                    and bool(torch.isfinite(got).all()),
                     f"{kname} {label}: bad output")
             err = rel_err(got, want)
             abs_err = (got - want).abs().max().item()
-            print(f"[check] {kname} {label}: out {tuple(got.shape)}, max|d| = "
-                  f"{abs_err:.3e}, max|d|/max|ref| = {err:.3e}")
-            require(err <= TOL, f"{kname} {label}: error {err:.3e} > {TOL}")
+            if int8:
+                limit = GELU_TOL if kw["act"] == "gelu" else 0.0
+            else:
+                limit = TOL
+            print(f"[check] {kname} {label}: out {tuple(got.shape)}, act "
+                  f"{kw['act']}, max|d| = {abs_err:.3e}, max|d|/max|ref| = "
+                  f"{err:.3e} (limit {limit:g})")
+            require(err <= limit, f"{kname} {label}: error {err:.3e} > {limit}")
             worst[kname] = max(worst[kname], abs_err)
             checks += 1
-    print(f"[check] {checks} kernel checks passed (tolerance {TOL})")
+    print(f"[check] {checks} kernel checks passed (fp32 {TOL}; int8 exact, "
+          f"gelu {GELU_TOL})")
 
     # -- phase 4: AlexNet end to end -------------------------------------------
     golden = json.loads((ROOT / "tests/goldens/table4_alexnet.json").read_text())
     params = cnn.init_cnn("alexnet", seed=0, device=DEVICE)
-    main_launches = None
+    main_launches = {}
+    forward_ms = {}
+    fp32_logits = {}
     for batch in BATCHES:
         x = torch.randn((batch, *cnn.ALEXNET_INPUT),
                         generator=torch.Generator().manual_seed(batch)).to(dev)
@@ -225,18 +324,16 @@ def main():
         if batch == 1:
             require(compiled.cost == golden,
                     f"Table-4 row {compiled.cost} != golden {golden}")
-        gfid_conv.gfid_conv2d_nhwc.launches = 0
-        gfid_matmul.gfid_matmul.launches = 0
+        zero_counts(*all_kernels)
         logits = compiled.apply(params, x)
         torch.cuda.synchronize()
-        launches = (gfid_conv.gfid_conv2d_nhwc.launches,
-                    gfid_matmul.gfid_matmul.launches)
-        require(launches == (5, 3), f"B={batch}: launches (conv, matmul) = "
-                f"{launches}, expected (5, 3)")
-        if main_launches is None:
-            main_launches = launches
+        launches = counts(*all_kernels)
+        require(launches == (5, 3, 0, 0), f"B={batch}: launches (conv, matmul, "
+                f"conv int8, matmul int8) = {launches}, expected (5, 3, 0, 0)")
+        main_launches.setdefault("fp32", launches)
         require(tuple(logits.shape) == (batch, 1000)
                 and bool(torch.isfinite(logits).all()), "bad logits")
+        fp32_logits[batch] = logits
         plain = E.compile(cnn.program("alexnet", batch=batch),
                           E.EngineConfig(backend="torch"))
         ref = plain.apply(params, x)
@@ -244,6 +341,7 @@ def main():
         require(err <= TOL, f"B={batch}: logits vs torch backend {err:.3e} > {TOL}")
         ms = time_ms(lambda: compiled.apply(params, x))
         ms_torch = time_ms(lambda: plain.apply(params, x), iters=5)
+        forward_ms[("fp32", batch)] = ms
         print(f"[alexnet] B={batch}: backends all cuda, launches conv={launches[0]} "
               f"matmul={launches[1]}, logits max|d|/max|ref| vs torch backend = "
               f"{err:.3e}" + (", Table-4 row == golden" if batch == 1 else ""))
@@ -251,39 +349,136 @@ def main():
               f"{batch / ms * 1e3:.1f} images/s; torch backend "
               f"{ms_torch:.4f} ms/forward (median of 5)")
 
+    # -- phase 4a: AlexNet int8 end to end --------------------------------------
+    int8_cfg = E.EngineConfig(backend="cuda", precision="int8")
+    for batch in BATCHES:
+        x = torch.randn((batch, *cnn.ALEXNET_INPUT),
+                        generator=torch.Generator().manual_seed(batch)).to(dev)
+        compiled = E.compile(cnn.program("alexnet", batch=batch), int8_cfg)
+        require(compiled.backends() == ("cuda",) * 8
+                and compiled.precisions() == ("int8",) * 8,
+                f"int8: backends {compiled.backends()}, precisions "
+                f"{compiled.precisions()}")
+        if batch == 1:
+            require(compiled.cost == golden,
+                    f"int8 Table-4 row {compiled.cost} != golden {golden}")
+        zero_counts(*all_kernels)
+        logits = compiled.apply(params, x)
+        torch.cuda.synchronize()
+        launches = counts(*all_kernels)
+        require(launches == (0, 0, 5, 3), f"int8 B={batch}: launches (conv, "
+                f"matmul, conv int8, matmul int8) = {launches}, expected "
+                "(0, 0, 5, 3)")
+        main_launches.setdefault("int8", launches)
+        require(tuple(logits.shape) == (batch, 1000)
+                and bool(torch.isfinite(logits).all()), "bad int8 logits")
+        plain = E.compile(cnn.program("alexnet", batch=batch),
+                          E.EngineConfig(backend="torch", precision="int8"))
+        ref = plain.apply(params, x)
+        n_diff = int((logits != ref).sum().item())
+        require(n_diff == 0, f"int8 B={batch}: {n_diff} logits differ from the "
+                "torch backend under int8")
+        snr = quant.snr_db(fp32_logits[batch], logits).item()
+        require(snr >= SNR_FLOOR_DB, f"int8 B={batch}: SNR {snr:.2f} dB < "
+                f"{SNR_FLOOR_DB}")
+        ms = time_ms(lambda: compiled.apply(params, x))
+        forward_ms[("int8", batch)] = ms
+
+        # the forward's quantization alone: the core/quant calls at the
+        # path's shapes (activations of each layer's input shape)
+        q_inputs = [("conv", kw["x"], kw["w"]) for _, _, kw in conv_main[batch]] \
+            + [("fc", kw["x"], kw["w"]) for _, _, kw in fc_main[batch]]
+
+        def quantize_all():
+            for kind, qx, qw in q_inputs:
+                if kind == "conv":
+                    quant.quantize_conv_operands(qx, qw)
+                else:
+                    quant.quantize_matmul_operands(qx, qw)
+
+        q_ms = time_ms(quantize_all)
+        forward_ms[("quant", batch)] = q_ms
+        print(f"[alexnet int8] B={batch}: precisions all int8 on cuda, launches "
+              f"conv int8={launches[2]} matmul int8={launches[3]} (fp32 "
+              f"{launches[0]}+{launches[1]}), logits bitwise equal to the torch "
+              f"backend, SNR vs fp32 {snr:.2f} dB"
+              + (f", Table-4 row == golden, exec_ma_words "
+                 f"{compiled.plan.exec_ma_words} (fp32 "
+                 f"{compiled.plan.conv_ma_words + compiled.plan.fc_ma_words})"
+                 if batch == 1 else ""))
+        print(f"[alexnet int8] B={batch}: {ms:.4f} ms/forward (median of 20), "
+              f"{batch / ms * 1e3:.1f} images/s; quantization alone "
+              f"{q_ms:.4f} ms ({100 * q_ms / ms:.1f}% of the forward); fp32 "
+              f"forward {forward_ms[('fp32', batch)]:.4f} ms")
+
     # -- phase 4b: VGG-16 and ResNet-50 through the same kernels, batch 1 -------
     del params
-    for net in ("vgg16", "resnet50"):
-        golden = json.loads((ROOT / f"tests/goldens/table4_{net}.json").read_text())
+    for net in OTHER_NETS:
+        golden_net = json.loads((ROOT / f"tests/goldens/table4_{net}.json").read_text())
         params = cnn.init_cnn(net, seed=0, device=DEVICE)
         x = torch.randn((1, *cnn.CNNS[net].input_hw_c),
                         generator=torch.Generator().manual_seed(1)).to(dev)
-        compiled = E.compile(cnn.program(net), E.EngineConfig(backend="cuda"))
-        kinds = [op.kind for op, _ in compiled.exec_pairs]
-        require(set(compiled.backends()) == {"cuda"},
-                f"{net}: backends {compiled.backends()}")
-        require(compiled.cost == golden, f"{net}: Table-4 row {compiled.cost} "
-                f"!= golden {golden}")
-        gfid_conv.gfid_conv2d_nhwc.launches = 0
-        gfid_matmul.gfid_matmul.launches = 0
-        logits = compiled.apply(params, x)
-        torch.cuda.synchronize()
-        launches = (gfid_conv.gfid_conv2d_nhwc.launches,
-                    gfid_matmul.gfid_matmul.launches)
-        want = (kinds.count("conv2d"), kinds.count("dense"))
-        require(launches == want, f"{net}: launches (conv, matmul) = {launches}, "
-                f"expected {want}")
-        require(tuple(logits.shape) == (1, 1000)
-                and bool(torch.isfinite(logits).all()), f"{net}: bad logits")
-        ref = E.compile(cnn.program(net), E.EngineConfig(backend="torch")
-                        ).apply(params, x)
-        err = rel_err(logits, ref)
-        require(err <= TOL, f"{net}: logits vs torch backend {err:.3e} > {TOL}")
-        ms = time_ms(lambda: compiled.apply(params, x), iters=5)
-        print(f"[{net}] B=1: backends all cuda, launches conv={launches[0]} "
-              f"matmul={launches[1]}, logits max|d|/max|ref| vs torch backend = "
-              f"{err:.3e}, Table-4 row == golden; {ms:.4f} ms/forward (median of 5)")
-        del params, compiled
+        net_fp32 = None
+        for prec in ("fp32", "int8"):
+            cfg = E.EngineConfig(backend="cuda", precision=prec)
+            compiled = E.compile(cnn.program(net), cfg)
+            kinds = [op.kind for op, _ in compiled.exec_pairs]
+            require(set(compiled.backends()) == {"cuda"}
+                    and set(compiled.precisions()) == {prec},
+                    f"{net} {prec}: backends {compiled.backends()}, "
+                    f"precisions {compiled.precisions()}")
+            require(compiled.cost == golden_net, f"{net} {prec}: Table-4 row "
+                    f"{compiled.cost} != golden {golden_net}")
+            zero_counts(*all_kernels)
+            logits = compiled.apply(params, x)
+            torch.cuda.synchronize()
+            launches = counts(*all_kernels)
+            per_op = (kinds.count("conv2d"), kinds.count("dense"))
+            want = per_op + (0, 0) if prec == "fp32" else (0, 0) + per_op
+            require(launches == want, f"{net} {prec}: launches {launches}, "
+                    f"expected {want}")
+            require(tuple(logits.shape) == (1, 1000)
+                    and bool(torch.isfinite(logits).all()),
+                    f"{net} {prec}: bad logits")
+            ref = E.compile(cnn.program(net), cfg.replace(backend="torch")
+                            ).apply(params, x)
+            ms = time_ms(lambda: compiled.apply(params, x), iters=5)
+            if prec == "fp32":
+                net_fp32 = logits
+                err = rel_err(logits, ref)
+                require(err <= TOL, f"{net}: logits vs torch backend "
+                        f"{err:.3e} > {TOL}")
+                parity = f"logits max|d|/max|ref| vs torch backend = {err:.3e}"
+            else:
+                n_diff = int((logits != ref).sum().item())
+                require(n_diff == 0, f"{net} int8: {n_diff} logits differ "
+                        "from the torch backend under int8")
+                parity = (f"logits bitwise equal to the torch backend, SNR vs "
+                          f"fp32 {quant.snr_db(net_fp32, logits).item():.2f} dB")
+            print(f"[{net}] {prec} B=1: backends all cuda, launches {launches}, "
+                  f"{parity}, Table-4 row == golden; {ms:.4f} ms/forward "
+                  "(median of 5)")
+            del compiled
+        del params
+
+    # -- phase 4c: one layer int8 inside an fp32 AlexNet -------------------------
+    params = cnn.init_cnn("alexnet", seed=0, device=DEVICE)
+    x = torch.randn((1, *cnn.ALEXNET_INPUT),
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    mixed = E.compile(cnn.program("alexnet", precisions={"fc6": "int8"}),
+                      E.EngineConfig(backend="cuda"))
+    require(mixed.precisions() == ("fp32",) * 5 + ("int8", "fp32", "fp32"),
+            f"mixed precisions {mixed.precisions()}")
+    zero_counts(*all_kernels)
+    logits = mixed.apply(params, x)
+    torch.cuda.synchronize()
+    launches = counts(*all_kernels)
+    require(launches == (5, 2, 0, 1), f"mixed: launches {launches}, expected "
+            "(5, 2, 0, 1)")
+    require(bool(torch.isfinite(logits).all()), "mixed: bad logits")
+    print(f"[alexnet mixed] fc6 int8 in an fp32 config: launches (conv, matmul, "
+          f"conv int8, matmul int8) = {launches}")
+    del params
 
     # -- phase 5: kernel times at the main path's shapes -----------------------
     def lib_conv(x, w, bias, stride, pad, groups, act):
@@ -294,57 +489,96 @@ def main():
         out = torch.addmm(bias, x, w)
         return torch.relu(out) if act == "relu" else out
 
+    def lib_int_mm(xq, wq, **_):
+        return torch._int_mm(xq, wq)
+
     totals = {}
     for kname, kernel, plain, per_batch in (
-            ("gfid_conv2d_nhwc", gfid_conv.gfid_conv2d_nhwc,
-             gfid_conv.gfid_conv2d_nhwc_plain, conv_main),
-            ("gfid_matmul", gfid_matmul.gfid_matmul,
-             gfid_matmul.gfid_matmul_plain, fc_main)):
+            ("gfid_conv2d_nhwc", conv32, gfid_conv.gfid_conv2d_nhwc_plain,
+             conv_main),
+            ("gfid_matmul", mm32, gfid_matmul.gfid_matmul_plain, fc_main),
+            ("gfid_conv2d_nhwc_int8", conv8,
+             gfid_conv.gfid_conv2d_nhwc_int8_plain, conv8_main),
+            ("gfid_matmul_int8", mm8, gfid_matmul.gfid_matmul_int8_plain,
+             fc8_main)):
+        int8 = kname.endswith("_int8")
+        peak = PEAK_INT8_OP_S if int8 else PEAK_FP32_FLOP_S
         for batch in BATCHES:
             tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                       n_bytes=0, flops=0)
+                       n_bytes=0, ops=0)
             for label, spec, kw in per_batch[batch]:
-                flops = 2 * batch * spec.macs
-                if kname == "gfid_conv2d_nhwc":
-                    out_elems = batch * spec.h_out * spec.w_out * spec.c_out
+                ops = 2 * batch * spec.macs
+                conv = kname.startswith("gfid_conv")
+                out_elems = (batch * spec.h_out * spec.w_out * spec.c_out if conv
+                             else batch * spec.m)
+                if int8:
+                    n_bytes = (kw["xq"].numel() + kw["wq"].numel()
+                               + 4 * (kw["sx"].numel() + kw["sw"].numel()
+                                      + kw["bias"].numel() + out_elems))
+                    lib = None
+                    if not conv and int_mm_accepts(batch, spec.n, spec.m):
+                        lib, lib_kw = lib_int_mm, kw
+                elif conv:
+                    n_bytes = 4 * (kw["x"].numel() + kw["w"].numel()
+                                   + kw["bias"].numel() + out_elems)
                     lib_kw = dict(x=kw["x"].permute(0, 3, 1, 2).contiguous(),
                                   w=kw["w"].permute(3, 2, 0, 1).contiguous(),
                                   bias=kw["bias"], stride=kw["stride"],
                                   pad=kw["pad"], groups=kw["groups"], act=kw["act"])
                     lib = lib_conv
                 else:
-                    out_elems = batch * spec.m
-                    lib_kw, lib = kw, lib_mm
-                n_bytes = 4 * (kw["x"].numel() + kw["w"].numel()
-                               + kw["bias"].numel() + out_elems)
-                b_ms, _ = bound_ms(n_bytes, flops)
+                    n_bytes = 4 * (kw["x"].numel() + kw["w"].numel()
+                                   + kw["bias"].numel() + out_elems)
+                    lib, lib_kw = lib_mm, kw
+                b_ms, _ = bound_ms(n_bytes, ops, peak)
                 k_ms = time_ms(lambda: kernel(**kw))
                 p_ms = time_ms(lambda: plain(**kw))
-                l_ms = time_ms(lambda: lib(**lib_kw))
+                l_ms = None if lib is None else time_ms(lambda: lib(**lib_kw))
                 print(f"[time] {kname} {label}: kernel {k_ms:.4f} ms, plain "
-                      f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms "
-                      f"({n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-                for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                      f"{p_ms:.4f} ms, library "
+                      + ("none" if l_ms is None else f"{l_ms:.4f} ms")
+                      + f", bound {b_ms:.4f} ms ({n_bytes / 1e6:.2f} MB, "
+                      f"{ops / 1e9:.3f} G{'op' if int8 else 'FLOP'})")
+                for key, val in (("ms", k_ms), ("plain_ms", p_ms),
                                  ("bound_ms", b_ms), ("n_bytes", n_bytes),
-                                 ("flops", flops)):
+                                 ("ops", ops)):
                     tot[key] += val
-            tot["bound_by"] = bound_ms(tot["n_bytes"], tot["flops"])[1]
+                tot["library_ms"] = (None if l_ms is None or tot["library_ms"] is None
+                                     else tot["library_ms"] + l_ms)
+            tot["bound_by"] = bound_ms(tot["n_bytes"], tot["ops"], peak)[1]
             totals[(kname, batch)] = tot
+            lib_txt = ("none" if tot["library_ms"] is None
+                       else f"{tot['library_ms']:.4f} ms")
             print(f"[time] {kname} B={batch} total over the path's layers: kernel "
                   f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
-                  f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-                  f"({tot['bound_by']})")
+                  f"{lib_txt}, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
 
-    sources = {"gfid_conv2d_nhwc": ("src/repro_torch/csrc/gfid_conv.cu",
-                                    "src/repro/kernels/gfid_conv.py:79"),
-               "gfid_matmul": ("src/repro_torch/csrc/gfid_matmul.cu",
-                               "src/repro/kernels/gfid_matmul.py:85")}
+    for batch in BATCHES:
+        fwd = forward_ms[("int8", batch)]
+        k8 = (totals[("gfid_conv2d_nhwc_int8", batch)]["ms"]
+              + totals[("gfid_matmul_int8", batch)]["ms"])
+        q = forward_ms[("quant", batch)]
+        print(f"[time] alexnet int8 B={batch}: forward {fwd:.4f} ms = int8 kernels "
+              f"{k8:.4f} ms ({100 * k8 / fwd:.1f}%) + quantization {q:.4f} ms "
+              f"({100 * q / fwd:.1f}%) + rest {fwd - k8 - q:.4f} ms")
+
+    sources = {
+        "gfid_conv2d_nhwc": ("src/repro_torch/csrc/gfid_conv.cu",
+                             "src/repro/kernels/gfid_conv.py:79", "fp32"),
+        "gfid_matmul": ("src/repro_torch/csrc/gfid_matmul.cu",
+                        "src/repro/kernels/gfid_matmul.py:85", "fp32"),
+        "gfid_conv2d_nhwc_int8": ("src/repro_torch/csrc/gfid_conv_int8.cu",
+                                  "src/repro/kernels/gfid_conv.py:218", "int8"),
+        "gfid_matmul_int8": ("src/repro_torch/csrc/gfid_matmul_int8.cu",
+                             "src/repro/kernels/gfid_matmul.py:199", "int8")}
+    slot = {"gfid_conv2d_nhwc": 0, "gfid_matmul": 1, "gfid_conv2d_nhwc_int8": 2,
+            "gfid_matmul_int8": 3}
     kernels = []
-    for i, kname in enumerate(("gfid_conv2d_nhwc", "gfid_matmul")):
+    for kname, (source, replaces, path) in sources.items():
         tot = totals[(kname, 1)]
         kernels.append({
-            "name": kname, "route": "cuda", "source": sources[kname][0],
-            "replaces": sources[kname][1], "launches": main_launches[i],
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches[path][slot[kname]],
             "max_abs_err": worst[kname],
             # one measured number under both names the line is read by
             **dict.fromkeys(("ms", "kernel_ms"), tot["ms"]),

@@ -6,7 +6,8 @@ accumulations* over the input, never materializing the im2col expansion —
 the same lowering as `repro.core.gfid.conv2d_gfid`. It is the engine's
 "torch" backend and the plain version the hand-written conv kernel is held
 against. `conv2d_reference` is the library's own convolution, the "ref"
-baseline.
+baseline. `conv2d_gfid_int8` and `conv2d_reference_int8` are the same two
+on int8 operands, with exact int32 results.
 
 Layouts follow the JAX package at every public function: activations NHWC,
 conv weights HWIO, FC weights (n, m).
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import quant
 
 
 def _check_conv(x: torch.Tensor, w: torch.Tensor, groups: int) -> None:
@@ -58,6 +61,50 @@ def conv2d_gfid(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
         shards.append(acc)
     out = torch.cat(shards, dim=-1) if groups > 1 else shards[0]
     return out.to(x.dtype)
+
+
+def conv2d_gfid_int8(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
+                     pad: int = 0, groups: int = 1) -> torch.Tensor:
+    """int8 shifted-GEMM convolution with exact int32 accumulation: the
+    band-by-band lowering of `conv2d_gfid`, each per-tap contraction over
+    C_in through `quant.int8_matmul_i32`. The int8 zero pad is exact.
+    Returns int32 (B, H_out, W_out, C_out); the caller dequantizes."""
+    _check_conv(xq, wq, groups)
+    h_f, w_f, cg, c_out = wq.shape
+    if pad:
+        xq = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    b, h_in, w_in, _ = xq.shape
+    h_out = (h_in - h_f) // stride + 1
+    w_out = (w_in - w_f) // stride + 1
+    og = c_out // groups
+    shards = []
+    for g in range(groups):
+        xg = xq[..., g * cg:(g + 1) * cg]
+        acc = torch.zeros((b, h_out, w_out, og), dtype=torch.int32,
+                          device=xq.device)
+        for j in range(h_f):
+            for i in range(w_f):
+                xs = xg[:, j:j + (h_out - 1) * stride + 1:stride,
+                        i:i + (w_out - 1) * stride + 1:stride, :]
+                acc = acc + quant.int8_matmul_i32(
+                    xs, wq[j, i, :, g * og:(g + 1) * og])
+        shards.append(acc)
+    return torch.cat(shards, dim=-1) if groups > 1 else shards[0]
+
+
+def conv2d_reference_int8(xq: torch.Tensor, wq: torch.Tensor,
+                          stride: int = 1, pad: int = 0,
+                          groups: int = 1) -> torch.Tensor:
+    """The library's direct convolution on int8 operands, exact: PyTorch has
+    no int8 conv, so it runs in float64, where every sum of int8 products
+    of these layers is an exact integer (far below 2**53; fp32 would not do:
+    3x3x256 products can pass 2**24). Returns int32 (B, H_out, W_out,
+    C_out); the caller dequantizes."""
+    _check_conv(xq, wq, groups)
+    out = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                   wq.permute(3, 2, 0, 1).double(),
+                   stride=stride, padding=pad, groups=groups)
+    return out.permute(0, 2, 3, 1).to(torch.int32).contiguous()
 
 
 def fc_gfid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 // Shared by every kernel source of this directory: the fused epilogue's
-// activation and the error-string export the ctypes loader binds.
+// activation, the int8 kernels' dequant epilogue, and the error-string export
+// the ctypes loader binds.
 //
 // The `act` codes are those of `ACT_CODES` in kernels/epilogue.py.
 #pragma once
@@ -13,6 +14,21 @@ __device__ __forceinline__ float apply_act(float v, int act) {
     return 0.5f * v * (1.0f + tanhf(k * (v + 0.044715f * v * v * v)));
   }
   return v;
+}
+
+// The int8 kernels' epilogue, in the order of `dequant_epilogue` in
+// kernels/epilogue.py: int32 -> fp32 (round to nearest), + bias / scale when
+// there is a bias, * scale, then the activation. Each step is an explicitly
+// rounded intrinsic, so nvcc can neither contract it into an FMA nor
+// replace the divide by a reciprocal multiply: the result is bitwise that
+// of the plain version for act none and relu.
+__device__ __forceinline__ float dequant_epilogue(int acc, float scale,
+                                                  const float* bias, int col,
+                                                  int act) {
+  float y = __int2float_rn(acc);
+  if (bias != nullptr) y = __fadd_rn(y, __fdiv_rn(bias[col], scale));
+  y = __fmul_rn(y, scale);
+  return apply_act(y, act);
 }
 
 // Each source is its own shared library, so each defines this once.

@@ -8,7 +8,7 @@ from repro_torch.engine.dispatch import (EngineBackend, get_backend,
 from repro_torch.engine.ledger import Ledger, tracking
 from repro_torch.engine.plan import (EnginePlan, OpSpec, dense_spec,
                                      parse_einsum, plan_conv2d, plan_einsum,
-                                     plan_op)
+                                     plan_op, supports_int8, with_precision)
 from repro_torch.engine.program import (CompiledNet, NetworkPlan, Program,
                                         compile, plan_network)
 
@@ -17,6 +17,6 @@ __all__ = [
     "NetworkPlan", "OpSpec", "Program", "compile", "conv2d",
     "current_config", "dense", "dense_spec", "einsum", "get_backend",
     "matmul", "parse_einsum", "plan_conv2d", "plan_einsum", "plan_network",
-    "plan_op", "register_backend", "tracking", "using_backend",
-    "using_config",
+    "plan_op", "register_backend", "supports_int8", "tracking",
+    "using_backend", "using_config", "with_precision",
 ]

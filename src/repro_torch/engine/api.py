@@ -11,6 +11,8 @@ Every call builds the op's `OpSpec` from its static shapes, computes the
 pure `EnginePlan` (cached), records it into any active `tracking()` ledger,
 and dispatches to the selected backend: the plan's backend inside an
 executing `CompiledNet` (program replay), else the ambient `EngineConfig`'s.
+The op's precision resolves likewise (`_pin_precision`): an explicit
+`precision=` argument, else the replayed plan's, else the config's.
 
 Ops run on the device of the tensors they are given.
 """
@@ -33,7 +35,8 @@ from repro_torch.kernels.epilogue import check_act
 
 class _ProgramState(threading.local):
     def __init__(self) -> None:
-        self.capture: List[List[planlib.OpSpec]] = []
+        self.capture: List[Tuple[List[planlib.OpSpec],
+                                 Optional[List[Optional[str]]]]] = []
         self.replay: List["_Cursor"] = []
 
 
@@ -67,10 +70,17 @@ _PROG = _ProgramState()
 
 
 @contextlib.contextmanager
-def capturing(into: List[planlib.OpSpec]) -> Iterator[List[planlib.OpSpec]]:
+def capturing(into: List[planlib.OpSpec],
+              precisions_into: Optional[List[Optional[str]]] = None,
+              ) -> Iterator[List[planlib.OpSpec]]:
     """Record the `OpSpec` of every engine call in the block, in call order
-    (ledgers are paused: a capture is a shape trace, not a run)."""
-    _PROG.capture.append(into)
+    (ledgers are paused: a capture is a shape trace, not a run).
+
+    `precisions_into`, when given, receives one entry per op: the call's
+    explicit `precision=` argument, or None where the op left precision to
+    the config. `compile` pins these per-op overrides (e.g. those of
+    `models.cnn.program(..., precisions={"fc6": "int8"})`)."""
+    _PROG.capture.append((into, precisions_into))
     try:
         with ledger_mod.paused():
             yield into
@@ -99,13 +109,40 @@ def replaying(pairs: Sequence[Tuple[planlib.OpSpec, planlib.EnginePlan]],
 
 def _plan_for(op: planlib.OpSpec) -> planlib.EnginePlan:
     """Capture/replay hook + plan resolution for one issued op."""
-    for ops in _PROG.capture:
+    for ops, precs in _PROG.capture:
         ops.append(op)
+        if precs is not None:
+            precs.append(None)          # _pin_precision fills in an explicit arg
     if _PROG.replay:
         return _PROG.replay[-1].next_for(op)
     name = current_config().backend
     dispatch.get_backend(name)          # validate before caching a plan
     return planlib.plan_op(op, name)
+
+
+def _pin_precision(op: planlib.OpSpec, plan: planlib.EnginePlan,
+                   arg: Optional[str]) -> planlib.EnginePlan:
+    """Resolve the op's precision and pin it onto the plan: an explicit
+    `precision=` wins (and an int8 request for an op the int8 contract does
+    not cover raises), then a replayed plan's pinned precision, then the
+    ambient config's (quietly fp32 for an op int8 does not cover)."""
+    if arg is not None:
+        if arg not in planlib.PRECISIONS:
+            raise ValueError(f"unknown precision {arg!r}; expected one of "
+                             f"{planlib.PRECISIONS}")
+        if arg == "int8" and not planlib.supports_int8(op):
+            raise ValueError(
+                f"precision='int8' requested for {op.kind} {op.x_shape}x"
+                f"{op.w_shape}, but the int8 contract only covers conv2d "
+                "and canonical-GEMM dense ops")
+        # tell an active capture, so a compiled program pins the override
+        for _, precs in _PROG.capture:
+            if precs:
+                precs[-1] = arg
+        return planlib.pinned(plan, arg)
+    if _PROG.replay:
+        return plan                         # pinned by compile
+    return planlib.with_precision(plan, op, current_config().precision)
 
 
 def _check_epilogue(bias: Optional[torch.Tensor], act: Optional[str],
@@ -123,18 +160,21 @@ def _check_epilogue(bias: Optional[torch.Tensor], act: Optional[str],
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, pad: int = 0,
            groups: int = 1, bias: Optional[torch.Tensor] = None,
-           act: Optional[str] = None) -> torch.Tensor:
+           act: Optional[str] = None,
+           precision: Optional[str] = None) -> torch.Tensor:
     """Conv mode. x: (B,H,W,C_in) NHWC; w: (H_f,W_f,C_in/g,C_out) HWIO.
     Returns (B,H_out,W_out,C_out).
 
     `bias` ((C_out,)) and `act` ("relu" | "gelu") form the op's fused
     epilogue: conv+bias+activation is one kernel launch on the "cuda"
-    backend and ordinary post-ops elsewhere."""
+    backend and ordinary post-ops elsewhere. On the int8 path
+    (`precision="int8"` here or on the config) dequant, bias and activation
+    fuse into the same epilogue: still one launch."""
     op = planlib.OpSpec("conv2d", tuple(map(int, x.shape)),
                         tuple(map(int, w.shape)), stride=int(stride),
                         pad=int(pad), groups=int(groups))
     _check_epilogue(bias, act, op.w_shape[3], "conv2d")
-    plan = _plan_for(op)
+    plan = _pin_precision(op, _plan_for(op), precision)
     ledger_mod.record(plan)
     return dispatch.run_op(plan, lambda be, pl: be.conv2d(
         x, w, pl, stride=stride, pad=pad, groups=groups, bias=bias, act=act))
@@ -142,7 +182,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, pad: int = 0,
 
 def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
            bias: Optional[torch.Tensor] = None,
-           act: Optional[str] = None) -> torch.Tensor:
+           act: Optional[str] = None,
+           precision: Optional[str] = None) -> torch.Tensor:
     """FC mode for any two-operand dense contraction (weights second).
 
     `bias` ((n_out,), one entry per trailing output feature) and `act`
@@ -163,7 +204,7 @@ def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
         _check_epilogue(bias, act, n_out, f"einsum {spec!r}")
     else:
         check_act(act)
-    plan = _plan_for(op)
+    plan = _pin_precision(op, _plan_for(op), precision)
     ledger_mod.record(plan)
     return dispatch.run_op(plan, lambda be, pl: be.einsum(
         spec, x, w, pl, structure, bias=bias, act=act))
@@ -171,15 +212,18 @@ def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
 
 def dense(x: torch.Tensor, w: torch.Tensor, *,
           bias: Optional[torch.Tensor] = None,
-          act: Optional[str] = None) -> torch.Tensor:
+          act: Optional[str] = None,
+          precision: Optional[str] = None) -> torch.Tensor:
     """FC mode (W_f = 1): x (..., n) @ w (n, m) -> (..., m), with an
     optional fused bias ((m,)) / activation epilogue."""
-    return einsum(planlib.dense_spec(x.ndim), x, w, bias=bias, act=act)
+    return einsum(planlib.dense_spec(x.ndim), x, w, bias=bias, act=act,
+                  precision=precision)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
            bias: Optional[torch.Tensor] = None,
-           act: Optional[str] = None) -> torch.Tensor:
+           act: Optional[str] = None,
+           precision: Optional[str] = None) -> torch.Tensor:
     """FC mode with the result cast back to x's dtype (the reference's
     `engine.matmul` contract)."""
-    return dense(x, w, bias=bias, act=act).to(x.dtype)
+    return dense(x, w, bias=bias, act=act, precision=precision).to(x.dtype)

@@ -16,15 +16,14 @@ import dataclasses
 import threading
 from typing import Any, Iterator, List, Optional
 
+from repro_torch.engine.plan import PRECISIONS
+
 # knob -> (its only supported value, the ROADMAP item that brings the rest)
 _NOT_YET = {
     "policy": ("fixed", "ROADMAP queue 1, item 4 (policy='auto' backend "
                         "selection)"),
     "tuning": ("off", "ROADMAP queue 1, item 6 (autotuner, engine/tune.py)"),
     "parallel": (None, "ROADMAP queue 1, item 11 (multi-device engine)"),
-    "precision": ("fp32", "ROADMAP queue 1, item 3 (int8: core/quant.py, "
-                          "dequant_epilogue) and queue 2, items 3-4 (the "
-                          "int8 kernels)"),
     "fallback": ("none", "ROADMAP queue 1, item 4 (the fallback='chain' "
                          "decision)"),
 }
@@ -38,9 +37,11 @@ class EngineConfig:
                 counterpart of the reference's "pallas"), "torch" (the GFID
                 lowering in PyTorch ops; the counterpart of "xla") or "ref"
                 (the library's conv and matmul).
-    policy, tuning, parallel, precision, fallback — the reference's knobs,
-                not ported yet: any value but the default raises
-                `NotImplementedError`.
+    precision — "fp32" or "int8" (quantize conv and canonical-GEMM ops to
+                int8 with exact int32 accumulation; other ops stay fp32).
+                Any other value raises `ValueError`.
+    policy, tuning, parallel, fallback — the reference's knobs, not ported
+                yet: any value but the default raises `NotImplementedError`.
     """
 
     backend: str = "cuda"
@@ -51,6 +52,9 @@ class EngineConfig:
     fallback: str = "none"
 
     def __post_init__(self) -> None:
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {self.precision!r}; "
+                             f"expected one of {PRECISIONS}")
         for knob, (supported, item) in _NOT_YET.items():
             value = getattr(self, knob)
             if value != supported:

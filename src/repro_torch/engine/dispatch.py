@@ -14,6 +14,11 @@ A backend implements the engine's op kinds against a precomputed
 `run_op` calls the planned backend directly. The reference's
 pallas -> xla -> ref degradation chain is not ported: a backend's error
 propagates (see `EngineConfig.fallback`).
+
+A plan pinned to `precision="int8"` runs the shared quantized contract on
+every backend: quantize both operands (`core.quant`), an exact int32
+product, then `dequant_epilogue`. "torch" and "ref" lower it here; "cuda"
+runs the int8 kernels. Exact integer sums make the three bitwise equal.
 """
 from __future__ import annotations
 
@@ -22,10 +27,10 @@ from typing import Callable, Dict
 
 import torch
 
-from repro_torch.core import gfid
+from repro_torch.core import gfid, quant
 from repro_torch.engine.plan import canonical_gemm
 from repro_torch.kernels import ops
-from repro_torch.kernels.epilogue import apply_epilogue
+from repro_torch.kernels.epilogue import apply_epilogue, dequant_epilogue
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,15 +68,47 @@ def run_op(plan, call):
 
 
 # ---------------------------------------------------------------------------
+# int8 lowerings shared by the "torch" and "ref" backends
+# ---------------------------------------------------------------------------
+
+def _quant_conv2d(conv_i32, x, w, *, stride, pad, groups, bias, act):
+    """Quantize (the shared rule), an exact int32 conv (`conv_i32`: the GFID
+    shifted GEMM or the library's conv), then the dequant epilogue."""
+    xq, wq, sx, sw = quant.quantize_conv_operands(x, w)
+    acc = conv_i32(xq, wq, stride, pad, groups)
+    return dequant_epilogue(acc, sx * sw, bias, act).to(x.dtype)
+
+
+def _quant_canonical_einsum(x, w, structure, *, bias, act):
+    """A canonical (M, K) @ (K, N) contraction on int8: the canonicalization
+    of the "cuda" path, the shared quantization, the exact int32 GEMM and
+    the dequant epilogue. Canonical means the output is already laid out
+    (lead..., N)."""
+    c = structure.contract[0]
+    xm = torch.movedim(x, structure.x_labels.index(c), -1)
+    w2 = w if structure.w_labels[0] == c else w.T
+    xq, wq, sx, sw = quant.quantize_matmul_operands(xm, w2)
+    acc = quant.int8_matmul_i32(xq, wq)
+    return dequant_epilogue(acc, sx * sw, bias, act).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # "torch" — GFID shifted-GEMM lowering in PyTorch ops
 # ---------------------------------------------------------------------------
 
 def _torch_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
+    if plan.precision == "int8":
+        return _quant_conv2d(gfid.conv2d_gfid_int8, x, w, stride=stride,
+                             pad=pad, groups=groups, bias=bias, act=act)
     return apply_epilogue(gfid.conv2d_gfid(x, w, stride, pad, groups),
                           bias, act)
 
 
 def _torch_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
+    """Also the "ref" backend's einsum, as in the reference. An int8 plan
+    is always canonical: `supports_int8` pins others to fp32."""
+    if plan.precision == "int8":
+        return _quant_canonical_einsum(x, w, structure, bias=bias, act=act)
     return apply_epilogue(torch.einsum(spec, x, w), bias, act)
 
 
@@ -80,6 +117,9 @@ def _torch_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
 # ---------------------------------------------------------------------------
 
 def _ref_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
+    if plan.precision == "int8":
+        return _quant_conv2d(gfid.conv2d_reference_int8, x, w, stride=stride,
+                             pad=pad, groups=groups, bias=bias, act=act)
     return apply_epilogue(gfid.conv2d_reference(x, w, stride, pad, groups),
                           bias, act)
 
@@ -90,7 +130,7 @@ def _ref_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
 
 def _cuda_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
     return ops.gfid_conv2d(x, w, stride=stride, pad=pad, groups=groups,
-                           bias=bias, act=act)
+                           bias=bias, act=act, precision=plan.precision)
 
 
 def _cuda_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
@@ -107,7 +147,8 @@ def _cuda_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
     c = st.contract[0]
     xm = torch.movedim(x, st.x_labels.index(c), -1)
     w2 = w if st.w_labels[0] == c else w.T
-    return ops.gfid_matmul(xm, w2, bias=bias, act=act)
+    return ops.gfid_matmul(xm, w2, bias=bias, act=act,
+                           precision=plan.precision)
 
 
 register_backend(EngineBackend("cuda", _cuda_conv2d, _cuda_einsum))

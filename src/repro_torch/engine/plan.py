@@ -6,7 +6,10 @@ cacheable and usable as a dict key. Each plan carries the paper-side
 schedule (the Table-3 mode and its analytic cost, Eqs. 15-18) — every
 analytic field equals the JAX package's plan for the same op — and the
 Hopper-side schedule: `tiling`, the block tile of the hand-written kernel
-that runs the op on the "cuda" backend.
+that runs the op on the "cuda" backend. `precision` ("fp32" | "int8") is
+pinned onto a plan by `with_precision` (compile) or the per-call resolver
+(`api._pin_precision`); the planners never set it, and the analytic fields
+do not move with it.
 
 Einsum planning: a dense contraction `einsum(spec, x, w)` is classified per
 axis label into batch (x, w and out), contraction (x and w, not out),
@@ -22,7 +25,9 @@ from typing import Dict, Tuple
 
 from repro_torch.core import analytics, modes
 from repro_torch.kernels.gfid_conv import TILE as CONV_TILE
+from repro_torch.kernels.gfid_conv import TILE_INT8 as CONV_TILE_INT8
 from repro_torch.kernels.gfid_matmul import TILE as MATMUL_TILE
+from repro_torch.kernels.gfid_matmul import TILE_INT8 as MATMUL_TILE_INT8
 
 Shape = Tuple[int, ...]
 
@@ -66,6 +71,18 @@ class EnginePlan:
     ma_words: int                   # MMIE memory accesses, 16-bit words
     macs: int                       # useful multiply-accumulates
     note: str = ""                  # plan caveats (decimation, ...)
+    # Execution precision, pinned by `with_precision` / the per-call
+    # resolver: "fp32" or "int8". A quantized plan is a replace of the fp32
+    # plan, so `ma_words` keeps its Table-4 meaning under every precision.
+    precision: str = "fp32"
+
+    @property
+    def exec_ma_words(self) -> int:
+        """Memory-access words as executed: `ma_words` for fp32, halved
+        (ceil) for int8, whose operands take half a 16-bit MMIE word."""
+        if self.precision == "int8":
+            return -(-self.ma_words // 2)
+        return self.ma_words
 
 
 @functools.lru_cache(maxsize=4096)
@@ -191,6 +208,39 @@ def plan_einsum(spec: str, x_shape: Shape, w_shape: Shape,
         macs=fc.macs * reps,
         note="" if not st.batch else
         f"batched weights over {len(st.batch)} dim(s)")
+
+
+PRECISIONS = ("fp32", "int8")
+
+
+def supports_int8(op: OpSpec) -> bool:
+    """True when the int8 contract covers `op`: conv2d and dense ops that
+    are one canonical (M, K) @ (K, N) GEMM. A shape-only predicate, so every
+    backend agrees on which ops quantize."""
+    if op.kind == "conv2d":
+        return True
+    st = parse_einsum(op.spec, len(op.x_shape), len(op.w_shape))
+    return canonical_gemm(st, len(op.w_shape))
+
+
+def pinned(plan: EnginePlan, precision: str) -> EnginePlan:
+    """`plan` at `precision`, with the tiling of the kernel that runs it."""
+    if plan.precision == precision:
+        return plan
+    int8 = precision == "int8"
+    if plan.kind == "conv2d":
+        tiling = CONV_TILE_INT8 if int8 else CONV_TILE
+    else:
+        tiling = MATMUL_TILE_INT8 if int8 else MATMUL_TILE
+    return dataclasses.replace(plan, precision=precision, tiling=tiling)
+
+
+def with_precision(plan: EnginePlan, op: OpSpec,
+                   precision: str) -> EnginePlan:
+    """Pin `precision` onto a plan, as fp32 for an op outside the int8
+    contract."""
+    return pinned(plan, "int8" if precision == "int8" and supports_int8(op)
+                  else "fp32")
 
 
 def dense_spec(x_ndim: int) -> str:

@@ -27,7 +27,8 @@ import torch
 from repro_torch.core import modes
 from repro_torch.engine import api
 from repro_torch.engine.config import EngineConfig, current_config, using_config
-from repro_torch.engine.plan import EnginePlan, OpSpec, plan_op
+from repro_torch.engine.plan import (EnginePlan, OpSpec, plan_op,
+                                     with_precision)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,13 +47,17 @@ class Program:
 
 
 def _capture_ops(fn: Callable[..., Any], avals: Tuple[Any, ...],
-                 cfg: EngineConfig) -> Tuple[OpSpec, ...]:
+                 cfg: EngineConfig
+                 ) -> Tuple[Tuple[OpSpec, ...], Tuple[Optional[str], ...]]:
     """Run `fn` on `meta` tensors under `cfg` and return its engine ops in
-    call order. Every op only allocates `meta` outputs, so nothing runs."""
+    call order, with each op's explicit precision override (None where the
+    call left precision to the config). Every op only allocates `meta`
+    outputs, so nothing runs."""
     ops: list = []
-    with api.capturing(ops), using_config(cfg), torch.no_grad():
+    precs: list = []
+    with api.capturing(ops, precs), using_config(cfg), torch.no_grad():
         fn(*avals)
-    return tuple(ops)
+    return tuple(ops), tuple(precs)
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +108,22 @@ class NetworkPlan:
     def fc_ma_words(self) -> int:
         return sum(p.ma_words for p in self.fc_plans)
 
+    # Executed memory traffic: int8 plans halve their 16-bit-word booking;
+    # `ma_words` stays the paper's model, so the goldens never move.
+
+    @property
+    def conv_exec_ma_words(self) -> int:
+        return sum(p.exec_ma_words for p in self.conv_plans)
+
+    @property
+    def fc_exec_ma_words(self) -> int:
+        return sum(p.exec_ma_words for p in self.fc_plans)
+
+    @property
+    def exec_ma_words(self) -> int:
+        """Memory words moved at each plan's execution precision."""
+        return sum(p.exec_ma_words for p in self.plans)
+
     @property
     def conv_ma_bytes(self) -> int:
         return self.conv_ma_words * modes.MMIE_WORD_BYTES
@@ -149,10 +170,12 @@ class NetworkPlan:
 
 def plan_network(program: Program,
                  cfg: Optional[EngineConfig] = None) -> NetworkPlan:
-    """Plan every op of `program` under `cfg` (no execution, no tensors)."""
+    """Plan every op of `program` under `cfg` (no execution, no tensors),
+    each at the config's precision where the int8 contract covers it."""
     cfg = current_config() if cfg is None else cfg
-    return NetworkPlan(program.name, tuple(plan_op(op, cfg.backend)
-                                           for op in program.ops))
+    return NetworkPlan(program.name, tuple(
+        with_precision(plan_op(op, cfg.backend), op, cfg.precision)
+        for op in program.ops))
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +236,12 @@ class CompiledNet:
         pairs = self.exec_pairs if self.exec_pairs is not None else ()
         return tuple(plan.backend for _, plan in pairs)
 
+    def precisions(self) -> Tuple[str, ...]:
+        """Per-op execution precision, in call order: "fp32" for every op
+        the int8 contract does not cover, whatever the config asked for."""
+        pairs = self.exec_pairs if self.exec_pairs is not None else ()
+        return tuple(plan.precision for _, plan in pairs)
+
 
 def compile(program: Program,  # noqa: A001 (mirrors the reference's API)
             cfg: Optional[EngineConfig] = None) -> CompiledNet:
@@ -222,12 +251,18 @@ def compile(program: Program,  # noqa: A001 (mirrors the reference's API)
     layer counting, e.g. ResNet main-path booking). The execution plan is
     captured fresh from `program.fn` at the program's `meta` inputs, so
     `.apply` always matches the real op sequence — including layers the
-    paper's counting omits (projection shortcuts)."""
+    paper's counting omits (projection shortcuts).
+
+    Every executed op is pinned to its precision: a per-op override baked
+    into the forward (`cnn.program(precisions=...)`) wins over the config's
+    `precision`."""
     cfg = current_config() if cfg is None else cfg
     net_plan = plan_network(program, cfg)
     exec_pairs = None
     if program.fn is not None:
-        exec_pairs = tuple((op, plan_op(op, cfg.backend))
-                           for op in _capture_ops(program.fn,
-                                                  program.in_avals, cfg))
+        ops, precs = _capture_ops(program.fn, program.in_avals, cfg)
+        exec_pairs = tuple(
+            (op, with_precision(plan_op(op, cfg.backend), op,
+                                prec or cfg.precision))
+            for op, prec in zip(ops, precs))
     return CompiledNet(program, cfg, net_plan, exec_pairs)

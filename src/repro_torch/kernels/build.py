@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("gfid_conv", "gfid_matmul")
+SOURCES = ("gfid_conv", "gfid_matmul", "gfid_conv_int8", "gfid_matmul_int8")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 
 
@@ -98,19 +98,65 @@ def build_all() -> Dict[str, Tuple[float, str]]:
     return {name: (f.result()[2], f.result()[1]) for name, f in futures.items()}
 
 
-def check_operands(kernel: str, x, **others) -> None:
-    """What every launcher takes: fp32, contiguous tensors on x's device
-    (entries of `others` may be None)."""
-    for name, t in (("x", x), *others.items()):
+def check_operands(kernel: str, **operands) -> None:
+    """What every launcher takes: each operand, given as `name=(tensor,
+    dtype)` with the dtype that launcher reads, has that dtype, is
+    contiguous and lies on the device of the first operand. A tensor of
+    None (an absent bias) is skipped. A wrong dtype raises: the kernel
+    would read its bytes as another type."""
+    device = None
+    for name, (t, dtype) in operands.items():
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel} {name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel} {name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel} {name} must be contiguous")
-        if t.device != x.device:
-            raise ValueError(f"{kernel} {name} is on {t.device}, x on "
-                             f"{x.device}")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{kernel} {name} is on {t.device}, the first "
+                             f"operand on {device}")
+
+
+# The int8 kernels' int32 accumulators hold K * 127**2 at most.
+INT8_MAX_K = (2 ** 31 - 1) // (127 * 127)
+
+
+def check_int8_depth(kernel: str, k: int) -> None:
+    if k > INT8_MAX_K:
+        raise ValueError(f"{kernel}: a contraction depth of {k} could "
+                         f"overflow the int32 accumulator (at most "
+                         f"{INT8_MAX_K})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def split_k(blocks: int, n_chunks: int, sms: int) -> Tuple[int, int]:
+    """(splits, chunks per split) for a launch of `blocks` output tiles over
+    `n_chunks` K chunks: K is split across blocks until about two blocks per
+    SM are in flight, never into empty or sub-chunk parts. One split (no
+    workspace) when the tiles alone fill the card."""
+    want = min(max(1, -(-2 * sms // max(blocks, 1))), max(n_chunks, 1))
+    per = -(-max(n_chunks, 1) // want)
+    return -(-max(n_chunks, 1) // per), per
+
+
+def split_workspace(splits: int, n_out: int, tiles: int,
+                    device: torch.device
+                    ) -> Tuple[Optional[torch.Tensor], Optional[int],
+                               Optional[int]]:
+    """For a split-K launch, a zeroed int32 tensor of `n_out` sums followed
+    by `tiles` ticket counters, with the pointers to both; (None, None,
+    None) for one split. Freeing the tensor after the launch is queued is
+    safe: PyTorch's caching allocator reuses memory in stream order."""
+    if splits == 1:
+        return None, None, None
+    ws = torch.zeros(n_out + tiles, dtype=torch.int32, device=device)
+    return ws, ws.data_ptr(), ws.data_ptr() + 4 * n_out
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,10 +1,12 @@
-"""Fused-epilogue activation registry.
+"""Fused-epilogue activation registry and the int8 dequant epilogue.
 
 "gelu" is the tanh approximation, as in the JAX package (`jax.nn.gelu(
 approximate=True)`). The hand-written kernels apply the same bias-then-
 activation order to their fp32 accumulator (`apply_act` in `csrc/epilogue.cuh`,
 selected by `ACT_CODES`); the plain versions and the "torch"/"ref"
-backends apply it after the op with `apply_epilogue`.
+backends apply it after the op with `apply_epilogue`. The int8 kernels end
+in `dequant_epilogue` (the same op order as the device function of that
+name in `csrc/epilogue.cuh`).
 """
 from __future__ import annotations
 
@@ -38,3 +40,21 @@ def apply_epilogue(out: torch.Tensor, bias: Optional[torch.Tensor],
     if act is not None:
         out = ACTS[act](out)
     return out
+
+
+def dequant_epilogue(acc_i32: torch.Tensor, scale: torch.Tensor,
+                     bias: Optional[torch.Tensor],
+                     act: Optional[str]) -> torch.Tensor:
+    """Dequantize an exact int32 accumulator and apply bias + activation,
+    in the reference's pinned order: cast to fp32; `y + bias / scale` when
+    there is a bias (the add in the quantized domain); `y * scale`; then the
+    activation. No multiply feeds an add, so no execution mode can contract
+    the chain into an FMA: the same inputs give the same fp32 bits on every
+    backend and in the kernels (relu exactly, gelu to about an ulp)."""
+    y = acc_i32.to(torch.float32)
+    if bias is not None:
+        y = y + bias / scale
+    y = y * scale
+    if act is not None:
+        y = ACTS[act](y)
+    return y

@@ -1,16 +1,18 @@
-"""GFID convolution: the hand-written kernel of `csrc/gfid_conv.cu` (the port
-of the Pallas kernel `repro.kernels.gfid_conv.gfid_conv2d_nhwc`) and its
-plain PyTorch version.
+"""GFID convolution: the hand-written kernels of `csrc/gfid_conv.cu` (fp32;
+the port of the Pallas kernel `repro.kernels.gfid_conv.gfid_conv2d_nhwc`)
+and `csrc/gfid_conv_int8.cu` (int8 operands, exact int32 accumulator, fused
+dequant; the port of `gfid_conv2d_nhwc_int8`), each with its plain PyTorch
+version.
 
-Unlike the Pallas kernel, which takes an already padded input and one
-group, the CUDA kernel takes `pad` (a bounds mask on its loads) and
-`groups` (an axis of its launch grid), so a padded, grouped conv with its
+Unlike the Pallas kernels, which take an already padded input and one
+group, the CUDA kernels take `pad` (a bounds mask on their loads) and
+`groups` (an axis of the launch grid), so a padded, grouped conv with its
 bias and activation is one launch.
 
-`gfid_conv2d_nhwc` launches the CUDA kernel for CUDA tensors, uses the
-plain version for CPU tensors, and only allocates the output for `meta`
-tensors (program capture). `gfid_conv2d_nhwc.launches` counts the kernel's
-launches.
+Each wrapper launches its CUDA kernel for CUDA tensors, uses the plain
+version for CPU tensors, and only allocates the output for `meta` tensors
+(program capture). `gfid_conv2d_nhwc.launches` and
+`gfid_conv2d_nhwc_int8.launches` count the kernels' launches.
 """
 from __future__ import annotations
 
@@ -22,11 +24,15 @@ import torch
 
 from repro_torch.core import gfid
 from repro_torch.kernels import build
-from repro_torch.kernels.epilogue import ACT_CODES, apply_epilogue, check_act
+from repro_torch.kernels.epilogue import (ACT_CODES, apply_epilogue,
+                                         check_act, dequant_epilogue)
 
 # (output pixels, C_in chunk, C_out) of one block pass: kPixTile, kCinTile,
 # kCoutTile in the source.
 TILE = (64, 8, 64)
+# (output pixels, K chunk, C_out) of one block of csrc/gfid_conv_int8.cu:
+# kPixTile, kKc, kCoutTile (K = H_f * W_f * C_in / groups).
+TILE_INT8 = (64, 32, 64)
 
 
 def gfid_conv2d_nhwc_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -49,9 +55,9 @@ def _launcher():
     return lib, fn
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
-           groups: int, bias: Optional[torch.Tensor],
-           act: Optional[str]) -> None:
+def _check_geometry(x: torch.Tensor, w: torch.Tensor, stride: int,
+                    pad: int, groups: int, bias: Optional[torch.Tensor],
+                    act: Optional[str]) -> None:
     check_act(act)
     if x.ndim != 4 or w.ndim != 4:
         raise ValueError(f"expected NHWC x and HWIO w, got {tuple(x.shape)} "
@@ -68,7 +74,15 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
     if bias is not None and tuple(bias.shape) != (c_out,):
         raise ValueError(f"bias must have shape ({c_out},); "
                          f"got {tuple(bias.shape)}")
-    build.check_operands("gfid_conv2d_nhwc", x, w=w, bias=bias)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
+           groups: int, bias: Optional[torch.Tensor],
+           act: Optional[str]) -> None:
+    _check_geometry(x, w, stride, pad, groups, bias, act)
+    f32 = torch.float32
+    build.check_operands("gfid_conv2d_nhwc", x=(x, f32), w=(w, f32),
+                         bias=(bias, f32))
 
 
 def gfid_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -111,3 +125,99 @@ def gfid_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
 
 gfid_conv2d_nhwc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8
+# ---------------------------------------------------------------------------
+
+def gfid_conv2d_nhwc_int8_plain(xq: torch.Tensor, wq: torch.Tensor,
+                                sx: torch.Tensor, sw: torch.Tensor, *,
+                                stride: int = 1, pad: int = 0,
+                                groups: int = 1,
+                                bias: Optional[torch.Tensor] = None,
+                                act: Optional[str] = None) -> torch.Tensor:
+    """The plain version: the exact int32 GFID lowering
+    (`gfid.conv2d_gfid_int8`), then `dequant_epilogue` with scale
+    sx[b] * sw[c_out]."""
+    acc = gfid.conv2d_gfid_int8(xq, wq, stride, pad, groups)
+    scale = sx.reshape(-1, 1, 1, 1) * sw.reshape(1, 1, 1, -1)
+    return dequant_epilogue(acc, scale, bias, act)
+
+
+# xq, wq, sx, sw, bias, out, ws, tickets; B, H_in, W_in, C_in, H_f, W_f,
+# C_out, H_out, W_out, stride, pad, groups, splits, chunks_per_split, act,
+# vec_x; stream.
+INT8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher_int8():
+    lib = build.library("gfid_conv_int8")
+    fn = lib.gfid_conv2d_nhwc_int8
+    fn.argtypes = INT8_ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def gfid_conv2d_nhwc_int8(xq: torch.Tensor, wq: torch.Tensor,
+                          sx: torch.Tensor, sw: torch.Tensor, *,
+                          stride: int = 1, pad: int = 0, groups: int = 1,
+                          bias: Optional[torch.Tensor] = None,
+                          act: Optional[str] = None) -> torch.Tensor:
+    """Conv of xq (B, H_in, W_in, C_in) NHWC int8 with wq (H_f, W_f,
+    C_in/groups, C_out) HWIO int8 after symmetric zero padding `pad` (an
+    int8 zero, exact). The int32 sums are dequantized with the per-example
+    scales `sx` (B, 1) and the per-output-channel scales `sw` (1, C_out),
+    with the optional `bias` (C_out,) and `act` ("relu" | "gelu") fused into
+    the same epilogue. Returns (B, H_out, W_out, C_out) fp32."""
+    _check_geometry(xq, wq, stride, pad, groups, bias, act)
+    b, h_in, w_in, c_in = xq.shape
+    h_f, w_f, cg, c_out = wq.shape
+    if tuple(sx.shape) != (b, 1) or tuple(sw.shape) != (1, c_out):
+        raise ValueError(f"scales must be sx ({b}, 1) and sw (1, {c_out}); "
+                         f"got {tuple(sx.shape)} and {tuple(sw.shape)}")
+    build.check_int8_depth("gfid_conv2d_nhwc_int8", h_f * w_f * cg)
+    i8, f32 = torch.int8, torch.float32
+    build.check_operands("gfid_conv2d_nhwc_int8", xq=(xq, i8), wq=(wq, i8),
+                         sx=(sx, f32), sw=(sw, f32), bias=(bias, f32))
+    h_out = (h_in + 2 * pad - h_f) // stride + 1
+    w_out = (w_in + 2 * pad - w_f) // stride + 1
+    kind = xq.device.type
+    if kind == "cpu":
+        return gfid_conv2d_nhwc_int8_plain(xq, wq, sx, sw, stride=stride,
+                                           pad=pad, groups=groups, bias=bias,
+                                           act=act)
+    if kind == "meta":
+        return torch.empty((b, h_out, w_out, c_out), device="meta")
+    if kind != "cuda":
+        raise ValueError(f"gfid_conv2d_nhwc_int8 runs on CUDA or CPU "
+                         f"tensors, not {kind}")
+    out = torch.empty((b, h_out, w_out, c_out), device=xq.device,
+                      dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    pt, kc, ct = TILE_INT8
+    tiles = b * -(-h_out * w_out // pt) * groups * -(-(c_out // groups) // ct)
+    splits, per = build.split_k(tiles, -(-h_f * w_f * cg // kc),
+                                build.sm_count(xq.device.index or 0))
+    if b * splits > 65535:
+        raise ValueError(f"gfid_conv2d_nhwc_int8: batch {b} x {splits} "
+                         "K splits exceeds the launch grid's z limit")
+    ws, ws_ptr, tickets_ptr = build.split_workspace(splits, out.numel(),
+                                                    tiles, xq.device)
+    lib, fn = _launcher_int8()
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 ws_ptr, tickets_ptr, b, h_in, w_in, c_in, h_f, w_f, c_out,
+                 h_out, w_out, stride, pad, groups, splits, per,
+                 ACT_CODES[act], int(cg % 4 == 0 and xq.data_ptr() % 4 == 0),
+                 stream)
+    build.check(lib, err, "gfid_conv2d_nhwc_int8")
+    gfid_conv2d_nhwc_int8.launches += 1
+    return out
+
+
+gfid_conv2d_nhwc_int8.launches = 0

@@ -1,10 +1,17 @@
 """Launch glue between the engine's backends and the CUDA kernel wrappers.
 
 The counterpart of `repro.kernels.ops`: what the kernels do not take is
-shaped here. Padding and groups need nothing — the conv kernel masks its
-loads at the border and carries the group index in its launch grid, so a
+shaped here. Padding and groups need nothing — the conv kernels mask their
+loads at the border and carry the group index in their launch grid, so a
 grouped conv is one launch, as the reference's `vmap` folds groups into
 one grid. The matmul flattens the leading dims of x into rows.
+
+`precision="int8"` quantizes both operands with the shared rule of
+`core.quant` (plain torch ops, as the reference quantizes outside its
+Pallas kernels) and runs the int8 kernel, whose epilogue dequantizes. The
+conv quantizes before any padding, so the scales never see the zero pad;
+its per-example `sx` covers every group and its per-output-channel `sw`
+runs across the groups.
 """
 from __future__ import annotations
 
@@ -12,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels import gfid_conv as _conv
 from repro_torch.kernels import gfid_matmul as _matmul
 
@@ -20,21 +28,43 @@ def _contig(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.contiguous()
 
 
+def _check_precision(precision: str) -> None:
+    if precision not in ("fp32", "int8"):
+        raise ValueError(f"unknown precision {precision!r}; expected 'fp32' "
+                         "or 'int8'")
+
+
 def gfid_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                 pad: int = 0, groups: int = 1,
                 bias: Optional[torch.Tensor] = None,
-                act: Optional[str] = None) -> torch.Tensor:
+                act: Optional[str] = None,
+                precision: str = "fp32") -> torch.Tensor:
     """NHWC x HWIO conv through the engine's conv mode (one launch)."""
-    return _conv.gfid_conv2d_nhwc(x.contiguous(), w.contiguous(),
-                                  stride=stride, pad=pad, groups=groups,
-                                  bias=_contig(bias), act=act)
+    _check_precision(precision)
+    x, w = x.contiguous(), w.contiguous()
+    if precision == "int8":
+        xq, wq, sx, sw = quant.quantize_conv_operands(x, w)
+        return _conv.gfid_conv2d_nhwc_int8(
+            xq, wq, sx.reshape(x.shape[0], 1), sw.reshape(1, w.shape[3]),
+            stride=stride, pad=pad, groups=groups, bias=_contig(bias),
+            act=act)
+    return _conv.gfid_conv2d_nhwc(x, w, stride=stride, pad=pad,
+                                  groups=groups, bias=_contig(bias), act=act)
 
 
 def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 bias: Optional[torch.Tensor] = None,
-                act: Optional[str] = None) -> torch.Tensor:
+                act: Optional[str] = None,
+                precision: str = "fp32") -> torch.Tensor:
     """(..., K) @ (K, N) through the FC mode."""
+    _check_precision(precision)
     lead = x.shape[:-1]
-    out = _matmul.gfid_matmul(x.reshape(-1, x.shape[-1]).contiguous(),
-                              w.contiguous(), bias=_contig(bias), act=act)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if precision == "int8":
+        xq, wq, sx, sw = quant.quantize_matmul_operands(x2, w)
+        out = _matmul.gfid_matmul_int8(xq, wq.contiguous(), sx, sw,
+                                       bias=_contig(bias), act=act)
+    else:
+        out = _matmul.gfid_matmul(x2, w.contiguous(), bias=_contig(bias),
+                                  act=act)
     return out.reshape(*lead, w.shape[-1])

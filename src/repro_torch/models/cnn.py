@@ -253,36 +253,63 @@ def _maxpool(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.max_pool2d(x.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
 
 
-def _forward(net: CNNDef, params: Dict, x: torch.Tensor) -> torch.Tensor:
+def _layer_names(net: CNNDef) -> set:
+    convs, fcs = _param_defs(net)
+    return {cd.name for cd in convs} | {fd.name for fd in fcs}
+
+
+def _check_precisions(net: CNNDef,
+                      precisions: Optional[Dict[str, str]]) -> None:
+    if precisions is None:
+        return
+    unknown = set(precisions) - _layer_names(net)
+    if unknown:
+        raise ValueError(f"unknown layer name(s) {sorted(unknown)} in "
+                         f"precisions for {net.name!r}")
+
+
+def _prec(precisions: Optional[Dict[str, str]], name: str) -> Optional[str]:
+    return None if precisions is None else precisions.get(name)
+
+
+def _forward(net: CNNDef, params: Dict, x: torch.Tensor,
+             precisions: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """The functional forward pass, engine-routed, context-free — shared by
     eager `apply_cnn` and the compiled `program(...)` path. Bias and ReLU
     ride each conv/FC op as the engine's fused epilogue: a conv+bias+relu
-    layer is ONE kernel launch on the "cuda" backend."""
+    layer is ONE kernel launch on the "cuda" backend (fp32, or int8 with the
+    dequant fused). `precisions` maps layer names to explicit per-layer
+    precisions ("fp32" | "int8"), which win over the ambient config and
+    over a compiled plan's pinned precision."""
     if net.kind == "plain":
         for cd in net.convs:
             p = params["conv"][cd.name]
             x = E.conv2d(x, p["w"], stride=cd.stride, pad=cd.pad,
                          groups=cd.groups, bias=p["b"],
-                         act="relu" if cd.relu else None)
+                         act="relu" if cd.relu else None,
+                         precision=_prec(precisions, cd.name))
             if cd.pool > 1:
                 x = _maxpool(x, cd.pool)
         x = x.reshape(x.shape[0], -1)
     else:
-        x = _resnet50_body(params, x)
+        x = _resnet50_body(params, x, precisions)
         x = x.mean(dim=(1, 2))          # global average pool
     for fd in net.fcs:
         p = params["fc"][fd.name]
-        x = E.matmul(x, p["w"], bias=p["b"], act="relu" if fd.relu else None)
+        x = E.matmul(x, p["w"], bias=p["b"], act="relu" if fd.relu else None,
+                     precision=_prec(precisions, fd.name))
     return x
 
 
-def _resnet50_body(params: Dict, x: torch.Tensor) -> torch.Tensor:
+def _resnet50_body(params: Dict, x: torch.Tensor,
+                   precisions: Optional[Dict[str, str]] = None
+                   ) -> torch.Tensor:
     pc = params["conv"]
 
     def conv(nm, x, stride, pad, act=None):
         p = pc[nm]
         return E.conv2d(x, p["w"], stride=stride, pad=pad, bias=p["b"],
-                        act=act)
+                        act=act, precision=_prec(precisions, nm))
 
     x = conv("conv1", x, 2, 3, act="relu")
     x = _maxpool(F.pad(x, (0, 0, 0, 1, 0, 1), value=float("-inf")), 2)
@@ -301,17 +328,22 @@ def _resnet50_body(params: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_cnn(name: str, params: Dict, x: torch.Tensor, *,
-              backend: Optional[str] = None) -> torch.Tensor:
+              backend: Optional[str] = None,
+              precisions: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """Eager forward pass through the multi-mode engine on `backend` (None:
     the ambient `EngineConfig`'s), on the device of `x` and `params`.
-    x: (B, H, W, 3) NHWC -> logits (B, 1000). For the whole-network-planned
-    path use `engine.compile(program(name), cfg)`."""
+    x: (B, H, W, 3) NHWC -> logits (B, 1000). `precisions` maps layer names
+    to per-layer precisions (e.g. {"fc6": "int8"}), which win over the
+    config's `precision`. For the whole-network-planned path use
+    `engine.compile(program(name), cfg)`."""
+    net = CNNS[name]
+    _check_precisions(net, precisions)
     with E.using_backend(backend), torch.no_grad():
-        return _forward(CNNS[name], params, x)
+        return _forward(net, params, x, precisions)
 
 
-def program(name: str, *, batch: int = 1, main_path_only: bool = True
-            ) -> E.Program:
+def program(name: str, *, batch: int = 1, main_path_only: bool = True,
+            precisions: Optional[Dict[str, str]] = None) -> E.Program:
     """The network as an `engine.Program`: an ordered, shape-complete op
     graph derived from the `CNNDef` layer tables, plus the executable
     functional forward and `meta` stand-ins for its (params, x) inputs.
@@ -320,8 +352,13 @@ def program(name: str, *, batch: int = 1, main_path_only: bool = True
     Table-2/Table-4 counting — `engine.compile(program(net)).plan`
     reproduces `analytics.network_cost` exactly. The execution side always
     runs the real geometry: `compile()` captures the functional forward's
-    own op sequence."""
+    own op sequence.
+
+    `precisions` bakes per-layer precision overrides into the forward: the
+    named layers issue an explicit `precision=` at every execution, which
+    wins over the compile config's `precision`."""
     net = CNNS[name]
+    _check_precisions(net, precisions)
     h, w, c = net.input_hw_c
     conv_specs, fc_specs = analytics_layers(name, main_path_only)
     ops: List[E.OpSpec] = []
@@ -336,6 +373,7 @@ def program(name: str, *, batch: int = 1, main_path_only: bool = True
             "dense", (batch, fs.n), (fs.n, fs.m),
             spec=E.dense_spec(2), name=fs.name))
     x_meta = torch.empty((batch, h, w, c), device="meta")
-    return E.Program(name=name, ops=tuple(ops),
-                     fn=functools.partial(_forward, net),
+    fn = (functools.partial(_forward, net) if precisions is None
+          else functools.partial(_forward, net, precisions=dict(precisions)))
+    return E.Program(name=name, ops=tuple(ops), fn=fn,
                      in_avals=(_meta_params(net), x_meta))

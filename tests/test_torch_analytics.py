@@ -49,6 +49,20 @@ def test_compiled_cost_matches_golden_bit_for_bit(net):
         assert _bits(got[key]) == _bits(want[key]), (net, key, got[key])
 
 
+@pytest.mark.parametrize("net", NETS)
+def test_compiled_cost_under_int8_matches_golden_bit_for_bit(net):
+    """The Table-4 row is the paper's analytic model: it does not move with
+    the execution precision."""
+    want = json.loads((GOLDENS / f"table4_{net}.json").read_text())
+    compiled = TE.compile(t_cnn.program(net),
+                          TE.EngineConfig(precision="int8"))
+    assert set(compiled.precisions()) == {"int8"}
+    got = compiled.cost
+    assert set(got) == set(want)
+    for key in want:
+        assert _bits(got[key]) == _bits(want[key]), (net, key, got[key])
+
+
 @pytest.mark.parametrize("main_path_only", [True, False])
 @pytest.mark.parametrize("net", NETS)
 def test_network_cost_matches_reference(net, main_path_only):
@@ -79,6 +93,42 @@ def test_plan_network_matches_reference_per_op(net):
         [_analytic(p) for p in want.plans]
     assert (got.total_macs, got.conv_ma_words, got.fc_ma_words) == \
         (want.total_macs, want.conv_ma_words, want.fc_ma_words)
+
+
+@pytest.mark.parametrize("net", NETS)
+def test_exec_ma_words_match_reference_under_int8(net):
+    got = TE.plan_network(t_cnn.program(net),
+                          TE.EngineConfig(precision="int8"))
+    want = jax_engine.plan_network(jax_cnn.program(net),
+                                   jax_engine.EngineConfig(precision="int8"))
+    assert [p.precision for p in got.plans] == \
+        [p.precision for p in want.plans]
+    assert (got.exec_ma_words, got.conv_exec_ma_words,
+            got.fc_exec_ma_words) == (want.exec_ma_words,
+                                      want.conv_exec_ma_words,
+                                      want.fc_exec_ma_words)
+    fp32 = TE.plan_network(t_cnn.program(net), TE.EngineConfig())
+    assert fp32.exec_ma_words == fp32.conv_ma_words + fp32.fc_ma_words
+    assert got.exec_ma_words < fp32.exec_ma_words
+    assert (got.conv_ma_words, got.fc_ma_words) == \
+        (fp32.conv_ma_words, fp32.fc_ma_words)
+
+
+def test_with_precision_swaps_the_kernel_tiling():
+    conv = t_plan.plan_conv2d((1, 13, 13, 256), (3, 3, 256, 384), 1, 1, 1,
+                              "cuda")
+    dense = t_plan.plan_einsum("...n,nm->...m", (1, 9216), (9216, 4096),
+                               "cuda")
+    for plan, op, fp32_tile, int8_tile in (
+            (conv, TE.OpSpec("conv2d", (1, 13, 13, 256), (3, 3, 256, 384),
+                             pad=1), gfid_conv.TILE, gfid_conv.TILE_INT8),
+            (dense, TE.OpSpec("dense", (1, 9216), (9216, 4096),
+                              spec="...n,nm->...m"),
+             gfid_matmul.TILE, gfid_matmul.TILE_INT8)):
+        int8 = t_plan.with_precision(plan, op, "int8")
+        assert (plan.tiling, int8.tiling) == (fp32_tile, int8_tile)
+        assert _analytic(int8) == _analytic(plan)
+        assert t_plan.with_precision(int8, op, "fp32") == plan
 
 
 @pytest.mark.parametrize("x_shape,w_shape,stride,pad,groups", [
@@ -136,6 +186,9 @@ def test_parse_einsum_rejections_match_reference(spec, x_ndim, w_ndim):
 @pytest.mark.parametrize("path,tile", [
     ("gfid_conv.cu", (("kPixTile", "kCinTile", "kCoutTile"), gfid_conv.TILE)),
     ("gfid_matmul.cu", (("kBM", "kKT", "kBN"), gfid_matmul.TILE)),
+    ("gfid_conv_int8.cu", (("kPixTile", "kKc", "kCoutTile"),
+                           gfid_conv.TILE_INT8)),
+    ("gfid_matmul_int8.cu", (("kBM", "kKT", "kBN"), gfid_matmul.TILE_INT8)),
 ])
 def test_plan_tiling_matches_kernel_source(path, tile):
     names, values = tile

@@ -4,9 +4,14 @@ Weights are made with numpy from a seed and moved into both packages (the
 port through `params_from_jax`). The port runs its "cuda" backend on CPU
 tensors, i.e. each kernel wrapper's plain version.
 
-Tolerance: max|port - jax| <= 1e-4 * max|jax logits|: fp32 throughout,
-sums taken in other orders across a deep network.
+Tolerance: max|port - jax| <= 1e-4 * max|jax logits| for fp32: sums taken
+in other orders across a deep network. Under int8 the logits are bitwise
+equal (`assert_array_equal`): quantization, the exact int32 sums and the
+dequant order are pinned, every op is relu or has no activation, and
+max-pool is exact.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +21,7 @@ import torch
 from repro import engine as jax_engine
 from repro.models import cnn as jax_cnn
 from repro_torch import engine as TE
+from repro_torch.core import quant
 from repro_torch.kernels import gfid_conv, gfid_matmul
 from repro_torch.models import cnn as t_cnn
 
@@ -94,6 +100,96 @@ def test_alexnet_full_width_matches_jax_xla():
     _close(got, want)
 
 
+@functools.lru_cache(maxsize=None)
+def _tiny_int8_case():
+    """Weights, input and the Pallas (interpret) int8 logits of the tiny
+    net, computed once for the three backends' tests."""
+    net_j = _tiny(jax_cnn)
+    params = _numpy_params(net_j.convs, net_j.fcs, seed=4)
+    x = np.random.default_rng(5).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    with jax_engine.using_config(jax_engine.EngineConfig(
+            backend="pallas", interpret=True, precision="int8")):
+        want = jax_cnn._forward(net_j, _to_jax(params), jnp.asarray(x))
+    return params, x, np.asarray(want)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch", "ref"])
+def test_tiny_cnn_int8_matches_pallas_forward_bitwise(backend):
+    net_t = _tiny(t_cnn)
+    params, x, want = _tiny_int8_case()
+    with TE.using_config(TE.EngineConfig(backend=backend, precision="int8")), \
+            torch.no_grad():
+        got = t_cnn._forward(net_t, t_cnn.params_from_jax(params, "cpu"),
+                             torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_alexnet_full_width_int8_bitwise_equal_to_jax_xla():
+    convs, fcs = jax_cnn.ALEXNET_CONVS, jax_cnn.ALEXNET_FCS
+    params = _numpy_params(convs, fcs, seed=6)
+    x = np.random.default_rng(7).standard_normal((1, 227, 227, 3)).astype(
+        np.float32)
+    cfg = jax_engine.EngineConfig(backend="xla", precision="int8")
+    # jitted: the same ops as eager (the reference pins jit/eager parity
+    # of its int8 path), in a fraction of the time
+    want = jax.jit(lambda p, xx: jax_cnn.apply_cnn("alexnet", p, xx,
+                                                   config=cfg))(
+        _to_jax(params), jnp.asarray(x))
+    t_params = t_cnn.params_from_jax(params, "cpu")
+    compiled = TE.compile(t_cnn.program("alexnet"),
+                          TE.EngineConfig(backend="cuda", precision="int8"))
+    assert compiled.backends() == ("cuda",) * 8
+    assert compiled.precisions() == ("int8",) * 8
+    got = compiled.apply(t_params, torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    fp32 = TE.compile(t_cnn.program("alexnet"),
+                      TE.EngineConfig(backend="cuda")).apply(
+                          t_params, torch.from_numpy(x))
+    assert quant.snr_db(fp32, got).item() >= 28.0
+
+
+def test_program_precisions_pin_exactly_the_named_layer():
+    prog = t_cnn.program("alexnet", precisions={"fc6": "int8"})
+    compiled = TE.compile(prog, TE.EngineConfig())
+    assert compiled.precisions() == ("fp32",) * 5 + ("int8", "fp32", "fp32")
+    j_prog = jax_cnn.program("alexnet", precisions={"fc6": "int8"})
+    assert jax_engine.compile(j_prog, jax_engine.EngineConfig()
+                              ).precisions() == compiled.precisions()
+    # an explicit per-layer fp32 wins over an int8 config
+    mixed = TE.compile(t_cnn.program("alexnet", precisions={"conv1": "fp32"}),
+                       TE.EngineConfig(precision="int8"))
+    assert mixed.precisions() == ("fp32",) + ("int8",) * 7
+
+
+def test_per_layer_precisions_run_eagerly_and_compiled_alike():
+    net = _tiny(t_cnn)
+    params = t_cnn.params_from_jax(_numpy_params(net.convs, net.fcs, 8),
+                                   "cpu")
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(9))
+    precs = {"b": "int8", "fc2": "int8"}
+    prog = TE.Program("tiny", (), fn=lambda p, x: t_cnn._forward(
+        net, p, x, precs), in_avals=(t_cnn._meta_params(net),
+                                     torch.empty(2, 32, 32, 3, device="meta")))
+    compiled = TE.compile(prog)
+    assert compiled.precisions() == ("fp32", "int8", "fp32", "int8")
+    with torch.no_grad():
+        eager = t_cnn._forward(net, params, x, precs)
+        fp32 = t_cnn._forward(net, params, x)
+    assert torch.equal(compiled.apply(params, x), eager)
+    assert not torch.equal(eager, fp32)
+
+
+def test_unknown_layer_name_in_precisions_raises():
+    params = t_cnn.init_cnn("alexnet", seed=0, device="cpu")
+    with pytest.raises(ValueError, match="unknown layer"):
+        t_cnn.apply_cnn("alexnet", params, torch.zeros(1, 227, 227, 3),
+                        precisions={"fc9": "int8"})
+    with pytest.raises(ValueError, match="unknown layer"):
+        t_cnn.program("resnet50", precisions={"conv9": "int8"})
+    assert t_cnn.program("resnet50", precisions={"s2b1_proj": "int8"})
+
+
 def test_init_cnn_without_a_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None picks it")
@@ -121,7 +217,7 @@ def test_init_cnn_is_seeded_and_in_reference_layouts():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(fallback="chain"), dict(precision="int8"), dict(tuning="cached"),
+    dict(fallback="chain"), dict(tuning="cached"),
     dict(parallel=object()), dict(policy="auto"),
 ])
 def test_unported_config_knobs_raise_naming_the_roadmap(knob):
