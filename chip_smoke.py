@@ -12,7 +12,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      parallel) into `build/repro_torch/`, timed, with ptxas's register and
      shared-memory use.
   3. hold each kernel against its plain PyTorch version on the card at every
-     AlexNet layer shape (batch 1 and 32) and at a few ragged shapes. fp32:
+     AlexNet layer shape (batch 1 and 32), at a few ragged shapes and, for
+     `gfid_matmul`, at every GEMM shape of the serving path (the five of a
+     decode step at M = 8, the four layer GEMMs of a prompt-128 prefill at
+     M = 1024). fp32:
      max|kernel - plain| / max|plain| <= 1e-4. int8 (operands quantized on
      the card by `core/quant`): max|kernel - plain| == 0 for act None and
      relu, <= 1e-6 * max|plain| for gelu.
@@ -35,11 +38,38 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      goldens. Then AlexNet with `precisions={"fc6": "int8"}` under an fp32
      config: one int8 matmul launch beside 5 fp32 conv and 2 fp32 matmul
      launches.
+     Phase 3 also holds `paged_gather` against its plain version, bitwise:
+     smollm-135m's full-width pool (257, 16, 30, 3, 64) bf16 with tables of
+     1 and 8 rows x 32 blocks, the four cases of tests/test_kv_pool.py, an
+     fp32 pool, and block byte lengths that are not multiples of 8; and, in
+     a child process, that a block id outside the pool stops the kernel
+     with an error that the next synchronisation reports.
   5. per kernel: its time over the main path's shapes beside its bound, its
      plain version's time and one library call's time where one PyTorch call
      computes the same function (`F.conv2d` on NCHW and `torch.addmm`, each
      followed by relu, TF32 off; `torch._int_mm` for the int8 product where
      it accepts the shape; none for the int8 conv).
+  6. serving: smollm-135m at full width and depth (fp32 parameters from
+     `init_params(cfg, seed=0, device="cuda")`), a bf16 paged pool of 257
+     blocks of 16 slots (max_len 512, max_batch 8: no preemption), 16
+     requests with prompts of 16-256 tokens and 16, 32 or 64 steps from a
+     seeded `torch.Generator`, served by `ContinuousScheduler` under
+     `EngineConfig(backend="cuda", row_align=8)` with admission
+     "continuous", then "drain", then solo (max_batch 1). Checks: every
+     request done without preemption; every decode step at the one
+     8-row bucket (the scheduler's row_align floor); tokens bitwise equal
+     across the three runs and equal to the dense-cache `greedy_generate`
+     for 4 requests; every op of every compiled program on "cuda"; the programs
+     record 2 + 30 x 7 + 1 ops; each decode step launches 2 `paged_gather`
+     and 211 `gfid_matmul` kernels and nothing else; one decode step at
+     bucket 8 replayed on the "torch" backend on the same pool snapshot
+     gives logits within 1e-4 x max|logits|. Prints tokens/s and p50/p95
+     request latency of the continuous run, ms per decode step with 8 and
+     with 1 live rows, a batch-1 prefill at prompt 128, one program's capture time,
+     `paged_gather` at the step's shapes beside its bound and
+     `index_select`, `gfid_matmul` at the five decode GEMM shapes (M = 8)
+     beside its bound and `torch.mm`, and the tied unembedding's transpose
+     copy.
 
 The last lines are the card's name and power limit, a JSON object listing
 the kernels, and `{"ok": true, "device": {...}}`.
@@ -59,6 +89,12 @@ TOL = 1e-4                  # max|Δ| / max|reference|, kernels and logits
 GELU_TOL = 1e-6             # int8 kernels with gelu: max|Δ| / max|plain|
 SNR_FLOOR_DB = 28.0         # AlexNet int8 against fp32 (the reference's floor)
 BATCHES = (1, 32)
+# Phase 6: the served model, pool and workload.
+SERVE_MODEL = "smollm_135m"
+SERVE_MAX_LEN, SERVE_BLOCK, SERVE_BLOCKS, SERVE_BATCH = 512, 16, 257, 8
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_STEPS = 16, (16, 256), (16, 32, 64)
+SERVE_DENSE_CHECKS = 4      # requests also run through greedy_generate
+SERVE_PREFILL = 128         # the prompt length of the timed prefill
 OTHER_NETS = ("vgg16", "resnet50")   # driven at batch 1 after AlexNet
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
@@ -155,6 +191,32 @@ def ragged_cases(gen, dev):
     return conv, mm
 
 
+def serve_gemm_shapes(cfg):
+    """(label, k, n) of the serving path's GEMMs: the four of a layer (wq and
+    wo, wk and wv, w_in and w_gate, w_out) and the tied unembedding."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return (("wq/wo", d, hd), ("wk/wv", d, kvd), ("w_in/w_gate", d, f),
+            ("w_out", f, d), ("unembed", d, v))
+
+
+def serve_mm_cases(gen, dev):
+    """gfid_matmul at the serving path's shapes, no bias and no act: every
+    GEMM of a decode step (M = 8, the row_align bucket) and the layer GEMMs
+    of a batch-1 prefill at prompt SERVE_PREFILL (its one row padded to 8,
+    so M = 8 x SERVE_PREFILL; its unembedding reads the last position only,
+    at M = 8)."""
+    from repro_torch.configs.base import get_config
+    shapes = serve_gemm_shapes(get_config(SERVE_MODEL))
+    def t(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+    return [(f"serve decode {lbl} M=8", dict(x=t(8, k), w=t(k, n), bias=None,
+                                             act=None)) for lbl, k, n in shapes] \
+        + [(f"serve prefill {lbl} M={8 * SERVE_PREFILL}",
+            dict(x=t(8 * SERVE_PREFILL, k), w=t(k, n), bias=None, act=None))
+           for lbl, k, n in shapes[:-1]]
+
+
 def quantized(kind, kw, quant):
     """The int8 kernel's kwargs for one fp32 case: operands quantized on the
     card by the port's `core/quant`, scales shaped as the kernels take them."""
@@ -195,6 +257,65 @@ def ragged_int8_cases(gen, dev, quant):
             [quantized("fc", kw, quant) for kw in mm])
 
 
+def paged_cases(gen, dev):
+    """(label, pool, table) for the gather: smollm-135m's full-width bf16
+    pool with tables of 8 and 1 rows x 32 blocks (block 0 included), the
+    four cases of tests/test_kv_pool.py, an fp32 pool, and blocks of 30 and
+    15 bytes (copied 2 and 1 bytes at a time)."""
+    def case(label, shape, dtype, b, npr):
+        if dtype.is_floating_point:
+            pool = torch.randn(shape, generator=gen).to(dtype)
+        else:
+            pool = torch.randint(0, 256, shape, generator=gen).to(dtype)
+        table = torch.randint(0, shape[0], (b, npr), generator=gen,
+                              dtype=torch.int32)
+        table[0, 0] = 0
+        return label, pool.to(dev), table.to(dev)
+    bf16 = torch.bfloat16
+    return [
+        case("full width B=8", (257, 16, 30, 3, 64), bf16, 8, 32),
+        case("full width B=1", (257, 16, 30, 3, 64), bf16, 1, 32),
+        case("kv_pool case 1", (10, 4, 3, 2, 5), bf16, 2, 3),
+        case("kv_pool case 2", (16, 8, 4, 16), bf16, 3, 4),
+        case("kv_pool case 3", (5, 2), bf16, 1, 2),
+        case("kv_pool case 4", (12, 8, 7), bf16, 4, 1),
+        case("fp32", (9, 4, 3, 5), torch.float32, 3, 2),
+        case("30-byte blocks", (7, 3, 5), bf16, 2, 4),
+        case("15-byte blocks", (6, 3, 5), torch.uint8, 2, 3),
+    ]
+
+
+TRAP_CHILD = """
+import sys
+import torch
+sys.path.insert(0, "src")
+from repro_torch.kernels import paged
+pool = torch.zeros((4, 2, 8), device="cuda")
+table = torch.tensor([[1, 4]], dtype=torch.int32, device="cuda")
+try:
+    paged.paged_gather(pool, table)
+    torch.cuda.synchronize()
+except Exception as e:  # the trap surfaces as a CUDA error
+    print("stopped:", type(e).__name__, str(e).splitlines()[0])
+    sys.exit(0)
+print("not stopped")
+sys.exit(1)
+"""
+
+
+def paged_trap_check():
+    """Run `paged_gather` on a table that names block 4 of a 4-block pool
+    in a child process (the kernel's __trap() ends that process's CUDA
+    context) and require that the error surfaced there."""
+    proc = subprocess.run([sys.executable, "-c", TRAP_CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    out = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and out and out[-1].startswith("stopped:"),
+            f"paged_gather with an out-of-range id was not stopped: exit "
+            f"{proc.returncode}, {proc.stdout[-500:]} {proc.stderr[-500:]}")
+    return out[-1]
+
+
 def zero_counts(*wrappers):
     for fn in wrappers:
         fn.launches = 0
@@ -210,6 +331,282 @@ def int_mm_accepts(m, k, n):
     return m > 16 and k % 8 == 0 and n % 8 == 0
 
 
+def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
+    """Phase 6: smollm-135m served through `ContinuousScheduler` on the
+    paged pool (see the module docstring). Returns the numbers the kernels
+    line and the summary print; folds the kernel-vs-plain errors at the
+    timed shapes into `worst`."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as SE
+    from repro_torch.serve.scheduler import (ContinuousScheduler,
+                                             latency_percentiles)
+
+    mm, gather = gfid_matmul.gfid_matmul, paged.paged_gather
+    cfg = get_config(SERVE_MODEL)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=DEVICE)
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} fp32 parameters "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    per_pass = cfg.n_layers * 7 + 1     # GEMMs of a decode step or a prefill
+    gen = torch.Generator().manual_seed(0)
+    work = []
+    for _ in range(SERVE_REQUESTS):
+        n = int(torch.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, (1,),
+                              generator=gen))
+        steps = SERVE_STEPS[int(torch.randint(len(SERVE_STEPS), (1,),
+                                              generator=gen))]
+        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+        work.append((prompt, steps))
+    print(f"[serve] workload: {len(work)} requests, prompts "
+          f"{sorted(len(p) for p, _ in work)} tokens, steps "
+          f"{[n for _, n in work]} ({sum(n for _, n in work)} tokens to generate)")
+    conf = E.EngineConfig(backend="cuda", row_align=8)
+
+    def scheduler(max_batch, admission):
+        return ContinuousScheduler(
+            cfg, params, max_len=SERVE_MAX_LEN, num_blocks=SERVE_BLOCKS,
+            block_size=SERVE_BLOCK, max_batch=max_batch, config=conf,
+            admission=admission)
+
+    runs = {}
+    for mode, max_batch, admission in (
+            ("continuous", SERVE_BATCH, "continuous"),
+            ("drain", SERVE_BATCH, "drain"), ("solo", 1, "continuous")):
+        s = scheduler(max_batch, admission)
+        t0 = time.perf_counter()
+        prefills = [s.prefill_compiled(n) for n in sorted({len(p) for p, _ in work})]
+        decodes = [s.decode_compiled(b) for b in s.buckets]
+        compile_s = time.perf_counter() - t0
+        for c, want_ops in [(c, per_pass) for c in prefills] \
+                + [(c, 2 + per_pass) for c in decodes]:
+            kinds = [op.kind for op in c.program.ops]
+            require(set(c.backends()) == {"cuda"} and len(kinds) == want_ops
+                    and len(c.exec_pairs) == want_ops
+                    and kinds.count("gather") == want_ops - per_pass,
+                    f"{mode} {c.program.name}: backends {set(c.backends())}, "
+                    f"{len(kinds)} ops, expected {want_ops}")
+        compiled = prefills + decodes
+        tickets = [s.submit(p, n) for p, n in work]
+        zero_counts(mm, gather, *other_kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = s.stats()
+        launches = counts(mm, gather, *other_kernels)
+        require(all(t.status == "done" and t.preemptions == 0 for t in tickets)
+                and st["evicted"] == 0, f"{mode}: not every request done "
+                "without preemption")
+        require(st["compiled_decode_buckets"] == [SERVE_BATCH], f"{mode}: decode "
+                f"buckets {st['compiled_decode_buckets']}, expected [{SERVE_BATCH}]")
+        want = (per_pass * (st["steps"] + st["admitted"]), 2 * st["steps"]) \
+            + (0,) * len(other_kernels)
+        require(launches == want, f"{mode}: launches "
+                f"(gfid_matmul, paged_gather, others) = {launches}, expected "
+                f"{want} for {st['steps']} decode steps and {st['admitted']} "
+                "prefills")
+        n_tok = sum(len(t.tokens) for t in tickets)
+        lat = latency_percentiles(tickets)
+        runs[mode] = dict(tokens=[t.tokens for t in tickets], wall=wall,
+                          n_tok=n_tok, lat=lat, stats=st, compile_s=compile_s)
+        print(f"[serve] {mode}: {st['steps']} decode steps (buckets "
+              f"{st['compiled_decode_buckets']}, fill {st['decode_fill']:.3f}), "
+              f"{st['admitted']} prefills, {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.1f} tokens/s; latency p50 {lat['p50_ms']:.1f} ms, "
+              f"p95 {lat['p95_ms']:.1f} ms; launches gfid_matmul {launches[0]}, "
+              f"paged_gather {launches[1]} (= {per_pass} per step and prefill, 2 "
+              f"per step), others {sum(launches[2:])}; {len(compiled)} programs "
+              f"captured and compiled in {compile_s:.2f} s beforehand; pool "
+              f"free low-water {st['pool']['free_low_water']}")
+    base = runs["continuous"]["tokens"]
+    for mode in ("drain", "solo"):
+        require(runs[mode]["tokens"] == base, f"{mode} tokens differ from "
+                "the continuous run")
+    with E.using_config(conf):
+        for i, (prompt, steps) in enumerate(work[:SERVE_DENSE_CHECKS]):
+            dense = SE.greedy_generate(cfg, params, {"tokens": torch.tensor(
+                [prompt], device=dev)}, steps, SERVE_MAX_LEN)
+            require(dense[0].tolist() == base[i], f"request {i}: paged tokens "
+                    "differ from greedy_generate's dense-cache tokens")
+    print(f"[serve] tokens bitwise equal across continuous, drain and solo, and "
+          f"equal to greedy_generate for {SERVE_DENSE_CHECKS} requests")
+
+    # one decode step with 8 and with 1 live rows (both at the one bucket of
+    # SERVE_BATCH rows; a fresh scheduler with 8 requests admitted):
+    # launches, timing, profile, "torch" replay
+    s8 = scheduler(SERVE_BATCH, "continuous")
+    rows = [s8.submit(work[i % len(work)][0],
+                      SERVE_MAX_LEN - len(work[i % len(work)][0]))
+            for i in range(SERVE_BATCH)]
+    s8.step()                              # admits 8, runs one decode step
+    require(all(t.status == "running" for t in rows) and
+            s8.running() == SERVE_BATCH, f"{s8.running()} rows running")
+    step_ms, step_launches, profiles = {}, {}, {}
+    logits = {}
+    dec = s8.decode_compiled(SERVE_BATCH)
+    for live in (SERVE_BATCH, 1):
+        pad = SERVE_BATCH - live
+        rids = [t.rid for t in rows[:live]]
+        args = (params, s8.pool.arrays, s8.pool.table_rows(rids, SERVE_BATCH),
+                s8.pool.slot_rows(rids, SERVE_BATCH),
+                torch.tensor([[t.tokens[-1]] for t in rows[:live]] + [[0]] * pad,
+                             dtype=torch.int32, device=dev),
+                torch.tensor([t.pos for t in rows[:live]] + [0] * pad,
+                             dtype=torch.int32, device=dev))
+        zero_counts(mm, gather, *other_kernels)
+        dec.apply(*args)
+        torch.cuda.synchronize()
+        one = step_launches[live] = counts(mm, gather, *other_kernels)
+        require(one == (per_pass, 2) + (0,) * len(other_kernels),
+                f"{live} live rows: one decode step launched {one}")
+        # each call rewrites the same slot with the same values
+        step_ms[live] = time_ms(lambda: dec.apply(*args))
+        profiles[live] = device_profile(lambda: dec.apply(*args))
+        if live == SERVE_BATCH:
+            snap = [a.clone() for a in _leaves(s8.pool.arrays)]
+            for backend in ("cuda", "torch"):
+                with E.using_config(conf.replace(backend=backend)), \
+                        torch.no_grad():
+                    state = s8.layout.gather(s8.pool.arrays, args[2], args[3])
+                    logits[backend], _ = T.decode_step(cfg, params, state,
+                                                       args[4], args[5])
+                for a, b in zip(_leaves(s8.pool.arrays), snap):
+                    a.copy_(b)
+    err = rel_err(logits["cuda"], logits["torch"])
+    require(bool(torch.isfinite(logits["cuda"]).all()) and err <= TOL,
+            f"decode step: cuda logits vs torch backend {err:.3e} > {TOL}")
+    print(f"[serve] one decode step at bucket {SERVE_BATCH}: {per_pass} gfid_matmul + 2 "
+          f"paged_gather launches with {SERVE_BATCH} and with 1 live rows; logits with "
+          f"{SERVE_BATCH} live rows max|d|/max|ref| vs the torch backend on the same "
+          f"pool = {err:.3e} (limit {TOL})")
+    print(f"[serve] decode step at bucket {SERVE_BATCH}: {SERVE_BATCH} live rows "
+          f"{step_ms[SERVE_BATCH]:.4f} ms, 1 live row {step_ms[1]:.4f} ms (median of "
+          "20, CUDA events around CompiledNet.apply)")
+    for live, prof in profiles.items():
+        if prof is None:
+            print(f"[profile] {live} live rows: the profiler recorded no device "
+                  "time; device busy share not measured")
+            continue
+        busy_ms, n_kernels, top = prof
+        print(f"[profile] decode step with {live} live rows: {n_kernels} device "
+              f"kernels, {busy_ms:.4f} ms of device time per step (sum of kernel "
+              f"times, torch.profiler over 3 steps) = {100 * busy_ms / step_ms[live]:.1f}% "
+              f"of the step; idle {100 * (1 - busy_ms / step_ms[live]):.1f}%; "
+              "by kernel: " + "; ".join(f"{n[:60]} x{c} {ms:.4f} ms"
+                                         for n, c, ms in top))
+
+    # prefill and capture at prompt SERVE_PREFILL
+    t0 = time.perf_counter()
+    pre = E.compile(SE.prefill_ingest_program(cfg, s8.layout, SERVE_PREFILL),
+                    conf)
+    capture_s = time.perf_counter() - t0
+    row = s8.pool.table_rows([rows[0].rid], 1)[0]
+    slot = s8.pool.slot_rows([rows[0].rid], 1)[0]
+    prompt = torch.tensor([work[0][0][:1] * SERVE_PREFILL], dtype=torch.int32,
+                          device=dev)
+    snap = [a.clone() for a in _leaves(s8.pool.arrays)]
+    prefill_ms = time_ms(lambda: pre.apply(params, s8.pool.arrays, row, slot,
+                                           prompt), iters=10)
+    for a, b in zip(_leaves(s8.pool.arrays), snap):
+        a.copy_(b)
+    del snap
+    print(f"[serve] batch-1 prefill at prompt {SERVE_PREFILL}: {prefill_ms:.4f} ms (median "
+          f"of 10); capture and compile of its program: {capture_s:.3f} s")
+
+    # the kernels at the decode step's shapes
+    pool = s8.pool.arrays["groups"]["0"]["k"]
+    table = s8.pool.table_rows([t.rid for t in rows], SERVE_BATCH)
+    g_bytes = 2 * table.shape[0] * table.shape[1] * pool[0].numel() \
+        * pool.element_size() + table.numel() * 4
+    g_bound, g_by = bound_ms(g_bytes, 0)
+    g = dict(ms=time_ms(lambda: gather(pool, table)),
+             plain_ms=time_ms(lambda: paged.paged_gather_plain(pool, table)),
+             library_ms=time_ms(lambda: pool.index_select(0, table.view(-1))),
+             bound_ms=g_bound, bound_by=g_by)
+    print(f"[time] paged_gather pool {tuple(pool.shape)} bf16, table "
+          f"{tuple(table.shape)}: kernel {g['ms']:.4f} ms, plain "
+          f"{g['plain_ms']:.4f} ms, library index_select {g['library_ms']:.4f} ms, "
+          f"bound {g_bound:.4f} ms ({g_bytes / 1e6:.2f} MB, {g_by}); "
+          f"{g_bytes / g['ms'] / 1e9:.3f} TB/s")
+    got = gather(pool, table)
+    require(torch.equal(got, paged.paged_gather_plain(pool, table)),
+            "paged_gather at the decode step's shapes differs from its plain version")
+    mm_rows = []
+    for label, k, n in serve_gemm_shapes(cfg):
+        x = torch.randn((8, k), generator=gen).to(dev)
+        w = torch.randn((k, n), generator=gen).to(dev)
+        want = gfid_matmul.gfid_matmul_plain(x, w)
+        got = mm(x, w)
+        err = rel_err(got, want)
+        require(err <= TOL, f"gfid_matmul decode {label}: error {err:.3e} > {TOL}")
+        worst["gfid_matmul"] = max(worst["gfid_matmul"],
+                                   (got - want).abs().max().item())
+        b_ms, by = bound_ms(4 * (8 * k + k * n + 8 * n), 2 * 8 * k * n)
+        row_t = dict(label=label, k=k, n=n, ms=time_ms(lambda: mm(x, w)),
+                     plain_ms=time_ms(lambda: gfid_matmul.gfid_matmul_plain(x, w)),
+                     library_ms=time_ms(lambda: torch.mm(x, w)), bound_ms=b_ms,
+                     bound_by=by)
+        mm_rows.append(row_t)
+        print(f"[time] gfid_matmul decode {label} (8, {k}) @ ({k}, {n}): kernel "
+              f"{row_t['ms']:.4f} ms, plain {row_t['plain_ms']:.4f} ms, library "
+              f"torch.mm {row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); "
+              f"max|d|/max|ref| vs plain {err:.3e}")
+    embed = params["embed"]
+    copy_ms = time_ms(lambda: embed.T.contiguous())
+    per_step = {"wq/wo": 2, "wk/wv": 2, "w_in/w_gate": 2, "w_out": 1, "unembed": 0}
+    layer_ms = sum(r["ms"] * per_step[r["label"]] for r in mm_rows)
+    print(f"[time] tied unembedding: the (vocab, d_model) table's transpose "
+          f"copy before the GEMM {copy_ms:.4f} ms ({embed.numel() * 4 / 1e6:.1f} MB "
+          f"read and written); per decode step at bucket {SERVE_BATCH}: {cfg.n_layers} layers "
+          f"x {layer_ms:.4f} ms of layer GEMMs + unembed {mm_rows[-1]['ms']:.4f} ms "
+          f"+ copy {copy_ms:.4f} ms + 2 gathers = "
+          f"{cfg.n_layers * layer_ms + mm_rows[-1]['ms'] + copy_ms + 2 * g['ms']:.4f} "
+          f"ms of these kernels, against a step of {step_ms[SERVE_BATCH]:.4f} ms")
+    cont = runs["continuous"]
+    return dict(gather=g, mm_rows=mm_rows, step_ms=step_ms, prefill_ms=prefill_ms,
+                per_pass=per_pass, step_launches=step_launches[SERVE_BATCH],
+                capture_s=capture_s, tps=cont["n_tok"] / cont["wall"],
+                lat=cont["lat"], copy_ms=copy_ms)
+
+
+def device_profile(fn, steps=3):
+    """(device ms per call, kernels per call, the 6 kernels with the most
+    device time as (name, count per call, ms per call)) from torch.profiler
+    over `steps` calls of fn; None when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and getattr(e, "device_type", None) is not None \
+                and "CUDA" in str(e.device_type):
+            rows.append((e.key, e.count / steps, us / 1e3 / steps))
+    if not rows:
+        return None
+    rows.sort(key=lambda r: -r[2])
+    return (sum(r[2] for r in rows), int(round(sum(r[1] for r in rows))),
+            rows[:6])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
 def main():
     # -- phase 1: the card ---------------------------------------------------
     require(torch.cuda.is_available(), "no CUDA device: this script runs "
@@ -217,7 +614,7 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import engine as E
     from repro_torch.core import quant
-    from repro_torch.kernels import build, gfid_conv, gfid_matmul
+    from repro_torch.kernels import build, gfid_conv, gfid_matmul, paged
     from repro_torch.models import cnn
 
     conv32, mm32 = gfid_conv.gfid_conv2d_nhwc, gfid_matmul.gfid_matmul
@@ -279,7 +676,8 @@ def main():
             ("gfid_conv2d_nhwc", conv32, gfid_conv.gfid_conv2d_nhwc_plain,
              all_cases(conv_main, ragged_conv, "conv"), False),
             ("gfid_matmul", mm32, gfid_matmul.gfid_matmul_plain,
-             all_cases(fc_main, ragged_mm, "matmul"), False),
+             all_cases(fc_main, ragged_mm, "matmul") + serve_mm_cases(gen, dev),
+             False),
             ("gfid_conv2d_nhwc_int8", conv8,
              gfid_conv.gfid_conv2d_nhwc_int8_plain,
              all_cases(conv8_main, ragged_conv8, "conv"), True),
@@ -305,8 +703,29 @@ def main():
             require(err <= limit, f"{kname} {label}: error {err:.3e} > {limit}")
             worst[kname] = max(worst[kname], abs_err)
             checks += 1
+    worst["paged_gather"] = 0.0
+    for label, pool, table in paged_cases(gen, dev):
+        got = paged.paged_gather(pool, table)
+        want = paged.paged_gather_plain(pool, table)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"paged_gather {label}: bad output")
+        equal = torch.equal(got, want)
+        abs_err = 0.0 if equal else (got.float() - want.float()).abs().max().item()
+        block_bytes = pool[0].numel() * pool.element_size()
+        print(f"[check] paged_gather {label}: pool {tuple(pool.shape)} "
+              f"{pool.dtype}, table {tuple(table.shape)}, {block_bytes} B a "
+              f"block (unit {paged.copy_unit(block_bytes, pool.data_ptr(), got.data_ptr())} B), "
+              f"bitwise equal {equal} (max|d| = {abs_err:.3e}, limit 0)")
+        require(equal, f"paged_gather {label}: differs from its plain version")
+        worst["paged_gather"] = max(worst["paged_gather"], abs_err)
+        checks += 1
+    trapped = paged_trap_check()
+    print(f"[check] paged_gather with a block id outside the pool, in a child "
+          f"process: {trapped}")
+    checks += 1
     print(f"[check] {checks} kernel checks passed (fp32 {TOL}; int8 exact, "
-          f"gelu {GELU_TOL})")
+          f"gelu {GELU_TOL}; paged_gather bitwise)")
 
     # -- phase 4: AlexNet end to end -------------------------------------------
     golden = json.loads((ROOT / "tests/goldens/table4_alexnet.json").read_text())
@@ -562,6 +981,11 @@ def main():
               f"{k8:.4f} ms ({100 * k8 / fwd:.1f}%) + quantization {q:.4f} ms "
               f"({100 * q / fwd:.1f}%) + rest {fwd - k8 - q:.4f} ms")
 
+    # -- phase 6: serving smollm-135m on the paged pool -----------------------
+    torch.cuda.empty_cache()
+    served = serve_phase(dev, E, gfid_matmul, paged, all_kernels[:1] + all_kernels[2:],
+                         worst)
+
     sources = {
         "gfid_conv2d_nhwc": ("src/repro_torch/csrc/gfid_conv.cu",
                              "src/repro/kernels/gfid_conv.py:79", "fp32"),
@@ -585,6 +1009,24 @@ def main():
             "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
             "library_ms": tot["library_ms"]})
+        if kname == "gfid_matmul":
+            kernels[-1]["launches_per_decode_step"] = served["step_launches"][0]
+    g = served["gather"]
+    kernels.append({
+        "name": "paged_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_gather.cu",
+        "replaces": "src/repro/kernels/paged.py:41",
+        **dict.fromkeys(("launches", "launches_per_decode_step"),
+                        served["step_launches"][1]),
+        "max_abs_err": worst["paged_gather"],
+        **dict.fromkeys(("ms", "kernel_ms"), g["ms"]),
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"]})
+    print(f"[serve] summary: {served['tps']:.1f} tokens/s, p50 "
+          f"{served['lat']['p50_ms']:.1f} ms, p95 {served['lat']['p95_ms']:.1f} ms; "
+          f"decode step {served['step_ms'][SERVE_BATCH]:.4f} ms with {SERVE_BATCH} live "
+          f"rows, {served['step_ms'][1]:.4f} ms with 1; prefill({SERVE_PREFILL}) "
+          f"{served['prefill_ms']:.4f} ms; capture {served['capture_s']:.3f} s")
     print(name_power)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -140,7 +140,7 @@ def int8_matmul_i32(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     summed in int32. On a CUDA tensor the fp32 matmuls run with TF32 off."""
     k = xq.shape[-1]
     acc = None
-    with _no_tf32():
+    with no_tf32():
         for c0 in range(0, max(k, 1), INT8_EXACT_K):
             part = torch.matmul(xq[..., c0:c0 + INT8_EXACT_K].float(),
                                 wq[c0:c0 + INT8_EXACT_K].float()
@@ -150,7 +150,7 @@ def int8_matmul_i32(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _no_tf32() -> Iterator[None]:
+def no_tf32() -> Iterator[None]:
     """Switch TF32 off for CUDA fp32 matmuls in the block, then restore it."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False

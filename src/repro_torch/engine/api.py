@@ -6,6 +6,8 @@ PEs" contract):
     y = engine.conv2d(x, w, stride=2, pad=3, bias=b, act="relu")  # conv modes
     y = engine.dense(x, w)                            # FC mode, (…,n)@(n,m)
     y = engine.einsum("bn,nm->bm", x, w)              # FC mode, general
+    y = engine.proj(x, w)                             # parameter GEMM, x @ w
+    kv = engine.paged_gather(pool, table)             # paged-KV block gather
 
 Every call builds the op's `OpSpec` from its static shapes, computes the
 pure `EnginePlan` (cached), records it into any active `tracking()` ledger,
@@ -13,6 +15,13 @@ and dispatches to the selected backend: the plan's backend inside an
 executing `CompiledNet` (program replay), else the ambient `EngineConfig`'s.
 The op's precision resolves likewise (`_pin_precision`): an explicit
 `precision=` argument, else the replayed plan's, else the config's.
+
+Numerics: every fp32 op accumulates in fp32 and returns fp32 (the kernels
+take fp32 only; the reference's `accum_dtype=`/`out_dtype=` wait for a bf16
+GEMM kernel, ROADMAP queue 2). Under `EngineConfig(row_align=R)`
+a dense op whose leading x axis is a pure row dim pads it with zeros to a
+multiple of R and slices the result back (`_row_pad_amount`), as the
+reference does.
 
 Ops run on the device of the tensors they are given.
 """
@@ -145,6 +154,20 @@ def _pin_precision(op: planlib.OpSpec, plan: planlib.EnginePlan,
     return planlib.with_precision(plan, op, current_config().precision)
 
 
+def _row_pad_amount(structure: planlib.EinsumStructure,
+                    x_shape: Tuple[int, ...]) -> int:
+    """Rows to zero-pad onto x's leading axis under `cfg.row_align`: only
+    when that axis is a pure row dim (an x-free label, so rows are
+    independent and the output can be sliced back). A fixed GEMM row count
+    keeps each row's arithmetic independent of the batch size."""
+    align = current_config().row_align
+    if not align or not x_shape or x_shape[0] == 0:
+        return 0
+    if structure.x_labels[0] not in structure.x_free:
+        return 0
+    return -x_shape[0] % align
+
+
 def _check_epilogue(bias: Optional[torch.Tensor], act: Optional[str],
                     n_out: int, what: str) -> None:
     check_act(act)
@@ -206,8 +229,15 @@ def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
         check_act(act)
     plan = _pin_precision(op, _plan_for(op), precision)
     ledger_mod.record(plan)
-    return dispatch.run_op(plan, lambda be, pl: be.einsum(
+    pad = _row_pad_amount(structure, op.x_shape)
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    out = dispatch.run_op(plan, lambda be, pl: be.einsum(
         spec, x, w, pl, structure, bias=bias, act=act))
+    if pad:
+        ax = structure.out_labels.index(structure.x_labels[0])
+        out = out.narrow(ax, 0, op.x_shape[0])
+    return out
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, *,
@@ -218,6 +248,30 @@ def dense(x: torch.Tensor, w: torch.Tensor, *,
     optional fused bias ((m,)) / activation epilogue."""
     return einsum(planlib.dense_spec(x.ndim), x, w, bias=bias, act=act,
                   precision=precision)
+
+
+# The model code's parameter GEMM, under the reference's name.
+proj = dense
+
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Paged-KV block gather (a serving memory move).
+
+    pool:  (num_blocks, block_size, *feature), any dtype — a
+           `serve.kv_pool` block pool tensor.
+    table: (B, blocks_per_req) int32 — per-request block ids.
+    Returns (B, blocks_per_req * block_size, *feature): each request's
+    dense cache view rebuilt from its blocks, bitwise.
+
+    Routed through the engine like any dense op: it records a zero-MAC
+    "gather" plan, is captured into programs, and dispatches per backend
+    (the `paged_gather` kernel on "cuda", `index_select` on "torch" and
+    "ref")."""
+    op = planlib.OpSpec("gather", tuple(map(int, pool.shape)),
+                        tuple(map(int, table.shape)))
+    plan = _plan_for(op)
+    ledger_mod.record(plan)
+    return dispatch.run_op(plan, lambda be, pl: be.gather(pool, table, pl))
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,

@@ -40,6 +40,13 @@ class EngineConfig:
     precision — "fp32" or "int8" (quantize conv and canonical-GEMM ops to
                 int8 with exact int32 accumulation; other ops stay fp32).
                 Any other value raises `ValueError`.
+    row_align — None, or a positive int R: every dense op whose leading x
+                axis is a pure row dim zero-pads that axis to a multiple of
+                R before the GEMM and slices the result back (the
+                reference's serving knob). `ContinuousScheduler` also
+                starts its decode buckets at R rows, so up to R live rows
+                share one decode shape and a row's tokens do not depend on
+                the batch it rides in.
     policy, tuning, parallel, fallback — the reference's knobs, not ported
                 yet: any value but the default raises `NotImplementedError`.
     """
@@ -50,11 +57,16 @@ class EngineConfig:
     parallel: Optional[Any] = None
     precision: str = "fp32"
     fallback: str = "none"
+    row_align: Optional[int] = None
 
     def __post_init__(self) -> None:
         if self.precision not in PRECISIONS:
             raise ValueError(f"unknown precision {self.precision!r}; "
                              f"expected one of {PRECISIONS}")
+        if self.row_align is not None and (
+                not isinstance(self.row_align, int) or self.row_align < 1):
+            raise ValueError(f"row_align must be None or a positive int; "
+                             f"got {self.row_align!r}")
         for knob, (supported, item) in _NOT_YET.items():
             value = getattr(self, knob)
             if value != supported:

@@ -15,6 +15,10 @@ A backend implements the engine's op kinds against a precomputed
 pallas -> xla -> ref degradation chain is not ported: a backend's error
 propagates (see `EngineConfig.fallback`).
 
+The paged-KV gather (`engine.paged_gather`) is a copy: "cuda" launches the
+`paged_gather` kernel, "torch" and "ref" run its plain version
+(`index_select`); all three are bitwise equal.
+
 A plan pinned to `precision="int8"` runs the shared quantized contract on
 every backend: quantize both operands (`core.quant`), an exact int32
 product, then `dequant_epilogue`. "torch" and "ref" lower it here; "cuda"
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch.core import gfid, quant
 from repro_torch.engine.plan import canonical_gemm
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, paged
 from repro_torch.kernels.epilogue import apply_epilogue, dequant_epilogue
 
 
@@ -38,11 +42,13 @@ class EngineBackend:
     """One execution strategy for the engine's op kinds. `conv2d` and
     `einsum` receive the op's `EnginePlan` and the fused-epilogue kwargs
     (`bias=`, `act=`); `einsum` also receives the literal spec and its
-    parsed `EinsumStructure`."""
+    parsed `EinsumStructure`; `gather` receives the pool, the block table
+    and the plan."""
 
     name: str
     conv2d: Callable[..., torch.Tensor]
     einsum: Callable[..., torch.Tensor]
+    gather: Callable[..., torch.Tensor]
 
 
 _REGISTRY: Dict[str, EngineBackend] = {}
@@ -151,6 +157,19 @@ def _cuda_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
                            precision=plan.precision)
 
 
-register_backend(EngineBackend("cuda", _cuda_conv2d, _cuda_einsum))
-register_backend(EngineBackend("torch", _torch_conv2d, _torch_einsum))
-register_backend(EngineBackend("ref", _ref_conv2d, _torch_einsum))
+def _cuda_gather(pool, table, plan):
+    return ops.paged_gather(pool, table)
+
+
+def _plain_gather(pool, table, plan):
+    """The "torch" and "ref" gather: the kernel's plain version, on any
+    device."""
+    return paged.paged_gather_plain(pool, table.to(torch.int32))
+
+
+register_backend(EngineBackend("cuda", _cuda_conv2d, _cuda_einsum,
+                               _cuda_gather))
+register_backend(EngineBackend("torch", _torch_conv2d, _torch_einsum,
+                               _plain_gather))
+register_backend(EngineBackend("ref", _ref_conv2d, _torch_einsum,
+                               _plain_gather))

@@ -37,7 +37,7 @@ class OpSpec:
     """The shape-complete invocation record of one engine op: one node of a
     `program.Program` graph, re-plannable under any config via `plan_op`."""
 
-    kind: str                       # "conv2d" | "dense"
+    kind: str                       # "conv2d" | "dense" | "gather"
     x_shape: Shape
     w_shape: Shape
     spec: str = ""                  # einsum spec ("dense" kind only)
@@ -47,7 +47,7 @@ class OpSpec:
     name: str = dataclasses.field(default="", compare=False)  # layer label
 
     def __post_init__(self) -> None:
-        if self.kind not in ("conv2d", "dense"):
+        if self.kind not in ("conv2d", "dense", "gather"):
             raise ValueError(f"unknown op kind {self.kind!r}")
 
 
@@ -56,6 +56,8 @@ def plan_op(op: OpSpec, backend: str) -> "EnginePlan":
     if op.kind == "conv2d":
         return plan_conv2d(op.x_shape, op.w_shape, op.stride, op.pad,
                            op.groups, backend)
+    if op.kind == "gather":
+        return plan_gather(op.x_shape, op.w_shape, backend)
     return plan_einsum(op.spec, op.x_shape, op.w_shape, backend)
 
 
@@ -63,7 +65,7 @@ def plan_op(op: OpSpec, backend: str) -> "EnginePlan":
 class EnginePlan:
     """Everything the engine decided about one op, from shapes alone."""
 
-    kind: str                       # "conv2d" | "dense"
+    kind: str                       # "conv2d" | "dense" | "gather"
     backend: str                    # registry name ("cuda" | "torch" | "ref")
     mode: modes.Mode                # paper mode (W_f, S) with Table-3 schedule
     tiling: Tuple[int, int, int]    # Hopper block tile of the "cuda" kernel
@@ -210,6 +212,26 @@ def plan_einsum(spec: str, x_shape: Shape, w_shape: Shape,
         f"batched weights over {len(st.batch)} dim(s)")
 
 
+@functools.lru_cache(maxsize=4096)
+def plan_gather(x_shape: Shape, w_shape: Shape, backend: str) -> EnginePlan:
+    """x: (num_blocks, block_size, *feature) paged KV pool; w: (B,
+    blocks_per_req) int32 block table. A pure memory move (zero MACs),
+    priced as the reference prices it: the words gathered, one read and
+    one write each, moved at one word per PE per cycle. `tiling` is the
+    kernel's block tile: one pool block (block_size x feature) per thread
+    block."""
+    block_size = int(x_shape[1])
+    feature = math.prod(int(v) for v in x_shape[2:])
+    b, blocks_per_req = (int(v) for v in w_shape)
+    words = b * blocks_per_req * block_size * feature
+    return EnginePlan(
+        kind="gather", backend=backend, mode=modes.fc_mode(),
+        tiling=(1, block_size, feature),
+        cycles=-(-words // modes.MMIE_NUM_PES),
+        ma_words=2 * words, macs=0,
+        note="paged-KV block gather (pure memory move)")
+
+
 PRECISIONS = ("fp32", "int8")
 
 
@@ -219,6 +241,8 @@ def supports_int8(op: OpSpec) -> bool:
     backend agrees on which ops quantize."""
     if op.kind == "conv2d":
         return True
+    if op.kind == "gather":
+        return False
     st = parse_einsum(op.spec, len(op.x_shape), len(op.w_shape))
     return canonical_gemm(st, len(op.w_shape))
 

@@ -13,9 +13,17 @@
 
 The executed op sequence is captured by running the forward on `meta`
 tensors (shapes only, no data, no device) — the analogue of the reference's
-`jax.eval_shape`. Capture and execution both run through `api.capturing` /
-`api.replaying`, so a compiled network and an eager call see the exact same
-planning logic.
+`jax.eval_shape`. `trace_program(fn, *avals)` builds a `Program` from any
+function that way. Unlike the reference, whose `jax.lax.scan` over a
+model's layer groups is traced once (so its programs record one group),
+the port runs layers in a Python loop: its programs record every executed
+op, and a compiled program's strict replay sees each of them.
+
+Capture and execution both run through `api.capturing` / `api.replaying`,
+so a compiled network and an eager call see the exact same planning logic.
+A program may update tensors it is given in place (the serving programs
+write the paged KV pool with `index_put_`); that takes the place of the
+reference's `compile(donate_argnums=)`.
 """
 from __future__ import annotations
 
@@ -44,6 +52,22 @@ class Program:
     fn: Optional[Callable[..., Any]] = dataclasses.field(
         default=None, compare=False)
     in_avals: Tuple[Any, ...] = dataclasses.field(default=(), compare=False)
+
+
+def trace_program(fn: Callable[..., Any], *avals: Any,
+                  name: str = "traced") -> Program:
+    """Capture `fn`'s engine ops into a `Program` by running it on `meta`
+    tensors (`avals`: pytrees of them, the analogue of the reference's
+    `jax.ShapeDtypeStruct`s). No arithmetic runs and no device memory is
+    touched; every `engine.*` op that `fn` calls is recorded in call order with
+    its static shapes, and ops outside the engine (elementwise math,
+    softmax, indexing) run on `meta` without being recorded.
+
+    The reference's `batch_size`/`batch_axes` (re-batching with
+    `Program.with_batch`) are not ported: ROADMAP queue 1, item 2."""
+    return Program(name=name,
+                   ops=_capture_ops(fn, avals, current_config())[0], fn=fn,
+                   in_avals=tuple(avals))
 
 
 def _capture_ops(fn: Callable[..., Any], avals: Tuple[Any, ...],
@@ -85,6 +109,11 @@ class NetworkPlan:
         return tuple(p for p in self.plans if p.kind == "dense")
 
     @property
+    def gather_plans(self) -> Tuple[EnginePlan, ...]:
+        """Paged-KV gather ops (serving memory moves, zero MACs)."""
+        return tuple(p for p in self.plans if p.kind == "gather")
+
+    @property
     def conv_cycles(self) -> int:
         return sum(p.cycles for p in self.conv_plans)
 
@@ -93,12 +122,29 @@ class NetworkPlan:
         return sum(p.cycles for p in self.fc_plans)
 
     @property
+    def gather_cycles(self) -> int:
+        return sum(p.cycles for p in self.gather_plans)
+
+    @property
     def conv_latency_s(self) -> float:
         return self.conv_cycles / modes.MMIE_CONV_FREQ_HZ
 
     @property
     def fc_latency_s(self) -> float:
         return self.fc_cycles / modes.MMIE_FC_FREQ_HZ
+
+    @property
+    def gather_latency_s(self) -> float:
+        """Paged-KV reconstruction time, priced at the conv (memory-system)
+        clock — a pure data move never waits on the 40 MHz FC array."""
+        return self.gather_cycles / modes.MMIE_CONV_FREQ_HZ
+
+    @property
+    def total_latency_s(self) -> float:
+        """The analytic latency of the whole program: conv, FC and gather
+        time (one device; the reference's collective term is zero without
+        a mesh)."""
+        return self.conv_latency_s + self.fc_latency_s + self.gather_latency_s
 
     @property
     def conv_ma_words(self) -> int:

@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.kernels import gfid_conv as _conv
 from repro_torch.kernels import gfid_matmul as _matmul
+from repro_torch.kernels import paged as _paged
 
 
 def _contig(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -68,3 +69,11 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
         out = _matmul.gfid_matmul(x2, w.contiguous(), bias=_contig(bias),
                                   act=act)
     return out.reshape(*lead, w.shape[-1])
+
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Paged-KV block gather: pool (num_blocks, block_size, *feature) by an
+    int32 block table (B, blocks_per_req) -> (B, blocks_per_req *
+    block_size, *feature), a bitwise copy (one launch)."""
+    return _paged.paged_gather(pool.contiguous(),
+                               table.to(torch.int32).contiguous())

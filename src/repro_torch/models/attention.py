@@ -1,0 +1,190 @@
+"""Attention: GQA with global causal masking, full-sequence (prefill) and
+single-token (decode) paths. A copy of the JAX package's
+`models/attention.py` for GLOBAL_ATTN layers.
+
+All projections are FC-mode GEMMs of the multi-mode engine; the score and
+value contractions are plain tensor ops, as in the reference, in fp32 with
+TF32 off. Not ported
+(each raises, naming its ROADMAP item): the chunked prefill for sequences
+over 1024 (`models/flash.py`), MLA, cross-attention and the sliding
+window.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import engine
+from repro_torch.configs.base import GLOBAL_ATTN, ModelConfig
+from repro_torch.core.quant import no_tf32
+from repro_torch.models.layers import (D_MODEL, HEADS, ParamDef, apply_rope,
+                                       rms_norm)
+
+NEG_INF = -2.0e38
+DENSE_MAX_SEQ = 1024    # the reference runs longer prefills chunked
+
+
+def check_supported(cfg: ModelConfig, kind: str) -> None:
+    """Raise for what this slice does not port."""
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA attention is not ported to repro_torch "
+                                  "yet; see ROADMAP queue 1, item 10")
+    if kind != GLOBAL_ATTN:
+        raise NotImplementedError(
+            f"{kind!r} attention layers are not ported to repro_torch yet "
+            "(global only); see ROADMAP queue 1, item 8")
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+def attention_defs(cfg: ModelConfig, kind: str) -> Dict[str, ParamDef]:
+    check_supported(cfg, kind)
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    defs = {
+        "wq": ParamDef((d, h * hd), (D_MODEL, HEADS)),
+        "wk": ParamDef((d, kv * hd), (D_MODEL, None)),
+        "wv": ParamDef((d, kv * hd), (D_MODEL, None)),
+        "wo": ParamDef((h * hd, d), (HEADS, D_MODEL)),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), (None,), "ones")
+        defs["k_norm"] = ParamDef((hd,), (None,), "ones")
+    return defs
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, softcap_val: float = 0.0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """O(S^2)-memory attention. q: (B, Sq, H, Dk); k: (B, Skv, KV, Dk);
+    v: (B, Skv, KV, Dv) -> (B, Sq, H, Dv), in q's dtype."""
+    b, sq, h, dk = q.shape
+    _, skv, n_kv, dv = v.shape
+    g = h // n_kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    qg = q.reshape(b, sq, n_kv, g, dk)
+    with no_tf32():
+        s = torch.einsum("bskgd,bukd->bkgsu", qg.float(), k.float()) * scale
+        if softcap_val:
+            s = softcap_val * torch.tanh(s / softcap_val)
+        if causal:
+            qp = torch.arange(sq, device=q.device)
+            kp = torch.arange(skv, device=q.device)
+            mask = qp[:, None] >= kp[None, :]
+            s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgsu,bukd->bskgd", p, v.float())
+    return o.reshape(b, sq, h, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def attention_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                      positions: torch.Tensor, kind: str,
+                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Returns (out, (k, v)) — k and v returned so prefill can seed the
+    cache."""
+    check_supported(cfg, kind)
+    b, s, _ = x.shape
+    if s > DENSE_MAX_SEQ:
+        raise NotImplementedError(
+            f"a {s}-token prefill needs the chunked attention of "
+            "models/flash.py, which is not ported to repro_torch yet; see "
+            "ROADMAP queue 1, item 8")
+    hd = cfg.head_dim
+    q = _split_heads(engine.proj(x, p["wq"]), cfg.n_heads)
+    k = _split_heads(engine.proj(x, p["wk"]), cfg.n_kv_heads)
+    v = _split_heads(engine.proj(x, p["wv"]), cfg.n_kv_heads)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = dense_attention(q, k, v, causal=not cfg.is_encoder,
+                        softcap_val=cfg.attn_softcap)
+    out = engine.proj(o.reshape(b, s, cfg.n_heads * hd), p["wo"])
+    return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Decode (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """Zero cache for one attention layer (`meta` tensors on the `meta`
+    device)."""
+    check_supported(cfg, kind)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _decode_core(qg: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 pos: torch.Tensor, softcap_val: float) -> torch.Tensor:
+    """Scores, exact mask, softmax and weighted sum of one decode token per
+    row. qg (B, KV, g, hd) fp32; ck, cv (B, L, KV, hd) in the cache dtype,
+    upcast exactly to fp32 (the reference's einsum promotes the same way);
+    pos (B,). Row-wise: row b reads only row b of each input."""
+    hd = qg.shape[-1]
+    with no_tf32():
+        s = torch.einsum("bkgd,bukd->bkgu", qg, ck.float()) / math.sqrt(hd)
+        if softcap_val:
+            s = softcap_val * torch.tanh(s / softcap_val)
+        idx = torch.arange(ck.shape[1], device=ck.device)
+        valid = idx[None, :] <= pos[:, None]
+        s = torch.where(valid[:, None, None, :], s,
+                        torch.full((), NEG_INF, device=s.device))
+        pr = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgu,bukd->bkgd", pr, cv.float())
+
+
+def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict,
+                     pos: torch.Tensor, kind: str,
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, 1, D); pos: a scalar int position, or a (B,) int vector of
+    per-row positions (continuous batching: every row at its own depth).
+    Writes the new key and value into `cache` in place (row b at slot
+    pos[b], cast to the cache dtype) and returns (out, cache).
+
+    A scalar position runs as the vector of B copies of it, so the two
+    paths are the same arithmetic. Masked scores are NEG_INF, whose softmax
+    weight is exactly 0.0 in fp32, so the slots past `pos` (zeros in a
+    dense cache, recycled blocks in a paged one) contribute exactly 0."""
+    check_supported(cfg, kind)
+    b = x.shape[0]
+    hd = cfg.head_dim
+    q = _split_heads(engine.proj(x, p["wq"]), cfg.n_heads)
+    k = _split_heads(engine.proj(x, p["wk"]), cfg.n_kv_heads)
+    v = _split_heads(engine.proj(x, p["wv"]), cfg.n_kv_heads)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    pos = torch.as_tensor(pos, device=x.device)
+    posv = (pos.expand(b) if pos.ndim == 0 else pos).long()
+    if cfg.use_rope:
+        q = apply_rope(q, posv[:, None], cfg.rope_theta)
+        k = apply_rope(k, posv[:, None], cfg.rope_theta)
+
+    ck, cv = cache["k"], cache["v"]
+    rows = torch.arange(b, device=x.device)
+    ck.index_put_((rows, posv), k[:, 0].to(ck.dtype))
+    cv.index_put_((rows, posv), v[:, 0].to(cv.dtype))
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, cfg.n_kv_heads, g, hd).float()
+    o = _decode_core(qg, ck, cv, posv, cfg.attn_softcap)
+    out = engine.proj(o.reshape(b, 1, cfg.n_heads * hd).to(x.dtype), p["wo"])
+    return out, cache

@@ -24,12 +24,13 @@ import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch import engine as E
 from repro_torch.core.analytics import ConvLayerSpec, FCLayerSpec
+from repro_torch.models.layers import (  # noqa: F401 (re-exported)
+    params_from_jax, resolve_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,23 +179,12 @@ def _param_defs(net: CNNDef) -> Tuple[List[ConvDef], Tuple[FCDef, ...]]:
             for s in convs], net.fcs
 
 
-def _resolve_device(device: Optional[str]) -> torch.device:
-    """`device` as given, else the GPU; never a silent move to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "port's plain CPU path explicitly")
-    return torch.device("cuda")
-
-
 def init_cnn(name: str, seed: int = 0,
              device: Optional[str] = None) -> Dict[str, Dict[str, Dict]]:
     """Random fp32 He-normal weights (zero biases) from an explicit
     `torch.Generator` seeded with `seed`, on `device` (default: the GPU;
     raises when there is none)."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     convs, fcs = _param_defs(CNNS[name])
     params: Dict[str, Dict[str, Dict]] = {"conv": {}, "fc": {}}
@@ -212,23 +202,6 @@ def init_cnn(name: str, seed: int = 0,
                                  "b": torch.zeros(fd.m, dtype=torch.float32,
                                                   device=dev)}
     return params
-
-
-def params_from_jax(tree: Dict[str, Any],
-                    device: Optional[str] = None) -> Dict[str, Any]:
-    """Carry the JAX package's parameters across: the same nested dict of
-    `conv/<layer>/{w,b}` and `fc/<layer>/{w,b}`, with each leaf (a numpy
-    array, or anything `np.asarray` takes) copied into a torch tensor on
-    `device` (default: the GPU; raises when there is none). Layouts are
-    kept: HWIO conv weights, (n, m) FC weights."""
-    dev = _resolve_device(device)
-
-    def move(node: Any) -> Any:
-        if isinstance(node, dict):
-            return {k: move(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node)).to(dev)
-
-    return move(tree)
 
 
 def _meta_params(net: CNNDef) -> Dict[str, Dict[str, Dict]]:

@@ -1,0 +1,312 @@
+"""Top-level model assembly for the dense decoder family: parameter trees,
+full-sequence forward and prefill, and single-token decode over an explicit
+state tree. A copy of the JAX package's `models/transformer.py` for dense
+configs whose layers are GLOBAL_ATTN blocks with a dense FFN.
+
+The reference runs the layer groups under `jax.lax.scan`; the port loops
+over the stacked group axis in Python, so each layer's engine ops are
+called (and captured into programs) one by one. Parameter and state trees
+keep the reference's layout: `params["groups"][j]` stacks layer j of every
+group on axis 0, and the decode state is `{"groups": {j: {"k", "v"}},
+"rem": {}}` with leaves `(n_groups, B, max_len, kv_heads, head_dim)`.
+
+Parameters are fp32 by default: the port's GEMM kernel takes fp32 only (a
+bf16 GEMM kernel is ROADMAP queue 2 work), so the config's `param_dtype`
+is not the default here. Caches are bf16 (`state_dtype`), as in the
+reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import engine
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.layers import (
+    D_MODEL, VOCAB, DefTree, ParamDef, embed_def, embed_lookup, init_tree,
+    layer_norm, resolve_device, rms_norm, shape_tree,
+    stack_defs, tree_map, unembed)
+from repro_torch.models.layers import params_from_jax  # noqa: F401 (re-exported)
+
+PARAM_DTYPE = torch.float32
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port's model code does not run yet."""
+    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) is not ported to repro_torch yet: "
+            "only dense decoder LMs; see ROADMAP queue 1, item 10")
+    for kind in cfg.layer_kinds:
+        attn.check_supported(cfg, kind)
+    if cfg.d_frontend or cfg.n_img_tokens or cfg.is_encoder:
+        raise NotImplementedError(
+            f"{cfg.name}: front ends, image tokens and encoders are not "
+            "ported to repro_torch yet; see ROADMAP queue 1, item 10")
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+def _norm_defs(cfg: ModelConfig, name: str) -> Dict[str, ParamDef]:
+    if cfg.use_layer_norm:
+        return {f"{name}_scale": ParamDef((cfg.d_model,), (D_MODEL,), "ones"),
+                f"{name}_bias": ParamDef((cfg.d_model,), (D_MODEL,), "zeros")}
+    return {f"{name}_scale": ParamDef(
+        (cfg.d_model,), (D_MODEL,), "zeros" if cfg.scale_plus_one_norm
+        else "ones")}
+
+
+def _apply_norm(cfg: ModelConfig, p: Dict, name: str,
+                x: torch.Tensor) -> torch.Tensor:
+    if cfg.use_layer_norm:
+        return layer_norm(x, p[f"{name}_scale"], p[f"{name}_bias"],
+                          cfg.norm_eps)
+    return rms_norm(x, p[f"{name}_scale"], cfg.norm_eps,
+                    scale_plus_one=cfg.scale_plus_one_norm)
+
+
+def block_defs(cfg: ModelConfig, kind: str, use_moe: bool) -> DefTree:
+    if use_moe:
+        raise NotImplementedError("MoE layers are not ported to repro_torch "
+                                  "yet; see ROADMAP queue 1, item 10")
+    defs: Dict[str, Any] = {}
+    defs.update(_norm_defs(cfg, "pre"))
+    defs["attn"] = attn.attention_defs(cfg, kind)
+    if cfg.post_block_norm:
+        defs.update(_norm_defs(cfg, "post"))
+    if cfg.d_ff > 0:
+        defs.update(_norm_defs(cfg, "pre_ffn"))
+        defs["ffn"] = ffn_mod.ffn_defs(cfg)
+        if cfg.post_block_norm:
+            defs.update(_norm_defs(cfg, "post_ffn"))
+    return defs
+
+
+def _group_layout(cfg: ModelConfig) -> Tuple[List[Tuple[str, bool]],
+                                             List[Tuple[str, bool]]]:
+    """Static (kind, use_moe) per position: (group pattern, remainder)."""
+    kinds = cfg.layer_kinds
+    rem_n = len(cfg.remainder)
+    if cfg.remainder_first:
+        rem_idx = range(rem_n)
+        grp_idx = range(rem_n, rem_n + len(cfg.pattern))
+    else:
+        rem_idx = range(cfg.n_layers - rem_n, cfg.n_layers)
+        grp_idx = range(len(cfg.pattern))
+    group = [(kinds[i], cfg.is_moe_layer(i)) for i in grp_idx]
+    rem = [(kinds[i], cfg.is_moe_layer(i)) for i in rem_idx]
+    for g in range(cfg.n_groups):
+        base = (rem_n if cfg.remainder_first else 0) + g * len(cfg.pattern)
+        for j in range(len(cfg.pattern)):
+            if (kinds[base + j], cfg.is_moe_layer(base + j)) != group[j]:
+                raise ValueError(
+                    f"group layout not uniform at layer {base + j}")
+    return group, rem
+
+
+def model_defs(cfg: ModelConfig) -> DefTree:
+    check_supported(cfg)
+    group, rem = _group_layout(cfg)
+    defs: Dict[str, Any] = {"embed": embed_def(cfg.vocab_size, cfg.d_model)}
+    group_defs = {str(j): block_defs(cfg, k, m)
+                  for j, (k, m) in enumerate(group)}
+    defs["groups"] = stack_defs(group_defs, cfg.n_groups)
+    defs["rem"] = {str(j): block_defs(cfg, k, m)
+                   for j, (k, m) in enumerate(rem)}
+    defs.update(_norm_defs(cfg, "final"))
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                   (D_MODEL, VOCAB))
+    return defs
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                dtype: torch.dtype = PARAM_DTYPE) -> Dict[str, Any]:
+    """Random parameters from an explicit `torch.Generator` seeded with
+    `seed`, on `device` (default: the GPU; raises when there is none)."""
+    dev = resolve_device(device)
+    return init_tree(model_defs(cfg), torch.Generator().manual_seed(seed),
+                     dtype, dev)
+
+
+def param_shapes(cfg: ModelConfig,
+                 dtype: torch.dtype = PARAM_DTYPE) -> Dict[str, Any]:
+    """The parameter tree as `meta` tensors: shapes and dtypes, no
+    storage."""
+    return shape_tree(model_defs(cfg), dtype)
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer i of a tree stacked over the groups (views, no copies)."""
+    return tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def block_forward(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One residual block. Returns (x, (k, v))."""
+    h = _apply_norm(cfg, p, "pre", x)
+    sub, kv = attn.attention_forward(cfg, p["attn"], h, positions, kind)
+    if cfg.post_block_norm:
+        sub = _apply_norm(cfg, p, "post", sub)
+    x = x + sub
+    if cfg.d_ff > 0:
+        h = _apply_norm(cfg, p, "pre_ffn", x)
+        sub = ffn_mod.ffn_forward(cfg, p["ffn"], h)
+        if cfg.post_block_norm:
+            sub = _apply_norm(cfg, p, "post_ffn", sub)
+        x = x + sub
+    return x, kv
+
+
+def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (x, positions), from `batch["tokens"]` (B, S) and optional
+    `batch["positions"]`."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    return x, positions
+
+
+def _blocks(cfg: ModelConfig):
+    """(params path, layer index or None, kind, use_moe) of every layer in
+    execution order: the remainder before or after the stacked groups."""
+    group, rem = _group_layout(cfg)
+    rem_steps = [(("rem", str(j)), None, k, m) for j, (k, m) in enumerate(rem)]
+    grp_steps = [(("groups", str(j)), i, k, m)
+                 for i in range(cfg.n_groups) for j, (k, m) in enumerate(group)]
+    return (rem_steps + grp_steps if cfg.remainder_first
+            else grp_steps + rem_steps)
+
+
+def _at(tree: Dict, path, i: Optional[int]) -> Any:
+    sub = tree[path[0]][path[1]]
+    return sub if i is None else _layer(sub, i)
+
+
+def forward(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """Full-sequence forward. Returns the final hidden state (B, S, D)."""
+    x, positions = embed_inputs(cfg, params, batch)
+    for path, i, kind, use_moe in _blocks(cfg):
+        x, _ = block_forward(cfg, kind, use_moe, _at(params, path, i), x,
+                             positions)
+    return _apply_norm(cfg, params, "final", x)
+
+
+def logits_fn(cfg: ModelConfig, params: Dict,
+              hidden: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = unembed(hidden, params["embed"])
+    else:
+        logits = engine.dense(hidden, params["lm_head"])
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Decode state (grouped layout mirroring the parameter tree)
+# ---------------------------------------------------------------------------
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device=None) -> Dict:
+    """Zero decode state: {"groups": {j: leaves stacked over n_groups},
+    "rem": {j: leaves}} (on `device`; `meta` for shapes alone)."""
+    check_supported(cfg)
+    group, rem = _group_layout(cfg)
+    g = cfg.n_groups
+    state: Dict[str, Any] = {"groups": {}, "rem": {}}
+    for j, (kind, _) in enumerate(group):
+        leaf = attn.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
+        state["groups"][str(j)] = tree_map(
+            lambda a: torch.zeros((g,) + tuple(a.shape), dtype=a.dtype,
+                                  device=a.device), leaf)
+    for j, (kind, _) in enumerate(rem):
+        state["rem"][str(j)] = attn.init_kv_cache(cfg, kind, batch, max_len,
+                                                  dtype, device)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token against the grouped state)
+# ---------------------------------------------------------------------------
+
+def _block_decode(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
+                  st: Dict, x: torch.Tensor, pos: torch.Tensor,
+                  ) -> Tuple[torch.Tensor, Dict]:
+    h = _apply_norm(cfg, p, "pre", x)
+    sub, st = attn.attention_decode(cfg, p["attn"], h, st, pos, kind)
+    if cfg.post_block_norm:
+        sub = _apply_norm(cfg, p, "post", sub)
+    x = x + sub
+    if cfg.d_ff > 0:
+        h = _apply_norm(cfg, p, "pre_ffn", x)
+        sub = ffn_mod.ffn_forward(cfg, p["ffn"], h)
+        if cfg.post_block_norm:
+            sub = _apply_norm(cfg, p, "post_ffn", sub)
+        x = x + sub
+    return x, st
+
+
+def decode_step(cfg: ModelConfig, params: Dict, state: Dict,
+                tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. tokens: (B, 1) int; pos: a scalar absolute
+    position, or a (B,) int vector of per-row positions (continuous
+    batching; see `attention.attention_decode`). Writes each layer's new
+    key and value into `state` in place and returns (logits (B, 1, V),
+    state)."""
+    x = embed_lookup(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    for path, i, kind, use_moe in _blocks(cfg):
+        x, _ = _block_decode(cfg, kind, use_moe, _at(params, path, i),
+                             _at(state, path, i), x, pos)
+    x = _apply_norm(cfg, params, "final", x)
+    return logits_fn(cfg, params, x), state
+
+
+# ---------------------------------------------------------------------------
+# Prefill (full sequence, filling the grouped state)
+# ---------------------------------------------------------------------------
+
+def _block_prefill(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
+                   st: Dict, x: torch.Tensor, positions: torch.Tensor,
+                   ) -> torch.Tensor:
+    """One residual block; writes its k and v (cast to the cache dtype)
+    into the first S slots of `st` in place."""
+    s = x.shape[1]
+    x, (k, v) = block_forward(cfg, kind, use_moe, p, x, positions)
+    st["k"][:, :s] = k.to(st["k"].dtype)
+    st["v"][:, :s] = v.to(st["v"].dtype)
+    return x
+
+
+def prefill(cfg: ModelConfig, params: Dict, batch: Dict, max_len: int,
+            state_dtype: torch.dtype = torch.bfloat16,
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence prefill filling a fresh decode state of `max_len`
+    slots. Returns (last-token logits (B, V), state)."""
+    x, positions = embed_inputs(cfg, params, batch)
+    if x.shape[1] > max_len:
+        raise ValueError(f"prompt of {x.shape[1]} tokens exceeds "
+                         f"max_len={max_len}")
+    state = init_decode_state(cfg, x.shape[0], max_len, state_dtype,
+                              x.device)
+    for path, i, kind, use_moe in _blocks(cfg):
+        x = _block_prefill(cfg, kind, use_moe, _at(params, path, i),
+                           _at(state, path, i), x, positions)
+    x = _apply_norm(cfg, params, "final", x)
+    return logits_fn(cfg, params, x[:, -1]), state
