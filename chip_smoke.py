@@ -70,6 +70,34 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      `index_select`, `gfid_matmul` at the five decode GEMM shapes (M = 8)
      beside its bound and `torch.mm`, and the tied unembedding's transpose
      copy.
+  7. xLSTM serving: first `gfid_conv1d_depthwise` against its plain version,
+     bitwise, at the xLSTM prefill's shapes ((1, L, 1536) and (1, L, 768),
+     L = 16, 243, 384, causal, 4 taps), a ragged (3, 37, 100) causal and
+     centred, hubert's (2, 64, 1280) with 128 centred taps and bf16
+     operands; and `gfid_matmul` within TOL at every xLSTM GEMM shape, at
+     M = 8 and at a prompt-384 prefill's padded rows. Then xlstm-125m at
+     full width and depth (12 layers, mLSTM x 5 + sLSTM a group, d_model
+     768, 155.7 M fp32 parameters from seed 0) is served on the same pool
+     geometry and 16-request workload as phase 6, continuous, drain and
+     solo. Every decode-state leaf is a slot store, so nothing is paged.
+     Checks: every request done without preemption; one 8-row decode
+     bucket; tokens bitwise equal across the three runs and to
+     `greedy_generate` for 4 requests; every compiled op on "cuda", 67 GEMMs
+     a program and 12 depthwise convs a prefill program; launches of 67
+     `gfid_matmul` a decode step, 67 + 12 `gfid_conv1d_depthwise` a prefill
+     and no `paged_gather`; a decode step of one row alone bitwise equal,
+     logits and new state, to that row in the 8-row bucket; "torch" logits
+     within TOL of "cuda" for a prompt-384 prefill and for a bucket-8
+     decode step from the same state held in fp32, and within
+     BF16_STATE_TOL from the served bf16 state (a decode step rounds its
+     new conv input to bf16, and a value on a rounding boundary moves the
+     logits by more than the arithmetic). Prints tokens/s, p50/p95,
+     the decode step with 8 and with 1 live rows, the prefill at prompt 384
+     (two mLSTM chunks), `torch.profiler` breakdowns of both, the conv at the
+     prefill's shapes (CUDA events around a call, and the device alone from
+     a CUDA graph of 100 calls) beside its bound, its plain version and
+     `F.conv1d` (groups = D, TF32 off; timed both ways), and `gfid_matmul`
+     at the decode shapes.
 
 The last lines are the card's name and power limit, a JSON object listing
 the kernels, and `{"ok": true, "device": {...}}`.
@@ -86,6 +114,10 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4                  # max|Δ| / max|reference|, kernels and logits
+# xLSTM decode logits, "cuda" vs "torch", from the served bf16 state: about
+# 10x the largest reading on the H100 (8.6e-4), where one conv input that
+# rounds to the other bf16 neighbour moves the logits
+BF16_STATE_TOL = 1e-2
 GELU_TOL = 1e-6             # int8 kernels with gelu: max|Δ| / max|plain|
 SNR_FLOOR_DB = 28.0         # AlexNet int8 against fp32 (the reference's floor)
 BATCHES = (1, 32)
@@ -95,6 +127,11 @@ SERVE_MAX_LEN, SERVE_BLOCK, SERVE_BLOCKS, SERVE_BATCH = 512, 16, 257, 8
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_STEPS = 16, (16, 256), (16, 32, 64)
 SERVE_DENSE_CHECKS = 4      # requests also run through greedy_generate
 SERVE_PREFILL = 128         # the prompt length of the timed prefill
+# Phase 7: xlstm-125m on the same pool geometry and workload.
+SSM_MODEL = "xlstm_125m"
+SSM_SLOTS = 2 * SERVE_BATCH + 1   # state slots (slot 0 is the reserved dummy)
+SSM_PREFILL = 384           # the timed prefill: two 256-token mLSTM chunks
+SSM_CONV_LENS = (16, 243, 384)    # prefill lengths of the conv checks
 OTHER_NETS = ("vgg16", "resnet50")   # driven at batch 1 after AlexNet
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
@@ -130,6 +167,22 @@ def time_ms(fn, iters=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls=100):
+    """The device's time for one call of fn, without the host's launch: a
+    CUDA graph of `calls` calls, replayed between CUDA events (median of
+    10), over `calls`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, iters=10) / calls
 
 
 def bound_ms(n_bytes, ops, peak_ops=PEAK_FP32_FLOP_S):
@@ -574,6 +627,402 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
                 lat=cont["lat"], copy_ms=copy_ms)
 
 
+def ssm_conv_cases(gen, dev):
+    """(label, x, w, causal) for `gfid_conv1d_depthwise`: the xLSTM prefill's
+    mLSTM (1, L, 1536) and sLSTM (1, L, 768) convs at L = 16, 243 and 384,
+    causal, 4 taps; a ragged (3, 37, 100) in both modes; hubert's centred
+    128-tap positional conv at (2, 64, 1280); bf16 operands."""
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+    cases = [(f"xlstm (1, {l}, {d}) W_f 4 causal", t(1, l, d), t(4, d), True)
+             for l in SSM_CONV_LENS for d in (1536, 768)]
+    cases += [("ragged (3, 37, 100) W_f 4 causal", t(3, 37, 100), t(4, 100), True),
+              ("ragged (3, 37, 100) W_f 4 centred", t(3, 37, 100), t(4, 100), False),
+              ("ragged (3, 37, 100) W_f 5 centred", t(3, 37, 100), t(5, 100), False),
+              ("hubert (2, 64, 1280) W_f 128 centred", t(2, 64, 1280),
+               t(128, 1280), False),
+              ("bf16 (2, 17, 96) W_f 4 causal", t(2, 17, 96, dtype=torch.bfloat16),
+               t(4, 96, dtype=torch.bfloat16), True)]
+    return cases
+
+
+def ssm_gemm_shapes(cfg):
+    """(label, k, n) of every GEMM of an xLSTM decode step or prefill: the
+    mLSTM's w_up, wq/wk/wv, w_if and w_down, the sLSTM's w_gates, w_up and
+    w_down, and the tied unembedding."""
+    d = cfg.d_model
+    di = cfg.ssm.expand * d
+    dff = int(d * 4 / 3 / 64) * 64 * 2
+    return (("mlstm w_up / slstm w_gates", d, 2 * di), ("wq/wk/wv", di, di),
+            ("w_if", di, 2 * cfg.n_heads), ("w_down", di, d),
+            ("slstm w_up", d, dff), ("slstm w_down", dff // 2, d),
+            ("unembed", d, cfg.vocab_size))
+
+
+def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
+    """Phase 7: xlstm-125m served through `ContinuousScheduler` (see the
+    module docstring). Holds `gfid_conv1d_depthwise` bitwise and
+    `gfid_matmul` within TOL against their plain versions at the path's
+    shapes first. Returns the numbers the kernels line and the summary
+    print; folds the kernel-vs-plain errors into `worst`."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import engine as SE
+    from repro_torch.serve.scheduler import (ContinuousScheduler,
+                                             latency_percentiles)
+
+    mm, conv, gather = (gfid_matmul.gfid_matmul, conv1d.gfid_conv1d_depthwise,
+                        paged.paged_gather)
+    cfg = get_config(SSM_MODEL)
+    gen = torch.Generator().manual_seed(7)
+
+    # the kernels against their plain versions at the path's shapes
+    worst["gfid_conv1d_depthwise"] = 0.0
+    for label, x, w, causal in ssm_conv_cases(gen, dev):
+        got = conv(x, w, causal=causal)
+        want = conv1d.gfid_conv1d_depthwise_plain(x, w, causal=causal)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype
+                and bool(torch.isfinite(got).all()),
+                f"gfid_conv1d_depthwise {label}: bad output")
+        equal = torch.equal(got, want)
+        abs_err = (got - want).abs().max().item()
+        print(f"[check] gfid_conv1d_depthwise {label}: bitwise equal {equal} "
+              f"(max|d| = {abs_err:.3e}, limit 0)")
+        require(equal, f"gfid_conv1d_depthwise {label}: differs from its plain "
+                "version")
+        worst["gfid_conv1d_depthwise"] = max(worst["gfid_conv1d_depthwise"],
+                                             abs_err)
+    shapes = ssm_gemm_shapes(cfg)
+    for rows, what in ((8, "decode"), (8 * SSM_PREFILL, "prefill")):
+        for label, k, n in shapes[:-1] if what == "prefill" else shapes:
+            x = torch.randn((rows, k), generator=gen).to(dev)
+            w = torch.randn((k, n), generator=gen).to(dev)
+            got, want = mm(x, w), gfid_matmul.gfid_matmul_plain(x, w)
+            err = rel_err(got, want)
+            print(f"[check] gfid_matmul xlstm {what} {label} ({rows}, {k}) @ "
+                  f"({k}, {n}): max|d|/max|ref| = {err:.3e} (limit {TOL})")
+            require(err <= TOL, f"gfid_matmul xlstm {what} {label}: error "
+                    f"{err:.3e} > {TOL}")
+            worst["gfid_matmul"] = max(worst["gfid_matmul"],
+                                       (got - want).abs().max().item())
+
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=DEVICE)
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"[ssm] {cfg.name}: {cfg.n_layers} layers ({cfg.pattern.count('mlstm')} "
+          f"mLSTM + {cfg.pattern.count('slstm')} sLSTM a group, {cfg.n_groups} "
+          f"groups), d_model {cfg.d_model}, {cfg.n_heads} heads, expand "
+          f"{cfg.ssm.expand}, d_conv {cfg.ssm.d_conv}, vocab {cfg.vocab_size}; "
+          f"{n_params} fp32 parameters made in {time.perf_counter() - t0:.2f} s")
+    n_mlstm = cfg.n_groups * cfg.pattern.count("mlstm")
+    n_slstm = cfg.n_groups * cfg.pattern.count("slstm")
+    per_pass = 6 * n_mlstm + 3 * n_slstm + 1   # GEMMs of a decode step or prefill
+    convs = n_mlstm + n_slstm                   # depthwise convs of a prefill
+    gen = torch.Generator().manual_seed(0)
+    work = []
+    for _ in range(SERVE_REQUESTS):
+        n = int(torch.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, (1,),
+                              generator=gen))
+        steps = SERVE_STEPS[int(torch.randint(len(SERVE_STEPS), (1,),
+                                              generator=gen))]
+        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+        work.append((prompt, steps))
+    print(f"[ssm] workload: {len(work)} requests, prompts "
+          f"{sorted(len(p) for p, _ in work)} tokens, steps "
+          f"{[n for _, n in work]} ({sum(n for _, n in work)} tokens to generate)")
+    conf = E.EngineConfig(backend="cuda", row_align=8)
+
+    def scheduler(max_batch, admission):
+        return ContinuousScheduler(
+            cfg, params, max_len=SERVE_MAX_LEN, num_blocks=SERVE_BLOCKS,
+            block_size=SERVE_BLOCK, max_batch=max_batch, config=conf,
+            admission=admission, max_slots=SSM_SLOTS)
+
+    runs = {}
+    kernels = (mm, gather, conv) + tuple(other_kernels)
+    for mode, max_batch, admission in (
+            ("continuous", SERVE_BATCH, "continuous"),
+            ("drain", SERVE_BATCH, "drain"), ("solo", 1, "continuous")):
+        s = scheduler(max_batch, admission)
+        require(not any(sp.paged for sp in _leaves(s.layout.specs)),
+                "an xLSTM state leaf is paged")
+        t0 = time.perf_counter()
+        prefills = [s.prefill_compiled(n) for n in sorted({len(p) for p, _ in work})]
+        decodes = [s.decode_compiled(b) for b in s.buckets]
+        compile_s = time.perf_counter() - t0
+        for c, want_ops, want_convs in [(c, per_pass + convs, convs) for c in prefills] \
+                + [(c, per_pass, 0) for c in decodes]:
+            kinds = [op.kind for op in c.program.ops]
+            require(set(c.backends()) == {"cuda"} and len(kinds) == want_ops
+                    and len(c.exec_pairs) == want_ops
+                    and kinds.count("conv1d_dw") == want_convs
+                    and kinds.count("dense") == per_pass,
+                    f"{mode} {c.program.name}: backends {set(c.backends())}, "
+                    f"{len(kinds)} ops ({kinds.count('conv1d_dw')} convs), "
+                    f"expected {want_ops} ({want_convs})")
+        tickets = [s.submit(p, n) for p, n in work]
+        zero_counts(*kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = s.stats()
+        launches = counts(*kernels)
+        require(all(t.status == "done" and t.preemptions == 0 for t in tickets)
+                and st["evicted"] == 0, f"{mode}: not every request done "
+                "without preemption")
+        require(st["compiled_decode_buckets"] == [SERVE_BATCH], f"{mode}: decode "
+                f"buckets {st['compiled_decode_buckets']}, expected [{SERVE_BATCH}]")
+        want = (per_pass * (st["steps"] + st["admitted"]), 0,
+                convs * st["admitted"]) + (0,) * len(other_kernels)
+        require(launches == want and launches[0] and launches[2],
+                f"{mode}: launches (gfid_matmul, paged_gather, "
+                f"gfid_conv1d_depthwise, others) = {launches}, expected {want} "
+                f"for {st['steps']} decode steps and {st['admitted']} prefills")
+        n_tok = sum(len(t.tokens) for t in tickets)
+        lat = latency_percentiles(tickets)
+        runs[mode] = dict(tokens=[t.tokens for t in tickets], wall=wall,
+                          n_tok=n_tok, lat=lat, stats=st, launches=launches)
+        print(f"[ssm] {mode}: {st['steps']} decode steps (buckets "
+              f"{st['compiled_decode_buckets']}, fill {st['decode_fill']:.3f}), "
+              f"{st['admitted']} prefills, {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.1f} tokens/s; latency p50 {lat['p50_ms']:.1f} ms, "
+              f"p95 {lat['p95_ms']:.1f} ms; launches gfid_matmul {launches[0]}, "
+              f"paged_gather {launches[1]}, gfid_conv1d_depthwise {launches[2]} "
+              f"(= {per_pass} GEMMs a step and a prefill, {convs} convs a "
+              f"prefill), others {sum(launches[3:])}; {len(prefills) + len(decodes)} "
+              f"programs captured and compiled in {compile_s:.2f} s beforehand")
+        del s
+    base = runs["continuous"]["tokens"]
+    for mode in ("drain", "solo"):
+        require(runs[mode]["tokens"] == base, f"{mode} tokens differ from "
+                "the continuous run")
+    with E.using_config(conf):
+        for i, (prompt, steps) in enumerate(work[:SERVE_DENSE_CHECKS]):
+            dense = SE.greedy_generate(cfg, params, {"tokens": torch.tensor(
+                [prompt], device=dev)}, steps, SERVE_MAX_LEN)
+            require(dense[0].tolist() == base[i], f"request {i}: served tokens "
+                    "differ from greedy_generate's")
+    print(f"[ssm] tokens bitwise equal across continuous, drain and solo, and "
+          f"equal to greedy_generate for {SERVE_DENSE_CHECKS} requests")
+
+    # one decode step with 8 and with 1 live rows (one 8-row program)
+    s8 = scheduler(SERVE_BATCH, "continuous")
+    rows = [s8.submit(work[i % len(work)][0],
+                      SERVE_MAX_LEN - len(work[i % len(work)][0]))
+            for i in range(SERVE_BATCH)]
+    s8.step()                              # admits 8, runs one decode step
+    require(all(t.status == "running" for t in rows) and
+            s8.running() == SERVE_BATCH, f"{s8.running()} rows running")
+    step_ms, step_launches, profiles, logits = {}, {}, {}, {}
+    dec = s8.decode_compiled(SERVE_BATCH)
+    for live in (SERVE_BATCH, 1):
+        pad = SERVE_BATCH - live
+        rids = [t.rid for t in rows[:live]]
+        args = (params, s8.pool.arrays, s8.pool.table_rows(rids, SERVE_BATCH),
+                s8.pool.slot_rows(rids, SERVE_BATCH),
+                torch.tensor([[t.tokens[-1]] for t in rows[:live]] + [[0]] * pad,
+                             dtype=torch.int32, device=dev),
+                torch.tensor([t.pos for t in rows[:live]] + [0] * pad,
+                             dtype=torch.int32, device=dev))
+        snap = [a.clone() for a in _leaves(s8.pool.arrays)]
+        zero_counts(*kernels)
+        dec.apply(*args)
+        torch.cuda.synchronize()
+        one = step_launches[live] = counts(*kernels)
+        require(one == (per_pass, 0, 0) + (0,) * len(other_kernels),
+                f"{live} live rows: one decode step launched {one}")
+        step_ms[live] = time_ms(lambda: dec.apply(*args))
+        profiles[live] = device_profile(lambda: dec.apply(*args))
+        for a, b in zip(_leaves(s8.pool.arrays), snap):
+            a.copy_(b)
+        if live == SERVE_BATCH:
+            # the same decode step on both backends from the same state: as
+            # served (bf16 conv tails), and held in fp32. A decode step
+            # rounds its new conv input to the tail's dtype, and where the
+            # two backends' fp32 inputs straddle a bf16 rounding boundary
+            # the logits move by far more than the arithmetic; the fp32
+            # copy compares the arithmetic alone, and is the one held to TOL
+            for backend in ("cuda", "torch"):
+                for held in ("bf16", "fp32"):
+                    with E.using_config(conf.replace(backend=backend)), \
+                            torch.no_grad():
+                        state = s8.layout.gather(s8.pool.arrays, args[2],
+                                                 args[3])
+                        if held == "fp32":
+                            state = tree_map(lambda a: a.float(), state)
+                        logits[backend, held], _ = T.decode_step(
+                            cfg, params, state, args[4], args[5])
+            # one row alone against row 0 of the bucket: greedy_generate
+            # decodes a request at one row, the scheduler in the bucket
+            with E.using_config(conf), torch.no_grad():
+                st = [s8.layout.gather(s8.pool.arrays, t, sl) for t, sl in (
+                    (args[2], args[3]), (s8.pool.table_rows(rids[:1], 1),
+                                         s8.pool.slot_rows(rids[:1], 1)))]
+                l8, st8 = T.decode_step(cfg, params, st[0], args[4], args[5])
+                l1, st1 = T.decode_step(cfg, params, st[1], args[4][:1],
+                                        args[5][:1])
+            row_err = (l1 - l8[:1]).abs().max().item()
+            state_same = [torch.equal(a, b[:, :1]) for a, b in zip(
+                _leaves(st1["groups"]), _leaves(st8["groups"]), strict=True)]
+            require(not st1["rem"] and torch.equal(l1, l8[:1])
+                    and all(state_same), f"decode step: one row alone differs "
+                    f"from row 0 of the {SERVE_BATCH}-row bucket: logits "
+                    f"max|d| {row_err:.3e}, state leaves equal {state_same}")
+            del st, st1, st8
+        del snap
+    err = rel_err(logits["cuda", "fp32"], logits["torch", "fp32"])
+    err_bf16 = rel_err(logits["cuda", "bf16"], logits["torch", "bf16"])
+    require(bool(torch.isfinite(logits["cuda", "bf16"]).all()) and err <= TOL,
+            f"xlstm decode step: cuda logits vs torch backend {err:.3e} > {TOL}")
+    require(err_bf16 <= BF16_STATE_TOL, f"xlstm decode step from the bf16 "
+            f"state: cuda logits vs torch backend {err_bf16:.3e} > "
+            f"{BF16_STATE_TOL}")
+    print(f"[ssm] one decode step at bucket {SERVE_BATCH}: {per_pass} gfid_matmul "
+          f"launches, no gather and no conv, with {SERVE_BATCH} and with 1 live "
+          f"rows; logits with {SERVE_BATCH} live rows max|d|/max|ref| vs the torch "
+          f"backend from the same state held in fp32 = {err:.3e} (limit {TOL}); "
+          f"from the served bf16 state {err_bf16:.3e} (limit {BF16_STATE_TOL}: "
+          "bf16 rounding of the new conv input); one row alone bitwise equal "
+          f"to row 0 of the bucket, logits and {len(state_same)} state leaves")
+    print(f"[ssm] decode step at bucket {SERVE_BATCH}: {SERVE_BATCH} live rows "
+          f"{step_ms[SERVE_BATCH]:.4f} ms, 1 live row {step_ms[1]:.4f} ms (median of "
+          "20, CUDA events around CompiledNet.apply)")
+    for live, prof in profiles.items():
+        if prof is None:
+            print(f"[profile] xlstm {live} live rows: the profiler recorded no "
+                  "device time; device busy share not measured")
+            continue
+        busy_ms, n_kernels, top = prof
+        print(f"[profile] xlstm decode step with {live} live rows: {n_kernels} "
+              f"device kernels, {busy_ms:.4f} ms of device time per step (sum of "
+              f"kernel times, torch.profiler over 3 steps) = "
+              f"{100 * busy_ms / step_ms[live]:.1f}% of the step; idle "
+              f"{100 * (1 - busy_ms / step_ms[live]):.1f}%; by kernel: "
+              + "; ".join(f"{n[:60]} x{c} {ms:.4f} ms" for n, c, ms in top))
+
+    # prefill at prompt SSM_PREFILL (two mLSTM chunks): launches, "torch"
+    # logits, time, profile
+    t0 = time.perf_counter()
+    pre = E.compile(SE.prefill_ingest_program(cfg, s8.layout, SSM_PREFILL), conf)
+    capture_s = time.perf_counter() - t0
+    row = s8.pool.table_rows([rows[0].rid], 1)[0]
+    slot = s8.pool.slot_rows([rows[0].rid], 1)[0]
+    prompt = torch.randint(0, cfg.vocab_size, (1, SSM_PREFILL), generator=gen,
+                           dtype=torch.int32).to(dev)
+    snap = [a.clone() for a in _leaves(s8.pool.arrays)]
+    zero_counts(*kernels)
+    pre.apply(params, s8.pool.arrays, row, slot, prompt)
+    torch.cuda.synchronize()
+    pre_launches = counts(*kernels)
+    require(pre_launches == (per_pass, 0, convs) + (0,) * len(other_kernels),
+            f"prefill({SSM_PREFILL}) launched {pre_launches}")
+    pre_logits = {}
+    for backend in ("cuda", "torch"):
+        with E.using_config(conf.replace(backend=backend)), torch.no_grad():
+            pre_logits[backend], _ = T.prefill(cfg, params, {"tokens": prompt},
+                                               SERVE_MAX_LEN)
+    pre_err = rel_err(pre_logits["cuda"], pre_logits["torch"])
+    require(bool(torch.isfinite(pre_logits["cuda"]).all()) and pre_err <= TOL,
+            f"xlstm prefill: cuda logits vs torch backend {pre_err:.3e} > {TOL}")
+    prefill_ms = time_ms(lambda: pre.apply(params, s8.pool.arrays, row, slot,
+                                           prompt), iters=5, warmup=1)
+    pre_prof = device_profile(lambda: pre.apply(params, s8.pool.arrays, row,
+                                                slot, prompt), steps=1)
+    for a, b in zip(_leaves(s8.pool.arrays), snap):
+        a.copy_(b)
+    del snap
+    print(f"[ssm] batch-1 prefill at prompt {SSM_PREFILL}: {per_pass} gfid_matmul + "
+          f"{convs} gfid_conv1d_depthwise launches; logits max|d|/max|ref| vs the "
+          f"torch backend {pre_err:.3e} (limit {TOL}); {prefill_ms:.4f} ms (median "
+          f"of 5); capture and compile of its program: {capture_s:.3f} s")
+    if pre_prof is None:
+        print("[profile] xlstm prefill: the profiler recorded no device time")
+    else:
+        busy_ms, n_kernels, top = pre_prof
+        print(f"[profile] xlstm prefill({SSM_PREFILL}): {n_kernels} device kernels, "
+              f"{busy_ms:.4f} ms of device time = {100 * busy_ms / prefill_ms:.1f}% "
+              f"of the prefill; by kernel: "
+              + "; ".join(f"{n[:60]} x{c} {ms:.4f} ms" for n, c, ms in top))
+
+    # the conv kernel at the timed prefill's shapes: kernel, plain, library,
+    # bound
+    conv_rows = []
+    cudnn = torch.backends.cudnn
+    for d, per_prefill in ((cfg.ssm.expand * cfg.d_model, n_mlstm),
+                           (cfg.d_model, n_slstm)):
+        x = torch.randn((1, SSM_PREFILL, d), generator=gen).to(dev)
+        w = torch.randn((cfg.ssm.d_conv, d), generator=gen).to(dev)
+        w_lib = w.T[:, None, :].contiguous()       # (D, 1, W_f), made once
+        got, want = conv(x, w), conv1d.gfid_conv1d_depthwise_plain(x, w)
+        require(torch.equal(got, want), f"gfid_conv1d_depthwise (1, "
+                f"{SSM_PREFILL}, {d}) differs from its plain version")
+        lib_out = F.conv1d(x.permute(0, 2, 1), w_lib, padding=cfg.ssm.d_conv - 1,
+                           groups=d)[..., :SSM_PREFILL].permute(0, 2, 1)
+        lib_err = rel_err(lib_out, want)
+        require(lib_err <= TOL, f"F.conv1d differs from the plain conv: {lib_err:.3e}")
+        n_bytes = 4 * (2 * x.numel() + w.numel())
+        ops = 2 * cfg.ssm.d_conv * x.numel()
+        b_ms, by = bound_ms(n_bytes, ops)
+        row_t = dict(d=d, per_prefill=per_prefill,
+                     ms=time_ms(lambda: conv(x, w)),
+                     plain_ms=time_ms(lambda: conv1d.gfid_conv1d_depthwise_plain(x, w)),
+                     library_ms=time_ms(lambda: F.conv1d(
+                         x.permute(0, 2, 1), w_lib, padding=cfg.ssm.d_conv - 1,
+                         groups=d)),
+                     bound_ms=b_ms, bound_by=by, n_bytes=n_bytes)
+        # CUDA events around one call also time the host's launch; a CUDA
+        # graph of many calls times the device alone
+        row_t["device_ms"] = graph_ms(lambda: conv(x, w))
+        row_t["library_device_ms"] = graph_ms(lambda: F.conv1d(
+            x.permute(0, 2, 1), w_lib, padding=cfg.ssm.d_conv - 1, groups=d))
+        conv_rows.append(row_t)
+        print(f"[time] gfid_conv1d_depthwise (1, {SSM_PREFILL}, {d}) W_f "
+              f"{cfg.ssm.d_conv}: kernel {row_t['ms']:.4f} ms (device alone "
+              f"{row_t['device_ms']:.4f} ms, {n_bytes / row_t['device_ms'] / 1e9:.3f} "
+              f"TB/s), plain {row_t['plain_ms']:.4f} ms, library "
+              f"F.conv1d(groups={d}, TF32 {'on' if cudnn.allow_tf32 else 'off'}) "
+              f"{row_t['library_ms']:.4f} ms (device alone "
+              f"{row_t['library_device_ms']:.4f} ms), bound {b_ms:.4f} ms "
+              f"({n_bytes / 1e6:.2f} MB, {by})")
+    conv_tot = {key: sum(r[key] * r["per_prefill"] for r in conv_rows)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "device_ms", "library_device_ms")}
+    conv_tot["bound_by"] = conv_rows[0]["bound_by"]
+    print(f"[time] gfid_conv1d_depthwise per prefill({SSM_PREFILL}) ({n_mlstm} x "
+          f"{conv_rows[0]['d']} + {n_slstm} x {conv_rows[1]['d']} channels): "
+          f"kernel {conv_tot['ms']:.4f} ms (device alone "
+          f"{conv_tot['device_ms']:.4f} ms), plain {conv_tot['plain_ms']:.4f} ms, "
+          f"library {conv_tot['library_ms']:.4f} ms (device alone "
+          f"{conv_tot['library_device_ms']:.4f} ms), bound "
+          f"{conv_tot['bound_ms']:.4f} ms")
+
+    # gfid_matmul at the decode step's shapes (M = 8)
+    mm_rows = []
+    for label, k, n in shapes:
+        x = torch.randn((8, k), generator=gen).to(dev)
+        w = torch.randn((k, n), generator=gen).to(dev)
+        b_ms, by = bound_ms(4 * (8 * k + k * n + 8 * n), 2 * 8 * k * n)
+        row_t = dict(label=label, k=k, n=n, ms=time_ms(lambda: mm(x, w)),
+                     plain_ms=time_ms(lambda: gfid_matmul.gfid_matmul_plain(x, w)),
+                     library_ms=time_ms(lambda: torch.mm(x, w)), bound_ms=b_ms,
+                     bound_by=by)
+        mm_rows.append(row_t)
+        print(f"[time] gfid_matmul xlstm decode {label} (8, {k}) @ ({k}, {n}): "
+              f"kernel {row_t['ms']:.4f} ms, plain {row_t['plain_ms']:.4f} ms, "
+              f"library torch.mm {row_t['library_ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({by})")
+    cont = runs["continuous"]
+    return dict(conv_rows=conv_rows, conv_tot=conv_tot, mm_rows=mm_rows,
+                step_ms=step_ms, prefill_ms=prefill_ms, per_pass=per_pass,
+                convs=convs, step_launches=step_launches[SERVE_BATCH],
+                capture_s=capture_s, tps=cont["n_tok"] / cont["wall"],
+                lat=cont["lat"], run_launches=cont["launches"])
+
+
 def device_profile(fn, steps=3):
     """(device ms per call, kernels per call, the 6 kernels with the most
     device time as (name, count per call, ms per call)) from torch.profiler
@@ -614,7 +1063,7 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import engine as E
     from repro_torch.core import quant
-    from repro_torch.kernels import build, gfid_conv, gfid_matmul, paged
+    from repro_torch.kernels import build, conv1d, gfid_conv, gfid_matmul, paged
     from repro_torch.models import cnn
 
     conv32, mm32 = gfid_conv.gfid_conv2d_nhwc, gfid_matmul.gfid_matmul
@@ -986,6 +1435,11 @@ def main():
     served = serve_phase(dev, E, gfid_matmul, paged, all_kernels[:1] + all_kernels[2:],
                          worst)
 
+    # -- phase 7: serving xlstm-125m (the depthwise conv kernel's path) -------
+    torch.cuda.empty_cache()
+    ssm = ssm_phase(dev, E, gfid_matmul, conv1d, paged,
+                    all_kernels[:1] + all_kernels[2:], worst)
+
     sources = {
         "gfid_conv2d_nhwc": ("src/repro_torch/csrc/gfid_conv.cu",
                              "src/repro/kernels/gfid_conv.py:79", "fp32"),
@@ -1022,6 +1476,25 @@ def main():
         **dict.fromkeys(("ms", "kernel_ms"), g["ms"]),
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": g["library_ms"]})
+    ct = ssm["conv_tot"]
+    kernels.append({
+        "name": "gfid_conv1d_depthwise", "route": "cuda",
+        "source": "src/repro_torch/csrc/conv1d_depthwise.cu",
+        "replaces": "src/repro/kernels/conv1d.py:28",
+        "launches": ssm["run_launches"][2],
+        "launches_per_prefill": ssm["convs"],
+        "max_abs_err": worst["gfid_conv1d_depthwise"],
+        # one prefill's convs at prompt SSM_PREFILL, summed
+        **dict.fromkeys(("ms", "kernel_ms"), ct["ms"]),
+        "device_ms": ct["device_ms"],
+        "library_device_ms": ct["library_device_ms"],
+        "plain_ms": ct["plain_ms"], "bound_ms": ct["bound_ms"],
+        "bound_by": ct["bound_by"], "library_ms": ct["library_ms"]})
+    print(f"[ssm] summary: {ssm['tps']:.1f} tokens/s, p50 "
+          f"{ssm['lat']['p50_ms']:.1f} ms, p95 {ssm['lat']['p95_ms']:.1f} ms; "
+          f"decode step {ssm['step_ms'][SERVE_BATCH]:.4f} ms with {SERVE_BATCH} live "
+          f"rows, {ssm['step_ms'][1]:.4f} ms with 1; prefill({SSM_PREFILL}) "
+          f"{ssm['prefill_ms']:.4f} ms; capture {ssm['capture_s']:.3f} s")
     print(f"[serve] summary: {served['tps']:.1f} tokens/s, p50 "
           f"{served['lat']['p50_ms']:.1f} ms, p95 {served['lat']['p95_ms']:.1f} ms; "
           f"decode step {served['step_ms'][SERVE_BATCH]:.4f} ms with {SERVE_BATCH} live "

@@ -128,9 +128,9 @@ class ModelConfig:
 
 # The configs this port runs; the rest of the reference's registry comes
 # with their model families.
-PORTED = ("smollm_135m",)
+PORTED = ("smollm_135m", "xlstm_125m")
 
-ALIASES = {"smollm-135m": "smollm_135m"}
+ALIASES = {"smollm-135m": "smollm_135m", "xlstm-125m": "xlstm_125m"}
 
 
 def _module(name: str):

@@ -7,7 +7,9 @@ the same lowering as `repro.core.gfid.conv2d_gfid`. It is the engine's
 "torch" backend and the plain version the hand-written conv kernel is held
 against. `conv2d_reference` is the library's own convolution, the "ref"
 baseline. `conv2d_gfid_int8` and `conv2d_reference_int8` are the same two
-on int8 operands, with exact int32 results.
+on int8 operands, with exact int32 results. `conv1d_depthwise_gfid` and
+`conv1d_depthwise_reference` are the 1-D depthwise mode (the SSM short
+convs): shifted fp32 accumulation, and the library's grouped conv.
 
 Layouts follow the JAX package at every public function: activations NHWC,
 conv weights HWIO, FC weights (n, m).
@@ -105,6 +107,63 @@ def conv2d_reference_int8(xq: torch.Tensor, wq: torch.Tensor,
                    wq.permute(3, 2, 0, 1).double(),
                    stride=stride, padding=pad, groups=groups)
     return out.permute(0, 2, 3, 1).to(torch.int32).contiguous()
+
+
+def conv1d_lpad(w_f: int, causal: bool) -> int:
+    """Zero rows before the sequence of a W_f-tap conv: W_f - 1 (causal) or
+    (W_f - 1) // 2 (centred; the other W_f - 1 - lpad come after it)."""
+    return w_f - 1 if causal else (w_f - 1) // 2
+
+
+def pad_seq(x: torch.Tensor, w_f: int, causal: bool) -> torch.Tensor:
+    """Zero-pad the sequence axis of x (B, L, D) for a W_f-tap conv."""
+    lpad = conv1d_lpad(w_f, causal)
+    return F.pad(x, (0, 0, lpad, w_f - 1 - lpad))
+
+
+def conv1d_shifted_sum(x: torch.Tensor, w: torch.Tensor, *,
+                       causal: bool = True) -> torch.Tensor:
+    """The GFID 1-D lowering for any W_f: `acc = acc + x_shifted * w[i]`
+    over the taps in ascending order, from an fp32 accumulator of zeros.
+    x: (B, L, D); w: (W_f, D). Returns fp32 (B, L, D)."""
+    l = x.shape[1]
+    xp = pad_seq(x, w.shape[0], causal)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(w.shape[0]):
+        acc = acc + xp[:, i:i + l].float() * w[i].float()
+    return acc
+
+
+def conv1d_depthwise_reference(x: torch.Tensor, w: torch.Tensor, *,
+                               causal: bool = True) -> torch.Tensor:
+    """The library's depthwise 1-D conv (`F.conv1d`, groups = D, TF32 off),
+    in fp32, cast back to x.dtype. x: (B, L, D); w: (W_f, D)."""
+    xp = pad_seq(x.float(), w.shape[0], causal)
+    cudnn = torch.backends.cudnn
+    allow_tf32 = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        out = F.conv1d(xp.permute(0, 2, 1), w.float().T[:, None, :],
+                       groups=x.shape[2])
+    finally:
+        cudnn.allow_tf32 = allow_tf32
+    return out.permute(0, 2, 1).to(x.dtype)
+
+
+def conv1d_depthwise_gfid(x: torch.Tensor, w: torch.Tensor, *,
+                          causal: bool = True) -> torch.Tensor:
+    """Depthwise 1-D convolution via GFID shifted accumulation: the 1-D
+    mode of the engine (paper Table 1 with C_in = 1 per channel), as
+    `repro.core.gfid.conv1d_depthwise_gfid`.
+
+    x: (B, L, D); w: (W_f, D) taps. `causal` left-pads W_f - 1 zeros
+    (decode-consistent); else the pad is centred. Returns (B, L, D) in
+    x.dtype (`conv1d_shifted_sum`, cast back). Past 8 taps (hubert's
+    128-tap positional conv) it runs the library's conv, as the reference
+    does."""
+    if w.shape[0] > 8:
+        return conv1d_depthwise_reference(x, w, causal=causal)
+    return conv1d_shifted_sum(x, w, causal=causal).to(x.dtype)
 
 
 def fc_gfid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,7 @@ PEs" contract):
     y = engine.conv2d(x, w, stride=2, pad=3, bias=b, act="relu")  # conv modes
     y = engine.dense(x, w)                            # FC mode, (…,n)@(n,m)
     y = engine.einsum("bn,nm->bm", x, w)              # FC mode, general
+    y = engine.conv1d_depthwise(x, taps)              # 1-D short-conv mode
     y = engine.proj(x, w)                             # parameter GEMM, x @ w
     kv = engine.paged_gather(pool, table)             # paged-KV block gather
 
@@ -201,6 +202,20 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, pad: int = 0,
     ledger_mod.record(plan)
     return dispatch.run_op(plan, lambda be, pl: be.conv2d(
         x, w, pl, stride=stride, pad=pad, groups=groups, bias=bias, act=act))
+
+
+def conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,
+                     causal: bool = True) -> torch.Tensor:
+    """1-D depthwise mode (the SSM short convs). x: (B, L, D); w: (W_f, D).
+    Returns (B, L, D) in x.dtype, accumulated in fp32: causal (W_f - 1
+    zeros before the sequence) or centred."""
+    op = planlib.OpSpec("conv1d_dw", tuple(map(int, x.shape)),
+                        tuple(map(int, w.shape)), causal=bool(causal))
+    plan = _plan_for(op)
+    ledger_mod.record(plan)
+    out = dispatch.run_op(plan, lambda be, pl: be.conv1d_depthwise(
+        x, w, pl, causal=causal))
+    return out.to(x.dtype)
 
 
 def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,

@@ -19,6 +19,11 @@ The paged-KV gather (`engine.paged_gather`) is a copy: "cuda" launches the
 `paged_gather` kernel, "torch" and "ref" run its plain version
 (`index_select`); all three are bitwise equal.
 
+The 1-D depthwise conv (`engine.conv1d_depthwise`): "cuda" launches the
+`gfid_conv1d_depthwise` kernel, "torch" runs the GFID shifted accumulation
+(`core.gfid.conv1d_depthwise_gfid`, bitwise equal to the kernel for W_f
+<= 8) and "ref" the library's grouped conv.
+
 A plan pinned to `precision="int8"` runs the shared quantized contract on
 every backend: quantize both operands (`core.quant`), an exact int32
 product, then `dequant_epilogue`. "torch" and "ref" lower it here; "cuda"
@@ -43,12 +48,14 @@ class EngineBackend:
     `einsum` receive the op's `EnginePlan` and the fused-epilogue kwargs
     (`bias=`, `act=`); `einsum` also receives the literal spec and its
     parsed `EinsumStructure`; `gather` receives the pool, the block table
-    and the plan."""
+    and the plan; `conv1d_depthwise` receives x, the taps, the plan and
+    `causal=`."""
 
     name: str
     conv2d: Callable[..., torch.Tensor]
     einsum: Callable[..., torch.Tensor]
     gather: Callable[..., torch.Tensor]
+    conv1d_depthwise: Callable[..., torch.Tensor]
 
 
 _REGISTRY: Dict[str, EngineBackend] = {}
@@ -122,6 +129,14 @@ def _torch_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
 # "ref" — the library's direct ops
 # ---------------------------------------------------------------------------
 
+def _torch_conv1d_dw(x, w, plan, *, causal):
+    return gfid.conv1d_depthwise_gfid(x, w, causal=causal)
+
+
+def _ref_conv1d_dw(x, w, plan, *, causal):
+    return gfid.conv1d_depthwise_reference(x, w, causal=causal)
+
+
 def _ref_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
     if plan.precision == "int8":
         return _quant_conv2d(gfid.conv2d_reference_int8, x, w, stride=stride,
@@ -157,6 +172,10 @@ def _cuda_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
                            precision=plan.precision)
 
 
+def _cuda_conv1d_dw(x, w, plan, *, causal):
+    return ops.gfid_conv1d_depthwise(x, w, causal=causal)
+
+
 def _cuda_gather(pool, table, plan):
     return ops.paged_gather(pool, table)
 
@@ -168,8 +187,8 @@ def _plain_gather(pool, table, plan):
 
 
 register_backend(EngineBackend("cuda", _cuda_conv2d, _cuda_einsum,
-                               _cuda_gather))
+                               _cuda_gather, _cuda_conv1d_dw))
 register_backend(EngineBackend("torch", _torch_conv2d, _torch_einsum,
-                               _plain_gather))
+                               _plain_gather, _torch_conv1d_dw))
 register_backend(EngineBackend("ref", _ref_conv2d, _torch_einsum,
-                               _plain_gather))
+                               _plain_gather, _ref_conv1d_dw))

@@ -24,7 +24,7 @@ from repro_torch.engine.plan import EnginePlan
 class OpRecord:
     """One executed engine op."""
 
-    kind: str                       # "conv2d" | "matmul"
+    kind: str                       # "conv2d" | "conv1d_dw" | "matmul" | ...
     mode: modes.Mode
     cost_cycles: int
     cost_ma_words: int

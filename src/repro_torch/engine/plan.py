@@ -24,6 +24,7 @@ import math
 from typing import Dict, Tuple
 
 from repro_torch.core import analytics, modes
+from repro_torch.kernels.conv1d import TILE as CONV1D_TILE
 from repro_torch.kernels.gfid_conv import TILE as CONV_TILE
 from repro_torch.kernels.gfid_conv import TILE_INT8 as CONV_TILE_INT8
 from repro_torch.kernels.gfid_matmul import TILE as MATMUL_TILE
@@ -37,17 +38,18 @@ class OpSpec:
     """The shape-complete invocation record of one engine op: one node of a
     `program.Program` graph, re-plannable under any config via `plan_op`."""
 
-    kind: str                       # "conv2d" | "dense" | "gather"
+    kind: str               # "conv2d" | "conv1d_dw" | "dense" | "gather"
     x_shape: Shape
     w_shape: Shape
     spec: str = ""                  # einsum spec ("dense" kind only)
     stride: int = 1
     pad: int = 0
     groups: int = 1
+    causal: bool = True             # conv1d_dw only
     name: str = dataclasses.field(default="", compare=False)  # layer label
 
     def __post_init__(self) -> None:
-        if self.kind not in ("conv2d", "dense", "gather"):
+        if self.kind not in ("conv2d", "conv1d_dw", "dense", "gather"):
             raise ValueError(f"unknown op kind {self.kind!r}")
 
 
@@ -56,6 +58,8 @@ def plan_op(op: OpSpec, backend: str) -> "EnginePlan":
     if op.kind == "conv2d":
         return plan_conv2d(op.x_shape, op.w_shape, op.stride, op.pad,
                            op.groups, backend)
+    if op.kind == "conv1d_dw":
+        return plan_conv1d_depthwise(op.x_shape, op.w_shape, backend)
     if op.kind == "gather":
         return plan_gather(op.x_shape, op.w_shape, backend)
     return plan_einsum(op.spec, op.x_shape, op.w_shape, backend)
@@ -65,7 +69,7 @@ def plan_op(op: OpSpec, backend: str) -> "EnginePlan":
 class EnginePlan:
     """Everything the engine decided about one op, from shapes alone."""
 
-    kind: str                       # "conv2d" | "dense" | "gather"
+    kind: str               # "conv2d" | "conv1d_dw" | "dense" | "gather"
     backend: str                    # registry name ("cuda" | "torch" | "ref")
     mode: modes.Mode                # paper mode (W_f, S) with Table-3 schedule
     tiling: Tuple[int, int, int]    # Hopper block tile of the "cuda" kernel
@@ -87,6 +91,15 @@ class EnginePlan:
         return self.ma_words
 
 
+def _mode_for(w_f: int, s: int) -> modes.Mode:
+    """Mode lookup that tolerates filters beyond the 11-register MMIE weight
+    generator (hubert's 128-tap positional conv): such layers get the
+    derived (N_eff, p_eff) schedule, as in the reference."""
+    if w_f > 11:
+        return modes.derived_mode(w_f, s)
+    return modes.paper_mode(w_f, s)
+
+
 @functools.lru_cache(maxsize=4096)
 def plan_conv2d(x_shape: Shape, w_shape: Shape, stride: int, pad: int,
                 groups: int, backend: str) -> EnginePlan:
@@ -103,6 +116,24 @@ def plan_conv2d(x_shape: Shape, w_shape: Shape, stride: int, pad: int,
         kind="conv2d", backend=backend, mode=cost.mode, tiling=CONV_TILE,
         cycles=cost.cycles * b, ma_words=cost.ma_total_words * b,
         macs=cost.macs * b, note=note)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_conv1d_depthwise(x_shape: Shape, w_shape: Shape,
+                          backend: str) -> EnginePlan:
+    """x: (B, L, D); w: (W_f, D). Each channel is an independent GFID row:
+    one 1 x L map with a W_f-tap filter and a W_f - 1 pad, booked D x B
+    times, as the reference books it. `tiling` is the kernel's block."""
+    w_f = int(w_shape[0])
+    b, l, d = (int(v) for v in x_shape)
+    mode = _mode_for(w_f, 1)
+    spec = analytics.ConvLayerSpec("conv1d_dw", 1, l, 1, 1, 1, w_f, 1,
+                                   pad=w_f - 1)
+    cost = analytics.conv_cost(spec, mode)
+    return EnginePlan(
+        kind="conv1d_dw", backend=backend, mode=mode, tiling=CONV1D_TILE,
+        cycles=cost.cycles * d * b, ma_words=cost.ma_total_words * d * b,
+        macs=cost.macs * d * b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,7 +272,7 @@ def supports_int8(op: OpSpec) -> bool:
     backend agrees on which ops quantize."""
     if op.kind == "conv2d":
         return True
-    if op.kind == "gather":
+    if op.kind in ("conv1d_dw", "gather"):
         return False
     st = parse_einsum(op.spec, len(op.x_shape), len(op.w_shape))
     return canonical_gemm(st, len(op.w_shape))

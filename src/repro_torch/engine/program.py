@@ -38,6 +38,9 @@ from repro_torch.engine.config import EngineConfig, current_config, using_config
 from repro_torch.engine.plan import (EnginePlan, OpSpec, plan_op,
                                      with_precision)
 
+# Plans priced on the conv side of the Table-4 rollup (the 200 MHz clock).
+_CONV_KINDS = ("conv2d", "conv1d_dw")
+
 
 @dataclasses.dataclass(frozen=True)
 class Program:
@@ -102,7 +105,8 @@ class NetworkPlan:
 
     @property
     def conv_plans(self) -> Tuple[EnginePlan, ...]:
-        return tuple(p for p in self.plans if p.kind == "conv2d")
+        """Conv-mode plans: conv2d and the 1-D depthwise conv."""
+        return tuple(p for p in self.plans if p.kind in _CONV_KINDS)
 
     @property
     def fc_plans(self) -> Tuple[EnginePlan, ...]:

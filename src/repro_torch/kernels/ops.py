@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import quant
+from repro_torch.kernels import conv1d as _conv1d
 from repro_torch.kernels import gfid_conv as _conv
 from repro_torch.kernels import gfid_matmul as _matmul
 from repro_torch.kernels import paged as _paged
@@ -69,6 +70,14 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
         out = _matmul.gfid_matmul(x2, w.contiguous(), bias=_contig(bias),
                                   act=act)
     return out.reshape(*lead, w.shape[-1])
+
+
+def gfid_conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,
+                          causal: bool = True) -> torch.Tensor:
+    """Depthwise 1-D conv (B, L, D) x (W_f, D) -> fp32 (B, L, D), causal or
+    centred (one launch; the pad is masked in the kernel)."""
+    return _conv1d.gfid_conv1d_depthwise(x.contiguous(), w.contiguous(),
+                                         causal=causal)
 
 
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -16,3 +16,10 @@ def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
+
+
+def conv1d_depthwise_ref(x: torch.Tensor, w: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """(B, L, D) x (W_f, D) depthwise 1-D conv (the library's grouped
+    conv, TF32 off)."""
+    return gfid.conv1d_depthwise_reference(x, w, causal=causal)

@@ -132,10 +132,32 @@ def stack_defs(defs: DefTree, n: int) -> DefTree:
 # Norms / activations (fp32 internals, cast back)
 # ---------------------------------------------------------------------------
 
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, keeping it, in an order fixed by the axis
+    length alone: halve while the length is even, then add the odd rest in
+    order. Every step is elementwise, so a row's sum has the same bits
+    whatever other rows share the tensor. `torch.sum`'s CUDA reduction
+    splits a row over threads by the count of rows, so its bits follow the
+    batch (ROADMAP section 3)."""
+    while x.shape[-1] % 2 == 0:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    acc = x[..., :1]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i:i + 1]
+    return acc
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
-             scale_plus_one: bool = False) -> torch.Tensor:
+             scale_plus_one: bool = False,
+             fixed_order: bool = False) -> torch.Tensor:
+    """RMSNorm over the last axis; `fixed_order` takes the mean with
+    `row_sum`, so a row's bits do not depend on its batchmates."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if fixed_order:
+        var = row_sum(xf * xf) / xf.shape[-1]
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     s = scale.float()
     y = y * (1.0 + s) if scale_plus_one else y * s

@@ -1,14 +1,18 @@
-"""Top-level model assembly for the dense decoder family: parameter trees,
-full-sequence forward and prefill, and single-token decode over an explicit
-state tree. A copy of the JAX package's `models/transformer.py` for dense
-configs whose layers are GLOBAL_ATTN blocks with a dense FFN.
+"""Top-level model assembly: parameter trees, full-sequence forward and
+prefill, and single-token decode over an explicit state tree. A copy of the
+JAX package's `models/transformer.py` for two families: dense decoders
+whose layers are GLOBAL_ATTN blocks with a dense FFN, and the SSM family's
+xLSTM, whose MLSTM and SLSTM blocks carry their own projections (no FFN).
 
 The reference runs the layer groups under `jax.lax.scan`; the port loops
 over the stacked group axis in Python, so each layer's engine ops are
 called (and captured into programs) one by one. Parameter and state trees
 keep the reference's layout: `params["groups"][j]` stacks layer j of every
-group on axis 0, and the decode state is `{"groups": {j: {"k", "v"}},
-"rem": {}}` with leaves `(n_groups, B, max_len, kv_heads, head_dim)`.
+group on axis 0, and the decode state is `{"groups": {j: leaves}, "rem":
+{}}`: an attention layer's `{"k", "v"}` of `(n_groups, B, max_len,
+kv_heads, head_dim)`, an xLSTM layer's conv tail and fp32 memory
+(`models/ssm.py`), each stacked over the groups. Decode and prefill write
+the state in place.
 
 Parameters are fp32 by default: the port's GEMM kernel takes fp32 only (a
 bf16 GEMM kernel is ROADMAP queue 2 work), so the config's `param_dtype`
@@ -22,9 +26,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import engine
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLSTM, SLSTM, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     D_MODEL, VOCAB, DefTree, ParamDef, embed_def, embed_lookup, init_tree,
     layer_norm, resolve_device, rms_norm, shape_tree,
@@ -32,15 +37,29 @@ from repro_torch.models.layers import (
 from repro_torch.models.layers import params_from_jax  # noqa: F401 (re-exported)
 
 PARAM_DTYPE = torch.float32
+SSM_KINDS = (MLSTM, SLSTM)
+_SSM_DEFS = {MLSTM: ssm.mlstm_defs, SLSTM: ssm.slstm_defs}
+_SSM_FORWARD = {MLSTM: ssm.mlstm_forward, SLSTM: ssm.slstm_forward}
+_SSM_INIT = {MLSTM: ssm.mlstm_init_state, SLSTM: ssm.slstm_init_state}
+_SSM_DECODE = {MLSTM: ssm.mlstm_decode, SLSTM: ssm.slstm_decode}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port's model code does not run yet."""
-    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
+    """Raise for what the port's model code does not run yet: it runs dense
+    decoders of GLOBAL_ATTN layers and the SSM family's mLSTM/sLSTM blocks
+    (xLSTM), not Mamba, MoE or the other families."""
+    if cfg.family not in ("dense", "ssm") or cfg.moe is not None \
+            or (cfg.family == "ssm") != (cfg.ssm is not None):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported to repro_torch yet: "
-            "only dense decoder LMs; see ROADMAP queue 1, item 10")
+            "only dense decoder LMs and xLSTM; see ROADMAP queue 1, item 10")
     for kind in cfg.layer_kinds:
+        if kind in SSM_KINDS:
+            continue
+        if cfg.family == "ssm":
+            raise NotImplementedError(
+                f"{cfg.name}: {kind!r} layers of the SSM family (Mamba) are "
+                "not ported to repro_torch yet; see ROADMAP queue 1, item 10")
         attn.check_supported(cfg, kind)
     if cfg.d_frontend or cfg.n_img_tokens or cfg.is_encoder:
         raise NotImplementedError(
@@ -66,8 +85,11 @@ def _apply_norm(cfg: ModelConfig, p: Dict, name: str,
     if cfg.use_layer_norm:
         return layer_norm(x, p[f"{name}_scale"], p[f"{name}_bias"],
                           cfg.norm_eps)
+    # xLSTM's norms sum in a fixed order: its decode carries a recurrent
+    # state, and served tokens are held bitwise against a one-row decode
     return rms_norm(x, p[f"{name}_scale"], cfg.norm_eps,
-                    scale_plus_one=cfg.scale_plus_one_norm)
+                    scale_plus_one=cfg.scale_plus_one_norm,
+                    fixed_order=cfg.family == "ssm")
 
 
 def block_defs(cfg: ModelConfig, kind: str, use_moe: bool) -> DefTree:
@@ -76,15 +98,24 @@ def block_defs(cfg: ModelConfig, kind: str, use_moe: bool) -> DefTree:
                                   "yet; see ROADMAP queue 1, item 10")
     defs: Dict[str, Any] = {}
     defs.update(_norm_defs(cfg, "pre"))
-    defs["attn"] = attn.attention_defs(cfg, kind)
+    if kind in SSM_KINDS:
+        defs[kind] = _SSM_DEFS[kind](cfg)
+    else:
+        defs["attn"] = attn.attention_defs(cfg, kind)
     if cfg.post_block_norm:
         defs.update(_norm_defs(cfg, "post"))
-    if cfg.d_ff > 0:
+    if _has_ffn(cfg, kind):
         defs.update(_norm_defs(cfg, "pre_ffn"))
         defs["ffn"] = ffn_mod.ffn_defs(cfg)
         if cfg.post_block_norm:
             defs.update(_norm_defs(cfg, "post_ffn"))
     return defs
+
+
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    """Dense FFN after the mixer: not for the xLSTM blocks, which carry
+    their own projections."""
+    return cfg.d_ff > 0 and kind not in SSM_KINDS
 
 
 def _group_layout(cfg: ModelConfig) -> Tuple[List[Tuple[str, bool]],
@@ -150,22 +181,44 @@ def _layer(tree: Any, i: int) -> Any:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def block_forward(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
-                  x: torch.Tensor, positions: torch.Tensor,
-                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One residual block. Returns (x, (k, v))."""
-    h = _apply_norm(cfg, p, "pre", x)
-    sub, kv = attn.attention_forward(cfg, p["attn"], h, positions, kind)
-    if cfg.post_block_norm:
-        sub = _apply_norm(cfg, p, "post", sub)
-    x = x + sub
-    if cfg.d_ff > 0:
+def _mixer_forward(cfg: ModelConfig, kind: str, p: Dict, h: torch.Tensor,
+                   positions: torch.Tensor, state_dtype) -> Tuple[Any, Any]:
+    """The block's sequence mixer on the normed input. Returns (sub, piece):
+    for attention the (k, v) it computed, for an xLSTM block its decode
+    state when `state_dtype` is given (the conv tail in that dtype), else
+    None."""
+    if kind in SSM_KINDS:
+        fwd = _SSM_FORWARD[kind]
+        if state_dtype is None:
+            return fwd(cfg, p[kind], h), None
+        return fwd(cfg, p[kind], h, return_state=True,
+                   state_dtype=state_dtype)
+    return attn.attention_forward(cfg, p["attn"], h, positions, kind)
+
+
+def _ffn_residual(cfg: ModelConfig, kind: str, p: Dict,
+                  x: torch.Tensor) -> torch.Tensor:
+    if _has_ffn(cfg, kind):
         h = _apply_norm(cfg, p, "pre_ffn", x)
         sub = ffn_mod.ffn_forward(cfg, p["ffn"], h)
         if cfg.post_block_norm:
             sub = _apply_norm(cfg, p, "post_ffn", sub)
         x = x + sub
-    return x, kv
+    return x
+
+
+def block_forward(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  state_dtype: Optional[torch.dtype] = None,
+                  ) -> Tuple[torch.Tensor, Any]:
+    """One residual block. Returns (x, piece): the mixer's (k, v) for an
+    attention layer, its decode state for an xLSTM layer when
+    `state_dtype` is given (else None)."""
+    h = _apply_norm(cfg, p, "pre", x)
+    sub, piece = _mixer_forward(cfg, kind, p, h, positions, state_dtype)
+    if cfg.post_block_norm:
+        sub = _apply_norm(cfg, p, "post", sub)
+    return _ffn_residual(cfg, kind, p, x + sub), piece
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict,
@@ -230,15 +283,19 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     check_supported(cfg)
     group, rem = _group_layout(cfg)
     g = cfg.n_groups
+
+    def layer_state(kind):
+        if kind in SSM_KINDS:
+            return _SSM_INIT[kind](cfg, batch, dtype, device)
+        return attn.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
+
     state: Dict[str, Any] = {"groups": {}, "rem": {}}
     for j, (kind, _) in enumerate(group):
-        leaf = attn.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
         state["groups"][str(j)] = tree_map(
-            lambda a: torch.zeros((g,) + tuple(a.shape), dtype=a.dtype,
-                                  device=a.device), leaf)
+            lambda a: a.unsqueeze(0).repeat((g,) + (1,) * a.ndim),
+            layer_state(kind))
     for j, (kind, _) in enumerate(rem):
-        state["rem"][str(j)] = attn.init_kv_cache(cfg, kind, batch, max_len,
-                                                  dtype, device)
+        state["rem"][str(j)] = layer_state(kind)
     return state
 
 
@@ -246,34 +303,39 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 # Decode (one token against the grouped state)
 # ---------------------------------------------------------------------------
 
+def _write_state(st: Dict, new: Dict) -> None:
+    """Copy a layer's new state into its (stacked) state leaves, in place."""
+    for key, val in new.items():
+        st[key].copy_(val)
+
+
 def _block_decode(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
                   st: Dict, x: torch.Tensor, pos: torch.Tensor,
-                  ) -> Tuple[torch.Tensor, Dict]:
+                  ) -> torch.Tensor:
+    """One residual block for one token; updates the layer's state `st` in
+    place."""
     h = _apply_norm(cfg, p, "pre", x)
-    sub, st = attn.attention_decode(cfg, p["attn"], h, st, pos, kind)
+    if kind in SSM_KINDS:
+        sub, new = _SSM_DECODE[kind](cfg, p[kind], h, st)
+        _write_state(st, new)
+    else:
+        sub, _ = attn.attention_decode(cfg, p["attn"], h, st, pos, kind)
     if cfg.post_block_norm:
         sub = _apply_norm(cfg, p, "post", sub)
-    x = x + sub
-    if cfg.d_ff > 0:
-        h = _apply_norm(cfg, p, "pre_ffn", x)
-        sub = ffn_mod.ffn_forward(cfg, p["ffn"], h)
-        if cfg.post_block_norm:
-            sub = _apply_norm(cfg, p, "post_ffn", sub)
-        x = x + sub
-    return x, st
+    return _ffn_residual(cfg, kind, p, x + sub)
 
 
 def decode_step(cfg: ModelConfig, params: Dict, state: Dict,
                 tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens: (B, 1) int; pos: a scalar absolute
     position, or a (B,) int vector of per-row positions (continuous
-    batching; see `attention.attention_decode`). Writes each layer's new
-    key and value into `state` in place and returns (logits (B, 1, V),
-    state)."""
+    batching; see `attention.attention_decode`; the xLSTM blocks read no
+    position). Writes each layer's new key and value, or its new recurrent
+    state, into `state` in place and returns (logits (B, 1, V), state)."""
     x = embed_lookup(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     for path, i, kind, use_moe in _blocks(cfg):
-        x, _ = _block_decode(cfg, kind, use_moe, _at(params, path, i),
-                             _at(state, path, i), x, pos)
+        x = _block_decode(cfg, kind, use_moe, _at(params, path, i),
+                          _at(state, path, i), x, pos)
     x = _apply_norm(cfg, params, "final", x)
     return logits_fn(cfg, params, x), state
 
@@ -284,13 +346,19 @@ def decode_step(cfg: ModelConfig, params: Dict, state: Dict,
 
 def _block_prefill(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
                    st: Dict, x: torch.Tensor, positions: torch.Tensor,
-                   ) -> torch.Tensor:
-    """One residual block; writes its k and v (cast to the cache dtype)
-    into the first S slots of `st` in place."""
+                   state_dtype: torch.dtype) -> torch.Tensor:
+    """One residual block; writes its state into `st` in place: k and v
+    (cast to the cache dtype) into the first S slots for attention, the
+    whole recurrent state (conv tail in the cache dtype) for xLSTM."""
     s = x.shape[1]
-    x, (k, v) = block_forward(cfg, kind, use_moe, p, x, positions)
-    st["k"][:, :s] = k.to(st["k"].dtype)
-    st["v"][:, :s] = v.to(st["v"].dtype)
+    x, piece = block_forward(cfg, kind, use_moe, p, x, positions,
+                             state_dtype=state_dtype)
+    if kind in SSM_KINDS:
+        _write_state(st, piece)
+    else:
+        k, v = piece
+        st["k"][:, :s] = k.to(st["k"].dtype)
+        st["v"][:, :s] = v.to(st["v"].dtype)
     return x
 
 
@@ -307,6 +375,6 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, max_len: int,
                               x.device)
     for path, i, kind, use_moe in _blocks(cfg):
         x = _block_prefill(cfg, kind, use_moe, _at(params, path, i),
-                           _at(state, path, i), x, positions)
+                           _at(state, path, i), x, positions, state_dtype)
     x = _apply_norm(cfg, params, "final", x)
     return logits_fn(cfg, params, x[:, -1]), state

@@ -9,7 +9,9 @@ the re-batchable `prefill_program`/`decode_program` are not ported
 The programs are captured on `meta` tensors (`engine.trace_program`) and
 record every executed engine op: unlike the reference's scanned layers,
 whose trace records one layer group, a full-depth smollm-135m decode
-program records 2 gathers, 30 x 7 GEMMs and the unembedding.
+program records 2 gathers, 30 x 7 GEMMs and the unembedding, and an
+xlstm-125m one 67 GEMMs and no gather (its prefill adds 12 depthwise
+convs).
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ per-request block table that maps cache position `p` to block
 `table[p // block_size]`, offset `p % block_size`. A host-side free-list
 (`BlockAllocator`) hands out blocks as positions advance and takes them
 back when a request finishes, is cancelled or is preempted. Leaves without
-a `max_len` axis would live in a `(max_slots, *feature)` slot store, one
-row per live request.
+a `max_len` axis live in a `(max_slots, *feature)` slot store, one row per
+live request: every leaf of xLSTM's recurrent decode state (conv tail and
+fp32 memory) does, so an xLSTM decode step gathers no block.
 
 Block 0 and slot 0 are reserved dummies: unallocated table entries and pad
 rows point at them, so a gather over a partly allocated table stays in
@@ -292,8 +293,10 @@ class PagedLayout:
                 arr.index_put_((table_row[:n_blocks].long(),),
                                vals.to(arr.dtype))
             else:
-                vals = torch.movedim(new, sp.batch_ax, 0)[0]
-                arr[slot.long()] = vals.to(arr.dtype)
+                # an index tensor, not a scalar index: no host read of the
+                # slot (which `meta` capture could not do)
+                vals = torch.movedim(new, sp.batch_ax, 0)[:1]
+                arr.index_put_((slot.long().reshape(1),), vals.to(arr.dtype))
             return arr
         return tree_map(leaf, arrays, state, self.specs)
 

@@ -211,6 +211,14 @@ class ContinuousScheduler:
         prompt = tuple(int(t) for t in prompt)
         if not prompt:
             raise ValueError("empty prompt")
+        if self.cfg.ssm is not None and len(prompt) < self.cfg.ssm.d_conv - 1:
+            # the decode state's conv window is the prompt's last
+            # d_conv - 1 inputs; the reference fails on a shorter prompt
+            # too (ROADMAP section 3), and the port adds no padding rule
+            raise ValueError(
+                f"{self.cfg.name}: a prompt of {len(prompt)} tokens is "
+                f"shorter than the conv window (d_conv - 1 = "
+                f"{self.cfg.ssm.d_conv - 1} tokens) the decode state holds")
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
         total = len(prompt) + steps
