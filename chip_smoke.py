@@ -43,12 +43,20 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      1 and 8 rows x 32 blocks, the four cases of tests/test_kv_pool.py, an
      fp32 pool, and block byte lengths that are not multiples of 8; and, in
      a child process, that a block id outside the pool stops the kernel
-     with an error that the next synchronisation reports.
+     with an error that the next synchronisation reports. And it holds
+     `flash_attention` against its plain version: smollm-135m's prefill
+     heads (1, S, 9 / 3, 64) causal at S = 1025, 1280, 1664, 1984 and 2048,
+     the four cases of tests/test_kernels.py, a prime length (1031), B = 2,
+     D = 128 causal and not, within 1e-4 x max|plain| in fp32 and 8e-3 on
+     bf16 operands; and that an input which requires grad raises.
   5. per kernel: its time over the main path's shapes beside its bound, its
      plain version's time and one library call's time where one PyTorch call
      computes the same function (`F.conv2d` on NCHW and `torch.addmm`, each
      followed by relu, TF32 off; `torch._int_mm` for the int8 product where
-     it accepts the shape; none for the int8 conv).
+     it accepts the shape; none for the int8 conv). `flash_attention` at
+     (1, 1984, 9 / 3, 64) causal fp32, a launch and one prefill's 30,
+     beside `F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`
+     with TF32 off (timed here only; nothing on the path calls it).
   6. serving: smollm-135m at full width and depth (fp32 parameters from
      `init_params(cfg, seed=0, device="cuda")`), a bf16 paged pool of 257
      blocks of 16 slots (max_len 512, max_batch 8: no preemption), 16
@@ -99,6 +107,24 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      `F.conv1d` (groups = D, TF32 off; timed both ways), and `gfid_matmul`
      at the decode shapes.
 
+  8. long prompts: smollm-135m as in phase 6 on a bf16 paged pool of 1025
+     blocks of 16 slots (max_len 2048, the model's published context; 128
+     blocks a request, max_batch 8: no preemption), 12 requests, three at
+     each prompt length 1025, 1280, 1664 and 1984, 16 or 32 steps, from a
+     seeded `torch.Generator`, served continuous, drain and solo. Every
+     prefill is past the dense attention's 1024 tokens, so each of its 30
+     attention layers launches the flash kernel. Checks: every request
+     done without preemption, one 8-row decode bucket; tokens bitwise
+     equal across the three runs and to `greedy_generate` at one row for a
+     1025- and a 1984-token request; every compiled op on "cuda"; launches
+     of 211 `gfid_matmul` + 30 `flash_attention` and no `paged_gather` a
+     prefill, 211 + 2 `paged_gather` and no flash a decode step; "torch"
+     logits (chunked attention in torch ops) within 1e-4 of "cuda" for a
+     prompt-1984 prefill and for an 8-row decode step at depth >= 1984 on
+     the same pool snapshot. Prints tokens/s and p50/p95 of the continuous
+     run, the prompt-1984 prefill with a `torch.profiler` split of flash
+     against GEMM device time, and the decode step with 8 and 1 live rows.
+
 The last lines are the card's name and power limit, a JSON object listing
 the kernels, and `{"ok": true, "device": {...}}`.
 """
@@ -132,6 +158,13 @@ SSM_MODEL = "xlstm_125m"
 SSM_SLOTS = 2 * SERVE_BATCH + 1   # state slots (slot 0 is the reserved dummy)
 SSM_PREFILL = 384           # the timed prefill: two 256-token mLSTM chunks
 SSM_CONV_LENS = (16, 243, 384)    # prefill lengths of the conv checks
+# Phase 8: smollm-135m on prompts past the dense attention's 1024 tokens
+# (three at each length, 16 or 32 steps) on a pool of max_len 2048, the
+# model's published context: 128 blocks a request, 8 requests at once.
+LONG_LENS, LONG_REPEAT, LONG_STEPS = (1025, 1280, 1664, 1984), 3, (16, 32)
+LONG_MAX_LEN, LONG_BLOCKS = 2048, 1025
+LONG_PREFILL = 1984         # the timed prefill, and the flash kernel's timed shape
+BF16_FLASH_TOL = 8e-3       # flash on bf16 operands: max|Δ| / max|plain|
 OTHER_NETS = ("vgg16", "resnet50")   # driven at batch 1 after AlexNet
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
@@ -551,7 +584,7 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
               f"times, torch.profiler over 3 steps) = {100 * busy_ms / step_ms[live]:.1f}% "
               f"of the step; idle {100 * (1 - busy_ms / step_ms[live]):.1f}%; "
               "by kernel: " + "; ".join(f"{n[:60]} x{c} {ms:.4f} ms"
-                                         for n, c, ms in top))
+                                         for n, c, ms in top[:6]))
 
     # prefill and capture at prompt SERVE_PREFILL
     t0 = time.perf_counter()
@@ -902,7 +935,7 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
               f"kernel times, torch.profiler over 3 steps) = "
               f"{100 * busy_ms / step_ms[live]:.1f}% of the step; idle "
               f"{100 * (1 - busy_ms / step_ms[live]):.1f}%; by kernel: "
-              + "; ".join(f"{n[:60]} x{c} {ms:.4f} ms" for n, c, ms in top))
+              + "; ".join(f"{n[:60]} x{c} {ms:.4f} ms" for n, c, ms in top[:6]))
 
     # prefill at prompt SSM_PREFILL (two mLSTM chunks): launches, "torch"
     # logits, time, profile
@@ -946,7 +979,7 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
         print(f"[profile] xlstm prefill({SSM_PREFILL}): {n_kernels} device kernels, "
               f"{busy_ms:.4f} ms of device time = {100 * busy_ms / prefill_ms:.1f}% "
               f"of the prefill; by kernel: "
-              + "; ".join(f"{n[:60]} x{c} {ms:.4f} ms" for n, c, ms in top))
+              + "; ".join(f"{n[:60]} x{c} {ms:.4f} ms" for n, c, ms in top[:6]))
 
     # the conv kernel at the timed prefill's shapes: kernel, plain, library,
     # bound
@@ -1023,10 +1056,316 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
                 lat=cont["lat"], run_launches=cont["launches"])
 
 
+def flash_cases(gen, dev):
+    """(label, q, k, v, causal) for `flash_attention`: smollm-135m's prefill
+    heads (1, S, 9 / 3, 64) causal at S = 1025, 1280, 1664, 1984 and 2048;
+    the four cases of tests/test_kernels.py (non-causal and H/KV = 2 among
+    them); a prime length; B = 2; D = 128 causal and not; bf16 operands."""
+    def qkv(b, s, h, kv, d, dtype=torch.float32):
+        return tuple(torch.randn(shape, generator=gen).to(dtype).to(dev)
+                     for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    cases = [(f"smollm (1, {s}, 9/3, 64) causal", *qkv(1, s, 9, 3, 64), True)
+             for s in LONG_LENS + (2048,)]
+    cases += [(f"test_kernels ({b}, {s}, {h}/{kv}, {d}) "
+               f"{'causal' if c else 'non-causal'}", *qkv(b, s, h, kv, d), c)
+              for b, s, h, kv, d, c in ((2, 64, 4, 2, 16, True),
+                                        (1, 128, 8, 8, 32, True),
+                                        (2, 96, 4, 4, 16, False),
+                                        (1, 64, 6, 3, 8, True))]
+    cases += [("prime length (1, 1031, 9/3, 64) causal", *qkv(1, 1031, 9, 3, 64), True),
+              ("B=2 (2, 700, 9/3, 64) causal", *qkv(2, 700, 9, 3, 64), True),
+              ("D=128 (1, 300, 4/2, 128) causal", *qkv(1, 300, 4, 2, 128), True),
+              ("D=128 (1, 300, 4/2, 128) non-causal", *qkv(1, 300, 4, 2, 128), False),
+              ("bf16 (1, 1031, 9/3, 64) causal",
+               *qkv(1, 1031, 9, 3, 64, torch.bfloat16), True),
+              ("bf16 (2, 77, 4/1, 40) non-causal",
+               *qkv(2, 77, 4, 1, 40, torch.bfloat16), False)]
+    return cases
+
+
+def flash_bound(b, sq, skv, h, kv, d, causal, elem=4):
+    """(bound ms, bound_by) of one attention forward: q, k, v read once and
+    out written once; 4 flops (two multiply-adds) per visible (query, key)
+    pair and column, on the fp32 CUDA cores (the causal pairs alone)."""
+    n_bytes = elem * (2 * b * sq * h * d + 2 * b * skv * kv * d)
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    return bound_ms(n_bytes, 4 * b * h * d * pairs)
+
+
+def long_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
+    """Phase 8: smollm-135m served through `ContinuousScheduler` on prompts
+    of 1025-1984 tokens, whose prefills run the flash kernel (see the module
+    docstring). Returns the numbers the kernels line and the summary
+    print."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as SE
+    from repro_torch.serve.scheduler import (ContinuousScheduler,
+                                             latency_percentiles)
+
+    t_phase = time.perf_counter()
+    mm, gather, fa = gfid_matmul.gfid_matmul, paged.paged_gather, flash.flash_attention
+    kernels = (mm, gather, fa) + tuple(other_kernels)
+    cfg = get_config(SERVE_MODEL)
+    params = T.init_params(cfg, seed=0, device=DEVICE)
+    per_pass = cfg.n_layers * 7 + 1     # GEMMs of a decode step or a prefill
+    n_attn = cfg.n_layers               # flash launches of a long prefill
+    gen = torch.Generator().manual_seed(8)
+    lens = [n for n in LONG_LENS for _ in range(LONG_REPEAT)]
+    lens = [lens[i] for i in torch.randperm(len(lens), generator=gen).tolist()]
+    work = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(),
+             LONG_STEPS[int(torch.randint(len(LONG_STEPS), (1,), generator=gen))])
+            for n in lens]
+    print(f"[long] workload: {len(work)} requests, prompts {lens} tokens, steps "
+          f"{[n for _, n in work]} ({sum(n for _, n in work)} tokens to "
+          f"generate); pool {LONG_BLOCKS} blocks of {SERVE_BLOCK} slots, max_len "
+          f"{LONG_MAX_LEN}, max_batch {SERVE_BATCH}")
+    conf = E.EngineConfig(backend="cuda", row_align=8)
+
+    def scheduler(max_batch, admission):
+        return ContinuousScheduler(
+            cfg, params, max_len=LONG_MAX_LEN, num_blocks=LONG_BLOCKS,
+            block_size=SERVE_BLOCK, max_batch=max_batch, config=conf,
+            admission=admission)
+
+    runs = {}
+    for mode, max_batch, admission in (
+            ("continuous", SERVE_BATCH, "continuous"),
+            ("drain", SERVE_BATCH, "drain"), ("solo", 1, "continuous")):
+        s = scheduler(max_batch, admission)
+        t0 = time.perf_counter()
+        prefills = [s.prefill_compiled(n) for n in sorted(set(lens))]
+        decodes = [s.decode_compiled(b) for b in s.buckets]
+        compile_s = time.perf_counter() - t0
+        for c, want_ops in [(c, per_pass) for c in prefills] \
+                + [(c, 2 + per_pass) for c in decodes]:
+            kinds = [op.kind for op in c.program.ops]
+            require(set(c.backends()) == {"cuda"} and len(kinds) == want_ops
+                    and len(c.exec_pairs) == want_ops
+                    and kinds.count("gather") == want_ops - per_pass,
+                    f"long {mode} {c.program.name}: backends "
+                    f"{set(c.backends())}, {len(kinds)} ops, expected {want_ops}")
+        tickets = [s.submit(p, n) for p, n in work]
+        zero_counts(*kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = s.stats()
+        launches = counts(*kernels)
+        require(all(t.status == "done" and t.preemptions == 0 for t in tickets)
+                and st["evicted"] == 0, f"long {mode}: not every request done "
+                "without preemption")
+        require(st["compiled_decode_buckets"] == [SERVE_BATCH], f"long {mode}: "
+                f"decode buckets {st['compiled_decode_buckets']}, expected "
+                f"[{SERVE_BATCH}]")
+        want = (per_pass * (st["steps"] + st["admitted"]), 2 * st["steps"],
+                n_attn * st["admitted"]) + (0,) * len(other_kernels)
+        require(launches == want, f"long {mode}: launches (gfid_matmul, "
+                f"paged_gather, flash_attention, others) = {launches}, expected "
+                f"{want} for {st['steps']} decode steps and {st['admitted']} "
+                "prefills")
+        n_tok = sum(len(t.tokens) for t in tickets)
+        lat = latency_percentiles(tickets)
+        runs[mode] = dict(tokens=[t.tokens for t in tickets], wall=wall,
+                          n_tok=n_tok, lat=lat, launches=launches)
+        print(f"[long] {mode}: {st['steps']} decode steps (buckets "
+              f"{st['compiled_decode_buckets']}, fill {st['decode_fill']:.3f}), "
+              f"{st['admitted']} prefills, {n_tok} tokens in {wall:.3f} s = "
+              f"{n_tok / wall:.1f} tokens/s; latency p50 {lat['p50_ms']:.1f} ms, "
+              f"p95 {lat['p95_ms']:.1f} ms; launches gfid_matmul {launches[0]}, "
+              f"paged_gather {launches[1]}, flash_attention {launches[2]} (= "
+              f"{per_pass} GEMMs a step and a prefill, 2 gathers a step, "
+              f"{n_attn} flash a prefill), others {sum(launches[3:])}; "
+              f"{len(prefills) + len(decodes)} programs captured and compiled in "
+              f"{compile_s:.2f} s beforehand")
+        del s
+    base = runs["continuous"]["tokens"]
+    for mode in ("drain", "solo"):
+        require(runs[mode]["tokens"] == base, f"long {mode} tokens differ from "
+                "the continuous run")
+    checked = [lens.index(min(LONG_LENS)), lens.index(max(LONG_LENS))]
+    with E.using_config(conf):
+        for i in checked:
+            prompt, steps = work[i]
+            dense = SE.greedy_generate(cfg, params, {"tokens": torch.tensor(
+                [prompt], device=dev)}, steps, LONG_MAX_LEN)
+            require(dense[0].tolist() == base[i], f"long request {i} (prompt "
+                    f"{len(prompt)}): served tokens differ from greedy_generate's")
+    print(f"[long] tokens bitwise equal across continuous, drain and solo, and "
+          f"equal to greedy_generate at one row for requests {checked} (prompts "
+          f"{[lens[i] for i in checked]})")
+
+    # 8 rows at depth >= LONG_PREFILL: a decode step's launches, times and
+    # "torch" replay; then the prefill at LONG_PREFILL
+    long_prompts = [p for p, _ in work if len(p) == LONG_PREFILL]
+    s8 = scheduler(SERVE_BATCH, "continuous")
+    rows = [s8.submit(long_prompts[i % len(long_prompts)],
+                      LONG_MAX_LEN - LONG_PREFILL) for i in range(SERVE_BATCH)]
+    s8.step()                              # admits 8, runs one decode step
+    require(all(t.status == "running" for t in rows) and
+            s8.running() == SERVE_BATCH, f"long: {s8.running()} rows running")
+    dec = s8.decode_compiled(SERVE_BATCH)
+    step_ms, profiles, logits = {}, {}, {}
+    for live in (SERVE_BATCH, 1):
+        pad = SERVE_BATCH - live
+        rids = [t.rid for t in rows[:live]]
+        args = (params, s8.pool.arrays, s8.pool.table_rows(rids, SERVE_BATCH),
+                s8.pool.slot_rows(rids, SERVE_BATCH),
+                torch.tensor([[t.tokens[-1]] for t in rows[:live]] + [[0]] * pad,
+                             dtype=torch.int32, device=dev),
+                torch.tensor([t.pos for t in rows[:live]] + [0] * pad,
+                             dtype=torch.int32, device=dev))
+        zero_counts(*kernels)
+        dec.apply(*args)
+        torch.cuda.synchronize()
+        one = counts(*kernels)
+        require(one == (per_pass, 2, 0) + (0,) * len(other_kernels),
+                f"long: {live} live rows: one decode step launched {one}")
+        step_ms[live] = time_ms(lambda: dec.apply(*args), iters=10)
+        if live == SERVE_BATCH:
+            profiles[live] = device_profile(lambda: dec.apply(*args))
+            snap = [a.clone() for a in _leaves(s8.pool.arrays)]
+            for backend in ("cuda", "torch"):
+                with E.using_config(conf.replace(backend=backend)), \
+                        torch.no_grad():
+                    state = s8.layout.gather(s8.pool.arrays, args[2], args[3])
+                    logits[backend], _ = T.decode_step(cfg, params, state,
+                                                       args[4], args[5])
+                for a, b in zip(_leaves(s8.pool.arrays), snap):
+                    a.copy_(b)
+            # one row alone against row 0 of the bucket (greedy_generate
+            # decodes at one row): printed, not required bitwise
+            with E.using_config(conf), torch.no_grad():
+                st1 = s8.layout.gather(s8.pool.arrays,
+                                       s8.pool.table_rows(rids[:1], 1),
+                                       s8.pool.slot_rows(rids[:1], 1))
+                l1, _ = T.decode_step(cfg, params, st1, args[4][:1], args[5][:1])
+            for a, b in zip(_leaves(s8.pool.arrays), snap):
+                a.copy_(b)
+            row_d = (l1 - logits["cuda"][:1]).abs().max().item()
+            del snap, state, st1
+            depth = min(t.pos for t in rows)
+    err = rel_err(logits["cuda"], logits["torch"])
+    require(bool(torch.isfinite(logits["cuda"]).all()) and err <= TOL,
+            f"long decode step: cuda logits vs torch backend {err:.3e} > {TOL}")
+    print(f"[long] one decode step at bucket {SERVE_BATCH}, rows at depth >= "
+          f"{depth}: {per_pass} gfid_matmul + 2 paged_gather launches and no "
+          f"flash_attention, with {SERVE_BATCH} and with 1 live rows; logits "
+          f"max|d|/max|ref| vs the torch backend on the same pool = {err:.3e} "
+          f"(limit {TOL}); one row decoded alone vs row 0 of the bucket: max|d| "
+          f"{row_d:.3e} (bitwise {row_d == 0}); {SERVE_BATCH} live rows "
+          f"{step_ms[SERVE_BATCH]:.4f} ms, 1 live row {step_ms[1]:.4f} ms (median "
+          "of 10, CUDA events)")
+
+    t0 = time.perf_counter()
+    pre = E.compile(SE.prefill_ingest_program(cfg, s8.layout, LONG_PREFILL),
+                    conf)
+    capture_s = time.perf_counter() - t0
+    row = s8.pool.table_rows([rows[0].rid], 1)[0]
+    slot = s8.pool.slot_rows([rows[0].rid], 1)[0]
+    prompt = torch.tensor([long_prompts[0]], dtype=torch.int32, device=dev)
+    snap = [a.clone() for a in _leaves(s8.pool.arrays)]
+    zero_counts(*kernels)
+    pre.apply(params, s8.pool.arrays, row, slot, prompt)
+    torch.cuda.synchronize()
+    pre_launches = counts(*kernels)
+    require(pre_launches == (per_pass, 0, n_attn) + (0,) * len(other_kernels),
+            f"long: prefill({LONG_PREFILL}) launched {pre_launches}")
+    pre_logits = {}
+    for backend in ("cuda", "torch"):
+        with E.using_config(conf.replace(backend=backend)), torch.no_grad():
+            pre_logits[backend], _ = T.prefill(cfg, params, {"tokens": prompt},
+                                               LONG_MAX_LEN)
+    pre_err = rel_err(pre_logits["cuda"], pre_logits["torch"])
+    require(bool(torch.isfinite(pre_logits["cuda"]).all()) and pre_err <= TOL,
+            f"long prefill: cuda logits vs torch backend {pre_err:.3e} > {TOL}")
+    prefill_ms = time_ms(lambda: pre.apply(params, s8.pool.arrays, row, slot,
+                                           prompt), iters=5, warmup=1)
+    pre_prof = device_profile(lambda: pre.apply(params, s8.pool.arrays, row,
+                                                slot, prompt), steps=1)
+    for a, b in zip(_leaves(s8.pool.arrays), snap):
+        a.copy_(b)
+    del snap, s8, rows
+    print(f"[long] batch-1 prefill at prompt {LONG_PREFILL}: {per_pass} gfid_matmul "
+          f"+ {n_attn} flash_attention launches; logits max|d|/max|ref| vs the "
+          f"torch backend (chunked attention in torch ops) {pre_err:.3e} (limit "
+          f"{TOL}); {prefill_ms:.4f} ms (median of 5); capture and compile of "
+          f"its program: {capture_s:.3f} s")
+    by_name = {}
+    for what, prof, ms in (("prefill", pre_prof, prefill_ms),
+                           ("decode step (8 live rows)", profiles[SERVE_BATCH],
+                            step_ms[SERVE_BATCH])):
+        if prof is None:
+            print(f"[profile] long {what}: the profiler recorded no device time; "
+                  "device busy share not measured")
+            continue
+        busy_ms, n_kernels, rows_p = prof
+        split = {key: sum(r[2] for r in rows_p if key in r[0])
+                 for key in ("flash_attention_kernel", "gfid_matmul_kernel")}
+        by_name[what] = split
+        print(f"[profile] long {what}: {n_kernels} device kernels, {busy_ms:.4f} "
+              f"ms of device time = {100 * busy_ms / ms:.1f}% of its {ms:.4f} ms; "
+              f"flash_attention {split['flash_attention_kernel']:.4f} ms, "
+              f"gfid_matmul {split['gfid_matmul_kernel']:.4f} ms, rest "
+              f"{busy_ms - sum(split.values()):.4f} ms; by kernel: "
+              + "; ".join(f"{n[:60]} x{c} {t:.4f} ms" for n, c, t in rows_p[:6]))
+    print(f"[long] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    cont = runs["continuous"]
+    return dict(tps=cont["n_tok"] / cont["wall"], lat=cont["lat"],
+                step_ms=step_ms, prefill_ms=prefill_ms, capture_s=capture_s,
+                run_launches=cont["launches"], n_attn=n_attn, by_name=by_name)
+
+
+def flash_timing(dev, flash, worst):
+    """Phase 5's flash row: the kernel at smollm's longest served prefill
+    shape (1, LONG_PREFILL, 9/3, 64) causal fp32, beside its bound, its plain
+    version and `F.scaled_dot_product_attention` (TF32 off, GQA in the call;
+    timed only here), per launch and for one prefill's launches."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(SERVE_MODEL)
+    h, kv, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, LONG_PREFILL
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((1, s, h, d), generator=gen).to(dev)
+    k = torch.randn((1, s, kv, d), generator=gen).to(dev)
+    v = torch.randn((1, s, kv, d), generator=gen).to(dev)
+    got, want = flash.flash_attention(q, k, v), flash.flash_attention_plain(q, k, v)
+    err = rel_err(got, want)
+    require(err <= TOL, f"flash_attention at the timed shape: {err:.3e} > {TOL}")
+    worst["flash_attention"] = max(worst["flash_attention"],
+                                   (got - want).abs().max().item())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, S, D) views
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = rel_err(sdpa().transpose(1, 2), want)
+    require(lib_err <= TOL, f"sdpa differs from the plain flash: {lib_err:.3e}")
+    b_ms, by = flash_bound(1, s, s, h, kv, d, True)
+    row_t = dict(ms=time_ms(lambda: flash.flash_attention(q, k, v)),
+                 plain_ms=time_ms(lambda: flash.flash_attention_plain(q, k, v),
+                                  iters=5),
+                 library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=by)
+    per = {key: row_t[key] * cfg.n_layers
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"[time] flash_attention (1, {s}, {h}/{kv}, {d}) causal fp32: kernel "
+          f"{row_t['ms']:.4f} ms, plain {row_t['plain_ms']:.4f} ms, library "
+          f"scaled_dot_product_attention(enable_gqa, TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}) "
+          f"{row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); max|d|/max|ref| "
+          f"vs plain {err:.3e}, sdpa vs plain {lib_err:.3e}")
+    print(f"[time] flash_attention per prefill({s}) ({cfg.n_layers} launches): "
+          f"kernel {per['ms']:.4f} ms, plain {per['plain_ms']:.4f} ms, library "
+          f"{per['library_ms']:.4f} ms, bound {per['bound_ms']:.4f} ms")
+    return dict(launch=row_t, per_prefill=per, bound_by=by)
+
+
 def device_profile(fn, steps=3):
-    """(device ms per call, kernels per call, the 6 kernels with the most
-    device time as (name, count per call, ms per call)) from torch.profiler
-    over `steps` calls of fn; None when the profiler saw no device time."""
+    """(device ms per call, kernels per call, every kernel as (name, count
+    per call, ms per call), most device time first) from torch.profiler over
+    `steps` calls of fn; None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1045,7 +1384,7 @@ def device_profile(fn, steps=3):
         return None
     rows.sort(key=lambda r: -r[2])
     return (sum(r[2] for r in rows), int(round(sum(r[1] for r in rows))),
-            rows[:6])
+            rows)
 
 
 def _leaves(tree):
@@ -1063,7 +1402,8 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import engine as E
     from repro_torch.core import quant
-    from repro_torch.kernels import build, conv1d, gfid_conv, gfid_matmul, paged
+    from repro_torch.kernels import (build, conv1d, flash_attention, gfid_conv,
+                                     gfid_matmul, paged)
     from repro_torch.models import cnn
 
     conv32, mm32 = gfid_conv.gfid_conv2d_nhwc, gfid_matmul.gfid_matmul
@@ -1169,12 +1509,37 @@ def main():
         require(equal, f"paged_gather {label}: differs from its plain version")
         worst["paged_gather"] = max(worst["paged_gather"], abs_err)
         checks += 1
+    worst["flash_attention"] = 0.0
+    for label, q, k, v, causal in flash_cases(gen, dev):
+        got = flash_attention.flash_attention(q, k, v, causal=causal)
+        want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype
+                and bool(torch.isfinite(got).all()),
+                f"flash_attention {label}: bad output")
+        err = rel_err(got.float(), want.float())
+        abs_err = (got.float() - want.float()).abs().max().item()
+        limit = BF16_FLASH_TOL if q.dtype == torch.bfloat16 else TOL
+        print(f"[check] flash_attention {label}: {q.dtype}, max|d| = "
+              f"{abs_err:.3e}, max|d|/max|ref| = {err:.3e} (limit {limit:g})")
+        require(err <= limit, f"flash_attention {label}: error {err:.3e} > {limit}")
+        worst["flash_attention"] = max(worst["flash_attention"], abs_err)
+        checks += 1
+    q.requires_grad_(True)
+    try:
+        flash_attention.flash_attention(q, k, v)
+        require(False, "flash_attention took an input that requires grad")
+    except NotImplementedError as e:
+        print(f"[check] flash_attention on an input that requires grad raises: {e}")
+    checks += 1
+    del q, k, v, got, want
     trapped = paged_trap_check()
     print(f"[check] paged_gather with a block id outside the pool, in a child "
           f"process: {trapped}")
     checks += 1
     print(f"[check] {checks} kernel checks passed (fp32 {TOL}; int8 exact, "
-          f"gelu {GELU_TOL}; paged_gather bitwise)")
+          f"gelu {GELU_TOL}; paged_gather bitwise; flash_attention bf16 "
+          f"{BF16_FLASH_TOL})")
 
     # -- phase 4: AlexNet end to end -------------------------------------------
     golden = json.loads((ROOT / "tests/goldens/table4_alexnet.json").read_text())
@@ -1430,15 +1795,22 @@ def main():
               f"{k8:.4f} ms ({100 * k8 / fwd:.1f}%) + quantization {q:.4f} ms "
               f"({100 * q / fwd:.1f}%) + rest {fwd - k8 - q:.4f} ms")
 
+    flash_t = flash_timing(dev, flash_attention, worst)
+
     # -- phase 6: serving smollm-135m on the paged pool -----------------------
+    others = all_kernels[:1] + all_kernels[2:] + (flash_attention.flash_attention,)
     torch.cuda.empty_cache()
-    served = serve_phase(dev, E, gfid_matmul, paged, all_kernels[:1] + all_kernels[2:],
-                         worst)
+    served = serve_phase(dev, E, gfid_matmul, paged, others, worst)
 
     # -- phase 7: serving xlstm-125m (the depthwise conv kernel's path) -------
     torch.cuda.empty_cache()
-    ssm = ssm_phase(dev, E, gfid_matmul, conv1d, paged,
-                    all_kernels[:1] + all_kernels[2:], worst)
+    ssm = ssm_phase(dev, E, gfid_matmul, conv1d, paged, others, worst)
+
+    # -- phase 8: smollm-135m on prompts of 1025-1984 tokens (flash) ----------
+    torch.cuda.empty_cache()
+    long = long_phase(dev, E, gfid_matmul, paged, flash_attention,
+                      all_kernels[:1] + all_kernels[2:]
+                      + (conv1d.gfid_conv1d_depthwise,), worst)
 
     sources = {
         "gfid_conv2d_nhwc": ("src/repro_torch/csrc/gfid_conv.cu",
@@ -1490,6 +1862,24 @@ def main():
         "library_device_ms": ct["library_device_ms"],
         "plain_ms": ct["plain_ms"], "bound_ms": ct["bound_ms"],
         "bound_by": ct["bound_by"], "library_ms": ct["library_ms"]})
+    fp = flash_t["per_prefill"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:58",
+        "launches": long["run_launches"][2],
+        "launches_per_prefill": long["n_attn"],
+        "max_abs_err": worst["flash_attention"],
+        # one prefill's launches at prompt LONG_PREFILL, summed
+        **dict.fromkeys(("ms", "kernel_ms"), fp["ms"]),
+        "launch_ms": flash_t["launch"]["ms"],
+        "plain_ms": fp["plain_ms"], "bound_ms": fp["bound_ms"],
+        "bound_by": flash_t["bound_by"], "library_ms": fp["library_ms"]})
+    print(f"[long] summary: {long['tps']:.1f} tokens/s, p50 "
+          f"{long['lat']['p50_ms']:.1f} ms, p95 {long['lat']['p95_ms']:.1f} ms; "
+          f"decode step {long['step_ms'][SERVE_BATCH]:.4f} ms with {SERVE_BATCH} live "
+          f"rows, {long['step_ms'][1]:.4f} ms with 1; prefill({LONG_PREFILL}) "
+          f"{long['prefill_ms']:.4f} ms; capture {long['capture_s']:.3f} s")
     print(f"[ssm] summary: {ssm['tps']:.1f} tokens/s, p50 "
           f"{ssm['lat']['p50_ms']:.1f} ms, p95 {ssm['lat']['p95_ms']:.1f} ms; "
           f"decode step {ssm['step_ms'][SERVE_BATCH]:.4f} ms with {SERVE_BATCH} live "

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("gfid_conv", "gfid_matmul", "gfid_conv_int8", "gfid_matmul_int8",
-           "paged_gather", "conv1d_depthwise")
+           "paged_gather", "conv1d_depthwise", "flash_attention")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 
 

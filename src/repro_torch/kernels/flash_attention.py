@@ -1,0 +1,146 @@
+"""Online-softmax attention forward: the hand-written kernel of
+`csrc/flash_attention.cu` (the port of the Pallas kernel
+`repro.kernels.flash_attention.flash_attention`) and its plain PyTorch
+version.
+
+q (B, Sq, H, D) and k, v (B, Skv, KV, D), fp32 or bf16, with H a multiple
+of KV: query head h reads kv head `h // (H // KV)`, which equals the
+reference's `jnp.repeat` of the kv heads. The result is
+`softmax(scale * q k^T) v` per head in fp32, causal (positions from 0 for q
+and k) or not, returned in q's dtype as (B, Sq, H, D).
+
+`flash_attention` launches the kernel for CUDA tensors, uses the plain
+version for CPU tensors, and only allocates the output for `meta` tensors
+(program capture). `flash_attention.launches` counts the kernel's launches.
+There is no backward: an input that requires a gradient raises (ROADMAP
+queue 1, item 12).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.quant import no_tf32
+from repro_torch.kernels import build
+
+# q, k, v, out; b, sq, skv, h, n_kv, d; scale; causal, bf16; stream.
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 128
+# The kernel's kv tile (kBK in the source); the plain version walks the keys
+# in tiles of the same size.
+KV_TILE = 32
+NEG_INF = -1.0e30           # the Pallas kernel's mask value
+
+
+def _scale(d: int, scale: Optional[float]) -> float:
+    return float(scale) if scale is not None else 1.0 / math.sqrt(d)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version: the kernel's online softmax over kv tiles of
+    KV_TILE keys, in fp32 with TF32 off (masked scores NEG_INF, the sum
+    clamped at 1e-30, as the Pallas kernel), returned in q's dtype."""
+    b, sq, h, d = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    sc = _scale(d, scale)
+    qg = q.float().reshape(b, sq, n_kv, g, d)
+    kf, vf = k.float(), v.float()
+    qp = torch.arange(sq, device=q.device)
+    m = torch.full((b, n_kv, g, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, n_kv, g, sq), device=q.device)
+    acc = torch.zeros((b, n_kv, g, sq, d), device=q.device)
+    neg = torch.full((), NEG_INF, device=q.device)
+    with no_tf32():
+        for k0 in range(0, skv, KV_TILE):
+            kt, vt = kf[:, k0:k0 + KV_TILE], vf[:, k0:k0 + KV_TILE]
+            s = torch.einsum("bskgd,bukd->bkgsu", qg, kt) * sc
+            if causal:
+                kp = torch.arange(k0, k0 + kt.shape[1], device=q.device)
+                s = torch.where(qp[:, None] >= kp[None, :], s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgsu,bukd->bkgsd",
+                                                        p, vt)
+            m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    lib = build.library("flash_attention")
+    fn = lib.flash_attention
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention takes q (B, Sq, H, D) and k, v "
+                         f"(B, Skv, KV, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    if n_kv < 1 or h % n_kv:
+        raise ValueError(f"flash_attention: {h} query heads are not a "
+                         f"multiple of {n_kv} kv heads")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes a head dim of 1 to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if skv < 1:
+        raise ValueError("flash_attention needs at least one key")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention q must be fp32 or bf16, got "
+                        f"{q.dtype}")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward yet; see ROADMAP queue 1, "
+            "item 12 (training)")
+    build.check_operands("flash_attention", q=(q, q.dtype), k=(k, q.dtype),
+                         v=(v, q.dtype))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, Sq, H, D), k and v (B, Skv, KV, D), all fp32 or all bf16,
+    D <= 128 -> (B, Sq, H, D) in q's dtype: attention with an fp32 online
+    softmax, causal or not, scale 1/sqrt(D) unless given."""
+    _check(q, k, v)
+    kind = q.device.type
+    if kind == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if kind == "meta":
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
+    if kind != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not "
+                         f"{kind}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    b, sq, h, d = q.shape
+    lib, fn = _launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, sq, k.shape[1], h, k.shape[2], d, _scale(d, scale),
+                 int(causal), int(q.dtype == torch.bfloat16), stream)
+    build.check(lib, err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

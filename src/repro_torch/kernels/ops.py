@@ -12,6 +12,10 @@ Pallas kernels) and runs the int8 kernel, whose epilogue dequantizes. The
 conv quantizes before any padding, so the scales never see the zero pad;
 its per-example `sx` covers every group and its per-output-channel `sw`
 runs across the groups.
+
+Attention keeps the reference's layout, q (B, Sq, H, D) and k, v
+(B, Skv, KV, D); the kernel reads the GQA kv head as an index, so the
+reference's `jnp.repeat` of the kv heads has no counterpart here.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.kernels import conv1d as _conv1d
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gfid_conv as _conv
 from repro_torch.kernels import gfid_matmul as _matmul
 from repro_torch.kernels import paged as _paged
@@ -86,3 +91,12 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     block_size, *feature), a bitwise copy (one launch)."""
     return _paged.paged_gather(pool.contiguous(),
                                table.to(torch.int32).contiguous())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, Sq, H, D); k, v (B, Skv, KV, D), GQA heads read in place ->
+    (B, Sq, H, D) in q's dtype (one launch)."""
+    return _flash.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal, scale=scale)

@@ -1,11 +1,14 @@
 """Library oracles for the kernels: the library's own convolution and
-matrix product, the ground truth the kernel tests hold the GFID paths
-against."""
+matrix product, and plain dense attention, the ground truth the kernel
+tests hold the GFID paths and the flash kernel against."""
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
-from repro_torch.core import gfid
+from repro_torch.core import gfid, quant
 
 
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -23,3 +26,21 @@ def conv1d_depthwise_ref(x: torch.Tensor, w: torch.Tensor,
     """(B, L, D) x (W_f, D) depthwise 1-D conv (the library's grouped
     conv, TF32 off)."""
     return gfid.conv1d_depthwise_reference(x, w, causal=causal)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q, k, v: (B, H, S, D) (kv heads pre-broadcast): dense softmax
+    attention in fp32 with TF32 off, masked scores -1e30, in q's dtype."""
+    s = q.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    with quant.no_tf32():
+        s_mat = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+        if causal:
+            mask = torch.tril(torch.ones((s, k.shape[2]), dtype=torch.bool,
+                                         device=q.device))
+            s_mat = torch.where(mask, s_mat,
+                                torch.full((), -1e30, device=q.device))
+        p = torch.softmax(s_mat, dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

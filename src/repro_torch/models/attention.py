@@ -4,9 +4,10 @@ single-token (decode) paths. A copy of the JAX package's
 
 All projections are FC-mode GEMMs of the multi-mode engine; the score and
 value contractions are plain tensor ops, as in the reference, in fp32 with
-TF32 off. Not ported
-(each raises, naming its ROADMAP item): the chunked prefill for sequences
-over 1024 (`models/flash.py`), MLA, cross-attention and the sliding
+TF32 off. A prefill over 1024 tokens runs the chunked attention of
+`models/flash.py` instead of the dense one, as the reference does; on the
+"cuda" backend that is the hand-written flash kernel. Not ported (each
+raises, naming its ROADMAP item): MLA, cross-attention and the sliding
 window.
 """
 from __future__ import annotations
@@ -19,11 +20,11 @@ import torch
 from repro_torch import engine
 from repro_torch.configs.base import GLOBAL_ATTN, ModelConfig
 from repro_torch.core.quant import no_tf32
+from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (D_MODEL, HEADS, ParamDef, apply_rope,
                                        rms_norm)
 
 NEG_INF = -2.0e38
-DENSE_MAX_SEQ = 1024    # the reference runs longer prefills chunked
 
 
 def check_supported(cfg: ModelConfig, kind: str) -> None:
@@ -62,10 +63,13 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, softcap_val: float = 0.0,
+                    causal: bool, window: int = 0, softcap_val: float = 0.0,
+                    q_offset: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """O(S^2)-memory attention. q: (B, Sq, H, Dk); k: (B, Skv, KV, Dk);
-    v: (B, Skv, KV, Dv) -> (B, Sq, H, Dv), in q's dtype."""
+    v: (B, Skv, KV, Dv) -> (B, Sq, H, Dv), in q's dtype. Query i sits at
+    position i + q_offset; `window` keeps the keys less than `window`
+    positions behind it."""
     b, sq, h, dk = q.shape
     _, skv, n_kv, dv = v.shape
     g = h // n_kv
@@ -75,10 +79,14 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.einsum("bskgd,bukd->bkgsu", qg.float(), k.float()) * scale
         if softcap_val:
             s = softcap_val * torch.tanh(s / softcap_val)
-        if causal:
-            qp = torch.arange(sq, device=q.device)
+        if causal or window:
+            qp = torch.arange(sq, device=q.device) + q_offset
             kp = torch.arange(skv, device=q.device)
-            mask = qp[:, None] >= kp[None, :]
+            mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= qp[:, None] >= kp[None, :]
+            if window:
+                mask &= qp[:, None] - kp[None, :] < window
             s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgsu,bukd->bskgd", p, v.float())
@@ -91,16 +99,13 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                       positions: torch.Tensor, kind: str,
+                      use_chunked: Optional[bool] = None,
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Returns (out, (k, v)) — k and v returned so prefill can seed the
-    cache."""
+    cache. The attention is chunked (`models/flash.py`) when `use_chunked`
+    says so, else past 1024 tokens, as in the reference."""
     check_supported(cfg, kind)
     b, s, _ = x.shape
-    if s > DENSE_MAX_SEQ:
-        raise NotImplementedError(
-            f"a {s}-token prefill needs the chunked attention of "
-            "models/flash.py, which is not ported to repro_torch yet; see "
-            "ROADMAP queue 1, item 8")
     hd = cfg.head_dim
     q = _split_heads(engine.proj(x, p["wq"]), cfg.n_heads)
     k = _split_heads(engine.proj(x, p["wk"]), cfg.n_kv_heads)
@@ -111,8 +116,9 @@ def attention_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = dense_attention(q, k, v, causal=not cfg.is_encoder,
-                        softcap_val=cfg.attn_softcap)
+    chunked = use_chunked if use_chunked is not None else s > 1024
+    fn = flash_attention if chunked else dense_attention
+    o = fn(q, k, v, causal=not cfg.is_encoder, softcap_val=cfg.attn_softcap)
     out = engine.proj(o.reshape(b, s, cfg.n_heads * hd), p["wo"])
     return out, (k, v)
 

@@ -37,6 +37,7 @@ def test_port_imports_without_triton_nvcc_or_jax():
         "import repro_torch, repro_torch.engine, repro_torch.models.cnn\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "import repro_torch.kernels.build, repro_torch.kernels.paged\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.models.flash\n"
         "import repro_torch.configs.base, repro_torch.configs.smollm_135m\n"
         "import repro_torch.models.transformer, repro_torch.serve.kv_pool\n"
         "import repro_torch.serve.engine, repro_torch.serve.scheduler\n"
