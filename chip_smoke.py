@@ -18,7 +18,11 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      M = 1024). fp32:
      max|kernel - plain| / max|plain| <= 1e-4. int8 (operands quantized on
      the card by `core/quant`): max|kernel - plain| == 0 for act None and
-     relu, <= 1e-6 * max|plain| for gelu.
+     relu, <= 1e-6 * max|plain| for gelu. bf16 operands (`gfid_matmul_bf16`,
+     `gfid_conv2d_nhwc_bf16`) at every AlexNet conv and FC shape (bf16 bias,
+     relu), the ragged cases (fp32 bias, gelu, none) and the five decode
+     GEMMs at M = 8, each stored in fp32 (within 1e-4 * max|plain|) and in
+     bf16 (every element within one bf16 step of the plain version's).
   4. AlexNet (full width, random weights from a seed) end to end through
      `compile(program("alexnet", batch=B), EngineConfig(backend="cuda"))
      .apply(params, x)` at B = 1 and 32: every op on "cuda", 5 conv and 3
@@ -37,7 +41,13 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      backend, int8 logits bitwise equal to it, Table-4 rows equal to their
      goldens. Then AlexNet with `precisions={"fc6": "int8"}` under an fp32
      config: one int8 matmul launch beside 5 fp32 conv and 2 fp32 matmul
-     launches.
+     launches. Then (4d) AlexNet with bf16 parameters through
+     `program("alexnet", batch=B, dtype=torch.bfloat16)` at B = 1 and 32:
+     every op on "cuda", 5 `gfid_conv2d_nhwc_bf16` and 3 `gfid_matmul_bf16`
+     launches and no other per forward, bf16 logits within 2e-2 *
+     max|logits| of the "torch" backend, SNR >= 28 dB against the fp32
+     forward from the same weights, the Table-4 row still the golden; ms per
+     forward and images/s.
      Phase 3 also holds `paged_gather` against its plain version, bitwise:
      smollm-135m's full-width pool (257, 16, 30, 3, 64) bf16 with tables of
      1 and 8 rows x 32 blocks, the four cases of tests/test_kv_pool.py, an
@@ -56,9 +66,14 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      it accepts the shape; none for the int8 conv). `flash_attention` at
      (1, 1984, 9 / 3, 64) causal fp32, a launch and one prefill's 30,
      beside `F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`
-     with TF32 off (timed here only; nothing on the path calls it).
+     with TF32 off (timed here only; nothing on the path calls it). The
+     bf16 kernels at AlexNet's shapes as the path runs them (bf16 in and
+     out), beside `F.conv2d` and `torch.addmm` in bf16, each with relu.
+     A bound takes the card's peak for the operands' type: 67 TFLOP/s in
+     fp32, 989 TFLOP/s in bf16, 1,979 TOP/s in int8, and 3.35 TB/s.
   6. serving: smollm-135m at full width and depth (fp32 parameters from
-     `init_params(cfg, seed=0, device="cuda")`), a bf16 paged pool of 257
+     `init_params(cfg, seed=0, device="cuda", dtype=torch.float32)`), a
+     bf16 paged pool of 257
      blocks of 16 slots (max_len 512, max_batch 8: no preemption), 16
      requests with prompts of 16-256 tokens and 16, 32 or 64 steps from a
      seeded `torch.Generator`, served by `ContinuousScheduler` under
@@ -124,6 +139,19 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      the same pool snapshot. Prints tokens/s and p50/p95 of the continuous
      run, the prompt-1984 prefill with a `torch.profiler` split of flash
      against GEMM device time, and the decode step with 8 and 1 live rows.
+  9. smollm-135m with its config's bf16 parameters (`init_params(cfg,
+     seed=0, device="cuda", dtype=torch.bfloat16)`, 269 MB), phase 6's pool
+     and 16 requests, served continuous, drain and solo: the checks and
+     numbers of phase 6 with 211 `gfid_matmul_bf16` launches a decode step
+     and a prefill, no fp32 `gfid_matmul`, and "torch" logits within
+     2.5e-2 of "cuda" (bf16 roundings of each projection, in other sum
+     orders). Then one batch-1 prefill at prompt 1984 on phase 8's pool:
+     211 `gfid_matmul_bf16` + 30 `flash_attention` (bf16 q, k, v)
+     launches, its time and a profiler split of its device time between
+     the two kernels. At prompts 1025, 1280, 1664 and 1984, the "cuda" and
+     "torch" logits: within 2.5e-2 of each other in bf16, within 1e-4 from
+     the same weights widened to fp32, and each about as far from those
+     fp32 logits as the other (ratio within 1.5 either way).
 
 The last lines are the card's name and power limit, a JSON object listing
 the kernels, and `{"ok": true, "device": {...}}`.
@@ -165,11 +193,32 @@ LONG_LENS, LONG_REPEAT, LONG_STEPS = (1025, 1280, 1664, 1984), 3, (16, 32)
 LONG_MAX_LEN, LONG_BLOCKS = 2048, 1025
 LONG_PREFILL = 1984         # the timed prefill, and the flash kernel's timed shape
 BF16_FLASH_TOL = 8e-3       # flash on bf16 operands: max|Δ| / max|plain|
+# bf16 GEMM and conv kernels: an fp32 store within TOL of the plain version;
+# a bf16 store within one bf16 step of the plain version's bf16 element (the
+# step at the larger magnitude, TOL * max|plain| near zero): the two fp32
+# sums can round to neighbouring bf16 values
+# AlexNet in bf16: logits vs the "torch" backend, and SNR vs fp32 logits
+# from the same (bf16-representable) weights
+CNN_BF16_TOL = 2e-2
+# smollm-135m with bf16 parameters: "torch" logits vs "cuda" (each bf16
+# projection rounds once in both, its sums in other orders, through 30
+# layers). On the H100 the gap read 9.1e-3 in decode and 1.42e-2 to
+# 1.59e-2 at prompts of 1025-1984 tokens, where each backend lay 1.16e-2
+# to 1.47e-2 from the fp32 logits of the same weights: the gap is the two
+# paths' own bf16 rounding. The limit leaves 1.6x room over the largest
+# reading and stays under half the reference's own bf16 bound of 5e-2.
+BF16_LOGITS_TOL = 2.5e-2
+# ... and the two paths round alike: the "cuda" distance from those fp32
+# logits over the "torch" one lies in [1 / BF16_FP32_RATIO,
+# BF16_FP32_RATIO] (read 0.917-1.190)
+BF16_FP32_RATIO = 1.5
 OTHER_NETS = ("vgg16", "resnet50")   # driven at batch 1 after AlexNet
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
-# tensor cores, int8 in them, and device-memory bandwidth.
+# tensor cores, bf16 and int8 in them, and device-memory bandwidth. A bound
+# takes the peak of the operands' type, whatever units a kernel uses.
 PEAK_FP32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 PEAK_INT8_OP_S = 1979e12
 PEAK_BYTES_S = 3.35e12
 
@@ -226,7 +275,37 @@ def bound_ms(n_bytes, ops, peak_ops=PEAK_FP32_FLOP_S):
 
 
 def rel_err(got, want):
-    return ((got - want).abs().max() / want.abs().max()).item()
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def bf16_steps(got, want):
+    """The largest |got - want| of two bf16 tensors in units of the bf16
+    step at the larger magnitude of each pair (at least TOL * max|want|):
+    <= 1 means every element is within one bf16 rounding."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    limit = torch.maximum(step, TOL * w.abs().max())
+    return ((g - w).abs() / limit).max().item()
+
+
+def kernel_check(got, want):
+    """(ok, max|d|, reading, limit): an fp32 result within TOL x max|want|,
+    a bf16 one within one bf16 step of each element (`bf16_steps`)."""
+    abs_err = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        steps = bf16_steps(got, want)
+        return steps <= 1.0, abs_err, steps, 1.0
+    err = rel_err(got, want)
+    return err <= TOL, abs_err, err, TOL
+
+
+def as_bf16(kw, keep_bias=False):
+    """A case's kwargs with its tensors in bf16 (the bias kept fp32 when
+    `keep_bias`: the kernels take either)."""
+    return {k: v.to(torch.bfloat16) if isinstance(v, torch.Tensor)
+            and not (keep_bias and k == "bias") else v for k, v in kw.items()}
 
 
 def conv_cases(cnn, batch, gen, dev):
@@ -417,10 +496,14 @@ def int_mm_accepts(m, k, n):
     return m > 16 and k % 8 == 0 and n % 8 == 0
 
 
-def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
-    """Phase 6: smollm-135m served through `ContinuousScheduler` on the
-    paged pool (see the module docstring). Returns the numbers the kernels
-    line and the summary print; folds the kernel-vs-plain errors at the
+def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
+                dtype=torch.float32):
+    """Phase 6 (fp32 parameters) and phase 9 (`dtype=torch.bfloat16`, the
+    config's own): smollm-135m served through `ContinuousScheduler` on the
+    paged pool (see the module docstring). The GEMM launches counted are
+    `gfid_matmul`'s or `gfid_matmul_bf16`'s by the dtype; `other_kernels` must
+    launch nothing. Returns the numbers the kernels line and the summary
+    print (and the parameters); folds the kernel-vs-plain errors at the
     timed shapes into `worst`."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import transformer as T
@@ -428,15 +511,23 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
     from repro_torch.serve.scheduler import (ContinuousScheduler,
                                              latency_percentiles)
 
-    mm, gather = gfid_matmul.gfid_matmul, paged.paged_gather
+    bf16 = dtype == torch.bfloat16
+    tag = "[serve bf16]" if bf16 else "[serve]"
+    mm_name = "gfid_matmul_bf16" if bf16 else "gfid_matmul"
+    # the launch count of the GEMM kernel of this dtype; `mm` takes both
+    counted, gather = getattr(gfid_matmul, mm_name), paged.paged_gather
+    mm = gfid_matmul.gfid_matmul
+    logits_tol = BF16_LOGITS_TOL if bf16 else TOL
     cfg = get_config(SERVE_MODEL)
     t0 = time.perf_counter()
-    params = T.init_params(cfg, seed=0, device=DEVICE)
+    params = T.init_params(cfg, seed=0, device=DEVICE, dtype=dtype)
     n_params = sum(p.numel() for p in _leaves(params))
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of {cfg.head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} fp32 parameters "
-          f"made in {time.perf_counter() - t0:.2f} s")
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} "
+          f"{str(dtype)[6:]} parameters "
+          f"({sum(p.numel() * p.element_size() for p in _leaves(params)) / 1e6:.1f} "
+          f"MB) made in {time.perf_counter() - t0:.2f} s")
     per_pass = cfg.n_layers * 7 + 1     # GEMMs of a decode step or a prefill
     gen = torch.Generator().manual_seed(0)
     work = []
@@ -447,7 +538,7 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
                                               generator=gen))]
         prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
         work.append((prompt, steps))
-    print(f"[serve] workload: {len(work)} requests, prompts "
+    print(f"{tag} workload: {len(work)} requests, prompts "
           f"{sorted(len(p) for p, _ in work)} tokens, steps "
           f"{[n for _, n in work]} ({sum(n for _, n in work)} tokens to generate)")
     conf = E.EngineConfig(backend="cuda", row_align=8)
@@ -477,14 +568,14 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
                     f"{len(kinds)} ops, expected {want_ops}")
         compiled = prefills + decodes
         tickets = [s.submit(p, n) for p, n in work]
-        zero_counts(mm, gather, *other_kernels)
+        zero_counts(counted, gather, *other_kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         st = s.stats()
-        launches = counts(mm, gather, *other_kernels)
+        launches = counts(counted, gather, *other_kernels)
         require(all(t.status == "done" and t.preemptions == 0 for t in tickets)
                 and st["evicted"] == 0, f"{mode}: not every request done "
                 "without preemption")
@@ -500,11 +591,11 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
         lat = latency_percentiles(tickets)
         runs[mode] = dict(tokens=[t.tokens for t in tickets], wall=wall,
                           n_tok=n_tok, lat=lat, stats=st, compile_s=compile_s)
-        print(f"[serve] {mode}: {st['steps']} decode steps (buckets "
+        print(f"{tag} {mode}: {st['steps']} decode steps (buckets "
               f"{st['compiled_decode_buckets']}, fill {st['decode_fill']:.3f}), "
               f"{st['admitted']} prefills, {n_tok} tokens in {wall:.3f} s = "
               f"{n_tok / wall:.1f} tokens/s; latency p50 {lat['p50_ms']:.1f} ms, "
-              f"p95 {lat['p95_ms']:.1f} ms; launches gfid_matmul {launches[0]}, "
+              f"p95 {lat['p95_ms']:.1f} ms; launches {mm_name} {launches[0]}, "
               f"paged_gather {launches[1]} (= {per_pass} per step and prefill, 2 "
               f"per step), others {sum(launches[2:])}; {len(compiled)} programs "
               f"captured and compiled in {compile_s:.2f} s beforehand; pool "
@@ -519,7 +610,7 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
                 [prompt], device=dev)}, steps, SERVE_MAX_LEN)
             require(dense[0].tolist() == base[i], f"request {i}: paged tokens "
                     "differ from greedy_generate's dense-cache tokens")
-    print(f"[serve] tokens bitwise equal across continuous, drain and solo, and "
+    print(f"{tag} tokens bitwise equal across continuous, drain and solo, and "
           f"equal to greedy_generate for {SERVE_DENSE_CHECKS} requests")
 
     # one decode step with 8 and with 1 live rows (both at the one bucket of
@@ -544,10 +635,10 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
                              dtype=torch.int32, device=dev),
                 torch.tensor([t.pos for t in rows[:live]] + [0] * pad,
                              dtype=torch.int32, device=dev))
-        zero_counts(mm, gather, *other_kernels)
+        zero_counts(counted, gather, *other_kernels)
         dec.apply(*args)
         torch.cuda.synchronize()
-        one = step_launches[live] = counts(mm, gather, *other_kernels)
+        one = step_launches[live] = counts(counted, gather, *other_kernels)
         require(one == (per_pass, 2) + (0,) * len(other_kernels),
                 f"{live} live rows: one decode step launched {one}")
         # each call rewrites the same slot with the same values
@@ -564,22 +655,23 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
                 for a, b in zip(_leaves(s8.pool.arrays), snap):
                     a.copy_(b)
     err = rel_err(logits["cuda"], logits["torch"])
-    require(bool(torch.isfinite(logits["cuda"]).all()) and err <= TOL,
-            f"decode step: cuda logits vs torch backend {err:.3e} > {TOL}")
-    print(f"[serve] one decode step at bucket {SERVE_BATCH}: {per_pass} gfid_matmul + 2 "
+    require(bool(torch.isfinite(logits["cuda"]).all()) and err <= logits_tol,
+            f"{tag} decode step: cuda logits vs torch backend {err:.3e} > "
+            f"{logits_tol}")
+    print(f"{tag} one decode step at bucket {SERVE_BATCH}: {per_pass} {mm_name} + 2 "
           f"paged_gather launches with {SERVE_BATCH} and with 1 live rows; logits with "
           f"{SERVE_BATCH} live rows max|d|/max|ref| vs the torch backend on the same "
-          f"pool = {err:.3e} (limit {TOL})")
-    print(f"[serve] decode step at bucket {SERVE_BATCH}: {SERVE_BATCH} live rows "
+          f"pool = {err:.3e} (limit {logits_tol})")
+    print(f"{tag} decode step at bucket {SERVE_BATCH}: {SERVE_BATCH} live rows "
           f"{step_ms[SERVE_BATCH]:.4f} ms, 1 live row {step_ms[1]:.4f} ms (median of "
           "20, CUDA events around CompiledNet.apply)")
     for live, prof in profiles.items():
         if prof is None:
-            print(f"[profile] {live} live rows: the profiler recorded no device "
-                  "time; device busy share not measured")
+            print(f"[profile] {tag} {live} live rows: the profiler recorded no "
+                  "device time; device busy share not measured")
             continue
         busy_ms, n_kernels, top = prof
-        print(f"[profile] decode step with {live} live rows: {n_kernels} device "
+        print(f"[profile] {tag} decode step with {live} live rows: {n_kernels} device "
               f"kernels, {busy_ms:.4f} ms of device time per step (sum of kernel "
               f"times, torch.profiler over 3 steps) = {100 * busy_ms / step_ms[live]:.1f}% "
               f"of the step; idle {100 * (1 - busy_ms / step_ms[live]):.1f}%; "
@@ -588,8 +680,8 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
 
     # prefill and capture at prompt SERVE_PREFILL
     t0 = time.perf_counter()
-    pre = E.compile(SE.prefill_ingest_program(cfg, s8.layout, SERVE_PREFILL),
-                    conf)
+    pre = E.compile(SE.prefill_ingest_program(cfg, s8.layout, SERVE_PREFILL,
+                                              dtype), conf)
     capture_s = time.perf_counter() - t0
     row = s8.pool.table_rows([rows[0].rid], 1)[0]
     slot = s8.pool.slot_rows([rows[0].rid], 1)[0]
@@ -601,7 +693,7 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
     for a, b in zip(_leaves(s8.pool.arrays), snap):
         a.copy_(b)
     del snap
-    print(f"[serve] batch-1 prefill at prompt {SERVE_PREFILL}: {prefill_ms:.4f} ms (median "
+    print(f"{tag} batch-1 prefill at prompt {SERVE_PREFILL}: {prefill_ms:.4f} ms (median "
           f"of 10); capture and compile of its program: {capture_s:.3f} s")
 
     # the kernels at the decode step's shapes
@@ -624,30 +716,38 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
             "paged_gather at the decode step's shapes differs from its plain version")
     mm_rows = []
     for label, k, n in serve_gemm_shapes(cfg):
-        x = torch.randn((8, k), generator=gen).to(dev)
-        w = torch.randn((k, n), generator=gen).to(dev)
-        want = gfid_matmul.gfid_matmul_plain(x, w)
-        got = mm(x, w)
-        err = rel_err(got, want)
-        require(err <= TOL, f"gfid_matmul decode {label}: error {err:.3e} > {TOL}")
-        worst["gfid_matmul"] = max(worst["gfid_matmul"],
-                                   (got - want).abs().max().item())
-        b_ms, by = bound_ms(4 * (8 * k + k * n + 8 * n), 2 * 8 * k * n)
-        row_t = dict(label=label, k=k, n=n, ms=time_ms(lambda: mm(x, w)),
-                     plain_ms=time_ms(lambda: gfid_matmul.gfid_matmul_plain(x, w)),
+        x = torch.randn((8, k), generator=gen).to(dev).to(dtype)
+        w = torch.randn((k, n), generator=gen).to(dev).to(dtype)
+        # as on the path: a projection stores the operands' dtype, the tied
+        # unembedding fp32
+        out = torch.float32 if label == "unembed" else dtype
+        kw = dict(out_dtype=out) if bf16 else {}
+        want = gfid_matmul.gfid_matmul_plain(x, w, **kw)
+        got = mm(x, w, **kw)
+        ok, abs_err, reading, limit = kernel_check(got, want)
+        require(ok, f"{mm_name} decode {label}: {reading:.3e} > {limit}")
+        worst[mm_name] = max(worst[mm_name], abs_err)
+        el, out_el = x.element_size(), got.element_size()
+        b_ms, by = bound_ms(el * (8 * k + k * n) + out_el * 8 * n, 2 * 8 * k * n,
+                            PEAK_BF16_FLOP_S if bf16 else PEAK_FP32_FLOP_S)
+        row_t = dict(label=label, k=k, n=n, ms=time_ms(lambda: mm(x, w, **kw)),
+                     plain_ms=time_ms(lambda: gfid_matmul.gfid_matmul_plain(
+                         x, w, **kw)),
                      library_ms=time_ms(lambda: torch.mm(x, w)), bound_ms=b_ms,
                      bound_by=by)
         mm_rows.append(row_t)
-        print(f"[time] gfid_matmul decode {label} (8, {k}) @ ({k}, {n}): kernel "
-              f"{row_t['ms']:.4f} ms, plain {row_t['plain_ms']:.4f} ms, library "
-              f"torch.mm {row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); "
-              f"max|d|/max|ref| vs plain {err:.3e}")
+        print(f"[time] {mm_name} decode {label} (8, {k}) @ ({k}, {n}) -> "
+              f"{str(got.dtype)[6:]}: kernel {row_t['ms']:.4f} ms, plain "
+              f"{row_t['plain_ms']:.4f} ms, library torch.mm "
+              f"{row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); vs plain "
+              f"{reading:.3e} (limit {limit:g}{' bf16 steps' if limit == 1.0 else ''})")
     embed = params["embed"]
     copy_ms = time_ms(lambda: embed.T.contiguous())
     per_step = {"wq/wo": 2, "wk/wv": 2, "w_in/w_gate": 2, "w_out": 1, "unembed": 0}
     layer_ms = sum(r["ms"] * per_step[r["label"]] for r in mm_rows)
-    print(f"[time] tied unembedding: the (vocab, d_model) table's transpose "
-          f"copy before the GEMM {copy_ms:.4f} ms ({embed.numel() * 4 / 1e6:.1f} MB "
+    print(f"[time] {tag} tied unembedding: the (vocab, d_model) table's transpose "
+          f"copy before the GEMM {copy_ms:.4f} ms "
+          f"({embed.numel() * embed.element_size() / 1e6:.1f} MB "
           f"read and written); per decode step at bucket {SERVE_BATCH}: {cfg.n_layers} layers "
           f"x {layer_ms:.4f} ms of layer GEMMs + unembed {mm_rows[-1]['ms']:.4f} ms "
           f"+ copy {copy_ms:.4f} ms + 2 gathers = "
@@ -657,7 +757,7 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst):
     return dict(gather=g, mm_rows=mm_rows, step_ms=step_ms, prefill_ms=prefill_ms,
                 per_pass=per_pass, step_launches=step_launches[SERVE_BATCH],
                 capture_s=capture_s, tps=cont["n_tok"] / cont["wall"],
-                lat=cont["lat"], copy_ms=copy_ms)
+                lat=cont["lat"], copy_ms=copy_ms, params=params)
 
 
 def ssm_conv_cases(gen, dev):
@@ -742,7 +842,7 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
                                        (got - want).abs().max().item())
 
     t0 = time.perf_counter()
-    params = T.init_params(cfg, seed=0, device=DEVICE)
+    params = T.init_params(cfg, seed=0, device=DEVICE, dtype=torch.float32)
     n_params = sum(p.numel() for p in _leaves(params))
     print(f"[ssm] {cfg.name}: {cfg.n_layers} layers ({cfg.pattern.count('mlstm')} "
           f"mLSTM + {cfg.pattern.count('slstm')} sLSTM a group, {cfg.n_groups} "
@@ -940,7 +1040,8 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
     # prefill at prompt SSM_PREFILL (two mLSTM chunks): launches, "torch"
     # logits, time, profile
     t0 = time.perf_counter()
-    pre = E.compile(SE.prefill_ingest_program(cfg, s8.layout, SSM_PREFILL), conf)
+    pre = E.compile(SE.prefill_ingest_program(cfg, s8.layout, SSM_PREFILL,
+                                              torch.float32), conf)
     capture_s = time.perf_counter() - t0
     row = s8.pool.table_rows([rows[0].rid], 1)[0]
     slot = s8.pool.slot_rows([rows[0].rid], 1)[0]
@@ -1107,7 +1208,7 @@ def long_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
     mm, gather, fa = gfid_matmul.gfid_matmul, paged.paged_gather, flash.flash_attention
     kernels = (mm, gather, fa) + tuple(other_kernels)
     cfg = get_config(SERVE_MODEL)
-    params = T.init_params(cfg, seed=0, device=DEVICE)
+    params = T.init_params(cfg, seed=0, device=DEVICE, dtype=torch.float32)
     per_pass = cfg.n_layers * 7 + 1     # GEMMs of a decode step or a prefill
     n_attn = cfg.n_layers               # flash launches of a long prefill
     gen = torch.Generator().manual_seed(8)
@@ -1260,7 +1361,8 @@ def long_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
           "of 10, CUDA events)")
 
     t0 = time.perf_counter()
-    pre = E.compile(SE.prefill_ingest_program(cfg, s8.layout, LONG_PREFILL),
+    pre = E.compile(SE.prefill_ingest_program(cfg, s8.layout, LONG_PREFILL,
+                                              torch.float32),
                     conf)
     capture_s = time.perf_counter() - t0
     row = s8.pool.table_rows([rows[0].rid], 1)[0]
@@ -1316,6 +1418,118 @@ def long_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
     return dict(tps=cont["n_tok"] / cont["wall"], lat=cont["lat"],
                 step_ms=step_ms, prefill_ms=prefill_ms, capture_s=capture_s,
                 run_launches=cont["launches"], n_attn=n_attn, by_name=by_name)
+
+
+def bf16_logits_witness(E, T, cfg, conf, params, prompt):
+    """What the "cuda" and "torch" bf16 logits' gap is made of, at each of
+    LONG_LENS (prefixes of `prompt`): the gap itself (held to
+    BF16_LOGITS_TOL); the same prefill from the same weights widened to fp32
+    (held to TOL: the two backends compute one function); and each bf16
+    backend's distance from those fp32 logits (their ratio held within
+    BF16_FP32_RATIO either way: neither path rounds more than the other).
+    Returns the gap at the longest prompt."""
+    from repro_torch.models.layers import tree_map
+    params32 = tree_map(lambda a: a.float(), params)
+    gap = None
+    for n in LONG_LENS:
+        logits = {}
+        for name, tree in (("bf16", params), ("fp32", params32)):
+            for backend in ("cuda", "torch"):
+                with E.using_config(conf.replace(backend=backend)), \
+                        torch.no_grad():
+                    out, _ = T.prefill(cfg, tree, {"tokens": prompt[:, :n]},
+                                       LONG_MAX_LEN)
+                logits[(name, backend)] = out.float()
+        require(all(bool(torch.isfinite(v).all()) for v in logits.values()),
+                f"bf16 witness at prompt {n}: logits not finite")
+        ref32 = logits[("fp32", "torch")]
+        gap = rel_err(logits[("bf16", "cuda")], logits[("bf16", "torch")])
+        gap32 = rel_err(logits[("fp32", "cuda")], ref32)
+        dist = {b: rel_err(logits[("bf16", b)], ref32) for b in ("cuda", "torch")}
+        print(f"[serve bf16] logits at prompt {n}: cuda vs torch backend "
+              f"{gap:.3e} in bf16 (limit {BF16_LOGITS_TOL}), {gap32:.3e} from "
+              f"the same weights in fp32 (limit {TOL}); distance from those "
+              f"fp32 logits: cuda {dist['cuda']:.3e}, torch {dist['torch']:.3e} "
+              f"(ratio {dist['cuda'] / dist['torch']:.3f}, limits "
+              f"{1 / BF16_FP32_RATIO:.3f} and {BF16_FP32_RATIO})")
+        require(gap <= BF16_LOGITS_TOL, f"long bf16 prefill({n}): cuda logits "
+                f"vs torch backend {gap:.3e} > {BF16_LOGITS_TOL}")
+        require(gap32 <= TOL, f"long prefill({n}) from the bf16 weights in "
+                f"fp32: cuda vs torch {gap32:.3e} > {TOL}")
+        require(1 / BF16_FP32_RATIO <= dist["cuda"] / dist["torch"]
+                <= BF16_FP32_RATIO, f"long bf16 prefill({n}): cuda is "
+                f"{dist['cuda']:.3e} from the fp32 logits, torch "
+                f"{dist['torch']:.3e}")
+    del params32
+    return gap
+
+
+def long_prefill_bf16(dev, E, gfid_matmul, paged, flash, other_kernels, params):
+    """Phase 9's long prompt: one batch-1 prefill at LONG_PREFILL tokens of
+    smollm-135m with bf16 parameters on phase 8's pool geometry: 211
+    `gfid_matmul_bf16` and 30 `flash_attention` launches (bf16 q, k, v) and
+    nothing else, "torch" logits within BF16_LOGITS_TOL, its time and a
+    `torch.profiler` split of its device time between the two kernels."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as SE
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    mm, gather, fa = (gfid_matmul.gfid_matmul_bf16, paged.paged_gather,
+                      flash.flash_attention)
+    kernels = (mm, gather, fa) + tuple(other_kernels)
+    cfg = get_config(SERVE_MODEL)
+    per_pass, n_attn = cfg.n_layers * 7 + 1, cfg.n_layers
+    conf = E.EngineConfig(backend="cuda", row_align=8)
+    s = ContinuousScheduler(cfg, params, max_len=LONG_MAX_LEN,
+                            num_blocks=LONG_BLOCKS, block_size=SERVE_BLOCK,
+                            max_batch=SERVE_BATCH, config=conf)
+    gen = torch.Generator().manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PREFILL), generator=gen,
+                           dtype=torch.int32)
+    t = s.submit(prompt[0].tolist(), LONG_MAX_LEN - LONG_PREFILL)
+    s.step()                               # admits it: blocks, a slot, a prefill
+    require(t.status == "running", f"long bf16: request {t.status}")
+    pre = s.prefill_compiled(LONG_PREFILL)
+    row = s.pool.table_rows([t.rid], 1)[0]
+    slot = s.pool.slot_rows([t.rid], 1)[0]
+    prompt = prompt.to(dev)
+    snap = [a.clone() for a in _leaves(s.pool.arrays)]
+    zero_counts(*kernels)
+    pre.apply(params, s.pool.arrays, row, slot, prompt)
+    torch.cuda.synchronize()
+    launches = counts(*kernels)
+    require(launches == (per_pass, 0, n_attn) + (0,) * len(other_kernels),
+            f"long bf16: prefill({LONG_PREFILL}) launched {launches}")
+    err = bf16_logits_witness(E, T, cfg, conf, params, prompt)
+    prefill_ms = time_ms(lambda: pre.apply(params, s.pool.arrays, row, slot,
+                                           prompt), iters=5, warmup=1)
+    prof = device_profile(lambda: pre.apply(params, s.pool.arrays, row, slot,
+                                            prompt), steps=1)
+    for a, b in zip(_leaves(s.pool.arrays), snap):
+        a.copy_(b)
+    del snap, s
+    print(f"[serve bf16] batch-1 prefill at prompt {LONG_PREFILL} on a pool of "
+          f"{LONG_BLOCKS} x {SERVE_BLOCK} (max_len {LONG_MAX_LEN}): {per_pass} "
+          f"gfid_matmul_bf16 + {n_attn} flash_attention launches (bf16 q, k, v); "
+          f"logits max|d|/max|ref| vs the torch backend {err:.3e} (limit "
+          f"{BF16_LOGITS_TOL}); {prefill_ms:.4f} ms (median of 5)")
+    split = None
+    if prof is None:
+        print("[profile] long bf16 prefill: the profiler recorded no device "
+              "time; device busy share not measured")
+    else:
+        busy_ms, n_kernels, rows_p = prof
+        split = {key: sum(r[2] for r in rows_p if key in r[0])
+                 for key in ("flash_attention_kernel", "gfid_matmul_kernel")}
+        print(f"[profile] long bf16 prefill: {n_kernels} device kernels, "
+              f"{busy_ms:.4f} ms of device time = "
+              f"{100 * busy_ms / prefill_ms:.1f}% of its {prefill_ms:.4f} ms; "
+              f"flash_attention {split['flash_attention_kernel']:.4f} ms, "
+              f"gfid_matmul_bf16 {split['gfid_matmul_kernel']:.4f} ms, rest "
+              f"{busy_ms - sum(split.values()):.4f} ms; by kernel: "
+              + "; ".join(f"{n[:60]} x{c} {t_:.4f} ms" for n, c, t_ in rows_p[:6]))
+    return dict(prefill_ms=prefill_ms, launches=launches, err=err, split=split)
 
 
 def flash_timing(dev, flash, worst):
@@ -1408,11 +1622,16 @@ def main():
 
     conv32, mm32 = gfid_conv.gfid_conv2d_nhwc, gfid_matmul.gfid_matmul
     conv8, mm8 = gfid_conv.gfid_conv2d_nhwc_int8, gfid_matmul.gfid_matmul_int8
+    # launch counts of the bf16 entries, which conv32 and mm32 launch on bf16
+    conv16, mm16 = gfid_conv.gfid_conv2d_nhwc_bf16, gfid_matmul.gfid_matmul_bf16
     all_kernels = (conv32, mm32, conv8, mm8)
+    bf16_kernels = (conv16, mm16)
 
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the "torch" backend's and the library's bf16 products sum in fp32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     props = torch.cuda.get_device_properties(0)
     name_power = smi("name,power.limit")
     max_sm_mhz = float(smi("clocks.max.sm").split()[0])
@@ -1423,7 +1642,9 @@ def main():
     print(f"[card] nvidia-smi: {name_power}; max SM clock {max_sm_mhz:.0f} MHz -> "
           f"fp32 FMA peak {derived_peak / 1e12:.1f} TFLOP/s "
           f"(SMs x 128 lanes x 2 x clock); bounds below use {PEAK_FP32_FLOP_S / 1e12:.0f} "
-          f"TFLOP/s and {PEAK_BYTES_S / 1e12:.2f} TB/s")
+          f"TFLOP/s (fp32), {PEAK_BF16_FLOP_S / 1e12:.0f} TFLOP/s (bf16), "
+          f"{PEAK_INT8_OP_S / 1e12:.0f} TOP/s (int8) and "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s")
 
     src = torch.empty(9216 * 4096, device=dev)     # the size of fc6's weights
     dst = torch.empty_like(src)
@@ -1492,6 +1713,42 @@ def main():
             require(err <= limit, f"{kname} {label}: error {err:.3e} > {limit}")
             worst[kname] = max(worst[kname], abs_err)
             checks += 1
+    # bf16 operands: the same shapes (the five smollm decode GEMMs at M = 8
+    # instead of the prefill's), bias bf16 on the main path and fp32 on the
+    # ragged cases, each stored in fp32 and in bf16
+    bf16_cases = {
+        "gfid_conv2d_nhwc_bf16": (conv32, gfid_conv.gfid_conv2d_nhwc_plain, [
+            (lbl, as_bf16(kw)) for b in BATCHES for lbl, _, kw in conv_main[b]]
+            + [(f"ragged conv {i}", as_bf16(kw, keep_bias=True))
+               for i, kw in enumerate(ragged_conv)]),
+        "gfid_matmul_bf16": (mm32, gfid_matmul.gfid_matmul_plain, [
+            (lbl, as_bf16(kw)) for b in BATCHES for lbl, _, kw in fc_main[b]]
+            + [(f"ragged matmul {i}", as_bf16(kw, keep_bias=True))
+               for i, kw in enumerate(ragged_mm)]
+            + [(lbl, as_bf16(kw)) for lbl, kw in serve_mm_cases(gen, dev)
+               if "decode" in lbl])}
+    for kname, (kernel, plain, cases) in bf16_cases.items():
+        worst[kname] = 0.0
+        for label, kw in cases:
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = kernel(**kw, out_dtype=out_dtype)
+                want = plain(**kw, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                require(got.shape == want.shape and got.dtype == out_dtype
+                        and bool(torch.isfinite(got).all()),
+                        f"{kname} {label}: bad output")
+                ok, abs_err, reading, limit = kernel_check(got, want)
+                unit = "bf16 steps" if out_dtype == torch.bfloat16 \
+                    else "max|d|/max|ref|"
+                print(f"[check] {kname} {label} -> {str(out_dtype)[6:]}: act "
+                      f"{kw['act']}, bias "
+                      f"{'none' if kw['bias'] is None else str(kw['bias'].dtype)[6:]}, "
+                      f"max|d| = {abs_err:.3e}, {unit} {reading:.3e} (limit "
+                      f"{limit:g})")
+                require(ok, f"{kname} {label} {out_dtype}: {unit} {reading:.3e} "
+                        f"> {limit}")
+                worst[kname] = max(worst[kname], abs_err)
+                checks += 1
     worst["paged_gather"] = 0.0
     for label, pool, table in paged_cases(gen, dev):
         got = paged.paged_gather(pool, table)
@@ -1537,7 +1794,8 @@ def main():
     print(f"[check] paged_gather with a block id outside the pool, in a child "
           f"process: {trapped}")
     checks += 1
-    print(f"[check] {checks} kernel checks passed (fp32 {TOL}; int8 exact, "
+    print(f"[check] {checks} kernel checks passed (fp32 {TOL}; bf16 GEMM and "
+          f"conv: fp32 stores {TOL}, bf16 stores one bf16 step; int8 exact, "
           f"gelu {GELU_TOL}; paged_gather bitwise; flash_attention bf16 "
           f"{BF16_FLASH_TOL})")
 
@@ -1713,6 +1971,56 @@ def main():
           f"conv int8, matmul int8) = {launches}")
     del params
 
+    # -- phase 4d: AlexNet with bf16 parameters ----------------------------------
+    bf16 = torch.bfloat16
+    params = cnn.init_cnn("alexnet", seed=0, device=DEVICE, dtype=bf16)
+    params32 = {kind: {name: {k: v.float() for k, v in layer.items()}
+                       for name, layer in group.items()}
+                for kind, group in params.items()}
+    for batch in BATCHES:
+        x = torch.randn((batch, *cnn.ALEXNET_INPUT),
+                        generator=torch.Generator().manual_seed(batch)).to(dev)
+        x = x.to(bf16)
+        compiled = E.compile(cnn.program("alexnet", batch=batch, dtype=bf16),
+                             E.EngineConfig(backend="cuda"))
+        require(compiled.backends() == ("cuda",) * 8,
+                f"bf16: backends {compiled.backends()}")
+        if batch == 1:
+            require(compiled.cost == golden,
+                    f"bf16 Table-4 row {compiled.cost} != golden {golden}")
+        zero_counts(*all_kernels, *bf16_kernels)
+        logits = compiled.apply(params, x)
+        torch.cuda.synchronize()
+        launches = counts(*all_kernels, *bf16_kernels)
+        require(launches == (0, 0, 0, 0, 5, 3), f"bf16 B={batch}: launches "
+                f"(conv, matmul, conv int8, matmul int8, conv bf16, matmul "
+                f"bf16) = {launches}, expected (0, 0, 0, 0, 5, 3)")
+        main_launches.setdefault("bf16", launches[4:])
+        require(tuple(logits.shape) == (batch, 1000) and logits.dtype == bf16
+                and bool(torch.isfinite(logits).all()), "bad bf16 logits")
+        plain = E.compile(cnn.program("alexnet", batch=batch, dtype=bf16),
+                          E.EngineConfig(backend="torch"))
+        err = rel_err(logits, plain.apply(params, x))
+        require(err <= CNN_BF16_TOL, f"bf16 B={batch}: logits vs torch backend "
+                f"{err:.3e} > {CNN_BF16_TOL}")
+        f32 = E.compile(cnn.program("alexnet", batch=batch),
+                        E.EngineConfig(backend="cuda")).apply(params32, x.float())
+        snr = quant.snr_db(f32, logits).item()
+        require(snr >= SNR_FLOOR_DB, f"bf16 B={batch}: SNR {snr:.2f} dB < "
+                f"{SNR_FLOOR_DB}")
+        ms = time_ms(lambda: compiled.apply(params, x))
+        forward_ms[("bf16", batch)] = ms
+        print(f"[alexnet bf16] B={batch}: backends all cuda, launches conv bf16="
+              f"{launches[4]} matmul bf16={launches[5]} (fp32 and int8 "
+              f"{sum(launches[:4])}), logits bf16, max|d|/max|ref| vs torch "
+              f"backend = {err:.3e} (limit {CNN_BF16_TOL}), SNR vs the fp32 "
+              f"forward from the same weights {snr:.2f} dB (floor {SNR_FLOOR_DB})"
+              + (", Table-4 row == golden" if batch == 1 else ""))
+        print(f"[alexnet bf16] B={batch}: {ms:.4f} ms/forward (median of 20), "
+              f"{batch / ms * 1e3:.1f} images/s; fp32 forward "
+              f"{forward_ms[('fp32', batch)]:.4f} ms")
+    del params, params32
+
     # -- phase 5: kernel times at the main path's shapes -----------------------
     def lib_conv(x, w, bias, stride, pad, groups, act):
         out = F.conv2d(x, w, bias, stride=stride, padding=pad, groups=groups)
@@ -1725,6 +2033,11 @@ def main():
     def lib_int_mm(xq, wq, **_):
         return torch._int_mm(xq, wq)
 
+    # bf16 as on the path: bf16 operands and bias, bf16 stored
+    conv16_main, fc16_main = (
+        {b: [(lbl, spec, dict(as_bf16(kw), out_dtype=torch.bfloat16))
+             for lbl, spec, kw in main[b]] for b in BATCHES}
+        for main in (conv_main, fc_main))
     totals = {}
     for kname, kernel, plain, per_batch in (
             ("gfid_conv2d_nhwc", conv32, gfid_conv.gfid_conv2d_nhwc_plain,
@@ -1733,9 +2046,15 @@ def main():
             ("gfid_conv2d_nhwc_int8", conv8,
              gfid_conv.gfid_conv2d_nhwc_int8_plain, conv8_main),
             ("gfid_matmul_int8", mm8, gfid_matmul.gfid_matmul_int8_plain,
-             fc8_main)):
-        int8 = kname.endswith("_int8")
-        peak = PEAK_INT8_OP_S if int8 else PEAK_FP32_FLOP_S
+             fc8_main),
+            ("gfid_conv2d_nhwc_bf16", conv32, gfid_conv.gfid_conv2d_nhwc_plain,
+             conv16_main),
+            ("gfid_matmul_bf16", mm32, gfid_matmul.gfid_matmul_plain,
+             fc16_main)):
+        int8, bf16 = kname.endswith("_int8"), kname.endswith("_bf16")
+        elem = 2 if bf16 else 4     # bytes an element
+        peak = (PEAK_INT8_OP_S if int8 else PEAK_BF16_FLOP_S if bf16
+                else PEAK_FP32_FLOP_S)
         for batch in BATCHES:
             tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                        n_bytes=0, ops=0)
@@ -1752,17 +2071,18 @@ def main():
                     if not conv and int_mm_accepts(batch, spec.n, spec.m):
                         lib, lib_kw = lib_int_mm, kw
                 elif conv:
-                    n_bytes = 4 * (kw["x"].numel() + kw["w"].numel()
-                                   + kw["bias"].numel() + out_elems)
+                    n_bytes = elem * (kw["x"].numel() + kw["w"].numel()
+                                      + kw["bias"].numel() + out_elems)
                     lib_kw = dict(x=kw["x"].permute(0, 3, 1, 2).contiguous(),
                                   w=kw["w"].permute(3, 2, 0, 1).contiguous(),
                                   bias=kw["bias"], stride=kw["stride"],
                                   pad=kw["pad"], groups=kw["groups"], act=kw["act"])
                     lib = lib_conv
                 else:
-                    n_bytes = 4 * (kw["x"].numel() + kw["w"].numel()
-                                   + kw["bias"].numel() + out_elems)
-                    lib, lib_kw = lib_mm, kw
+                    n_bytes = elem * (kw["x"].numel() + kw["w"].numel()
+                                      + kw["bias"].numel() + out_elems)
+                    lib = lib_mm
+                    lib_kw = {k: kw[k] for k in ("x", "w", "bias", "act")}
                 b_ms, _ = bound_ms(n_bytes, ops, peak)
                 k_ms = time_ms(lambda: kernel(**kw))
                 p_ms = time_ms(lambda: plain(**kw))
@@ -1794,13 +2114,21 @@ def main():
         print(f"[time] alexnet int8 B={batch}: forward {fwd:.4f} ms = int8 kernels "
               f"{k8:.4f} ms ({100 * k8 / fwd:.1f}%) + quantization {q:.4f} ms "
               f"({100 * q / fwd:.1f}%) + rest {fwd - k8 - q:.4f} ms")
+        fwd = forward_ms[("bf16", batch)]
+        k16 = (totals[("gfid_conv2d_nhwc_bf16", batch)]["ms"]
+               + totals[("gfid_matmul_bf16", batch)]["ms"])
+        print(f"[time] alexnet bf16 B={batch}: forward {fwd:.4f} ms = bf16 kernels "
+              f"{k16:.4f} ms ({100 * k16 / fwd:.1f}%) + rest {fwd - k16:.4f} ms")
 
     flash_t = flash_timing(dev, flash_attention, worst)
 
     # -- phase 6: serving smollm-135m on the paged pool -----------------------
-    others = all_kernels[:1] + all_kernels[2:] + (flash_attention.flash_attention,)
+    others = all_kernels[:1] + all_kernels[2:] + bf16_kernels \
+        + (flash_attention.flash_attention,)
     torch.cuda.empty_cache()
-    served = serve_phase(dev, E, gfid_matmul, paged, others, worst)
+    served = serve_phase(dev, E, gfid_matmul, paged, others, worst,
+                         dtype=torch.float32)
+    del served["params"]
 
     # -- phase 7: serving xlstm-125m (the depthwise conv kernel's path) -------
     torch.cuda.empty_cache()
@@ -1809,8 +2137,20 @@ def main():
     # -- phase 8: smollm-135m on prompts of 1025-1984 tokens (flash) ----------
     torch.cuda.empty_cache()
     long = long_phase(dev, E, gfid_matmul, paged, flash_attention,
-                      all_kernels[:1] + all_kernels[2:]
+                      all_kernels[:1] + all_kernels[2:] + bf16_kernels
                       + (conv1d.gfid_conv1d_depthwise,), worst)
+
+    # -- phase 9: smollm-135m with its config's bf16 parameters ---------------
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    served16 = serve_phase(dev, E, gfid_matmul, paged,
+                           all_kernels + (conv16, flash_attention.flash_attention,
+                                          conv1d.gfid_conv1d_depthwise),
+                           worst, dtype=torch.bfloat16)
+    long16 = long_prefill_bf16(dev, E, gfid_matmul, paged, flash_attention,
+                               all_kernels + (conv16, conv1d.gfid_conv1d_depthwise),
+                               served16.pop("params"))
+    print(f"[serve bf16] phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
     sources = {
         "gfid_conv2d_nhwc": ("src/repro_torch/csrc/gfid_conv.cu",
@@ -1875,6 +2215,29 @@ def main():
         "launch_ms": flash_t["launch"]["ms"],
         "plain_ms": fp["plain_ms"], "bound_ms": fp["bound_ms"],
         "bound_by": flash_t["bound_by"], "library_ms": fp["library_ms"]})
+    for kname, source, replaces, k in (
+            ("gfid_conv2d_nhwc_bf16", "src/repro_torch/csrc/gfid_conv.cu",
+             "src/repro/kernels/gfid_conv.py:79", 0),
+            ("gfid_matmul_bf16", "src/repro_torch/csrc/gfid_matmul.cu",
+             "src/repro/kernels/gfid_matmul.py:85", 1)):
+        tot = totals[(kname, 1)]                # one AlexNet bf16 forward
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches["bf16"][k],
+            "max_abs_err": worst[kname],
+            **dict.fromkeys(("ms", "kernel_ms"), tot["ms"]),
+            "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+            "library_ms": tot["library_ms"]})
+    kernels[-1]["launches_per_decode_step"] = served16["step_launches"][0]
+    kernels[-1]["launches_per_long_prefill"] = long16["launches"][0]
+    print(f"[serve bf16] summary: {served16['tps']:.1f} tokens/s, p50 "
+          f"{served16['lat']['p50_ms']:.1f} ms, p95 {served16['lat']['p95_ms']:.1f} "
+          f"ms; decode step {served16['step_ms'][SERVE_BATCH]:.4f} ms with "
+          f"{SERVE_BATCH} live rows, {served16['step_ms'][1]:.4f} ms with 1; "
+          f"prefill({SERVE_PREFILL}) {served16['prefill_ms']:.4f} ms, "
+          f"prefill({LONG_PREFILL}) {long16['prefill_ms']:.4f} ms; capture "
+          f"{served16['capture_s']:.3f} s")
     print(f"[long] summary: {long['tps']:.1f} tokens/s, p50 "
           f"{long['lat']['p50_ms']:.1f} ms, p95 {long['lat']['p95_ms']:.1f} ms; "
           f"decode step {long['step_ms'][SERVE_BATCH]:.4f} ms with {SERVE_BATCH} live "

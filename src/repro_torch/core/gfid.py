@@ -39,7 +39,9 @@ def conv2d_gfid(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     after symmetric zero padding `pad`).
 
     x: (B, H_in, W_in, C_in) NHWC; w: (H_f, W_f, C_in // groups, C_out)
-    HWIO. Returns (B, H_out, W_out, C_out) in x.dtype, accumulated in fp32.
+    HWIO. Returns (B, H_out, W_out, C_out) in x.dtype, accumulated in fp32
+    (a product of two bf16 values is exact in fp32, so on bf16 operands this
+    is the reference's `preferred_element_type=float32` sum up to order).
     Band (j, i) of the GFID matrix contributes X[:, zS+j, tS+i, :] @ W[j, i]
     to every output pixel (z, t).
     """
@@ -168,13 +170,17 @@ def conv1d_depthwise_gfid(x: torch.Tensor, w: torch.Tensor, *,
 
 def fc_gfid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """FC mode of the engine (paper §4.1.6): x (..., n) @ w (n, m), the
-    degenerate W_f = 1, S = 1 mode, accumulated in fp32."""
+    degenerate W_f = 1, S = 1 mode, accumulated in fp32 and returned in
+    x.dtype."""
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
 def conv2d_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                      pad: int = 0, groups: int = 1) -> torch.Tensor:
-    """The library's direct convolution at the NHWC/HWIO surface.
+    """The library's direct convolution at the NHWC/HWIO surface, in x's
+    dtype, accumulated in fp32: bf16 operands are widened first (their
+    products are exact in fp32), as the reference's direct conv on bf16
+    accumulates in fp32.
 
     TF32 is switched off for the call: cuDNN would otherwise round fp32
     operands to TF32 on the card, about three decimal digits."""
@@ -183,8 +189,9 @@ def conv2d_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     allow_tf32 = cudnn.allow_tf32
     cudnn.allow_tf32 = False
     try:
-        out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+        out = F.conv2d(x.float().permute(0, 3, 1, 2),
+                       w.float().permute(3, 2, 0, 1),
                        stride=stride, padding=pad, groups=groups)
     finally:
         cudnn.allow_tf32 = allow_tf32
-    return out.permute(0, 2, 3, 1).contiguous()
+    return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()

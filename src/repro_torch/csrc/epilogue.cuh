@@ -1,11 +1,32 @@
 // Shared by every kernel source of this directory: the fused epilogue's
-// activation, the int8 kernels' dequant epilogue, and the error-string export
+// activation, the int8 kernels' dequant epilogue, the fp32/bf16 load and
+// store helpers of the GEMM and conv kernels, and the error-string export
 // the ctypes loader binds.
 //
 // The `act` codes are those of `ACT_CODES` in kernels/epilogue.py.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+// One operand value widened to the fp32 accumulator (exact for bf16).
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// A bias entry, fp32 or bf16 (then widened), for the fp32 epilogue.
+__device__ __forceinline__ float bias_at(const void* bias, int bias_bf16, int col) {
+  return bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[col])
+                   : static_cast<const float*>(bias)[col];
+}
+
+// Store the fp32 epilogue's value: as it is, or rounded once to bf16 (round to
+// nearest even: the reference's `.astype(bfloat16)` of its fp32 result).
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float apply_act(float v, int act) {
   if (act == 1) return fmaxf(v, 0.0f);

@@ -17,9 +17,18 @@ executing `CompiledNet` (program replay), else the ambient `EngineConfig`'s.
 The op's precision resolves likewise (`_pin_precision`): an explicit
 `precision=` argument, else the replayed plan's, else the config's.
 
-Numerics: every fp32 op accumulates in fp32 and returns fp32 (the kernels
-take fp32 only; the reference's `accum_dtype=`/`out_dtype=` wait for a bf16
-GEMM kernel, ROADMAP queue 2). Under `EngineConfig(row_align=R)`
+Numerics follow the reference's API contract (what its "xla" and "ref"
+backends implement) on every backend, "cuda" included. `dense`
+accumulates in fp32 by default, `einsum` and `proj` natively:
+`accum_dtype=torch.float32` makes an einsum/dense return fp32 on bf16
+operands, `accum_dtype=None` keeps the operands' dtype, and `out_dtype=`
+casts the result. `conv2d` accumulates in fp32 and returns x's dtype. The
+kernels accumulate in fp32 either way and store the dtype the op returns.
+(The reference's "pallas" backend drops `accum_dtype` and returns x's
+dtype: ROADMAP section 3.) `accum_dtype` takes None or fp32 only, and the
+ambient `EngineConfig.accum` knob is not ported (ROADMAP queue 1, item 4).
+int8 ops take fp32 inputs (int8 on bf16 parameters: the same item).
+Under `EngineConfig(row_align=R)`
 a dense op whose leading x axis is a pure row dim pads it with zeros to a
 multiple of R and slices the result back (`_row_pad_amount`), as the
 reference does.
@@ -169,6 +178,29 @@ def _row_pad_amount(structure: planlib.EinsumStructure,
     return -x_shape[0] % align
 
 
+def _check_accum(accum_dtype) -> None:
+    if accum_dtype not in (None, torch.float32):
+        raise ValueError(f"accum_dtype={accum_dtype} is not taken: None "
+                         "(native) or torch.float32")
+
+
+def _result_dtype(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor],
+                  accum: Optional[torch.dtype]) -> torch.dtype:
+    """What an einsum returns before `out_dtype`: the accumulator's dtype,
+    or natively the operands' promoted dtype, promoted with the bias's (as
+    the reference's `apply_epilogue` promotes)."""
+    dt = accum if accum is not None else torch.promote_types(x.dtype, w.dtype)
+    return dt if bias is None else torch.promote_types(dt, bias.dtype)
+
+
+def _check_int8_input(plan: planlib.EnginePlan, x: torch.Tensor) -> None:
+    if plan.precision == "int8" and x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"precision='int8' on {x.dtype} inputs is not ported (the int8 "
+            "path takes fp32 inputs); see ROADMAP queue 1, item 4")
+
+
 def _check_epilogue(bias: Optional[torch.Tensor], act: Optional[str],
                     n_out: int, what: str) -> None:
     check_act(act)
@@ -187,7 +219,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, pad: int = 0,
            act: Optional[str] = None,
            precision: Optional[str] = None) -> torch.Tensor:
     """Conv mode. x: (B,H,W,C_in) NHWC; w: (H_f,W_f,C_in/g,C_out) HWIO.
-    Returns (B,H_out,W_out,C_out).
+    Returns (B,H_out,W_out,C_out) in x's dtype, accumulated in fp32 (the
+    reference's default; its "native" conv accumulates in fp32 too).
 
     `bias` ((C_out,)) and `act` ("relu" | "gelu") form the op's fused
     epilogue: conv+bias+activation is one kernel launch on the "cuda"
@@ -199,9 +232,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, pad: int = 0,
                         pad=int(pad), groups=int(groups))
     _check_epilogue(bias, act, op.w_shape[3], "conv2d")
     plan = _pin_precision(op, _plan_for(op), precision)
+    _check_int8_input(plan, x)
     ledger_mod.record(plan)
     return dispatch.run_op(plan, lambda be, pl: be.conv2d(
-        x, w, pl, stride=stride, pad=pad, groups=groups, bias=bias, act=act))
+        x, w, pl, stride=stride, pad=pad, groups=groups, out_dtype=x.dtype,
+        bias=bias, act=act))
 
 
 def conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,
@@ -221,12 +256,16 @@ def conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,
 def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
            bias: Optional[torch.Tensor] = None,
            act: Optional[str] = None,
+           accum_dtype: Optional[torch.dtype] = None,
+           out_dtype: Optional[torch.dtype] = None,
            precision: Optional[str] = None) -> torch.Tensor:
     """FC mode for any two-operand dense contraction (weights second).
 
     `bias` ((n_out,), one entry per trailing output feature) and `act`
     form the fused epilogue; the trailing output label must be a
-    weight-side (w-free) dim for a bias to be well-defined."""
+    weight-side (w-free) dim for a bias to be well-defined. Native numerics
+    by default (bf16 in, bf16 out); `accum_dtype=torch.float32` returns the
+    fp32 sums, and `out_dtype` casts the result."""
     op = planlib.OpSpec("dense", tuple(map(int, x.shape)),
                         tuple(map(int, w.shape)), spec=spec)
     structure = planlib.parse_einsum(spec, x.ndim, w.ndim)
@@ -242,13 +281,18 @@ def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
         _check_epilogue(bias, act, n_out, f"einsum {spec!r}")
     else:
         check_act(act)
+    _check_accum(accum_dtype)
+    want = out_dtype if out_dtype is not None \
+        else _result_dtype(x, w, bias, accum_dtype)
     plan = _pin_precision(op, _plan_for(op), precision)
+    _check_int8_input(plan, x)
     ledger_mod.record(plan)
     pad = _row_pad_amount(structure, op.x_shape)
     if pad:
         x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
     out = dispatch.run_op(plan, lambda be, pl: be.einsum(
-        spec, x, w, pl, structure, bias=bias, act=act))
+        spec, x, w, pl, structure, accum_dtype=accum_dtype, out_dtype=want,
+        bias=bias, act=act))
     if pad:
         ax = structure.out_labels.index(structure.x_labels[0])
         out = out.narrow(ax, 0, op.x_shape[0])
@@ -258,15 +302,23 @@ def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
 def dense(x: torch.Tensor, w: torch.Tensor, *,
           bias: Optional[torch.Tensor] = None,
           act: Optional[str] = None,
+          accum_dtype: Optional[torch.dtype] = torch.float32,
+          out_dtype: Optional[torch.dtype] = None,
           precision: Optional[str] = None) -> torch.Tensor:
     """FC mode (W_f = 1): x (..., n) @ w (n, m) -> (..., m), with an
-    optional fused bias ((m,)) / activation epilogue."""
+    optional fused bias ((m,)) / activation epilogue. Accumulates in fp32
+    and returns fp32 by default (bf16 operands included)."""
     return einsum(planlib.dense_spec(x.ndim), x, w, bias=bias, act=act,
+                  accum_dtype=accum_dtype, out_dtype=out_dtype,
                   precision=precision)
 
 
-# The model code's parameter GEMM, under the reference's name.
-proj = dense
+def proj(x: torch.Tensor, w: torch.Tensor, *,
+         precision: Optional[str] = None) -> torch.Tensor:
+    """The model code's parameter GEMM, `x @ w` with plain-`@` numerics
+    (`dense(accum_dtype=None)`): the result has the operands' dtype, bf16
+    for bf16 parameters."""
+    return dense(x, w, accum_dtype=None, precision=precision)
 
 
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -294,5 +346,6 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
            act: Optional[str] = None,
            precision: Optional[str] = None) -> torch.Tensor:
     """FC mode with the result cast back to x's dtype (the reference's
-    `engine.matmul` contract)."""
-    return dense(x, w, bias=bias, act=act, precision=precision).to(x.dtype)
+    `engine.matmul` contract; the "cuda" kernels store it directly)."""
+    return dense(x, w, bias=bias, act=act, out_dtype=x.dtype,
+                 precision=precision)

@@ -28,6 +28,15 @@ A plan pinned to `precision="int8"` runs the shared quantized contract on
 every backend: quantize both operands (`core.quant`), an exact int32
 product, then `dequant_epilogue`. "torch" and "ref" lower it here; "cuda"
 runs the int8 kernels. Exact integer sums make the three bitwise equal.
+
+`conv2d` and `einsum` receive the `out_dtype` the op returns and return
+that dtype; `einsum` also receives its `accum_dtype` (None: the operands'
+own, native; or fp32). "torch" and "ref" follow the reference's "xla"
+lowering: a conv and an fp32 accumulation sum the operands widened to
+fp32 (exact for bf16), a native one runs in the operands' dtype, and the
+epilogue runs in the result's dtype before the cast. "cuda" always
+accumulates in fp32 and its kernels store `out_dtype` from their fp32
+epilogue.
 """
 from __future__ import annotations
 
@@ -45,8 +54,9 @@ from repro_torch.kernels.epilogue import apply_epilogue, dequant_epilogue
 @dataclasses.dataclass(frozen=True)
 class EngineBackend:
     """One execution strategy for the engine's op kinds. `conv2d` and
-    `einsum` receive the op's `EnginePlan` and the fused-epilogue kwargs
-    (`bias=`, `act=`); `einsum` also receives the literal spec and its
+    `einsum` receive the op's `EnginePlan`, `out_dtype=` and the
+    fused-epilogue kwargs (`bias=`, `act=`); `einsum` also receives
+    `accum_dtype=`, the literal spec and its
     parsed `EinsumStructure`; `gather` receives the pool, the block table
     and the plan; `conv1d_depthwise` receives x, the taps, the plan and
     `causal=`."""
@@ -86,10 +96,11 @@ def run_op(plan, call):
 
 def _quant_conv2d(conv_i32, x, w, *, stride, pad, groups, bias, act):
     """Quantize (the shared rule), an exact int32 conv (`conv_i32`: the GFID
-    shifted GEMM or the library's conv), then the dequant epilogue."""
+    shifted GEMM or the library's conv), then the dequant epilogue (fp32
+    inputs only: `api._check_int8_input`)."""
     xq, wq, sx, sw = quant.quantize_conv_operands(x, w)
     acc = conv_i32(xq, wq, stride, pad, groups)
-    return dequant_epilogue(acc, sx * sw, bias, act).to(x.dtype)
+    return dequant_epilogue(acc, sx * sw, bias, act)
 
 
 def _quant_canonical_einsum(x, w, structure, *, bias, act):
@@ -102,27 +113,36 @@ def _quant_canonical_einsum(x, w, structure, *, bias, act):
     w2 = w if structure.w_labels[0] == c else w.T
     xq, wq, sx, sw = quant.quantize_matmul_operands(xm, w2)
     acc = quant.int8_matmul_i32(xq, wq)
-    return dequant_epilogue(acc, sx * sw, bias, act).to(x.dtype)
+    return dequant_epilogue(acc, sx * sw, bias, act)
 
 
 # ---------------------------------------------------------------------------
 # "torch" — GFID shifted-GEMM lowering in PyTorch ops
 # ---------------------------------------------------------------------------
 
-def _torch_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
+def _torch_conv2d(x, w, plan, *, stride, pad, groups, out_dtype, bias=None,
+                  act=None):
     if plan.precision == "int8":
-        return _quant_conv2d(gfid.conv2d_gfid_int8, x, w, stride=stride,
-                             pad=pad, groups=groups, bias=bias, act=act)
-    return apply_epilogue(gfid.conv2d_gfid(x, w, stride, pad, groups),
-                          bias, act)
+        out = _quant_conv2d(gfid.conv2d_gfid_int8, x, w, stride=stride,
+                            pad=pad, groups=groups, bias=bias, act=act)
+    else:
+        out = apply_epilogue(gfid.conv2d_gfid(x, w, stride, pad, groups),
+                             bias, act)
+    return out.to(out_dtype)
 
 
-def _torch_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
+def _torch_einsum(spec, x, w, plan, structure, *, accum_dtype, out_dtype,
+                  bias=None, act=None):
     """Also the "ref" backend's einsum, as in the reference. An int8 plan
     is always canonical: `supports_int8` pins others to fp32."""
     if plan.precision == "int8":
-        return _quant_canonical_einsum(x, w, structure, bias=bias, act=act)
-    return apply_epilogue(torch.einsum(spec, x, w), bias, act)
+        out = _quant_canonical_einsum(x, w, structure, bias=bias, act=act)
+    else:
+        dt = accum_dtype if accum_dtype is not None \
+            else torch.promote_types(x.dtype, w.dtype)
+        out = apply_epilogue(torch.einsum(spec, x.to(dt), w.to(dt)), bias,
+                             act)
+    return out.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -137,25 +157,32 @@ def _ref_conv1d_dw(x, w, plan, *, causal):
     return gfid.conv1d_depthwise_reference(x, w, causal=causal)
 
 
-def _ref_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
+def _ref_conv2d(x, w, plan, *, stride, pad, groups, out_dtype, bias=None,
+                act=None):
     if plan.precision == "int8":
-        return _quant_conv2d(gfid.conv2d_reference_int8, x, w, stride=stride,
-                             pad=pad, groups=groups, bias=bias, act=act)
-    return apply_epilogue(gfid.conv2d_reference(x, w, stride, pad, groups),
-                          bias, act)
+        out = _quant_conv2d(gfid.conv2d_reference_int8, x, w, stride=stride,
+                            pad=pad, groups=groups, bias=bias, act=act)
+    else:
+        out = apply_epilogue(gfid.conv2d_reference(x, w, stride, pad,
+                                                   groups), bias, act)
+    return out.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
 # "cuda" — the hand-written kernels
 # ---------------------------------------------------------------------------
 
-def _cuda_conv2d(x, w, plan, *, stride, pad, groups, bias=None, act=None):
+def _cuda_conv2d(x, w, plan, *, stride, pad, groups, out_dtype, bias=None,
+                 act=None):
     return ops.gfid_conv2d(x, w, stride=stride, pad=pad, groups=groups,
-                           bias=bias, act=act, precision=plan.precision)
+                           bias=bias, act=act, precision=plan.precision,
+                           out_dtype=out_dtype)
 
 
-def _cuda_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
-    """Canonicalize to (M, K) @ (K, N) for the GEMM kernel. A contraction
+def _cuda_einsum(spec, x, w, plan, structure, *, accum_dtype, out_dtype,
+                 bias=None, act=None):
+    """Canonicalize to (M, K) @ (K, N) for the GEMM kernel, which sums in
+    fp32 whatever `accum_dtype` is and stores `out_dtype`. A contraction
     that does not canonicalize (batched weights) raises: the reference sends
     it to its XLA lowering, which would hide a library call behind the
     "cuda" name."""
@@ -169,7 +196,7 @@ def _cuda_einsum(spec, x, w, plan, structure, *, bias=None, act=None):
     xm = torch.movedim(x, st.x_labels.index(c), -1)
     w2 = w if st.w_labels[0] == c else w.T
     return ops.gfid_matmul(xm, w2, bias=bias, act=act,
-                           precision=plan.precision)
+                           precision=plan.precision, out_dtype=out_dtype)
 
 
 def _cuda_conv1d_dw(x, w, plan, *, causal):

@@ -101,16 +101,19 @@ def build_all() -> Dict[str, Tuple[float, str]]:
 
 def check_operands(kernel: str, **operands) -> None:
     """What every launcher takes: each operand, given as `name=(tensor,
-    dtype)` with the dtype that launcher reads, has that dtype, is
-    contiguous and lies on the device of the first operand. A tensor of
-    None (an absent bias) is skipped. A wrong dtype raises: the kernel
-    would read its bytes as another type."""
+    dtype)` with the dtype that launcher reads (or a tuple of the dtypes
+    it reads, told apart by a flag), has that dtype, is contiguous and lies
+    on the device of the first operand. A tensor of None (an absent bias)
+    is skipped. A wrong dtype raises: the kernel would read its bytes as
+    another type."""
     device = None
     for name, (t, dtype) in operands.items():
         if t is None:
             continue
-        if t.dtype != dtype:
-            raise TypeError(f"{kernel} {name} must be {dtype}, got {t.dtype}")
+        allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+        if t.dtype not in allowed:
+            want = " or ".join(str(d) for d in allowed)
+            raise TypeError(f"{kernel} {name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel} {name} must be contiguous")
         if device is None:
@@ -118,6 +121,42 @@ def check_operands(kernel: str, **operands) -> None:
         elif t.device != device:
             raise ValueError(f"{kernel} {name} is on {t.device}, the first "
                              f"operand on {device}")
+
+
+def check_float_operands(kernel: str, x: torch.Tensor, w: torch.Tensor,
+                         bias: Optional[torch.Tensor]) -> bool:
+    """The operands of a source with an fp32 and a bf16 entry: x and w both
+    fp32 or both bf16, bias fp32 (or bf16 beside bf16 operands), each as
+    `check_operands` asks. Returns whether they are bf16."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    check_operands(kernel, x=(x, (f32, bf16)))
+    is_bf16 = x.dtype == bf16
+    check_operands(kernel, x=(x, x.dtype), w=(w, x.dtype),
+                   bias=(bias, (f32, bf16) if is_bf16 else f32))
+    return is_bf16
+
+
+def stored_dtype(is_bf16: bool,
+                 out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """What such a kernel stores from its fp32 epilogue: bf16 where bf16 is
+    asked for on bf16 operands, else fp32. Its wrapper casts that to any
+    other `out_dtype`."""
+    return torch.bfloat16 if is_bf16 and out_dtype == torch.bfloat16 \
+        else torch.float32
+
+
+class Launches:
+    """The launch count of a kernel whose wrapper launches another kernel
+    too (the bf16 entry of a source beside its fp32 entry, counted on the
+    wrapper itself): `.launches`, as a wrapper function carries it. Not
+    callable: the wrapper takes both dtypes."""
+
+    def __init__(self, kernel: str):
+        self.kernel = kernel
+        self.launches = 0
+
+    def __repr__(self) -> str:
+        return f"Launches({self.kernel!r}, launches={self.launches})"
 
 
 # The int8 kernels' int32 accumulators hold K * 127**2 at most.

@@ -34,7 +34,9 @@ def check_act(act: Optional[str]) -> None:
 def apply_epilogue(out: torch.Tensor, bias: Optional[torch.Tensor],
                    act: Optional[str]) -> torch.Tensor:
     """The unfused epilogue: bias broadcast-added on the trailing axis, then
-    the activation."""
+    the activation, under PyTorch's type promotion (JAX's for these pairs):
+    a bf16 bias meets an fp32 accumulator widened to fp32, as the kernels'
+    epilogue reads it, and a bf16 result with a bf16 bias stays bf16."""
     if bias is not None:
         out = out + bias
     if act is not None:

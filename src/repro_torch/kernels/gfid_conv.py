@@ -1,8 +1,9 @@
-"""GFID convolution: the hand-written kernels of `csrc/gfid_conv.cu` (fp32;
-the port of the Pallas kernel `repro.kernels.gfid_conv.gfid_conv2d_nhwc`)
-and `csrc/gfid_conv_int8.cu` (int8 operands, exact int32 accumulator, fused
-dequant; the port of `gfid_conv2d_nhwc_int8`), each with its plain PyTorch
-version.
+"""GFID convolution: the hand-written kernels of `csrc/gfid_conv.cu` (the
+port of the Pallas kernel `repro.kernels.gfid_conv.gfid_conv2d_nhwc`: an entry
+for fp32 operands and one for bf16 operands with an fp32 accumulator, both
+behind the wrapper `gfid_conv2d_nhwc`) and `csrc/gfid_conv_int8.cu`
+(int8 operands, exact int32 accumulator, fused dequant; the port of
+`gfid_conv2d_nhwc_int8`), each with its plain PyTorch version.
 
 Unlike the Pallas kernels, which take an already padded input and one
 group, the CUDA kernels take `pad` (a bounds mask on their loads) and
@@ -11,14 +12,16 @@ bias and activation is one launch.
 
 Each wrapper launches its CUDA kernel for CUDA tensors, uses the plain
 version for CPU tensors, and only allocates the output for `meta` tensors
-(program capture). `gfid_conv2d_nhwc.launches` and
-`gfid_conv2d_nhwc_int8.launches` count the kernels' launches.
+(program capture). `gfid_conv2d_nhwc` launches the fp32 or the bf16 entry
+by the operands' dtype; `gfid_conv2d_nhwc.launches`,
+`gfid_conv2d_nhwc_bf16.launches` and `gfid_conv2d_nhwc_int8.launches`
+count each kernel's launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,11 +41,16 @@ TILE_INT8 = (64, 32, 64)
 def gfid_conv2d_nhwc_plain(x: torch.Tensor, w: torch.Tensor, *,
                            stride: int = 1, pad: int = 0, groups: int = 1,
                            bias: Optional[torch.Tensor] = None,
-                           act: Optional[str] = None) -> torch.Tensor:
-    """The plain version: the GFID shifted-GEMM lowering, then bias and
-    activation."""
-    return apply_epilogue(gfid.conv2d_gfid(x, w, stride, pad, groups),
-                          bias, act)
+                           act: Optional[str] = None,
+                           out_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """The plain version, for fp32 or bf16 operands: the GFID shifted-GEMM
+    lowering on the operands widened to fp32 (exact), then bias (widened)
+    and activation in fp32, then the cast to `out_dtype` (default fp32)."""
+    out = apply_epilogue(
+        gfid.conv2d_gfid(x.float(), w.float(), stride, pad, groups),
+        None if bias is None else bias.float(), act)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,6 +59,18 @@ def _launcher():
     fn = lib.gfid_conv2d_nhwc_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 \
         + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher_bf16():
+    lib = build.library("gfid_conv")
+    fn = lib.gfid_conv2d_nhwc_bf16
+    # x, w, bias; bias_bf16; out; out_bf16, B, H_in, W_in, C_in, H_f, W_f,
+    # C_out, H_out, W_out, stride, pad, groups, act; stream
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] \
+        + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -76,55 +96,72 @@ def _check_geometry(x: torch.Tensor, w: torch.Tensor, stride: int,
                          f"got {tuple(bias.shape)}")
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
-           groups: int, bias: Optional[torch.Tensor],
-           act: Optional[str]) -> None:
-    _check_geometry(x, w, stride, pad, groups, bias, act)
-    f32 = torch.float32
-    build.check_operands("gfid_conv2d_nhwc", x=(x, f32), w=(w, f32),
-                         bias=(bias, f32))
+def _out_shape(x: torch.Tensor, w: torch.Tensor, stride: int,
+               pad: int) -> Tuple[int, int, int, int]:
+    h_out = (x.shape[1] + 2 * pad - w.shape[0]) // stride + 1
+    w_out = (x.shape[2] + 2 * pad - w.shape[1]) // stride + 1
+    return x.shape[0], h_out, w_out, w.shape[3]
 
 
 def gfid_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                      pad: int = 0, groups: int = 1,
                      bias: Optional[torch.Tensor] = None,
-                     act: Optional[str] = None) -> torch.Tensor:
-    """Conv of x (B, H_in, W_in, C_in) NHWC fp32 with w (H_f, W_f,
-    C_in/groups, C_out) HWIO fp32 after symmetric zero padding `pad`.
-    Returns (B, H_out, W_out, C_out) fp32, with the optional fused
-    epilogue: `bias` (C_out,) added to the accumulator, then `act`
-    ("relu" | "gelu")."""
-    _check(x, w, stride, pad, groups, bias, act)
-    b, h_in, w_in, c_in = x.shape
-    h_f, w_f, _, c_out = w.shape
-    h_out = (h_in + 2 * pad - h_f) // stride + 1
-    w_out = (w_in + 2 * pad - w_f) // stride + 1
+                     act: Optional[str] = None,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Conv of x (B, H_in, W_in, C_in) NHWC with w (H_f, W_f, C_in/groups,
+    C_out) HWIO after symmetric zero padding `pad`. Returns (B, H_out,
+    W_out, C_out) in `out_dtype` (default fp32), accumulated in fp32, with
+    the optional fused epilogue in fp32: `bias` (C_out,) added to the
+    accumulator, then `act` ("relu" | "gelu").
+
+    x and w are both fp32 (entry `gfid_conv2d_nhwc_f32`, counted by
+    `gfid_conv2d_nhwc.launches`) or both bf16 (entry
+    `gfid_conv2d_nhwc_bf16`, counted by `gfid_conv2d_nhwc_bf16.launches`;
+    the bias may be bf16 too, widened). The kernel stores
+    `build.stored_dtype`, cast here to any other `out_dtype`."""
+    _check_geometry(x, w, stride, pad, groups, bias, act)
+    is_bf16 = build.check_float_operands("gfid_conv2d_nhwc", x, w, bias)
+    store = build.stored_dtype(is_bf16, out_dtype)
+    shape = _out_shape(x, w, stride, pad)
     kind = x.device.type
     if kind == "cpu":
-        return gfid_conv2d_nhwc_plain(x, w, stride=stride, pad=pad,
-                                      groups=groups, bias=bias, act=act)
-    if kind == "meta":
-        return torch.empty((b, h_out, w_out, c_out), device="meta")
-    if kind != "cuda":
+        out = gfid_conv2d_nhwc_plain(x, w, stride=stride, pad=pad,
+                                     groups=groups, bias=bias, act=act,
+                                     out_dtype=store)
+    elif kind == "meta":
+        out = torch.empty(shape, device="meta", dtype=store)
+    elif kind != "cuda":
         raise ValueError(f"gfid_conv2d_nhwc runs on CUDA or CPU tensors, "
                          f"not {kind}")
-    out = torch.empty((b, h_out, w_out, c_out), device=x.device,
-                      dtype=torch.float32)
-    if out.numel() == 0:
-        return out
-    lib, fn = _launcher()
+    else:
+        out = torch.empty(shape, device=x.device, dtype=store)
+        if out.numel():
+            _launch(x, w, bias, out, stride, pad, groups, act, is_bf16)
+    return out if out_dtype in (None, store) else out.to(out_dtype)
+
+
+def _launch(x, w, bias, out, stride, pad, groups, act, is_bf16) -> None:
+    dims = (*x.shape, *w.shape[:2], w.shape[3], *out.shape[1:3], stride, pad,
+            groups, ACT_CODES[act])
+    lib, fn = _launcher_bf16() if is_bf16 else _launcher()
+    b_ptr = None if bias is None else bias.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 b, h_in, w_in, c_in, h_f, w_f, c_out, h_out, w_out,
-                 stride, pad, groups, ACT_CODES[act], stream)
-    build.check(lib, err, "gfid_conv2d_nhwc")
-    gfid_conv2d_nhwc.launches += 1
-    return out
+        if is_bf16:
+            err = fn(x.data_ptr(), w.data_ptr(), b_ptr,
+                     int(bias is not None and bias.dtype == torch.bfloat16),
+                     out.data_ptr(), int(out.dtype == torch.bfloat16), *dims,
+                     stream)
+        else:
+            err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(), *dims,
+                     stream)
+    name = "gfid_conv2d_nhwc_bf16" if is_bf16 else "gfid_conv2d_nhwc"
+    build.check(lib, err, name)
+    (gfid_conv2d_nhwc_bf16 if is_bf16 else gfid_conv2d_nhwc).launches += 1
 
 
 gfid_conv2d_nhwc.launches = 0
+gfid_conv2d_nhwc_bf16 = build.Launches("gfid_conv2d_nhwc_bf16")
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
 """FC mode of the multi-mode engine: the hand-written GEMMs of
-`csrc/gfid_matmul.cu` (fp32; the port of the Pallas kernel
-`repro.kernels.gfid_matmul.gfid_matmul`) and `csrc/gfid_matmul_int8.cu`
-(int8 operands, exact int32 accumulator, fused dequant; the port of
-`gfid_matmul_int8`), each with its plain PyTorch version.
+`csrc/gfid_matmul.cu` (the port of the Pallas kernel
+`repro.kernels.gfid_matmul.gfid_matmul`: an entry for fp32 operands and
+one for bf16 operands with an fp32 accumulator, both behind the wrapper
+`gfid_matmul`) and `csrc/gfid_matmul_int8.cu` (int8 operands, exact
+int32 accumulator, fused dequant; the port of `gfid_matmul_int8`), each
+with its plain PyTorch version.
 
 Each wrapper launches its CUDA kernel for CUDA tensors, uses the plain
 version for CPU tensors, and only allocates the output for `meta` tensors
-(program capture). `gfid_matmul.launches` and `gfid_matmul_int8.launches`
-count the kernels' launches.
+(program capture). `gfid_matmul` launches the fp32 or the bf16 entry by
+the operands' dtype; `gfid_matmul.launches`, `gfid_matmul_bf16.launches`
+and `gfid_matmul_int8.launches` count each kernel's launches.
 """
 from __future__ import annotations
 
@@ -30,10 +33,15 @@ TILE_INT8 = (8, 256, 64)
 
 def gfid_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
                       bias: Optional[torch.Tensor] = None,
-                      act: Optional[str] = None) -> torch.Tensor:
-    """The plain version: the FC mode's GEMM (`core.gfid.fc_gfid`), then
-    bias and activation."""
-    return apply_epilogue(gfid.fc_gfid(x, w), bias, act)
+                      act: Optional[str] = None,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The plain version, for fp32 or bf16 operands: the FC mode's GEMM
+    (`core.gfid.fc_gfid`) on the operands widened to fp32 (exact), then
+    bias (widened) and activation in fp32, then the cast to `out_dtype`
+    (default fp32)."""
+    out = apply_epilogue(gfid.fc_gfid(x.float(), w.float()),
+                         None if bias is None else bias.float(), act)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,8 +53,19 @@ def _launcher():
     return lib, fn
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
-           act: Optional[str]) -> None:
+@functools.lru_cache(maxsize=None)
+def _launcher_bf16():
+    lib = build.library("gfid_matmul")
+    fn = lib.gfid_matmul_bf16
+    # x, w, bias; bias_bf16; out; out_bf16, M, K, N, act; stream
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_shapes(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor], act: Optional[str]) -> None:
     check_act(act)
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"gfid_matmul takes (M, K) @ (K, N); got "
@@ -54,41 +73,61 @@ def _check(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     if bias is not None and tuple(bias.shape) != (w.shape[1],):
         raise ValueError(f"bias must have shape ({w.shape[1]},); "
                          f"got {tuple(bias.shape)}")
-    f32 = torch.float32
-    build.check_operands("gfid_matmul", x=(x, f32), w=(w, f32),
-                         bias=(bias, f32))
 
 
 def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 bias: Optional[torch.Tensor] = None,
-                act: Optional[str] = None) -> torch.Tensor:
-    """x (M, K) fp32 @ w (K, N) fp32 -> (M, N) fp32, with the optional fused
-    epilogue: `bias` (N,) added to the accumulator, then `act` ("relu" |
-    "gelu")."""
-    _check(x, w, bias, act)
+                act: Optional[str] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x (M, K) @ w (K, N) -> (M, N) in `out_dtype` (default fp32),
+    accumulated in fp32, with the optional fused epilogue in fp32: `bias`
+    (N,) added to the accumulator, then `act` ("relu" | "gelu").
+
+    x and w are both fp32 (entry `gfid_matmul_f32`, counted by
+    `gfid_matmul.launches`) or both bf16 (entry `gfid_matmul_bf16`, counted
+    by `gfid_matmul_bf16.launches`; the bias may be bf16 too, widened). The
+    kernel stores `build.stored_dtype`: bf16 on bf16 operands when asked
+    (the fp32 result rounded once to nearest even), else fp32, cast here to
+    any other `out_dtype`."""
+    _check_shapes(x, w, bias, act)
+    is_bf16 = build.check_float_operands("gfid_matmul", x, w, bias)
+    store = build.stored_dtype(is_bf16, out_dtype)
     m, n = x.shape[0], w.shape[1]
     kind = x.device.type
     if kind == "cpu":
-        return gfid_matmul_plain(x, w, bias=bias, act=act)
-    if kind == "meta":
-        return torch.empty((m, n), device="meta")
-    if kind != "cuda":
+        out = gfid_matmul_plain(x, w, bias=bias, act=act, out_dtype=store)
+    elif kind == "meta":
+        out = torch.empty((m, n), device="meta", dtype=store)
+    elif kind != "cuda":
         raise ValueError(f"gfid_matmul runs on CUDA or CPU tensors, not {kind}")
-    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out
-    lib, fn = _launcher()
+    else:
+        out = torch.empty((m, n), device=x.device, dtype=store)
+        if out.numel():
+            _launch(x, w, bias, out, act, is_bf16)
+    return out if out_dtype in (None, store) else out.to(out_dtype)
+
+
+def _launch(x, w, bias, out, act, is_bf16) -> None:
+    m, k, n = x.shape[0], x.shape[1], w.shape[1]
+    lib, fn = _launcher_bf16() if is_bf16 else _launcher()
+    b_ptr = None if bias is None else bias.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 m, x.shape[1], n, ACT_CODES[act], stream)
-    build.check(lib, err, "gfid_matmul")
-    gfid_matmul.launches += 1
-    return out
+        if is_bf16:
+            err = fn(x.data_ptr(), w.data_ptr(), b_ptr,
+                     int(bias is not None and bias.dtype == torch.bfloat16),
+                     out.data_ptr(), int(out.dtype == torch.bfloat16), m, k,
+                     n, ACT_CODES[act], stream)
+        else:
+            err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(), m, k,
+                     n, ACT_CODES[act], stream)
+    name = "gfid_matmul_bf16" if is_bf16 else "gfid_matmul"
+    build.check(lib, err, name)
+    (gfid_matmul_bf16 if is_bf16 else gfid_matmul).launches += 1
 
 
 gfid_matmul.launches = 0
+gfid_matmul_bf16 = build.Launches("gfid_matmul_bf16")
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,11 @@ conv quantizes before any padding, so the scales never see the zero pad;
 its per-example `sx` covers every group and its per-output-channel `sw`
 runs across the groups.
 
+fp32 and bf16 operands run the same wrappers, which launch the kernel's
+fp32 or bf16 entry and return `out_dtype`: the reference's fp32 kernel
+output cast to the caller's dtype (`repro.kernels.ops`). The bf16 entry
+stores bf16 itself, in the same launch.
+
 Attention keeps the reference's layout, q (B, Sq, H, D) and k, v
 (B, Skv, KV, D); the kernel reads the GQA kv head as an index, so the
 reference's `jnp.repeat` of the kv heads has no counterpart here.
@@ -45,35 +50,41 @@ def gfid_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                 pad: int = 0, groups: int = 1,
                 bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
-                precision: str = "fp32") -> torch.Tensor:
-    """NHWC x HWIO conv through the engine's conv mode (one launch)."""
+                precision: str = "fp32",
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """NHWC x HWIO conv through the engine's conv mode (one launch), in
+    `out_dtype` (default: the kernel's fp32)."""
     _check_precision(precision)
     x, w = x.contiguous(), w.contiguous()
-    if precision == "int8":
-        xq, wq, sx, sw = quant.quantize_conv_operands(x, w)
-        return _conv.gfid_conv2d_nhwc_int8(
-            xq, wq, sx.reshape(x.shape[0], 1), sw.reshape(1, w.shape[3]),
-            stride=stride, pad=pad, groups=groups, bias=_contig(bias),
-            act=act)
-    return _conv.gfid_conv2d_nhwc(x, w, stride=stride, pad=pad,
-                                  groups=groups, bias=_contig(bias), act=act)
+    if precision == "fp32":
+        return _conv.gfid_conv2d_nhwc(x, w, stride=stride, pad=pad,
+                                      groups=groups, bias=_contig(bias),
+                                      act=act, out_dtype=out_dtype)
+    xq, wq, sx, sw = quant.quantize_conv_operands(x, w)
+    out = _conv.gfid_conv2d_nhwc_int8(
+        xq, wq, sx.reshape(x.shape[0], 1), sw.reshape(1, w.shape[3]),
+        stride=stride, pad=pad, groups=groups, bias=_contig(bias), act=act)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
-                precision: str = "fp32") -> torch.Tensor:
-    """(..., K) @ (K, N) through the FC mode."""
+                precision: str = "fp32",
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(..., K) @ (K, N) through the FC mode, in `out_dtype` (default: the
+    kernel's fp32)."""
     _check_precision(precision)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if precision == "int8":
-        xq, wq, sx, sw = quant.quantize_matmul_operands(x2, w)
-        out = _matmul.gfid_matmul_int8(xq, wq.contiguous(), sx, sw,
-                                       bias=_contig(bias), act=act)
-    else:
+    if precision == "fp32":
         out = _matmul.gfid_matmul(x2, w.contiguous(), bias=_contig(bias),
-                                  act=act)
+                                  act=act, out_dtype=out_dtype)
+        return out.reshape(*lead, w.shape[-1])
+    xq, wq, sx, sw = quant.quantize_matmul_operands(x2, w)
+    out = _matmul.gfid_matmul_int8(xq, wq.contiguous(), sx, sw,
+                                   bias=_contig(bias), act=act)
+    out = out if out_dtype is None else out.to(out_dtype)
     return out.reshape(*lead, w.shape[-1])
 
 

@@ -13,12 +13,17 @@ from repro_torch.core import gfid, quant
 
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                pad: int = 0, groups: int = 1) -> torch.Tensor:
-    """NHWC x HWIO -> NHWC, fp32 (the library's direct conv, TF32 off)."""
+    """NHWC x HWIO -> NHWC in x's dtype, fp32 or bf16, accumulated in fp32
+    (the library's direct conv, TF32 off)."""
     return gfid.conv2d_reference(x, w, stride, pad, groups)
 
 
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, w)
+    """x @ w in x's dtype, fp32 or bf16, accumulated in fp32 (the library's
+    product on the widened operands, TF32 off), as the reference's
+    `preferred_element_type=float32` then `.astype(x.dtype)`."""
+    with quant.no_tf32():
+        return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
 def conv1d_depthwise_ref(x: torch.Tensor, w: torch.Tensor,

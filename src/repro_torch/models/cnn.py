@@ -179,11 +179,13 @@ def _param_defs(net: CNNDef) -> Tuple[List[ConvDef], Tuple[FCDef, ...]]:
             for s in convs], net.fcs
 
 
-def init_cnn(name: str, seed: int = 0,
-             device: Optional[str] = None) -> Dict[str, Dict[str, Dict]]:
-    """Random fp32 He-normal weights (zero biases) from an explicit
-    `torch.Generator` seeded with `seed`, on `device` (default: the GPU;
-    raises when there is none)."""
+def init_cnn(name: str, seed: int = 0, device: Optional[str] = None,
+             dtype: torch.dtype = torch.float32
+             ) -> Dict[str, Dict[str, Dict]]:
+    """Random He-normal weights (zero biases) in `dtype` (fp32 or bf16;
+    drawn in fp32, then cast) from an explicit `torch.Generator` seeded
+    with `seed`, on `device` (default: the GPU; raises when there is
+    none)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     convs, fcs = _param_defs(CNNS[name])
@@ -192,21 +194,22 @@ def init_cnn(name: str, seed: int = 0,
         fan_in = cd.k * cd.k * cd.c_in // cd.groups
         w = torch.randn((cd.k, cd.k, cd.c_in // cd.groups, cd.c_out),
                         generator=gen, dtype=torch.float32) * (2.0 / fan_in) ** 0.5
-        params["conv"][cd.name] = {"w": w.to(dev),
-                                   "b": torch.zeros(cd.c_out, dtype=torch.float32,
-                                                    device=dev)}
+        params["conv"][cd.name] = {
+            "w": w.to(device=dev, dtype=dtype),
+            "b": torch.zeros(cd.c_out, dtype=dtype, device=dev)}
     for fd in fcs:
         w = torch.randn((fd.n, fd.m), generator=gen,
                         dtype=torch.float32) * (2.0 / fd.n) ** 0.5
-        params["fc"][fd.name] = {"w": w.to(dev),
-                                 "b": torch.zeros(fd.m, dtype=torch.float32,
-                                                  device=dev)}
+        params["fc"][fd.name] = {
+            "w": w.to(device=dev, dtype=dtype),
+            "b": torch.zeros(fd.m, dtype=dtype, device=dev)}
     return params
 
 
-def _meta_params(net: CNNDef) -> Dict[str, Dict[str, Dict]]:
+def _meta_params(net: CNNDef, dtype: torch.dtype = torch.float32
+                 ) -> Dict[str, Dict[str, Dict]]:
     convs, fcs = _param_defs(net)
-    meta = functools.partial(torch.empty, device="meta")
+    meta = functools.partial(torch.empty, device="meta", dtype=dtype)
     return {
         "conv": {cd.name: {"w": meta((cd.k, cd.k, cd.c_in // cd.groups,
                                       cd.c_out)),
@@ -315,7 +318,8 @@ def apply_cnn(name: str, params: Dict, x: torch.Tensor, *,
         return _forward(net, params, x, precisions)
 
 
-def program(name: str, *, batch: int = 1, main_path_only: bool = True,
+def program(name: str, *, batch: int = 1,
+            dtype: torch.dtype = torch.float32, main_path_only: bool = True,
             precisions: Optional[Dict[str, str]] = None) -> E.Program:
     """The network as an `engine.Program`: an ordered, shape-complete op
     graph derived from the `CNNDef` layer tables, plus the executable
@@ -326,6 +330,12 @@ def program(name: str, *, batch: int = 1, main_path_only: bool = True,
     reproduces `analytics.network_cost` exactly. The execution side always
     runs the real geometry: `compile()` captures the functional forward's
     own op sequence.
+
+    `dtype` is that of the parameters and the input the program runs on
+    (fp32 or bf16; with bf16 every conv and FC op takes bf16 operands,
+    accumulates in fp32 and returns bf16 logits, as the reference's
+    `program(dtype=)`). The op graph, and so the plan, does not depend on
+    it.
 
     `precisions` bakes per-layer precision overrides into the forward: the
     named layers issue an explicit `precision=` at every execution, which
@@ -345,8 +355,8 @@ def program(name: str, *, batch: int = 1, main_path_only: bool = True,
         ops.append(E.OpSpec(
             "dense", (batch, fs.n), (fs.n, fs.m),
             spec=E.dense_spec(2), name=fs.name))
-    x_meta = torch.empty((batch, h, w, c), device="meta")
+    x_meta = torch.empty((batch, h, w, c), device="meta", dtype=dtype)
     fn = (functools.partial(_forward, net) if precisions is None
           else functools.partial(_forward, net, precisions=dict(precisions)))
     return E.Program(name=name, ops=tuple(ops), fn=fn,
-                     in_avals=(_meta_params(net), x_meta))
+                     in_avals=(_meta_params(net, dtype), x_meta))

@@ -37,4 +37,4 @@ def ffn_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
         h = engine.dense(x, p["w_in"], act=cfg.act if fused else None)
         if not fused:
             h = ACTIVATIONS[cfg.act](h)
-    return engine.dense(h, p["w_out"])
+    return engine.dense(h.to(x.dtype), p["w_out"], out_dtype=x.dtype)

@@ -71,18 +71,28 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda")
 
 
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A torch tensor of `a`'s dtype. A bfloat16 array (numpy's extension
+    type, which `torch.from_numpy` refuses) goes across as its 16-bit
+    patterns, bit-exact."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Carry the JAX package's parameters across: the same nested dicts,
     each leaf (a numpy array, or anything `np.asarray` takes) copied into a
-    torch tensor of its dtype on `device` (default: the GPU; raises when
-    there is none). Layouts are kept: the CNNs' HWIO conv and (n, m) FC
-    weights, the LMs' stacked layer groups."""
+    torch tensor of its dtype (bf16 included, bit for bit) on `device`
+    (default: the GPU; raises when there is none). Layouts are kept: the
+    CNNs' HWIO conv and (n, m) FC weights, the LMs' stacked layer
+    groups."""
     dev = resolve_device(device)
 
     def move(node: Any) -> Any:
         if isinstance(node, dict):
             return {k: move(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node)).to(dev)
+        return _from_numpy(np.array(node)).to(dev)
 
     return move(tree)
 
@@ -230,5 +240,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logits via the tied embedding (FC mode). x: (..., D) -> (..., V)."""
-    return engine.einsum("...d,vd->...v", x, table)
+    """Logits via the tied embedding (FC mode). x: (..., D) -> (..., V),
+    fp32 (accumulated in fp32 from bf16 operands, as the reference)."""
+    return engine.einsum("...d,vd->...v", x, table,
+                         accum_dtype=torch.float32)

@@ -14,10 +14,14 @@ kv_heads, head_dim)`, an xLSTM layer's conv tail and fp32 memory
 (`models/ssm.py`), each stacked over the groups. Decode and prefill write
 the state in place.
 
-Parameters are fp32 by default: the port's GEMM kernel takes fp32 only (a
-bf16 GEMM kernel is ROADMAP queue 2 work), so the config's `param_dtype`
-is not the default here. Caches are bf16 (`state_dtype`), as in the
-reference.
+Parameter dtypes: the dense family's default is the config's
+`param_dtype` (bf16 for every LM config), as in the reference; its
+projections then run on bf16 operands (the bf16 GEMM kernel on "cuda"),
+the norms, rope and attention scores promote to fp32 where the reference's
+do, and the logits come out fp32. The xLSTM keeps fp32 parameters: its
+row-invariant decode sums were established in fp32, and bf16 xLSTM
+parameters raise (ROADMAP queue 1, item 10). Caches are bf16
+(`state_dtype`), as in the reference.
 """
 from __future__ import annotations
 
@@ -36,7 +40,6 @@ from repro_torch.models.layers import (
     stack_defs, tree_map, unembed)
 from repro_torch.models.layers import params_from_jax  # noqa: F401 (re-exported)
 
-PARAM_DTYPE = torch.float32
 SSM_KINDS = (MLSTM, SLSTM)
 _SSM_DEFS = {MLSTM: ssm.mlstm_defs, SLSTM: ssm.slstm_defs}
 _SSM_FORWARD = {MLSTM: ssm.mlstm_forward, SLSTM: ssm.slstm_forward}
@@ -156,20 +159,36 @@ def model_defs(cfg: ModelConfig) -> DefTree:
     return defs
 
 
+def param_dtype(cfg: ModelConfig,
+                dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """The parameters' dtype: `dtype` when given, else the config's
+    `param_dtype` for the dense family and fp32 for the xLSTM, which takes
+    no other."""
+    if cfg.family == "ssm":
+        if dtype not in (None, torch.float32):
+            raise NotImplementedError(
+                f"{cfg.name}: {dtype} xLSTM parameters are not ported (its "
+                "decode sums are row-invariant in fp32); see ROADMAP queue 1, "
+                "item 10")
+        return torch.float32
+    return dtype if dtype is not None else getattr(torch, cfg.param_dtype)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
-                dtype: torch.dtype = PARAM_DTYPE) -> Dict[str, Any]:
-    """Random parameters from an explicit `torch.Generator` seeded with
-    `seed`, on `device` (default: the GPU; raises when there is none)."""
+                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Random parameters in `param_dtype(cfg, dtype)` from an explicit
+    `torch.Generator` seeded with `seed` (drawn in fp32, then cast), on
+    `device` (default: the GPU; raises when there is none)."""
     dev = resolve_device(device)
     return init_tree(model_defs(cfg), torch.Generator().manual_seed(seed),
-                     dtype, dev)
+                     param_dtype(cfg, dtype), dev)
 
 
 def param_shapes(cfg: ModelConfig,
-                 dtype: torch.dtype = PARAM_DTYPE) -> Dict[str, Any]:
-    """The parameter tree as `meta` tensors: shapes and dtypes, no
-    storage."""
-    return shape_tree(model_defs(cfg), dtype)
+                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The parameter tree as `meta` tensors in `param_dtype(cfg, dtype)`:
+    shapes and dtypes, no storage."""
+    return shape_tree(model_defs(cfg), param_dtype(cfg, dtype))
 
 
 def _layer(tree: Any, i: int) -> Any:

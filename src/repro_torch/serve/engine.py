@@ -15,7 +15,7 @@ convs).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -24,7 +24,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 
 
-def paged_decode_program(cfg: ModelConfig, layout, batch: int) -> E.Program:
+def paged_decode_program(cfg: ModelConfig, layout, batch: int,
+                         param_dtype: Optional[torch.dtype] = None
+                         ) -> E.Program:
     """One continuous-batching decode step over a paged KV pool, as an
     `engine.Program`.
 
@@ -37,7 +39,9 @@ def paged_decode_program(cfg: ModelConfig, layout, batch: int) -> E.Program:
     (`engine.paged_gather`, recorded ops, so the program's `NetworkPlan`
     prices the rebuild), runs the unchanged `T.decode_step` at per-row
     positions, and writes back, in place, only the slot each row wrote.
-    `layout` is a `serve.kv_pool.PagedLayout`."""
+    `layout` is a `serve.kv_pool.PagedLayout`; the parameters' `meta`
+    stand-ins take `T.param_dtype(cfg, param_dtype)`, the dtype of the
+    parameters the program will run on."""
     npb = layout.blocks_per_req
 
     def fn(params, arrays, tables, slots, tokens, pos):
@@ -49,7 +53,8 @@ def paged_decode_program(cfg: ModelConfig, layout, batch: int) -> E.Program:
     def meta(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device="meta")
 
-    avals = (T.param_shapes(cfg), layout.array_avals(), meta(batch, npb),
+    avals = (T.param_shapes(cfg, param_dtype), layout.array_avals(),
+             meta(batch, npb),
              meta(batch), meta(batch, 1), meta(batch))
     return E.trace_program(
         fn, *avals,
@@ -57,7 +62,9 @@ def paged_decode_program(cfg: ModelConfig, layout, batch: int) -> E.Program:
              f"x{layout.block_size}b{batch}")
 
 
-def prefill_ingest_program(cfg: ModelConfig, layout, seq: int) -> E.Program:
+def prefill_ingest_program(cfg: ModelConfig, layout, seq: int,
+                           param_dtype: Optional[torch.dtype] = None
+                           ) -> E.Program:
     """Prefill one request at its exact prompt length and ingest the
     resulting dense state into the paged pool, in place (the continuous
     scheduler's admission path; compiled per distinct prompt length, so a
@@ -65,7 +72,7 @@ def prefill_ingest_program(cfg: ModelConfig, layout, seq: int) -> E.Program:
 
     Signature: (params, pool_arrays, table_row (blocks_per_req,) int32,
     slot () int32, tokens (1, seq) int32) -> (first_token (1,) int64,
-    pool_arrays)."""
+    pool_arrays). `param_dtype` as for `paged_decode_program`."""
     n_blocks = -(-seq // layout.block_size)
 
     def fn(params, arrays, table_row, slot, tokens):
@@ -78,7 +85,7 @@ def prefill_ingest_program(cfg: ModelConfig, layout, seq: int) -> E.Program:
     def meta(*shape):
         return torch.empty(shape, dtype=torch.int32, device="meta")
 
-    avals = (T.param_shapes(cfg), layout.array_avals(),
+    avals = (T.param_shapes(cfg, param_dtype), layout.array_avals(),
              meta(layout.blocks_per_req), meta(), meta(1, seq))
     return E.trace_program(fn, *avals,
                            name=f"{cfg.name}-prefill-ingest{seq}")

@@ -143,6 +143,7 @@ class ContinuousScheduler:
         floor = self.config.row_align or 1
         self.buckets = tuple(sorted({max(int(b), floor) for b in buckets}))
         self.device = tree_leaves(params)[0].device
+        self.param_dtype = params["embed"].dtype    # the programs' stand-ins
         self.pool = KVBlockPool(cfg, max_len=max_len, block_size=block_size,
                                 num_blocks=num_blocks, max_slots=max_slots,
                                 state_dtype=state_dtype, device=self.device)
@@ -150,7 +151,8 @@ class ContinuousScheduler:
         # analytic unit cost of one live request: a batch-1 paged decode
         # step (attention/FFN GEMMs + the paged-gather rebuild)
         self.unit_step_plan = E.plan_network(
-            serve_engine.paged_decode_program(cfg, self.layout, 1),
+            serve_engine.paged_decode_program(cfg, self.layout, 1,
+                                              self.param_dtype),
             self.config)
         self.unit_step_s = self.unit_step_plan.total_latency_s
         self._decode: Dict[int, E.CompiledNet] = {}
@@ -190,7 +192,7 @@ class ContinuousScheduler:
         """The paged decode step at `bucket` rows."""
         if bucket not in self._decode:
             prog = serve_engine.paged_decode_program(self.cfg, self.layout,
-                                                     bucket)
+                                                     bucket, self.param_dtype)
             self._decode[bucket] = E.compile(prog, self.config)
         return self._decode[bucket]
 
@@ -198,7 +200,7 @@ class ContinuousScheduler:
         """Batch-1 prefill-ingest at exact prompt length `seq`."""
         if seq not in self._prefill:
             prog = serve_engine.prefill_ingest_program(self.cfg, self.layout,
-                                                       seq)
+                                                       seq, self.param_dtype)
             self._prefill[seq] = E.compile(prog, self.config)
         return self._prefill[seq]
 

@@ -49,7 +49,7 @@ def cfg():
 
 @pytest.fixture(scope="module")
 def params(cfg):
-    return T.init_params(cfg, seed=0, device="cpu")
+    return T.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

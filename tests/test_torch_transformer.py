@@ -65,7 +65,7 @@ def _prompts(cfg, b, s, seed=0):
 
 
 def test_full_width_param_shapes_equal_the_reference():
-    t = T.param_shapes(get_config("smollm_135m"))
+    t = T.param_shapes(get_config("smollm_135m"), torch.float32)
     j = JT.param_shapes(jax_get_config("smollm_135m"))
     t_leaves = layers.tree_leaves(t)
     j_leaves = jax.tree_util.tree_leaves(j)
@@ -80,9 +80,9 @@ def test_full_width_param_shapes_equal_the_reference():
 
 
 def test_init_params_draws_from_its_seed(cfgs):
-    a = T.init_params(cfgs[0], seed=3, device="cpu")
-    b = T.init_params(cfgs[0], seed=3, device="cpu")
-    c = T.init_params(cfgs[0], seed=4, device="cpu")
+    a = T.init_params(cfgs[0], seed=3, device="cpu", dtype=torch.float32)
+    b = T.init_params(cfgs[0], seed=3, device="cpu", dtype=torch.float32)
+    c = T.init_params(cfgs[0], seed=4, device="cpu", dtype=torch.float32)
     for x, y, z in zip(*map(layers.tree_leaves, (a, b, c))):
         assert x.dtype == torch.float32 and torch.equal(x, y)
     assert not torch.equal(a["embed"], c["embed"])
