@@ -20,9 +20,16 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      the card by `core/quant`): max|kernel - plain| == 0 for act None and
      relu, <= 1e-6 * max|plain| for gelu. bf16 operands (`gfid_matmul_bf16`,
      `gfid_conv2d_nhwc_bf16`) at every AlexNet conv and FC shape (bf16 bias,
-     relu), the ragged cases (fp32 bias, gelu, none) and the five decode
-     GEMMs at M = 8, each stored in fp32 (within 1e-4 * max|plain|) and in
+     relu), the ragged cases (fp32 bias, gelu, none), smollm's GEMMs at
+     decode (M = 8) and prefill (M = 1024, and 15,872 for w_in/w_gate)
+     and further conv and GEMM shapes chosen so that the cases reach every
+     block tile, split and load path of the wrappers' launch plans
+     (required), each stored in fp32 (within 1e-4 * max|plain|) and in
      bf16 (every element within one bf16 step of the plain version's).
+     Then `gfid_matmul_bf16`'s row invariance on the kernel itself: one
+     fixed row of x at M = 1, 8, 13, 20, 40, 1024 and 15,872, in first,
+     last and other tiles' and warps' rows, bitwise equal to the row
+     alone in both stores, at each smollm GEMM shape and a ragged one.
   4. AlexNet (full width, random weights from a seed) end to end through
      `compile(program("alexnet", batch=B), EngineConfig(backend="cuda"))
      .apply(params, x)` at B = 1 and 32: every op on "cuda", 5 conv and 3
@@ -68,7 +75,12 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      beside `F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`
      with TF32 off (timed here only; nothing on the path calls it). The
      bf16 kernels at AlexNet's shapes as the path runs them (bf16 in and
-     out), beside `F.conv2d` and `torch.addmm` in bf16, each with relu.
+     out), beside `F.conv2d` and `torch.addmm` in bf16, each with relu,
+     also timed for the device alone (a CUDA graph of 100 calls of each);
+     `gfid_matmul_bf16` at smollm's four layer GEMMs at M = 1024 and
+     15,872 (prompts 128 and 1984) beside bf16 `torch.mm`; and
+     `flash_attention` on bf16 q, k, v at the same shape beside SDPA in
+     bf16.
      A bound takes the card's peak for the operands' type: 67 TFLOP/s in
      fp32, 989 TFLOP/s in bf16, 1,979 TOP/s in int8, and 3.35 TB/s.
   6. serving: smollm-135m at full width and depth (fp32 parameters from
@@ -157,6 +169,7 @@ The last lines are the card's name and power limit, a JSON object listing
 the kernels, and `{"ok": true, "device": {...}}`.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -193,6 +206,9 @@ LONG_LENS, LONG_REPEAT, LONG_STEPS = (1025, 1280, 1664, 1984), 3, (16, 32)
 LONG_MAX_LEN, LONG_BLOCKS = 2048, 1025
 LONG_PREFILL = 1984         # the timed prefill, and the flash kernel's timed shape
 BF16_FLASH_TOL = 8e-3       # flash on bf16 operands: max|Δ| / max|plain|
+# gfid_matmul_bf16's row invariance: the row counts a fixed row is computed
+# at (every block-row tile of the plan, and a prompt-1984 prefill's M)
+INVARIANCE_ROWS = (1, 8, 13, 20, 40, 1024, 8 * LONG_PREFILL)
 # bf16 GEMM and conv kernels: an fp32 store within TOL of the plain version;
 # a bf16 store within one bf16 step of the plain version's bf16 element (the
 # step at the larger magnitude, TOL * max|plain| near zero): the two fp32
@@ -380,6 +396,136 @@ def serve_mm_cases(gen, dev):
         + [(f"serve prefill {lbl} M={8 * SERVE_PREFILL}",
             dict(x=t(8 * SERVE_PREFILL, k), w=t(k, n), bias=None, act=None))
            for lbl, k, n in shapes[:-1]]
+
+
+def bf16_mm_cases(gen, dev):
+    """(label, kwargs) for `gfid_matmul` on bf16 operands beyond the AlexNet
+    and ragged cases: smollm-135m's five GEMMs at a decode step (M = 8), its
+    four layer GEMMs at a prompt-128 prefill (M = 1024) and w_in/w_gate at a
+    prompt-1984 prefill (M = 15,872), the 32- and 64-row tiles (M = 20 and
+    40) under a split of K at both tile widths, and x and w as views one
+    element past a 16-byte boundary (element loads at K and N multiples of
+    8)."""
+    from repro_torch.configs.base import get_config
+    shapes = serve_gemm_shapes(get_config(SERVE_MODEL))
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen).to(dev).to(torch.bfloat16)
+
+    def unaligned(*shape):
+        return t(math.prod(shape) + 1)[1:].view(shape)
+
+    cases = [(f"serve decode {lbl} M=8", dict(x=t(8, k), w=t(k, n), bias=None,
+                                              act=None)) for lbl, k, n in shapes]
+    cases += [(f"serve prefill {lbl} M={m}", dict(x=t(m, k), w=t(k, n), bias=None,
+                                                  act=None))
+              for m, sel in ((8 * SERVE_PREFILL, shapes[:-1]),
+                             (8 * LONG_PREFILL, shapes[2:3]))
+              for lbl, k, n in sel]
+    cases += [(f"M={m} (4096, {n}) split K", dict(x=t(m, 4096), w=t(4096, n),
+                                                  bias=t(n), act="gelu"))
+              for m, n in ((20, 512), (40, 512), (40, 192))]
+    cases.append(("unaligned views (24, 512) @ (512, 256)",
+                  dict(x=unaligned(24, 512), w=unaligned(512, 256), bias=None,
+                       act="relu")))
+    return cases
+
+
+def bf16_conv_cases(gen, dev):
+    """(label, kwargs) for `gfid_conv2d_nhwc` on bf16 operands beyond the
+    AlexNet and ragged cases: cg = 3 at stride 4 with og = 20 (element loads
+    of x and w), cg = 8 and og = 16 with pad and 2 groups (16-byte loads of
+    both) on 14-wide rows, 150-wide rows past a 128-row tile, a batch-1
+    conv whose K is split, and 64-row tiles."""
+    def t(*shape):
+        return torch.randn(shape, generator=gen).to(dev).to(torch.bfloat16)
+
+    return [
+        ("cg=3 stride 4 pad 2 og=20", dict(x=t(2, 31, 31, 3), w=t(11, 11, 3, 20),
+                                          bias=t(20), stride=4, pad=2, groups=1,
+                                          act="relu")),
+        ("cg=8 og=16 pad 1 2 groups W_out=14", dict(
+            x=t(1, 14, 14, 16), w=t(3, 3, 8, 32), bias=t(32).float(), stride=1,
+            pad=1, groups=2, act="relu")),
+        ("W_out=150", dict(x=t(1, 5, 150, 16), w=t(3, 3, 16, 64), bias=None,
+                           stride=1, pad=1, groups=1, act=None)),
+        ("batch 1 split K (1, 7, 7, 64) og=40", dict(
+            x=t(1, 7, 7, 64), w=t(3, 3, 64, 40), bias=t(40), stride=1, pad=1,
+            groups=1, act="gelu")),
+        ("64-row tiles (4, 50, 50, 8)", dict(x=t(4, 50, 50, 8), w=t(3, 3, 8, 16),
+                                             bias=t(16), stride=1, pad=1,
+                                             groups=1, act="relu")),
+    ]
+
+
+def bf16_plan(kind, kw):
+    """The launch plan the bf16 wrapper takes for a case of `kind` "conv" or
+    "mm": the wrappers' own plan functions on the case's shapes and
+    addresses."""
+    from repro_torch.kernels import build, gfid_conv, gfid_matmul
+    x, w = kw["x"], kw["w"]
+    if kind == "mm":
+        return gfid_matmul.bf16_plan(x.shape[0], x.shape[1], w.shape[1],
+                                     x.data_ptr(), w.data_ptr())
+    b, h, wd, _ = x.shape
+    h_f, w_f, cg, c_out = w.shape
+    s, p, groups = kw["stride"], kw["pad"], kw["groups"]
+    pixels = b * ((h + 2 * p - h_f) // s + 1) * ((wd + 2 * p - w_f) // s + 1)
+    sms = build.sm_count(x.device.index or 0) if x.is_cuda else 132
+    return gfid_conv.bf16_plan(pixels, h_f * w_f * cg, c_out // groups, groups,
+                               cg, x.data_ptr(), w.data_ptr(), sms)
+
+
+def require_plan_coverage(kname, plans, tiles):
+    """Every block tile of `tiles`, one and several splits of K, and both
+    load paths of x and of w were among the checked `plans`."""
+    seen = dict(tile={(p.bm, p.bn) for p in plans},
+                split={p.splits > 1 for p in plans},
+                vec_x={p.vec_x for p in plans}, vec_w={p.vec_w for p in plans})
+    want = dict(tile=set(tiles), split={False, True}, vec_x={False, True},
+                vec_w={False, True})
+    require(seen == want, f"{kname}: the checked cases reach {seen}, not {want}")
+    print(f"[check] {kname}: the cases reach block tiles "
+          f"{', '.join(f'{m}x{n}' for m, n in sorted(seen['tile']))}, one and "
+          f"several K splits, element and 16-byte loads of x and w")
+
+
+def row_invariance_check(dev, mm, gen):
+    """`gfid_matmul_bf16`'s hard rule, on the kernel itself: one fixed row
+    of x, placed in other rows of an x of every M in INVARIANCE_ROWS (first
+    and last rows, other warps and tiles), comes out bitwise equal to the
+    same row alone (M = 1), in fp32 and bf16 stores, at each smollm-135m
+    GEMM shape and a ragged one. Returns the count of checks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import gfid_matmul as G
+    bf16 = torch.bfloat16
+    checks = 0
+    for label, k, n in serve_gemm_shapes(get_config(SERVE_MODEL)) \
+            + (("ragged", 300, 70),):
+        w = torch.randn((k, n), generator=gen).to(dev).to(bf16)
+        row = torch.randn((1, k), generator=gen).to(dev).to(bf16)
+        want = {dt: mm(row, w, out_dtype=dt) for dt in (torch.float32, bf16)}
+        orders, tiles = set(), set()
+        for m in INVARIANCE_ROWS:
+            x = torch.randn((m, k), generator=gen).to(dev).to(bf16)
+            at = sorted({0, m - 1} | {r for r in (5, 17, 70, 200, 5000) if r < m})
+            x[at] = row
+            plan = G.bf16_plan(m, k, n, x.data_ptr(), w.data_ptr())
+            orders.add((plan.splits, plan.chunks_per_split))
+            tiles.add(plan.bm)
+            for dt, ref in want.items():
+                got = mm(x, w, out_dtype=dt)[at]
+                require(torch.equal(got, ref.expand_as(got)),
+                        f"gfid_matmul_bf16 row invariance {label} M={m} {dt}: "
+                        f"rows {at} differ from the row alone")
+                checks += 1
+            del x
+        require(len(orders) == 1, f"gfid_matmul_bf16 {label}: K order by M {orders}")
+        print(f"[check] gfid_matmul_bf16 row invariance {label} ({k}, {n}): one row "
+              f"at M = {', '.join(map(str, INVARIANCE_ROWS))} (block rows "
+              f"{sorted(tiles)}; splits, chunks {orders.pop()}) bitwise equal to "
+              f"the row alone, fp32 and bf16 stores")
+    return checks
 
 
 def quantized(kind, kw, quant):
@@ -1184,13 +1330,14 @@ def flash_cases(gen, dev):
     return cases
 
 
-def flash_bound(b, sq, skv, h, kv, d, causal, elem=4):
+def flash_bound(b, sq, skv, h, kv, d, causal, elem=4, peak=PEAK_FP32_FLOP_S):
     """(bound ms, bound_by) of one attention forward: q, k, v read once and
     out written once; 4 flops (two multiply-adds) per visible (query, key)
-    pair and column, on the fp32 CUDA cores (the causal pairs alone)."""
+    pair and column (the causal pairs alone), at the peak of the operands'
+    type."""
     n_bytes = elem * (2 * b * sq * h * d + 2 * b * skv * kv * d)
     pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
-    return bound_ms(n_bytes, 4 * b * h * d * pairs)
+    return bound_ms(n_bytes, 4 * b * h * d * pairs, peak)
 
 
 def long_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
@@ -1521,59 +1668,102 @@ def long_prefill_bf16(dev, E, gfid_matmul, paged, flash, other_kernels, params):
     else:
         busy_ms, n_kernels, rows_p = prof
         split = {key: sum(r[2] for r in rows_p if key in r[0])
-                 for key in ("flash_attention_kernel", "gfid_matmul_kernel")}
+                 for key in ("flash_attention_kernel", "gfid_matmul_bf16_kernel")}
         print(f"[profile] long bf16 prefill: {n_kernels} device kernels, "
               f"{busy_ms:.4f} ms of device time = "
               f"{100 * busy_ms / prefill_ms:.1f}% of its {prefill_ms:.4f} ms; "
               f"flash_attention {split['flash_attention_kernel']:.4f} ms, "
-              f"gfid_matmul_bf16 {split['gfid_matmul_kernel']:.4f} ms, rest "
+              f"gfid_matmul_bf16 {split['gfid_matmul_bf16_kernel']:.4f} ms, rest "
               f"{busy_ms - sum(split.values()):.4f} ms; by kernel: "
               + "; ".join(f"{n[:60]} x{c} {t_:.4f} ms" for n, c, t_ in rows_p[:6]))
     return dict(prefill_ms=prefill_ms, launches=launches, err=err, split=split)
 
 
 def flash_timing(dev, flash, worst):
-    """Phase 5's flash row: the kernel at smollm's longest served prefill
-    shape (1, LONG_PREFILL, 9/3, 64) causal fp32, beside its bound, its plain
-    version and `F.scaled_dot_product_attention` (TF32 off, GQA in the call;
-    timed only here), per launch and for one prefill's launches."""
+    """Phase 5's flash rows: the kernel at smollm's longest served prefill
+    shape (1, LONG_PREFILL, 9/3, 64) causal, on fp32 and on bf16 q/k/v,
+    beside its bound at the peak of that type, its plain version and
+    `F.scaled_dot_product_attention` (TF32 off, GQA in the call; timed only
+    here), per launch and for one prefill's launches. Returns {dtype name:
+    the numbers}."""
     from repro_torch.configs.base import get_config
     cfg = get_config(SERVE_MODEL)
     h, kv, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, LONG_PREFILL
-    gen = torch.Generator().manual_seed(5)
-    q = torch.randn((1, s, h, d), generator=gen).to(dev)
-    k = torch.randn((1, s, kv, d), generator=gen).to(dev)
-    v = torch.randn((1, s, kv, d), generator=gen).to(dev)
-    got, want = flash.flash_attention(q, k, v), flash.flash_attention_plain(q, k, v)
-    err = rel_err(got, want)
-    require(err <= TOL, f"flash_attention at the timed shape: {err:.3e} > {TOL}")
-    worst["flash_attention"] = max(worst["flash_attention"],
-                                   (got - want).abs().max().item())
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, S, D) views
+    out = {}
+    for dtype, tol, peak in ((torch.float32, TOL, PEAK_FP32_FLOP_S),
+                             (torch.bfloat16, BF16_FLASH_TOL, PEAK_BF16_FLOP_S)):
+        name = str(dtype)[6:]
+        gen = torch.Generator().manual_seed(5)
+        q, k, v = (torch.randn(shape, generator=gen).to(dev).to(dtype)
+                   for shape in ((1, s, h, d), (1, s, kv, d), (1, s, kv, d)))
+        got, want = flash.flash_attention(q, k, v), flash.flash_attention_plain(q, k, v)
+        err = rel_err(got, want)
+        require(err <= tol, f"flash_attention {name} at the timed shape: {err:.3e} > {tol}")
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       (got.float() - want.float()).abs().max().item())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, S, D) views
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
 
-    lib_err = rel_err(sdpa().transpose(1, 2), want)
-    require(lib_err <= TOL, f"sdpa differs from the plain flash: {lib_err:.3e}")
-    b_ms, by = flash_bound(1, s, s, h, kv, d, True)
-    row_t = dict(ms=time_ms(lambda: flash.flash_attention(q, k, v)),
-                 plain_ms=time_ms(lambda: flash.flash_attention_plain(q, k, v),
-                                  iters=5),
-                 library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=by)
-    per = {key: row_t[key] * cfg.n_layers
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    print(f"[time] flash_attention (1, {s}, {h}/{kv}, {d}) causal fp32: kernel "
-          f"{row_t['ms']:.4f} ms, plain {row_t['plain_ms']:.4f} ms, library "
-          f"scaled_dot_product_attention(enable_gqa, TF32 "
-          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}) "
-          f"{row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); max|d|/max|ref| "
-          f"vs plain {err:.3e}, sdpa vs plain {lib_err:.3e}")
-    print(f"[time] flash_attention per prefill({s}) ({cfg.n_layers} launches): "
-          f"kernel {per['ms']:.4f} ms, plain {per['plain_ms']:.4f} ms, library "
-          f"{per['library_ms']:.4f} ms, bound {per['bound_ms']:.4f} ms")
-    return dict(launch=row_t, per_prefill=per, bound_by=by)
+        lib_err = rel_err(sdpa().transpose(1, 2), want)
+        if dtype == torch.float32:      # in bf16 the reading is only printed
+            require(lib_err <= TOL, f"sdpa differs from the plain flash: {lib_err:.3e}")
+        b_ms, by = flash_bound(1, s, s, h, kv, d, True, q.element_size(), peak)
+        row_t = dict(ms=time_ms(lambda: flash.flash_attention(q, k, v)),
+                     plain_ms=time_ms(lambda: flash.flash_attention_plain(q, k, v),
+                                      iters=5),
+                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=by)
+        per = {key: row_t[key] * cfg.n_layers
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"[time] flash_attention (1, {s}, {h}/{kv}, {d}) causal {name}: kernel "
+              f"{row_t['ms']:.4f} ms, plain {row_t['plain_ms']:.4f} ms, library "
+              f"scaled_dot_product_attention(enable_gqa, TF32 "
+              f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}) "
+              f"{row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); max|d|/max|ref| "
+              f"vs plain {err:.3e}, sdpa vs plain {lib_err:.3e} (limit {tol:g})")
+        print(f"[time] flash_attention {name} per prefill({s}) ({cfg.n_layers} launches): "
+              f"kernel {per['ms']:.4f} ms, plain {per['plain_ms']:.4f} ms, library "
+              f"{per['library_ms']:.4f} ms, bound {per['bound_ms']:.4f} ms")
+        out[name] = dict(launch=row_t, per_prefill=per, bound_by=by)
+    return out
+
+
+def bf16_prefill_timing(dev, mm, gen):
+    """Phase 5's rows for `gfid_matmul_bf16` at the prefill shapes:
+    smollm-135m's four layer GEMMs at M = 1024 (a prompt-128 prefill) and
+    M = 15,872 (prompt 1984), bf16 in and out as on the path, beside the
+    plain version, bf16 `torch.mm` (fp32 sums) and the bound at the bf16
+    peak. Returns {M: kernel ms of one prefill's 30 layers}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import gfid_matmul as G
+    cfg = get_config(SERVE_MODEL)
+    per_layer = {"wq/wo": 2, "wk/wv": 2, "w_in/w_gate": 2, "w_out": 1}
+    per_prefill = {}
+    for m in (8 * SERVE_PREFILL, 8 * LONG_PREFILL):
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for label, k, n in serve_gemm_shapes(cfg)[:-1]:
+            x = torch.randn((m, k), generator=gen).to(dev).to(torch.bfloat16)
+            w = torch.randn((k, n), generator=gen).to(dev).to(torch.bfloat16)
+            b_ms, by = bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n,
+                                PEAK_BF16_FLOP_S)
+            row_t = dict(ms=time_ms(lambda: mm(x, w, out_dtype=torch.bfloat16)),
+                         plain_ms=time_ms(lambda: G.gfid_matmul_plain(
+                             x, w, out_dtype=torch.bfloat16), iters=5),
+                         library_ms=time_ms(lambda: torch.mm(x, w)), bound_ms=b_ms)
+            for key in tot:
+                tot[key] += per_layer[label] * cfg.n_layers * row_t[key]
+            print(f"[time] gfid_matmul_bf16 prefill {label} ({m}, {k}) @ ({k}, {n}) "
+                  f"-> bfloat16: kernel {row_t['ms']:.4f} ms "
+                  f"({2 * m * k * n / row_t['ms'] / 1e9:.1f} TFLOP/s), plain "
+                  f"{row_t['plain_ms']:.4f} ms, library torch.mm "
+                  f"{row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by})")
+        per_prefill[m] = tot["ms"]
+        print(f"[time] gfid_matmul_bf16 per prefill at M = {m} ({cfg.n_layers} x 7 "
+              f"layer GEMMs): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+              f"ms, library {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    return per_prefill
 
 
 def device_profile(fn, steps=3):
@@ -1713,23 +1903,28 @@ def main():
             require(err <= limit, f"{kname} {label}: error {err:.3e} > {limit}")
             worst[kname] = max(worst[kname], abs_err)
             checks += 1
-    # bf16 operands: the same shapes (the five smollm decode GEMMs at M = 8
-    # instead of the prefill's), bias bf16 on the main path and fp32 on the
-    # ragged cases, each stored in fp32 and in bf16
+    # bf16 operands: the AlexNet shapes (bias bf16) and the ragged ones (bias
+    # fp32), then the cases of bf16_conv_cases and bf16_mm_cases, each stored
+    # in fp32 and in bf16; the cases must reach every plan the wrappers make
     bf16_cases = {
-        "gfid_conv2d_nhwc_bf16": (conv32, gfid_conv.gfid_conv2d_nhwc_plain, [
+        "gfid_conv2d_nhwc_bf16": (conv32, gfid_conv.gfid_conv2d_nhwc_plain, "conv",
+                                  gfid_conv.BF16_TILES, [
             (lbl, as_bf16(kw)) for b in BATCHES for lbl, _, kw in conv_main[b]]
             + [(f"ragged conv {i}", as_bf16(kw, keep_bias=True))
-               for i, kw in enumerate(ragged_conv)]),
-        "gfid_matmul_bf16": (mm32, gfid_matmul.gfid_matmul_plain, [
+               for i, kw in enumerate(ragged_conv)]
+            + bf16_conv_cases(gen, dev)),
+        "gfid_matmul_bf16": (mm32, gfid_matmul.gfid_matmul_plain, "mm",
+                             gfid_matmul.BF16_TILES, [
             (lbl, as_bf16(kw)) for b in BATCHES for lbl, _, kw in fc_main[b]]
             + [(f"ragged matmul {i}", as_bf16(kw, keep_bias=True))
                for i, kw in enumerate(ragged_mm)]
-            + [(lbl, as_bf16(kw)) for lbl, kw in serve_mm_cases(gen, dev)
-               if "decode" in lbl])}
-    for kname, (kernel, plain, cases) in bf16_cases.items():
+            + bf16_mm_cases(gen, dev))}
+    for kname, (kernel, plain, kind, tiles, cases) in bf16_cases.items():
         worst[kname] = 0.0
+        plans = []
         for label, kw in cases:
+            plan = bf16_plan(kind, kw)
+            plans.append(plan)
             for out_dtype in (torch.float32, torch.bfloat16):
                 got = kernel(**kw, out_dtype=out_dtype)
                 want = plain(**kw, out_dtype=out_dtype)
@@ -1743,12 +1938,17 @@ def main():
                 print(f"[check] {kname} {label} -> {str(out_dtype)[6:]}: act "
                       f"{kw['act']}, bias "
                       f"{'none' if kw['bias'] is None else str(kw['bias'].dtype)[6:]}, "
+                      f"tile {plan.bm}x{plan.bn}, K splits {plan.splits}, 16-byte "
+                      f"loads x {int(plan.vec_x)} w {int(plan.vec_w)}, "
                       f"max|d| = {abs_err:.3e}, {unit} {reading:.3e} (limit "
                       f"{limit:g})")
                 require(ok, f"{kname} {label} {out_dtype}: {unit} {reading:.3e} "
                         f"> {limit}")
                 worst[kname] = max(worst[kname], abs_err)
                 checks += 1
+        require_plan_coverage(kname, plans, tiles)
+    del bf16_cases
+    checks += row_invariance_check(dev, mm32, gen)
     worst["paged_gather"] = 0.0
     for label, pool, table in paged_cases(gen, dev):
         got = paged.paged_gather(pool, table)
@@ -2057,7 +2257,7 @@ def main():
                 else PEAK_FP32_FLOP_S)
         for batch in BATCHES:
             tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                       n_bytes=0, ops=0)
+                       n_bytes=0, ops=0, device_ms=0.0, library_device_ms=0.0)
             for label, spec, kw in per_batch[batch]:
                 ops = 2 * batch * spec.macs
                 conv = kname.startswith("gfid_conv")
@@ -2087,11 +2287,18 @@ def main():
                 k_ms = time_ms(lambda: kernel(**kw))
                 p_ms = time_ms(lambda: plain(**kw))
                 l_ms = None if lib is None else time_ms(lambda: lib(**lib_kw))
+                device = ""
+                if bf16:    # the device alone, without the host's launch
+                    d_ms = graph_ms(lambda: kernel(**kw))
+                    ld_ms = graph_ms(lambda: lib(**lib_kw))
+                    tot["device_ms"] += d_ms
+                    tot["library_device_ms"] += ld_ms
+                    device = f"; the device alone: kernel {d_ms:.4f} ms, library {ld_ms:.4f} ms"
                 print(f"[time] {kname} {label}: kernel {k_ms:.4f} ms, plain "
                       f"{p_ms:.4f} ms, library "
                       + ("none" if l_ms is None else f"{l_ms:.4f} ms")
                       + f", bound {b_ms:.4f} ms ({n_bytes / 1e6:.2f} MB, "
-                      f"{ops / 1e9:.3f} G{'op' if int8 else 'FLOP'})")
+                      f"{ops / 1e9:.3f} G{'op' if int8 else 'FLOP'}){device}")
                 for key, val in (("ms", k_ms), ("plain_ms", p_ms),
                                  ("bound_ms", b_ms), ("n_bytes", n_bytes),
                                  ("ops", ops)):
@@ -2104,7 +2311,9 @@ def main():
                        else f"{tot['library_ms']:.4f} ms")
             print(f"[time] {kname} B={batch} total over the path's layers: kernel "
                   f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
-                  f"{lib_txt}, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+                  f"{lib_txt}, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})"
+                  + (f"; the device alone: kernel {tot['device_ms']:.4f} ms, library "
+                     f"{tot['library_device_ms']:.4f} ms" if bf16 else ""))
 
     for batch in BATCHES:
         fwd = forward_ms[("int8", batch)]
@@ -2121,6 +2330,7 @@ def main():
               f"{k16:.4f} ms ({100 * k16 / fwd:.1f}%) + rest {fwd - k16:.4f} ms")
 
     flash_t = flash_timing(dev, flash_attention, worst)
+    prefill_mm16 = bf16_prefill_timing(dev, mm32, gen)
 
     # -- phase 6: serving smollm-135m on the paged pool -----------------------
     others = all_kernels[:1] + all_kernels[2:] + bf16_kernels \
@@ -2202,6 +2412,7 @@ def main():
         "library_device_ms": ct["library_device_ms"],
         "plain_ms": ct["plain_ms"], "bound_ms": ct["bound_ms"],
         "bound_by": ct["bound_by"], "library_ms": ct["library_ms"]})
+    flash_t, flash16 = flash_t["float32"], flash_t["bfloat16"]
     fp = flash_t["per_prefill"]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
@@ -2214,11 +2425,14 @@ def main():
         **dict.fromkeys(("ms", "kernel_ms"), fp["ms"]),
         "launch_ms": flash_t["launch"]["ms"],
         "plain_ms": fp["plain_ms"], "bound_ms": fp["bound_ms"],
-        "bound_by": flash_t["bound_by"], "library_ms": fp["library_ms"]})
+        "bound_by": flash_t["bound_by"], "library_ms": fp["library_ms"],
+        # the same prefill's launches on bf16 q/k/v, bound at the bf16 peak
+        **{f"bf16_{key}": flash16["per_prefill"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}})
     for kname, source, replaces, k in (
-            ("gfid_conv2d_nhwc_bf16", "src/repro_torch/csrc/gfid_conv.cu",
+            ("gfid_conv2d_nhwc_bf16", "src/repro_torch/csrc/gfid_conv_bf16.cu",
              "src/repro/kernels/gfid_conv.py:79", 0),
-            ("gfid_matmul_bf16", "src/repro_torch/csrc/gfid_matmul.cu",
+            ("gfid_matmul_bf16", "src/repro_torch/csrc/gfid_matmul_bf16.cu",
              "src/repro/kernels/gfid_matmul.py:85", 1)):
         tot = totals[(kname, 1)]                # one AlexNet bf16 forward
         kernels.append({
@@ -2228,9 +2442,12 @@ def main():
             **dict.fromkeys(("ms", "kernel_ms"), tot["ms"]),
             "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
-            "library_ms": tot["library_ms"]})
+            "library_ms": tot["library_ms"], "device_ms": tot["device_ms"],
+            "library_device_ms": tot["library_device_ms"]})
     kernels[-1]["launches_per_decode_step"] = served16["step_launches"][0]
     kernels[-1]["launches_per_long_prefill"] = long16["launches"][0]
+    # one prefill's layer GEMMs at M = 1024 and 15,872, summed
+    kernels[-1]["prefill_ms"] = {str(m): ms for m, ms in prefill_mm16.items()}
     print(f"[serve bf16] summary: {served16['tps']:.1f} tokens/s, p50 "
           f"{served16['lat']['p50_ms']:.1f} ms, p95 {served16['lat']['p95_ms']:.1f} "
           f"ms; decode step {served16['step_ms'][SERVE_BATCH]:.4f} ms with "

@@ -1,6 +1,6 @@
 // Shared by every kernel source of this directory: the fused epilogue's
-// activation, the int8 kernels' dequant epilogue, the fp32/bf16 load and
-// store helpers of the GEMM and conv kernels, and the error-string export
+// activation, the int8 kernels' dequant epilogue, the bias and store helpers
+// of the bf16 GEMM and conv kernels, and the error-string export
 // the ctypes loader binds.
 //
 // The `act` codes are those of `ACT_CODES` in kernels/epilogue.py.
@@ -8,12 +8,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-// One operand value widened to the fp32 accumulator (exact for bf16).
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 // A bias entry, fp32 or bf16 (then widened), for the fp32 epilogue.
 __device__ __forceinline__ float bias_at(const void* bias, int bias_bf16, int col) {

@@ -1,20 +1,14 @@
-// GFID convolution (NHWC x HWIO -> NHWC) with a fused bias + activation
-// epilogue, for Hopper (sm_90a). Two entries share one kernel template:
-// `gfid_conv2d_nhwc_f32` (fp32 x and w, fp32 out) and `gfid_conv2d_nhwc_bf16`
-// (bf16 x and w, widened with __bfloat162float as they are staged; an fp32
-// or bf16 bias; the result stored in fp32 or rounded once to bf16). Both
-// accumulate in fp32 in the same order (bf16 products are exact in fp32).
+// GFID convolution (NHWC x HWIO -> NHWC, fp32) with a fused bias + activation
+// epilogue, for Hopper (sm_90a).
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/gfid_conv.py
-//   gfid_conv2d_nhwc (_accumulate, _kernel, _kernel_epilogue), for fp32 and
-//   bf16 operands, together with the padding, group and output-cast glue of
-//   src/repro/kernels/ops.py::gfid_conv2d.
+//   gfid_conv2d_nhwc (_accumulate, _kernel, _kernel_epilogue), together with
+//   the padding and group glue of src/repro/kernels/ops.py::gfid_conv2d.
 //
 // What bounds it on an H100: fp32 arithmetic. At AlexNet batch 1 the five
 //   convs do 665.8 M multiply-adds on 13.8 MB of fp32 traffic, about 96
 //   flops per byte, well above the ~20 flops per byte where the card's
-//   67 TFLOP/s fp32 (non-tensor-core) peak overtakes its 3.35 TB/s. The
-//   bf16 entry runs the same fp32 FMAs on half the bytes: bound the same.
+//   67 TFLOP/s fp32 (non-tensor-core) peak overtakes its 3.35 TB/s.
 //
 // What the design does about it: it keeps operands on chip and the FMA
 //   units fed from registers. A block owns one output row (b, h_out) of one
@@ -30,7 +24,6 @@
 //   is part of the launch grid, so a grouped conv is one launch.
 //   Accumulation is plain fp32 FMA: no TF32, no tensor cores (a later
 //   change may move the inner product onto wgmma).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -51,15 +44,12 @@ constexpr int kXsStride = kCinTile + 1;  // odd row stride: fewer bank conflicts
 
 static_assert(kChanPerThread == 4, "weights are read from shared memory as float4");
 
-// T: the operands' type (float or __nv_bfloat16); O: the output's. The
-// staged tiles are fp32 either way.
-template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
-gfid_conv2d_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                        const void* __restrict__ bias, int bias_bf16,
-                        O* __restrict__ out, int H_in, int W_in, int C_in, int H_f,
-                        int W_f, int C_out, int H_out, int W_out, int stride, int pad,
-                        int groups, int act) {
+gfid_conv2d_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                        const float* __restrict__ bias, float* __restrict__ out,
+                        int H_in, int W_in, int C_in, int H_f, int W_f, int C_out,
+                        int H_out, int W_out, int stride, int pad, int groups,
+                        int act) {
   extern __shared__ __align__(16) float smem[];
   const int cg = C_in / groups;
   const int og = C_out / groups;
@@ -75,7 +65,7 @@ gfid_conv2d_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   float* ws = smem;                                  // [W_f][kCinTile][kCoutTile]
   float* xs = smem + W_f * kCinTile * kCoutTile;     // [x_pix][kXsStride]
-  const T* xb = x + (size_t)b * H_in * W_in * C_in + (size_t)g * cg;
+  const float* xb = x + (size_t)b * H_in * W_in * C_in + (size_t)g * cg;
   const int cbase = g * og + co0;  // first output channel of this block
 
   for (int w0 = 0; w0 < W_out; w0 += kPixTile) {
@@ -88,7 +78,7 @@ gfid_conv2d_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int j = 0; j < H_f; ++j) {
       const int h_in = zo * stride + j - pad;
       if (h_in < 0 || h_in >= H_in) continue;  // a padding row; same for the whole block
-      const T* xrow = xb + (size_t)h_in * W_in * C_in;
+      const float* xrow = xb + (size_t)h_in * W_in * C_in;
       for (int c0 = 0; c0 < cg; c0 += kCinTile) {
         __syncthreads();  // the previous step's tiles are consumed
         for (int idx = tid; idx < x_pix * kCinTile; idx += kThreads) {
@@ -96,8 +86,7 @@ gfid_conv2d_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
           const int c = idx % kCinTile;
           const int wi = w0 * stride + px - pad;
           float v = 0.0f;
-          if (wi >= 0 && wi < W_in && c0 + c < cg)
-            v = load_f32(xrow + (size_t)wi * C_in + c0 + c);
+          if (wi >= 0 && wi < W_in && c0 + c < cg) v = xrow[(size_t)wi * C_in + c0 + c];
           xs[px * kXsStride + c] = v;
         }
         for (int idx = tid; idx < W_f * kCinTile * kCoutTile; idx += kThreads) {
@@ -106,7 +95,7 @@ gfid_conv2d_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
           const int i = idx / (kCoutTile * kCinTile);
           float v = 0.0f;
           if (c0 + c < cg && co0 + co < og)
-            v = load_f32(w + (((size_t)j * W_f + i) * cg + c0 + c) * C_out + cbase + co);
+            v = w[(((size_t)j * W_f + i) * cg + c0 + c) * C_out + cbase + co];
           ws[idx] = v;
         }
         __syncthreads();
@@ -132,68 +121,42 @@ gfid_conv2d_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int p = 0; p < kPixPerThread; ++p) {
       const int pix = w0 + tp + p * kPixLanes;
       if (pix >= W_out) continue;
-      O* orow = out + (((size_t)b * H_out + zo) * W_out + pix) * C_out + cbase;
+      float* orow = out + (((size_t)b * H_out + zo) * W_out + pix) * C_out + cbase;
 #pragma unroll
       for (int q = 0; q < kChanPerThread; ++q) {
         const int co = tc * kChanPerThread + q;
         if (co0 + co < og) {
           float v = acc[p][q];
-          if (bias != nullptr) v += bias_at(bias, bias_bf16, cbase + co);
-          store_as(orow + co, apply_act(v, act));
+          if (bias != nullptr) v += bias[cbase + co];
+          orow[co] = apply_act(v, act);
         }
       }
     }
   }
 }
 
-template <typename T, typename O>
-int launch(const T* x, const T* w, const void* bias, int bias_bf16, O* out, int B,
-           int H_in, int W_in, int C_in, int H_f, int W_f, int C_out, int H_out, int W_out,
-           int stride, int pad, int groups, int act, void* stream) {
+}  // namespace
+
+// act: 0 none, 1 relu, 2 gelu (tanh). bias may be null. Launches on `stream`
+// and returns cudaGetLastError() (0 when the launch was accepted).
+extern "C" int gfid_conv2d_nhwc_f32(const float* x, const float* w, const float* bias,
+                                    float* out, int B, int H_in, int W_in, int C_in,
+                                    int H_f, int W_f, int C_out, int H_out, int W_out,
+                                    int stride, int pad, int groups, int act,
+                                    void* stream) {
   const int og = C_out / groups;
   const int n_cot = (og + kCoutTile - 1) / kCoutTile;
   const size_t smem =
       sizeof(float) * ((size_t)W_f * kCinTile * kCoutTile +
                        (size_t)((kPixTile - 1) * stride + W_f) * kXsStride);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(gfid_conv2d_nhwc_kernel<T, O>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        gfid_conv2d_nhwc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(groups * n_cot, H_out, B);
-  gfid_conv2d_nhwc_kernel<T, O><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, w, bias, bias_bf16, out, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride,
-      pad, groups, act);
+  gfid_conv2d_nhwc_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      x, w, bias, out, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad,
+      groups, act);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// act: 0 none, 1 relu, 2 gelu (tanh). bias may be null. Each launches on
-// `stream` and returns cudaGetLastError() (0 when the launch was accepted).
-extern "C" int gfid_conv2d_nhwc_f32(const float* x, const float* w, const float* bias,
-                                    float* out, int B, int H_in, int W_in, int C_in,
-                                    int H_f, int W_f, int C_out, int H_out, int W_out,
-                                    int stride, int pad, int groups, int act,
-                                    void* stream) {
-  return launch<float, float>(x, w, bias, 0, out, B, H_in, W_in, C_in, H_f, W_f, C_out,
-                              H_out, W_out, stride, pad, groups, act, stream);
-}
-
-// bf16 x and w; bias fp32 (bias_bf16 = 0) or bf16 (1); out fp32 (out_bf16 = 0)
-// or bf16 (1).
-extern "C" int gfid_conv2d_nhwc_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                                     const void* bias, int bias_bf16, void* out,
-                                     int out_bf16, int B, int H_in, int W_in, int C_in,
-                                     int H_f, int W_f, int C_out, int H_out, int W_out,
-                                     int stride, int pad, int groups, int act,
-                                     void* stream) {
-  if (out_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        x, w, bias, bias_bf16, (__nv_bfloat16*)out, B, H_in, W_in, C_in, H_f, W_f, C_out,
-        H_out, W_out, stride, pad, groups, act, stream);
-  return launch<__nv_bfloat16, float>(x, w, bias, bias_bf16, (float*)out, B, H_in, W_in,
-                                      C_in, H_f, W_f, C_out, H_out, W_out, stride, pad,
-                                      groups, act, stream);
 }

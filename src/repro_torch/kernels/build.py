@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,8 +29,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("gfid_conv", "gfid_matmul", "gfid_conv_int8", "gfid_matmul_int8",
-           "paged_gather", "conv1d_depthwise", "flash_attention")
+SOURCES = ("gfid_conv", "gfid_matmul", "gfid_conv_bf16", "gfid_matmul_bf16",
+           "gfid_conv_int8", "gfid_matmul_int8", "paged_gather",
+           "conv1d_depthwise", "flash_attention")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 
 
@@ -80,11 +81,15 @@ def _compile(name: str) -> Tuple[Path, str, float]:
     return lib, proc.stdout + proc.stderr, time.perf_counter() - t0
 
 
+# csrc/epilogue.cuh's `repro_cuda_error_string(int e)`, in every library.
+ERROR_STRING_ARGTYPES = [ctypes.c_int]
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library of `csrc/<name>.cu`, built on first use."""
     lib = ctypes.CDLL(str(_compile(name)[0]))
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.argtypes = ERROR_STRING_ARGTYPES
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -197,6 +202,54 @@ def split_workspace(splits: int, n_out: int, tiles: int,
         return None, None, None
     ws = torch.zeros(n_out + tiles, dtype=torch.int32, device=device)
     return ws, ws.data_ptr(), ws.data_ptr() + 4 * n_out
+
+
+# csrc/mma_bf16.cuh, the bf16 kernels' tensor-core core: the K chunk (kBK)
+# and the block tiles (rows, columns) that `mma::with_tile` is built for.
+MMA_BK = 32
+MMA_TILES = ((16, 64), (32, 64), (64, 64), (128, 128))
+# CUDA's limits on a launch grid's x, y and z.
+GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
+
+
+class MmaPlan(NamedTuple):
+    """One launch of a bf16 tensor-core kernel: a block tile of `bm` rows x
+    `bn` columns, K cut into `splits` runs of `chunks_per_split`
+    MMA_BK-deep chunks (one split: no workspace), 16-byte copies of x and
+    of w where `vec_x` and `vec_w` allow, and the launch grid."""
+    bm: int
+    bn: int
+    splits: int
+    chunks_per_split: int
+    vec_x: bool
+    vec_w: bool
+    grid: Tuple[int, int, int]
+
+
+def mma_split(k: int, want: int, min_chunks: int) -> Tuple[int, int]:
+    """(splits, chunks per split) for a contraction of depth k: at most
+    `want` splits, each at least `min_chunks` MMA_BK chunks deep (one split
+    when K is shorter), none empty."""
+    n = max(-(-k // MMA_BK), 1)
+    splits = max(1, min(want, n // min_chunks))
+    per = -(-n // splits)
+    return -(-n // per), per
+
+
+def check_grid(kernel: str, grid: Tuple[int, int, int]) -> None:
+    if any(g > lim for g, lim in zip(grid, GRID_LIMITS)):
+        raise ValueError(f"{kernel}: launch grid {grid} exceeds CUDA's "
+                         f"{GRID_LIMITS}")
+
+
+def mma_workspace(plan: MmaPlan, rows: int, cols: int,
+                  device: torch.device) -> Optional[torch.Tensor]:
+    """The fp32 partial sums of a split launch, (splits, rows, cols), not
+    zeroed (the kernel writes every element); None for one split."""
+    if plan.splits == 1:
+        return None
+    return torch.empty((plan.splits, rows, cols), dtype=torch.float32,
+                       device=device)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

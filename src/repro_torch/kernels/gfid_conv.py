@@ -1,8 +1,9 @@
-"""GFID convolution: the hand-written kernels of `csrc/gfid_conv.cu` (the
-port of the Pallas kernel `repro.kernels.gfid_conv.gfid_conv2d_nhwc`: an entry
-for fp32 operands and one for bf16 operands with an fp32 accumulator, both
-behind the wrapper `gfid_conv2d_nhwc`) and `csrc/gfid_conv_int8.cu`
-(int8 operands, exact int32 accumulator, fused dequant; the port of
+"""GFID convolution: the hand-written kernels that port the Pallas kernel
+`repro.kernels.gfid_conv.gfid_conv2d_nhwc` (`csrc/gfid_conv.cu` for fp32
+operands on the CUDA cores, `csrc/gfid_conv_bf16.cu` for bf16 operands as an
+implicit GEMM on the tensor cores, both with an fp32 accumulator and both
+behind the wrapper `gfid_conv2d_nhwc`) and `csrc/gfid_conv_int8.cu` (int8
+operands, exact int32 accumulator, fused dequant; the port of
 `gfid_conv2d_nhwc_int8`), each with its plain PyTorch version.
 
 Unlike the Pallas kernels, which take an already padded input and one
@@ -36,6 +37,15 @@ TILE = (64, 8, 64)
 # (output pixels, K chunk, C_out) of one block of csrc/gfid_conv_int8.cu:
 # kPixTile, kKc, kCoutTile (K = H_f * W_f * C_in / groups).
 TILE_INT8 = (64, 32, 64)
+# csrc/gfid_conv_bf16.cu's block tiles (output pixels, C_out of a group),
+# most work a block first: the first whose blocks fill the card, else the
+# last; then, if the blocks still do not fill it, K is split for about two
+# blocks an SM, each split at least BF16_MIN_SPLIT chunks deep. The wide
+# tile is taken only where it wastes no columns (og a multiple of 128) or
+# where the A tile is gathered element by element (cg % 8 != 0) and more
+# columns share each gather (AlexNet's conv1 and conv2 at batch 32).
+BF16_TILES = ((128, 128), (64, 64), (32, 64))
+BF16_MIN_SPLIT = 8
 
 
 def gfid_conv2d_nhwc_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -53,26 +63,55 @@ def gfid_conv2d_nhwc_plain(x: torch.Tensor, w: torch.Tensor, *,
     return out if out_dtype is None else out.to(out_dtype)
 
 
+# x, w, bias, out; B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out,
+# stride, pad, groups, act; stream.
+F32_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+# x, w, bias, out, ws; bias_bf16, out_bf16, B, H_in, W_in, C_in, H_f, W_f,
+# C_out, H_out, W_out, stride, pad, groups, bm, bn, splits,
+# chunks_per_split, act, vec_x, vec_w; stream.
+BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = build.library("gfid_conv")
     fn = lib.gfid_conv2d_nhwc_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 \
-        + [ctypes.c_void_p]
+    fn.argtypes = F32_ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher_bf16():
-    lib = build.library("gfid_conv")
+    lib = build.library("gfid_conv_bf16")
     fn = lib.gfid_conv2d_nhwc_bf16
-    # x, w, bias; bias_bf16; out; out_bf16, B, H_in, W_in, C_in, H_f, W_f,
-    # C_out, H_out, W_out, stride, pad, groups, act; stream
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] \
-        + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.argtypes = BF16_ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def bf16_plan(pixels: int, k: int, og: int, groups: int, cg: int,
+              x_ptr: int = 0, w_ptr: int = 0,
+              sms: int = 132) -> build.MmaPlan:
+    """The launch of `gfid_conv2d_nhwc_bf16` for an implicit GEMM of
+    `pixels` output rows (B x H_out x W_out), depth k = H_f x W_f x cg and
+    og columns a group, on a card of `sms` SMs: the tile from BF16_TILES,
+    a split of K where the blocks leave the card idle; 16-byte copies of x
+    where cg % 8 == 0 and x is 16-byte aligned, of w where og % 8 == 0 and
+    w is."""
+    for bm, bn in BF16_TILES:
+        if bn > 64 and not (og % bn == 0 or (og > 64 and cg % 8)):
+            continue
+        col_blocks = groups * -(-og // bn)
+        tiles = max(-(-pixels // bm) * col_blocks, 1)
+        if tiles >= sms:
+            break
+    want = 1 if tiles >= sms else -(-2 * sms // tiles)
+    splits, per = build.mma_split(k, want, BF16_MIN_SPLIT)
+    grid = (col_blocks, -(-pixels // bm), splits)
+    build.check_grid("gfid_conv2d_nhwc_bf16", grid)
+    return build.MmaPlan(bm, bn, splits, per, cg % 8 == 0 and x_ptr % 16 == 0,
+                         og % 8 == 0 and w_ptr % 16 == 0, grid)
 
 
 def _check_geometry(x: torch.Tensor, w: torch.Tensor, stride: int,
@@ -142,19 +181,27 @@ def gfid_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
 def _launch(x, w, bias, out, stride, pad, groups, act, is_bf16) -> None:
     dims = (*x.shape, *w.shape[:2], w.shape[3], *out.shape[1:3], stride, pad,
-            groups, ACT_CODES[act])
+            groups)
     lib, fn = _launcher_bf16() if is_bf16 else _launcher()
     b_ptr = None if bias is None else bias.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if is_bf16:
-            err = fn(x.data_ptr(), w.data_ptr(), b_ptr,
+            h_f, w_f, cg, c_out = w.shape
+            pixels = out.numel() // c_out
+            plan = bf16_plan(pixels, h_f * w_f * cg, c_out // groups, groups,
+                             cg, x.data_ptr(), w.data_ptr(),
+                             build.sm_count(x.device.index or 0))
+            ws = build.mma_workspace(plan, pixels, c_out, x.device)
+            err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(),
+                     None if ws is None else ws.data_ptr(),
                      int(bias is not None and bias.dtype == torch.bfloat16),
-                     out.data_ptr(), int(out.dtype == torch.bfloat16), *dims,
-                     stream)
+                     int(out.dtype == torch.bfloat16), *dims, plan.bm,
+                     plan.bn, plan.splits, plan.chunks_per_split, ACT_CODES[act],
+                     int(plan.vec_x), int(plan.vec_w), stream)
         else:
             err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(), *dims,
-                     stream)
+                     ACT_CODES[act], stream)
     name = "gfid_conv2d_nhwc_bf16" if is_bf16 else "gfid_conv2d_nhwc"
     build.check(lib, err, name)
     (gfid_conv2d_nhwc_bf16 if is_bf16 else gfid_conv2d_nhwc).launches += 1

@@ -1,10 +1,10 @@
-"""FC mode of the multi-mode engine: the hand-written GEMMs of
-`csrc/gfid_matmul.cu` (the port of the Pallas kernel
-`repro.kernels.gfid_matmul.gfid_matmul`: an entry for fp32 operands and
-one for bf16 operands with an fp32 accumulator, both behind the wrapper
-`gfid_matmul`) and `csrc/gfid_matmul_int8.cu` (int8 operands, exact
-int32 accumulator, fused dequant; the port of `gfid_matmul_int8`), each
-with its plain PyTorch version.
+"""FC mode of the multi-mode engine: the hand-written GEMMs that port the
+Pallas kernel `repro.kernels.gfid_matmul.gfid_matmul` (`csrc/gfid_matmul.cu`
+for fp32 operands on the CUDA cores, `csrc/gfid_matmul_bf16.cu` for bf16
+operands on the tensor cores, both with an fp32 accumulator and both behind
+the wrapper `gfid_matmul`) and `csrc/gfid_matmul_int8.cu` (int8 operands,
+exact int32 accumulator, fused dequant; the port of `gfid_matmul_int8`),
+each with its plain PyTorch version.
 
 Each wrapper launches its CUDA kernel for CUDA tensors, uses the plain
 version for CPU tensors, and only allocates the output for `meta` tensors
@@ -29,6 +29,17 @@ from repro_torch.kernels.epilogue import (ACT_CODES, apply_epilogue,
 TILE = (8, 256, 32)
 # The same for csrc/gfid_matmul_int8.cu.
 TILE_INT8 = (8, 256, 64)
+# csrc/gfid_matmul_bf16.cu's block tiles (rows, columns): the first whose
+# rows hold M (so that up to M = 64 each weight is read once), else the
+# last. On the H100 a larger tile bought nothing at M = 1024 or 15,872: the
+# loads from L2 bound the kernel there, not the tile's reuse.
+BF16_TILES = ((16, 64), (32, 64), (64, 64))
+# Its split of K, from (K, N) alone so that a row's sums ignore M: splits
+# until the column blocks times the splits reach BF16_TARGET_BLOCKS (two
+# blocks on each of an H100's 132 SMs), each split at least
+# BF16_MIN_SPLIT chunks (1024 of K: smollm's K <= 1536 never splits).
+BF16_TARGET_BLOCKS = 264
+BF16_MIN_SPLIT = 32
 
 
 def gfid_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -44,24 +55,45 @@ def gfid_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     return out if out_dtype is None else out.to(out_dtype)
 
 
+# x, w, bias, out; M, K, N, act; stream.
+F32_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# x, w, bias, out, ws; bias_bf16, out_bf16, M, K, N, bm, bn, splits,
+# chunks_per_split, act, vec_x, vec_w; stream.
+BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = build.library("gfid_matmul")
     fn = lib.gfid_matmul_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = F32_ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher_bf16():
-    lib = build.library("gfid_matmul")
+    lib = build.library("gfid_matmul_bf16")
     fn = lib.gfid_matmul_bf16
-    # x, w, bias; bias_bf16; out; out_bf16, M, K, N, act; stream
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = BF16_ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def bf16_plan(m: int, k: int, n: int, x_ptr: int = 0,
+              w_ptr: int = 0) -> build.MmaPlan:
+    """The launch of `gfid_matmul_bf16` for x (m, k) @ w (k, n) at those
+    base addresses: BM from m; the split of K from (k, n) alone, so that
+    every row's sums run in one order at any m; 16-byte loads of x where
+    k % 8 == 0 and x is 16-byte aligned, of w where n % 8 == 0 and w is."""
+    bm, bn = next((t for t in BF16_TILES if m <= t[0]), BF16_TILES[-1])
+    col_blocks = -(-n // bn)
+    splits, per = build.mma_split(
+        k, -(-BF16_TARGET_BLOCKS // max(col_blocks, 1)), BF16_MIN_SPLIT)
+    grid = (col_blocks, -(-m // bm), splits)
+    build.check_grid("gfid_matmul_bf16", grid)
+    return build.MmaPlan(bm, bn, splits, per, k % 8 == 0 and x_ptr % 16 == 0,
+                         n % 8 == 0 and w_ptr % 16 == 0, grid)
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor,
@@ -114,10 +146,14 @@ def _launch(x, w, bias, out, act, is_bf16) -> None:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if is_bf16:
-            err = fn(x.data_ptr(), w.data_ptr(), b_ptr,
+            plan = bf16_plan(m, k, n, x.data_ptr(), w.data_ptr())
+            ws = build.mma_workspace(plan, m, n, x.device)
+            err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(),
+                     None if ws is None else ws.data_ptr(),
                      int(bias is not None and bias.dtype == torch.bfloat16),
-                     out.data_ptr(), int(out.dtype == torch.bfloat16), m, k,
-                     n, ACT_CODES[act], stream)
+                     int(out.dtype == torch.bfloat16), m, k, n, plan.bm,
+                     plan.bn, plan.splits, plan.chunks_per_split, ACT_CODES[act],
+                     int(plan.vec_x), int(plan.vec_w), stream)
         else:
             err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(), m, k,
                      n, ACT_CODES[act], stream)
