@@ -15,7 +15,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      AlexNet layer shape (batch 1 and 32), at a few ragged shapes and, for
      `gfid_matmul`, at every GEMM shape of the serving path (the five of a
      decode step at M = 8, the four layer GEMMs of a prompt-128 prefill at
-     M = 1024). fp32:
+     M = 1024); the fp32 conv also at every distinct conv shape of VGG-16
+     and ResNet-50 at batch 1, its cases reaching every block tile, split
+     and load path of `gfid_conv.f32_plan` (required). fp32:
      max|kernel - plain| / max|plain| <= 1e-4. int8 (operands quantized on
      the card by `core/quant`): max|kernel - plain| == 0 for act None and
      relu, <= 1e-6 * max|plain| for gelu. bf16 operands (`gfid_matmul_bf16`,
@@ -64,23 +66,29 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      `flash_attention` against its plain version: smollm-135m's prefill
      heads (1, S, 9 / 3, 64) causal at S = 1025, 1280, 1664, 1984 and 2048,
      the four cases of tests/test_kernels.py, a prime length (1031), B = 2,
-     D = 128 causal and not, within 1e-4 x max|plain| in fp32 and 8e-3 on
-     bf16 operands; and that an input which requires grad raises.
+     D = 128 causal and not, each in fp32 on `flash_attention.cu` (within
+     1e-4 x max|plain|) and on bf16 operands on `flash_attention_bf16.cu`
+     (within 8e-3, two calls bitwise equal), with bf16 cases at D = 40, at
+     D = 20 and on unaligned views that must reach every padded head dim
+     (16, 32, 64, 128) and both copy paths; and that an input which
+     requires grad raises.
   5. per kernel: its time over the main path's shapes beside its bound, its
      plain version's time and one library call's time where one PyTorch call
      computes the same function (`F.conv2d` on NCHW and `torch.addmm`, each
      followed by relu, TF32 off; `torch._int_mm` for the int8 product where
-     it accepts the shape; none for the int8 conv). `flash_attention` at
-     (1, 1984, 9 / 3, 64) causal fp32, a launch and one prefill's 30,
-     beside `F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`
-     with TF32 off (timed here only; nothing on the path calls it). The
-     bf16 kernels at AlexNet's shapes as the path runs them (bf16 in and
-     out), beside `F.conv2d` and `torch.addmm` in bf16, each with relu,
-     also timed for the device alone (a CUDA graph of 100 calls of each);
-     `gfid_matmul_bf16` at smollm's four layer GEMMs at M = 1024 and
-     15,872 (prompts 128 and 1984) beside bf16 `torch.mm`; and
-     `flash_attention` on bf16 q, k, v at the same shape beside SDPA in
-     bf16.
+     it accepts the shape; none for the int8 conv); the fp32 conv also for
+     the device alone (a CUDA graph of 100 calls), kernel and cuDNN.
+     `flash_attention` at (1, 1984, 9 / 3, 64) causal on fp32 and on bf16
+     q, k, v (`flash_attention_bf16`), a launch (with the host's launch
+     inside, and the device alone) and one prefill's 30, beside
+     `F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)` in
+     the same dtype with TF32 off (timed here only; nothing on the path
+     calls it), and bf16 flash and SDPA at B = 4 for the device alone (how
+     far too few warps an SM hold back B = 1). The bf16 kernels at AlexNet's shapes as the path runs them
+     (bf16 in and out), beside `F.conv2d` and `torch.addmm` in bf16, each
+     with relu, also timed for the device alone; `gfid_matmul_bf16` at
+     smollm's four layer GEMMs at M = 1024 and 15,872 (prompts 128 and
+     1984) beside bf16 `torch.mm`.
      A bound takes the card's peak for the operands' type: 67 TFLOP/s in
      fp32, 989 TFLOP/s in bf16, 1,979 TOP/s in int8, and 3.35 TB/s.
   6. serving: smollm-135m at full width and depth (fp32 parameters from
@@ -158,9 +166,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      and a prefill, no fp32 `gfid_matmul`, and "torch" logits within
      2.5e-2 of "cuda" (bf16 roundings of each projection, in other sum
      orders). Then one batch-1 prefill at prompt 1984 on phase 8's pool:
-     211 `gfid_matmul_bf16` + 30 `flash_attention` (bf16 q, k, v)
-     launches, its time and a profiler split of its device time between
-     the two kernels. At prompts 1025, 1280, 1664 and 1984, the "cuda" and
+     211 `gfid_matmul_bf16` + 30 `flash_attention_bf16` launches and no
+     fp32 `flash_attention`, its time and a profiler split of its device
+     time between the two kernels (each found by name, with non-zero
+     time). At prompts 1025, 1280, 1664 and 1984, the "cuda" and
      "torch" logits: within 2.5e-2 of each other in bf16, within 1e-4 from
      the same weights widened to fp32, and each about as far from those
      fp32 logits as the other (ratio within 1.5 either way).
@@ -324,15 +333,21 @@ def as_bf16(kw, keep_bias=False):
             and not (keep_bias and k == "bias") else v for k, v in kw.items()}
 
 
-def conv_cases(cnn, batch, gen, dev):
-    """(label, kwargs) for every AlexNet conv at `batch`: inputs, HWIO
-    weights, a bias and relu, as the main path gives them."""
-    convs, _ = cnn.analytics_layers("alexnet")
-    cases = []
+def conv_cases(cnn, batch, gen, dev, net="alexnet"):
+    """(label, spec, kwargs) for every conv of `net` at `batch` (one for
+    each distinct shape): inputs, HWIO weights, a bias and relu, as the main
+    path gives them."""
+    convs, _ = cnn.analytics_layers(net)
+    cases, shapes = [], set()
     for s in convs:
+        shape = (s.h_in, s.w_in, s.c_in, s.c_out, s.h_f, s.w_f, s.s, s.pad, s.groups)
+        if shape in shapes:
+            continue
+        shapes.add(shape)
         cg = s.c_in // s.groups
         fan_in = s.h_f * s.w_f * cg
-        cases.append((f"{s.name} B={batch}", s, dict(
+        label = s.name if net == "alexnet" else f"{net} {s.name}"
+        cases.append((f"{label} B={batch}", s, dict(
             x=torch.randn((batch, s.h_in, s.w_in, s.c_in), generator=gen).to(dev),
             w=(torch.randn((s.h_f, s.w_f, cg, s.c_out), generator=gen)
                * (2.0 / fan_in) ** 0.5).to(dev),
@@ -363,6 +378,10 @@ def ragged_cases(gen, dev):
              pad=2, groups=2, act="relu"),
         dict(x=t(3, 9, 130, 3), w=t(3, 3, 3, 16), bias=t(16), stride=1,
              pad=1, groups=1, act=None),
+        # x a view one element past a 16-byte boundary: element copies of x
+        # at cg % 4 == 0
+        dict(x=t(1 + 2 * 15 * 15 * 8)[1:].view(2, 15, 15, 8), w=t(3, 3, 8, 24),
+             bias=t(24), stride=1, pad=1, groups=1, act="relu"),
     ]
     mm = [
         dict(x=t(5, 300), w=t(300, 70), bias=t(70), act="gelu"),
@@ -458,10 +477,10 @@ def bf16_conv_cases(gen, dev):
     ]
 
 
-def bf16_plan(kind, kw):
-    """The launch plan the bf16 wrapper takes for a case of `kind` "conv" or
-    "mm": the wrappers' own plan functions on the case's shapes and
-    addresses."""
+def launch_plan(kind, kw):
+    """The launch plan the wrapper takes for a case of `kind` "conv" (fp32
+    or bf16 operands) or "mm" (bf16): the wrappers' own plan functions on
+    the case's shapes and addresses."""
     from repro_torch.kernels import build, gfid_conv, gfid_matmul
     x, w = kw["x"], kw["w"]
     if kind == "mm":
@@ -472,8 +491,9 @@ def bf16_plan(kind, kw):
     s, p, groups = kw["stride"], kw["pad"], kw["groups"]
     pixels = b * ((h + 2 * p - h_f) // s + 1) * ((wd + 2 * p - w_f) // s + 1)
     sms = build.sm_count(x.device.index or 0) if x.is_cuda else 132
-    return gfid_conv.bf16_plan(pixels, h_f * w_f * cg, c_out // groups, groups,
-                               cg, x.data_ptr(), w.data_ptr(), sms)
+    plan = gfid_conv.bf16_plan if x.dtype == torch.bfloat16 else gfid_conv.f32_plan
+    return plan(pixels, h_f * w_f * cg, c_out // groups, groups, cg,
+                x.data_ptr(), w.data_ptr(), sms)
 
 
 def require_plan_coverage(kname, plans, tiles):
@@ -1304,12 +1324,13 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
 
 
 def flash_cases(gen, dev):
-    """(label, q, k, v, causal) for `flash_attention`: smollm-135m's prefill
-    heads (1, S, 9 / 3, 64) causal at S = 1025, 1280, 1664, 1984 and 2048;
-    the four cases of tests/test_kernels.py (non-causal and H/KV = 2 among
-    them); a prime length; B = 2; D = 128 causal and not; bf16 operands."""
-    def qkv(b, s, h, kv, d, dtype=torch.float32):
-        return tuple(torch.randn(shape, generator=gen).to(dtype).to(dev)
+    """(label, q, k, v, causal) for `flash_attention`, fp32: smollm-135m's
+    prefill heads (1, S, 9 / 3, 64) causal at S = 1025, 1280, 1664, 1984 and
+    2048; the four cases of tests/test_kernels.py (non-causal, H/KV = 2 and
+    D = 8 among them); a prime length; B = 2; D = 128 causal and not. Phase
+    3 runs each on fp32 and on bf16 operands."""
+    def qkv(b, s, h, kv, d):
+        return tuple(torch.randn(shape, generator=gen).to(dev)
                      for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
     cases = [(f"smollm (1, {s}, 9/3, 64) causal", *qkv(1, s, 9, 3, 64), True)
              for s in LONG_LENS + (2048,)]
@@ -1322,12 +1343,25 @@ def flash_cases(gen, dev):
     cases += [("prime length (1, 1031, 9/3, 64) causal", *qkv(1, 1031, 9, 3, 64), True),
               ("B=2 (2, 700, 9/3, 64) causal", *qkv(2, 700, 9, 3, 64), True),
               ("D=128 (1, 300, 4/2, 128) causal", *qkv(1, 300, 4, 2, 128), True),
-              ("D=128 (1, 300, 4/2, 128) non-causal", *qkv(1, 300, 4, 2, 128), False),
-              ("bf16 (1, 1031, 9/3, 64) causal",
-               *qkv(1, 1031, 9, 3, 64, torch.bfloat16), True),
-              ("bf16 (2, 77, 4/1, 40) non-causal",
-               *qkv(2, 77, 4, 1, 40, torch.bfloat16), False)]
+              ("D=128 (1, 300, 4/2, 128) non-causal", *qkv(1, 300, 4, 2, 128), False)]
     return cases
+
+
+def flash_bf16_cases(gen, dev):
+    """(label, q, k, v, causal) on bf16 operands only: D = 40 (padded to
+    64), D = 20 (element loads: D % 8 != 0) and q, k, v as views one element
+    past a 16-byte boundary (element loads at D = 64)."""
+    def t(*shape, skip=0):
+        flat = torch.randn(math.prod(shape) + skip, generator=gen)
+        return flat.to(dev).to(torch.bfloat16)[skip:].view(shape)
+
+    return [("D=40 (2, 77, 4/1, 40) non-causal",
+             t(2, 77, 4, 40), t(2, 77, 1, 40), t(2, 77, 1, 40), False),
+            ("D=20 (1, 333, 6/2, 20) causal",
+             t(1, 333, 6, 20), t(1, 333, 2, 20), t(1, 333, 2, 20), True),
+            ("unaligned views (1, 200, 9/3, 64) causal",
+             t(1, 200, 9, 64, skip=1), t(1, 200, 3, 64, skip=1),
+             t(1, 200, 3, 64, skip=1), True)]
 
 
 def flash_bound(b, sq, skv, h, kv, d, causal, elem=4, peak=PEAK_FP32_FLOP_S):
@@ -1614,16 +1648,17 @@ def bf16_logits_witness(E, T, cfg, conf, params, prompt):
 def long_prefill_bf16(dev, E, gfid_matmul, paged, flash, other_kernels, params):
     """Phase 9's long prompt: one batch-1 prefill at LONG_PREFILL tokens of
     smollm-135m with bf16 parameters on phase 8's pool geometry: 211
-    `gfid_matmul_bf16` and 30 `flash_attention` launches (bf16 q, k, v) and
-    nothing else, "torch" logits within BF16_LOGITS_TOL, its time and a
-    `torch.profiler` split of its device time between the two kernels."""
+    `gfid_matmul_bf16` and 30 `flash_attention_bf16` launches (bf16 q, k, v)
+    and nothing else (no fp32 `flash_attention`), "torch" logits within
+    BF16_LOGITS_TOL, its time and a `torch.profiler` split of its device
+    time between the two kernels, each found by name with non-zero time."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine as SE
     from repro_torch.serve.scheduler import ContinuousScheduler
 
     mm, gather, fa = (gfid_matmul.gfid_matmul_bf16, paged.paged_gather,
-                      flash.flash_attention)
+                      flash.flash_attention_bf16)
     kernels = (mm, gather, fa) + tuple(other_kernels)
     cfg = get_config(SERVE_MODEL)
     per_pass, n_attn = cfg.n_layers * 7 + 1, cfg.n_layers
@@ -1658,49 +1693,52 @@ def long_prefill_bf16(dev, E, gfid_matmul, paged, flash, other_kernels, params):
     del snap, s
     print(f"[serve bf16] batch-1 prefill at prompt {LONG_PREFILL} on a pool of "
           f"{LONG_BLOCKS} x {SERVE_BLOCK} (max_len {LONG_MAX_LEN}): {per_pass} "
-          f"gfid_matmul_bf16 + {n_attn} flash_attention launches (bf16 q, k, v); "
+          f"gfid_matmul_bf16 + {n_attn} flash_attention_bf16 launches and no fp32 "
+          f"flash_attention; "
           f"logits max|d|/max|ref| vs the torch backend {err:.3e} (limit "
           f"{BF16_LOGITS_TOL}); {prefill_ms:.4f} ms (median of 5)")
-    split = None
-    if prof is None:
-        print("[profile] long bf16 prefill: the profiler recorded no device "
-              "time; device busy share not measured")
-    else:
-        busy_ms, n_kernels, rows_p = prof
-        split = {key: sum(r[2] for r in rows_p if key in r[0])
-                 for key in ("flash_attention_kernel", "gfid_matmul_bf16_kernel")}
-        print(f"[profile] long bf16 prefill: {n_kernels} device kernels, "
-              f"{busy_ms:.4f} ms of device time = "
-              f"{100 * busy_ms / prefill_ms:.1f}% of its {prefill_ms:.4f} ms; "
-              f"flash_attention {split['flash_attention_kernel']:.4f} ms, "
-              f"gfid_matmul_bf16 {split['gfid_matmul_bf16_kernel']:.4f} ms, rest "
-              f"{busy_ms - sum(split.values()):.4f} ms; by kernel: "
-              + "; ".join(f"{n[:60]} x{c} {t_:.4f} ms" for n, c, t_ in rows_p[:6]))
+    require(prof is not None, "long bf16 prefill: the profiler recorded no "
+            "device time")
+    busy_ms, n_kernels, rows_p = prof
+    split = {key: sum(r[2] for r in rows_p if key in r[0])
+             for key in ("flash_attention_bf16_kernel", "gfid_matmul_bf16_kernel")}
+    require(all(ms > 0 for ms in split.values()), f"long bf16 prefill: the "
+            f"profiler found {split} ms of the two kernels")
+    print(f"[profile] long bf16 prefill: {n_kernels} device kernels, "
+          f"{busy_ms:.4f} ms of device time = "
+          f"{100 * busy_ms / prefill_ms:.1f}% of its {prefill_ms:.4f} ms; "
+          f"flash_attention_bf16 {split['flash_attention_bf16_kernel']:.4f} ms, "
+          f"gfid_matmul_bf16 {split['gfid_matmul_bf16_kernel']:.4f} ms, rest "
+          f"{busy_ms - sum(split.values()):.4f} ms; by kernel: "
+          + "; ".join(f"{n[:60]} x{c} {t_:.4f} ms" for n, c, t_ in rows_p[:6]))
     return dict(prefill_ms=prefill_ms, launches=launches, err=err, split=split)
 
 
 def flash_timing(dev, flash, worst):
-    """Phase 5's flash rows: the kernel at smollm's longest served prefill
-    shape (1, LONG_PREFILL, 9/3, 64) causal, on fp32 and on bf16 q/k/v,
-    beside its bound at the peak of that type, its plain version and
+    """Phase 5's flash rows: the kernels at smollm's longest served prefill
+    shape (1, LONG_PREFILL, 9/3, 64) causal, on fp32 q/k/v (entry
+    `flash_attention`) and on bf16 q/k/v (entry `flash_attention_bf16`),
+    beside the bound at the peak of that type, the plain version and
     `F.scaled_dot_product_attention` (TF32 off, GQA in the call; timed only
-    here), per launch and for one prefill's launches. Returns {dtype name:
-    the numbers}."""
+    here), per launch with CUDA events around each call and for the device
+    alone (a CUDA graph of 100 calls), and for one prefill's launches.
+    Returns {dtype name: the numbers}."""
     from repro_torch.configs.base import get_config
     cfg = get_config(SERVE_MODEL)
     h, kv, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, LONG_PREFILL
     out = {}
+    t0 = time.perf_counter()
     for dtype, tol, peak in ((torch.float32, TOL, PEAK_FP32_FLOP_S),
                              (torch.bfloat16, BF16_FLASH_TOL, PEAK_BF16_FLOP_S)):
         name = str(dtype)[6:]
+        kname = "flash_attention_bf16" if dtype == torch.bfloat16 else "flash_attention"
         gen = torch.Generator().manual_seed(5)
         q, k, v = (torch.randn(shape, generator=gen).to(dev).to(dtype)
                    for shape in ((1, s, h, d), (1, s, kv, d), (1, s, kv, d)))
         got, want = flash.flash_attention(q, k, v), flash.flash_attention_plain(q, k, v)
         err = rel_err(got, want)
-        require(err <= tol, f"flash_attention {name} at the timed shape: {err:.3e} > {tol}")
-        worst["flash_attention"] = max(worst["flash_attention"],
-                                       (got.float() - want.float()).abs().max().item())
+        require(err <= tol, f"{kname} at the timed shape: {err:.3e} > {tol}")
+        worst[kname] = max(worst[kname], (got.float() - want.float()).abs().max().item())
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, S, D) views
 
         def sdpa():
@@ -1712,21 +1750,50 @@ def flash_timing(dev, flash, worst):
             require(lib_err <= TOL, f"sdpa differs from the plain flash: {lib_err:.3e}")
         b_ms, by = flash_bound(1, s, s, h, kv, d, True, q.element_size(), peak)
         row_t = dict(ms=time_ms(lambda: flash.flash_attention(q, k, v)),
+                     device_ms=graph_ms(lambda: flash.flash_attention(q, k, v)),
                      plain_ms=time_ms(lambda: flash.flash_attention_plain(q, k, v),
                                       iters=5),
-                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=by)
-        per = {key: row_t[key] * cfg.n_layers
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        print(f"[time] flash_attention (1, {s}, {h}/{kv}, {d}) causal {name}: kernel "
+                     library_ms=time_ms(sdpa), library_device_ms=graph_ms(sdpa),
+                     bound_ms=b_ms, bound_by=by)
+        if dtype == torch.bfloat16:
+            # the same heads at B = 4 (four times the blocks, for the device
+            # alone): how far the rate at B = 1 is held back by too few warps
+            # an SM rather than by the work of each
+            q4, k4, v4 = (t.expand(4, -1, -1, -1).contiguous() for t in (q, k, v))
+            qt4, kt4, vt4 = (t.transpose(1, 2) for t in (q4, k4, v4))
+            ops = 4 * h * d * sum(i + 1 for i in range(s))     # causal pairs, B = 1
+            b4 = dict(device_ms=graph_ms(lambda: flash.flash_attention(q4, k4, v4)),
+                      library_device_ms=graph_ms(
+                          lambda: F.scaled_dot_product_attention(
+                              qt4, kt4, vt4, is_causal=True, enable_gqa=True)))
+            print(f"[time] {kname} (B, {s}, {h}/{kv}, {d}) causal {name}, the device "
+                  f"alone: B = 1 kernel {row_t['device_ms']:.4f} ms, library "
+                  f"{row_t['library_device_ms']:.4f} ms; B = 4 kernel "
+                  f"{b4['device_ms']:.4f} ms ({4 * ops / b4['device_ms'] / 1e9:.1f} "
+                  f"TFLOP/s against {ops / row_t['device_ms'] / 1e9:.1f} at B = 1), "
+                  f"library {b4['library_device_ms']:.4f} ms "
+                  f"({4 * ops / b4['library_device_ms'] / 1e9:.1f} against "
+                  f"{ops / row_t['library_device_ms'] / 1e9:.1f})")
+            row_t["b4"] = b4
+            del q4, k4, v4, qt4, kt4, vt4
+        per = {key: row_t[key] * cfg.n_layers for key in
+               ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                "bound_ms")}
+        print(f"[time] {kname} (1, {s}, {h}/{kv}, {d}) causal {name}: kernel "
               f"{row_t['ms']:.4f} ms, plain {row_t['plain_ms']:.4f} ms, library "
               f"scaled_dot_product_attention(enable_gqa, TF32 "
               f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}) "
-              f"{row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); max|d|/max|ref| "
-              f"vs plain {err:.3e}, sdpa vs plain {lib_err:.3e} (limit {tol:g})")
-        print(f"[time] flash_attention {name} per prefill({s}) ({cfg.n_layers} launches): "
+              f"{row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); the device "
+              f"alone: kernel {row_t['device_ms']:.4f} ms, library "
+              f"{row_t['library_device_ms']:.4f} ms; max|d|/max|ref| vs plain "
+              f"{err:.3e}, sdpa vs plain {lib_err:.3e} (limit {tol:g})")
+        print(f"[time] {kname} {name} per prefill({s}) ({cfg.n_layers} launches): "
               f"kernel {per['ms']:.4f} ms, plain {per['plain_ms']:.4f} ms, library "
-              f"{per['library_ms']:.4f} ms, bound {per['bound_ms']:.4f} ms")
+              f"{per['library_ms']:.4f} ms, bound {per['bound_ms']:.4f} ms; the device "
+              f"alone: kernel {per['device_ms']:.4f} ms, library "
+              f"{per['library_device_ms']:.4f} ms")
         out[name] = dict(launch=row_t, per_prefill=per, bound_by=by)
+    print(f"[time] flash timings took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1872,9 +1939,14 @@ def main():
         return [(lbl, kw) for b in BATCHES for lbl, _, kw in main_cases[b]] \
             + [(f"ragged {what} {i}", kw) for i, kw in enumerate(ragged)]
 
+    # the fp32 conv also at every distinct conv shape of VGG-16 and
+    # ResNet-50 at batch 1; its cases must reach every path of f32_plan
+    t_conv = time.perf_counter()
     for kname, kernel, plain, cases, int8 in (
             ("gfid_conv2d_nhwc", conv32, gfid_conv.gfid_conv2d_nhwc_plain,
-             all_cases(conv_main, ragged_conv, "conv"), False),
+             all_cases(conv_main, ragged_conv, "conv")
+             + [(lbl, kw) for net in OTHER_NETS
+                for lbl, _, kw in conv_cases(cnn, 1, gen, dev, net)], False),
             ("gfid_matmul", mm32, gfid_matmul.gfid_matmul_plain,
              all_cases(fc_main, ragged_mm, "matmul") + serve_mm_cases(gen, dev),
              False),
@@ -1884,6 +1956,7 @@ def main():
             ("gfid_matmul_int8", mm8, gfid_matmul.gfid_matmul_int8_plain,
              all_cases(fc8_main, ragged_mm8, "matmul"), True)):
         worst[kname] = 0.0
+        plans = []
         for label, kw in cases:
             got = kernel(**kw)
             want = plain(**kw)
@@ -1897,12 +1970,22 @@ def main():
                 limit = GELU_TOL if kw["act"] == "gelu" else 0.0
             else:
                 limit = TOL
+            plan = ""
+            if kname == "gfid_conv2d_nhwc":
+                plans.append(launch_plan("conv", kw))
+                plan = (f", tile {plans[-1].bm}x{plans[-1].bn}, K splits "
+                        f"{plans[-1].splits}, 16-byte loads x {int(plans[-1].vec_x)} "
+                        f"w {int(plans[-1].vec_w)}")
             print(f"[check] {kname} {label}: out {tuple(got.shape)}, act "
                   f"{kw['act']}, max|d| = {abs_err:.3e}, max|d|/max|ref| = "
-                  f"{err:.3e} (limit {limit:g})")
+                  f"{err:.3e} (limit {limit:g}){plan}")
             require(err <= limit, f"{kname} {label}: error {err:.3e} > {limit}")
             worst[kname] = max(worst[kname], abs_err)
             checks += 1
+        if kname == "gfid_conv2d_nhwc":
+            require_plan_coverage(kname, plans, gfid_conv.F32_TILES)
+            print(f"[check] gfid_conv2d_nhwc: {len(plans)} cases in "
+                  f"{time.perf_counter() - t_conv:.1f} s")
     # bf16 operands: the AlexNet shapes (bias bf16) and the ragged ones (bias
     # fp32), then the cases of bf16_conv_cases and bf16_mm_cases, each stored
     # in fp32 and in bf16; the cases must reach every plan the wrappers make
@@ -1923,7 +2006,7 @@ def main():
         worst[kname] = 0.0
         plans = []
         for label, kw in cases:
-            plan = bf16_plan(kind, kw)
+            plan = launch_plan(kind, kw)
             plans.append(plan)
             for out_dtype in (torch.float32, torch.bfloat16):
                 got = kernel(**kw, out_dtype=out_dtype)
@@ -1966,30 +2049,64 @@ def main():
         require(equal, f"paged_gather {label}: differs from its plain version")
         worst["paged_gather"] = max(worst["paged_gather"], abs_err)
         checks += 1
-    worst["flash_attention"] = 0.0
-    for label, q, k, v, causal in flash_cases(gen, dev):
-        got = flash_attention.flash_attention(q, k, v, causal=causal)
-        want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+    # flash: every fp32 case on the fp32 kernel and again on bf16 operands on
+    # the tensor-core kernel (bitwise repeatable), then the bf16-only cases;
+    # the bf16 cases must reach every padded head dim and both copy paths
+    t_flash = time.perf_counter()
+    fa32, fa16 = flash_attention.flash_attention, flash_attention.flash_attention_bf16
+    worst["flash_attention"] = worst["flash_attention_bf16"] = 0.0
+    fp32_cases = flash_cases(gen, dev)
+    bf16_cases = [(lbl, *(t.to(torch.bfloat16) for t in (q, k, v)), c)
+                  for lbl, q, k, v, c in fp32_cases] + flash_bf16_cases(gen, dev)
+    launches16 = []
+    for label, q, k, v, causal in fp32_cases + bf16_cases:
+        is16 = q.dtype == torch.bfloat16
+        zero_counts(fa32, fa16)
+        got = fa32(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        one = counts(fa32, fa16)
+        require(one == ((0, 1) if is16 else (1, 0)), f"flash_attention {label} "
+                f"{q.dtype}: launches (fp32, bf16) = {one}")
+        want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
         require(got.shape == want.shape and got.dtype == want.dtype
                 and bool(torch.isfinite(got).all()),
                 f"flash_attention {label}: bad output")
         err = rel_err(got.float(), want.float())
         abs_err = (got.float() - want.float()).abs().max().item()
-        limit = BF16_FLASH_TOL if q.dtype == torch.bfloat16 else TOL
-        print(f"[check] flash_attention {label}: {q.dtype}, max|d| = "
-              f"{abs_err:.3e}, max|d|/max|ref| = {err:.3e} (limit {limit:g})")
-        require(err <= limit, f"flash_attention {label}: error {err:.3e} > {limit}")
-        worst["flash_attention"] = max(worst["flash_attention"], abs_err)
+        limit = BF16_FLASH_TOL if is16 else TOL
+        extra = ""
+        if is16:
+            plan = flash_attention.bf16_launch(q.shape[0], q.shape[1], q.shape[2],
+                                               q.shape[3], q.data_ptr(),
+                                               k.data_ptr(), v.data_ptr())
+            launches16.append(plan)
+            again = fa32(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again), f"flash_attention_bf16 {label}: two "
+                    "calls on one input differ")
+            extra = (f", head dim padded to {plan.d_pad}, "
+                     f"{'16-byte' if plan.vec else 'element'} copies, a second "
+                     "call bitwise equal")
+        kname = "flash_attention_bf16" if is16 else "flash_attention"
+        print(f"[check] {kname} {label}: {q.dtype}, max|d| = {abs_err:.3e}, "
+              f"max|d|/max|ref| = {err:.3e} (limit {limit:g}){extra}")
+        require(err <= limit, f"{kname} {label}: error {err:.3e} > {limit}")
+        worst[kname] = max(worst[kname], abs_err)
         checks += 1
-    q.requires_grad_(True)
+    seen = ({p.d_pad for p in launches16}, {p.vec for p in launches16})
+    require(seen == ({16, 32, 64, 128}, {False, True}), f"flash_attention_bf16: "
+            f"the checked cases reach head dims {seen[0]} and copies {seen[1]}")
+    print(f"[check] flash_attention_bf16: the cases reach head dims padded to 16, "
+          f"32, 64 and 128 and both element and 16-byte copies; flash checks took "
+          f"{time.perf_counter() - t_flash:.1f} s")
+    q = q.detach().clone().requires_grad_(True)
     try:
         flash_attention.flash_attention(q, k, v)
         require(False, "flash_attention took an input that requires grad")
     except NotImplementedError as e:
         print(f"[check] flash_attention on an input that requires grad raises: {e}")
     checks += 1
-    del q, k, v, got, want
+    del q, k, v, got, want, again, fp32_cases, bf16_cases
     trapped = paged_trap_check()
     print(f"[check] paged_gather with a block id outside the pool, in a child "
           f"process: {trapped}")
@@ -2252,6 +2369,8 @@ def main():
             ("gfid_matmul_bf16", mm32, gfid_matmul.gfid_matmul_plain,
              fc16_main)):
         int8, bf16 = kname.endswith("_int8"), kname.endswith("_bf16")
+        # the device alone too (a CUDA graph of 100 calls), kernel and library
+        alone = bf16 or kname == "gfid_conv2d_nhwc"
         elem = 2 if bf16 else 4     # bytes an element
         peak = (PEAK_INT8_OP_S if int8 else PEAK_BF16_FLOP_S if bf16
                 else PEAK_FP32_FLOP_S)
@@ -2288,7 +2407,7 @@ def main():
                 p_ms = time_ms(lambda: plain(**kw))
                 l_ms = None if lib is None else time_ms(lambda: lib(**lib_kw))
                 device = ""
-                if bf16:    # the device alone, without the host's launch
+                if alone:   # the device alone, without the host's launch
                     d_ms = graph_ms(lambda: kernel(**kw))
                     ld_ms = graph_ms(lambda: lib(**lib_kw))
                     tot["device_ms"] += d_ms
@@ -2313,7 +2432,7 @@ def main():
                   f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
                   f"{lib_txt}, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})"
                   + (f"; the device alone: kernel {tot['device_ms']:.4f} ms, library "
-                     f"{tot['library_device_ms']:.4f} ms" if bf16 else ""))
+                     f"{tot['library_device_ms']:.4f} ms" if alone else ""))
 
     for batch in BATCHES:
         fwd = forward_ms[("int8", batch)]
@@ -2333,8 +2452,9 @@ def main():
     prefill_mm16 = bf16_prefill_timing(dev, mm32, gen)
 
     # -- phase 6: serving smollm-135m on the paged pool -----------------------
-    others = all_kernels[:1] + all_kernels[2:] + bf16_kernels \
-        + (flash_attention.flash_attention,)
+    flash_kernels = (flash_attention.flash_attention,
+                     flash_attention.flash_attention_bf16)
+    others = all_kernels[:1] + all_kernels[2:] + bf16_kernels + flash_kernels
     torch.cuda.empty_cache()
     served = serve_phase(dev, E, gfid_matmul, paged, others, worst,
                          dtype=torch.float32)
@@ -2348,17 +2468,19 @@ def main():
     torch.cuda.empty_cache()
     long = long_phase(dev, E, gfid_matmul, paged, flash_attention,
                       all_kernels[:1] + all_kernels[2:] + bf16_kernels
-                      + (conv1d.gfid_conv1d_depthwise,), worst)
+                      + (conv1d.gfid_conv1d_depthwise,
+                         flash_attention.flash_attention_bf16), worst)
 
     # -- phase 9: smollm-135m with its config's bf16 parameters ---------------
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     served16 = serve_phase(dev, E, gfid_matmul, paged,
-                           all_kernels + (conv16, flash_attention.flash_attention,
-                                          conv1d.gfid_conv1d_depthwise),
+                           all_kernels + (conv16, conv1d.gfid_conv1d_depthwise)
+                           + flash_kernels,
                            worst, dtype=torch.bfloat16)
     long16 = long_prefill_bf16(dev, E, gfid_matmul, paged, flash_attention,
-                               all_kernels + (conv16, conv1d.gfid_conv1d_depthwise),
+                               all_kernels + (conv16, conv1d.gfid_conv1d_depthwise,
+                                              flash_attention.flash_attention),
                                served16.pop("params"))
     print(f"[serve bf16] phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
@@ -2387,6 +2509,13 @@ def main():
             "library_ms": tot["library_ms"]})
         if kname == "gfid_matmul":
             kernels[-1]["launches_per_decode_step"] = served["step_launches"][0]
+        if kname == "gfid_conv2d_nhwc":     # the device alone; batch 32
+            t32 = totals[(kname, BATCHES[-1])]
+            kernels[-1].update(
+                device_ms=tot["device_ms"], library_device_ms=tot["library_device_ms"],
+                **{f"batch{BATCHES[-1]}": {key: t32[key] for key in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                    "library_device_ms")}})
     g = served["gather"]
     kernels.append({
         "name": "paged_gather", "route": "cuda",
@@ -2412,23 +2541,27 @@ def main():
         "library_device_ms": ct["library_device_ms"],
         "plain_ms": ct["plain_ms"], "bound_ms": ct["bound_ms"],
         "bound_by": ct["bound_by"], "library_ms": ct["library_ms"]})
-    flash_t, flash16 = flash_t["float32"], flash_t["bfloat16"]
-    fp = flash_t["per_prefill"]
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:58",
-        "launches": long["run_launches"][2],
-        "launches_per_prefill": long["n_attn"],
-        "max_abs_err": worst["flash_attention"],
-        # one prefill's launches at prompt LONG_PREFILL, summed
-        **dict.fromkeys(("ms", "kernel_ms"), fp["ms"]),
-        "launch_ms": flash_t["launch"]["ms"],
-        "plain_ms": fp["plain_ms"], "bound_ms": fp["bound_ms"],
-        "bound_by": flash_t["bound_by"], "library_ms": fp["library_ms"],
-        # the same prefill's launches on bf16 q/k/v, bound at the bf16 peak
-        **{f"bf16_{key}": flash16["per_prefill"][key]
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}})
+    for kname, source, timing, launches in (
+            ("flash_attention", "flash_attention.cu", flash_t["float32"],
+             long["run_launches"][2]),
+            ("flash_attention_bf16", "flash_attention_bf16.cu", flash_t["bfloat16"],
+             long16["launches"][2])):
+        per = timing["per_prefill"]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": "src/repro/kernels/flash_attention.py:58",
+            # fp32: phase 8's continuous run; bf16: phase 9's prompt-1984 prefill
+            "launches": launches, "launches_per_prefill": long["n_attn"],
+            "max_abs_err": worst[kname],
+            # one prefill's launches at prompt LONG_PREFILL, summed
+            **dict.fromkeys(("ms", "kernel_ms"), per["ms"]),
+            "launch_ms": timing["launch"]["ms"], "device_ms": per["device_ms"],
+            "plain_ms": per["plain_ms"], "bound_ms": per["bound_ms"],
+            "bound_by": timing["bound_by"], "library_ms": per["library_ms"],
+            "library_device_ms": per["library_device_ms"]})
+        if "b4" in timing["launch"]:    # one launch at B = 4, the device alone
+            kernels[-1]["batch4_launch"] = timing["launch"]["b4"]
     for kname, source, replaces, k in (
             ("gfid_conv2d_nhwc_bf16", "src/repro_torch/csrc/gfid_conv_bf16.cu",
              "src/repro/kernels/gfid_conv.py:79", 0),

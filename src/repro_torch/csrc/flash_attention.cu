@@ -4,8 +4,8 @@
 // over the keys j that row i may see (j <= i when causal, positions from 0
 // for both q and k), with G = H / KV query heads per kv head (GQA as an
 // index: no repeated copy of k and v). q is (B, Sq, H, D), k and v are
-// (B, Skv, KV, D), out is (B, Sq, H, D); fp32 or bf16, widened on load, fp32
-// inside, written in q's dtype.
+// (B, Skv, KV, D), out is (B, Sq, H, D); all fp32. (bf16 q, k, v go to
+// flash_attention_bf16.cu, on the tensor cores.)
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/flash_attention.py
 //   flash_attention (_kernel), whose grid (B, H, n_q, n_kv) walks the kv
@@ -47,7 +47,6 @@
 // Arithmetic: expf (not __expf) and IEEE division; built without
 //   --use_fast_math. No tensor cores. Sums run in another order than the
 //   plain version's, so the two agree within a tolerance, not bitwise.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -62,20 +61,11 @@ constexpr int kBK = 32;                    // keys per kv tile
 constexpr int kThreads = kBQ * kLanes;     // 256
 constexpr float kNegInf = -1.0e30f;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // DMAX: the head dim rounded up to 32, 64 or 128; columns past d are zeros.
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int sq,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int sq,
                        int skv, int h, int n_kv, int d, float scale,
                        int causal) {
   constexpr int kCols = DMAX / kLanes;     // columns a thread owns
@@ -96,7 +86,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     const int col = c * kLanes + lane;
-    qr[c] = (live && col < d) ? widen(q[q_off + col]) : 0.0f;
+    qr[c] = (live && col < d) ? q[q_off + col] : 0.0f;
     acc[c] = 0.0f;
   }
   float m = kNegInf, l = 0.0f;
@@ -110,8 +100,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kx = 0.0f, vx = 0.0f;
       if (key < skv && col < d) {
         const size_t off = (((size_t)b * skv + key) * n_kv + kvh) * (size_t)d + col;
-        kx = widen(k[off]);
-        vx = widen(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       ks[r][col] = kx;
       vs[r][col] = vx;
@@ -159,49 +149,34 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     const int col = c * kLanes + lane;
-    if (col < d) store(out + q_off + col, acc[c] / denom);
+    if (col < d) out[q_off + col] = acc[c] / denom;
   }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int skv, int h, int n_kv, int d, float scale, int causal,
-           cudaStream_t stream) {
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
-  if (d <= 32)
-    flash_attention_kernel<T, 32><<<grid, kThreads, 0, stream>>>(
-        qp, kp, vp, op, sq, skv, h, n_kv, d, scale, causal);
-  else if (d <= 64)
-    flash_attention_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-        qp, kp, vp, op, sq, skv, h, n_kv, d, scale, causal);
-  else
-    flash_attention_kernel<T, 128><<<grid, kThreads, 0, stream>>>(
-        qp, kp, vp, op, sq, skv, h, n_kv, d, scale, causal);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (b, sq, h, d); k, v: (b, skv, n_kv, d); out: (b, sq, h, d); all
-// contiguous and of one type, fp32 (bf16 = 0) or bf16 (bf16 = 1). The caller
-// guarantees b, sq, skv >= 1, 1 <= d <= 128 and h a multiple of n_kv.
-// Launches on `stream` and returns cudaGetLastError() (0 when the launch was
-// accepted); arguments out of those ranges return cudaErrorInvalidValue
-// without launching.
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int b, int sq, int skv, int h,
+// contiguous fp32. The caller guarantees b, sq, skv >= 1, 1 <= d <= 128 and
+// h a multiple of n_kv. Launches on `stream` and returns cudaGetLastError()
+// (0 when the launch was accepted); arguments out of those ranges return
+// cudaErrorInvalidValue without launching.
+extern "C" int flash_attention(const float* q, const float* k, const float* v,
+                               float* out, int b, int sq, int skv, int h,
                                int n_kv, int d, float scale, int causal,
-                               int bf16, void* stream) {
+                               void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || d < 1 || d > 128 || n_kv < 1 ||
       h % n_kv != 0 || h > 65535 || b > 65535)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, b, sq, skv, h, n_kv, d, scale,
-                                 causal, s);
-  return launch<float>(q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, s);
+  if (d <= 32)
+    flash_attention_kernel<32><<<grid, kThreads, 0, s>>>(
+        q, k, v, out, sq, skv, h, n_kv, d, scale, causal);
+  else if (d <= 64)
+    flash_attention_kernel<64><<<grid, kThreads, 0, s>>>(
+        q, k, v, out, sq, skv, h, n_kv, d, scale, causal);
+  else
+    flash_attention_kernel<128><<<grid, kThreads, 0, s>>>(
+        q, k, v, out, sq, skv, h, n_kv, d, scale, causal);
+  return (int)cudaGetLastError();
 }

@@ -1,162 +1,315 @@
 // GFID convolution (NHWC x HWIO -> NHWC, fp32) with a fused bias + activation
-// epilogue, for Hopper (sm_90a).
+// epilogue, for Hopper (sm_90a), as an implicit GEMM on the CUDA cores.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/gfid_conv.py
-//   gfid_conv2d_nhwc (_accumulate, _kernel, _kernel_epilogue), together with
-//   the padding and group glue of src/repro/kernels/ops.py::gfid_conv2d.
+//   gfid_conv2d_nhwc (_accumulate, _kernel, _kernel_epilogue) on fp32
+//   operands, together with the padding and group glue of
+//   src/repro/kernels/ops.py::gfid_conv2d. The wrapper sends 16-bit
+//   operands to their own tensor-core source and int8 ones to
+//   gfid_conv_int8.cu.
 //
 // What bounds it on an H100: fp32 arithmetic. At AlexNet batch 1 the five
 //   convs do 665.8 M multiply-adds on 13.8 MB of fp32 traffic, about 96
 //   flops per byte, well above the ~20 flops per byte where the card's
-//   67 TFLOP/s fp32 (non-tensor-core) peak overtakes its 3.35 TB/s.
+//   67 TFLOP/s fp32 (non-tensor-core) peak overtakes its 3.35 TB/s. The port
+//   keeps TF32 off on every fp32 path, so the tensor cores do not apply.
 //
-// What the design does about it: it keeps operands on chip and the FMA
-//   units fed from registers. A block owns one output row (b, h_out) of one
-//   group by a 64-channel C_out tile: the GFID one-row sweep of the TPU
-//   grid (B, H_out, n_cout, H_f, n_cin). The TPU's sequential (H_f, C_in)
-//   grid axes become a loop inside the block: for each filter row j and
-//   each 8-channel C_in chunk, the input row segment and the W_f x 8 x 64
-//   weight taps are staged in shared memory, and each thread accumulates a
-//   4-pixel x 4-channel register tile over the W_f taps (the W_f shifted
-//   GEMMs of the TPU kernel). After the last (j, chunk) step the epilogue
-//   adds the bias, applies the activation and stores once. Zero padding is
-//   a bounds mask on the loads (no padded copy of x), and the group index
-//   is part of the launch grid, so a grouped conv is one launch.
-//   Accumulation is plain fp32 FMA: no TF32, no tensor cores (a later
-//   change may move the inner product onto wgmma).
+// What the design does about it: the FMA units are fed from registers, with
+//   few shared loads per FMA and the loads in flight during the FMAs (the
+//   SIMT SGEMM shape). The conv is one GEMM per group: its rows are the
+//   output pixels (b, h_out, w_out) flattened across rows and images, its
+//   columns the group's og output channels, its K the taps (j, i, c) in HWIO
+//   order, so the B operand is a plain K x C_out slab of w at column g * og.
+//   A block decodes its rows' (b, h0, w0) once into shared memory; the A
+//   tile is gathered from x with bounds masks for the padding (no padded
+//   copy of x). A block tile of BM x BN on BM / TM x BN / TN threads: each
+//   thread holds TM x TN fp32 accumulators (8 x 8 on the 128 x 128 tile).
+//   Chunks of kBK = 8 K rows stream through a kStages-deep ring of cp.async
+//   copies (two chunks in flight while the FMAs run on a third): 16 bytes a
+//   copy where 4 channels of a tap (cg % 4 == 0) or 4 columns (og % 4 == 0)
+//   lie side by side on a 16-byte boundary, else 4 bytes; masked copies are
+//   zero-filled (src-size 0, nothing read). A is kept row-major (pixels x
+//   K, rows padded to 12 floats) and B row-major (K x BN), and every 4 K
+//   steps a thread reads TM float4 of A (4 K values of each of its rows) and
+//   4 x TN / 4 float4 of B: 16 shared loads for 256 FMAs on the 8 x 8 tile.
+//   In a warp the A reads hit two rows 12 floats apart and the B reads one
+//   contiguous 256-byte span, so neither conflicts on the banks. The
+//   wrapper's plan (kernels/gfid_conv.py::f32_plan) picks the tile that
+//   fills the 132 SMs and, where even the smallest does not (batch 1's
+//   169-pixel conv3-5), splits K across blocks; split_k.cuh adds the
+//   partials in split order (no atomics). The epilogue adds the bias,
+//   applies the activation and stores once.
+//
+// Sum order: an output element is one fmaf chain over K in order, chunk by
+//   chunk (within a split), whatever the tile; the splits are then added in
+//   split order. Plain fp32 FMA: no TF32, no tensor cores.
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "epilogue.cuh"
+#include "split_k.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCoutTile = 64;  // output channels per block
-constexpr int kCinTile = 8;    // input channels staged per step
-constexpr int kPixTile = 64;   // output pixels of the row per pass
-constexpr int kChanLanes = 16;  // threads across channels, 4 channels each
-constexpr int kPixLanes = kThreads / kChanLanes;           // 16
-constexpr int kPixPerThread = kPixTile / kPixLanes;         // 4
-constexpr int kChanPerThread = kCoutTile / kChanLanes;      // 4
-constexpr int kXsStride = kCinTile + 1;  // odd row stride: fewer bank conflicts
+constexpr int kBK = 8;              // K rows of a chunk
+constexpr int kStages = 3;          // the cp.async ring: 2 chunks in flight
+constexpr int kAStride = kBK + 4;   // floats an A row: 48 bytes, float4-aligned
+// The widest block tile, output pixels x output channels (kernels/gfid_conv.py
+// TILE, the engine plan's tiling).
+constexpr int kPixTile = 128;
+constexpr int kCoutTile = 128;
 
-static_assert(kChanPerThread == 4, "weights are read from shared memory as float4");
+// A block tile of BM pixels x BN channels; each of its BM / TM x BN / TN
+// threads owns TM rows (strided by BM / TM) and TN / 4 runs of 4 columns
+// (strided by 4 * BN / TN).
+template <int BM_, int BN_, int TM_, int TN_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
+  static constexpr int kRowThreads = BM / TM;
+  static constexpr int kColThreads = BN / TN;
+  static constexpr int kThreads = kRowThreads * kColThreads;
+  // blocks an SM: 512 threads, so at most 128 registers a thread
+  static constexpr int kMinBlocks = 512 / kThreads;
+  static constexpr int kStage = BM * kAStride + kBK * BN;  // floats
+  static constexpr size_t kSmem = sizeof(float) * kStages * kStage;
+  static_assert(TN % 4 == 0, "B is read as float4");
+  static_assert(kThreads % kBK == 0, "a thread's K column of an element-loaded A is fixed");
+};
 
-__global__ void __launch_bounds__(kThreads)
-gfid_conv2d_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                        const float* __restrict__ bias, float* __restrict__ out,
-                        int H_in, int W_in, int C_in, int H_f, int W_f, int C_out,
-                        int H_out, int W_out, int stride, int pad, int groups,
-                        int act) {
-  extern __shared__ __align__(16) float smem[];
-  const int cg = C_in / groups;
-  const int og = C_out / groups;
-  const int n_cot = (og + kCoutTile - 1) / kCoutTile;
-  const int g = blockIdx.x / n_cot;
-  const int co0 = (blockIdx.x % n_cot) * kCoutTile;  // within the group
-  const int zo = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tc = tid % kChanLanes;
-  const int tp = tid / kChanLanes;
-  const int x_pix = (kPixTile - 1) * stride + W_f;  // input pixels per pass
+struct Geometry {
+  int B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad, groups;
+};
 
-  float* ws = smem;                                  // [W_f][kCinTile][kCoutTile]
-  float* xs = smem + W_f * kCinTile * kCoutTile;     // [x_pix][kXsStride]
-  const float* xb = x + (size_t)b * H_in * W_in * C_in + (size_t)g * cg;
-  const int cbase = g * og + co0;  // first output channel of this block
+constexpr int kOffRow = -(1 << 29);  // h0 of a row past the last pixel: every tap misses
 
-  for (int w0 = 0; w0 < W_out; w0 += kPixTile) {
-    float acc[kPixPerThread][kChanPerThread];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 or 4 bytes global -> shared; when !valid, zeros and no read (src must
+// still be a global address: callers pass the tensor's base).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One chunk of the block tile from stage (As, Bs) into this thread's
+// accumulators, K in order.
+template <class T>
+__device__ __forceinline__ void fma_chunk(const float* As, const float* Bs, int ty, int tx,
+                                          float (&acc)[T::TM][T::TN]) {
 #pragma unroll
-    for (int p = 0; p < kPixPerThread; ++p)
+  for (int kq = 0; kq < kBK; kq += 4) {
+    float a[T::TM][4];
 #pragma unroll
-      for (int q = 0; q < kChanPerThread; ++q) acc[p][q] = 0.0f;
-
-    for (int j = 0; j < H_f; ++j) {
-      const int h_in = zo * stride + j - pad;
-      if (h_in < 0 || h_in >= H_in) continue;  // a padding row; same for the whole block
-      const float* xrow = xb + (size_t)h_in * W_in * C_in;
-      for (int c0 = 0; c0 < cg; c0 += kCinTile) {
-        __syncthreads();  // the previous step's tiles are consumed
-        for (int idx = tid; idx < x_pix * kCinTile; idx += kThreads) {
-          const int px = idx / kCinTile;
-          const int c = idx % kCinTile;
-          const int wi = w0 * stride + px - pad;
-          float v = 0.0f;
-          if (wi >= 0 && wi < W_in && c0 + c < cg) v = xrow[(size_t)wi * C_in + c0 + c];
-          xs[px * kXsStride + c] = v;
-        }
-        for (int idx = tid; idx < W_f * kCinTile * kCoutTile; idx += kThreads) {
-          const int co = idx % kCoutTile;
-          const int c = (idx / kCoutTile) % kCinTile;
-          const int i = idx / (kCoutTile * kCinTile);
-          float v = 0.0f;
-          if (c0 + c < cg && co0 + co < og)
-            v = w[(((size_t)j * W_f + i) * cg + c0 + c) * C_out + cbase + co];
-          ws[idx] = v;
-        }
-        __syncthreads();
-        for (int i = 0; i < W_f; ++i) {
-#pragma unroll
-          for (int c = 0; c < kCinTile; ++c) {
-            const float4 wv = *reinterpret_cast<const float4*>(
-                &ws[(i * kCinTile + c) * kCoutTile + tc * kChanPerThread]);
-#pragma unroll
-            for (int p = 0; p < kPixPerThread; ++p) {
-              const float xv = xs[((tp + p * kPixLanes) * stride + i) * kXsStride + c];
-              acc[p][0] = fmaf(xv, wv.x, acc[p][0]);
-              acc[p][1] = fmaf(xv, wv.y, acc[p][1]);
-              acc[p][2] = fmaf(xv, wv.z, acc[p][2]);
-              acc[p][3] = fmaf(xv, wv.w, acc[p][3]);
-            }
-          }
-        }
-      }
+    for (int s = 0; s < T::TM; ++s) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(As + (ty + s * T::kRowThreads) * kAStride + kq);
+      a[s][0] = v.x;
+      a[s][1] = v.y;
+      a[s][2] = v.z;
+      a[s][3] = v.w;
     }
-
 #pragma unroll
-    for (int p = 0; p < kPixPerThread; ++p) {
-      const int pix = w0 + tp + p * kPixLanes;
-      if (pix >= W_out) continue;
-      float* orow = out + (((size_t)b * H_out + zo) * W_out + pix) * C_out + cbase;
+    for (int kk = 0; kk < 4; ++kk) {
+      float b[T::TN];
 #pragma unroll
-      for (int q = 0; q < kChanPerThread; ++q) {
-        const int co = tc * kChanPerThread + q;
-        if (co0 + co < og) {
-          float v = acc[p][q];
-          if (bias != nullptr) v += bias[cbase + co];
-          orow[co] = apply_act(v, act);
-        }
+      for (int q = 0; q < T::TN / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            Bs + (kq + kk) * T::BN + q * 4 * T::kColThreads + tx * 4);
+        b[4 * q] = v.x;
+        b[4 * q + 1] = v.y;
+        b[4 * q + 2] = v.z;
+        b[4 * q + 3] = v.w;
       }
+#pragma unroll
+      for (int s = 0; s < T::TM; ++s)
+#pragma unroll
+        for (int n = 0; n < T::TN; ++n) acc[s][n] = fmaf(a[s][kk], b[n], acc[s][n]);
     }
   }
 }
 
+template <class T>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+gfid_conv2d_nhwc_kernel(splitk::Epilogue e, const float* __restrict__ x,
+                        const float* __restrict__ w, Geometry d, int chunks_per_split,
+                        int vec_x, int vec_w) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int4 rows[T::BM];  // (b, h_in of tap row 0, w_in of tap column 0, -)
+  const int tid = threadIdx.x;
+  const int ty = tid / T::kColThreads;
+  const int tx = tid % T::kColThreads;
+  const int cg = d.C_in / d.groups;
+  const int og = d.C_out / d.groups;
+  const int ncb = (og + T::BN - 1) / T::BN;
+  // grid x: the column blocks of every group (fastest), then the row tiles
+  const int col_block = blockIdx.x % (d.groups * ncb);
+  const int g = col_block / ncb;
+  const int n0 = (col_block % ncb) * T::BN;  // within the group
+  const int m0 = (int)(blockIdx.x / (d.groups * ncb)) * T::BM;
+  const int P = d.B * d.H_out * d.W_out;
+  const int K = d.H_f * d.W_f * cg;
+  const int n_chunks = (K + kBK - 1) / kBK;
+  const int begin = blockIdx.z * chunks_per_split;
+  const int end = min(n_chunks, begin + chunks_per_split);
+  const float* xg = x + (size_t)g * cg;
+  const float* wg = w + (size_t)g * og;
+
+  for (int r = tid; r < T::BM; r += T::kThreads) {
+    const int p = m0 + r;
+    int4 v = make_int4(0, kOffRow, kOffRow, 0);
+    if (p < P) {
+      const int hw = d.H_out * d.W_out;
+      const int ho = (p % hw) / d.W_out;
+      v = make_int4(p / hw, ho * d.stride - d.pad, (p % d.W_out) * d.stride - d.pad, 0);
+    }
+    rows[r] = v;
+  }
+  __syncthreads();
+
+  // The x element of row r at tap (j, i), channel c of the group, or null in
+  // the padding.
+  const int4* row_at = rows;
+  auto tap = [&](int r, int j, int i, int c) -> const float* {
+    const int4 v = row_at[r];
+    const int h = v.y + j;
+    const int wi = v.z + i;
+    if ((unsigned)h >= (unsigned)d.H_in || (unsigned)wi >= (unsigned)d.W_in) return nullptr;
+    return xg + (((size_t)v.x * d.H_in + h) * d.W_in + wi) * d.C_in + c;
+  };
+
+  auto load = [&](int chunk, float* As, float* Bs) {
+    const int k0 = chunk * kBK;
+    // the K column this thread copies is the same for each of its rows
+    const int k = k0 + (vec_x ? (tid % (kBK / 4)) * 4 : tid % kBK);
+    const int ji = k / cg;
+    const int j = ji / d.W_f;
+    const int i = ji % d.W_f;
+    const int c = k % cg;
+    if (vec_x) {  // a piece is 4 channels of one tap: cg % 4 == 0
+      for (int idx = tid; idx < T::BM * (kBK / 4); idx += T::kThreads) {
+        const int r = idx / (kBK / 4);
+        const float* src = k < K ? tap(r, j, i, c) : nullptr;
+        cp_async16(As + r * kAStride + k - k0, src != nullptr ? src : x, src != nullptr);
+      }
+    } else {  // kThreads % kBK == 0
+      for (int idx = tid; idx < T::BM * kBK; idx += T::kThreads) {
+        const int r = idx / kBK;
+        const float* src = k < K ? tap(r, j, i, c) : nullptr;
+        cp_async4(As + r * kAStride + k - k0, src != nullptr ? src : x, src != nullptr);
+      }
+    }
+    if (vec_w) {  // og % 4 == 0: a piece is 4 columns, all in or all out
+      for (int idx = tid; idx < kBK * (T::BN / 4); idx += T::kThreads) {
+        const int r = idx / (T::BN / 4);
+        const int n = (idx % (T::BN / 4)) * 4;
+        const bool ok = k0 + r < K && n0 + n < og;
+        cp_async16(Bs + r * T::BN + n, ok ? wg + (size_t)(k0 + r) * d.C_out + n0 + n : w, ok);
+      }
+    } else {
+      for (int idx = tid; idx < kBK * T::BN; idx += T::kThreads) {
+        const int r = idx / T::BN;
+        const int n = idx % T::BN;
+        const bool ok = k0 + r < K && n0 + n < og;
+        cp_async4(Bs + r * T::BN + n, ok ? wg + (size_t)(k0 + r) * d.C_out + n0 + n : w, ok);
+      }
+    }
+  };
+
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int s = 0; s < T::TM; ++s)
+#pragma unroll
+    for (int n = 0; n < T::TN; ++n) acc[s][n] = 0.0f;
+  const int n = end - begin;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n) load(begin + s, smem + s * T::kStage, smem + s * T::kStage + T::BM * kAStride);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n; ++t) {
+    cp_async_wait<kStages - 2>();  // chunk t has landed (this thread's copies)
+    __syncthreads();               // ... and every thread's; chunk t - 1 is consumed
+    const int next = t + kStages - 1;
+    if (next < n) {
+      float* st = smem + (next % kStages) * T::kStage;
+      load(begin + next, st, st + T::BM * kAStride);
+    }
+    cp_async_commit();
+    const float* st = smem + (t % kStages) * T::kStage;
+    fma_chunk<T>(st, st + T::BM * kAStride, ty, tx, acc);
+  }
+  cp_async_wait<0>();
+
+  float* ws = e.ws == nullptr ? nullptr : e.ws + (size_t)blockIdx.z * P * d.C_out;
+#pragma unroll
+  for (int s = 0; s < T::TM; ++s) {
+    const int r = m0 + ty + s * T::kRowThreads;
+    if (r >= P) continue;
+#pragma unroll
+    for (int c = 0; c < T::TN; ++c) {
+      const int col = n0 + (c / 4) * 4 * T::kColThreads + tx * 4 + c % 4;
+      if (col >= og) continue;
+      const size_t idx = (size_t)r * d.C_out + g * og + col;
+      if (ws != nullptr)
+        ws[idx] = acc[s][c];
+      else
+        splitk::finish(e, idx, g * og + col, acc[s][c]);
+    }
+  }
+}
+
+// Run f(Tile<...>{}) for the block tile (bm, bn), one of the three the
+// wrapper's plan picks from (F32_TILES); cudaErrorInvalidValue for another.
+template <class F>
+int with_tile(int bm, int bn, F&& f) {
+  if (bm == kPixTile && bn == kCoutTile) return f(Tile<kPixTile, kCoutTile, 8, 8>{});
+  if (bm == 64 && bn == 64) return f(Tile<64, 64, 8, 4>{});
+  if (bm == 32 && bn == 64) return f(Tile<32, 64, 4, 4>{});
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// act: 0 none, 1 relu, 2 gelu (tanh). bias may be null. Launches on `stream`
-// and returns cudaGetLastError() (0 when the launch was accepted).
+// x (B, H_in, W_in, C_in) NHWC and w (H_f, W_f, C_in / groups, C_out) HWIO,
+// bias (C_out,) or null, out (B, H_out, W_out, C_out); all fp32. (bm, bn) is
+// a block tile of with_tile; K = H_f W_f C_in / groups is cut into splits
+// runs of chunks_per_split chunks of kBK. With splits > 1, ws is an fp32
+// workspace of splits x B H_out W_out x C_out (not zeroed: every element is
+// written); with splits == 1 it may be null. vec_x (vec_w): 16-byte copies of
+// x (w), for C_in / groups (C_out / groups) a multiple of 4 on a 16-byte
+// aligned pointer. act: 0 none, 1 relu, 2 gelu (tanh). Launches on `stream`
+// and returns cudaGetLastError() (0 when the launch was accepted;
+// cudaErrorInvalidValue for another tile).
 extern "C" int gfid_conv2d_nhwc_f32(const float* x, const float* w, const float* bias,
-                                    float* out, int B, int H_in, int W_in, int C_in,
-                                    int H_f, int W_f, int C_out, int H_out, int W_out,
-                                    int stride, int pad, int groups, int act,
-                                    void* stream) {
-  const int og = C_out / groups;
-  const int n_cot = (og + kCoutTile - 1) / kCoutTile;
-  const size_t smem =
-      sizeof(float) * ((size_t)W_f * kCinTile * kCoutTile +
-                       (size_t)((kPixTile - 1) * stride + W_f) * kXsStride);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gfid_conv2d_nhwc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(groups * n_cot, H_out, B);
-  gfid_conv2d_nhwc_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, w, bias, out, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad,
-      groups, act);
-  return (int)cudaGetLastError();
+                                    float* out, float* ws, int B, int H_in, int W_in,
+                                    int C_in, int H_f, int W_f, int C_out, int H_out,
+                                    int W_out, int stride, int pad, int groups, int bm,
+                                    int bn, int splits, int chunks_per_split, int act,
+                                    int vec_x, int vec_w, void* stream) {
+  const splitk::Epilogue e{bias, 0, out, 0, ws, act};
+  const Geometry d{B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad, groups};
+  const long long P = (long long)B * H_out * W_out;
+  return with_tile(bm, bn, [&](auto tile) {
+    using T = decltype(tile);
+    const long long tiles =
+        groups * ((C_out / groups + T::BN - 1) / T::BN) * ((P + T::BM - 1) / T::BM);
+    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)tiles, 1, splits);
+    return splitk::launch<T>(gfid_conv2d_nhwc_kernel<T>, grid, (cudaStream_t)stream, e,
+                             splits, P * C_out, C_out, x, w, d, chunks_per_split, vec_x,
+                             vec_w);
+  });
 }

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("gfid_conv", "gfid_matmul", "gfid_conv_bf16", "gfid_matmul_bf16",
            "gfid_conv_int8", "gfid_matmul_int8", "paged_gather",
-           "conv1d_depthwise", "flash_attention")
+           "conv1d_depthwise", "flash_attention", "flash_attention_bf16")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 
 
@@ -213,10 +213,11 @@ GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
 
 
 class MmaPlan(NamedTuple):
-    """One launch of a bf16 tensor-core kernel: a block tile of `bm` rows x
-    `bn` columns, K cut into `splits` runs of `chunks_per_split`
-    MMA_BK-deep chunks (one split: no workspace), 16-byte copies of x and
-    of w where `vec_x` and `vec_w` allow, and the launch grid."""
+    """One launch of a block-tiled GEMM or implicit-GEMM kernel (the bf16
+    tensor-core pair, the fp32 conv): a block tile of `bm` rows x `bn`
+    columns, K cut into `splits` runs of `chunks_per_split` chunks of the
+    kernel's depth (one split: no workspace), 16-byte copies of x and of w
+    where `vec_x` and `vec_w` allow, and the launch grid."""
     bm: int
     bn: int
     splits: int
@@ -226,11 +227,13 @@ class MmaPlan(NamedTuple):
     grid: Tuple[int, int, int]
 
 
-def mma_split(k: int, want: int, min_chunks: int) -> Tuple[int, int]:
-    """(splits, chunks per split) for a contraction of depth k: at most
-    `want` splits, each at least `min_chunks` MMA_BK chunks deep (one split
-    when K is shorter), none empty."""
-    n = max(-(-k // MMA_BK), 1)
+def mma_split(k: int, want: int, min_chunks: int,
+              chunk: int = MMA_BK) -> Tuple[int, int]:
+    """(splits, chunks per split) for a contraction of depth k in chunks of
+    `chunk` (MMA_BK for the tensor-core kernels): at most `want` splits,
+    each at least `min_chunks` chunks deep (one split when K is shorter),
+    none empty."""
+    n = max(-(-k // chunk), 1)
     splits = max(1, min(want, n // min_chunks))
     per = -(-n // splits)
     return -(-n // per), per

@@ -1,7 +1,9 @@
-"""Online-softmax attention forward: the hand-written kernel of
-`csrc/flash_attention.cu` (the port of the Pallas kernel
-`repro.kernels.flash_attention.flash_attention`) and its plain PyTorch
-version.
+"""Online-softmax attention forward: the hand-written kernels that port the
+Pallas kernel `repro.kernels.flash_attention.flash_attention`, and their
+plain PyTorch version. `csrc/flash_attention.cu` (entry `flash_attention`)
+takes fp32 q, k, v on the CUDA cores; `csrc/flash_attention_bf16.cu` (entry
+`flash_attention_bf16`) takes bf16 q, k, v on the tensor cores (bf16
+`mma.sync` with fp32 accumulators, p carried as a bf16 pair).
 
 q (B, Sq, H, D) and k, v (B, Skv, KV, D), fp32 or bf16, with H a multiple
 of KV: query head h reads kv head `h // (H // KV)`, which equals the
@@ -9,9 +11,11 @@ reference's `jnp.repeat` of the kv heads. The result is
 `softmax(scale * q k^T) v` per head in fp32, causal (positions from 0 for q
 and k) or not, returned in q's dtype as (B, Sq, H, D).
 
-`flash_attention` launches the kernel for CUDA tensors, uses the plain
-version for CPU tensors, and only allocates the output for `meta` tensors
-(program capture). `flash_attention.launches` counts the kernel's launches.
+`flash_attention` launches the kernel of the operands' dtype for CUDA
+tensors, uses the plain version for CPU tensors, and only allocates the
+output for `meta` tensors (program capture). `flash_attention.launches`
+counts the fp32 kernel's launches, `flash_attention_bf16.launches` the bf16
+kernel's.
 There is no backward: an input that requires a gradient raises (ROADMAP
 queue 1, item 12).
 """
@@ -20,21 +24,27 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.quant import no_tf32
 from repro_torch.kernels import build
 
-# q, k, v, out; b, sq, skv, h, n_kv, d; scale; causal, bf16; stream.
+# q, k, v, out; b, sq, skv, h, n_kv, d; scale; causal; stream.
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            + [ctypes.c_int] + [ctypes.c_void_p])
+# The same and vec (16-byte copies) before the stream.
+BF16_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
-# The kernel's kv tile (kBK in the source); the plain version walks the keys
-# in tiles of the same size.
+# The fp32 kernel's kv tile (kBK in the source); the plain version walks the
+# keys in tiles of the same size.
 KV_TILE = 32
+# The bf16 kernel's block: q rows (kBQ, 16 a warp of 4) and keys a kv tile
+# (kBK) in csrc/flash_attention_bf16.cu.
+BF16_Q_ROWS, BF16_KV_TILE = 64, 128
 NEG_INF = -1.0e30           # the Pallas kernel's mask value
 
 
@@ -86,6 +96,35 @@ def _launcher():
     return lib, fn
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher_bf16():
+    lib = build.library("flash_attention_bf16")
+    fn = lib.flash_attention_bf16
+    fn.argtypes = BF16_ARGTYPES
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+class Bf16Launch(NamedTuple):
+    """One launch of `flash_attention_bf16`: its grid (q tiles x heads,
+    batch, 1), the head dim padded with zeros to the kernel's DP, and
+    whether q, k and v go by 16-byte copies."""
+    grid: Tuple[int, int, int]
+    d_pad: int
+    vec: bool
+
+
+def bf16_launch(b: int, sq: int, h: int, d: int, *ptrs: int) -> Bf16Launch:
+    """The launch of the bf16 kernel for q (b, sq, h, d) at the addresses
+    `ptrs` (of q, k and v): 16-byte copies for d % 8 == 0 on 16-byte
+    aligned pointers, else element loads; raises where the grid passes
+    CUDA's limits."""
+    grid = (-(-sq // BF16_Q_ROWS) * h, b, 1)
+    build.check_grid("flash_attention_bf16", grid)
+    d_pad = next(p for p in (16, 32, 64, 128) if d <= p)
+    return Bf16Launch(grid, d_pad, d % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
@@ -116,9 +155,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q (B, Sq, H, D), k and v (B, Skv, KV, D), all fp32 or all bf16,
-    D <= 128 -> (B, Sq, H, D) in q's dtype: attention with an fp32 online
-    softmax, causal or not, scale 1/sqrt(D) unless given."""
+    """q (B, Sq, H, D), k and v (B, Skv, KV, D), all fp32 (entry
+    `flash_attention`, counted by `flash_attention.launches`) or all bf16
+    (entry `flash_attention_bf16`, counted by
+    `flash_attention_bf16.launches`), D <= 128 -> (B, Sq, H, D) in q's
+    dtype: attention with an fp32 online softmax, causal or not, scale
+    1/sqrt(D) unless given."""
     _check(q, k, v)
     kind = q.device.type
     if kind == "cpu":
@@ -129,18 +171,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not "
                          f"{kind}")
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    b, sq, h, d = q.shape
-    lib, fn = _launcher()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, k.shape[1], h, k.shape[2], d, _scale(d, scale),
-                 int(causal), int(q.dtype == torch.bfloat16), stream)
-    build.check(lib, err, "flash_attention")
-    flash_attention.launches += 1
+    if out.numel():
+        _launch(q, k, v, out, causal, scale)
     return out
 
 
+def _launch(q, k, v, out, causal, scale) -> None:
+    """The kernel of q's dtype on (q, k, v) into `out`, counted."""
+    b, sq, h, d = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    dims = (b, sq, k.shape[1], h, k.shape[2], d, _scale(d, scale), int(causal))
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16:
+        plan = bf16_launch(b, sq, h, d, *ptrs[:3])
+        lib, fn = _launcher_bf16()
+        dims += (int(plan.vec),)
+    else:
+        lib, fn = _launcher()
+    with torch.cuda.device(q.device):
+        err = fn(*ptrs, *dims, torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "flash_attention_bf16" if is_bf16 else "flash_attention")
+    (flash_attention_bf16 if is_bf16 else flash_attention).launches += 1
+
+
 flash_attention.launches = 0
+flash_attention_bf16 = build.Launches("flash_attention_bf16")

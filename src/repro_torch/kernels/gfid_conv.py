@@ -1,10 +1,13 @@
 """GFID convolution: the hand-written kernels that port the Pallas kernel
-`repro.kernels.gfid_conv.gfid_conv2d_nhwc` (`csrc/gfid_conv.cu` for fp32
-operands on the CUDA cores, `csrc/gfid_conv_bf16.cu` for bf16 operands as an
-implicit GEMM on the tensor cores, both with an fp32 accumulator and both
-behind the wrapper `gfid_conv2d_nhwc`) and `csrc/gfid_conv_int8.cu` (int8
-operands, exact int32 accumulator, fused dequant; the port of
-`gfid_conv2d_nhwc_int8`), each with its plain PyTorch version.
+`repro.kernels.gfid_conv.gfid_conv2d_nhwc` (`csrc/gfid_conv.cu`, entry
+`gfid_conv2d_nhwc_f32`, for fp32 operands as an implicit GEMM on the CUDA
+cores; `csrc/gfid_conv_bf16.cu`, entry `gfid_conv2d_nhwc_bf16`, for bf16
+operands as an implicit GEMM on the tensor cores; both with an fp32
+accumulator, both behind the wrapper `gfid_conv2d_nhwc`, each launched with
+a block tile and a split of K from its plan, `f32_plan` or `bf16_plan`) and
+`csrc/gfid_conv_int8.cu` (int8 operands, exact int32 accumulator, fused
+dequant; the port of `gfid_conv2d_nhwc_int8`), each with its plain PyTorch
+version.
 
 Unlike the Pallas kernels, which take an already padded input and one
 group, the CUDA kernels take `pad` (a bounds mask on their loads) and
@@ -31,9 +34,18 @@ from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import (ACT_CODES, apply_epilogue,
                                          check_act, dequant_epilogue)
 
-# (output pixels, C_in chunk, C_out) of one block pass: kPixTile, kCinTile,
-# kCoutTile in the source.
-TILE = (64, 8, 64)
+# (output pixels, K chunk, C_out) of the fp32 kernel's widest block tile:
+# kPixTile, kBK, kCoutTile in csrc/gfid_conv.cu (the engine plan's tiling).
+TILE = (128, 8, 128)
+# csrc/gfid_conv.cu's block tiles (output pixels, C_out of a group), most
+# work a block first: the first whose blocks fill the card, else the last;
+# then, if the blocks still do not fill it, K is split for about two blocks
+# an SM, each split at least F32_MIN_SPLIT chunks of F32_BK deep. The wide
+# tile is skipped where a group has no more than 64 columns (half of it
+# would idle).
+F32_TILES = ((128, 128), (64, 64), (32, 64))
+F32_BK = TILE[1]
+F32_MIN_SPLIT = 8
 # (output pixels, K chunk, C_out) of one block of csrc/gfid_conv_int8.cu:
 # kPixTile, kKc, kCoutTile (K = H_f * W_f * C_in / groups).
 TILE_INT8 = (64, 32, 64)
@@ -63,9 +75,10 @@ def gfid_conv2d_nhwc_plain(x: torch.Tensor, w: torch.Tensor, *,
     return out if out_dtype is None else out.to(out_dtype)
 
 
-# x, w, bias, out; B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out,
-# stride, pad, groups, act; stream.
-F32_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+# x, w, bias, out, ws; B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out,
+# stride, pad, groups, bm, bn, splits, chunks_per_split, act, vec_x, vec_w;
+# stream.
+F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
 # x, w, bias, out, ws; bias_bf16, out_bf16, B, H_in, W_in, C_in, H_f, W_f,
 # C_out, H_out, W_out, stride, pad, groups, bm, bn, splits,
 # chunks_per_split, act, vec_x, vec_w; stream.
@@ -88,6 +101,29 @@ def _launcher_bf16():
     fn.argtypes = BF16_ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def f32_plan(pixels: int, k: int, og: int, groups: int, cg: int,
+             x_ptr: int = 0, w_ptr: int = 0, sms: int = 132) -> build.MmaPlan:
+    """The launch of `gfid_conv2d_nhwc_f32` for an implicit GEMM of
+    `pixels` output rows (B x H_out x W_out), depth k = H_f x W_f x cg and
+    og columns a group, on a card of `sms` SMs: the tile from F32_TILES, a
+    split of K where the blocks leave the card idle; 16-byte copies of x
+    where cg % 4 == 0 and x is 16-byte aligned, of w where og % 4 == 0 and
+    w is."""
+    for bm, bn in F32_TILES:
+        if bn > 64 and og <= 64:
+            continue
+        col_blocks = groups * -(-og // bn)
+        tiles = max(-(-pixels // bm) * col_blocks, 1)
+        if tiles >= sms:
+            break
+    want = 1 if tiles >= sms else -(-2 * sms // tiles)
+    splits, per = build.mma_split(k, want, F32_MIN_SPLIT, F32_BK)
+    grid = (tiles, 1, splits)   # column blocks fastest, then row tiles
+    build.check_grid("gfid_conv2d_nhwc", grid)
+    return build.MmaPlan(bm, bn, splits, per, cg % 4 == 0 and x_ptr % 16 == 0,
+                         og % 4 == 0 and w_ptr % 16 == 0, grid)
 
 
 def bf16_plan(pixels: int, k: int, og: int, groups: int, cg: int,
@@ -183,25 +219,20 @@ def _launch(x, w, bias, out, stride, pad, groups, act, is_bf16) -> None:
     dims = (*x.shape, *w.shape[:2], w.shape[3], *out.shape[1:3], stride, pad,
             groups)
     lib, fn = _launcher_bf16() if is_bf16 else _launcher()
-    b_ptr = None if bias is None else bias.data_ptr()
+    h_f, w_f, cg, c_out = w.shape
+    pixels = out.numel() // c_out
+    plan = (bf16_plan if is_bf16 else f32_plan)(
+        pixels, h_f * w_f * cg, c_out // groups, groups, cg, x.data_ptr(),
+        w.data_ptr(), build.sm_count(x.device.index or 0))
+    ws = build.mma_workspace(plan, pixels, c_out, x.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), None if ws is None else ws.data_ptr())
+    stores = (int(bias is not None and bias.dtype == torch.bfloat16),
+              int(out.dtype == torch.bfloat16)) if is_bf16 else ()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if is_bf16:
-            h_f, w_f, cg, c_out = w.shape
-            pixels = out.numel() // c_out
-            plan = bf16_plan(pixels, h_f * w_f * cg, c_out // groups, groups,
-                             cg, x.data_ptr(), w.data_ptr(),
-                             build.sm_count(x.device.index or 0))
-            ws = build.mma_workspace(plan, pixels, c_out, x.device)
-            err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(),
-                     None if ws is None else ws.data_ptr(),
-                     int(bias is not None and bias.dtype == torch.bfloat16),
-                     int(out.dtype == torch.bfloat16), *dims, plan.bm,
-                     plan.bn, plan.splits, plan.chunks_per_split, ACT_CODES[act],
-                     int(plan.vec_x), int(plan.vec_w), stream)
-        else:
-            err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(), *dims,
-                     ACT_CODES[act], stream)
+        err = fn(*ptrs, *stores, *dims, plan.bm, plan.bn, plan.splits,
+                 plan.chunks_per_split, ACT_CODES[act], int(plan.vec_x),
+                 int(plan.vec_w), torch.cuda.current_stream().cuda_stream)
     name = "gfid_conv2d_nhwc_bf16" if is_bf16 else "gfid_conv2d_nhwc"
     build.check(lib, err, name)
     (gfid_conv2d_nhwc_bf16 if is_bf16 else gfid_conv2d_nhwc).launches += 1

@@ -184,7 +184,7 @@ def test_parse_einsum_rejections_match_reference(spec, x_ndim, w_ndim):
 
 
 @pytest.mark.parametrize("path,tile", [
-    ("gfid_conv.cu", (("kPixTile", "kCinTile", "kCoutTile"), gfid_conv.TILE)),
+    ("gfid_conv.cu", (("kPixTile", "kBK", "kCoutTile"), gfid_conv.TILE)),
     ("gfid_matmul.cu", (("kBM", "kKT", "kBN"), gfid_matmul.TILE)),
     ("gfid_conv_int8.cu", (("kPixTile", "kKc", "kCoutTile"),
                            gfid_conv.TILE_INT8)),

@@ -1,10 +1,12 @@
-"""The launch plans and C interfaces of the port's bf16 tensor-core kernels.
+"""The launch plans and C interfaces of the port's block-tiled kernels: the
+bf16 tensor-core GEMM and conv, and the fp32 implicit-GEMM conv.
 
 `csrc/gfid_matmul_bf16.cu` and `csrc/gfid_conv_bf16.cu` run only on the card
 (`python3 chip_smoke.py` holds them against their plain versions there, with
 a bitwise row-invariance check of the GEMM). What decides their launches is
 Python that runs here: `gfid_matmul.bf16_plan` and `gfid_conv.bf16_plan`
-pick the block rows, the split of K and the 16-byte load paths. These tests
+pick the block rows, the split of K and the 16-byte load paths, and
+`gfid_conv.f32_plan` does the same for `csrc/gfid_conv.cu`. These tests
 hold the plans to the kernels' contracts:
 
   * the GEMM's K order (chunk depth, split count, chunks a split) is the same
@@ -13,6 +15,9 @@ hold the plans to the kernels' contracts:
   * the 16-byte copies are asked for only where K (or cg) and N (or og) are
     multiples of 8 and the base pointer is 16-byte aligned;
   * every grid fits CUDA's launch limits at the paths' largest shapes;
+  * the fp32 conv's plan fills the card or splits K at every conv of
+    AlexNet, VGG-16 and ResNet-50 at batch 1 and 32, with 16-byte copies
+    where cg (og) is a multiple of 4 on an aligned pointer;
   * every `extern "C"` entry of `csrc/` has the arity and the pointer, int,
     long long or float kinds of the ctypes argtypes its wrapper binds.
 """
@@ -166,6 +171,169 @@ def test_grids_fit_the_launch_limits_at_the_paths_largest_shapes():
         gfid_conv.bf16_plan(128 * 65535 + 1, 27, 64, 1, 3)
 
 
+# Every conv of the three CNNs the fp32 path runs, by name.
+CNN_CONVS = [spec for net in ("alexnet", "vgg16", "resnet50")
+             for spec in cnn.analytics_layers(net)[0]]
+
+
+def _f32_plan(spec, batch, sms=132):
+    cg = spec.c_in // spec.groups
+    return gfid_conv.f32_plan(batch * spec.h_out * spec.w_out,
+                              spec.h_f * spec.w_f * cg,
+                              spec.c_out // spec.groups, spec.groups, cg,
+                              sms=sms)
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("spec", CNN_CONVS, ids=lambda s: s.name)
+def test_f32_conv_plan_fills_the_card_or_splits_k(spec, batch):
+    """At each conv the plan's blocks fill the 132 SMs on the first tile
+    that does, or, on the smallest tile, K is split (unless too shallow to);
+    the splits cover K's chunks with none empty; the grid is the tile's."""
+    sms = 132
+    plan = _f32_plan(spec, batch, sms)
+    cg = spec.c_in // spec.groups
+    og = spec.c_out // spec.groups
+    pixels = batch * spec.h_out * spec.w_out
+    n_chunks = -(-spec.h_f * spec.w_f * cg // gfid_conv.F32_BK)
+    assert (plan.bm, plan.bn) in gfid_conv.F32_TILES
+    assert plan.bn == 64 or og > 64
+    tiles = spec.groups * -(-og // plan.bn) * -(-pixels // plan.bm)
+    assert plan.grid == (tiles, 1, plan.splits)
+    assert all(g <= lim for g, lim in zip(plan.grid, build.GRID_LIMITS))
+    assert (plan.splits - 1) * plan.chunks_per_split < n_chunks \
+        <= plan.splits * plan.chunks_per_split
+    assert plan.splits == 1 or plan.chunks_per_split >= gfid_conv.F32_MIN_SPLIT
+    if tiles >= sms:
+        assert plan.splits == 1
+        wider = [t for t in gfid_conv.F32_TILES[:gfid_conv.F32_TILES.index(
+            (plan.bm, plan.bn))] if t[1] == 64 or og > 64]
+        for bm, bn in wider:   # a wider tile would not have filled the card
+            assert spec.groups * -(-og // bn) * -(-pixels // bm) < sms
+    else:
+        assert (plan.bm, plan.bn) == gfid_conv.F32_TILES[-1]
+        assert plan.splits > 1 or n_chunks < 2 * gfid_conv.F32_MIN_SPLIT
+        assert tiles * plan.splits >= sms or plan.splits * \
+            gfid_conv.F32_MIN_SPLIT > n_chunks - plan.chunks_per_split
+
+
+def test_f32_conv_plans_reach_every_tile_and_split_on_the_paths():
+    """The CNN paths at batch 1 and 32 use every tile, and both one and
+    several splits of K: the chip run's coverage check can be met by them."""
+    plans = [_f32_plan(spec, batch) for spec in CNN_CONVS for batch in (1, 32)]
+    assert {(p.bm, p.bn) for p in plans} == set(gfid_conv.F32_TILES)
+    assert {p.splits > 1 for p in plans} == {False, True}
+    # AlexNet at batch 1: conv3-5 (169 pixels) split K; at batch 32 nothing does
+    alex = {spec.name: spec for spec in ALEXNET_CONVS}
+    for name in ("conv3", "conv4", "conv5"):
+        assert _f32_plan(alex[name], 1).splits > 1
+    assert all(_f32_plan(spec, 32).splits == 1 for spec in ALEXNET_CONVS)
+
+
+@pytest.mark.parametrize("cg,og,vec", [(3, 96, (False, True)),
+                                       (48, 128, (True, True)),
+                                       (5, 7, (False, False)),
+                                       (64, 22, (True, False)),
+                                       (6, 20, (False, True))])
+def test_f32_conv_vector_flags_follow_the_group_widths(cg, og, vec):
+    """16-byte copies of x where cg % 4 == 0, of w where og % 4 == 0 (a
+    piece is 4 channels of one tap, or 4 columns of one group)."""
+    plan = gfid_conv.f32_plan(3025, 9 * cg, og, 1, cg)
+    assert (plan.vec_x, plan.vec_w) == vec
+
+
+def test_f32_conv_vector_flags_are_off_on_unaligned_pointers():
+    aligned = torch.zeros((3, 3, 64, 128))
+    assert aligned.data_ptr() % 16 == 0
+    flat = torch.zeros(1 + 13 * 13 * 64)
+    xc = flat[1:].view(1, 13, 13, 64)
+    assert xc.data_ptr() % 16 == 4
+    plan = gfid_conv.f32_plan(169, 9 * 64, 128, 1, 64, xc.data_ptr(),
+                              aligned.data_ptr())
+    assert (plan.vec_x, plan.vec_w) == (False, True)
+    plan = gfid_conv.f32_plan(169, 9 * 64, 128, 1, 64, aligned.data_ptr(),
+                              xc.data_ptr())
+    assert (plan.vec_x, plan.vec_w) == (True, False)
+
+
+def test_f32_conv_grid_takes_any_batch_up_to_the_x_limit():
+    """Row tiles and column blocks share grid x (2**31 - 1 blocks), so a
+    VGG-16 conv1_1 at batch 256 (12.8 M output pixels) launches; past the
+    limit the plan raises, no launch."""
+    plan = gfid_conv.f32_plan(256 * 224 * 224, 27, 64, 1, 3)
+    assert plan.grid == (256 * 224 * 224 // plan.bm, 1, 1)
+    with pytest.raises(ValueError, match="launch grid"):
+        gfid_conv.f32_plan(64 * 2 ** 31, 27, 64, 1, 3)
+
+
+def test_f32_tiles_match_the_kernel_source():
+    """The tiles the fp32 plan chooses are those `with_tile` of
+    csrc/gfid_conv.cu instantiates, at the source's K chunk, and the widest
+    is the engine plan's tiling (TILE)."""
+    src = (build.CSRC / "gfid_conv.cu").read_text()
+    assert f"constexpr int kBK = {gfid_conv.F32_BK};" in src
+    built = set(re.findall(r"if \(bm == (\w+) && bn == (\w+)\)", src))
+    names = {"kPixTile": gfid_conv.TILE[0], "kCoutTile": gfid_conv.TILE[2]}
+    assert {(names.get(m) or int(m), names.get(n) or int(n))
+            for m, n in built} == set(gfid_conv.F32_TILES)
+    assert gfid_conv.F32_TILES[0] == (gfid_conv.TILE[0], gfid_conv.TILE[2])
+    assert '#include "split_k.cuh"' in src and "splitk::launch<T>(" in src
+    assert "fmaf(" in src and "mma.sync" not in src
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_launch_passes_its_plan(monkeypatch, dtype):
+    """The conv wrapper's CUDA branch (run here on CPU tensors with the
+    library and the stream faked) calls the entry of the operands' dtype
+    with its plan (`f32_plan` or `bf16_plan`): tile, split, vector flags and
+    a workspace exactly when K is split, in the C signature's order."""
+    calls = []
+
+    def fake_library(name):
+        symbol = {"gfid_conv": "gfid_conv2d_nhwc_f32",
+                  "gfid_conv_bf16": "gfid_conv2d_nhwc_bf16"}[name]
+
+        def fn(*args):
+            calls.append((symbol, args))
+            return 0
+        return types.SimpleNamespace(**{symbol: fn})
+
+    class Null:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(build, "library", fake_library)
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(gfid_conv, "_launcher", gfid_conv._launcher.__wrapped__)
+    monkeypatch.setattr(gfid_conv, "_launcher_bf16",
+                        gfid_conv._launcher_bf16.__wrapped__)
+    monkeypatch.setattr(torch.cuda, "device", lambda _: Null())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    # AlexNet's conv3 at batch 1: 169 pixels, K = 2304, split on both paths
+    x = torch.zeros((1, 13, 13, 256), dtype=dtype)
+    w = torch.zeros((3, 3, 256, 384), dtype=dtype)
+    out = torch.empty((1, 13, 13, 384))
+    bf16 = dtype == torch.bfloat16
+    gfid_conv._launch(x, w, None, out, 1, 1, 1, "relu", bf16)
+    (symbol, args), = calls
+    plan = (gfid_conv.bf16_plan if bf16 else gfid_conv.f32_plan)(
+        169, 9 * 256, 384, 1, 256, x.data_ptr(), w.data_ptr())
+    argtypes = gfid_conv.BF16_ARGTYPES if bf16 else gfid_conv.F32_ARGTYPES
+    assert symbol == ("gfid_conv2d_nhwc_bf16" if bf16 else "gfid_conv2d_nhwc_f32")
+    assert len(args) == len(argtypes) and plan.splits > 1
+    assert args[:4] == (x.data_ptr(), w.data_ptr(), None, out.data_ptr())
+    assert args[4] is not None                      # the split's workspace
+    assert args[-8:-1] == (plan.bm, plan.bn, plan.splits,
+                           plan.chunks_per_split, 1, int(plan.vec_x),
+                           int(plan.vec_w))
+    dims = args[7:19] if bf16 else args[5:17]
+    assert dims == (1, 13, 13, 256, 3, 3, 384, 13, 13, 1, 1, 1)
+
+
 @pytest.mark.parametrize("k,want,min_chunks", [(9216, 5, 32), (4096, 17, 32),
                                                (576, 30, 32), (2304, 8, 8),
                                                (0, 4, 8), (33, 100, 1)])
@@ -252,6 +420,9 @@ LAUNCHERS = {
                          conv1d.ARGTYPES),
     "flash_attention": ("flash_attention", flash_attention._launcher,
                         flash_attention.ARGTYPES),
+    "flash_attention_bf16": ("flash_attention_bf16",
+                             flash_attention._launcher_bf16,
+                             flash_attention.BF16_ARGTYPES),
     "repro_cuda_error_string": (None, None, build.ERROR_STRING_ARGTYPES),
 }
 

@@ -10,14 +10,19 @@
     `flash_attention_jnp`, on the "torch" backend at the forward cases of
     tests/test_flash.py: five (causal, window, softcap) cases, ragged
     lengths and chunks, the `q_offset` continuation.
-  * the kernel wrapper's branches: the plain version on a CPU tensor, an
-    output allocation on `meta`, its argument checks, no backward; and the
-    "cuda" backend's refusals (window, softcap, q offset).
+  * the kernel wrapper's branches: the plain version on a CPU tensor (fp32
+    and bf16), an output allocation on `meta`, its argument checks, no
+    backward, the dispatch of a CUDA launch by dtype to the fp32 and the
+    bf16 entry (library and stream faked); and the "cuda" backend's
+    refusals (window, softcap, q offset).
 
 Tolerance: within 1e-5 x max|reference| in fp32 (both sides sum in fp32,
 in other orders); bf16 outputs within one bf16 step of the reference's
 (each side rounds its fp32 result to nearest).
 """
+import math
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -183,6 +188,20 @@ def test_cuda_backend_runs_the_kernel_wrapper(causal):
     _close(got, _jnp_flash(q, k, v, causal=causal))
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_backend_runs_the_kernel_wrapper_on_bf16(causal):
+    """bf16 q, k, v on "cuda": one call of the wrapper, whose CPU branch is
+    the plain version; neither kernel's launch is counted."""
+    q, k, v = _t(*_qkv(2, 96, 6, 2, 16, seed=4), dtype=torch.bfloat16)
+    before = (FA.flash_attention.launches, FA.flash_attention_bf16.launches)
+    with TE.using_backend("cuda"):
+        got = TF.flash_attention(q, k, v, causal=causal)
+    assert (FA.flash_attention.launches,
+            FA.flash_attention_bf16.launches) == before
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, FA.flash_attention_plain(q, k, v, causal=causal))
+
+
 @pytest.mark.parametrize("kw", [dict(window=16), dict(softcap_val=30.0),
                                 dict(q_offset=8)])
 def test_cuda_backend_refuses_what_the_kernel_lacks(kw):
@@ -241,6 +260,31 @@ def test_wrapper_checks_its_operands(shapes, dtypes, err, match):
         FA.flash_attention(q, k, v)
 
 
+@pytest.mark.parametrize("shapes,dtypes,err,match", [
+    (((1, 8, 4, 8), (1, 8, 3, 8), (1, 8, 3, 8)), None, ValueError,
+     "multiple"),
+    (((1, 8, 2, 130),) * 3, None, ValueError, "head dim"),
+    (((1, 8, 2, 8),) * 3, (torch.bfloat16, torch.float32, torch.bfloat16),
+     TypeError, "k must be"),
+    (((1, 8, 2, 8),) * 3, (torch.bfloat16, torch.bfloat16, torch.float16),
+     TypeError, "v must be"),
+])
+def test_wrapper_checks_its_bf16_operands(shapes, dtypes, err, match):
+    dtypes = dtypes or (torch.bfloat16,) * 3
+    q, k, v = (torch.zeros(s, dtype=dt) for s, dt in zip(shapes, dtypes))
+    with pytest.raises(err, match=match):
+        FA.flash_attention(q, k, v)
+
+
+def test_wrapper_on_meta_keeps_bf16():
+    q = torch.empty((1, 1984, 9, 64), device="meta", dtype=torch.bfloat16)
+    k = torch.empty((1, 1984, 3, 64), device="meta", dtype=torch.bfloat16)
+    before = FA.flash_attention_bf16.launches
+    out = ops.flash_attention(q, k, k, causal=True)
+    assert out.device.type == "meta" and out.dtype == torch.bfloat16
+    assert FA.flash_attention_bf16.launches == before
+
+
 @pytest.mark.parametrize("which", [0, 1, 2])
 def test_no_backward_yet(which):
     qkv = _t(*_qkv(1, 16, 2, 1, 8))
@@ -259,3 +303,49 @@ def test_source_is_registered_and_built_without_fast_math():
     assert 'extern "C" int flash_attention(' in src
     assert build.library_path("flash_attention").name.startswith(
         "flash_attention-")
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.float32, "flash_attention"),
+                                         (torch.bfloat16,
+                                          "flash_attention_bf16")])
+def test_wrapper_dispatches_by_dtype(monkeypatch, dtype, entry):
+    """The CUDA branch of the wrapper (run here on CPU tensors with the
+    library and the stream faked) calls the entry of q's dtype with the
+    C signature's arguments and counts that entry's launch alone."""
+    calls = []
+
+    def fake_library(name):
+        def fn(*args):
+            calls.append((name, args))
+            return 0
+        return types.SimpleNamespace(**{name: fn})
+
+    monkeypatch.setattr(build, "library", fake_library)
+    monkeypatch.setattr(FA, "_launcher", FA._launcher.__wrapped__)
+    monkeypatch.setattr(FA, "_launcher_bf16", FA._launcher_bf16.__wrapped__)
+    monkeypatch.setattr(torch.cuda, "device", lambda _: _Null())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(2, 33, 6, 2, 40, seed=1)))
+    out = torch.empty_like(q)
+    before = (FA.flash_attention.launches, FA.flash_attention_bf16.launches)
+    FA._launch(q, k, v, out, False, None)
+    assert [name for name, _ in calls] == [entry]
+    args = calls[0][1]
+    want = FA.BF16_ARGTYPES if dtype == torch.bfloat16 else FA.ARGTYPES
+    assert len(args) == len(want)
+    assert args[4:10] == (2, 33, 33, 6, 2, 40)
+    assert args[10] == pytest.approx(1 / math.sqrt(40)) and args[11] == 0
+    if dtype == torch.bfloat16:
+        assert args[12] == int(FA.bf16_launch(2, 33, 6, 40, *args[:3]).vec)
+    after = (FA.flash_attention.launches, FA.flash_attention_bf16.launches)
+    bumped = (1, 0) if dtype == torch.float32 else (0, 1)
+    assert tuple(a - b for a, b in zip(after, before)) == bumped
+
+
+class _Null:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
