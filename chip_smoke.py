@@ -28,10 +28,17 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      block tile, split and load path of the wrappers' launch plans
      (required), each stored in fp32 (within 1e-4 * max|plain|) and in
      bf16 (every element within one bf16 step of the plain version's).
-     Then `gfid_matmul_bf16`'s row invariance on the kernel itself: one
+     The fp32 `gfid_matmul` (`csrc/gfid_matmul.cu`) also at w_in/w_gate
+     at M = 15,872, a wide tile with K in one split, 20 rows under a split,
+     40 in a cluster and unaligned views, so that its cases reach every
+     block tile, split mode (one, a workspace, a cluster, a fold) and load
+     path of `gfid_matmul.f32_plan` and every kernel the source
+     instantiates (required). Then the GEMM's row invariance on the kernel itself: one
      fixed row of x at M = 1, 8, 13, 20, 40, 1024 and 15,872, in first,
-     last and other tiles' and warps' rows, bitwise equal to the row
-     alone in both stores, at each smollm GEMM shape and a ragged one.
+     last and other tiles' and warps' rows, bitwise equal to the row alone
+     in one K order at every M: on bf16 operands in both stores at each
+     smollm GEMM shape and a ragged one, on fp32 operands at those shapes
+     and AlexNet's fc6-fc8.
   4. AlexNet (full width, random weights from a seed) end to end through
      `compile(program("alexnet", batch=B), EngineConfig(backend="cuda"))
      .apply(params, x)` at B = 1 and 32: every op on "cuda", 5 conv and 3
@@ -76,8 +83,14 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      plain version's time and one library call's time where one PyTorch call
      computes the same function (`F.conv2d` on NCHW and `torch.addmm`, each
      followed by relu, TF32 off; `torch._int_mm` for the int8 product where
-     it accepts the shape; none for the int8 conv); the fp32 conv also for
-     the device alone (a CUDA graph of 100 calls), kernel and cuDNN.
+     it accepts the shape; none for the int8 conv); the fp32 conv and GEMM
+     also for the device alone (a CUDA graph of 100 calls), kernel and
+     cuDNN or cuBLAS. The host part of one call of the lean launch path,
+     piece by piece beside the piece it replaced, for `gfid_matmul` at the
+     decode's wq/wo (8, 576) @ (576, 576) fp32 and `paged_gather` at the
+     full-width pool and a table of 8 x 32, and each whole call on the host
+     clock, with the host and for the device alone beside `torch.mm` and
+     `index_select`.
      `flash_attention` at (1, 1984, 9 / 3, 64) causal on fp32 and on bf16
      q, k, v (`flash_attention_bf16`), a launch (with the host's launch
      inside, and the device alone) and one prefill's 30, beside
@@ -86,9 +99,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      calls it), and bf16 flash and SDPA at B = 4 for the device alone (how
      far too few warps an SM hold back B = 1). The bf16 kernels at AlexNet's shapes as the path runs them
      (bf16 in and out), beside `F.conv2d` and `torch.addmm` in bf16, each
-     with relu, also timed for the device alone; `gfid_matmul_bf16` at
-     smollm's four layer GEMMs at M = 1024 and 15,872 (prompts 128 and
-     1984) beside bf16 `torch.mm`.
+     with relu, also timed for the device alone; `gfid_matmul` on bf16 and
+     on fp32 operands at smollm's four layer GEMMs at M = 1024 and 15,872
+     (prompts 128 and 1984), with the host and for the device alone,
+     beside `torch.mm` in the same dtype.
      A bound takes the card's peak for the operands' type: 67 TFLOP/s in
      fp32, 989 TFLOP/s in bf16, 1,979 TOP/s in int8, and 3.35 TB/s.
   6. serving: smollm-135m at full width and depth (fp32 parameters from
@@ -111,7 +125,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      with 1 live rows, a batch-1 prefill at prompt 128, one program's capture time,
      `paged_gather` at the step's shapes beside its bound and
      `index_select`, `gfid_matmul` at the five decode GEMM shapes (M = 8)
-     beside its bound and `torch.mm`, and the tied unembedding's transpose
+     beside its bound and `torch.mm` (each also for the device alone, so
+     that the host part shows), and the tied unembedding's transpose
      copy.
   7. xLSTM serving: first `gfid_conv1d_depthwise` against its plain version,
      bitwise, at the xLSTM prefill's shapes ((1, L, 1536) and (1, L, 768),
@@ -479,18 +494,21 @@ def bf16_conv_cases(gen, dev):
 
 def launch_plan(kind, kw):
     """The launch plan the wrapper takes for a case of `kind` "conv" (fp32
-    or bf16 operands) or "mm" (bf16): the wrappers' own plan functions on
-    the case's shapes and addresses."""
+    or bf16 operands) or "mm" (fp32 or bf16): the wrappers' own plan
+    functions on the case's shapes and addresses."""
     from repro_torch.kernels import build, gfid_conv, gfid_matmul
     x, w = kw["x"], kw["w"]
-    if kind == "mm":
+    sms = build.sm_count(x.device.index or 0) if x.is_cuda else 132
+    if kind == "mm" and x.dtype == torch.bfloat16:
         return gfid_matmul.bf16_plan(x.shape[0], x.shape[1], w.shape[1],
                                      x.data_ptr(), w.data_ptr())
+    if kind == "mm":
+        return gfid_matmul.f32_plan(x.shape[0], x.shape[1], w.shape[1],
+                                    x.data_ptr(), w.data_ptr(), sms)
     b, h, wd, _ = x.shape
     h_f, w_f, cg, c_out = w.shape
     s, p, groups = kw["stride"], kw["pad"], kw["groups"]
     pixels = b * ((h + 2 * p - h_f) // s + 1) * ((wd + 2 * p - w_f) // s + 1)
-    sms = build.sm_count(x.device.index or 0) if x.is_cuda else 132
     plan = gfid_conv.bf16_plan if x.dtype == torch.bfloat16 else gfid_conv.f32_plan
     return plan(pixels, h_f * w_f * cg, c_out // groups, groups, cg,
                 x.data_ptr(), w.data_ptr(), sms)
@@ -510,41 +528,117 @@ def require_plan_coverage(kname, plans, tiles):
           f"several K splits, element and 16-byte loads of x and w")
 
 
-def row_invariance_check(dev, mm, gen):
-    """`gfid_matmul_bf16`'s hard rule, on the kernel itself: one fixed row
-    of x, placed in other rows of an x of every M in INVARIANCE_ROWS (first
-    and last rows, other warps and tiles), comes out bitwise equal to the
-    same row alone (M = 1), in fp32 and bf16 stores, at each smollm-135m
-    GEMM shape and a ragged one. Returns the count of checks."""
+def f32_mode(plan):
+    """How a fp32 GEMM plan adds the splits of K: "one" split, "split" (one
+    a block, through a workspace), "cluster" (a tile's splits as one
+    cluster) or "fold" (every split in each block)."""
+    return "one" if plan.splits == 1 else plan.mode
+
+
+def require_f32_gemm_coverage(plans):
+    """Every kernel `gfid_matmul_f32` instantiates and its plan can pick
+    (each block tile of F32_TILES in the split mode, the 64-column ones
+    also as a cluster, the two many-row tiles also folded) and every way of
+    adding the splits were among the checked plans."""
+    from repro_torch.kernels.gfid_matmul import F32_TILES
+    seen = {(p.bm, p.bn, p.mode) for p in plans}
+    want = {(m, n, "split") for m, n in F32_TILES} \
+        | {(m, n, "cluster") for m, n in F32_TILES if n == 64} \
+        | {(m, n, "fold") for m, n in F32_TILES[:2]}
+    modes = {f32_mode(p) for p in plans}
+    require(seen == want and modes == {"one", "split", "cluster", "fold"},
+            f"gfid_matmul: the checked cases reach kernels {sorted(seen)} and "
+            f"modes {sorted(modes)}, not {sorted(want)} and one, split, "
+            "cluster, fold")
+    print(f"[check] gfid_matmul: the cases reach every kernel of the source "
+          f"({', '.join(f'{m}x{n} {mode}' for m, n, mode in sorted(seen))}) "
+          "and K in one split, split through a workspace, split in a cluster "
+          "and folded")
+
+
+def f32_mm_cases(gen, dev):
+    """(label, kwargs) for the fp32 `gfid_matmul` beyond the AlexNet, ragged
+    and serving cases: w_in/w_gate at a prompt-1984 prefill (M = 15,872, the
+    wide tile folding K), a wide tile with K in one split, the 32-row tile
+    under a split, the 64-row tile's splits in a cluster, and x and w as
+    views one element past a 16-byte boundary (element loads at K and N
+    multiples of 4)."""
     from repro_torch.configs.base import get_config
+    d, f = get_config(SERVE_MODEL).d_model, get_config(SERVE_MODEL).d_ff
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def unaligned(*shape):
+        return t(math.prod(shape) + 1)[1:].view(shape)
+
+    return [
+        (f"serve prefill w_in/w_gate M={8 * LONG_PREFILL}",
+         dict(x=t(8 * LONG_PREFILL, d), w=t(d, f), bias=None, act=None)),
+        ("M=2048 (64, 8192) one split", dict(x=t(2048, 64), w=t(64, 8192),
+                                             bias=t(8192), act="relu")),
+        ("M=20 (4096, 512) split K", dict(x=t(20, 4096), w=t(4096, 512),
+                                          bias=t(512), act="gelu")),
+        ("M=40 (576, 192) a cluster of splits", dict(x=t(40, 576), w=t(576, 192),
+                                                     bias=None, act="gelu")),
+        ("unaligned views (24, 512) @ (512, 256)",
+         dict(x=unaligned(24, 512), w=unaligned(512, 256), bias=None, act="relu")),
+    ]
+
+
+def row_invariance_check(dev, mm, gen, dtype=torch.bfloat16):
+    """The GEMM's hard rule, on the kernel itself: one fixed row of x,
+    placed in other rows of an x of every M in INVARIANCE_ROWS (first and
+    last rows, other warps and tiles), comes out bitwise equal to the same
+    row alone (M = 1), in one K order at every M. On bf16 operands
+    (`gfid_matmul_bf16`): in fp32 and bf16 stores, at each smollm-135m GEMM
+    shape and a ragged one. On fp32 operands (`gfid_matmul_f32`): at the
+    same shapes and AlexNet's fc6-fc8. Returns the count of checks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels import gfid_matmul as G
-    bf16 = torch.bfloat16
+    bf16 = dtype == torch.bfloat16
+    kname = "gfid_matmul_bf16" if bf16 else "gfid_matmul"
+    stores = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    shapes = serve_gemm_shapes(get_config(SERVE_MODEL)) + (("ragged", 300, 70),)
+    if not bf16:
+        shapes += (("alexnet fc6", 9216, 4096), ("alexnet fc7", 4096, 4096),
+                   ("alexnet fc8", 4096, 1000))
+    # fp32's large operands (fc6's x at M = 15,872 is 585 MB) are drawn on
+    # the card, from a seed of their own
+    dgen = None if bf16 else torch.Generator(device=dev).manual_seed(32)
+    sms = build.sm_count(dev.index or 0) if dev.type == "cuda" else 132
     checks = 0
-    for label, k, n in serve_gemm_shapes(get_config(SERVE_MODEL)) \
-            + (("ragged", 300, 70),):
-        w = torch.randn((k, n), generator=gen).to(dev).to(bf16)
-        row = torch.randn((1, k), generator=gen).to(dev).to(bf16)
-        want = {dt: mm(row, w, out_dtype=dt) for dt in (torch.float32, bf16)}
+    for label, k, n in shapes:
+        w = torch.randn((k, n), generator=gen).to(dev).to(dtype)
+        row = torch.randn((1, k), generator=gen).to(dev).to(dtype)
+        want = {dt: mm(row, w, out_dtype=dt) for dt in stores}
         orders, tiles = set(), set()
         for m in INVARIANCE_ROWS:
-            x = torch.randn((m, k), generator=gen).to(dev).to(bf16)
+            x = (torch.randn((m, k), generator=gen).to(dev).to(dtype) if bf16
+                 else torch.randn((m, k), generator=dgen, device=dev))
             at = sorted({0, m - 1} | {r for r in (5, 17, 70, 200, 5000) if r < m})
             x[at] = row
-            plan = G.bf16_plan(m, k, n, x.data_ptr(), w.data_ptr())
+            if bf16:
+                plan = G.bf16_plan(m, k, n, x.data_ptr(), w.data_ptr())
+                tiles.add(plan.bm)
+            else:
+                plan = G.f32_plan(m, k, n, x.data_ptr(), w.data_ptr(), sms)
+                tiles.add(f"{plan.bm}x{plan.bn} {f32_mode(plan)}")
             orders.add((plan.splits, plan.chunks_per_split))
-            tiles.add(plan.bm)
             for dt, ref in want.items():
                 got = mm(x, w, out_dtype=dt)[at]
                 require(torch.equal(got, ref.expand_as(got)),
-                        f"gfid_matmul_bf16 row invariance {label} M={m} {dt}: "
+                        f"{kname} row invariance {label} M={m} {dt}: "
                         f"rows {at} differ from the row alone")
                 checks += 1
             del x
-        require(len(orders) == 1, f"gfid_matmul_bf16 {label}: K order by M {orders}")
-        print(f"[check] gfid_matmul_bf16 row invariance {label} ({k}, {n}): one row "
-              f"at M = {', '.join(map(str, INVARIANCE_ROWS))} (block rows "
-              f"{sorted(tiles)}; splits, chunks {orders.pop()}) bitwise equal to "
-              f"the row alone, fp32 and bf16 stores")
+        require(len(orders) == 1, f"{kname} {label}: K order by M {orders}")
+        print(f"[check] {kname} row invariance {label} ({k}, {n}): one row "
+              f"at M = {', '.join(map(str, INVARIANCE_ROWS))} (block "
+              f"{'rows' if bf16 else 'tiles'} {sorted(tiles)}; splits, chunks "
+              f"{orders.pop()}) bitwise equal to the row alone, "
+              f"{' and '.join(str(dt)[6:] for dt in stores)} stores")
     return checks
 
 
@@ -869,14 +963,19 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
         * pool.element_size() + table.numel() * 4
     g_bound, g_by = bound_ms(g_bytes, 0)
     g = dict(ms=time_ms(lambda: gather(pool, table)),
+             device_ms=graph_ms(lambda: gather(pool, table)),
              plain_ms=time_ms(lambda: paged.paged_gather_plain(pool, table)),
              library_ms=time_ms(lambda: pool.index_select(0, table.view(-1))),
+             library_device_ms=graph_ms(lambda: pool.index_select(0, table.view(-1))),
              bound_ms=g_bound, bound_by=g_by)
     print(f"[time] paged_gather pool {tuple(pool.shape)} bf16, table "
-          f"{tuple(table.shape)}: kernel {g['ms']:.4f} ms, plain "
-          f"{g['plain_ms']:.4f} ms, library index_select {g['library_ms']:.4f} ms, "
-          f"bound {g_bound:.4f} ms ({g_bytes / 1e6:.2f} MB, {g_by}); "
-          f"{g_bytes / g['ms'] / 1e9:.3f} TB/s")
+          f"{tuple(table.shape)}: kernel {g['ms']:.4f} ms, the device alone "
+          f"{g['device_ms']:.4f} ms (host part {g['ms'] - g['device_ms']:.4f} ms), "
+          f"plain {g['plain_ms']:.4f} ms, library index_select {g['library_ms']:.4f} "
+          f"ms, the device alone {g['library_device_ms']:.4f} ms (host part "
+          f"{g['library_ms'] - g['library_device_ms']:.4f} ms), bound {g_bound:.4f} "
+          f"ms ({g_bytes / 1e6:.2f} MB, {g_by}); {g_bytes / g['device_ms'] / 1e9:.3f} "
+          "TB/s for the device alone")
     got = gather(pool, table)
     require(torch.equal(got, paged.paged_gather_plain(pool, table)),
             "paged_gather at the decode step's shapes differs from its plain version")
@@ -897,15 +996,22 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
         b_ms, by = bound_ms(el * (8 * k + k * n) + out_el * 8 * n, 2 * 8 * k * n,
                             PEAK_BF16_FLOP_S if bf16 else PEAK_FP32_FLOP_S)
         row_t = dict(label=label, k=k, n=n, ms=time_ms(lambda: mm(x, w, **kw)),
+                     device_ms=graph_ms(lambda: mm(x, w, **kw)),
                      plain_ms=time_ms(lambda: gfid_matmul.gfid_matmul_plain(
                          x, w, **kw)),
-                     library_ms=time_ms(lambda: torch.mm(x, w)), bound_ms=b_ms,
-                     bound_by=by)
+                     library_ms=time_ms(lambda: torch.mm(x, w)),
+                     library_device_ms=graph_ms(lambda: torch.mm(x, w)),
+                     bound_ms=b_ms, bound_by=by)
         mm_rows.append(row_t)
         print(f"[time] {mm_name} decode {label} (8, {k}) @ ({k}, {n}) -> "
-              f"{str(got.dtype)[6:]}: kernel {row_t['ms']:.4f} ms, plain "
+              f"{str(got.dtype)[6:]}: kernel {row_t['ms']:.4f} ms, the device alone "
+              f"{row_t['device_ms']:.4f} ms (host part "
+              f"{row_t['ms'] - row_t['device_ms']:.4f} ms), plain "
               f"{row_t['plain_ms']:.4f} ms, library torch.mm "
-              f"{row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); vs plain "
+              f"{row_t['library_ms']:.4f} ms, the device alone "
+              f"{row_t['library_device_ms']:.4f} ms (host part "
+              f"{row_t['library_ms'] - row_t['library_device_ms']:.4f} ms), bound "
+              f"{b_ms:.4f} ms ({by}); vs plain "
               f"{reading:.3e} (limit {limit:g}{' bf16 steps' if limit == 1.0 else ''})")
     embed = params["embed"]
     copy_ms = time_ms(lambda: embed.T.contiguous())
@@ -1586,12 +1692,14 @@ def long_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
             continue
         busy_ms, n_kernels, rows_p = prof
         split = {key: sum(r[2] for r in rows_p if key in r[0])
-                 for key in ("flash_attention_kernel", "gfid_matmul_kernel")}
+                 for key in ("flash_attention_kernel", "gfid_matmul_kernel",
+                             "split_reduce_kernel")}
         by_name[what] = split
         print(f"[profile] long {what}: {n_kernels} device kernels, {busy_ms:.4f} "
               f"ms of device time = {100 * busy_ms / ms:.1f}% of its {ms:.4f} ms; "
               f"flash_attention {split['flash_attention_kernel']:.4f} ms, "
-              f"gfid_matmul {split['gfid_matmul_kernel']:.4f} ms, rest "
+              f"gfid_matmul {split['gfid_matmul_kernel']:.4f} ms (+ its split "
+              f"reductions {split['split_reduce_kernel']:.4f} ms), rest "
               f"{busy_ms - sum(split.values()):.4f} ms; by kernel: "
               + "; ".join(f"{n[:60]} x{c} {t:.4f} ms" for n, c, t in rows_p[:6]))
     print(f"[long] phase 8 took {time.perf_counter() - t_phase:.1f} s")
@@ -1797,40 +1905,181 @@ def flash_timing(dev, flash, worst):
     return out
 
 
-def bf16_prefill_timing(dev, mm, gen):
-    """Phase 5's rows for `gfid_matmul_bf16` at the prefill shapes:
-    smollm-135m's four layer GEMMs at M = 1024 (a prompt-128 prefill) and
-    M = 15,872 (prompt 1984), bf16 in and out as on the path, beside the
-    plain version, bf16 `torch.mm` (fp32 sums) and the bound at the bf16
-    peak. Returns {M: kernel ms of one prefill's 30 layers}."""
+def prefill_gemm_timing(dev, mm, gen, dtype):
+    """Phase 5's rows for the GEMM at the prefill shapes: smollm-135m's four
+    layer GEMMs at M = 1024 (a prompt-128 prefill) and M = 15,872 (prompt
+    1984) in `dtype` in and out as on the path (`gfid_matmul_bf16` on bf16,
+    `gfid_matmul_f32` on fp32), with the host and for the device alone (a
+    CUDA graph), beside the plain version, `torch.mm` (fp32 sums, TF32 off)
+    and the bound at the peak of the type. Returns {M: {key: ms of one
+    prefill's 30 layers}}."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import gfid_matmul as G
+    bf16 = dtype == torch.bfloat16
+    kname = "gfid_matmul_bf16" if bf16 else "gfid_matmul"
+    kw = dict(out_dtype=dtype) if bf16 else {}
+    peak = PEAK_BF16_FLOP_S if bf16 else PEAK_FP32_FLOP_S
+    el = 2 if bf16 else 4
     cfg = get_config(SERVE_MODEL)
     per_layer = {"wq/wo": 2, "wk/wv": 2, "w_in/w_gate": 2, "w_out": 1}
     per_prefill = {}
     for m in (8 * SERVE_PREFILL, 8 * LONG_PREFILL):
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   library_device_ms=0.0, bound_ms=0.0)
+        calls = 10 if m > 4096 else 50
         for label, k, n in serve_gemm_shapes(cfg)[:-1]:
-            x = torch.randn((m, k), generator=gen).to(dev).to(torch.bfloat16)
-            w = torch.randn((k, n), generator=gen).to(dev).to(torch.bfloat16)
-            b_ms, by = bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n,
-                                PEAK_BF16_FLOP_S)
-            row_t = dict(ms=time_ms(lambda: mm(x, w, out_dtype=torch.bfloat16)),
-                         plain_ms=time_ms(lambda: G.gfid_matmul_plain(
-                             x, w, out_dtype=torch.bfloat16), iters=5),
-                         library_ms=time_ms(lambda: torch.mm(x, w)), bound_ms=b_ms)
+            x = torch.randn((m, k), generator=gen).to(dev).to(dtype)
+            w = torch.randn((k, n), generator=gen).to(dev).to(dtype)
+            b_ms, by = bound_ms(el * (m * k + k * n + m * n), 2 * m * k * n, peak)
+            row_t = dict(ms=time_ms(lambda: mm(x, w, **kw)),
+                         device_ms=graph_ms(lambda: mm(x, w, **kw), calls),
+                         plain_ms=time_ms(lambda: G.gfid_matmul_plain(x, w, **kw),
+                                          iters=5),
+                         library_ms=time_ms(lambda: torch.mm(x, w)),
+                         library_device_ms=graph_ms(lambda: torch.mm(x, w), calls),
+                         bound_ms=b_ms)
             for key in tot:
                 tot[key] += per_layer[label] * cfg.n_layers * row_t[key]
-            print(f"[time] gfid_matmul_bf16 prefill {label} ({m}, {k}) @ ({k}, {n}) "
-                  f"-> bfloat16: kernel {row_t['ms']:.4f} ms "
-                  f"({2 * m * k * n / row_t['ms'] / 1e9:.1f} TFLOP/s), plain "
-                  f"{row_t['plain_ms']:.4f} ms, library torch.mm "
-                  f"{row_t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({by})")
-        per_prefill[m] = tot["ms"]
-        print(f"[time] gfid_matmul_bf16 per prefill at M = {m} ({cfg.n_layers} x 7 "
-              f"layer GEMMs): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
-              f"ms, library {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+            print(f"[time] {kname} prefill {label} ({m}, {k}) @ ({k}, {n}) -> "
+                  f"{str(dtype)[6:]}: kernel {row_t['ms']:.4f} ms "
+                  f"({2 * m * k * n / row_t['ms'] / 1e9:.1f} TFLOP/s), the device "
+                  f"alone {row_t['device_ms']:.4f} ms, plain {row_t['plain_ms']:.4f} "
+                  f"ms, library torch.mm {row_t['library_ms']:.4f} ms, the device "
+                  f"alone {row_t['library_device_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({by})")
+            del x, w
+        per_prefill[m] = tot
+        print(f"[time] {kname} per prefill at M = {m} ({cfg.n_layers} x 7 layer "
+              f"GEMMs): kernel {tot['ms']:.4f} ms, the device alone "
+              f"{tot['device_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
+              f"{tot['library_ms']:.4f} ms, the device alone "
+              f"{tot['library_device_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
     return per_prefill
+
+
+def host_us(fn, calls=2000, repeats=5):
+    """The host's time for one call of fn in microseconds: the least of
+    `repeats` runs of `calls` back-to-back calls on the host clock, each run
+    followed by a synchronisation. Where the device keeps up (a short
+    kernel), this is the call's host part."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def launch_path_timing(dev, G, paged, build):
+    """Phase 5: the host part of one `gfid_matmul` call at the smollm decode's
+    wq/wo (8, 576) @ (576, 576) fp32 and one `paged_gather` of the full-width
+    bf16 pool at a table of 8 x 32, piece by piece: each piece of the lean
+    launch path beside the piece it replaced, then the whole call with the
+    host (host clock, and CUDA events) and for the device alone (a CUDA
+    graph), beside `torch.mm` and `index_select`. Returns the numbers the
+    kernels line carries."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((8, 576), generator=gen).to(dev)
+    w = torch.randn((576, 576), generator=gen).to(dev)
+    index = x.get_device()
+    sms = build.sm_count(index)
+    plan = G.f32_plan(8, 576, 576, x.data_ptr(), w.data_ptr(), sms)
+
+    def with_device():
+        with torch.cuda.device(x.device):
+            pass
+
+    def on_device():
+        with build.on_device(index):
+            pass
+
+    pieces = (
+        ("operand checks", lambda: (build.check_operands("gfid_matmul", x=(x, (f32, bf16))),
+                                    build.check_operands("gfid_matmul", x=(x, x.dtype),
+                                                         w=(w, x.dtype), bias=(None, f32))),
+         lambda: build.check_float_operands("gfid_matmul", x, w, None)),
+        ("shape checks", None, lambda: G._check_shapes(x, w, None, None)),
+        ("plan (was: none; now f32_plan, uncached before)",
+         lambda: G._f32_plan.__wrapped__(8, 576, 576, True, True, sms),
+         lambda: G.f32_plan(8, 576, 576, x.data_ptr(), w.data_ptr(), sms)),
+        ("allocation of the output", lambda: torch.empty((8, 576), device=x.device,
+                                                         dtype=f32),
+         lambda: x.new_empty((8, 576))),
+        ("device context", with_device, on_device),
+        ("stream", lambda: torch.cuda.current_stream().cuda_stream,
+         lambda: build.raw_stream(index)),
+        ("build.check", None, lambda: build.check(None, 0, "gfid_matmul")),
+    )
+    out = {"gemm_pieces_us": {}, "gather_pieces_us": {}}
+    for label, before, after in pieces:
+        now = host_us(after)
+        was = None if before is None else host_us(before)
+        out["gemm_pieces_us"][label] = dict(before=was, after=now)
+        print(f"[host] gfid_matmul decode wq/wo, {label}: "
+              + ("" if was is None else f"was {was:.2f} us, ") + f"now {now:.2f} us")
+    lib, fn = G._launcher()
+    o = torch.empty((8, 576), device=dev)
+    args = (x.data_ptr(), w.data_ptr(), None, o.data_ptr(), None, 8, 576,
+            576, plan.bm, plan.bn, plan.splits, plan.chunks_per_split,
+            G.F32_MODES[plan.mode], 0, int(plan.vec_x), int(plan.vec_w),
+            build.raw_stream(index))
+    ctypes_us = host_us(lambda: fn(*args))
+    out["gemm_pieces_us"]["ctypes call with its launch"] = dict(before=None,
+                                                                 after=ctypes_us)
+    print(f"[host] gfid_matmul decode wq/wo, the ctypes call with its launch "
+          f"({plan.splits} splits, {plan.mode}): {ctypes_us:.2f} us")
+
+    def whole(label, call, library, lib_name, key):
+        k_host, l_host = host_us(call), host_us(library)
+        k_ms, l_ms = time_ms(call), time_ms(library)
+        k_dev, l_dev = graph_ms(call), graph_ms(library)
+        row = dict(host_us=k_host, ms=k_ms, device_ms=k_dev,
+                   host_part_ms=k_ms - k_dev, library_host_us=l_host,
+                   library_ms=l_ms, library_device_ms=l_dev,
+                   library_host_part_ms=l_ms - l_dev)
+        out[key] = row
+        print(f"[host] {label}: the call on the host clock {k_host:.2f} us "
+              f"({lib_name} {l_host:.2f} us, ratio {k_host / l_host:.3f}); with the "
+              f"host {k_ms:.4f} ms, the device alone {k_dev:.4f} ms, host part "
+              f"{k_ms - k_dev:.4f} ms ({lib_name}: {l_ms:.4f}, {l_dev:.4f}, host "
+              f"part {l_ms - l_dev:.4f} ms)")
+
+    whole("gfid_matmul decode wq/wo (8, 576) @ (576, 576) fp32",
+          lambda: G.gfid_matmul(x, w), lambda: torch.mm(x, w), "torch.mm", "gemm")
+    pool = torch.randn((257, 16, 30, 3, 64), generator=gen).to(bf16).to(dev)
+    table = torch.randint(0, 257, (8, 32), generator=gen, dtype=torch.int32).to(dev)
+    out_g = torch.empty((8, 32 * 16, 30, 3, 64), dtype=bf16, device=dev)
+    block_bytes = pool[0].numel() * pool.element_size()
+    g_pieces = (
+        ("allocation of the output",
+         lambda: torch.empty(out_g.shape, dtype=bf16, device=pool.device),
+         lambda: pool.new_empty(out_g.shape)),
+        ("operand checks", lambda: build.check_operands(
+            "paged_gather", pool=(pool, pool.dtype), table=(table, torch.int32)),
+         lambda: paged._check(pool, table)),
+        ("copy unit", lambda: next(
+            u for u in paged.UNITS if block_bytes % u == 0
+            and all(q % u == 0 for q in (pool.data_ptr(), out_g.data_ptr()))),
+         lambda: paged.copy_unit(block_bytes, pool.data_ptr(), out_g.data_ptr())),
+        ("device context", with_device, on_device),
+        ("stream", lambda: torch.cuda.current_stream().cuda_stream,
+         lambda: build.raw_stream(index)),
+    )
+    for label, before, after in g_pieces:
+        was, now = host_us(before), host_us(after)
+        out["gather_pieces_us"][label] = dict(before=was, after=now)
+        print(f"[host] paged_gather 8 x 32, {label}: was {was:.2f} us, now {now:.2f} us")
+    whole("paged_gather pool (257, 16, 30, 3, 64) bf16, table (8, 32)",
+          lambda: paged.paged_gather(pool, table),
+          lambda: pool.index_select(0, table.view(-1)), "index_select", "gather")
+    return {"gfid_matmul": dict(out["gemm"], pieces_us=out["gemm_pieces_us"]),
+            "paged_gather": dict(out["gather"], pieces_us=out["gather_pieces_us"])}
 
 
 def device_profile(fn, steps=3):
@@ -1940,7 +2189,10 @@ def main():
             + [(f"ragged {what} {i}", kw) for i, kw in enumerate(ragged)]
 
     # the fp32 conv also at every distinct conv shape of VGG-16 and
-    # ResNet-50 at batch 1; its cases must reach every path of f32_plan
+    # ResNet-50 at batch 1; its cases must reach every path of f32_plan, and
+    # the fp32 GEMM's every path of its f32_plan (the cases added for that
+    # drawn from a generator of their own)
+    gen32 = torch.Generator().manual_seed(32)
     t_conv = time.perf_counter()
     for kname, kernel, plain, cases, int8 in (
             ("gfid_conv2d_nhwc", conv32, gfid_conv.gfid_conv2d_nhwc_plain,
@@ -1948,8 +2200,8 @@ def main():
              + [(lbl, kw) for net in OTHER_NETS
                 for lbl, _, kw in conv_cases(cnn, 1, gen, dev, net)], False),
             ("gfid_matmul", mm32, gfid_matmul.gfid_matmul_plain,
-             all_cases(fc_main, ragged_mm, "matmul") + serve_mm_cases(gen, dev),
-             False),
+             all_cases(fc_main, ragged_mm, "matmul") + serve_mm_cases(gen, dev)
+             + f32_mm_cases(gen32, dev), False),
             ("gfid_conv2d_nhwc_int8", conv8,
              gfid_conv.gfid_conv2d_nhwc_int8_plain,
              all_cases(conv8_main, ragged_conv8, "conv"), True),
@@ -1971,10 +2223,14 @@ def main():
             else:
                 limit = TOL
             plan = ""
-            if kname == "gfid_conv2d_nhwc":
-                plans.append(launch_plan("conv", kw))
+            if kname in ("gfid_conv2d_nhwc", "gfid_matmul"):
+                plans.append(launch_plan("conv" if kname == "gfid_conv2d_nhwc"
+                                         else "mm", kw))
                 plan = (f", tile {plans[-1].bm}x{plans[-1].bn}, K splits "
-                        f"{plans[-1].splits}, 16-byte loads x {int(plans[-1].vec_x)} "
+                        f"{plans[-1].splits}"
+                        + (f" ({f32_mode(plans[-1])})" if kname == "gfid_matmul"
+                           else "")
+                        + f", 16-byte loads x {int(plans[-1].vec_x)} "
                         f"w {int(plans[-1].vec_w)}")
             print(f"[check] {kname} {label}: out {tuple(got.shape)}, act "
                   f"{kw['act']}, max|d| = {abs_err:.3e}, max|d|/max|ref| = "
@@ -1986,6 +2242,9 @@ def main():
             require_plan_coverage(kname, plans, gfid_conv.F32_TILES)
             print(f"[check] gfid_conv2d_nhwc: {len(plans)} cases in "
                   f"{time.perf_counter() - t_conv:.1f} s")
+        if kname == "gfid_matmul":
+            require_plan_coverage(kname, plans, gfid_matmul.F32_TILES)
+            require_f32_gemm_coverage(plans)
     # bf16 operands: the AlexNet shapes (bias bf16) and the ragged ones (bias
     # fp32), then the cases of bf16_conv_cases and bf16_mm_cases, each stored
     # in fp32 and in bf16; the cases must reach every plan the wrappers make
@@ -2032,6 +2291,7 @@ def main():
         require_plan_coverage(kname, plans, tiles)
     del bf16_cases
     checks += row_invariance_check(dev, mm32, gen)
+    checks += row_invariance_check(dev, mm32, gen32, torch.float32)
     worst["paged_gather"] = 0.0
     for label, pool, table in paged_cases(gen, dev):
         got = paged.paged_gather(pool, table)
@@ -2370,7 +2630,7 @@ def main():
              fc16_main)):
         int8, bf16 = kname.endswith("_int8"), kname.endswith("_bf16")
         # the device alone too (a CUDA graph of 100 calls), kernel and library
-        alone = bf16 or kname == "gfid_conv2d_nhwc"
+        alone = bf16 or kname in ("gfid_conv2d_nhwc", "gfid_matmul")
         elem = 2 if bf16 else 4     # bytes an element
         peak = (PEAK_INT8_OP_S if int8 else PEAK_BF16_FLOP_S if bf16
                 else PEAK_FP32_FLOP_S)
@@ -2449,7 +2709,9 @@ def main():
               f"{k16:.4f} ms ({100 * k16 / fwd:.1f}%) + rest {fwd - k16:.4f} ms")
 
     flash_t = flash_timing(dev, flash_attention, worst)
-    prefill_mm16 = bf16_prefill_timing(dev, mm32, gen)
+    prefill_mm16 = prefill_gemm_timing(dev, mm32, gen, torch.bfloat16)
+    prefill_mm32 = prefill_gemm_timing(dev, mm32, gen, torch.float32)
+    launch_path = launch_path_timing(dev, gfid_matmul, paged, build)
 
     # -- phase 6: serving smollm-135m on the paged pool -----------------------
     flash_kernels = (flash_attention.flash_attention,
@@ -2509,7 +2771,13 @@ def main():
             "library_ms": tot["library_ms"]})
         if kname == "gfid_matmul":
             kernels[-1]["launches_per_decode_step"] = served["step_launches"][0]
-        if kname == "gfid_conv2d_nhwc":     # the device alone; batch 32
+            # one prefill's layer GEMMs at M = 1024 and 15,872, summed, with
+            # the host and the device alone; the decode wq/wo call's host part
+            kernels[-1]["prefill_ms"] = {str(m): v["ms"] for m, v in prefill_mm32.items()}
+            kernels[-1]["prefill_device_ms"] = {str(m): v["device_ms"]
+                                                for m, v in prefill_mm32.items()}
+            kernels[-1]["launch_path"] = launch_path["gfid_matmul"]
+        if kname in ("gfid_conv2d_nhwc", "gfid_matmul"):   # the device alone; batch 32
             t32 = totals[(kname, BATCHES[-1])]
             kernels[-1].update(
                 device_ms=tot["device_ms"], library_device_ms=tot["library_device_ms"],
@@ -2526,7 +2794,9 @@ def main():
         "max_abs_err": worst["paged_gather"],
         **dict.fromkeys(("ms", "kernel_ms"), g["ms"]),
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-        "bound_by": g["bound_by"], "library_ms": g["library_ms"]})
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "device_ms": g["device_ms"], "library_device_ms": g["library_device_ms"],
+        "launch_path": launch_path["paged_gather"]})
     ct = ssm["conv_tot"]
     kernels.append({
         "name": "gfid_conv1d_depthwise", "route": "cuda",
@@ -2580,7 +2850,9 @@ def main():
     kernels[-1]["launches_per_decode_step"] = served16["step_launches"][0]
     kernels[-1]["launches_per_long_prefill"] = long16["launches"][0]
     # one prefill's layer GEMMs at M = 1024 and 15,872, summed
-    kernels[-1]["prefill_ms"] = {str(m): ms for m, ms in prefill_mm16.items()}
+    kernels[-1]["prefill_ms"] = {str(m): v["ms"] for m, v in prefill_mm16.items()}
+    kernels[-1]["prefill_device_ms"] = {str(m): v["device_ms"]
+                                        for m, v in prefill_mm16.items()}
     print(f"[serve bf16] summary: {served16['tps']:.1f} tokens/s, p50 "
           f"{served16['lat']['p50_ms']:.1f} ms, p95 {served16['lat']['p95_ms']:.1f} "
           f"ms; decode step {served16['step_ms'][SERVE_BATCH]:.4f} ms with "

@@ -16,7 +16,8 @@
 //
 // What the design does about it: the FMA units are fed from registers, with
 //   few shared loads per FMA and the loads in flight during the FMAs (the
-//   SIMT SGEMM shape). The conv is one GEMM per group: its rows are the
+//   SIMT SGEMM shape of simt_f32.cuh, shared with the fp32 GEMM). The conv
+//   is one GEMM per group: its rows are the
 //   output pixels (b, h_out, w_out) flattened across rows and images, its
 //   columns the group's og output channels, its K the taps (j, i, c) in HWIO
 //   order, so the B operand is a plain K x C_out slab of w at column g * og.
@@ -48,34 +49,22 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "simt_f32.cuh"
 #include "split_k.cuh"
 
 namespace {
 
 constexpr int kBK = 8;              // K rows of a chunk
 constexpr int kStages = 3;          // the cp.async ring: 2 chunks in flight
-constexpr int kAStride = kBK + 4;   // floats an A row: 48 bytes, float4-aligned
 // The widest block tile, output pixels x output channels (kernels/gfid_conv.py
 // TILE, the engine plan's tiling).
 constexpr int kPixTile = 128;
 constexpr int kCoutTile = 128;
 
-// A block tile of BM pixels x BN channels; each of its BM / TM x BN / TN
-// threads owns TM rows (strided by BM / TM) and TN / 4 runs of 4 columns
-// (strided by 4 * BN / TN).
-template <int BM_, int BN_, int TM_, int TN_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
-  static constexpr int kRowThreads = BM / TM;
-  static constexpr int kColThreads = BN / TN;
-  static constexpr int kThreads = kRowThreads * kColThreads;
-  // blocks an SM: 512 threads, so at most 128 registers a thread
-  static constexpr int kMinBlocks = 512 / kThreads;
-  static constexpr int kStage = BM * kAStride + kBK * BN;  // floats
-  static constexpr size_t kSmem = sizeof(float) * kStages * kStage;
-  static_assert(TN % 4 == 0, "B is read as float4");
-  static_assert(kThreads % kBK == 0, "a thread's K column of an element-loaded A is fixed");
-};
+// A block tile of BM pixels x BN channels (simt_f32.cuh's Tile at this
+// source's chunk and ring depth).
+template <int BM, int BN, int TM, int TN>
+using Tile = simt::Tile<BM, BN, TM, TN, kBK, kStages>;
 
 struct Geometry {
   int B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad, groups;
@@ -83,63 +72,8 @@ struct Geometry {
 
 constexpr int kOffRow = -(1 << 29);  // h0 of a row past the last pixel: every tap misses
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 or 4 bytes global -> shared; when !valid, zeros and no read (src must
-// still be a global address: callers pass the tensor's base).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One chunk of the block tile from stage (As, Bs) into this thread's
-// accumulators, K in order.
-template <class T>
-__device__ __forceinline__ void fma_chunk(const float* As, const float* Bs, int ty, int tx,
-                                          float (&acc)[T::TM][T::TN]) {
-#pragma unroll
-  for (int kq = 0; kq < kBK; kq += 4) {
-    float a[T::TM][4];
-#pragma unroll
-    for (int s = 0; s < T::TM; ++s) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(As + (ty + s * T::kRowThreads) * kAStride + kq);
-      a[s][0] = v.x;
-      a[s][1] = v.y;
-      a[s][2] = v.z;
-      a[s][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float b[T::TN];
-#pragma unroll
-      for (int q = 0; q < T::TN / 4; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            Bs + (kq + kk) * T::BN + q * 4 * T::kColThreads + tx * 4);
-        b[4 * q] = v.x;
-        b[4 * q + 1] = v.y;
-        b[4 * q + 2] = v.z;
-        b[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int s = 0; s < T::TM; ++s)
-#pragma unroll
-        for (int n = 0; n < T::TN; ++n) acc[s][n] = fmaf(a[s][kk], b[n], acc[s][n]);
-    }
-  }
-}
+using simt::cp_async16;
+using simt::cp_async4;
 
 template <class T>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
@@ -202,13 +136,13 @@ gfid_conv2d_nhwc_kernel(splitk::Epilogue e, const float* __restrict__ x,
       for (int idx = tid; idx < T::BM * (kBK / 4); idx += T::kThreads) {
         const int r = idx / (kBK / 4);
         const float* src = k < K ? tap(r, j, i, c) : nullptr;
-        cp_async16(As + r * kAStride + k - k0, src != nullptr ? src : x, src != nullptr);
+        cp_async16(As + r * T::kAStride + k - k0, src != nullptr ? src : x, src != nullptr);
       }
     } else {  // kThreads % kBK == 0
       for (int idx = tid; idx < T::BM * kBK; idx += T::kThreads) {
         const int r = idx / kBK;
         const float* src = k < K ? tap(r, j, i, c) : nullptr;
-        cp_async4(As + r * kAStride + k - k0, src != nullptr ? src : x, src != nullptr);
+        cp_async4(As + r * T::kAStride + k - k0, src != nullptr ? src : x, src != nullptr);
       }
     }
     if (vec_w) {  // og % 4 == 0: a piece is 4 columns, all in or all out
@@ -229,29 +163,7 @@ gfid_conv2d_nhwc_kernel(splitk::Epilogue e, const float* __restrict__ x,
   };
 
   float acc[T::TM][T::TN];
-#pragma unroll
-  for (int s = 0; s < T::TM; ++s)
-#pragma unroll
-    for (int n = 0; n < T::TN; ++n) acc[s][n] = 0.0f;
-  const int n = end - begin;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n) load(begin + s, smem + s * T::kStage, smem + s * T::kStage + T::BM * kAStride);
-    cp_async_commit();
-  }
-  for (int t = 0; t < n; ++t) {
-    cp_async_wait<kStages - 2>();  // chunk t has landed (this thread's copies)
-    __syncthreads();               // ... and every thread's; chunk t - 1 is consumed
-    const int next = t + kStages - 1;
-    if (next < n) {
-      float* st = smem + (next % kStages) * T::kStage;
-      load(begin + next, st, st + T::BM * kAStride);
-    }
-    cp_async_commit();
-    const float* st = smem + (t % kStages) * T::kStage;
-    fma_chunk<T>(st, st + T::BM * kAStride, ty, tx, acc);
-  }
-  cp_async_wait<0>();
+  simt::run_chunks<T>(smem, begin, end - begin, ty, tx, acc, load, [](int) {});
 
   float* ws = e.ws == nullptr ? nullptr : e.ws + (size_t)blockIdx.z * P * d.C_out;
 #pragma unroll

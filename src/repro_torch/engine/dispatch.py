@@ -191,7 +191,7 @@ def _cuda_einsum(spec, x, w, plan, structure, *, accum_dtype, out_dtype,
         raise NotImplementedError(
             f"einsum {spec!r} is not a single (M, K) @ (K, N) GEMM; the "
             "batched-weight GEMM kernel is not ported (ROADMAP queue 1, "
-            "item 8) — use backend='torch'")
+            "item 10) — use backend='torch'")
     c = st.contract[0]
     xm = torch.movedim(x, st.x_labels.index(c), -1)
     w2 = w if st.w_labels[0] == c else w.T

@@ -12,6 +12,7 @@ A failed build raises with the compiler's output. There is no fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -132,8 +133,18 @@ def check_float_operands(kernel: str, x: torch.Tensor, w: torch.Tensor,
                          bias: Optional[torch.Tensor]) -> bool:
     """The operands of a source with an fp32 and a bf16 entry: x and w both
     fp32 or both bf16, bias fp32 (or bf16 beside bf16 operands), each as
-    `check_operands` asks. Returns whether they are bf16."""
+    `check_operands` asks. Returns whether they are bf16. Operands that
+    pass take one short test (a launch's host time); any other goes through
+    `check_operands`, which names what is wrong."""
     f32, bf16 = torch.float32, torch.bfloat16
+    dt = x.dtype
+    if (dt is f32 or dt is bf16) and w.dtype is dt \
+            and x.is_contiguous() and w.is_contiguous() \
+            and (bias is None or ((bias.dtype is f32 or bias.dtype is dt)
+                                  and bias.is_contiguous())):
+        device = x.device
+        if w.device == device and (bias is None or bias.device == device):
+            return dt is bf16
     check_operands(kernel, x=(x, (f32, bf16)))
     is_bf16 = x.dtype == bf16
     check_operands(kernel, x=(x, x.dtype), w=(w, x.dtype),
@@ -253,6 +264,25 @@ def mma_workspace(plan: MmaPlan, rows: int, cols: int,
         return None
     return torch.empty((plan.splits, rows, cols), dtype=torch.float32,
                        device=device)
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(index: int):
+    """The context a launch on CUDA device `index` runs in: that device made
+    current for the launch, or nothing when it is current already (the
+    common case, and the cheaper one on the host)."""
+    if index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(index)
+
+
+def raw_stream(index: int) -> int:
+    """The current stream of CUDA device `index` as the integer handle a
+    launcher takes (`cudaStream_t`), without building a `torch.cuda.Stream`
+    object as `torch.cuda.current_stream(index).cuda_stream` does."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

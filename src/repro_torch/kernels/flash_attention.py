@@ -17,7 +17,7 @@ output for `meta` tensors (program capture). `flash_attention.launches`
 counts the fp32 kernel's launches, `flash_attention_bf16.launches` the bf16
 kernel's.
 There is no backward: an input that requires a gradient raises (ROADMAP
-queue 1, item 12).
+queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -147,7 +147,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention has no backward yet; see ROADMAP queue 1, "
-            "item 12 (training)")
+            "item 13 (training)")
     build.check_operands("flash_attention", q=(q, q.dtype), k=(k, q.dtype),
                          v=(v, q.dtype))
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,10 +25,42 @@ from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import (ACT_CODES, apply_epilogue,
                                          check_act, dequant_epilogue)
 
-# (rows of x, K chunk, columns) of one block: kBM, kKT, kBN in the source.
-TILE = (8, 256, 32)
-# The same for csrc/gfid_matmul_int8.cu.
+# (rows of x, K chunk, columns) of the fp32 kernel's widest block tile:
+# kBM, kKT, kBN in csrc/gfid_matmul.cu (the engine plan's tiling).
+TILE = (128, 8, 128)
+# (rows of x, K chunk, columns) of one block of csrc/gfid_matmul_int8.cu:
+# kBM, kKT, kBN in that source.
 TILE_INT8 = (8, 256, 64)
+# csrc/gfid_matmul.cu's block tiles (rows, columns), TILE's first. Up to
+# F32_FEW_ROWS rows, the first of 8, 32 or 64 rows that holds M, 64 columns
+# wide, or as wide as F32_WIDE_COLUMNS gives where w holds F32_WIDE_BYTES
+# or more (a stream of weights that is bound by bytes: long rows read by
+# one block keep the memory's pages open); past them the widest tile where
+# its blocks fill the card F32_FOLD_WAVES times over, else the 64 x 64 one.
+F32_TILES = ((128, 128), (64, 64), (32, 256), (32, 64), (8, 512), (8, 64))
+F32_BK = TILE[1]
+F32_FEW_ROWS = 64
+F32_WIDE_BYTES = 32 << 20
+F32_WIDE_COLUMNS = {8: 512, 32: 256}
+F32_FOLD_WAVES = 2
+# Its split of K, from (K, N) alone so that a row's sums ignore M: splits
+# until the column blocks of the few-row tile's width (64, or 512 where w is
+# wide) times the splits reach F32_TARGET_BLOCKS of that width (528 blocks
+# of 128 threads, or 264 of 256: 512 threads on each of an H100's 132 SMs),
+# each split at least F32_MIN_SPLIT chunks of F32_BK deep (so that K = 576,
+# smollm's, cuts into F32_MAX_CLUSTER splits). How the splits are added,
+# always in split order (F32_MODES, the kernel's `mode`): where the plan's
+# blocks fill the card F32_FOLD_WAVES times over without the split (many
+# rows), each block runs every split ("fold"); on a few-row tile 64 columns
+# wide with at most F32_MAX_CLUSTER splits (a decode step's GEMMs), a
+# tile's splits run as one thread block cluster whose first block adds
+# them ("cluster": one launch, where the host's time per call matters
+# most); else each split writes a workspace that a second kernel adds
+# ("split").
+F32_TARGET_BLOCKS = {64: 528, 512: 264}
+F32_MIN_SPLIT = 9
+F32_MAX_CLUSTER = 8
+F32_MODES = {"split": 0, "fold": 1, "cluster": 2}
 # csrc/gfid_matmul_bf16.cu's block tiles (rows, columns): the first whose
 # rows hold M (so that up to M = 64 each weight is read once), else the
 # last. On the H100 a larger tile bought nothing at M = 1024 or 15,872: the
@@ -55,8 +87,9 @@ def gfid_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     return out if out_dtype is None else out.to(out_dtype)
 
 
-# x, w, bias, out; M, K, N, act; stream.
-F32_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# x, w, bias, out, ws; M, K, N, bm, bn, splits, chunks_per_split, mode, act,
+# vec_x, vec_w; stream.
+F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 # x, w, bias, out, ws; bias_bf16, out_bf16, M, K, N, bm, bn, splits,
 # chunks_per_split, act, vec_x, vec_w; stream.
 BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
@@ -80,20 +113,87 @@ def _launcher_bf16():
     return lib, fn
 
 
+class F32Plan(NamedTuple):
+    """One launch of `gfid_matmul_f32`: a block tile of `bm` rows x `bn`
+    columns, K cut into `splits` runs of `chunks_per_split` chunks of
+    F32_BK, added in split order as `mode` says ("split": one split a
+    block on grid z, through a workspace when `splits` > 1; "cluster": a
+    tile's splits as one cluster; "fold": every split in each block);
+    16-byte copies of x and of w where `vec_x` and `vec_w` allow; the
+    launch grid."""
+    bm: int
+    bn: int
+    splits: int
+    chunks_per_split: int
+    mode: str
+    vec_x: bool
+    vec_w: bool
+    grid: Tuple[int, int, int]
+
+    @property
+    def workspace(self) -> bool:
+        """Whether the launch needs the (splits, M, N) fp32 workspace."""
+        return self.splits > 1 and self.mode == "split"
+
+
+def f32_plan(m: int, k: int, n: int, x_ptr: int = 0, w_ptr: int = 0,
+             sms: int = 132) -> F32Plan:
+    """The launch of `gfid_matmul_f32` for x (m, k) @ w (k, n) at those
+    base addresses on a card of `sms` SMs: the split of K from (k, n)
+    alone, so that every row's sums run in one order at any m; the tile
+    and the mode from m; 16-byte loads of x where k % 4 == 0 and x is
+    16-byte aligned, of w where n % 4 == 0 and w is."""
+    return _f32_plan(m, k, n, k % 4 == 0 and x_ptr % 16 == 0,
+                     n % 4 == 0 and w_ptr % 16 == 0, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _f32_plan(m: int, k: int, n: int, vec_x: bool, vec_w: bool,
+              sms: int) -> F32Plan:
+    wide = 4 * k * n >= F32_WIDE_BYTES
+    width = 512 if wide else 64
+    splits, per = build.mma_split(
+        k, -(-F32_TARGET_BLOCKS[width] // max(-(-n // width), 1)),
+        F32_MIN_SPLIT, F32_BK)
+    if m <= F32_FEW_ROWS:
+        bm = next(r for r in (8, 32, 64) if m <= r)
+        bn = F32_WIDE_COLUMNS.get(bm, 64) if wide else 64
+    else:
+        bm, bn = F32_TILES[0]
+        if -(-m // bm) * -(-n // bn) < F32_FOLD_WAVES * sms:
+            bm, bn = F32_TILES[1]
+    grid = (-(-n // bn), -(-m // bm), splits)
+    if splits > 1 and m > F32_FEW_ROWS \
+            and grid[0] * grid[1] >= F32_FOLD_WAVES * sms:
+        mode, grid = "fold", grid[:2] + (1,)
+    elif m <= F32_FEW_ROWS and bn == 64 and 1 < splits <= F32_MAX_CLUSTER:
+        mode = "cluster"
+    else:
+        mode = "split"
+    build.check_grid("gfid_matmul", grid)
+    return F32Plan(bm, bn, splits, per, mode, vec_x, vec_w, grid)
+
+
 def bf16_plan(m: int, k: int, n: int, x_ptr: int = 0,
               w_ptr: int = 0) -> build.MmaPlan:
     """The launch of `gfid_matmul_bf16` for x (m, k) @ w (k, n) at those
     base addresses: BM from m; the split of K from (k, n) alone, so that
     every row's sums run in one order at any m; 16-byte loads of x where
     k % 8 == 0 and x is 16-byte aligned, of w where n % 8 == 0 and w is."""
+    return _bf16_plan(m, k, n, k % 8 == 0 and x_ptr % 16 == 0,
+                      n % 8 == 0 and w_ptr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def _bf16_plan(m: int, k: int, n: int, vec_x: bool,
+               vec_w: bool) -> build.MmaPlan:
     bm, bn = next((t for t in BF16_TILES if m <= t[0]), BF16_TILES[-1])
     col_blocks = -(-n // bn)
     splits, per = build.mma_split(
         k, -(-BF16_TARGET_BLOCKS // max(col_blocks, 1)), BF16_MIN_SPLIT)
     grid = (col_blocks, -(-m // bm), splits)
     build.check_grid("gfid_matmul_bf16", grid)
-    return build.MmaPlan(bm, bn, splits, per, k % 8 == 0 and x_ptr % 16 == 0,
-                         n % 8 == 0 and w_ptr % 16 == 0, grid)
+    return build.MmaPlan(bm, bn, splits, per, vec_x, vec_w, grid)
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor,
@@ -125,41 +225,62 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
     is_bf16 = build.check_float_operands("gfid_matmul", x, w, bias)
     store = build.stored_dtype(is_bf16, out_dtype)
     m, n = x.shape[0], w.shape[1]
-    kind = x.device.type
-    if kind == "cpu":
-        out = gfid_matmul_plain(x, w, bias=bias, act=act, out_dtype=store)
-    elif kind == "meta":
-        out = torch.empty((m, n), device="meta", dtype=store)
-    elif kind != "cuda":
-        raise ValueError(f"gfid_matmul runs on CUDA or CPU tensors, not {kind}")
+    if x.is_cuda:
+        out = _launch(x, w, bias, act, is_bf16, store) if m and n \
+            else x.new_empty((m, n), dtype=store)
     else:
-        out = torch.empty((m, n), device=x.device, dtype=store)
-        if out.numel():
-            _launch(x, w, bias, out, act, is_bf16)
-    return out if out_dtype in (None, store) else out.to(out_dtype)
-
-
-def _launch(x, w, bias, out, act, is_bf16) -> None:
-    m, k, n = x.shape[0], x.shape[1], w.shape[1]
-    lib, fn = _launcher_bf16() if is_bf16 else _launcher()
-    b_ptr = None if bias is None else bias.data_ptr()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if is_bf16:
-            plan = bf16_plan(m, k, n, x.data_ptr(), w.data_ptr())
-            ws = build.mma_workspace(plan, m, n, x.device)
-            err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(),
-                     None if ws is None else ws.data_ptr(),
-                     int(bias is not None and bias.dtype == torch.bfloat16),
-                     int(out.dtype == torch.bfloat16), m, k, n, plan.bm,
-                     plan.bn, plan.splits, plan.chunks_per_split, ACT_CODES[act],
-                     int(plan.vec_x), int(plan.vec_w), stream)
+        kind = x.device.type
+        if kind == "cpu":
+            out = gfid_matmul_plain(x, w, bias=bias, act=act, out_dtype=store)
+        elif kind == "meta":
+            out = torch.empty((m, n), device="meta", dtype=store)
         else:
-            err = fn(x.data_ptr(), w.data_ptr(), b_ptr, out.data_ptr(), m, k,
-                     n, ACT_CODES[act], stream)
-    name = "gfid_matmul_bf16" if is_bf16 else "gfid_matmul"
-    build.check(lib, err, name)
+            raise ValueError(f"gfid_matmul runs on CUDA or CPU tensors, "
+                             f"not {kind}")
+    return out if out_dtype is None or out_dtype == store \
+        else out.to(out_dtype)
+
+
+def _launch(x, w, bias, act, is_bf16, store) -> torch.Tensor:
+    """Allocate the (M, N) output in `store` and launch the entry of the
+    operands' dtype into it with its plan, on the current stream of x's
+    device (made current only when it is another); raise on a refused
+    launch, count it, and return the output. A split fp32 launch's
+    workspace shares the output's allocation (one allocation on the host's
+    path, freed with the output)."""
+    m, k = x.shape
+    n = w.shape[1]
+    index = x.get_device()
+    x_ptr, w_ptr = x.data_ptr(), w.data_ptr()
+    b_ptr = None if bias is None else bias.data_ptr()
+    if is_bf16:
+        lib, fn = _launcher_bf16()
+        plan = bf16_plan(m, k, n, x_ptr, w_ptr)
+        out = x.new_empty((m, n), dtype=store)
+        ws = build.mma_workspace(plan, m, n, out.device)
+        args = (x_ptr, w_ptr, b_ptr, out.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                int(bias is not None and bias.dtype == torch.bfloat16),
+                int(store == torch.bfloat16), m, k, n, plan.bm, plan.bn,
+                plan.splits, plan.chunks_per_split, ACT_CODES[act],
+                int(plan.vec_x), int(plan.vec_w))
+    else:
+        lib, fn = _launcher()
+        plan = f32_plan(m, k, n, x_ptr, w_ptr, build.sm_count(index))
+        if plan.workspace:     # the output, then the splits' partial sums
+            out = x.new_empty((plan.splits + 1, m, n))[0]
+            ws_ptr = out.data_ptr() + 4 * m * n
+        else:
+            out, ws_ptr = x.new_empty((m, n)), None
+        args = (x_ptr, w_ptr, b_ptr, out.data_ptr(), ws_ptr, m, k, n, plan.bm,
+                plan.bn, plan.splits, plan.chunks_per_split,
+                F32_MODES[plan.mode], ACT_CODES[act], int(plan.vec_x),
+                int(plan.vec_w))
+    with build.on_device(index):
+        err = fn(*args, build.raw_stream(index))
+    build.check(lib, err, "gfid_matmul_bf16" if is_bf16 else "gfid_matmul")
     (gfid_matmul_bf16 if is_bf16 else gfid_matmul).launches += 1
+    return out
 
 
 gfid_matmul.launches = 0

@@ -60,15 +60,22 @@ def _check(pool: torch.Tensor, table: torch.Tensor) -> None:
         raise ValueError(f"paged_gather takes pool (num_blocks, block_size, "
                          f"*feature) and table (B, blocks_per_req); got "
                          f"{tuple(pool.shape)} and {tuple(table.shape)}")
+    # the common case in one short test; anything else is named by
+    # check_operands
+    if table.dtype is torch.int32 and pool.is_contiguous() \
+            and table.is_contiguous() and pool.device == table.device:
+        return
     build.check_operands("paged_gather", pool=(pool, pool.dtype),
                          table=(table, torch.int32))
 
 
 def copy_unit(block_bytes: int, *pointers: int) -> int:
     """The widest copy unit that divides the block's byte length and every
-    pointer."""
-    return next(u for u in UNITS
-                if block_bytes % u == 0 and all(p % u == 0 for p in pointers))
+    pointer: the lowest set bit of their OR, at most UNITS[0]."""
+    v = block_bytes | UNITS[0]
+    for p in pointers:
+        v |= p
+    return v & -v
 
 
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -79,26 +86,26 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     fails and the next synchronisation raises); on the CPU it raises
     `IndexError`."""
     _check(pool, table)
-    kind = pool.device.type
-    if kind == "cpu":
-        return paged_gather_plain(pool, table)
-    if kind == "meta":
-        return torch.empty(_out_shape(pool, table), dtype=pool.dtype,
-                           device="meta")
-    if kind != "cuda":
+    if not pool.is_cuda:
+        kind = pool.device.type
+        if kind == "cpu":
+            return paged_gather_plain(pool, table)
+        if kind == "meta":
+            return torch.empty(_out_shape(pool, table), dtype=pool.dtype,
+                               device="meta")
         raise ValueError(f"paged_gather runs on CUDA or CPU tensors, not {kind}")
-    out = torch.empty(_out_shape(pool, table), dtype=pool.dtype,
-                      device=pool.device)
+    out = pool.new_empty(_out_shape(pool, table))
     if out.numel() == 0:
         return out
-    block_bytes = pool.shape[1] * math.prod(pool.shape[2:]) * pool.element_size()
-    unit = copy_unit(block_bytes, pool.data_ptr(), out.data_ptr())
+    block_bytes = math.prod(pool.shape[1:]) * pool.element_size()
+    pool_ptr, out_ptr = pool.data_ptr(), out.data_ptr()
+    index = pool.get_device()
     lib, fn = _launcher()
-    with torch.cuda.device(pool.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(pool.data_ptr(), table.data_ptr(), out.data_ptr(),
-                 block_bytes, pool.shape[0], table.shape[0], table.shape[1],
-                 unit, stream)
+    with build.on_device(index):
+        err = fn(pool_ptr, table.data_ptr(), out_ptr, block_bytes,
+                 pool.shape[0], table.shape[0], table.shape[1],
+                 copy_unit(block_bytes, pool_ptr, out_ptr),
+                 build.raw_stream(index))
     build.check(lib, err, "paged_gather")
     paged_gather.launches += 1
     return out

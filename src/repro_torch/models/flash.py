@@ -12,13 +12,13 @@ Masked scores are NEG_INF = -2e38 and the softmax sum is clamped at 1e-37.
 Backends (the ambient `EngineConfig`):
   * "cuda"  — global attention (no window, softcap or q offset) is one
     launch of the hand-written kernel (`kernels.ops.flash_attention`); the
-    rest raises `NotImplementedError` (ROADMAP queue 1, item 5), never a
+    rest raises `NotImplementedError` (ROADMAP queue 1, item 8), never a
     quiet run of the plain version;
   * "torch" and "ref" — the chunked forward below, in plain torch ops (fp32
     with TF32 off), which also runs on `meta` tensors for program capture.
 
 Forward only: the reference's custom VJP (its memory-bounded backward) is
-ROADMAP queue 1, item 12. Attention is no engine op, as in the reference,
+ROADMAP queue 1, item 13. Attention is no engine op, as in the reference,
 so a program's recorded ops do not change with this path.
 """
 from __future__ import annotations
@@ -124,7 +124,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 f"flash attention with window={window}, softcap_val="
                 f"{softcap_val}, q_offset={q_offset} has no CUDA kernel yet "
                 "(the kernel runs global causal or unmasked attention); see "
-                "ROADMAP queue 1, item 5 (local attention)")
+                "ROADMAP queue 1, item 8 (local attention)")
         return ops.flash_attention(q, k, v, causal=causal, scale=scale)
     windowed = bool(window) and window < skv and causal
     if windowed:

@@ -19,18 +19,38 @@ hold the plans to the kernels' contracts:
     AlexNet, VGG-16 and ResNet-50 at batch 1 and 32, with 16-byte copies
     where cg (og) is a multiple of 4 on an aligned pointer;
   * every `extern "C"` entry of `csrc/` has the arity and the pointer, int,
-    long long or float kinds of the ctypes argtypes its wrapper binds.
+    long long or float kinds of the ctypes argtypes its wrapper binds;
+  * the fp32 GEMM's plan `gfid_matmul.f32_plan`: its split of K from (K, N)
+    alone, so every row's sums run in one order at any M; the few-row
+    tiles' column blocks times the splits about 512 threads an SM where K
+    is deep enough; only the tile and the way the splits are added (a
+    workspace, a cluster, a fold) follow M; 16-byte load flags from K, N
+    and alignment. A torch-op emulation of its sum order (one fmaf chain a
+    split, splits in order, then the epilogue) is within 1e-5 x max of the
+    Pallas `gfid_matmul` in interpret mode and bitwise row-invariant;
+  * the fp32 and bf16 branches of `gfid_matmul._launch` and the gather's
+    CUDA branch (library and stream faked) pass their plans, workspace and
+    arguments in the C signature's order, count each launch and raise on a
+    refused one; the lean operand checks still refuse a wrong dtype, a
+    non-contiguous operand and operands on two devices.
 """
 import ctypes
 import re
 import types
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from repro.kernels import gfid_matmul as jax_matmul
 from repro_torch.kernels import (build, conv1d, flash_attention, gfid_conv,
                                  gfid_matmul, paged)
+from repro_torch.kernels.epilogue import ACT_CODES, apply_epilogue
 from repro_torch.models import cnn
+
+jax.config.update("jax_platform_name", "cpu")
 
 # (K, N) of every GEMM the bf16 entry runs on the port's paths: AlexNet's
 # fc6-8, smollm-135m's four layer GEMMs and tied unembedding, and the
@@ -269,9 +289,12 @@ def test_f32_conv_grid_takes_any_batch_up_to_the_x_limit():
 def test_f32_tiles_match_the_kernel_source():
     """The tiles the fp32 plan chooses are those `with_tile` of
     csrc/gfid_conv.cu instantiates, at the source's K chunk, and the widest
-    is the engine plan's tiling (TILE)."""
+    is the engine plan's tiling (TILE); its FMA loop is the shared SIMT
+    machinery of csrc/simt_f32.cuh."""
     src = (build.CSRC / "gfid_conv.cu").read_text()
     assert f"constexpr int kBK = {gfid_conv.F32_BK};" in src
+    assert '#include "simt_f32.cuh"' in src
+    src += (build.CSRC / "simt_f32.cuh").read_text()
     built = set(re.findall(r"if \(bm == (\w+) && bn == (\w+)\)", src))
     names = {"kPixTile": gfid_conv.TILE[0], "kCoutTile": gfid_conv.TILE[2]}
     assert {(names.get(m) or int(m), names.get(n) or int(n))
@@ -454,3 +477,353 @@ def test_ctypes_signatures_match_the_c_interfaces(monkeypatch, source, symbol,
     _, fn = launcher.__wrapped__()
     assert opened == [library] and fn.argtypes == kinds
     assert fn.restype is ctypes.c_int
+
+
+F32_TOL = 1e-5
+
+# The fp32 GEMM (`csrc/gfid_matmul.cu`, `gfid_matmul.f32_plan`) and the lean
+# launch path of `gfid_matmul` and `paged_gather`.
+#
+# (K, N) of the fp32 GEMMs on the port's paths: smollm-135m's four layer
+# GEMMs and tied unembedding, xlstm-125m's decode GEMMs, AlexNet's fc6-8,
+# and ragged shapes.
+F32_SHAPES = [(576, 576), (576, 192), (576, 1536), (1536, 576), (576, 49152),
+          (768, 3072), (1536, 1536), (1536, 8), (1536, 768), (768, 2048),
+          (1024, 768), (768, 50304), (9216, 4096), (4096, 4096), (4096, 1000),
+          (300, 70), (1000, 33), (257, 129), (1, 5)]
+# From one row to past a prompt-2048 prefill's 8 x 2048, across every tile
+# boundary of F32_TILES and F32_FEW_ROWS.
+F32_ROWS = (1, 2, 7, 8, 9, 13, 20, 32, 33, 40, 63, 64, 65, 100, 127, 128, 129,
+        1000, 1024, 3072, 8 * 1984, 8 * 2048, 20000)
+
+
+def _f32_chunks(k):
+    return max(-(-k // gfid_matmul.F32_BK), 1)
+
+
+@pytest.mark.parametrize("k,n", F32_SHAPES)
+def test_f32_split_and_k_order_ignore_m(k, n):
+    first = gfid_matmul.f32_plan(1, k, n)
+    for m in F32_ROWS:
+        plan = gfid_matmul.f32_plan(m, k, n)
+        assert (plan.splits, plan.chunks_per_split) == \
+            (first.splits, first.chunks_per_split), m
+        # the grid covers the output with the plan's tile, and runs every
+        # split on grid z, or folds them all into each block
+        assert (plan.grid[0] - 1) * plan.bn < n <= plan.grid[0] * plan.bn
+        assert (plan.grid[1] - 1) * plan.bm < m <= plan.grid[1] * plan.bm
+        assert plan.grid[2] == (1 if plan.mode == "fold" else plan.splits)
+        assert plan.workspace == (plan.splits > 1 and plan.mode == "split")
+        # a cluster holds a few-row, 64-column tile's 2 to F32_MAX_CLUSTER
+        # splits
+        assert (plan.mode == "cluster") == (
+            m <= gfid_matmul.F32_FEW_ROWS and plan.bn == 64
+            and 1 < plan.splits <= gfid_matmul.F32_MAX_CLUSTER)
+    n_chunks = _f32_chunks(k)
+    assert (first.splits - 1) * first.chunks_per_split < n_chunks \
+        <= first.splits * first.chunks_per_split
+    assert first.splits == 1 or \
+        first.chunks_per_split >= gfid_matmul.F32_MIN_SPLIT
+
+
+@pytest.mark.parametrize("k,n", F32_SHAPES)
+def test_f32_split_fills_the_card_where_k_allows(k, n):
+    """The column blocks of the few-row tiles' width (512 where w holds
+    F32_WIDE_BYTES or more, else 64) times the splits reach about
+    F32_TARGET_BLOCKS of that width (512 threads on each of 132 SMs; the
+    equal cut of K into whole chunks may take up to an eighth off), with no
+    split more than that needs, unless K is too shallow for more splits."""
+    plan = gfid_matmul.f32_plan(8, k, n)
+    width = 512 if 4 * k * n >= gfid_matmul.F32_WIDE_BYTES else 64
+    threads = {64: 128, 512: 256}[width]
+    target = gfid_matmul.F32_TARGET_BLOCKS[width]
+    assert target * threads == 512 * 132
+    col_blocks = -(-n // width)
+    if plan.splits > 1:
+        assert col_blocks * (plan.splits - 1) < target
+    most = _f32_chunks(k) // gfid_matmul.F32_MIN_SPLIT
+    if most >= -(-target // col_blocks):
+        assert 9 * col_blocks * plan.splits >= 8 * target
+    else:
+        assert plan.splits <= max(most, 1)
+
+
+def test_f32_tiles_follow_m():
+    """Few rows take the first of 8, 32 or 64 rows that holds M, 64 columns
+    wide or, where w is wide (AlexNet's fc6), 512 and 256 columns at 8 and
+    32 rows; many rows the widest tile where it fills the card twice, else
+    64 x 64; a fold only where the tiles fill the card twice and K is
+    split; a cluster for few rows on 64 columns up to F32_MAX_CLUSTER
+    splits; else a workspace."""
+    for m, want, fc6 in ((1, (8, 64), (8, 512)), (8, (8, 64), (8, 512)),
+                         (9, (32, 64), (32, 256)), (32, (32, 64), (32, 256)),
+                         (33, (64, 64), (64, 64)), (64, (64, 64), (64, 64))):
+        plan = gfid_matmul.f32_plan(m, 576, 576)
+        assert (plan.bm, plan.bn) == want and plan.mode == "cluster"
+        plan = gfid_matmul.f32_plan(m, 9216, 4096)
+        assert (plan.bm, plan.bn) == fc6 and plan.mode == "split"
+    assert set(gfid_matmul.F32_TILES) == {
+        (128, 128), (64, 64), (32, 64), (8, 64),
+        *((r, c) for r, c in gfid_matmul.F32_WIDE_COLUMNS.items())}
+    wide = gfid_matmul.f32_plan(8 * 1984, 576, 576)
+    assert (wide.bm, wide.bn) == gfid_matmul.F32_TILES[0] == \
+        (gfid_matmul.TILE[0], gfid_matmul.TILE[2])
+    assert wide.mode == "fold" and wide.splits > 1 and wide.grid == (5, 124, 1)
+    mid = gfid_matmul.f32_plan(1024, 576, 576)        # 144 tiles of 64 x 64
+    assert (mid.bm, mid.bn) == (64, 64) and mid.mode == "split"
+    ffn = gfid_matmul.f32_plan(1024, 576, 1536)       # 384 of them: a fold
+    assert (ffn.bm, ffn.bn) == (64, 64) and ffn.mode == "fold"
+    out = gfid_matmul.f32_plan(1024, 1536, 576)       # 20 splits: a workspace
+    assert out.mode == "split" and out.workspace
+    assert gfid_matmul.f32_plan(8 * 1984, 576, 49152).mode == "fold"
+    # smollm's K = 576 cuts into as many splits as a cluster holds
+    assert gfid_matmul.f32_plan(8, 576, 576).splits == \
+        gfid_matmul.F32_MAX_CLUSTER
+
+
+def test_f32_load_flags_follow_alignment():
+    for k, n, xp, wp, want in [(576, 576, 256, 512, (True, True)),
+                               (576, 576, 260, 512, (False, True)),
+                               (576, 576, 256, 516, (True, False)),
+                               (300, 70, 0, 0, (True, False)),
+                               (257, 129, 0, 0, (False, False)),
+                               (1000, 33, 16, 16, (True, False))]:
+        plan = gfid_matmul.f32_plan(8, k, n, xp, wp)
+        assert (plan.vec_x, plan.vec_w) == want, (k, n, xp, wp)
+
+
+def test_f32_grid_limit_raises_before_any_launch():
+    with pytest.raises(ValueError, match="launch grid"):
+        gfid_matmul.f32_plan(128 * 65535 + 1, 576, 576)
+
+
+def _emulate(x, w, bias, act, plan):
+    """The kernel's sum order in torch ops: for each split, one chain over
+    its K range in order (each step fmaf, here the exact fp64 product and
+    sum rounded to fp32, up to a rare double rounding), starting from zero;
+    the splits added in split order; then bias and act in fp32."""
+    m, k = x.shape
+    xd, wd = x.double(), w.double()
+    depth = plan.chunks_per_split * gfid_matmul.F32_BK
+    total = None
+    for s in range(plan.splits):
+        acc = torch.zeros((m, w.shape[1]), dtype=torch.float32)
+        for kk in range(s * depth, min(k, (s + 1) * depth)):
+            acc = (acc.double() + xd[:, kk:kk + 1] * wd[kk:kk + 1]).float()
+        total = acc if total is None else total + acc
+    return apply_epilogue(total, bias, act)
+
+
+# (M, K, N, bias, act): one and several splits, ragged K and N, gelu.
+F32_ORDER_CASES = [(1, 300, 70, True, "gelu"), (5, 300, 70, True, "relu"),
+               (13, 257, 129, False, None), (3, 1000, 33, True, None),
+               (8, 576, 40, False, "relu"), (70, 130, 24, True, "gelu")]
+
+
+@pytest.mark.parametrize("m,k,n,has_bias,act", F32_ORDER_CASES)
+def test_f32_sum_order_matches_the_pallas_kernel(m, k, n, has_bias, act):
+    rng = np.random.default_rng(m * 1000 + k)
+    x, w, b = (rng.standard_normal(s).astype(np.float32)
+               for s in ((m, k), (k, n), (n,)))
+    want = np.asarray(jax_matmul.gfid_matmul(
+        jnp.asarray(x), jnp.asarray(w),
+        bias=jnp.asarray(b) if has_bias else None, act=act, interpret=True))
+    plan = gfid_matmul.f32_plan(m, k, n)
+    got = _emulate(torch.from_numpy(x), torch.from_numpy(w),
+                   torch.from_numpy(b) if has_bias else None, act, plan).numpy()
+    assert np.abs(got - want).max() <= F32_TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("k,n", [(300, 70), (1000, 33), (576, 24)])
+def test_f32_sum_order_is_row_invariant(k, n):
+    """One row placed among others at several M comes out bitwise equal to
+    the row alone: the plan's order at every M, applied to each row."""
+    rng = np.random.default_rng(k + n)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    row = torch.from_numpy(rng.standard_normal((1, k)).astype(np.float32))
+    want = _emulate(row, w, None, None, gfid_matmul.f32_plan(1, k, n))
+    for m in (1, 8, 13, 40, 65, 130):
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+        at = sorted({0, m - 1, min(5, m - 1)})
+        x[at] = row
+        got = _emulate(x, w, None, None, gfid_matmul.f32_plan(m, k, n))[at]
+        assert torch.equal(got, want.expand_as(got)), m
+
+
+class _NullContext:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _fake_cuda(monkeypatch, calls, err=0):
+    """Fake the launchers' libraries, the SM count, the current device and
+    the raw stream, so that `_launch` and the gather's CUDA branch run on
+    CPU tensors here and record what they would pass to the C entries."""
+    def fake_library(name):
+        symbol = {"gfid_matmul": "gfid_matmul_f32",
+                  "gfid_matmul_bf16": "gfid_matmul_bf16",
+                  "paged_gather": "paged_gather"}[name]
+
+        def fn(*args):
+            calls.append((symbol, args))
+            return err
+        return types.SimpleNamespace(
+            **{symbol: fn, "repro_cuda_error_string": lambda e: b"refused"})
+
+    monkeypatch.setattr(build, "library", fake_library)
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(build, "on_device", lambda index: _NullContext())
+    monkeypatch.setattr(build, "raw_stream", lambda index: 7)
+    for mod, name in ((gfid_matmul, "_launcher"), (gfid_matmul, "_launcher_bf16"),
+                      (paged, "_launcher")):
+        monkeypatch.setattr(mod, name, getattr(mod, name).__wrapped__)
+
+
+@pytest.mark.parametrize("m,k,n,act,mode", [
+    (8, 1536, 576, None, "split"),       # smollm decode w_out: workspace
+    (8 * 1984, 576, 576, "relu", "fold"),   # prompt-1984 prefill: folded
+    (2048, 64, 8192, "gelu", "one"),     # K = 64: one split
+    (8, 576, 576, None, "cluster"),      # smollm decode wq/wo: a cluster
+])
+def test_f32_launch_passes_its_plan(monkeypatch, m, k, n, act, mode):
+    """The fp32 branch of `_launch` calls `gfid_matmul_f32` with its plan
+    in the C signature's order: pointers (a workspace exactly when the plan
+    needs one, the (splits, M, N) fp32 right after the output in one
+    allocation), M, K, N, tile, split, mode, act, load flags, stream."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    x, w = torch.zeros((m, k)), torch.zeros((k, n))
+    bias = torch.zeros(n)
+    before = gfid_matmul.gfid_matmul.launches
+    out = gfid_matmul._launch(x, w, bias, act, False, torch.float32)
+    (symbol, args), = calls
+    plan = gfid_matmul.f32_plan(m, k, n, x.data_ptr(), w.data_ptr())
+    assert symbol == "gfid_matmul_f32"
+    assert len(args) == len(gfid_matmul.F32_ARGTYPES)
+    assert tuple(out.shape) == (m, n) and out.dtype == torch.float32 \
+        and out.is_contiguous()
+    assert args[:4] == (x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                        out.data_ptr())
+    assert (args[4] is not None) == (mode == "split") == plan.workspace
+    if plan.workspace:
+        assert args[4] == out.data_ptr() + 4 * m * n
+        assert out.untyped_storage().nbytes() == 4 * (plan.splits + 1) * m * n
+    assert plan.mode == ("split" if mode == "one" else mode)
+    assert (plan.splits > 1) == (mode != "one")
+    assert args[5:] == (m, k, n, plan.bm, plan.bn, plan.splits,
+                        plan.chunks_per_split, gfid_matmul.F32_MODES[plan.mode],
+                        ACT_CODES[act],
+                        int(plan.vec_x), int(plan.vec_w), 7)
+    assert gfid_matmul.gfid_matmul.launches == before + 1
+
+
+def test_bf16_launch_keeps_its_signature(monkeypatch):
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    x = torch.zeros((8, 576), dtype=torch.bfloat16)
+    w = torch.zeros((576, 576), dtype=torch.bfloat16)
+    before = gfid_matmul.gfid_matmul_bf16.launches
+    out = gfid_matmul._launch(x, w, None, None, True, torch.bfloat16)
+    (symbol, args), = calls
+    assert out.dtype == torch.bfloat16 and args[3] == out.data_ptr()
+    plan = gfid_matmul.bf16_plan(8, 576, 576, x.data_ptr(), w.data_ptr())
+    assert symbol == "gfid_matmul_bf16"
+    assert len(args) == len(gfid_matmul.BF16_ARGTYPES)
+    assert args[5:] == (0, 1, 8, 576, 576, plan.bm, plan.bn, plan.splits,
+                        plan.chunks_per_split, 0, int(plan.vec_x),
+                        int(plan.vec_w), 7)
+    assert gfid_matmul.gfid_matmul_bf16.launches == before + 1
+
+
+def test_refused_launch_raises_and_is_not_counted(monkeypatch):
+    calls = []
+    _fake_cuda(monkeypatch, calls, err=98)
+    x, w = torch.zeros((8, 576)), torch.zeros((576, 576))
+    before = gfid_matmul.gfid_matmul.launches
+    with pytest.raises(RuntimeError, match="gfid_matmul launch failed: CUDA "
+                                           "error 98 \\(refused\\)"):
+        gfid_matmul._launch(x, w, None, None, False, torch.float32)
+    assert gfid_matmul.gfid_matmul.launches == before
+    pool = torch.zeros((4, 2, 8))
+    table = torch.tensor([[1, 2]], dtype=torch.int32)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    before = paged.paged_gather.launches
+    with pytest.raises(RuntimeError, match="paged_gather launch failed"):
+        paged.paged_gather(pool, table)
+    assert paged.paged_gather.launches == before
+
+
+def test_gather_launch_passes_its_unit_and_counts(monkeypatch):
+    """The gather's CUDA branch (faked) passes the block's bytes, the pool
+    and table geometry and the widest copy unit, on the raw stream, and
+    counts the launch."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    pool = torch.zeros((6, 4, 3, 2), dtype=torch.bfloat16)
+    table = torch.tensor([[1, 5], [0, 2], [3, 3]], dtype=torch.int32)
+    before = paged.paged_gather.launches
+    out = paged.paged_gather(pool, table)
+    (symbol, args), = calls
+    assert symbol == "paged_gather" and len(args) == len(paged.ARGTYPES)
+    assert args[0] == pool.data_ptr() and args[1] == table.data_ptr()
+    assert args[2] == out.data_ptr() and tuple(out.shape) == (3, 8, 3, 2)
+    assert args[3:] == (48, 6, 3, 2, paged.copy_unit(48, pool.data_ptr(),
+                                                      out.data_ptr()), 7)
+    assert paged.paged_gather.launches == before + 1
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed", "contiguous", "device",
+                                  "bias_dtype", "bias_device"])
+def test_lean_checks_still_refuse(case):
+    """The short test that passes good operands lets nothing else through:
+    each bad operand reaches `check_operands`, which names it."""
+    x, w = torch.zeros((4, 6)), torch.zeros((6, 5))
+    bias = torch.zeros(5)
+    if case == "dtype":
+        x, w = x.double(), w.double()
+    elif case == "mixed":
+        w = w.to(torch.bfloat16)
+    elif case == "contiguous":
+        w = torch.zeros((5, 6)).t()
+    elif case == "device":
+        w = w.to("meta")
+    elif case == "bias_dtype":
+        bias = bias.to(torch.bfloat16)
+    else:
+        bias = bias.to("meta")
+    error = TypeError if "dtype" in case or case == "mixed" else ValueError
+    with pytest.raises(error, match="gfid_matmul"):
+        gfid_matmul.gfid_matmul(x, w, bias=bias)
+    assert build.check_float_operands("k", x.float(), torch.zeros((6, 5)),
+                                      None) is False
+
+
+@pytest.mark.parametrize("case", ["dtype", "contiguous", "device"])
+def test_lean_gather_checks_still_refuse(case):
+    pool = torch.zeros((4, 2, 3))
+    table = torch.zeros((1, 2), dtype=torch.int32)
+    if case == "dtype":
+        table = table.long()
+    elif case == "contiguous":
+        pool = pool.transpose(1, 2)
+    else:
+        table = table.to("meta")
+    with pytest.raises((TypeError, ValueError), match="paged_gather"):
+        paged.paged_gather(pool, table)
+
+
+def test_on_device_switches_only_to_another_device(monkeypatch):
+    entered = []
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: entered.append(index) or _NullContext())
+    with build.on_device(0):
+        pass
+    assert entered == []
+    with build.on_device(1):
+        pass
+    assert entered == [1]

@@ -207,7 +207,7 @@ def test_cuda_backend_runs_the_kernel_wrapper_on_bf16(causal):
 def test_cuda_backend_refuses_what_the_kernel_lacks(kw):
     q, k, v = _t(*_qkv(1, 32, 2, 1, 8))
     with TE.using_backend("cuda"), \
-            pytest.raises(NotImplementedError, match="queue 1, item 5"):
+            pytest.raises(NotImplementedError, match="queue 1, item 8"):
         TF.flash_attention(q, k, v, causal=True, **kw)
 
 
@@ -289,7 +289,7 @@ def test_wrapper_on_meta_keeps_bf16():
 def test_no_backward_yet(which):
     qkv = _t(*_qkv(1, 16, 2, 1, 8))
     qkv[which].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         FA.flash_attention(*qkv)
 
 
