@@ -20,7 +20,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      and load path of `gfid_conv.f32_plan` (required). fp32:
      max|kernel - plain| / max|plain| <= 1e-4. int8 (operands quantized on
      the card by `core/quant`): max|kernel - plain| == 0 for act None and
-     relu, <= 1e-6 * max|plain| for gelu. bf16 operands (`gfid_matmul_bf16`,
+     relu, <= 1e-6 * max|plain| for gelu; the int8 conv's cases reach every
+     (tile, split) pair of `gfid_conv.int8_plan` and both load paths of x
+     and w (required). bf16 operands (`gfid_matmul_bf16`,
      `gfid_conv2d_nhwc_bf16`) at every AlexNet conv and FC shape (bf16 bias,
      relu), the ragged cases (fp32 bias, gelu, none), smollm's GEMMs at
      decode (M = 8) and prefill (M = 1024, and 15,872 for w_in/w_gate)
@@ -73,8 +75,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      `flash_attention` against its plain version: smollm-135m's prefill
      heads (1, S, 9 / 3, 64) causal at S = 1025, 1280, 1664, 1984 and 2048,
      the four cases of tests/test_kernels.py, a prime length (1031), B = 2,
-     D = 128 causal and not, each in fp32 on `flash_attention.cu` (within
-     1e-4 x max|plain|) and on bf16 operands on `flash_attention_bf16.cu`
+     D = 128 causal and not, lengths that are no multiple of the fp32 kv
+     tile at D = 8, 64 and 128, D = 10 and B = 4, each in fp32 on
+     `flash_attention.cu` (within 1e-4 x max|plain|; reaching blocks of 32
+     and 64 q rows and both copy paths) and on bf16 operands on `flash_attention_bf16.cu`
      (within 8e-3, two calls bitwise equal), with bf16 cases at D = 40, at
      D = 20 and on unaligned views that must reach every padded head dim
      (16, 32, 64, 128) and both copy paths; and that an input which
@@ -83,9 +87,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      plain version's time and one library call's time where one PyTorch call
      computes the same function (`F.conv2d` on NCHW and `torch.addmm`, each
      followed by relu, TF32 off; `torch._int_mm` for the int8 product where
-     it accepts the shape; none for the int8 conv); the fp32 conv and GEMM
-     also for the device alone (a CUDA graph of 100 calls), kernel and
-     cuDNN or cuBLAS. The host part of one call of the lean launch path,
+     it accepts the shape; none for the int8 conv); every kernel also for
+     the device alone (a CUDA graph of 100 calls), beside cuDNN, cuBLAS or
+     `torch._int_mm` timed the same way ("none" where there is no call). The host part of one call of the lean launch path,
      piece by piece beside the piece it replaced, for `gfid_matmul` at the
      decode's wq/wo (8, 576) @ (576, 576) fp32 and `paged_gather` at the
      full-width pool and a table of 8 x 32, and each whole call on the host
@@ -96,8 +100,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      inside, and the device alone) and one prefill's 30, beside
      `F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)` in
      the same dtype with TF32 off (timed here only; nothing on the path
-     calls it), and bf16 flash and SDPA at B = 4 for the device alone (how
-     far too few warps an SM hold back B = 1). The bf16 kernels at AlexNet's shapes as the path runs them
+     calls it), and flash (fp32 and bf16) and SDPA at B = 4 for the device
+     alone (how far too few warps an SM hold back B = 1). The bf16 kernels at AlexNet's shapes as the path runs them
      (bf16 in and out), beside `F.conv2d` and `torch.addmm` in bf16, each
      with relu, also timed for the device alone; `gfid_matmul` on bf16 and
      on fp32 operands at smollm's four layer GEMMs at M = 1024 and 15,872
@@ -493,11 +497,11 @@ def bf16_conv_cases(gen, dev):
 
 
 def launch_plan(kind, kw):
-    """The launch plan the wrapper takes for a case of `kind` "conv" (fp32
-    or bf16 operands) or "mm" (fp32 or bf16): the wrappers' own plan
+    """The launch plan the wrapper takes for a case of `kind` "conv" (fp32,
+    bf16 or int8 operands) or "mm" (fp32 or bf16): the wrappers' own plan
     functions on the case's shapes and addresses."""
     from repro_torch.kernels import build, gfid_conv, gfid_matmul
-    x, w = kw["x"], kw["w"]
+    x, w = (kw["x"], kw["w"]) if "x" in kw else (kw["xq"], kw["wq"])
     sms = build.sm_count(x.device.index or 0) if x.is_cuda else 132
     if kind == "mm" and x.dtype == torch.bfloat16:
         return gfid_matmul.bf16_plan(x.shape[0], x.shape[1], w.shape[1],
@@ -509,7 +513,8 @@ def launch_plan(kind, kw):
     h_f, w_f, cg, c_out = w.shape
     s, p, groups = kw["stride"], kw["pad"], kw["groups"]
     pixels = b * ((h + 2 * p - h_f) // s + 1) * ((wd + 2 * p - w_f) // s + 1)
-    plan = gfid_conv.bf16_plan if x.dtype == torch.bfloat16 else gfid_conv.f32_plan
+    plan = {torch.bfloat16: gfid_conv.bf16_plan, torch.int8: gfid_conv.int8_plan}.get(
+        x.dtype, gfid_conv.f32_plan)
     return plan(pixels, h_f * w_f * cg, c_out // groups, groups, cg,
                 x.data_ptr(), w.data_ptr(), sms)
 
@@ -526,6 +531,26 @@ def require_plan_coverage(kname, plans, tiles):
     print(f"[check] {kname}: the cases reach block tiles "
           f"{', '.join(f'{m}x{n}' for m, n in sorted(seen['tile']))}, one and "
           f"several K splits, element and 16-byte loads of x and w")
+
+
+def require_int8_conv_coverage(plans):
+    """Every (tile, split) pair `gfid_conv.int8_plan` can pick (the wide
+    tile with x gathered byte by byte and K in one split; the 64 x 64 and
+    32 x 64 tiles in one split; the 32 x 64 tile with K split across a
+    cluster) and both load paths of x and of w were among the checked
+    plans."""
+    from repro_torch.kernels.gfid_conv import INT8_TILES
+    seen = dict(mode={(p.bm, p.bn, p.splits > 1) for p in plans},
+                vec_x={p.vec_x for p in plans}, vec_w={p.vec_w for p in plans})
+    want = dict(mode={(m, n, False) for m, n in INT8_TILES}
+                | {INT8_TILES[-1] + (True,)},
+                vec_x={False, True}, vec_w={False, True})
+    require(seen == want, f"gfid_conv2d_nhwc_int8: the checked cases reach "
+            f"{seen}, not {want}")
+    print("[check] gfid_conv2d_nhwc_int8: the cases reach block tiles "
+          + ", ".join(f"{m}x{n} {'in a cluster of K splits' if c else 'one split'}"
+                      for m, n, c in sorted(seen["mode"]))
+          + ", byte and 16-byte loads of x and w")
 
 
 def f32_mode(plan):
@@ -1433,8 +1458,10 @@ def flash_cases(gen, dev):
     """(label, q, k, v, causal) for `flash_attention`, fp32: smollm-135m's
     prefill heads (1, S, 9 / 3, 64) causal at S = 1025, 1280, 1664, 1984 and
     2048; the four cases of tests/test_kernels.py (non-causal, H/KV = 2 and
-    D = 8 among them); a prime length; B = 2; D = 128 causal and not. Phase
-    3 runs each on fp32 and on bf16 operands."""
+    D = 8 among them); a prime length; B = 2; D = 128 causal and not; Sq
+    not a multiple of the fp32 kernel's kv tile at D = 8, 64 and 128; D =
+    10 (element copies in fp32); B = 4 at 1000 tokens (64-row blocks in
+    fp32). Phase 3 runs each on fp32 and on bf16 operands."""
     def qkv(b, s, h, kv, d):
         return tuple(torch.randn(shape, generator=gen).to(dev)
                      for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
@@ -1449,7 +1476,13 @@ def flash_cases(gen, dev):
     cases += [("prime length (1, 1031, 9/3, 64) causal", *qkv(1, 1031, 9, 3, 64), True),
               ("B=2 (2, 700, 9/3, 64) causal", *qkv(2, 700, 9, 3, 64), True),
               ("D=128 (1, 300, 4/2, 128) causal", *qkv(1, 300, 4, 2, 128), True),
-              ("D=128 (1, 300, 4/2, 128) non-causal", *qkv(1, 300, 4, 2, 128), False)]
+              ("D=128 (1, 300, 4/2, 128) non-causal", *qkv(1, 300, 4, 2, 128), False),
+              ("ragged D=8 (1, 1000, 4/2, 8) causal", *qkv(1, 1000, 4, 2, 8), True),
+              ("ragged D=64 (1, 777, 9/3, 64) causal", *qkv(1, 777, 9, 3, 64), True),
+              ("ragged D=128 (1, 333, 4/2, 128) non-causal", *qkv(1, 333, 4, 2, 128),
+               False),
+              ("D=10 (1, 150, 4/2, 10) causal", *qkv(1, 150, 4, 2, 10), True),
+              ("B=4 (4, 1000, 9/3, 64) causal", *qkv(4, 1000, 9, 3, 64), True)]
     return cases
 
 
@@ -1863,27 +1896,26 @@ def flash_timing(dev, flash, worst):
                                       iters=5),
                      library_ms=time_ms(sdpa), library_device_ms=graph_ms(sdpa),
                      bound_ms=b_ms, bound_by=by)
-        if dtype == torch.bfloat16:
-            # the same heads at B = 4 (four times the blocks, for the device
-            # alone): how far the rate at B = 1 is held back by too few warps
-            # an SM rather than by the work of each
-            q4, k4, v4 = (t.expand(4, -1, -1, -1).contiguous() for t in (q, k, v))
-            qt4, kt4, vt4 = (t.transpose(1, 2) for t in (q4, k4, v4))
-            ops = 4 * h * d * sum(i + 1 for i in range(s))     # causal pairs, B = 1
-            b4 = dict(device_ms=graph_ms(lambda: flash.flash_attention(q4, k4, v4)),
-                      library_device_ms=graph_ms(
-                          lambda: F.scaled_dot_product_attention(
-                              qt4, kt4, vt4, is_causal=True, enable_gqa=True)))
-            print(f"[time] {kname} (B, {s}, {h}/{kv}, {d}) causal {name}, the device "
-                  f"alone: B = 1 kernel {row_t['device_ms']:.4f} ms, library "
-                  f"{row_t['library_device_ms']:.4f} ms; B = 4 kernel "
-                  f"{b4['device_ms']:.4f} ms ({4 * ops / b4['device_ms'] / 1e9:.1f} "
-                  f"TFLOP/s against {ops / row_t['device_ms'] / 1e9:.1f} at B = 1), "
-                  f"library {b4['library_device_ms']:.4f} ms "
-                  f"({4 * ops / b4['library_device_ms'] / 1e9:.1f} against "
-                  f"{ops / row_t['library_device_ms'] / 1e9:.1f})")
-            row_t["b4"] = b4
-            del q4, k4, v4, qt4, kt4, vt4
+        # the same heads at B = 4 (four times the blocks, for the device
+        # alone): how far the rate at B = 1 is held back by too few warps
+        # an SM rather than by the work of each
+        q4, k4, v4 = (t.expand(4, -1, -1, -1).contiguous() for t in (q, k, v))
+        qt4, kt4, vt4 = (t.transpose(1, 2) for t in (q4, k4, v4))
+        ops = 4 * h * d * sum(i + 1 for i in range(s))     # causal pairs, B = 1
+        b4 = dict(device_ms=graph_ms(lambda: flash.flash_attention(q4, k4, v4)),
+                  library_device_ms=graph_ms(
+                      lambda: F.scaled_dot_product_attention(
+                          qt4, kt4, vt4, is_causal=True, enable_gqa=True)))
+        print(f"[time] {kname} (B, {s}, {h}/{kv}, {d}) causal {name}, the device "
+              f"alone: B = 1 kernel {row_t['device_ms']:.4f} ms, library "
+              f"{row_t['library_device_ms']:.4f} ms; B = 4 kernel "
+              f"{b4['device_ms']:.4f} ms ({4 * ops / b4['device_ms'] / 1e9:.1f} "
+              f"TFLOP/s against {ops / row_t['device_ms'] / 1e9:.1f} at B = 1), "
+              f"library {b4['library_device_ms']:.4f} ms "
+              f"({4 * ops / b4['library_device_ms'] / 1e9:.1f} against "
+              f"{ops / row_t['library_device_ms'] / 1e9:.1f})")
+        row_t["b4"] = b4
+        del q4, k4, v4, qt4, kt4, vt4
         per = {key: row_t[key] * cfg.n_layers for key in
                ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
                 "bound_ms")}
@@ -2223,6 +2255,13 @@ def main():
             else:
                 limit = TOL
             plan = ""
+            if kname == "gfid_conv2d_nhwc_int8":
+                plans.append(launch_plan("conv", kw))
+                plan = (f", tile {plans[-1].bm}x{plans[-1].bn}, K splits "
+                        f"{plans[-1].splits}"
+                        + (" (a cluster)" if plans[-1].splits > 1 else "")
+                        + f", 16-byte loads x {int(plans[-1].vec_x)} "
+                        f"w {int(plans[-1].vec_w)}")
             if kname in ("gfid_conv2d_nhwc", "gfid_matmul"):
                 plans.append(launch_plan("conv" if kname == "gfid_conv2d_nhwc"
                                          else "mm", kw))
@@ -2245,6 +2284,8 @@ def main():
         if kname == "gfid_matmul":
             require_plan_coverage(kname, plans, gfid_matmul.F32_TILES)
             require_f32_gemm_coverage(plans)
+        if kname == "gfid_conv2d_nhwc_int8":
+            require_int8_conv_coverage(plans)
     # bf16 operands: the AlexNet shapes (bias bf16) and the ragged ones (bias
     # fp32), then the cases of bf16_conv_cases and bf16_mm_cases, each stored
     # in fp32 and in bf16; the cases must reach every plan the wrappers make
@@ -2318,7 +2359,7 @@ def main():
     fp32_cases = flash_cases(gen, dev)
     bf16_cases = [(lbl, *(t.to(torch.bfloat16) for t in (q, k, v)), c)
                   for lbl, q, k, v, c in fp32_cases] + flash_bf16_cases(gen, dev)
-    launches16 = []
+    launches16, launches32 = [], []
     for label, q, k, v, causal in fp32_cases + bf16_cases:
         is16 = q.dtype == torch.bfloat16
         zero_counts(fa32, fa16)
@@ -2335,6 +2376,13 @@ def main():
         abs_err = (got.float() - want.float()).abs().max().item()
         limit = BF16_FLASH_TOL if is16 else TOL
         extra = ""
+        if not is16:
+            plan = flash_attention.f32_launch(q.shape[0], q.shape[1], q.shape[2],
+                                              q.shape[3], q.data_ptr(), k.data_ptr(),
+                                              v.data_ptr(), sms=props.multi_processor_count)
+            launches32.append(plan)
+            extra = (f", {plan.q_rows} q rows a block, "
+                     f"{'16-byte' if plan.vec else 'element'} copies")
         if is16:
             plan = flash_attention.bf16_launch(q.shape[0], q.shape[1], q.shape[2],
                                                q.shape[3], q.data_ptr(),
@@ -2353,6 +2401,12 @@ def main():
         require(err <= limit, f"{kname} {label}: error {err:.3e} > {limit}")
         worst[kname] = max(worst[kname], abs_err)
         checks += 1
+    seen = ({p.q_rows for p in launches32}, {p.vec for p in launches32})
+    require(seen == (set(flash_attention.F32_Q_ROWS), {False, True}),
+            f"flash_attention: the checked cases reach q rows {seen[0]} and "
+            f"copies {seen[1]}")
+    print("[check] flash_attention: the cases reach blocks of 32 and 64 q rows and "
+          "both element and 16-byte copies")
     seen = ({p.d_pad for p in launches16}, {p.vec for p in launches16})
     require(seen == ({16, 32, 64, 128}, {False, True}), f"flash_attention_bf16: "
             f"the checked cases reach head dims {seen[0]} and copies {seen[1]}")
@@ -2629,8 +2683,8 @@ def main():
             ("gfid_matmul_bf16", mm32, gfid_matmul.gfid_matmul_plain,
              fc16_main)):
         int8, bf16 = kname.endswith("_int8"), kname.endswith("_bf16")
-        # the device alone too (a CUDA graph of 100 calls), kernel and library
-        alone = bf16 or kname in ("gfid_conv2d_nhwc", "gfid_matmul")
+        # every kernel for the device alone too (a CUDA graph of 100 calls),
+        # and the library call where there is one
         elem = 2 if bf16 else 4     # bytes an element
         peak = (PEAK_INT8_OP_S if int8 else PEAK_BF16_FLOP_S if bf16
                 else PEAK_FP32_FLOP_S)
@@ -2666,13 +2720,15 @@ def main():
                 k_ms = time_ms(lambda: kernel(**kw))
                 p_ms = time_ms(lambda: plain(**kw))
                 l_ms = None if lib is None else time_ms(lambda: lib(**lib_kw))
-                device = ""
-                if alone:   # the device alone, without the host's launch
-                    d_ms = graph_ms(lambda: kernel(**kw))
-                    ld_ms = graph_ms(lambda: lib(**lib_kw))
-                    tot["device_ms"] += d_ms
-                    tot["library_device_ms"] += ld_ms
-                    device = f"; the device alone: kernel {d_ms:.4f} ms, library {ld_ms:.4f} ms"
+                # the device alone, without the host's launch
+                d_ms = graph_ms(lambda: kernel(**kw))
+                ld_ms = None if lib is None else graph_ms(lambda: lib(**lib_kw))
+                tot["device_ms"] += d_ms
+                tot["library_device_ms"] = (None if ld_ms is None
+                                            or tot["library_device_ms"] is None
+                                            else tot["library_device_ms"] + ld_ms)
+                device = (f"; the device alone: kernel {d_ms:.4f} ms, library "
+                          + ("none" if ld_ms is None else f"{ld_ms:.4f} ms"))
                 print(f"[time] {kname} {label}: kernel {k_ms:.4f} ms, plain "
                       f"{p_ms:.4f} ms, library "
                       + ("none" if l_ms is None else f"{l_ms:.4f} ms")
@@ -2686,13 +2742,13 @@ def main():
                                      else tot["library_ms"] + l_ms)
             tot["bound_by"] = bound_ms(tot["n_bytes"], tot["ops"], peak)[1]
             totals[(kname, batch)] = tot
-            lib_txt = ("none" if tot["library_ms"] is None
-                       else f"{tot['library_ms']:.4f} ms")
+            lib_txt, lib_dev_txt = ("none" if tot[key] is None else f"{tot[key]:.4f} ms"
+                                    for key in ("library_ms", "library_device_ms"))
             print(f"[time] {kname} B={batch} total over the path's layers: kernel "
                   f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
-                  f"{lib_txt}, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})"
-                  + (f"; the device alone: kernel {tot['device_ms']:.4f} ms, library "
-                     f"{tot['library_device_ms']:.4f} ms" if alone else ""))
+                  f"{lib_txt}, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}); the "
+                  f"device alone: kernel {tot['device_ms']:.4f} ms, library "
+                  f"{lib_dev_txt}")
 
     for batch in BATCHES:
         fwd = forward_ms[("int8", batch)]
@@ -2777,13 +2833,13 @@ def main():
             kernels[-1]["prefill_device_ms"] = {str(m): v["device_ms"]
                                                 for m, v in prefill_mm32.items()}
             kernels[-1]["launch_path"] = launch_path["gfid_matmul"]
-        if kname in ("gfid_conv2d_nhwc", "gfid_matmul"):   # the device alone; batch 32
-            t32 = totals[(kname, BATCHES[-1])]
-            kernels[-1].update(
-                device_ms=tot["device_ms"], library_device_ms=tot["library_device_ms"],
-                **{f"batch{BATCHES[-1]}": {key: t32[key] for key in (
-                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-                    "library_device_ms")}})
+        # the device alone; batch 32
+        t32 = totals[(kname, BATCHES[-1])]
+        kernels[-1].update(
+            device_ms=tot["device_ms"], library_device_ms=tot["library_device_ms"],
+            **{f"batch{BATCHES[-1]}": {key: t32[key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                "library_device_ms")}})
     g = served["gather"]
     kernels.append({
         "name": "paged_gather", "route": "cuda",

@@ -1,6 +1,6 @@
 // GFID convolution on int8 operands (NHWC x HWIO -> NHWC) with an exact int32
 // accumulator and a fused dequant + bias + activation epilogue, fp32 out, for
-// Hopper (sm_90a).
+// Hopper (sm_90a), as an implicit GEMM on the int8 tensor cores.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/gfid_conv.py
 //   gfid_conv2d_nhwc_int8 (_accumulate_int8, _kernel_int8), together with the
@@ -10,31 +10,38 @@
 //
 // What bounds it on an H100: at AlexNet batch 1 the five convs do 666 M
 //   multiply-adds on about 5 MB of traffic (int8 inputs and weights, fp32
-//   outputs): under the card's int8 tensor-core rate the bytes are the floor.
-//   This kernel multiplies on the CUDA cores (__dp4a, 4 multiply-adds an
-//   instruction), so its own issue rate, and at batch 1 the few output
-//   pixels of conv3-5 (169 per image), bound it in practice.
+//   outputs), at batch 32 21.3 G on 63 MB: under the card's 1,979 TOP/s
+//   int8 tensor-core rate the bytes are the floor at both. In practice
+//   shared-memory traffic (each A and B byte is staged once and read by
+//   `ldmatrix`) and, at batch 1, the few output pixels of conv3-5 (169) and
+//   the launch bound it.
 //
-// What the design does about it: it is an implicit GEMM per (image, group):
-//   rows are the output pixels of the image flattened over H_out x W_out (so
-//   13-wide rows waste no threads, unlike a one-row tile), columns the output
-//   channels of the group, and K = H_f x W_f x C_in/groups in HWIO order,
-//   which is also the row order of the flattened weights. A block owns 64
-//   pixels by 64 channels; each thread a 4 x 4 register tile of int32 sums.
-//   For each 32-deep K chunk the block gathers the x tile (64 pixels x 32
-//   taps) and the weight tile (32 taps x 64 channels, stored channel-major)
-//   into shared memory as 4-byte words, then runs __dp4a over them. The
-//   gather masks the border: a tap outside the input reads the int8 value 0,
-//   which is exact, as the reference pads after quantizing. Where C_in/groups
-//   is a multiple of 4 the four taps of a word are four adjacent channels and
-//   one aligned 32-bit load; otherwise (conv1, C_in = 3) the word is packed
-//   from byte loads, zero-filled past the end of K. The group index is part of
-//   the launch grid, so a padded, grouped conv is one launch.
-//   Where the pixel and channel tiles give too few blocks for the 132 SMs
-//   (conv3-5 at batch 1 give 12-18), the wrapper splits K across blocks: the
-//   partial sums are added into an int32 workspace with atomics (integer
-//   addition in any order gives the same sum) and the block that arrives
-//   last for a tile, by a ticket counter, runs the epilogue.
+// What the design does about it: the conv is one GEMM per group. Its rows
+//   are the output pixels (b, h_out, w_out), flattened across rows and
+//   images, so no tile idles on the 13-wide rows of conv3-5 or ends at an
+//   image; its columns are the group's C_out; its K runs over (j, i, c),
+//   H_f x W_f x C_in/groups in HWIO order, so the B tile is a slab of w
+//   viewed as (H_f W_f cg, C_out) at column g * og. Each product is an
+//   `mma.sync.m16n8k32` s8 x s8 -> s32 (512 multiply-adds an instruction,
+//   against __dp4a's 4), through csrc/mma_int8.cuh: a 4-stage ring of A and
+//   of B as it lies in w, B transposed one chunk ahead into channel-major
+//   shared memory with `__byte_perm` (sm_90 has no 8-bit ldmatrix.trans),
+//   both read by `ldmatrix.x4`. The A tile is gathered from x with bounds
+//   masks for the padding (no padded copy): a block decodes its rows'
+//   (b, h0, w0) once into shared memory; with cg % 16 == 0 (conv2-5: 48,
+//   256, 192, 192) each 16 channels of one tap are one 16-byte `cp.async`,
+//   zero-filled at the pad; conv1 (cg = 3, K = 363) and ragged shapes
+//   gather byte by byte into words, zero past K. w goes by 16-byte
+//   `cp.async` of 16 channels of one K row where og % 16 == 0 (all of
+//   AlexNet's), else byte by byte. The group is a grid
+//   axis beside the column blocks, each row decodes its image for sx[b],
+//   and the wrapper picks the block tile (128 x 128, 64 x 64 or 32 x 64,
+//   kernels/gfid_conv.py::int8_plan) to fill the 132 SMs. Where even 32-row
+//   tiles leave the card idle (batch 1's conv2-5), K is split across up to
+//   8 blocks that form one thread block cluster: the first adds the others'
+//   int32 sums through distributed shared memory and runs the epilogue. No
+//   workspace, no memset, one launch; integer sums are exact in any order,
+//   so every tile and split gives the same bits.
 //   The epilogue is `dequant_epilogue` of epilogue.cuh with scale =
 //   sx[b] * sw[c_out], one fp32 multiply: bitwise the plain version's for act
 //   none and relu.
@@ -47,189 +54,201 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "mma_int8.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPixTile = 64;   // output pixels (of one image) per block
-constexpr int kCoutTile = 64;  // output channels (of one group) per block
-constexpr int kKc = 32;        // K chunk staged per step
-constexpr int kKw = kKc / 4;   // words of one staged row
-constexpr int kWStride = kKw + 1;  // odd word stride of the weight tile: no bank conflicts
-constexpr int kChanLanes = 16;
-constexpr int kPixLanes = kThreads / kChanLanes;  // 16
-constexpr int kPixPerThread = kPixTile / kPixLanes;       // 4
-constexpr int kChanPerThread = kCoutTile / kChanLanes;    // 4
+// The widest block tile (kernels/gfid_conv.py TILE_INT8, the engine plan's
+// tiling): output pixels, K bytes a chunk, output channels.
+constexpr int kPixTile = 128;
+constexpr int kKc = 64;
+constexpr int kCoutTile = 128;
+static_assert(kKc == mma8::kKc, "the chunk is the core's");
 
-// x[b, h, w, c] of the tap kk (in HWIO order: j, i, c within the group) for
-// output pixel (zo, to), or 0 outside the input.
-__device__ __forceinline__ uint32_t load_tap(const uint8_t* __restrict__ xb, int kk, int cg,
-                                             int W_f, int zo, int to, int stride, int pad,
-                                             int H_in, int W_in, int C_in) {
-  const int c = kk % cg;
-  const int t = kk / cg;
-  const int h = zo * stride + t / W_f - pad;
-  const int wi = to * stride + t % W_f - pad;
-  if (h < 0 || h >= H_in || wi < 0 || wi >= W_in) return 0u;
-  return xb[((size_t)h * W_in + wi) * C_in + c];
-}
+struct Geometry {
+  int B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad, groups;
+};
 
-__global__ void __launch_bounds__(kThreads)
-gfid_conv2d_nhwc_int8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                             const float* __restrict__ sx, const float* __restrict__ sw,
-                             const float* __restrict__ bias, float* __restrict__ out,
-                             int* __restrict__ ws, unsigned int* __restrict__ tickets,
-                             int H_in, int W_in, int C_in, int H_f, int W_f, int C_out,
-                             int H_out, int W_out, int stride, int pad, int groups,
-                             int splits, int chunks_per_split, int act, int vec_x) {
-  __shared__ int xs[kPixTile][kKw];
-  __shared__ int wsm[kCoutTile][kWStride];
-  __shared__ unsigned int is_last;
-  const int cg = C_in / groups;
-  const int og = C_out / groups;
-  const int n_cot = (og + kCoutTile - 1) / kCoutTile;
-  const int g = blockIdx.x / n_cot;
-  const int co0 = (blockIdx.x % n_cot) * kCoutTile;  // within the group
-  const int p0 = blockIdx.y * kPixTile;
-  const int b = blockIdx.z / splits;
-  const int part = blockIdx.z % splits;
-  const int P = H_out * W_out;
-  const int Kg = H_f * W_f * cg;
-  const int n_chunks = (Kg + kKc - 1) / kKc;
-  const int ch_begin = part * chunks_per_split;
-  const int ch_end = min(n_chunks, ch_begin + chunks_per_split);
+constexpr int kOffRow = -(1 << 29);  // h0 of a row past the last pixel: every tap misses
+
+template <class T, bool kCluster>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+gfid_conv_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                      const float* __restrict__ sx, const float* __restrict__ sw,
+                      const float* __restrict__ bias, float* __restrict__ out, Geometry d,
+                      int chunks_per_split, int act, int vec_x, int vec_w) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int4 rows[T::BM];  // (b, h_in of tap row 0, w_in of tap column 0, -)
   const int tid = threadIdx.x;
-  const int tc = tid % kChanLanes;
-  const int tp = tid / kChanLanes;
-  const int cbase = g * og + co0;  // first output channel of this block
-  const uint8_t* xb = x + (size_t)b * H_in * W_in * C_in + (size_t)g * cg;
+  const int cg = d.C_in / d.groups;
+  const int og = d.C_out / d.groups;
+  const int ncb = (og + T::BN - 1) / T::BN;
+  const int m0 = blockIdx.x * T::BM;
+  const int g = blockIdx.y / ncb;
+  const int n0 = (blockIdx.y % ncb) * T::BN;  // within the group
+  const int hw = d.H_out * d.W_out;
+  const int P = d.B * hw;
+  const int K = d.H_f * d.W_f * cg;
+  const int n_chunks = (K + kKc - 1) / kKc;
+  const int begin = blockIdx.z * chunks_per_split;
+  const int end = min(n_chunks, begin + chunks_per_split);
+  const int8_t* xg = x + (size_t)g * cg;
+  const int8_t* wg = w + (size_t)g * og;
 
-  int acc[kPixPerThread][kChanPerThread];
-#pragma unroll
-  for (int p = 0; p < kPixPerThread; ++p)
-#pragma unroll
-    for (int q = 0; q < kChanPerThread; ++q) acc[p][q] = 0;
-
-  for (int ch = ch_begin; ch < ch_end; ++ch) {
-    const int k0 = ch * kKc;
-    for (int idx = tid; idx < kPixTile * kKw; idx += kThreads) {
-      const int p = idx / kKw;
-      const int kk = k0 + 4 * (idx % kKw);
-      const int pix = p0 + p;
-      uint32_t v = 0u;
-      if (pix < P && kk < Kg) {
-        const int zo = pix / W_out;
-        const int to = pix % W_out;
-        if (vec_x) {  // four adjacent channels of one tap: one aligned word
-          const int c = kk % cg;
-          const int t = kk / cg;
-          const int h = zo * stride + t / W_f - pad;
-          const int wi = to * stride + t % W_f - pad;
-          if (h >= 0 && h < H_in && wi >= 0 && wi < W_in)
-            v = *reinterpret_cast<const unsigned int*>(xb + ((size_t)h * W_in + wi) * C_in + c);
-        } else {
-          for (int r = 0; r < 4 && kk + r < Kg; ++r)
-            v |= load_tap(xb, kk + r, cg, W_f, zo, to, stride, pad, H_in, W_in, C_in)
-                 << (8 * r);
-        }
-      }
-      xs[p][idx % kKw] = (int)v;
+  for (int r = tid; r < T::BM; r += T::kThreads) {
+    const int p = m0 + r;
+    int4 v = make_int4(0, kOffRow, kOffRow, 0);
+    if (p < P) {
+      const int ho = (p % hw) / d.W_out;
+      v = make_int4(p / hw, ho * d.stride - d.pad, (p % d.W_out) * d.stride - d.pad, 0);
     }
-    for (int idx = tid; idx < kCoutTile * kKw; idx += kThreads) {
-      const int co = idx % kCoutTile;  // fastest: neighbouring threads, neighbouring bytes
-      const int q = idx / kCoutTile;
-      uint32_t v = 0u;
-      if (co0 + co < og) {
-        for (int r = 0; r < 4; ++r) {
-          const int kk = k0 + 4 * q + r;
-          if (kk < Kg) v |= (uint32_t)__ldg(w + (size_t)kk * C_out + cbase + co) << (8 * r);
-        }
-      }
-      wsm[co][q] = (int)v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kKw; ++q) {
-      int xv[kPixPerThread], wv[kChanPerThread];
-#pragma unroll
-      for (int p = 0; p < kPixPerThread; ++p) xv[p] = xs[tp + p * kPixLanes][q];
-#pragma unroll
-      for (int c = 0; c < kChanPerThread; ++c) wv[c] = wsm[tc + c * kChanLanes][q];
-#pragma unroll
-      for (int p = 0; p < kPixPerThread; ++p)
-#pragma unroll
-        for (int c = 0; c < kChanPerThread; ++c) acc[p][c] = __dp4a(xv[p], wv[c], acc[p][c]);
-    }
-    __syncthreads();  // the tiles are rewritten by the next chunk
-  }
-
-  // out and ws are (B, P, C_out): NHWC with the pixels flattened.
-  const size_t out_b = (size_t)b * P * C_out;
-#pragma unroll
-  for (int p = 0; p < kPixPerThread; ++p) {
-    const int pix = p0 + tp + p * kPixLanes;
-    if (pix >= P) continue;
-#pragma unroll
-    for (int c = 0; c < kChanPerThread; ++c) {
-      const int co = tc + c * kChanLanes;
-      if (co0 + co >= og) continue;
-      const size_t o = out_b + (size_t)pix * C_out + cbase + co;
-      if (splits > 1) {
-        atomicAdd(&ws[o], acc[p][c]);
-      } else {
-        out[o] = dequant_epilogue(acc[p][c], __fmul_rn(sx[b], sw[cbase + co]), bias,
-                                  cbase + co, act);
-      }
-    }
-  }
-  if (splits == 1) return;
-
-  // Split K: the last block to finish this tile dequantizes the full sums.
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    const unsigned int tile = (b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    is_last = atomicAdd(&tickets[tile], 1u) == (unsigned int)(splits - 1);
+    rows[r] = v;
   }
   __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+
+  // The x byte of row r at tap (j, i), channel c of the group, or null in
+  // the padding.
+  const int4* row_at = rows;
+  auto tap = [&](int r, int j, int i, int c) -> const int8_t* {
+    const int4 v = row_at[r];
+    const int h = v.y + j;
+    const int wi = v.z + i;
+    if ((unsigned)h >= (unsigned)d.H_in || (unsigned)wi >= (unsigned)d.W_in) return nullptr;
+    return xg + (((size_t)v.x * d.H_in + h) * d.W_in + wi) * d.C_in + c;
+  };
+
+  auto load = [&](int chunk, uint8_t* As, uint8_t* Bn) {
+    const int k0 = chunk * kKc;
+    if (vec_x) {  // a piece is 16 channels of one tap: cg % 16 == 0
+      constexpr int kPer = kKc / 16;
+      const int k = k0 + (tid % kPer) * 16;  // the same for each of this thread's rows
+      const int ji = k / cg;
+      const int j = ji / d.W_f;
+      const int i = ji % d.W_f;
+      const int c = k % cg;
+      for (int idx = tid; idx < T::BM * kPer; idx += T::kThreads) {
+        const int r = idx / kPer;
+        const int8_t* src = k < K ? tap(r, j, i, c) : nullptr;
+        mma8::cp_async16(As + r * mma8::kAStride + k - k0, src != nullptr ? src : x,
+                         src != nullptr);
+      }
+    } else {  // a word is 4 K bytes of one row, gathered byte by byte
+      constexpr int kWords = kKc / 4;
+      const int kw = 4 * (tid % kWords);  // the same for each of this thread's rows
+      int tj[4], ti[4], tc[4];
 #pragma unroll
-  for (int p = 0; p < kPixPerThread; ++p) {
-    const int pix = p0 + tp + p * kPixLanes;
-    if (pix >= P) continue;
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + kw + e;
+        const int ji = k / cg;
+        tc[e] = k % cg;
+        tj[e] = k < K ? ji / d.W_f : kOffRow;  // past K: no tap
+        ti[e] = ji % d.W_f;
+      }
+      static_assert(T::BM * kWords % T::kThreads == 0, "whole rounds of words");
 #pragma unroll
-    for (int c = 0; c < kChanPerThread; ++c) {
-      const int co = tc + c * kChanLanes;
-      if (co0 + co >= og) continue;
-      const size_t o = out_b + (size_t)pix * C_out + cbase + co;
-      out[o] = dequant_epilogue(__ldcg(&ws[o]), __fmul_rn(sx[b], sw[cbase + co]), bias,
-                                cbase + co, act);
+      for (int it = 0; it < T::BM * kWords / T::kThreads; ++it) {  // every load in flight at once
+        const int r = (tid + it * T::kThreads) / kWords;
+        uint32_t word = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int8_t* src = tap(r, tj[e], ti[e], tc[e]);
+          if (src != nullptr) word |= (uint32_t)(uint8_t)__ldg(src) << (8 * e);
+        }
+        *reinterpret_cast<uint32_t*>(As + r * mma8::kAStride + kw) = word;
+      }
     }
+    // B: K rows k0 .. k0 + kKc - 1 of the group's columns n0 .. n0 + BN - 1
+    // as they lie in w; zeros past K or og
+    if (vec_w) {  // og % 16 == 0: a piece is 16 columns, all in or all out
+      constexpr int kPer = T::BN / 16;
+      for (int idx = tid; idx < kKc * kPer; idx += T::kThreads) {
+        const int r = idx / kPer;
+        const int n = n0 + (idx % kPer) * 16;
+        const bool ok = k0 + r < K && n < og;
+        mma8::cp_async16(Bn + r * T::kBStride + n - n0,
+                         ok ? wg + (size_t)(k0 + r) * d.C_out + n : w, ok);
+      }
+    } else {  // a word is 4 columns of one K row, gathered byte by byte
+      constexpr int kPer = T::BN / 4;
+      for (int idx = tid; idx < kKc * kPer; idx += T::kThreads) {
+        const int r = idx / kPer;
+        const int n = n0 + (idx % kPer) * 4;
+        uint32_t word = 0u;
+        if (k0 + r < K) {
+          const int8_t* src = wg + (size_t)(k0 + r) * d.C_out + n;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n + e < og) word |= (uint32_t)(uint8_t)__ldg(src + e) << (8 * e);
+        }
+        *reinterpret_cast<uint32_t*>(Bn + r * T::kBStride + n - n0) = word;
+      }
+    }
+  };
+
+  int acc[T::MT][T::NT][4];
+  mma8::mainloop<T>(load, begin, end, smem, acc);
+  if constexpr (kCluster) {
+    if (!mma8::cluster_sum<T>(acc, reinterpret_cast<int*>(smem))) return;
   }
+
+  // out is (B H_out W_out, C_out): NHWC with the pixels flattened.
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int row0 = m0 + (warp % T::WM) * (T::BM / T::WM) + lane / 4;
+  const int col0 = n0 + (warp / T::WM) * (T::BN / T::WN) + 2 * (lane % 4);
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // c0, c1: row g; c2, c3: row g + 8
+      const int r = row0 + mt * 16 + half * 8;
+      if (r >= P) continue;
+      const int b = r / hw;
+      float* orow = out + (size_t)r * d.C_out + (size_t)g * og;
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = col0 + nt * 8 + e;
+          if (n >= og) continue;
+          const int col = g * og + n;
+          orow[n] = dequant_epilogue(acc[mt][nt][half * 2 + e], __fmul_rn(sx[b], sw[col]), bias,
+                                     col, act);
+        }
+    }
 }
 
 }  // namespace
 
 // xq (B, H_in, W_in, C_in) and wq (H_f, W_f, C_in/groups, C_out) int8; sx (B,)
 // and sw (C_out,) fp32; bias (C_out,) fp32 or null; out (B, H_out, W_out,
-// C_out) fp32. With splits > 1, ws is a zeroed int32 workspace of out's shape
-// and tickets a zeroed array of one counter per (image, pixel tile, channel
-// tile) block; with splits == 1 both may be null. act: 0 none, 1 relu, 2 gelu.
-// Launches on `stream` and returns cudaGetLastError() (0 when accepted).
+// C_out) fp32. (bm, bn) is a block tile of mma8::with_tile; K is cut into
+// splits runs of chunks_per_split chunks of kKc bytes, and with splits > 1
+// (at most 8) the splits of each output tile run as one cluster. vec_x:
+// 16-byte copies of x, for cg % 16 == 0 on a 16-byte aligned xq; vec_w:
+// 16-byte copies of w, for og % 16 == 0 on a 16-byte aligned wq. act: 0 none,
+// 1 relu, 2 gelu. Launches on `stream` and returns cudaGetLastError() (0
+// when accepted; cudaErrorInvalidValue for another tile or split).
 extern "C" int gfid_conv2d_nhwc_int8(const void* xq, const void* wq, const float* sx,
-                                     const float* sw, const float* bias, float* out, int* ws,
-                                     unsigned int* tickets, int B, int H_in, int W_in,
-                                     int C_in, int H_f, int W_f, int C_out, int H_out,
-                                     int W_out, int stride, int pad, int groups, int splits,
-                                     int chunks_per_split, int act, int vec_x, void* stream) {
-  const int og = C_out / groups;
-  const int n_cot = (og + kCoutTile - 1) / kCoutTile;
-  const int n_pt = (H_out * W_out + kPixTile - 1) / kPixTile;
-  const dim3 grid(groups * n_cot, n_pt, B * splits);
-  gfid_conv2d_nhwc_int8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(xq), static_cast<const uint8_t*>(wq), sx, sw, bias, out,
-      ws, tickets, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad, groups,
-      splits, chunks_per_split, act, vec_x);
-  return (int)cudaGetLastError();
+                                     const float* sw, const float* bias, float* out, int B,
+                                     int H_in, int W_in, int C_in, int H_f, int W_f,
+                                     int C_out, int H_out, int W_out, int stride, int pad,
+                                     int groups, int bm, int bn, int splits,
+                                     int chunks_per_split, int act, int vec_x, int vec_w,
+                                     void* stream) {
+  if (splits < 1 || splits > mma8::kMaxCluster) return (int)cudaErrorInvalidValue;
+  const Geometry d{B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad, groups};
+  const int8_t* xb = static_cast<const int8_t*>(xq);
+  const int8_t* wb = static_cast<const int8_t*>(wq);
+  const long long P = (long long)B * H_out * W_out;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return mma8::with_tile(bm, bn, [&](auto tile) {
+    using T = decltype(tile);
+    const dim3 grid((unsigned)((P + T::BM - 1) / T::BM),
+                    groups * ((C_out / groups + T::BN - 1) / T::BN), splits);
+    if (splits > 1)
+      return mma8::launch<T, true>(gfid_conv_int8_kernel<T, true>, grid, s, xb, wb, sx, sw,
+                                   bias, out, d, chunks_per_split, act, vec_x, vec_w);
+    return mma8::launch<T, false>(gfid_conv_int8_kernel<T, false>, grid, s, xb, wb, sx, sw,
+                                  bias, out, d, chunks_per_split, act, vec_x, vec_w);
+  });
 }

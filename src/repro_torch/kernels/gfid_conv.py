@@ -5,9 +5,10 @@ cores; `csrc/gfid_conv_bf16.cu`, entry `gfid_conv2d_nhwc_bf16`, for bf16
 operands as an implicit GEMM on the tensor cores; both with an fp32
 accumulator, both behind the wrapper `gfid_conv2d_nhwc`, each launched with
 a block tile and a split of K from its plan, `f32_plan` or `bf16_plan`) and
-`csrc/gfid_conv_int8.cu` (int8 operands, exact int32 accumulator, fused
-dequant; the port of `gfid_conv2d_nhwc_int8`), each with its plain PyTorch
-version.
+`csrc/gfid_conv_int8.cu` (int8 operands as an implicit GEMM on the int8
+tensor cores, exact int32 accumulator, fused dequant, launched with a block
+tile and a split of K from `int8_plan`; the port of
+`gfid_conv2d_nhwc_int8`), each with its plain PyTorch version.
 
 Unlike the Pallas kernels, which take an already padded input and one
 group, the CUDA kernels take `pad` (a bounds mask on their loads) and
@@ -46,9 +47,24 @@ TILE = (128, 8, 128)
 F32_TILES = ((128, 128), (64, 64), (32, 64))
 F32_BK = TILE[1]
 F32_MIN_SPLIT = 8
-# (output pixels, K chunk, C_out) of one block of csrc/gfid_conv_int8.cu:
-# kPixTile, kKc, kCoutTile (K = H_f * W_f * C_in / groups).
-TILE_INT8 = (64, 32, 64)
+# (output pixels, K chunk in bytes, C_out) of the widest block tile of
+# csrc/gfid_conv_int8.cu: kPixTile, kKc, kCoutTile (K = H_f * W_f * C_in /
+# groups; the engine plan's tiling).
+TILE_INT8 = (128, 64, 128)
+# csrc/gfid_conv_int8.cu's block tiles (output pixels, C_out of a group),
+# most work a block first: the first whose blocks fill the card, else the
+# last. The wide tile is taken only where x is gathered byte by byte
+# (cg % 16 != 0) and a group has more than 64 columns, so that more columns
+# share each gather (AlexNet's conv1 at batch 32); where x goes by 16-byte
+# copies, 64-column tiles keep more blocks in flight. Where the blocks
+# still do not fill the card, K is split for about two blocks an SM, at
+# most INT8_MAX_SPLIT splits (the tile's splits are one thread block
+# cluster, added by its first block), each at least INT8_MIN_SPLIT chunks
+# of INT8_BK bytes.
+INT8_TILES = ((128, 128), (64, 64), (32, 64))
+INT8_BK = TILE_INT8[1]
+INT8_MIN_SPLIT = 3
+INT8_MAX_SPLIT = 4
 # csrc/gfid_conv_bf16.cu's block tiles (output pixels, C_out of a group),
 # most work a block first: the first whose blocks fill the card, else the
 # last; then, if the blocks still do not fill it, K is split for about two
@@ -260,10 +276,44 @@ def gfid_conv2d_nhwc_int8_plain(xq: torch.Tensor, wq: torch.Tensor,
     return dequant_epilogue(acc, scale, bias, act)
 
 
-# xq, wq, sx, sw, bias, out, ws, tickets; B, H_in, W_in, C_in, H_f, W_f,
-# C_out, H_out, W_out, stride, pad, groups, splits, chunks_per_split, act,
-# vec_x; stream.
-INT8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+# xq, wq, sx, sw, bias, out; B, H_in, W_in, C_in, H_f, W_f, C_out, H_out,
+# W_out, stride, pad, groups, bm, bn, splits, chunks_per_split, act, vec_x,
+# vec_w; stream.
+INT8_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+
+
+def int8_plan(pixels: int, k: int, og: int, groups: int, cg: int,
+              x_ptr: int = 0, w_ptr: int = 0,
+              sms: int = 132) -> build.MmaPlan:
+    """The launch of `gfid_conv2d_nhwc_int8` for an implicit GEMM of
+    `pixels` output rows (B x H_out x W_out), depth k = H_f x W_f x cg bytes
+    and og columns a group, on a card of `sms` SMs: the tile from
+    INT8_TILES, a split of K (one cluster of up to INT8_MAX_SPLIT blocks a
+    tile) where the blocks leave the card idle; 16-byte copies of x where
+    cg % 16 == 0 and x is 16-byte aligned, of w where og % 16 == 0 and w
+    is."""
+    bm, bn, splits, per, grid = _int8_tiling(pixels, k, og, groups, cg, sms)
+    return build.MmaPlan(bm, bn, splits, per, cg % 16 == 0 and x_ptr % 16 == 0,
+                         og % 16 == 0 and w_ptr % 16 == 0, grid)
+
+
+@functools.lru_cache(maxsize=1024)
+def _int8_tiling(pixels: int, k: int, og: int, groups: int, cg: int,
+                 sms: int) -> Tuple[int, int, int, int, Tuple[int, int, int]]:
+    """int8_plan's (bm, bn, splits, chunks per split, grid): shapes alone,
+    cached (the launch path runs it at every call)."""
+    for bm, bn in INT8_TILES:
+        if bn > 64 and not (og > 64 and cg % 16):
+            continue
+        col_blocks = groups * -(-og // bn)
+        tiles = max(-(-pixels // bm) * col_blocks, 1)
+        if tiles >= sms:
+            break
+    want = 1 if tiles >= sms else min(-(-2 * sms // tiles), INT8_MAX_SPLIT)
+    splits, per = build.mma_split(k, want, INT8_MIN_SPLIT, INT8_BK)
+    grid = (-(-pixels // bm), col_blocks, splits)
+    build.check_grid("gfid_conv2d_nhwc_int8", grid)
+    return bm, bn, splits, per, grid
 
 
 @functools.lru_cache(maxsize=None)
@@ -293,11 +343,18 @@ def gfid_conv2d_nhwc_int8(xq: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"scales must be sx ({b}, 1) and sw (1, {c_out}); "
                          f"got {tuple(sx.shape)} and {tuple(sw.shape)}")
     build.check_int8_depth("gfid_conv2d_nhwc_int8", h_f * w_f * cg)
-    i8, f32 = torch.int8, torch.float32
-    build.check_operands("gfid_conv2d_nhwc_int8", xq=(xq, i8), wq=(wq, i8),
-                         sx=(sx, f32), sw=(sw, f32), bias=(bias, f32))
+    if not _int8_operands_ok(xq, wq, sx, sw, bias):
+        i8, f32 = torch.int8, torch.float32
+        build.check_operands("gfid_conv2d_nhwc_int8", xq=(xq, i8),
+                             wq=(wq, i8), sx=(sx, f32), sw=(sw, f32),
+                             bias=(bias, f32))
     h_out = (h_in + 2 * pad - h_f) // stride + 1
     w_out = (w_in + 2 * pad - w_f) // stride + 1
+    if xq.is_cuda:
+        out = xq.new_empty((b, h_out, w_out, c_out), dtype=torch.float32)
+        if out.numel():
+            _launch_int8(xq, wq, sx, sw, bias, out, stride, pad, groups, act)
+        return out
     kind = xq.device.type
     if kind == "cpu":
         return gfid_conv2d_nhwc_int8_plain(xq, wq, sx, sw, stride=stride,
@@ -305,34 +362,46 @@ def gfid_conv2d_nhwc_int8(xq: torch.Tensor, wq: torch.Tensor,
                                            act=act)
     if kind == "meta":
         return torch.empty((b, h_out, w_out, c_out), device="meta")
-    if kind != "cuda":
-        raise ValueError(f"gfid_conv2d_nhwc_int8 runs on CUDA or CPU "
-                         f"tensors, not {kind}")
-    out = torch.empty((b, h_out, w_out, c_out), device=xq.device,
-                      dtype=torch.float32)
-    if out.numel() == 0:
-        return out
-    pt, kc, ct = TILE_INT8
-    tiles = b * -(-h_out * w_out // pt) * groups * -(-(c_out // groups) // ct)
-    splits, per = build.split_k(tiles, -(-h_f * w_f * cg // kc),
-                                build.sm_count(xq.device.index or 0))
-    if b * splits > 65535:
-        raise ValueError(f"gfid_conv2d_nhwc_int8: batch {b} x {splits} "
-                         "K splits exceeds the launch grid's z limit")
-    ws, ws_ptr, tickets_ptr = build.split_workspace(splits, out.numel(),
-                                                    tiles, xq.device)
+    raise ValueError(f"gfid_conv2d_nhwc_int8 runs on CUDA or CPU tensors, "
+                     f"not {kind}")
+
+
+def _int8_operands_ok(xq, wq, sx, sw, bias) -> bool:
+    """What `check_operands` asks of the int8 operands, in one short test
+    (a launch's host time): int8 xq and wq, fp32 scales and bias, all
+    contiguous on xq's device. False sends them through `check_operands`,
+    which names what is wrong."""
+    i8, f32 = torch.int8, torch.float32
+    dev = xq.device
+    return (xq.dtype is i8 and wq.dtype is i8 and sx.dtype is f32
+            and sw.dtype is f32 and xq.is_contiguous() and wq.is_contiguous()
+            and sx.is_contiguous() and sw.is_contiguous()
+            and wq.device == dev and sx.device == dev and sw.device == dev
+            and (bias is None or (bias.dtype is f32 and bias.is_contiguous()
+                                  and bias.device == dev)))
+
+
+def _launch_int8(xq, wq, sx, sw, bias, out, stride, pad, groups, act) -> None:
+    """`gfid_conv2d_nhwc_int8` on CUDA tensors into `out` with its plan, on
+    the current stream of xq's device (made current only when it is
+    another); raise on a refused launch, count it."""
+    b, h_in, w_in, c_in = xq.shape
+    h_f, w_f, cg, c_out = wq.shape
+    h_out, w_out = out.shape[1], out.shape[2]
+    index = xq.get_device()
+    x_ptr, w_ptr = xq.data_ptr(), wq.data_ptr()
+    plan = int8_plan(b * h_out * w_out, h_f * w_f * cg, c_out // groups,
+                     groups, cg, x_ptr, w_ptr, build.sm_count(index))
     lib, fn = _launcher_int8()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+    with build.on_device(index):
+        err = fn(x_ptr, w_ptr, sx.data_ptr(), sw.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 ws_ptr, tickets_ptr, b, h_in, w_in, c_in, h_f, w_f, c_out,
-                 h_out, w_out, stride, pad, groups, splits, per,
-                 ACT_CODES[act], int(cg % 4 == 0 and xq.data_ptr() % 4 == 0),
-                 stream)
+                 b, h_in, w_in, c_in, h_f, w_f, c_out, h_out, w_out, stride,
+                 pad, groups, plan.bm, plan.bn, plan.splits,
+                 plan.chunks_per_split, ACT_CODES[act], int(plan.vec_x),
+                 int(plan.vec_w), build.raw_stream(index))
     build.check(lib, err, "gfid_conv2d_nhwc_int8")
     gfid_conv2d_nhwc_int8.launches += 1
-    return out
 
 
 gfid_conv2d_nhwc_int8.launches = 0

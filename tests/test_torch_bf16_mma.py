@@ -32,7 +32,24 @@ hold the plans to the kernels' contracts:
     CUDA branch (library and stream faked) pass their plans, workspace and
     arguments in the C signature's order, count each launch and raise on a
     refused one; the lean operand checks still refuse a wrong dtype, a
-    non-contiguous operand and operands on two devices.
+    non-contiguous operand and operands on two devices;
+  * the fp32 flash kernel (`csrc/flash_attention.cu`): a torch-op emulation
+    of its algorithm (kv tiles of KV_TILE keys, the tile's row max, one exp
+    a score, 16 lanes' partial sums of a row added at the end, P . V) within
+    1e-5 of the Pallas kernel in interpret mode at the forward cases of
+    tests/test_flash.py and tests/test_kernels.py, in blocks of 32 and 64 q
+    rows; KV_TILE and the q rows equal to the source's; the source on fp32
+    FMAs fed by `cp.async` with the accurate `expf`; `f32_launch`'s rows a
+    block (counted in waves of two blocks an SM) and copy flag; its launch
+    arguments, counter and refusal with the library faked;
+  * the int8 conv on the int8 tensor cores (`csrc/gfid_conv_int8.cu`,
+    `csrc/mma_int8.cuh`): the B tile's byte transpose mirrored in numpy
+    (the source's `__byte_perm` selectors) bitwise equal to wq's (C_out, K)
+    view; the channel-major swizzle conflict-free for `ldmatrix`;
+    `int8_plan`'s tile, split (one cluster of at most INT8_MAX_SPLIT) and
+    grid at AlexNet's five convs at batch 1 and 32 and ragged shapes; the
+    wrapper's CUDA branch (library faked) passing its plan in the C
+    signature's order, counting, refusing; its lean checks still refusing.
 """
 import ctypes
 import re
@@ -827,3 +844,408 @@ def test_on_device_switches_only_to_another_device(monkeypatch):
     with build.on_device(1):
         pass
     assert entered == [1]
+
+
+# The fp32 flash kernel (`csrc/flash_attention.cu`) and the int8 conv on the
+# int8 tensor cores (`csrc/gfid_conv_int8.cu` + `csrc/mma_int8.cuh`).
+
+FLASH_TOL = 1e-5
+# (B, S, H, KV, D, causal): the forward cases of tests/test_flash.py (its
+# q/k/v shape, causal and not; its ragged lengths at D = 8; its GQA 4/4
+# shape) and the cases of tests/test_kernels.py.
+FLASH_CASES = [(2, 64, 4, 2, 16, True), (2, 64, 4, 2, 16, False),
+               (1, 17, 2, 2, 8, True), (1, 45, 2, 2, 8, True),
+               (1, 77, 2, 2, 8, True), (1, 90, 2, 2, 8, True),
+               (1, 64, 4, 4, 16, True), (1, 128, 8, 8, 32, True),
+               (2, 96, 4, 4, 16, False), (1, 64, 6, 3, 8, True)]
+
+
+def _emulate_flash(q, k, v, causal, q_rows):
+    """The fp32 kernel's algorithm in torch ops: blocks of `q_rows` q rows;
+    kv tiles of KV_TILE keys in order, the causal ones past the block's
+    last row not visited; the tile's scores scaled, masked only on a tile
+    that reaches past Skv or past the block's first row; the row max over
+    the tile; one exp a score; each of the 16 lanes of a row keeps the sum
+    of its keys (key tx + 16 j) rescaled by alpha, and the lanes are added
+    at the end; P . V accumulated in fp32."""
+    b, sq, h, d = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    tile, lanes = flash_attention.KV_TILE, 16
+    scale = 1.0 / np.sqrt(d)
+    qh = q.permute(0, 2, 1, 3)                                   # (B, H, Sq, D)
+    kh, vh = (t.repeat_interleave(h // n_kv, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))                                   # (B, H, Skv, D)
+    out = torch.empty_like(qh)
+    for q0 in range(0, sq, q_rows):
+        rows = torch.arange(q0, min(sq, q0 + q_rows))
+        kv_end = min(skv, int(rows[-1]) + 1) if causal else skv
+        m = torch.full((b, h, len(rows)), flash_attention.NEG_INF)
+        l_lanes = torch.zeros((b, h, len(rows), lanes))
+        acc = torch.zeros((b, h, len(rows), d))
+        for k0 in range(0, kv_end, tile):
+            keys = torch.arange(k0, k0 + tile)
+            kt = torch.zeros((b, h, tile, d))
+            vt = torch.zeros((b, h, tile, d))
+            n = min(tile, skv - k0)
+            kt[:, :, :n], vt[:, :, :n] = kh[:, :, k0:k0 + n], vh[:, :, k0:k0 + n]
+            s = torch.einsum("bhqd,bhkd->bhqk", qh[:, :, rows], kt) * scale
+            if k0 + tile > skv or (causal and k0 + tile - 1 > q0):
+                bad = keys[None, :] >= skv
+                if causal:
+                    bad = bad | (keys[None, :] > rows[:, None])
+                s = torch.where(bad, torch.tensor(flash_attention.NEG_INF), s)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])                  # one exp a score
+            l_lanes = l_lanes * alpha[..., None] \
+                + p.reshape(*p.shape[:-1], tile // lanes, lanes).sum(dim=-2)
+            acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vt)
+            m = m_new
+        out[:, :, rows] = acc / torch.clamp(l_lanes.sum(dim=-1), min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("q_rows", flash_attention.F32_Q_ROWS)
+@pytest.mark.parametrize("b,s,h,kv,d,causal", FLASH_CASES)
+def test_f32_flash_algorithm_matches_the_pallas_kernel(b, s, h, kv, d, causal,
+                                                       q_rows):
+    from repro.kernels import ops as jax_ops
+    rng = np.random.default_rng(s * 10 + d)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    want = np.asarray(jax_ops.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                              causal=causal, interpret=True))
+    got = _emulate_flash(*map(torch.from_numpy, (q, k, v)), causal, q_rows)
+    assert np.abs(got.numpy() - want).max() <= FLASH_TOL * np.abs(want).max()
+    plain = flash_attention.flash_attention_plain(
+        *map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert (got - plain).abs().max() <= FLASH_TOL * plain.abs().max()
+
+
+def test_f32_flash_kv_tile_and_rows_match_the_source():
+    """KV_TILE (the plain version's tile too) is the kernel's kBK, and the
+    q rows a block the plan picks are the ones the entry launches."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert f"constexpr int kBK = {flash_attention.KV_TILE};" in src
+    for rows in flash_attention.F32_Q_ROWS:
+        assert f"launch_rows<{rows}>" in src and f"bq != {rows}" in src
+
+
+def test_f32_flash_runs_on_cuda_cores_fed_by_cp_async():
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert "cp.async.cg.shared.global" in src and "cp.async.wait_group" in src
+    assert "mma" not in src and "__expf(" not in src and "expf(" in src
+    assert "fmaf(" in src and "__shfl_xor_sync" in src
+
+
+@pytest.mark.parametrize("b,sq,h,rows", [(1, 1984, 9, 32), (4, 1984, 9, 64),
+                                         (1, 1031, 9, 32), (2, 700, 9, 32),
+                                         (4, 1000, 9, 64), (1, 1, 1, 32),
+                                         (64, 2048, 9, 64)])
+def test_f32_flash_plan_counts_waves(b, sq, h, rows):
+    """64-row blocks only where they make at least F32_WAVES waves of two
+    blocks an SM; the grid is one axis of q tiles x heads x batch."""
+    plan = flash_attention.f32_launch(b, sq, h, 64, 0, 0, 0)
+    assert plan.q_rows == rows
+    assert plan.grid == (-(-sq // rows) * h * b, 1, 1)
+    if rows == 64:
+        assert plan.grid[0] >= flash_attention.F32_WAVES * 2 * 132
+
+
+@pytest.mark.parametrize("d,ptrs,vec", [(64, (0, 0, 0), True),
+                                        (10, (0, 0, 0), False),
+                                        (64, (4, 0, 0), False),
+                                        (8, (16, 32, 48), True)])
+def test_f32_flash_copies_follow_d_and_alignment(d, ptrs, vec):
+    assert flash_attention.f32_launch(1, 100, 4, d, *ptrs).vec is vec
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm on uint32 numpy arrays: result byte n is byte
+    (s >> 4n) & 7 of the 8 bytes y:x (x the low four)."""
+    pair = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros_like(x)
+    for n in range(4):
+        sel = np.uint64((s >> (4 * n)) & 7)
+        out |= (((pair >> (sel * np.uint64(8))) & np.uint64(0xFF))
+                .astype(np.uint32) << np.uint32(8 * n))
+    return out
+
+
+def _transpose4_mirror(r):
+    """`transpose4` of csrc/mma_int8.cuh, its six __byte_perm lines read
+    from the source and run on numpy words."""
+    src = (build.CSRC / "mma_int8.cuh").read_text()
+    body = src[src.index("void transpose4("):]
+    body = body[:body.index("}")]
+    env = {"r": list(r), "c": [None] * 4}
+    for dst, x, y, sel in re.findall(
+            r"(\w+(?:\[\d\])?) = __byte_perm\((\w+(?:\[\d\])?), (\w+(?:\[\d\])?), "
+            r"(0x[0-9a-fA-F]+)\)", body):
+        def val(name):
+            m = re.fullmatch(r"(\w+)\[(\d)\]", name)
+            return env[m.group(1)][int(m.group(2))] if m else env[name]
+        got = _byte_perm(val(x), val(y), int(sel, 16))
+        m = re.fullmatch(r"(\w+)\[(\d)\]", dst)
+        if m:
+            env[m.group(1)][int(m.group(2))] = got
+        else:
+            env[dst] = got
+    return env["c"]
+
+
+def _b_offset(n, kb):
+    """`b_offset` of csrc/mma_int8.cuh: column n, K byte kb of a
+    channel-major B buffer (64 bytes a column, 16-byte pieces permuted)."""
+    return n * 64 + ((((kb >> 4) ^ (n >> 1) ^ (n >> 3)) & 3) << 4) + (kb & 15)
+
+
+@pytest.mark.parametrize("bn,threads", [(64, 128), (128, 256)])
+def test_int8_b_transpose_is_wq_channel_major(bn, threads):
+    """A chunk of wq (64 K rows x bn columns) staged as it lies in memory,
+    transposed block by block as `transpose_b` does (the thread slots of
+    `b_block`, the source's byte selectors) into a channel-major buffer at
+    `b_offset`: read back, it is bitwise wq's (C_out, K) view, and the
+    slots cover the chunk once."""
+    rng = np.random.default_rng(bn)
+    wq = rng.integers(-128, 128, (64, bn), dtype=np.int8)
+    rows = wq.view(np.uint8).reshape(64, bn // 4, 4).view("<u4")[..., 0]  # (K, BN/4) words
+    buf = np.zeros(bn * 64, np.uint8)
+    seen = set()
+    for idx in range(16 * (bn // 4)):
+        kq, cq = (idx // bn) * 4 + idx % 4, (idx // 4) % (bn // 4)
+        seen.add((kq, cq))
+        words = [rows[4 * kq + i, cq:cq + 1] for i in range(4)]
+        cols = _transpose4_mirror(words)
+        for i in range(4):
+            off = _b_offset(4 * cq + i, 4 * kq)
+            buf[off:off + 4] = cols[i].view(np.uint8)
+    assert len(seen) == 16 * (bn // 4)
+    back = np.array([[buf[_b_offset(n, kb)] for kb in range(64)]
+                     for n in range(bn)], np.uint8).view(np.int8)
+    assert np.array_equal(back, wq.T)
+    assert 4 * bn // threads * threads == 4 * bn       # every thread the same slots
+
+
+def test_int8_b_offset_spreads_ldmatrix_and_stores():
+    """Each 8 columns of an ldmatrix phase land in 8 different 16-byte bank
+    groups; a warp's transposed stores (four lanes four K blocks, eight
+    lanes eight column groups) use at least 16 banks."""
+    for n0 in range(0, 128, 8):
+        for kb in (0, 16, 32, 48):
+            assert len({(_b_offset(n0 + r, kb) // 16) % 8 for r in range(8)}) == 8
+    for bn in (64, 128):
+        for lane0 in range(0, 4 * bn, 32):
+            for i in range(4):
+                banks = {(_b_offset(4 * ((idx // 4) % (bn // 4)) + i,
+                                    4 * ((idx // bn) * 4 + idx % 4)) // 4) % 32
+                         for idx in range(lane0, lane0 + 32)}
+                assert len(banks) >= 16
+
+
+def test_int8_tiles_match_the_tensor_core_core():
+    """INT8_TILES are the tiles `mma8::with_tile` builds, the K chunk is the
+    core's, and a split never has more blocks than a portable cluster."""
+    core = (build.CSRC / "mma_int8.cuh").read_text()
+    built = {(int(m), int(n)) for n, m in
+             re.findall(r"if \(bn == (\d+) && bm == (\d+)\)", core)}
+    assert built == set(gfid_conv.INT8_TILES)
+    assert f"constexpr int kKc = {gfid_conv.INT8_BK};" in core
+    cluster = int(re.search(r"constexpr int kMaxCluster = (\d+);", core).group(1))
+    assert gfid_conv.INT8_MAX_SPLIT <= cluster
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in core
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in core
+    source = (build.CSRC / "gfid_conv_int8.cu").read_text()
+    assert '#include "mma_int8.cuh"' in source and "__dp4a(" not in source
+    assert "ws" not in re.findall(r"\w+", source[source.index('extern "C"'):])
+
+
+def _int8_plan(b, h, c_in, k, s, p, g, c_out, x_ptr=0, w_ptr=0):
+    h_out = (h + 2 * p - k) // s + 1
+    return gfid_conv.int8_plan(b * h_out * h_out, k * k * c_in // g, c_out // g,
+                               g, c_in // g, x_ptr, w_ptr)
+
+
+# (batch, H_in, C_in, k, stride, pad, groups, C_out) -> (bm, bn, splits,
+# 16-byte x): AlexNet's five convs at batch 1 and 32, and ragged shapes.
+INT8_PLAN_CASES = [
+    ((1, 227, 3, 11, 4, 0, 1, 96), (32, 64, 1, False)),
+    ((1, 27, 96, 5, 1, 2, 2, 256), (32, 64, 3, True)),
+    ((1, 13, 256, 3, 1, 1, 1, 384), (32, 64, 4, True)),
+    ((1, 13, 384, 3, 1, 1, 2, 384), (32, 64, 4, True)),
+    ((1, 13, 384, 3, 1, 1, 2, 256), (32, 64, 4, True)),
+    ((32, 227, 3, 11, 4, 0, 1, 96), (128, 128, 1, False)),
+    ((32, 27, 96, 5, 1, 2, 2, 256), (64, 64, 1, True)),
+    ((32, 13, 256, 3, 1, 1, 1, 384), (64, 64, 1, True)),
+    ((32, 13, 384, 3, 1, 1, 2, 384), (64, 64, 1, True)),
+    ((32, 13, 384, 3, 1, 1, 2, 256), (64, 64, 1, True)),
+    ((2, 31, 3, 11, 4, 2, 1, 20), (32, 64, 2, False)),
+    ((1, 20, 12, 5, 1, 2, 2, 70), (32, 64, 1, False)),
+    ((2, 13, 5, 3, 2, 1, 1, 7), (32, 64, 1, False)),
+    ((1, 9, 32, 3, 1, 1, 2, 32), (32, 64, 1, True)),
+]
+
+
+@pytest.mark.parametrize("shape,want", INT8_PLAN_CASES)
+def test_int8_conv_plan_fills_the_card_or_splits_k(shape, want):
+    """The tile, split and x load path of each shape; K split into at most
+    INT8_MAX_SPLIT non-empty runs, only on the last tile and only where its
+    blocks leave the card idle; the grid (row tiles, column blocks x
+    groups, splits) within CUDA's limits."""
+    b, h, c_in, k, s, p, g, c_out = shape
+    plan = _int8_plan(*shape)
+    assert (plan.bm, plan.bn, plan.splits, plan.vec_x) == want
+    h_out = (h + 2 * p - k) // s + 1
+    pixels, og = b * h_out * h_out, c_out // g
+    n_chunks = -(-(k * k * c_in // g) // gfid_conv.INT8_BK)
+    assert (plan.splits - 1) * plan.chunks_per_split < n_chunks \
+        <= plan.splits * plan.chunks_per_split
+    assert plan.splits <= gfid_conv.INT8_MAX_SPLIT
+    tiles = -(-pixels // plan.bm) * g * -(-og // plan.bn)
+    assert plan.grid == (-(-pixels // plan.bm), g * -(-og // plan.bn), plan.splits)
+    if plan.splits > 1:
+        assert (plan.bm, plan.bn) == gfid_conv.INT8_TILES[-1] and tiles < 132
+    assert all(x <= lim for x, lim in zip(plan.grid, build.GRID_LIMITS))
+    assert plan.vec_w == (og % 16 == 0)
+
+
+def test_int8_conv_load_flags_follow_alignment():
+    args = (32 * 27 * 27, 1200, 128, 2, 48)
+    assert gfid_conv.int8_plan(*args, 16, 16).vec_x
+    assert not gfid_conv.int8_plan(*args, 8, 16).vec_x
+    assert not gfid_conv.int8_plan(*args, 16, 4).vec_w
+    with pytest.raises(ValueError, match="launch grid"):
+        gfid_conv.int8_plan(32 * 65536, 64, 64 * 70000, 1, 64)
+
+
+def _int8_conv_args(b=1, h=13, c_in=32, k=3, g=2, c_out=64, bias=True):
+    rng = np.random.default_rng(c_out)
+    xq = torch.from_numpy(rng.integers(-127, 128, (b, h, h, c_in), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, c_in // g, c_out),
+                                       dtype=np.int8))
+    sx, sw = torch.rand(b, 1) + 0.5, torch.rand(1, c_out) + 0.5
+    return xq, wq, sx, sw, (torch.randn(c_out) if bias else None)
+
+
+@pytest.mark.parametrize("act,bias", [("relu", True), (None, False)])
+def test_int8_conv_launch_passes_its_plan(monkeypatch, act, bias):
+    """The CUDA branch of `gfid_conv2d_nhwc_int8` (library, SM count,
+    device context and stream faked; run here on CPU tensors) calls the C
+    entry once with its plan in the signature's order: pointers (no
+    workspace), geometry, tile, split, act, load flags, stream; it counts
+    the launch and returns the allocated output."""
+    calls = []
+
+    def fake_library(name):
+        assert name == "gfid_conv_int8"
+
+        def fn(*args):
+            calls.append(args)
+            return 0
+        return types.SimpleNamespace(gfid_conv2d_nhwc_int8=fn,
+                                     repro_cuda_error_string=lambda e: b"refused")
+
+    monkeypatch.setattr(build, "library", fake_library)
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(build, "on_device", lambda index: _NullContext())
+    monkeypatch.setattr(build, "raw_stream", lambda index: 7)
+    monkeypatch.setattr(gfid_conv, "_launcher_int8",
+                        gfid_conv._launcher_int8.__wrapped__)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    xq, wq, sx, sw, b = _int8_conv_args(bias=bias)
+    before = gfid_conv.gfid_conv2d_nhwc_int8.launches
+    out = gfid_conv.gfid_conv2d_nhwc_int8(xq, wq, sx, sw, pad=1, groups=2,
+                                          bias=b, act=act)
+    (args,) = calls
+    assert len(args) == len(gfid_conv.INT8_ARGTYPES)
+    assert tuple(out.shape) == (1, 13, 13, 64) and out.dtype == torch.float32
+    assert args[:6] == (xq.data_ptr(), wq.data_ptr(), sx.data_ptr(),
+                        sw.data_ptr(), None if b is None else b.data_ptr(),
+                        out.data_ptr())
+    plan = gfid_conv.int8_plan(169, 144, 32, 2, 16, xq.data_ptr(), wq.data_ptr())
+    assert args[6:] == (1, 13, 13, 32, 3, 3, 64, 13, 13, 1, 1, 2, plan.bm,
+                        plan.bn, plan.splits, plan.chunks_per_split,
+                        ACT_CODES[act], int(plan.vec_x), int(plan.vec_w), 7)
+    assert gfid_conv.gfid_conv2d_nhwc_int8.launches == before + 1
+
+
+def test_int8_conv_refused_launch_raises_and_is_not_counted(monkeypatch):
+    monkeypatch.setattr(build, "library", lambda name: types.SimpleNamespace(
+        gfid_conv2d_nhwc_int8=lambda *a: 98,
+        repro_cuda_error_string=lambda e: b"refused"))
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(build, "on_device", lambda index: _NullContext())
+    monkeypatch.setattr(build, "raw_stream", lambda index: 7)
+    monkeypatch.setattr(gfid_conv, "_launcher_int8",
+                        gfid_conv._launcher_int8.__wrapped__)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    before = gfid_conv.gfid_conv2d_nhwc_int8.launches
+    with pytest.raises(RuntimeError, match="gfid_conv2d_nhwc_int8 launch "
+                                           "failed: CUDA error 98"):
+        gfid_conv.gfid_conv2d_nhwc_int8(*_int8_conv_args()[:4], pad=1, groups=2)
+    assert gfid_conv.gfid_conv2d_nhwc_int8.launches == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "scale_dtype", "contiguous",
+                                  "device", "bias_dtype"])
+def test_int8_conv_lean_checks_still_refuse(case):
+    xq, wq, sx, sw, b = _int8_conv_args()
+    if case == "dtype":
+        wq = wq.to(torch.int16)
+    elif case == "scale_dtype":
+        sx = sx.double()
+    elif case == "contiguous":
+        xq = xq.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "device":
+        sw = sw.to("meta")
+    else:
+        b = b.to(torch.bfloat16)
+    with pytest.raises((TypeError, ValueError), match="gfid_conv2d_nhwc_int8"):
+        gfid_conv.gfid_conv2d_nhwc_int8(xq, wq, sx, sw, pad=1, groups=2, bias=b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launch_passes_its_plan_and_raises_when_refused(monkeypatch,
+                                                              dtype):
+    """`flash_attention._launch` (library, SM count, device and stream
+    faked) passes the fp32 entry its q rows a block and copy flag after the
+    causal flag, the bf16 entry its copy flag; a refused launch raises and
+    is not counted."""
+    calls, err = [], [0]
+
+    def fake_library(name):
+        def fn(*args):
+            calls.append((name, args))
+            return err[0]
+        return types.SimpleNamespace(**{name: fn},
+                                     repro_cuda_error_string=lambda e: b"refused")
+
+    monkeypatch.setattr(build, "library", fake_library)
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(flash_attention, "_launcher",
+                        flash_attention._launcher.__wrapped__)
+    monkeypatch.setattr(flash_attention, "_launcher_bf16",
+                        flash_attention._launcher_bf16.__wrapped__)
+    monkeypatch.setattr(torch.cuda, "device", lambda _: _NullContext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=7))
+    q = torch.zeros((4, 1000, 9, 64), dtype=dtype)
+    k = torch.zeros((4, 1000, 3, 64), dtype=dtype)
+    out = torch.empty_like(q)
+    counter = flash_attention.flash_attention if dtype == torch.float32 \
+        else flash_attention.flash_attention_bf16
+    before = counter.launches
+    flash_attention._launch(q, k, k, out, True, None)
+    (name, args), = calls
+    assert args[4:12] == (4, 1000, 1000, 9, 3, 64, pytest.approx(0.125), 1)
+    if dtype == torch.float32:
+        plan = flash_attention.f32_launch(4, 1000, 9, 64, *args[:3])
+        assert name == "flash_attention" and plan.q_rows == 64
+        assert args[12:] == (64, int(plan.vec), 7)
+    else:
+        assert name == "flash_attention_bf16" and len(args[12:]) == 2
+    assert counter.launches == before + 1
+    err[0] = 98
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error 98"):
+        flash_attention._launch(q, k, k, out, True, None)
+    assert counter.launches == before + 1
