@@ -76,9 +76,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      heads (1, S, 9 / 3, 64) causal at S = 1025, 1280, 1664, 1984 and 2048,
      the four cases of tests/test_kernels.py, a prime length (1031), B = 2,
      D = 128 causal and not, lengths that are no multiple of the fp32 kv
-     tile at D = 8, 64 and 128, D = 10 and B = 4, each in fp32 on
-     `flash_attention.cu` (within 1e-4 x max|plain|; reaching blocks of 32
-     and 64 q rows and both copy paths) and on bf16 operands on `flash_attention_bf16.cu`
+     tile at D = 8, 64 and 128 and D = 10, each in fp32 on
+     `flash_attention.cu` (within 1e-4 x max|plain|; reaching both copy
+     paths) and on bf16 operands on `flash_attention_bf16.cu`
      (within 8e-3, two calls bitwise equal), with bf16 cases at D = 40, at
      D = 20 and on unaligned views that must reach every padded head dim
      (16, 32, 64, 128) and both copy paths; and that an input which
@@ -1460,8 +1460,8 @@ def flash_cases(gen, dev):
     2048; the four cases of tests/test_kernels.py (non-causal, H/KV = 2 and
     D = 8 among them); a prime length; B = 2; D = 128 causal and not; Sq
     not a multiple of the fp32 kernel's kv tile at D = 8, 64 and 128; D =
-    10 (element copies in fp32); B = 4 at 1000 tokens (64-row blocks in
-    fp32). Phase 3 runs each on fp32 and on bf16 operands."""
+    10 (element copies in fp32). Phase 3 runs each on fp32 and on bf16
+    operands."""
     def qkv(b, s, h, kv, d):
         return tuple(torch.randn(shape, generator=gen).to(dev)
                      for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
@@ -1481,8 +1481,7 @@ def flash_cases(gen, dev):
               ("ragged D=64 (1, 777, 9/3, 64) causal", *qkv(1, 777, 9, 3, 64), True),
               ("ragged D=128 (1, 333, 4/2, 128) non-causal", *qkv(1, 333, 4, 2, 128),
                False),
-              ("D=10 (1, 150, 4/2, 10) causal", *qkv(1, 150, 4, 2, 10), True),
-              ("B=4 (4, 1000, 9/3, 64) causal", *qkv(4, 1000, 9, 3, 64), True)]
+              ("D=10 (1, 150, 4/2, 10) causal", *qkv(1, 150, 4, 2, 10), True)]
     return cases
 
 
@@ -2379,10 +2378,9 @@ def main():
         if not is16:
             plan = flash_attention.f32_launch(q.shape[0], q.shape[1], q.shape[2],
                                               q.shape[3], q.data_ptr(), k.data_ptr(),
-                                              v.data_ptr(), sms=props.multi_processor_count)
+                                              v.data_ptr())
             launches32.append(plan)
-            extra = (f", {plan.q_rows} q rows a block, "
-                     f"{'16-byte' if plan.vec else 'element'} copies")
+            extra = f", {'16-byte' if plan.vec else 'element'} copies"
         if is16:
             plan = flash_attention.bf16_launch(q.shape[0], q.shape[1], q.shape[2],
                                                q.shape[3], q.data_ptr(),
@@ -2401,12 +2399,10 @@ def main():
         require(err <= limit, f"{kname} {label}: error {err:.3e} > {limit}")
         worst[kname] = max(worst[kname], abs_err)
         checks += 1
-    seen = ({p.q_rows for p in launches32}, {p.vec for p in launches32})
-    require(seen == (set(flash_attention.F32_Q_ROWS), {False, True}),
-            f"flash_attention: the checked cases reach q rows {seen[0]} and "
-            f"copies {seen[1]}")
-    print("[check] flash_attention: the cases reach blocks of 32 and 64 q rows and "
-          "both element and 16-byte copies")
+    seen = {p.vec for p in launches32}
+    require(seen == {False, True}, f"flash_attention: the checked cases reach "
+            f"copies {seen}")
+    print("[check] flash_attention: the cases reach both element and 16-byte copies")
     seen = ({p.d_pad for p in launches16}, {p.vec for p in launches16})
     require(seen == ({16, 32, 64, 128}, {False, True}), f"flash_attention_bf16: "
             f"the checked cases reach head dims {seen[0]} and copies {seen[1]}")

@@ -20,9 +20,8 @@
 //   the floor is the flops over the CUDA cores' fp32 rate (67 TFLOP/s).
 //
 // What the design does about it: two register-tiled SIMT products around an
-//   online softmax. A block owns BQ q rows (32 or 64, picked by the wrapper's
-//   plan, kernels/flash_attention.py::f32_launch) of one head and walks the
-//   kv tiles of kBK = 64 keys in order. Its BQ / 4 x 16 threads each own 4
+//   online softmax. A block owns kBQ = 32 q rows of one head and walks the
+//   kv tiles of kBK = 64 keys in order. Its 8 x 16 threads each own 4
 //   rows (ty * 4 + i) x 4 keys (tx + 16 j) of the tile's scores and the same
 //   4 rows x D / 16 columns of the output, so a row's m, l and rescale stay
 //   in the thread, and the 16 threads that share a row are the lanes of one
@@ -40,7 +39,7 @@
 //     in every lane, as the max is exact) and the 16 partials are added
 //     once at the end.
 //   * O += P V: P goes to shared memory with the key outermost (key rows
-//     padded to BQ + 4); each key step a thread reads one float4 of P (its
+//     padded to kBQ + 4); each key step a thread reads one float4 of P (its
 //     4 rows) and D / 16 columns of v for 4 x D / 16 FMAs.
 //   * loads: q, k and v arrive by cp.async, 16 bytes at a time where
 //     D % 4 == 0 on 16-byte-aligned pointers (else 4), zero-filled past Skv,
@@ -48,9 +47,10 @@
 //     multiplied.
 //   * scheduling: the grid is one axis, longest causal q tiles first across
 //     heads and batch, so the hardware's in-order dispatch balances the
-//     SMs; the plan takes 32-row blocks where 64-row ones would make too
-//     few waves (a prompt-1984 prefill's 279 blocks of 64 rows on 132 SMs
-//     of two blocks each leave one SM with two long blocks).
+//     SMs. 32 rows a block because the path's prefills are one prompt at a
+//     time: a prompt-1984 prefill makes 558 blocks of 32 rows; 64-row
+//     blocks would make 279 for the 264 block slots of 132 SMs x 2, and one
+//     SM would run two long causal tiles one after the other.
 //
 // Masking: a masked score is NEG_INF (-1e30), as in the Pallas kernel, and
 //   the running max starts there. Every row sees key 0 (causal or not), and
@@ -75,25 +75,27 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "smem.cuh"
 
 namespace {
 
+constexpr int kBQ = 32;            // q rows a block (kernels/flash_attention.py Q_ROWS)
 constexpr int kBK = 64;            // keys per kv tile (kernels/flash_attention.py KV_TILE)
 constexpr int kColThreads = 16;    // threads that share a q row: a half warp
 constexpr int kTM = 4;             // q rows a thread
 constexpr int kTN = kBK / kColThreads;  // keys a thread (tx + 16 j)
 constexpr float kNegInf = -1.0e30f;
 
-// BQ q rows a block, the head dim padded to DMAX (32, 64 or 128).
-template <int BQ, int DMAX>
+// The head dim padded to DMAX (32, 64 or 128).
+template <int DMAX>
 struct Shape {
-  static constexpr int kThreads = BQ / kTM * kColThreads;  // 128 or 256
+  static constexpr int kThreads = kBQ / kTM * kColThreads;  // 128
   static constexpr int kStride = DMAX + 4;   // floats a q, k or v row in shared memory
-  static constexpr int kPStride = BQ + 4;    // floats a key row of P
+  static constexpr int kPStride = kBQ + 4;   // floats a key row of P
   static constexpr int kTile = kBK * kStride;
   static constexpr int kOCols = DMAX / kColThreads;  // output columns a thread
   static constexpr size_t kSmem =
-      sizeof(float) * (BQ * kStride + 4 * kTile + kBK * kPStride);
+      sizeof(float) * (kBQ * kStride + 4 * kTile + kBK * kPStride);
   // two blocks an SM where their shared memory fits
   static constexpr int kMinBlocks = 2 * kSmem <= 227 * 1024 ? 2 : 1;
 };
@@ -106,41 +108,26 @@ __device__ __forceinline__ int out_col(int tx, int c) {
   return kOCols == 2 ? tx * 2 + c : (c / 4) * 64 + tx * 4 + c % 4;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 or 4 bytes global -> shared; when !valid, zeros and no read (src must
-// still be a global address: callers pass the tensor's base).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
+using smem::cp_async16;
+using smem::cp_async4;
+using smem::cp_async_commit;
+using smem::cp_async_wait;
 
-template <int BQ, int DMAX>
-__global__ void __launch_bounds__(Shape<BQ, DMAX>::kThreads, Shape<BQ, DMAX>::kMinBlocks)
+template <int DMAX>
+__global__ void __launch_bounds__(Shape<DMAX>::kThreads, Shape<DMAX>::kMinBlocks)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int batch,
                        int sq, int skv, int h, int n_kv, int d, float scale, int causal,
                        int vec) {
-  using S = Shape<BQ, DMAX>;
+  using S = Shape<DMAX>;
   constexpr int kThreads = S::kThreads, kStride = S::kStride, kOCols = S::kOCols;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                    // BQ x kStride
-  float* kvs = qs + BQ * kStride;      // two stages of (k tile, v tile)
+  float* qs = smem;                    // kBQ x kStride
+  float* kvs = qs + kBQ * kStride;     // two stages of (k tile, v tile)
   float* ps = kvs + 4 * S::kTile;      // kBK x kPStride: P, key outermost
 
   // longest causal q tiles first, across heads and batch
-  const int n_qt = (sq + BQ - 1) / BQ;
+  const int n_qt = (sq + kBQ - 1) / kBQ;
   const int per_tile = h * batch;
   const int qt = n_qt - 1 - blockIdx.x / per_tile;
   const int head = blockIdx.x % h;
@@ -149,8 +136,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int ty = tid / kColThreads;
   const int tx = tid % kColThreads;
-  const int q0 = qt * BQ;
-  const int q_last = min(sq, q0 + BQ) - 1;   // the block's last row
+  const int q0 = qt * kBQ;
+  const int q_last = min(sq, q0 + kBQ) - 1;   // the block's last row
   const int kv_end = causal ? min(skv, q_last + 1) : skv;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
@@ -178,7 +165,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   };
 
-  load_rows(qs, qb, ldq, q0, BQ, sq);
+  load_rows(qs, qb, ldq, q0, kBQ, sq);
   load_rows(kvs, kb, ldk, 0, kBK, skv);
   load_rows(kvs + S::kTile, vb, ldk, 0, kBK, skv);
   cp_async_commit();
@@ -193,7 +180,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();   // tile t (and q) landed: this thread's copies
+    cp_async_wait<0>();    // tile t (and q) landed: this thread's copies
     __syncthreads();       // ... and every thread's; tile t - 1 and P consumed
     if (t + 1 < n_tiles) {
       float* st = kvs + ((t + 1) & 1) * 2 * S::kTile;
@@ -314,55 +301,41 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int BQ, int DMAX>
+template <int DMAX>
 int launch(dim3 grid, cudaStream_t stream, const float* q, const float* k, const float* v,
            float* out, int b, int sq, int skv, int h, int n_kv, int d, float scale, int causal,
            int vec) {
-  using S = Shape<BQ, DMAX>;
+  using S = Shape<DMAX>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<BQ, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)S::kSmem);
+      flash_attention_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_kernel<BQ, DMAX><<<grid, S::kThreads, S::kSmem, stream>>>(
+  flash_attention_kernel<DMAX><<<grid, S::kThreads, S::kSmem, stream>>>(
       q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
   return (int)cudaGetLastError();
-}
-
-template <int BQ>
-int launch_rows(dim3 grid, cudaStream_t stream, const float* q, const float* k,
-                const float* v, float* out, int b, int sq, int skv, int h, int n_kv, int d,
-                float scale, int causal, int vec) {
-  if (d <= 32)
-    return launch<BQ, 32>(grid, stream, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal,
-                          vec);
-  if (d <= 64)
-    return launch<BQ, 64>(grid, stream, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal,
-                          vec);
-  return launch<BQ, 128>(grid, stream, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal,
-                         vec);
 }
 
 }  // namespace
 
 // q: (b, sq, h, d); k, v: (b, skv, n_kv, d); out: (b, sq, h, d); all
-// contiguous fp32. bq: q rows a block, 32 or 64. vec: 16-byte copies, for
-// d % 4 == 0 on 16-byte-aligned q, k and v. The caller guarantees b, sq,
-// skv >= 1, 1 <= d <= 128 and h a multiple of n_kv. Launches on `stream`
-// and returns cudaGetLastError() (0 when the launch was accepted);
-// arguments out of those ranges return cudaErrorInvalidValue without
-// launching.
+// contiguous fp32. vec: 16-byte copies, for d % 4 == 0 on 16-byte-aligned
+// q, k and v. The caller guarantees b, sq, skv >= 1, 1 <= d <= 128 and h a
+// multiple of n_kv. Launches on `stream` and returns cudaGetLastError() (0
+// when the launch was accepted); arguments out of those ranges return
+// cudaErrorInvalidValue without launching.
 extern "C" int flash_attention(const float* q, const float* k, const float* v,
                                float* out, int b, int sq, int skv, int h,
                                int n_kv, int d, float scale, int causal,
-                               int bq, int vec, void* stream) {
+                               int vec, void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || d < 1 || d > 128 || n_kv < 1 ||
-      h % n_kv != 0 || (bq != 32 && bq != 64) || (vec && d % 4 != 0))
+      h % n_kv != 0 || (vec && d % 4 != 0))
     return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)((sq + bq - 1) / bq) * h * b;
+  const long long blocks = (long long)((sq + kBQ - 1) / kBQ) * h * b;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (bq == 64)
-    return launch_rows<64>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
-  return launch_rows<32>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
+  if (d <= 32)
+    return launch<32>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
+  if (d <= 64)
+    return launch<64>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
+  return launch<128>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
 }

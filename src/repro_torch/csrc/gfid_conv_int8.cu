@@ -37,8 +37,10 @@
 //   axis beside the column blocks, each row decodes its image for sx[b],
 //   and the wrapper picks the block tile (128 x 128, 64 x 64 or 32 x 64,
 //   kernels/gfid_conv.py::int8_plan) to fill the 132 SMs. Where even 32-row
-//   tiles leave the card idle (batch 1's conv2-5), K is split across up to
-//   8 blocks that form one thread block cluster: the first adds the others'
+//   tiles leave the card idle (batch 1's conv2-5), K is split across at
+//   most kMaxSplit = 4 blocks (kernels/gfid_conv.py INT8_MAX_SPLIT: the
+//   splits that chip_smoke.py checks on the card; the entry refuses more)
+//   that form one thread block cluster: the first adds the others'
 //   int32 sums through distributed shared memory and runs the epilogue. No
 //   workspace, no memset, one launch; integer sums are exact in any order,
 //   so every tile and split gives the same bits.
@@ -64,6 +66,9 @@ constexpr int kPixTile = 128;
 constexpr int kKc = 64;
 constexpr int kCoutTile = 128;
 static_assert(kKc == mma8::kKc, "the chunk is the core's");
+// The most splits of K (kernels/gfid_conv.py INT8_MAX_SPLIT), one cluster.
+constexpr int kMaxSplit = 4;
+static_assert(kMaxSplit <= mma8::kMaxCluster, "a tile's splits are one portable cluster");
 
 struct Geometry {
   int B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad, groups;
@@ -223,7 +228,7 @@ gfid_conv_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w
 // and sw (C_out,) fp32; bias (C_out,) fp32 or null; out (B, H_out, W_out,
 // C_out) fp32. (bm, bn) is a block tile of mma8::with_tile; K is cut into
 // splits runs of chunks_per_split chunks of kKc bytes, and with splits > 1
-// (at most 8) the splits of each output tile run as one cluster. vec_x:
+// (at most kMaxSplit) the splits of each output tile run as one cluster. vec_x:
 // 16-byte copies of x, for cg % 16 == 0 on a 16-byte aligned xq; vec_w:
 // 16-byte copies of w, for og % 16 == 0 on a 16-byte aligned wq. act: 0 none,
 // 1 relu, 2 gelu. Launches on `stream` and returns cudaGetLastError() (0
@@ -235,7 +240,7 @@ extern "C" int gfid_conv2d_nhwc_int8(const void* xq, const void* wq, const float
                                      int groups, int bm, int bn, int splits,
                                      int chunks_per_split, int act, int vec_x, int vec_w,
                                      void* stream) {
-  if (splits < 1 || splits > mma8::kMaxCluster) return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > kMaxSplit) return (int)cudaErrorInvalidValue;
   const Geometry d{B, H_in, W_in, C_in, H_f, W_f, C_out, H_out, W_out, stride, pad, groups};
   const int8_t* xb = static_cast<const int8_t*>(xq);
   const int8_t* wb = static_cast<const int8_t*>(wq);

@@ -35,6 +35,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "smem.cuh"
 #include "split_k.cuh"
 
 namespace mma {
@@ -63,35 +64,11 @@ struct Tile {
   static_assert(kThreads % kBK == 0, "a thread's K column of the A tile is fixed");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; when !valid, 16 zero bytes and no read (src
-// must still be a global address: callers pass the tensor's base).
-__device__ __forceinline__ void cp_async16(uint16_t* dst, const uint16_t* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
+using smem::cp_async16;
+using smem::cp_async_commit;
+using smem::cp_async_wait;
+using smem::ldmatrix_x4;
+using smem::ldmatrix_x4_trans;
 
 // d += a (16 x 16, row major) * b (16 x 8, column major), bf16 in, fp32 sums.
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],

@@ -37,6 +37,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace mma8 {
 
 constexpr int kKc = 64;              // K bytes a chunk: two k32 mma steps
@@ -81,29 +83,10 @@ __device__ __forceinline__ int b_offset(int n, int kb) {
   return n * kKc + ((((kb >> 4) ^ (n >> 1) ^ (n >> 3)) & 3) << 4) + (kb & 15);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; when !valid, 16 zero bytes and no read (src
-// must still be a global address: callers pass the tensor's base).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
+using smem::cp_async16;
+using smem::cp_async_commit;
+using smem::cp_async_wait;
+using smem::ldmatrix_x4;
 
 // d += a (16 x 32, row major) * b (32 x 8, column major), s8 in, s32 sums.
 __device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,

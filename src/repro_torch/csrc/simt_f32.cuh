@@ -16,6 +16,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace simt {
 
 // A block tile of BM rows x BN columns in chunks of BK K rows through a
@@ -38,26 +40,10 @@ struct Tile {
   static_assert(kThreads % BK == 0, "a thread's K column of an element-loaded A is fixed");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 or 4 bytes global -> shared; when !valid, zeros and no read (src must
-// still be a global address: callers pass the tensor's base).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using smem::cp_async16;
+using smem::cp_async4;
+using smem::cp_async_commit;
+using smem::cp_async_wait;
 
 // One chunk of the block tile from stage (As, Bs) into this thread's
 // accumulators, K in order.

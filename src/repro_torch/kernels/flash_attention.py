@@ -2,9 +2,8 @@
 Pallas kernel `repro.kernels.flash_attention.flash_attention`, and their
 plain PyTorch version. `csrc/flash_attention.cu` (entry `flash_attention`)
 takes fp32 q, k, v on the CUDA cores (two register-tiled products around an
-online softmax, in blocks of 32 or 64 q rows that `f32_launch` picks);
-`csrc/flash_attention_bf16.cu` (entry
-`flash_attention_bf16`) takes bf16 q, k, v on the tensor cores (bf16
+online softmax, in blocks of Q_ROWS q rows); `csrc/flash_attention_bf16.cu`
+(entry `flash_attention_bf16`) takes bf16 q, k, v on the tensor cores (bf16
 `mma.sync` with fp32 accumulators, p carried as a bf16 pair).
 
 q (B, Sq, H, D) and k, v (B, Skv, KV, D), fp32 or bf16, with H a multiple
@@ -33,23 +32,17 @@ import torch
 from repro_torch.core.quant import no_tf32
 from repro_torch.kernels import build
 
-# q, k, v, out; b, sq, skv, h, n_kv, d; scale; causal, bq (q rows a
-# block), vec (16-byte copies); stream.
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-# The same and vec (16-byte copies) before the stream.
-BF16_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# q, k, v, out; b, sq, skv, h, n_kv, d; scale; causal, vec (16-byte
+# copies); stream. Both entries take the same arguments.
+ARGTYPES = BF16_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                            + [ctypes.c_float] + [ctypes.c_int] * 2
+                            + [ctypes.c_void_p])
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
-# The fp32 kernel's kv tile (kBK in csrc/flash_attention.cu); the plain
-# version walks the keys in tiles of the same size.
-KV_TILE = 64
-# The fp32 kernel's q rows a block (BQ, 4 rows a thread, 16 threads a row),
-# most first: 64 where those blocks make at least F32_WAVES waves of two
-# blocks an SM, else 32 (more, shorter blocks even out the causal tail).
-F32_Q_ROWS = (64, 32)
-F32_WAVES = 2
+# The fp32 kernel's block in csrc/flash_attention.cu: q rows (kBQ, 4 rows a
+# thread, 16 threads a row) and keys a kv tile (kBK); the plain version
+# walks the keys in tiles of the same size.
+Q_ROWS, KV_TILE = 32, 64
 # The bf16 kernel's block: q rows (kBQ, 16 a warp of 4) and keys a kv tile
 # (kBK) in csrc/flash_attention_bf16.cu.
 BF16_Q_ROWS, BF16_KV_TILE = 64, 128
@@ -115,27 +108,19 @@ def _launcher_bf16():
 
 class F32Launch(NamedTuple):
     """One launch of the fp32 `flash_attention`: its grid (q tiles x heads
-    x batch, 1, 1), the q rows a block, and whether q, k and v go by
-    16-byte copies."""
+    x batch, 1, 1) and whether q, k and v go by 16-byte copies."""
     grid: Tuple[int, int, int]
-    q_rows: int
     vec: bool
 
 
-def f32_launch(b: int, sq: int, h: int, d: int, *ptrs: int,
-               sms: int = 132) -> F32Launch:
+def f32_launch(b: int, sq: int, h: int, d: int, *ptrs: int) -> F32Launch:
     """The launch of the fp32 kernel for q (b, sq, h, d) at the addresses
-    `ptrs` (of q, k and v) on a card of `sms` SMs: the q rows a block from
-    F32_Q_ROWS, 16-byte copies for d % 4 == 0 on 16-byte aligned pointers;
-    raises where the grid passes CUDA's limits."""
-    for rows in F32_Q_ROWS:
-        blocks = -(-sq // rows) * h * b
-        if blocks >= F32_WAVES * 2 * sms:
-            break
-    grid = (blocks, 1, 1)
+    `ptrs` (of q, k and v): 16-byte copies for d % 4 == 0 on 16-byte
+    aligned pointers, else element loads; raises where the grid passes
+    CUDA's limits."""
+    grid = (-(-sq // Q_ROWS) * h * b, 1, 1)
     build.check_grid("flash_attention", grid)
-    return F32Launch(grid, rows,
-                     d % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    return F32Launch(grid, d % 4 == 0 and all(p % 16 == 0 for p in ptrs))
 
 
 class Bf16Launch(NamedTuple):
@@ -215,15 +200,9 @@ def _launch(q, k, v, out, causal, scale) -> None:
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     dims = (b, sq, k.shape[1], h, k.shape[2], d, _scale(d, scale), int(causal))
     is_bf16 = q.dtype == torch.bfloat16
-    if is_bf16:
-        plan = bf16_launch(b, sq, h, d, *ptrs[:3])
-        lib, fn = _launcher_bf16()
-        dims += (int(plan.vec),)
-    else:
-        f32 = f32_launch(b, sq, h, d, *ptrs[:3],
-                         sms=build.sm_count(q.device.index or 0))
-        lib, fn = _launcher()
-        dims += (f32.q_rows, int(f32.vec))
+    plan = (bf16_launch if is_bf16 else f32_launch)(b, sq, h, d, *ptrs[:3])
+    lib, fn = _launcher_bf16() if is_bf16 else _launcher()
+    dims += (int(plan.vec),)
     with torch.cuda.device(q.device):
         err = fn(*ptrs, *dims, torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "flash_attention_bf16" if is_bf16 else "flash_attention")

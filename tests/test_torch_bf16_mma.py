@@ -37,16 +37,17 @@ hold the plans to the kernels' contracts:
     of its algorithm (kv tiles of KV_TILE keys, the tile's row max, one exp
     a score, 16 lanes' partial sums of a row added at the end, P . V) within
     1e-5 of the Pallas kernel in interpret mode at the forward cases of
-    tests/test_flash.py and tests/test_kernels.py, in blocks of 32 and 64 q
-    rows; KV_TILE and the q rows equal to the source's; the source on fp32
-    FMAs fed by `cp.async` with the accurate `expf`; `f32_launch`'s rows a
-    block (counted in waves of two blocks an SM) and copy flag; its launch
-    arguments, counter and refusal with the library faked;
+    tests/test_flash.py and tests/test_kernels.py; KV_TILE and Q_ROWS equal
+    to the source's; the source on fp32 FMAs fed by `cp.async` (through the
+    shared csrc/smem.cuh) with the accurate `expf`; `f32_launch`'s grid and
+    copy flag; its launch arguments, counter and refusal with the library
+    faked;
   * the int8 conv on the int8 tensor cores (`csrc/gfid_conv_int8.cu`,
     `csrc/mma_int8.cuh`): the B tile's byte transpose mirrored in numpy
     (the source's `__byte_perm` selectors) bitwise equal to wq's (C_out, K)
     view; the channel-major swizzle conflict-free for `ldmatrix`;
-    `int8_plan`'s tile, split (one cluster of at most INT8_MAX_SPLIT) and
+    `int8_plan`'s tile, split (one cluster of at most INT8_MAX_SPLIT, the
+    entry's kMaxSplit) and
     grid at AlexNet's five convs at batch 1 and 32 and ragged shapes; the
     wrapper's CUDA branch (library faked) passing its plan in the C
     signature's order, counting, refusing; its lean checks still refusing.
@@ -414,6 +415,8 @@ def test_bf16_kernels_multiply_on_the_tensor_cores():
     `ldmatrix`, with no fp32 FMA loop; the fp32 sources keep no bf16
     entry."""
     header = (build.CSRC / "mma_bf16.cuh").read_text()
+    assert '#include "smem.cuh"' in header
+    header += (build.CSRC / "smem.cuh").read_text()
     for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
                    "cp.async.cg.shared.global", "cp.async.wait_group",
                    "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16"):
@@ -860,8 +863,8 @@ FLASH_CASES = [(2, 64, 4, 2, 16, True), (2, 64, 4, 2, 16, False),
                (2, 96, 4, 4, 16, False), (1, 64, 6, 3, 8, True)]
 
 
-def _emulate_flash(q, k, v, causal, q_rows):
-    """The fp32 kernel's algorithm in torch ops: blocks of `q_rows` q rows;
+def _emulate_flash(q, k, v, causal):
+    """The fp32 kernel's algorithm in torch ops: blocks of Q_ROWS q rows;
     kv tiles of KV_TILE keys in order, the causal ones past the block's
     last row not visited; the tile's scores scaled, masked only on a tile
     that reaches past Skv or past the block's first row; the row max over
@@ -870,7 +873,7 @@ def _emulate_flash(q, k, v, causal, q_rows):
     at the end; P . V accumulated in fp32."""
     b, sq, h, d = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
-    tile, lanes = flash_attention.KV_TILE, 16
+    q_rows, tile, lanes = flash_attention.Q_ROWS, flash_attention.KV_TILE, 16
     scale = 1.0 / np.sqrt(d)
     qh = q.permute(0, 2, 1, 3)                                   # (B, H, Sq, D)
     kh, vh = (t.repeat_interleave(h // n_kv, dim=2).permute(0, 2, 1, 3)
@@ -905,17 +908,15 @@ def _emulate_flash(q, k, v, causal, q_rows):
     return out.permute(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("q_rows", flash_attention.F32_Q_ROWS)
 @pytest.mark.parametrize("b,s,h,kv,d,causal", FLASH_CASES)
-def test_f32_flash_algorithm_matches_the_pallas_kernel(b, s, h, kv, d, causal,
-                                                       q_rows):
+def test_f32_flash_algorithm_matches_the_pallas_kernel(b, s, h, kv, d, causal):
     from repro.kernels import ops as jax_ops
     rng = np.random.default_rng(s * 10 + d)
     q, k, v = (rng.standard_normal(shape).astype(np.float32)
                for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
     want = np.asarray(jax_ops.flash_attention(*map(jnp.asarray, (q, k, v)),
                                               causal=causal, interpret=True))
-    got = _emulate_flash(*map(torch.from_numpy, (q, k, v)), causal, q_rows)
+    got = _emulate_flash(*map(torch.from_numpy, (q, k, v)), causal)
     assert np.abs(got.numpy() - want).max() <= FLASH_TOL * np.abs(want).max()
     plain = flash_attention.flash_attention_plain(
         *map(torch.from_numpy, (q, k, v)), causal=causal)
@@ -923,33 +924,32 @@ def test_f32_flash_algorithm_matches_the_pallas_kernel(b, s, h, kv, d, causal,
 
 
 def test_f32_flash_kv_tile_and_rows_match_the_source():
-    """KV_TILE (the plain version's tile too) is the kernel's kBK, and the
-    q rows a block the plan picks are the ones the entry launches."""
+    """KV_TILE (the plain version's tile too) is the kernel's kBK, and
+    Q_ROWS, from which `f32_launch` counts the grid, its kBQ."""
     src = (build.CSRC / "flash_attention.cu").read_text()
     assert f"constexpr int kBK = {flash_attention.KV_TILE};" in src
-    for rows in flash_attention.F32_Q_ROWS:
-        assert f"launch_rows<{rows}>" in src and f"bq != {rows}" in src
+    assert f"constexpr int kBQ = {flash_attention.Q_ROWS};" in src
 
 
 def test_f32_flash_runs_on_cuda_cores_fed_by_cp_async():
     src = (build.CSRC / "flash_attention.cu").read_text()
-    assert "cp.async.cg.shared.global" in src and "cp.async.wait_group" in src
+    header = (build.CSRC / "smem.cuh").read_text()
+    assert '#include "smem.cuh"' in src and "asm" not in src
+    assert "cp.async.cg.shared.global" in header and "cp.async.wait_group" in header
+    assert "cp_async16(" in src and "cp_async_wait<0>()" in src
     assert "mma" not in src and "__expf(" not in src and "expf(" in src
     assert "fmaf(" in src and "__shfl_xor_sync" in src
 
 
-@pytest.mark.parametrize("b,sq,h,rows", [(1, 1984, 9, 32), (4, 1984, 9, 64),
-                                         (1, 1031, 9, 32), (2, 700, 9, 32),
-                                         (4, 1000, 9, 64), (1, 1, 1, 32),
-                                         (64, 2048, 9, 64)])
-def test_f32_flash_plan_counts_waves(b, sq, h, rows):
-    """64-row blocks only where they make at least F32_WAVES waves of two
-    blocks an SM; the grid is one axis of q tiles x heads x batch."""
+@pytest.mark.parametrize("b,sq,h,blocks", [(1, 1984, 9, 558), (4, 1984, 9, 2232),
+                                           (1, 1031, 9, 297), (2, 700, 9, 396),
+                                           (4, 1000, 9, 1152), (1, 1, 1, 1),
+                                           (64, 2048, 9, 36864)])
+def test_f32_flash_grid_is_q_tiles_by_heads_by_batch(b, sq, h, blocks):
+    """The grid is one axis of q tiles of Q_ROWS rows x heads x batch."""
     plan = flash_attention.f32_launch(b, sq, h, 64, 0, 0, 0)
-    assert plan.q_rows == rows
-    assert plan.grid == (-(-sq // rows) * h * b, 1, 1)
-    if rows == 64:
-        assert plan.grid[0] >= flash_attention.F32_WAVES * 2 * 132
+    assert plan.grid == (blocks, 1, 1)
+    assert blocks == -(-sq // flash_attention.Q_ROWS) * h * b
 
 
 @pytest.mark.parametrize("d,ptrs,vec", [(64, (0, 0, 0), True),
@@ -1054,8 +1054,12 @@ def test_int8_tiles_match_the_tensor_core_core():
     cluster = int(re.search(r"constexpr int kMaxCluster = (\d+);", core).group(1))
     assert gfid_conv.INT8_MAX_SPLIT <= cluster
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in core
-    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in core
+    assert '#include "smem.cuh"' in core and "using smem::ldmatrix_x4;" in core
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in (
+        build.CSRC / "smem.cuh").read_text()
     source = (build.CSRC / "gfid_conv_int8.cu").read_text()
+    assert f"constexpr int kMaxSplit = {gfid_conv.INT8_MAX_SPLIT};" in source
+    assert "splits > kMaxSplit) return (int)cudaErrorInvalidValue" in source
     assert '#include "mma_int8.cuh"' in source and "__dp4a(" not in source
     assert "ws" not in re.findall(r"\w+", source[source.index('extern "C"'):])
 
@@ -1207,10 +1211,9 @@ def test_int8_conv_lean_checks_still_refuse(case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_launch_passes_its_plan_and_raises_when_refused(monkeypatch,
                                                               dtype):
-    """`flash_attention._launch` (library, SM count, device and stream
-    faked) passes the fp32 entry its q rows a block and copy flag after the
-    causal flag, the bf16 entry its copy flag; a refused launch raises and
-    is not counted."""
+    """`flash_attention._launch` (library, device and stream faked) passes
+    either entry its copy flag after the causal flag; a refused launch
+    raises and is not counted."""
     calls, err = [], [0]
 
     def fake_library(name):
@@ -1221,7 +1224,6 @@ def test_flash_launch_passes_its_plan_and_raises_when_refused(monkeypatch,
                                      repro_cuda_error_string=lambda e: b"refused")
 
     monkeypatch.setattr(build, "library", fake_library)
-    monkeypatch.setattr(build, "sm_count", lambda index: 132)
     monkeypatch.setattr(flash_attention, "_launcher",
                         flash_attention._launcher.__wrapped__)
     monkeypatch.setattr(flash_attention, "_launcher_bf16",
@@ -1238,12 +1240,11 @@ def test_flash_launch_passes_its_plan_and_raises_when_refused(monkeypatch,
     flash_attention._launch(q, k, k, out, True, None)
     (name, args), = calls
     assert args[4:12] == (4, 1000, 1000, 9, 3, 64, pytest.approx(0.125), 1)
-    if dtype == torch.float32:
-        plan = flash_attention.f32_launch(4, 1000, 9, 64, *args[:3])
-        assert name == "flash_attention" and plan.q_rows == 64
-        assert args[12:] == (64, int(plan.vec), 7)
-    else:
-        assert name == "flash_attention_bf16" and len(args[12:]) == 2
+    is32 = dtype == torch.float32
+    plan = (flash_attention.f32_launch if is32 else flash_attention.bf16_launch)(
+        4, 1000, 9, 64, *args[:3])
+    assert name == ("flash_attention" if is32 else "flash_attention_bf16")
+    assert args[12:] == (int(plan.vec), 7)
     assert counter.launches == before + 1
     err[0] = 98
     with pytest.raises(RuntimeError, match="launch failed: CUDA error 98"):

@@ -310,10 +310,9 @@ def test_source_is_registered_and_built_without_fast_math():
                                           "flash_attention_bf16")])
 def test_wrapper_dispatches_by_dtype(monkeypatch, dtype, entry):
     """The CUDA branch of the wrapper (run here on CPU tensors with the
-    library, the SM count and the stream faked) calls the entry of q's
-    dtype with the C signature's arguments (the fp32 entry's q rows a block
-    and copy flag from `f32_launch`) and counts that entry's launch
-    alone."""
+    library and the stream faked) calls the entry of q's dtype with the C
+    signature's arguments (the copy flag from that entry's plan) and counts
+    that entry's launch alone."""
     calls = []
 
     def fake_library(name):
@@ -323,7 +322,6 @@ def test_wrapper_dispatches_by_dtype(monkeypatch, dtype, entry):
         return types.SimpleNamespace(**{name: fn})
 
     monkeypatch.setattr(build, "library", fake_library)
-    monkeypatch.setattr(build, "sm_count", lambda index: 132)
     monkeypatch.setattr(FA, "_launcher", FA._launcher.__wrapped__)
     monkeypatch.setattr(FA, "_launcher_bf16", FA._launcher_bf16.__wrapped__)
     monkeypatch.setattr(torch.cuda, "device", lambda _: _Null())
@@ -339,11 +337,8 @@ def test_wrapper_dispatches_by_dtype(monkeypatch, dtype, entry):
     assert len(args) == len(want)
     assert args[4:10] == (2, 33, 33, 6, 2, 40)
     assert args[10] == pytest.approx(1 / math.sqrt(40)) and args[11] == 0
-    if dtype == torch.bfloat16:
-        assert args[12] == int(FA.bf16_launch(2, 33, 6, 40, *args[:3]).vec)
-    else:
-        plan = FA.f32_launch(2, 33, 6, 40, *args[:3])
-        assert args[12:14] == (plan.q_rows, int(plan.vec))
+    plan = FA.bf16_launch if dtype == torch.bfloat16 else FA.f32_launch
+    assert args[12] == int(plan(2, 33, 6, 40, *args[:3]).vec)
     after = (FA.flash_attention.launches, FA.flash_attention_bf16.launches)
     bumped = (1, 0) if dtype == torch.float32 else (0, 1)
     assert tuple(a - b for a, b in zip(after, before)) == bumped
