@@ -22,7 +22,11 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      the card by `core/quant`): max|kernel - plain| == 0 for act None and
      relu, <= 1e-6 * max|plain| for gelu; the int8 conv's cases reach every
      (tile, split) pair of `gfid_conv.int8_plan` and both load paths of x
-     and w (required). bf16 operands (`gfid_matmul_bf16`,
+     and w (required), the int8 GEMM's every (tile, split) pair of
+     `gfid_matmul.int8_mm_plan`, both load paths of xq (one case an xq 1
+     byte past a 16-byte boundary) and the 16-byte, 8-byte and gathered
+     loads of wq (required), with M = 16 and 17, K = 1028 and N = 100 and
+     520 among its ragged cases. bf16 operands (`gfid_matmul_bf16`,
      `gfid_conv2d_nhwc_bf16`) at every AlexNet conv and FC shape (bf16 bias,
      relu), the ragged cases (fp32 bias, gelu, none), smollm's GEMMs at
      decode (M = 8) and prefill (M = 1024, and 15,872 for w_in/w_gate)
@@ -91,10 +95,12 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      the device alone (a CUDA graph of 100 calls), beside cuDNN, cuBLAS or
      `torch._int_mm` timed the same way ("none" where there is no call). The host part of one call of the lean launch path,
      piece by piece beside the piece it replaced, for `gfid_matmul` at the
-     decode's wq/wo (8, 576) @ (576, 576) fp32 and `paged_gather` at the
-     full-width pool and a table of 8 x 32, and each whole call on the host
-     clock, with the host and for the device alone beside `torch.mm` and
-     `index_select`.
+     decode's wq/wo (8, 576) @ (576, 576) fp32, `paged_gather` at the
+     full-width pool and a table of 8 x 32, `gfid_matmul_int8` at fc8 at
+     batch 1 and `gfid_conv1d_depthwise` at (1, 384, 1536), and each whole
+     call on the host clock, with the host and for the device alone beside
+     `torch.mm`, `index_select` and `F.conv1d` (none for the int8 GEMM at
+     one row).
      `flash_attention` at (1, 1984, 9 / 3, 64) causal on fp32 and on bf16
      q, k, v (`flash_attention_bf16`), a launch (with the host's launch
      inside, and the device alone) and one prefill's 30, beside
@@ -135,8 +141,11 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
   7. xLSTM serving: first `gfid_conv1d_depthwise` against its plain version,
      bitwise, at the xLSTM prefill's shapes ((1, L, 1536) and (1, L, 768),
      L = 16, 243, 384, causal, 4 taps), a ragged (3, 37, 100) causal and
-     centred, hubert's (2, 64, 1280) with 128 centred taps and bf16
-     operands; and `gfid_matmul` within TOL at every xLSTM GEMM shape, at
+     centred, hubert's (2, 64, 1280) with 128 centred taps, bf16
+     operands, D % 4 != 0, 1, 9, 12 and 70 taps and an unaligned x, so that
+     the cases reach the register window and the shared-memory tile, each
+     with float4 and scalar loads, and bf16 x on both (required); and
+     `gfid_matmul` within TOL at every xLSTM GEMM shape, at
      M = 8 and at a prompt-384 prefill's padded rows. Then xlstm-125m at
      full width and depth (12 layers, mLSTM x 5 + sLSTM a group, d_model
      768, 155.7 M fp32 parameters from seed 0) is served on the same pool
@@ -497,12 +506,15 @@ def bf16_conv_cases(gen, dev):
 
 
 def launch_plan(kind, kw):
-    """The launch plan the wrapper takes for a case of `kind` "conv" (fp32,
-    bf16 or int8 operands) or "mm" (fp32 or bf16): the wrappers' own plan
-    functions on the case's shapes and addresses."""
+    """The launch plan the wrapper takes for a case of `kind` "conv" or
+    "mm" (fp32, bf16 or int8 operands): the wrappers' own plan functions on
+    the case's shapes and addresses."""
     from repro_torch.kernels import build, gfid_conv, gfid_matmul
     x, w = (kw["x"], kw["w"]) if "x" in kw else (kw["xq"], kw["wq"])
     sms = build.sm_count(x.device.index or 0) if x.is_cuda else 132
+    if kind == "mm" and x.dtype == torch.int8:
+        return gfid_matmul.int8_mm_plan(x.shape[0], x.shape[1], w.shape[1],
+                                        x.data_ptr(), w.data_ptr(), sms)
     if kind == "mm" and x.dtype == torch.bfloat16:
         return gfid_matmul.bf16_plan(x.shape[0], x.shape[1], w.shape[1],
                                      x.data_ptr(), w.data_ptr())
@@ -551,6 +563,24 @@ def require_int8_conv_coverage(plans):
           + ", ".join(f"{m}x{n} {'in a cluster of K splits' if c else 'one split'}"
                       for m, n, c in sorted(seen["mode"]))
           + ", byte and 16-byte loads of x and w")
+
+
+def require_int8_mm_coverage(plans):
+    """Every (tile, split) pair `gfid_matmul.int8_mm_plan` can pick (each
+    tile of INT8_MM_TILES in one split and with K split across a cluster),
+    both load paths of xq and the three of wq (16- and 8-byte copies,
+    bytes gathered) were among the checked plans."""
+    from repro_torch.kernels.gfid_matmul import INT8_MM_TILES, INT8_MM_W_COPIES
+    seen = dict(mode={(p.bm, p.bn, p.splits > 1) for p in plans},
+                vec_x={p.vec_x for p in plans}, vec_w={p.vec_w for p in plans})
+    want = dict(mode={t + (c,) for t in INT8_MM_TILES for c in (False, True)},
+                vec_x={False, True}, vec_w=set(INT8_MM_W_COPIES) | {0})
+    require(seen == want, f"gfid_matmul_int8: the checked cases reach {seen}, "
+            f"not {want}")
+    print("[check] gfid_matmul_int8: the cases reach block tiles "
+          + ", ".join(f"{m}x{n} {'in a cluster of K splits' if c else 'one split'}"
+                      for m, n, c in sorted(seen["mode"]))
+          + ", byte and 16-byte loads of xq, 16-, 8-byte and byte loads of wq")
 
 
 def f32_mode(plan):
@@ -684,7 +714,9 @@ def ragged_int8_cases(gen, dev, quant):
     """int8 shapes off the main path: C_in = 3 with stride 4 and pad 2,
     groups 2, gelu, no bias, rows wider than a pixel tile; K = 1025 (past
     the 1024 fp32 chunk, not a multiple of 4), N = 1000, N not a multiple of
-    4, one row."""
+    4, one row, M = 16 and 17, K = 1028, N = 100 and 520, the GEMM's
+    128-row tile in one split and in a cluster, and an xq that is not
+    16-byte aligned."""
     def t(*shape):
         return torch.randn(shape, generator=gen).to(dev)
     conv = [
@@ -702,9 +734,24 @@ def ragged_int8_cases(gen, dev, quant):
         dict(x=t(5, 300), w=t(300, 70), bias=t(70), act="gelu"),
         dict(x=t(17, 257), w=t(257, 129), bias=None, act=None),
         dict(x=t(1, 1000), w=t(1000, 33), bias=t(33), act=None),
+        # the 16- and 32-row tiles at their edge, in a cluster of K splits
+        dict(x=t(16, 512), w=t(512, 640), bias=t(640), act="relu"),
+        dict(x=t(17, 1024), w=t(1024, 4096), bias=None, act="gelu"),
+        # K % 16 != 0 with K % 4 == 0; N % 8 != 0 with N % 4 == 0; N % 16 != 0
+        dict(x=t(4, 1028), w=t(1028, 100), bias=t(100), act="relu"),
+        dict(x=t(2, 2048), w=t(2048, 520), bias=None, act=None),
+        # the 128-row tile in one split and in a cluster
+        dict(x=t(600, 256), w=t(256, 4096), bias=t(4096), act="relu"),
+        dict(x=t(300, 512), w=t(512, 4096), bias=None, act=None),
     ]
-    return ([quantized("conv", kw, quant) for kw in conv],
-            [quantized("fc", kw, quant) for kw in mm])
+    mm8 = [quantized("fc", kw, quant) for kw in mm]
+    # xq a contiguous view 1 byte past a 16-byte boundary: gathered A words
+    kw = quantized("fc", dict(x=t(16, 1024), w=t(1024, 4096), bias=t(4096),
+                              act="relu"), quant)
+    buf = torch.empty(kw["xq"].numel() + 1, dtype=torch.int8, device=dev)
+    buf[1:].copy_(kw["xq"].reshape(-1))
+    mm8.append(dict(kw, xq=buf[1:].view(kw["xq"].shape)))
+    return [quantized("conv", kw, quant) for kw in conv], mm8
 
 
 def paged_cases(gen, dev):
@@ -1061,7 +1108,9 @@ def ssm_conv_cases(gen, dev):
     """(label, x, w, causal) for `gfid_conv1d_depthwise`: the xLSTM prefill's
     mLSTM (1, L, 1536) and sLSTM (1, L, 768) convs at L = 16, 243 and 384,
     causal, 4 taps; a ragged (3, 37, 100) in both modes; hubert's centred
-    128-tap positional conv at (2, 64, 1280); bf16 operands."""
+    128-tap positional conv at (2, 64, 1280); bf16 operands; D % 4 != 0 on
+    the register window and the shared-memory tile; bf16 on the tile; 1 tap;
+    an unaligned x."""
     def t(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen).to(dtype).to(dev)
     cases = [(f"xlstm (1, {l}, {d}) W_f 4 causal", t(1, l, d), t(4, d), True)
@@ -1072,8 +1121,35 @@ def ssm_conv_cases(gen, dev):
               ("hubert (2, 64, 1280) W_f 128 centred", t(2, 64, 1280),
                t(128, 1280), False),
               ("bf16 (2, 17, 96) W_f 4 causal", t(2, 17, 96, dtype=torch.bfloat16),
-               t(4, 96, dtype=torch.bfloat16), True)]
+               t(4, 96, dtype=torch.bfloat16), True),
+              # D % 4 != 0: scalar loads, in both paths
+              ("ragged (2, 21, 30) W_f 8 causal", t(2, 21, 30), t(8, 30), True),
+              ("ragged (2, 40, 30) W_f 9 centred", t(2, 40, 30), t(9, 30), False),
+              ("bf16 (2, 33, 70) W_f 70 centred", t(2, 33, 70, dtype=torch.bfloat16),
+               t(70, 70, dtype=torch.bfloat16), False),
+              ("bf16 x, fp32 w (1, 50, 256) W_f 12 causal",
+               t(1, 50, 256, dtype=torch.bfloat16), t(12, 256), True),
+              ("W_f 1 (1, 19, 8)", t(1, 19, 8), t(1, 8), True)]
+    # x a contiguous view one element past a 16-byte boundary: scalar loads
+    # at D % 4 == 0
+    x = t(1 + 2 * 21 * 32)[1:].view(2, 21, 32)
+    cases.append(("unaligned x (2, 21, 32) W_f 4 causal", x, t(4, 32), True))
     return cases
+
+
+def require_conv1d_coverage(plans):
+    """The checked `gfid_conv1d_depthwise` cases reach the register window
+    and the shared-memory tile, each with vector and scalar loads, and bf16
+    x on both paths; `plans` holds (launch plan, x dtype) pairs."""
+    seen = {(p.staged, p.vec) for p, _ in plans}
+    bf16 = {p.staged for p, dt in plans if dt == torch.bfloat16}
+    want = {(a, b) for a in (False, True) for b in (False, True)}
+    require(seen == want and bf16 == {False, True},
+            f"gfid_conv1d_depthwise: the checked cases reach {seen} (bf16 x on "
+            f"{bf16}), not {want} with bf16 x on both paths")
+    print("[check] gfid_conv1d_depthwise: the cases reach the register window "
+          "and the shared-memory tile, each with float4 and scalar loads, bf16 "
+          "x on both")
 
 
 def ssm_gemm_shapes(cfg):
@@ -1109,6 +1185,7 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
 
     # the kernels against their plain versions at the path's shapes
     worst["gfid_conv1d_depthwise"] = 0.0
+    plans = []
     for label, x, w, causal in ssm_conv_cases(gen, dev):
         got = conv(x, w, causal=causal)
         want = conv1d.gfid_conv1d_depthwise_plain(x, w, causal=causal)
@@ -1118,12 +1195,17 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
                 f"gfid_conv1d_depthwise {label}: bad output")
         equal = torch.equal(got, want)
         abs_err = (got - want).abs().max().item()
+        plan = conv1d.launch_plan(*x.shape, w.shape[0], causal, x.data_ptr())
+        plans.append((plan, x.dtype))
         print(f"[check] gfid_conv1d_depthwise {label}: bitwise equal {equal} "
-              f"(max|d| = {abs_err:.3e}, limit 0)")
+              f"(max|d| = {abs_err:.3e}, limit 0), "
+              f"{'shared-memory tile' if plan.staged else 'register window'}, "
+              f"{'float4' if plan.vec else 'scalar'} loads, grid {plan.grid}")
         require(equal, f"gfid_conv1d_depthwise {label}: differs from its plain "
                 "version")
         worst["gfid_conv1d_depthwise"] = max(worst["gfid_conv1d_depthwise"],
                                              abs_err)
+    require_conv1d_coverage(plans)
     shapes = ssm_gemm_shapes(cfg)
     for rows, what in ((8, "decode"), (8 * SSM_PREFILL, "prefill")):
         for label, k, n in shapes[:-1] if what == "prefill" else shapes:
@@ -2006,14 +2088,17 @@ def host_us(fn, calls=2000, repeats=5):
     return best
 
 
-def launch_path_timing(dev, G, paged, build):
+def launch_path_timing(dev, G, paged, C, build):
     """Phase 5: the host part of one `gfid_matmul` call at the smollm decode's
-    wq/wo (8, 576) @ (576, 576) fp32 and one `paged_gather` of the full-width
-    bf16 pool at a table of 8 x 32, piece by piece: each piece of the lean
-    launch path beside the piece it replaced, then the whole call with the
-    host (host clock, and CUDA events) and for the device alone (a CUDA
-    graph), beside `torch.mm` and `index_select`. Returns the numbers the
-    kernels line carries."""
+    wq/wo (8, 576) @ (576, 576) fp32, one `paged_gather` of the full-width
+    bf16 pool at a table of 8 x 32, one `gfid_matmul_int8` at AlexNet's fc8
+    at batch 1 and one `gfid_conv1d_depthwise` (module C) at the xLSTM
+    prefill's (1, 384, 1536), piece by piece: each piece of the lean launch
+    path beside the piece it replaced, then the whole call with the host
+    (host clock, and CUDA events) and for the device alone (a CUDA graph),
+    beside `torch.mm`, `index_select` and `F.conv1d` (no library call takes
+    the int8 product at one row). Returns the numbers the kernels line
+    carries."""
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator().manual_seed(5)
     x = torch.randn((8, 576), generator=gen).to(dev)
@@ -2067,19 +2152,21 @@ def launch_path_timing(dev, G, paged, build):
           f"({plan.splits} splits, {plan.mode}): {ctypes_us:.2f} us")
 
     def whole(label, call, library, lib_name, key):
-        k_host, l_host = host_us(call), host_us(library)
-        k_ms, l_ms = time_ms(call), time_ms(library)
-        k_dev, l_dev = graph_ms(call), graph_ms(library)
+        k_host, k_ms, k_dev = host_us(call), time_ms(call), graph_ms(call)
         row = dict(host_us=k_host, ms=k_ms, device_ms=k_dev,
-                   host_part_ms=k_ms - k_dev, library_host_us=l_host,
-                   library_ms=l_ms, library_device_ms=l_dev,
-                   library_host_part_ms=l_ms - l_dev)
+                   host_part_ms=k_ms - k_dev)
+        lib_txt = f"no library call ({lib_name})"
+        if library is not None:
+            l_host, l_ms, l_dev = host_us(library), time_ms(library), graph_ms(library)
+            row.update(library_host_us=l_host, library_ms=l_ms,
+                       library_device_ms=l_dev, library_host_part_ms=l_ms - l_dev)
+            lib_txt = (f"{lib_name} {l_host:.2f} us on the host clock, ratio "
+                       f"{k_host / l_host:.3f}; with the host {l_ms:.4f} ms, alone "
+                       f"{l_dev:.4f} ms, host part {l_ms - l_dev:.4f} ms")
         out[key] = row
-        print(f"[host] {label}: the call on the host clock {k_host:.2f} us "
-              f"({lib_name} {l_host:.2f} us, ratio {k_host / l_host:.3f}); with the "
+        print(f"[host] {label}: the call on the host clock {k_host:.2f} us; with the "
               f"host {k_ms:.4f} ms, the device alone {k_dev:.4f} ms, host part "
-              f"{k_ms - k_dev:.4f} ms ({lib_name}: {l_ms:.4f}, {l_dev:.4f}, host "
-              f"part {l_ms - l_dev:.4f} ms)")
+              f"{k_ms - k_dev:.4f} ms ({lib_txt})")
 
     whole("gfid_matmul decode wq/wo (8, 576) @ (576, 576) fp32",
           lambda: G.gfid_matmul(x, w), lambda: torch.mm(x, w), "torch.mm", "gemm")
@@ -2109,8 +2196,70 @@ def launch_path_timing(dev, G, paged, build):
     whole("paged_gather pool (257, 16, 30, 3, 64) bf16, table (8, 32)",
           lambda: paged.paged_gather(pool, table),
           lambda: pool.index_select(0, table.view(-1)), "index_select", "gather")
+
+    # the int8 GEMM at AlexNet's fc8 at batch 1, and the depthwise conv at the
+    # xLSTM prefill's mLSTM conv: the pieces of the lean path beside those
+    # of the parent's path, then the whole call
+    i8 = torch.int8
+    xq = torch.randint(-127, 128, (1, 4096), generator=gen, dtype=i8).to(dev)
+    wq = torch.randint(-127, 128, (4096, 1000), generator=gen, dtype=i8).to(dev)
+    sx = torch.rand((1, 1), generator=gen).to(dev)
+    sw = torch.rand((1, 1000), generator=gen).to(dev)
+    b8 = torch.randn(1000, generator=gen).to(dev)
+    plan8 = G.int8_mm_plan(1, 4096, 1000, xq.data_ptr(), wq.data_ptr(), sms)
+    tiles8 = plan8.grid[0] * plan8.grid[1]
+    x1 = torch.randn((1, SSM_PREFILL, 1536), generator=gen).to(dev)
+    w1 = torch.randn((4, 1536), generator=gen).to(dev)
+    w1_lib = w1.T[:, None, :].contiguous()
+    for key, name, pieces in (
+            ("mm8_pieces_us", "gfid_matmul_int8 fc8 B=1", (
+                ("operand checks", lambda: build.check_operands(
+                    "gfid_matmul_int8", xq=(xq, i8), wq=(wq, i8), sx=(sx, f32),
+                    sw=(sw, f32), bias=(b8, f32)),
+                 lambda: build.check_int8_operands("gfid_matmul_int8", xq, wq,
+                                                   sx, sw, b8)),
+                ("plan (before: uncached)",
+                 lambda: G._int8_mm_tiling.__wrapped__(1, 4096, 1000, sms),
+                 lambda: G.int8_mm_plan(1, 4096, 1000, xq.data_ptr(), wq.data_ptr(),
+                                        sms)),
+                ("allocations (before: the output and a zeroed int32 workspace "
+                 "of sums and tickets)",
+                 lambda: (torch.empty((1, 1000), device=dev),
+                          torch.zeros(1000 + tiles8, dtype=torch.int32, device=dev)),
+                 lambda: xq.new_empty((1, 1000), dtype=f32)),
+                ("device context", with_device, on_device),
+                ("stream", lambda: torch.cuda.current_stream().cuda_stream,
+                 lambda: build.raw_stream(index)))),
+            ("conv1d_pieces_us", f"gfid_conv1d_depthwise (1, {SSM_PREFILL}, 1536)", (
+                ("operand checks", lambda: build.check_operands(
+                    "gfid_conv1d_depthwise", x=(x1, x1.dtype), w=(w1, w1.dtype)),
+                 lambda: C._operands_ok(x1, w1)),
+                ("plan (before: none; uncached)",
+                 lambda: C._tiling.__wrapped__(1, SSM_PREFILL, 1536, 4, True),
+                 lambda: C.launch_plan(1, SSM_PREFILL, 1536, 4, True, x1.data_ptr())),
+                ("allocation of the output",
+                 lambda: torch.empty(x1.shape, dtype=f32, device=x1.device),
+                 lambda: x1.new_empty(x1.shape, dtype=f32)),
+                ("device context", with_device, on_device),
+                ("stream", lambda: torch.cuda.current_stream().cuda_stream,
+                 lambda: build.raw_stream(index))))):
+        out[key] = {}
+        for label, before, after in pieces:
+            was, now = host_us(before), host_us(after)
+            out[key][label] = dict(before=was, after=now)
+            print(f"[host] {name}, {label}: was {was:.2f} us, now {now:.2f} us")
+    whole("gfid_matmul_int8 fc8 (1, 4096) @ (4096, 1000) int8, relu",
+          lambda: G.gfid_matmul_int8(xq, wq, sx, sw, bias=b8, act="relu"), None,
+          "torch._int_mm takes no M <= 16", "mm8")
+    whole(f"gfid_conv1d_depthwise (1, {SSM_PREFILL}, 1536) W_f 4 causal",
+          lambda: C.gfid_conv1d_depthwise(x1, w1),
+          lambda: F.conv1d(x1.permute(0, 2, 1), w1_lib, padding=3, groups=1536),
+          "F.conv1d", "conv1d")
     return {"gfid_matmul": dict(out["gemm"], pieces_us=out["gemm_pieces_us"]),
-            "paged_gather": dict(out["gather"], pieces_us=out["gather_pieces_us"])}
+            "paged_gather": dict(out["gather"], pieces_us=out["gather_pieces_us"]),
+            "gfid_matmul_int8": dict(out["mm8"], pieces_us=out["mm8_pieces_us"]),
+            "gfid_conv1d_depthwise": dict(out["conv1d"],
+                                          pieces_us=out["conv1d_pieces_us"])}
 
 
 def device_profile(fn, steps=3):
@@ -2254,6 +2403,13 @@ def main():
             else:
                 limit = TOL
             plan = ""
+            if kname == "gfid_matmul_int8":
+                plans.append(launch_plan("mm", kw))
+                plan = (f", tile {plans[-1].bm}x{plans[-1].bn}, K splits "
+                        f"{plans[-1].splits}"
+                        + (" (a cluster)" if plans[-1].splits > 1 else "")
+                        + f", 16-byte loads x {int(plans[-1].vec_x)}, bytes a "
+                        f"copy of w {plans[-1].vec_w}")
             if kname == "gfid_conv2d_nhwc_int8":
                 plans.append(launch_plan("conv", kw))
                 plan = (f", tile {plans[-1].bm}x{plans[-1].bn}, K splits "
@@ -2285,6 +2441,8 @@ def main():
             require_f32_gemm_coverage(plans)
         if kname == "gfid_conv2d_nhwc_int8":
             require_int8_conv_coverage(plans)
+        if kname == "gfid_matmul_int8":
+            require_int8_mm_coverage(plans)
     # bf16 operands: the AlexNet shapes (bias bf16) and the ragged ones (bias
     # fp32), then the cases of bf16_conv_cases and bf16_mm_cases, each stored
     # in fp32 and in bf16; the cases must reach every plan the wrappers make
@@ -2763,7 +2921,7 @@ def main():
     flash_t = flash_timing(dev, flash_attention, worst)
     prefill_mm16 = prefill_gemm_timing(dev, mm32, gen, torch.bfloat16)
     prefill_mm32 = prefill_gemm_timing(dev, mm32, gen, torch.float32)
-    launch_path = launch_path_timing(dev, gfid_matmul, paged, build)
+    launch_path = launch_path_timing(dev, gfid_matmul, paged, conv1d, build)
 
     # -- phase 6: serving smollm-135m on the paged pool -----------------------
     flash_kernels = (flash_attention.flash_attention,
@@ -2821,6 +2979,8 @@ def main():
             "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
             "library_ms": tot["library_ms"]})
+        if kname == "gfid_matmul_int8":
+            kernels[-1]["launch_path"] = launch_path["gfid_matmul_int8"]
         if kname == "gfid_matmul":
             kernels[-1]["launches_per_decode_step"] = served["step_launches"][0]
             # one prefill's layer GEMMs at M = 1024 and 15,872, summed, with
@@ -2862,7 +3022,8 @@ def main():
         "device_ms": ct["device_ms"],
         "library_device_ms": ct["library_device_ms"],
         "plain_ms": ct["plain_ms"], "bound_ms": ct["bound_ms"],
-        "bound_by": ct["bound_by"], "library_ms": ct["library_ms"]})
+        "bound_by": ct["bound_by"], "library_ms": ct["library_ms"],
+        "launch_path": launch_path["gfid_conv1d_depthwise"]})
     for kname, source, timing, launches in (
             ("flash_attention", "flash_attention.cu", flash_t["float32"],
              long["run_launches"][2]),

@@ -40,10 +40,11 @@
 //   tiles leave the card idle (batch 1's conv2-5), K is split across at
 //   most kMaxSplit = 4 blocks (kernels/gfid_conv.py INT8_MAX_SPLIT: the
 //   splits that chip_smoke.py checks on the card; the entry refuses more)
-//   that form one thread block cluster: the first adds the others'
-//   int32 sums through distributed shared memory and runs the epilogue. No
-//   workspace, no memset, one launch; integer sums are exact in any order,
-//   so every tile and split gives the same bits.
+//   that form one thread block cluster: each block adds a share of the
+//   tile's int32 sums from every block through distributed shared memory
+//   and runs the epilogue on that share. No workspace, no memset, one
+//   launch; integer sums are exact in any order, so every tile and split
+//   gives the same bits.
 //   The epilogue is `dequant_epilogue` of epilogue.cuh with scale =
 //   sx[b] * sw[c_out], one fp32 multiply: bitwise the plain version's for act
 //   none and relu.
@@ -192,9 +193,8 @@ gfid_conv_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w
 
   int acc[T::MT][T::NT][4];
   mma8::mainloop<T>(load, begin, end, smem, acc);
-  if constexpr (kCluster) {
-    if (!mma8::cluster_sum<T>(acc, reinterpret_cast<int*>(smem))) return;
-  }
+  mma8::Share share{0u, 1u};
+  if constexpr (kCluster) share = mma8::cluster_sum<T>(acc, reinterpret_cast<int*>(smem));
 
   // out is (B H_out W_out, C_out): NHWC with the pixels flattened.
   const int lane = tid % 32;
@@ -214,7 +214,7 @@ gfid_conv_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int n = col0 + nt * 8 + e;
-          if (n >= og) continue;
+          if (n >= og || !share.mine((mt * T::NT + nt) * 4 + half * 2 + e)) continue;
           const int col = g * og + n;
           orow[n] = dequant_epilogue(acc[mt][nt][half * 2 + e], __fmul_rn(sx[b], sw[col]), bias,
                                      col, act);

@@ -1,6 +1,6 @@
 // GFID FC mode on int8 operands: (M, K) int8 @ (K, N) int8 with an exact int32
 // accumulator and a fused dequant + bias + activation epilogue -> (M, N) fp32,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), on the int8 tensor cores.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/gfid_matmul.py
 //   gfid_matmul_int8 (_kernel_int8, _chunked_i32_dot). The TPU kernel sums
@@ -9,35 +9,43 @@
 //
 // What bounds it on an H100: device memory. At AlexNet batch 1 the three FC
 //   layers are matrix-vector products over 37.7 MB (fc6), 16.8 MB (fc7) and
-//   4.1 MB (fc8) of int8 weights, 2 operations per weight byte: the time floor
-//   is the weight bytes over 3.35 TB/s, 17.5 us for the three. At batch 32 the
-//   floor is still the bytes under the card's int8 tensor-core rate, but this
-//   kernel multiplies on the CUDA cores (__dp4a, 4 multiply-adds an
-//   instruction), and that rate, not the bytes, limits it there.
+//   4.1 MB (fc8) of int8 weights, 2 operations per weight byte: the floor is
+//   the weight bytes over 3.35 TB/s, 17.5 us for the three. At batch 32 it is
+//   still the bytes (3.7 G operations are 1.9 us at 1,979 TOP/s), as long as
+//   each weight byte is read from device memory once.
 //
-// What the design does about it:
-//   * every weight byte is read from device memory once per 8-row block of x,
-//     as 32-bit words (4 columns) along N, 16 threads of a warp on one 64-byte
-//     row segment;
-//   * a 4 x 4 byte block (4 K rows x 4 columns) is transposed in registers with
-//     __byte_perm, so that each column's 4 K values form one word for __dp4a
-//     against 4 K values of x, staged in shared memory as words;
-//   * a block owns 64 columns and 8 rows, and its 16 K slices (16 threads
-//     each) split every 256-row K chunk; the slices are reduced in shared
-//     memory. To fill the 132 SMs where the columns alone give too few blocks
-//     (fc8's N = 1000 gives 16, fc6's N = 4096 gives 64 at batch 1), the
-//     wrapper splits K across blocks (grid z). The partial sums are added
-//     into an int32 workspace with atomics (integer addition in any order
-//     gives the same sum, so the result stays exact and deterministic), and
-//     the block that arrives last for a tile, by a ticket counter, runs the
-//     epilogue;
-//   * the epilogue is `dequant_epilogue` of epilogue.cuh with scale =
-//     sx[row] * sw[col], one fp32 multiply, so the output is bitwise that of
-//     the plain version for act none and relu.
-//   Ragged shapes: K not a multiple of 4 or of the chunk, N not a multiple of
-//   4 and unaligned operands go through byte loads that pack the same words,
-//   zero-filled past the edge (an int8 zero adds nothing); the flags vec_x /
-//   vec_w say when the word loads are aligned.
+// What the design does about it: a block tile of BM rows x BN = 128 columns
+//   through the int8 tensor-core core of csrc/mma_int8.cuh (shared with the
+//   int8 conv): a 4-stage `cp.async` ring of 64-byte K chunks, B transposed
+//   one chunk ahead into channel-major shared memory with `__byte_perm`
+//   (sm_90 has no 8-bit ldmatrix.trans), each product an
+//   `mma.sync.m16n8k32` s8 x s8 -> s32 (512 multiply-adds an instruction).
+//   This source's loader fills the ring:
+//   * A, xq's rows with K contiguous: 16-byte `cp.async` where K % 16 == 0
+//     and xq is 16-byte aligned, zero-filled past M and K; else words of 4 K
+//     bytes gathered byte by byte, zero past the edge;
+//   * B, a chunk of wq as it lies (64 K rows x 128 columns, N contiguous):
+//     16-byte `cp.async` where N % 16 == 0 and wq is 16-byte aligned (fc6,
+//     fc7), 8-byte `cp.async` where N % 8 == 0 and wq is 8-byte aligned
+//     (fc8's N = 1000), zero-filled past K and N; else words of 4 columns
+//     gathered byte by byte.
+//   The tile follows M (kernels/gfid_matmul.py::int8_mm_plan): 16 rows up to
+//   M = 16 (batch 1: a stream of weights, one m16 tile of the mma), 32 rows
+//   up to 32 (batch 32: every weight byte read and transposed once a
+//   forward), else 128. The columns alone give few blocks (fc6 and fc7 32,
+//   fc8 8), so K is split across up to kMaxSplit = 8 blocks that form one
+//   thread block cluster along grid z, about two blocks an SM, each keeping
+//   2 chunks of 64 x 128 bytes of w in flight; each block of a cluster adds
+//   a share of the tile's int32 sums from all of them through distributed
+//   shared memory and stores that share (`mma8::cluster_sum`). No
+//   workspace, no memset, no atomic: one launch a call. Integer sums are
+//   exact in any order, so every tile and split gives the same bits.
+//   What holds it now (H100 probes): each block's chunk work (the B
+//   transpose in shared memory, then the mma), not the bytes in flight: a
+//   deeper ring (4 chunks in flight) ran no faster.
+//   The epilogue is `dequant_epilogue` of epilogue.cuh with scale =
+//   sx[row] * sw[col], one fp32 multiply, so the output is bitwise that of
+//   the plain version for act none and relu.
 //
 // int32 range: |acc| <= K * 127^2; fc6 (K = 9216) gives at most 1.49e8, far
 //   below 2^31. The wrapper refuses K above 2^31 / 127^2 = 133,144.
@@ -46,173 +54,184 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "mma_int8.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 8;                         // rows of x per block
-constexpr int kColLanes = 16;                  // threads across columns, 4 columns each
-constexpr int kBN = 64;                        // output columns per block, 4 a thread
-constexpr int kSlices = kThreads / kColLanes;  // 16 K slices per block
-constexpr int kKT = 256;                       // K chunk staged per step
-constexpr int kSliceK = kKT / kSlices;         // 16 K rows of a chunk per slice
-constexpr int kWords = kKT / 4;                // words of one staged x row
-constexpr int kWarps = kThreads / 32;
-
-static_assert(kBN == 4 * kColLanes, "each column lane owns 4 columns");
-static_assert(kSliceK % 4 == 0, "a slice covers whole 4-row groups");
-static_assert(kColLanes == 16, "slices 2w and 2w+1 share warp w");
-
-// Four consecutive int8 weights w[k][c0 .. c0+3] as one little-endian word,
-// zero past the edge.
-__device__ __forceinline__ uint32_t load_w4(const uint8_t* __restrict__ w, int k, int c0,
-                                            int K, int N, bool vec) {
-  if (k >= K || c0 >= N) return 0u;
-  const uint8_t* p = w + (size_t)k * N + c0;
-  if (vec) return __ldg(reinterpret_cast<const unsigned int*>(p));
-  uint32_t v = 0u;
-  for (int j = 0; j < 4 && c0 + j < N; ++j) v |= (uint32_t)__ldg(p + j) << (8 * j);
-  return v;
+// The widest block tile (kernels/gfid_matmul.py TILE_INT8, the engine plan's
+// tiling): rows of x, K bytes a chunk, columns.
+constexpr int kBM = 128;
+constexpr int kKT = 64;
+constexpr int kBN = 128;
+static_assert(kKT == mma8::kKc, "the chunk is the core's");
+// The most splits of K (kernels/gfid_matmul.py INT8_MM_MAX_SPLIT), one cluster.
+constexpr int kMaxSplit = 8;
+static_assert(kMaxSplit <= mma8::kMaxCluster, "a tile's splits are one portable cluster");
+// Blocks an SM, for the register budget: three of 4 warps (the 16-row
+// tile's 57 KB ring fits three), two of 8. A tile's splits are one
+// cluster, and a grid of more clusters than the card holds at once runs in
+// two waves (cudaOccupancyMaxActiveClusters): three blocks an SM hold
+// fc6's and fc7's 32 clusters of 8 at once on an H100, two do not.
+template <class T>
+constexpr int min_blocks() {
+  return T::kThreads <= 128 ? 3 : 2;
 }
 
-__global__ void __launch_bounds__(kThreads)
-gfid_matmul_int8_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                        const float* __restrict__ sx, const float* __restrict__ sw,
-                        const float* __restrict__ bias, float* __restrict__ out,
-                        int* __restrict__ ws, unsigned int* __restrict__ tickets, int M,
-                        int K, int N, int chunks_per_split, int act, int vec_x,
-                        int vec_w) {
-  __shared__ int xs[kBM][kWords];
-  __shared__ __align__(16) int red[kWarps][kBM][kBN];
-  __shared__ unsigned int is_last;
-  const int tid = threadIdx.x;
-  const int lane_c = tid % kColLanes;
-  const int slice = tid / kColLanes;
-  const int c0 = blockIdx.x * kBN + lane_c * 4;
-  const int m0 = blockIdx.y * kBM;
-  const int m_valid = min(kBM, M - m0);  // uniform over the block: no divergence
-  const int n_chunks = (K + kKT - 1) / kKT;
-  const int ch_begin = blockIdx.z * chunks_per_split;
-  const int ch_end = min(n_chunks, ch_begin + chunks_per_split);
-
-  int acc[kBM][4];
-#pragma unroll
-  for (int m = 0; m < kBM; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0;
-
-  for (int ch = ch_begin; ch < ch_end; ++ch) {
-    const int k0 = ch * kKT;
-    for (int idx = tid; idx < kBM * kWords; idx += kThreads) {
-      const int m = idx / kWords;
-      const int k = k0 + 4 * (idx % kWords);
-      uint32_t v = 0u;
-      if (m0 + m < M && k < K) {
-        const uint8_t* p = x + (size_t)(m0 + m) * K + k;
-        if (vec_x) {
-          v = *reinterpret_cast<const unsigned int*>(p);  // K % 4 == 0: k + 3 < K
-        } else {
-          for (int j = 0; j < 4 && k + j < K; ++j) v |= (uint32_t)p[j] << (8 * j);
-        }
-      }
-      xs[m][idx % kWords] = (int)v;
-    }
-    __syncthreads();
-    const int kbeg = k0 + slice * kSliceK;
-#pragma unroll
-    for (int g = 0; g < kSliceK / 4; ++g) {
-      const int k = kbeg + 4 * g;
-      const uint32_t r0 = load_w4(w, k, c0, K, N, vec_w);
-      const uint32_t r1 = load_w4(w, k + 1, c0, K, N, vec_w);
-      const uint32_t r2 = load_w4(w, k + 2, c0, K, N, vec_w);
-      const uint32_t r3 = load_w4(w, k + 3, c0, K, N, vec_w);
-      // rows r0..r3 hold columns in their bytes; col j = (r0.j, r1.j, r2.j, r3.j)
-      const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
-      const uint32_t t1 = __byte_perm(r2, r3, 0x5140);
-      const uint32_t t2 = __byte_perm(r0, r1, 0x7362);
-      const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-      const int col[4] = {(int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
-                          (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632)};
-      const int q = slice * (kSliceK / 4) + g;
-#pragma unroll
-      for (int m = 0; m < kBM; ++m) {
-        if (m >= m_valid) break;
-        const int xv = xs[m][q];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] = __dp4a(col[j], xv, acc[m][j]);
-      }
-    }
-    __syncthreads();  // xs is rewritten by the next chunk
-  }
-
-  // Lanes l and l + 16 of a warp hold the same columns for two slices.
-#pragma unroll
-  for (int m = 0; m < kBM; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] += __shfl_down_sync(0xffffffffu, acc[m][j], 16);
-  const int warp = tid / 32;
-  if (tid % 32 < 16) {
-#pragma unroll
-    for (int m = 0; m < kBM; ++m)
-      *reinterpret_cast<int4*>(&red[warp][m][lane_c * 4]) =
-          make_int4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-  }
-  __syncthreads();
-
-  const bool split = gridDim.z > 1;
-  for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
-    const int m = idx / kBN;
-    const int c = idx % kBN;
-    const int row = m0 + m;
-    const int col = blockIdx.x * kBN + c;
-    if (row >= M || col >= N) continue;
-    int v = 0;
-#pragma unroll
-    for (int s = 0; s < kWarps; ++s) v += red[s][m][c];
-    if (split) {
-      atomicAdd(&ws[(size_t)row * N + col], v);
+// The B chunk of K rows k0 .. k0 + kKT - 1 and columns n0 .. n0 + BN - 1 as
+// it lies in w, by `cp.async` copies of kBytes (16 or 8) columns, zeros past
+// K or N: a piece is all in or all out, since N % kBytes == 0.
+template <class T, int kBytes>
+__device__ __forceinline__ void load_b(const int8_t* __restrict__ w, uint8_t* Bn, int k0,
+                                       int n0, int K, int N) {
+  static_assert(kBytes == 16 || kBytes == 8, "16- or 8-byte copies");
+  constexpr int kPer = T::BN / kBytes;
+  for (int idx = threadIdx.x; idx < kKT * kPer; idx += T::kThreads) {
+    const int r = idx / kPer;
+    const int n = n0 + (idx % kPer) * kBytes;
+    const bool ok = k0 + r < K && n < N;
+    uint8_t* dst = Bn + r * T::kBStride + n - n0;
+    const int8_t* src = ok ? w + (size_t)(k0 + r) * N + n : w;
+    if constexpr (kBytes == 16) {
+      mma8::cp_async16(dst, src, ok);
     } else {
-      out[(size_t)row * N + col] =
-          dequant_epilogue(v, __fmul_rn(sx[row], sw[col]), bias, col, act);
+      smem::cp_async8(dst, src, ok);
     }
   }
-  if (!split) return;
+}
 
-  // Split K: the last block to finish this tile dequantizes the full sums.
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    const unsigned int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    is_last = atomicAdd(&tickets[tile], 1u) == gridDim.z - 1;
-  }
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
-    const int row = m0 + idx / kBN;
-    const int col = blockIdx.x * kBN + idx % kBN;
-    if (row >= M || col >= N) continue;
-    const int v = __ldcg(&ws[(size_t)row * N + col]);
-    out[(size_t)row * N + col] =
-        dequant_epilogue(v, __fmul_rn(sx[row], sw[col]), bias, col, act);
-  }
+template <class T, bool kCluster>
+__global__ void __launch_bounds__(T::kThreads, min_blocks<T>())
+gfid_matmul_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                        const float* __restrict__ sx, const float* __restrict__ sw,
+                        const float* __restrict__ bias, float* __restrict__ out, int M, int K,
+                        int N, int chunks_per_split, int act, int vec_x, int vec_w) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * T::BM;
+  const int n0 = blockIdx.y * T::BN;
+  const int n_chunks = (K + kKT - 1) / kKT;
+  const int begin = blockIdx.z * chunks_per_split;
+  const int end = min(n_chunks, begin + chunks_per_split);
+
+  auto load = [&](int chunk, uint8_t* As, uint8_t* Bn) {
+    const int k0 = chunk * kKT;
+    // A: rows m0 .. m0 + BM - 1 of xq, K bytes k0 .. k0 + kKT - 1; zeros
+    // past M or K
+    if (vec_x) {  // K % 16 == 0: a piece is all in or all out
+      constexpr int kPer = kKT / 16;
+      for (int idx = tid; idx < T::BM * kPer; idx += T::kThreads) {
+        const int r = idx / kPer;
+        const int k = k0 + (idx % kPer) * 16;
+        const bool ok = m0 + r < M && k < K;
+        mma8::cp_async16(As + r * mma8::kAStride + k - k0,
+                         ok ? x + (size_t)(m0 + r) * K + k : x, ok);
+      }
+    } else {  // a word is 4 K bytes of one row, gathered byte by byte
+      constexpr int kWords = kKT / 4;
+      for (int idx = tid; idx < T::BM * kWords; idx += T::kThreads) {
+        const int r = idx / kWords;
+        const int k = k0 + 4 * (idx % kWords);
+        uint32_t word = 0u;
+        if (m0 + r < M) {
+          const int8_t* src = x + (size_t)(m0 + r) * K + k;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k + e < K) word |= (uint32_t)(uint8_t)__ldg(src + e) << (8 * e);
+        }
+        *reinterpret_cast<uint32_t*>(As + r * mma8::kAStride + k - k0) = word;
+      }
+    }
+    // B: as it lies in w; zeros past K or N
+    if (vec_w == 16) {
+      load_b<T, 16>(w, Bn, k0, n0, K, N);
+    } else if (vec_w == 8) {
+      load_b<T, 8>(w, Bn, k0, n0, K, N);
+    } else {  // a word is 4 columns of one K row, gathered byte by byte
+      constexpr int kPer = T::BN / 4;
+      for (int idx = tid; idx < kKT * kPer; idx += T::kThreads) {
+        const int r = idx / kPer;
+        const int n = n0 + (idx % kPer) * 4;
+        uint32_t word = 0u;
+        if (k0 + r < K) {
+          const int8_t* src = w + (size_t)(k0 + r) * N + n;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n + e < N) word |= (uint32_t)(uint8_t)__ldg(src + e) << (8 * e);
+        }
+        *reinterpret_cast<uint32_t*>(Bn + r * T::kBStride + n - n0) = word;
+      }
+    }
+  };
+
+  int acc[T::MT][T::NT][4];
+  mma8::mainloop<T>(load, begin, end, smem, acc);
+  mma8::Share share{0u, 1u};
+  if constexpr (kCluster) share = mma8::cluster_sum<T>(acc, reinterpret_cast<int*>(smem));
+
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int row0 = m0 + (warp % T::WM) * (T::BM / T::WM) + lane / 4;
+  const int col0 = n0 + (warp / T::WM) * (T::BN / T::WN) + 2 * (lane % 4);
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // c0, c1: row g; c2, c3: row g + 8
+      const int r = row0 + mt * 16 + half * 8;
+      if (r >= M) continue;
+      float* orow = out + (size_t)r * N;
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = col0 + nt * 8 + e;
+          if (n >= N || !share.mine((mt * T::NT + nt) * 4 + half * 2 + e)) continue;
+          orow[n] = dequant_epilogue(acc[mt][nt][half * 2 + e], __fmul_rn(sx[r], sw[n]), bias,
+                                     n, act);
+        }
+    }
+}
+
+// Run f(Tile<...>{}) for the tile of (bm, bn), one of the three that
+// kernels/gfid_matmul.py::int8_mm_plan picks from (INT8_MM_TILES): 16 x 128
+// on 4 warps side by side along N (warp tiles of 16 x 32), 32 x 128 on 8
+// warps (16 x 32 each: on an H100 batch 32's fc8 ran faster this way than on 4
+// warps of 32 x 32) and 128 x 128 on 8 warps (64 x 32);
+// cudaErrorInvalidValue for any other.
+template <class F>
+int with_mm_tile(int bm, int bn, F&& f) {
+  if (bn == 128 && bm == 16) return f(mma8::Tile<16, 128, 1, 4>{});
+  if (bn == 128 && bm == 32) return f(mma8::Tile<32, 128, 2, 4>{});
+  if (bn == kBN && bm == kBM) return f(mma8::Tile<kBM, kBN, 2, 4>{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // xq (M, K) and wq (K, N) int8; sx (M,) and sw (N,) fp32; bias (N,) fp32 or
-// null; out (M, N) fp32. With splits > 1, ws is a zeroed int32 (M, N)
-// workspace and tickets a zeroed array of one counter per (row block, column
-// block) tile; with splits == 1 both may be null. act: 0 none, 1 relu, 2 gelu.
-// Launches on `stream` and returns cudaGetLastError() (0 when accepted).
+// null; out (M, N) fp32. (bm, bn) is a block tile of with_mm_tile; K is cut
+// into splits runs of chunks_per_split chunks of kKT bytes, and with splits
+// > 1 (at most kMaxSplit) the splits of each output tile run as one cluster.
+// vec_x: 16-byte copies of xq, for K % 16 == 0 on a 16-byte aligned xq;
+// vec_w: the bytes a copy of wq, 16 (N % 16 == 0, 16-byte aligned), 8 (N % 8
+// == 0, 8-byte aligned) or 0 (gathered byte by byte). act: 0 none, 1 relu, 2
+// gelu. Launches on `stream` and returns cudaGetLastError() (0 when
+// accepted; cudaErrorInvalidValue for another tile, split or copy width).
 extern "C" int gfid_matmul_int8(const void* xq, const void* wq, const float* sx,
-                                const float* sw, const float* bias, float* out, int* ws,
-                                unsigned int* tickets, int M, int K, int N, int splits,
-                                int chunks_per_split, int act, int vec_x, int vec_w,
-                                void* stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  gfid_matmul_int8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(xq), static_cast<const uint8_t*>(wq), sx, sw, bias, out,
-      ws, tickets, M, K, N, chunks_per_split, act, vec_x, vec_w);
-  return (int)cudaGetLastError();
+                                const float* sw, const float* bias, float* out, int M, int K,
+                                int N, int bm, int bn, int splits, int chunks_per_split, int act,
+                                int vec_x, int vec_w, void* stream) {
+  if (splits < 1 || splits > kMaxSplit || (vec_w != 0 && vec_w != 8 && vec_w != 16))
+    return (int)cudaErrorInvalidValue;
+  const int8_t* xb = static_cast<const int8_t*>(xq);
+  const int8_t* wb = static_cast<const int8_t*>(wq);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return with_mm_tile(bm, bn, [&](auto tile) {
+    using T = decltype(tile);
+    const dim3 grid((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN, splits);
+    if (splits > 1)
+      return mma8::launch<T, true>(gfid_matmul_int8_kernel<T, true>, grid, s, xb, wb, sx, sw,
+                                   bias, out, M, K, N, chunks_per_split, act, vec_x, vec_w);
+    return mma8::launch<T, false>(gfid_matmul_int8_kernel<T, false>, grid, s, xb, wb, sx, sw,
+                                  bias, out, M, K, N, chunks_per_split, act, vec_x, vec_w);
+  });
 }

@@ -1,8 +1,8 @@
 // The int8 tensor-core core of the int8 implicit-GEMM conv
-// (gfid_conv_int8.cu), written so that an int8 GEMM can take it as it is: a
-// block tile of BM rows x BN columns, walked over K in chunks of kKc = 64
-// bytes, each product an s8 x s8 -> s32 `mma.sync.m16n8k32` with int32
-// accumulators in registers.
+// (gfid_conv_int8.cu) and the int8 GEMM (gfid_matmul_int8.cu): a block tile
+// of BM rows x BN columns, walked over K in chunks of kKc = 64 bytes, each
+// product an s8 x s8 -> s32 `mma.sync.m16n8k32` with int32 accumulators in
+// registers. Only the loader is the kernel's own.
 //
 // The pieces, in the order a block runs them:
 //   * a loader (the kernel's) fills one stage of a kStages-deep ring with a
@@ -27,10 +27,12 @@
 //     register), then issues two k32 steps of MT x NT `mma.sync`s;
 //   * under a split of K, the splits of an output tile run as one thread
 //     block cluster (grid z = the split, at most kMaxCluster) and
-//     `cluster_sum` adds the others' int32 sums into the first block's
-//     through distributed shared memory: no workspace, no memset, one
-//     launch. Integer addition is exact in any order, so every split and
-//     tile gives the same bits.
+//     `cluster_sum` adds them through distributed shared memory, each block
+//     a share of the tile's accumulator slots (all of a slot's loads from
+//     the cluster issued together), so that every block then stores its
+//     share: no workspace, no memset, one launch, and no block reading the
+//     whole tile alone. Integer addition is exact in any order, so every
+//     split and tile gives the same bits.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -203,12 +205,21 @@ __device__ __forceinline__ void mainloop(Load&& load, int begin, int end, uint8_
   cp_async_wait<0>();
 }
 
+// The accumulator slots a block stores after `cluster_sum`: slot
+// (mt * NT + nt) * 4 + q where slot % parts == rank; every slot without a
+// split (rank 0 of 1).
+struct Share {
+  unsigned rank, parts;
+  __device__ __forceinline__ bool mine(int slot) const { return (unsigned)slot % parts == rank; }
+};
+
 // Under a split of K (this block one of a cluster along grid z): every
 // block leaves its sums in its shared memory, `sums` (where the ring was),
-// and the first adds the others'. Returns whether this block holds the full
-// sums (and runs the epilogue).
+// then adds, for its share of the slots, the sums of every block of the
+// cluster, its own included, into acc. Returns the share: the block stores
+// those slots, and the cluster stores the whole tile.
 template <class T>
-__device__ __forceinline__ bool cluster_sum(int (&acc)[T::MT][T::NT][4], int* sums) {
+__device__ __forceinline__ Share cluster_sum(int (&acc)[T::MT][T::NT][4], int* sums) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   __syncthreads();  // every warp is done with the ring
@@ -220,21 +231,27 @@ __device__ __forceinline__ bool cluster_sum(int (&acc)[T::MT][T::NT][4], int* su
 #pragma unroll
       for (int q = 0; q < 4; ++q) sums[((mt * T::NT + nt) * 4 + q) * T::kThreads + tid] = acc[mt][nt][q];
   cluster.sync();
-  const unsigned parts = cluster.num_blocks();
-  const bool first = cluster.block_rank() == 0;
-  if (first) {
+  const Share share{cluster.block_rank(), cluster.num_blocks()};
 #pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
+  for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt)
+    for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          int* mine = sums + ((mt * T::NT + nt) * 4 + q) * T::kThreads + tid;
-          for (unsigned r = 1; r < parts; ++r) acc[mt][nt][q] += *cluster.map_shared_rank(mine, r);
-        }
-  }
-  cluster.sync();  // the sums stay until the first block has read them
-  return first;
+      for (int q = 0; q < 4; ++q) {
+        const int slot = (mt * T::NT + nt) * 4 + q;
+        if (!share.mine(slot)) continue;
+        int* at = sums + slot * T::kThreads + tid;
+        int part[kMaxCluster];
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r)  // every load in flight at once
+          part[r] = r < (int)share.parts ? *cluster.map_shared_rank(at, r) : 0;
+        int v = 0;
+#pragma unroll
+        for (int r = 0; r < kMaxCluster; ++r) v += part[r];
+        acc[mt][nt][q] = v;
+      }
+  cluster.sync();  // the sums stay until every block has read them
+  return share;
 }
 
 // Launch a tile kernel with its dynamic shared memory (the ring, or the

@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -152,6 +152,26 @@ def check_float_operands(kernel: str, x: torch.Tensor, w: torch.Tensor,
     return is_bf16
 
 
+def check_int8_operands(kernel: str, xq: torch.Tensor, wq: torch.Tensor,
+                        sx: torch.Tensor, sw: torch.Tensor,
+                        bias: Optional[torch.Tensor]) -> None:
+    """The operands of an int8 kernel: int8 xq and wq, fp32 scales and
+    bias, each as `check_operands` asks. Operands that pass take one short
+    test (a launch's host time); any other goes through `check_operands`,
+    which names what is wrong."""
+    i8, f32 = torch.int8, torch.float32
+    dev = xq.device
+    if (xq.dtype is i8 and wq.dtype is i8 and sx.dtype is f32
+            and sw.dtype is f32 and xq.is_contiguous() and wq.is_contiguous()
+            and sx.is_contiguous() and sw.is_contiguous()
+            and wq.device == dev and sx.device == dev and sw.device == dev
+            and (bias is None or (bias.dtype is f32 and bias.is_contiguous()
+                                  and bias.device == dev))):
+        return
+    check_operands(kernel, xq=(xq, i8), wq=(wq, i8), sx=(sx, f32),
+                   sw=(sw, f32), bias=(bias, f32))
+
+
 def stored_dtype(is_bf16: bool,
                  out_dtype: Optional[torch.dtype]) -> torch.dtype:
     """What such a kernel stores from its fp32 epilogue: bf16 where bf16 is
@@ -191,30 +211,6 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def split_k(blocks: int, n_chunks: int, sms: int) -> Tuple[int, int]:
-    """(splits, chunks per split) for a launch of `blocks` output tiles over
-    `n_chunks` K chunks: K is split across blocks until about two blocks per
-    SM are in flight, never into empty or sub-chunk parts. One split (no
-    workspace) when the tiles alone fill the card."""
-    want = min(max(1, -(-2 * sms // max(blocks, 1))), max(n_chunks, 1))
-    per = -(-max(n_chunks, 1) // want)
-    return -(-max(n_chunks, 1) // per), per
-
-
-def split_workspace(splits: int, n_out: int, tiles: int,
-                    device: torch.device
-                    ) -> Tuple[Optional[torch.Tensor], Optional[int],
-                               Optional[int]]:
-    """For a split-K launch, a zeroed int32 tensor of `n_out` sums followed
-    by `tiles` ticket counters, with the pointers to both; (None, None,
-    None) for one split. Freeing the tensor after the launch is queued is
-    safe: PyTorch's caching allocator reuses memory in stream order."""
-    if splits == 1:
-        return None, None, None
-    ws = torch.zeros(n_out + tiles, dtype=torch.int32, device=device)
-    return ws, ws.data_ptr(), ws.data_ptr() + 4 * n_out
-
-
 # csrc/mma_bf16.cuh, the bf16 kernels' tensor-core core: the K chunk (kBK)
 # and the block tiles (rows, columns) that `mma::with_tile` is built for.
 MMA_BK = 32
@@ -225,16 +221,17 @@ GRID_LIMITS = (2 ** 31 - 1, 65535, 65535)
 
 class MmaPlan(NamedTuple):
     """One launch of a block-tiled GEMM or implicit-GEMM kernel (the bf16
-    tensor-core pair, the fp32 conv): a block tile of `bm` rows x `bn`
-    columns, K cut into `splits` runs of `chunks_per_split` chunks of the
-    kernel's depth (one split: no workspace), 16-byte copies of x and of w
-    where `vec_x` and `vec_w` allow, and the launch grid."""
+    tensor-core pair, the fp32 conv, the int8 pair): a block tile of `bm`
+    rows x `bn` columns, K cut into `splits` runs of `chunks_per_split`
+    chunks of the kernel's depth (one split: no workspace), 16-byte copies
+    of x and of w where `vec_x` and `vec_w` allow (the int8 GEMM's `vec_w`
+    is the bytes a copy of w, 16, 8 or 0), and the launch grid."""
     bm: int
     bn: int
     splits: int
     chunks_per_split: int
     vec_x: bool
-    vec_w: bool
+    vec_w: Union[bool, int]
     grid: Tuple[int, int, int]
 
 

@@ -8,6 +8,12 @@ the sequence, `lpad = W_f - 1` (causal) or `(W_f - 1) // 2` (centred). The
 kernel sums the taps in ascending order from 0.0 with each product and sum
 rounded on its own, so on the card it is bitwise equal to the plain version.
 
+A block of the kernel owns TILE's positions x channels of one sequence:
+up to REG_TAPS taps it loads the tile's rows with their halo into registers
+and slides a W_f-row window down them; with more taps it stages the rows in
+shared memory TAP_CHUNK taps at a time. `launch_plan` says which, and
+whether the loads are vectors.
+
 `gfid_conv1d_depthwise` launches the kernel for CUDA tensors, uses the plain
 version for CPU tensors, and only allocates the output for `meta` tensors
 (program capture). `gfid_conv1d_depthwise.launches` counts the kernel's
@@ -17,20 +23,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.core import gfid
 from repro_torch.kernels import build
 
-# x, w, out; b, l, d; w_f, lpad, x_bf16, w_bf16; stream.
-ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# x, w, out; b, l, d, w_f, lpad, x_bf16, w_bf16, vec; stream.
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 DTYPES = (torch.float32, torch.bfloat16)
-# One block of the kernel (the plan's `tiling`): 256 consecutive outputs of
-# the flattened (B, L, D), one a thread, each summing its W_f taps; kThreads
-# in the source.
-TILE = (1, 1, 256)
+# One block of the kernel (the plan's `tiling`): one sequence, kT
+# consecutive positions, kC channels (4 a thread, one warp); kT and kC in
+# the source.
+TILE = (1, 8, 128)
+# W_f up to REG_TAPS (kRegTaps): the register window; above it the tile's
+# rows staged in shared memory, TAP_CHUNK (kTapChunk) taps a piece.
+REG_TAPS = 8
+TAP_CHUNK = 32
 
 
 def gfid_conv1d_depthwise_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -47,6 +57,48 @@ def _launcher():
     fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+class Conv1dPlan(NamedTuple):
+    """One launch of `conv1d_depthwise`: the zero rows before the sequence,
+    the shared-memory path (`staged`, for W_f above REG_TAPS) or the
+    register window, float4 loads and stores (`vec`), and the grid (tiles
+    of L, tiles of D, B)."""
+    lpad: int
+    staged: bool
+    vec: bool
+    grid: Tuple[int, int, int]
+
+
+def launch_plan(b: int, l: int, d: int, w_f: int, causal: bool,
+                x_ptr: int = 0) -> Conv1dPlan:
+    """The launch for x (b, l, d) at `x_ptr` and w_f taps: vector loads
+    where d % 4 == 0 and x is 16-byte aligned (the output, allocated by the
+    wrapper, always is)."""
+    lpad, staged, grid = _tiling(b, l, d, w_f, causal)
+    return Conv1dPlan(lpad, staged, d % 4 == 0 and x_ptr % 16 == 0, grid)
+
+
+@functools.lru_cache(maxsize=1024)
+def _tiling(b: int, l: int, d: int, w_f: int,
+            causal: bool) -> Tuple[int, bool, Tuple[int, int, int]]:
+    """launch_plan's shape part, cached (the launch path runs it at every
+    call)."""
+    grid = (-(-l // TILE[1]), -(-d // TILE[2]), b)
+    build.check_grid("gfid_conv1d_depthwise", grid)
+    return gfid.conv1d_lpad(w_f, causal), w_f > REG_TAPS, grid
+
+
+def _operands_ok(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """What `_check` asks, in one short test (a launch's host time): x
+    (B, L, D) and w (W_f >= 1, D), each fp32 or bf16, contiguous, on one
+    device. False sends them through `_check`, which names what is
+    wrong."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return (x.ndim == 3 and w.ndim == 2 and w.shape[1] == x.shape[2]
+            and w.shape[0] >= 1 and (x.dtype is f32 or x.dtype is bf16)
+            and (w.dtype is f32 or w.dtype is bf16) and x.is_contiguous()
+            and w.is_contiguous() and w.device == x.device)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -67,30 +119,39 @@ def gfid_conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,
                           causal: bool = True) -> torch.Tensor:
     """x (B, L, D), w (W_f, D), each fp32 or bf16 -> fp32 (B, L, D): the
     depthwise conv, causal or centred, any D and any W_f."""
-    _check(x, w)
+    if not _operands_ok(x, w):
+        _check(x, w)
+    if x.is_cuda:
+        out = x.new_empty(x.shape, dtype=torch.float32)
+        if out.numel():
+            _launch(x, w, out, causal)
+        return out
     kind = x.device.type
     if kind == "cpu":
         return gfid_conv1d_depthwise_plain(x, w, causal=causal)
     if kind == "meta":
         return torch.empty(x.shape, dtype=torch.float32, device="meta")
-    if kind != "cuda":
-        raise ValueError(f"gfid_conv1d_depthwise runs on CUDA or CPU "
-                         f"tensors, not {kind}")
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
+    raise ValueError(f"gfid_conv1d_depthwise runs on CUDA or CPU tensors, "
+                     f"not {kind}")
+
+
+def _launch(x, w, out, causal) -> None:
+    """`conv1d_depthwise` on CUDA tensors into `out` with its plan, on the
+    current stream of x's device (made current only when it is another);
+    raise on a refused launch, count it."""
     b, l, d = x.shape
     w_f = w.shape[0]
+    index = x.get_device()
+    x_ptr = x.data_ptr()
+    plan = launch_plan(b, l, d, w_f, causal, x_ptr)
     lib, fn = _launcher()
     bf16 = torch.bfloat16
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, l, d, w_f,
-                 gfid.conv1d_lpad(w_f, causal), int(x.dtype == bf16),
-                 int(w.dtype == bf16), stream)
+    with build.on_device(index):
+        err = fn(x_ptr, w.data_ptr(), out.data_ptr(), b, l, d, w_f,
+                 plan.lpad, int(x.dtype is bf16), int(w.dtype is bf16),
+                 int(plan.vec), build.raw_stream(index))
     build.check(lib, err, "gfid_conv1d_depthwise")
     gfid_conv1d_depthwise.launches += 1
-    return out
 
 
 gfid_conv1d_depthwise.launches = 0

@@ -59,8 +59,8 @@ TILE_INT8 = (128, 64, 128)
 # copies, 64-column tiles keep more blocks in flight. Where the blocks
 # still do not fill the card, K is split for about two blocks an SM, at
 # most INT8_MAX_SPLIT splits (the tile's splits are one thread block
-# cluster, added by its first block), each at least INT8_MIN_SPLIT chunks
-# of INT8_BK bytes.
+# cluster whose blocks add them), each at least INT8_MIN_SPLIT chunks of
+# INT8_BK bytes.
 INT8_TILES = ((128, 128), (64, 64), (32, 64))
 INT8_BK = TILE_INT8[1]
 INT8_MIN_SPLIT = 3
@@ -343,11 +343,7 @@ def gfid_conv2d_nhwc_int8(xq: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"scales must be sx ({b}, 1) and sw (1, {c_out}); "
                          f"got {tuple(sx.shape)} and {tuple(sw.shape)}")
     build.check_int8_depth("gfid_conv2d_nhwc_int8", h_f * w_f * cg)
-    if not _int8_operands_ok(xq, wq, sx, sw, bias):
-        i8, f32 = torch.int8, torch.float32
-        build.check_operands("gfid_conv2d_nhwc_int8", xq=(xq, i8),
-                             wq=(wq, i8), sx=(sx, f32), sw=(sw, f32),
-                             bias=(bias, f32))
+    build.check_int8_operands("gfid_conv2d_nhwc_int8", xq, wq, sx, sw, bias)
     h_out = (h_in + 2 * pad - h_f) // stride + 1
     w_out = (w_in + 2 * pad - w_f) // stride + 1
     if xq.is_cuda:
@@ -364,21 +360,6 @@ def gfid_conv2d_nhwc_int8(xq: torch.Tensor, wq: torch.Tensor,
         return torch.empty((b, h_out, w_out, c_out), device="meta")
     raise ValueError(f"gfid_conv2d_nhwc_int8 runs on CUDA or CPU tensors, "
                      f"not {kind}")
-
-
-def _int8_operands_ok(xq, wq, sx, sw, bias) -> bool:
-    """What `check_operands` asks of the int8 operands, in one short test
-    (a launch's host time): int8 xq and wq, fp32 scales and bias, all
-    contiguous on xq's device. False sends them through `check_operands`,
-    which names what is wrong."""
-    i8, f32 = torch.int8, torch.float32
-    dev = xq.device
-    return (xq.dtype is i8 and wq.dtype is i8 and sx.dtype is f32
-            and sw.dtype is f32 and xq.is_contiguous() and wq.is_contiguous()
-            and sx.is_contiguous() and sw.is_contiguous()
-            and wq.device == dev and sx.device == dev and sw.device == dev
-            and (bias is None or (bias.dtype is f32 and bias.is_contiguous()
-                                  and bias.device == dev)))
 
 
 def _launch_int8(xq, wq, sx, sw, bias, out, stride, pad, groups, act) -> None:

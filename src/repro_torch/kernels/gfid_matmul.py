@@ -2,9 +2,10 @@
 Pallas kernel `repro.kernels.gfid_matmul.gfid_matmul` (`csrc/gfid_matmul.cu`
 for fp32 operands on the CUDA cores, `csrc/gfid_matmul_bf16.cu` for bf16
 operands on the tensor cores, both with an fp32 accumulator and both behind
-the wrapper `gfid_matmul`) and `csrc/gfid_matmul_int8.cu` (int8 operands,
-exact int32 accumulator, fused dequant; the port of `gfid_matmul_int8`),
-each with its plain PyTorch version.
+the wrapper `gfid_matmul`) and `csrc/gfid_matmul_int8.cu` (int8 operands
+on the int8 tensor cores, exact int32 accumulator, fused dequant, launched
+with a block tile and a split of K from `int8_mm_plan`; the port of
+`gfid_matmul_int8`), each with its plain PyTorch version.
 
 Each wrapper launches its CUDA kernel for CUDA tensors, uses the plain
 version for CPU tensors, and only allocates the output for `meta` tensors
@@ -28,9 +29,9 @@ from repro_torch.kernels.epilogue import (ACT_CODES, apply_epilogue,
 # (rows of x, K chunk, columns) of the fp32 kernel's widest block tile:
 # kBM, kKT, kBN in csrc/gfid_matmul.cu (the engine plan's tiling).
 TILE = (128, 8, 128)
-# (rows of x, K chunk, columns) of one block of csrc/gfid_matmul_int8.cu:
-# kBM, kKT, kBN in that source.
-TILE_INT8 = (8, 256, 64)
+# (rows of x, K chunk in bytes, columns) of the widest block tile of
+# csrc/gfid_matmul_int8.cu: kBM, kKT, kBN in that source.
+TILE_INT8 = (128, 64, 128)
 # csrc/gfid_matmul.cu's block tiles (rows, columns), TILE's first. Up to
 # F32_FEW_ROWS rows, the first of 8, 32 or 64 rows that holds M, 64 columns
 # wide, or as wide as F32_WIDE_COLUMNS gives where w holds F32_WIDE_BYTES
@@ -72,6 +73,23 @@ BF16_TILES = ((16, 64), (32, 64), (64, 64))
 # BF16_MIN_SPLIT chunks (1024 of K: smollm's K <= 1536 never splits).
 BF16_TARGET_BLOCKS = 264
 BF16_MIN_SPLIT = 32
+# csrc/gfid_matmul_int8.cu's block tiles (rows, columns): the first whose
+# rows hold M, else the last. 16 rows up to M = 16 (batch 1: a stream of
+# weights), 32 up to 32 (batch 32: each weight byte read once a forward).
+# Where the tiles leave the card idle, K is split for about
+# INT8_MM_TARGET_BLOCKS blocks (two an SM of 132), at most INT8_MM_MAX_SPLIT
+# splits (a tile's splits are one thread block cluster whose blocks add
+# them; the entry's kMaxSplit), each at least INT8_MM_MIN_SPLIT chunks of
+# INT8_MM_BK bytes. Integer sums are exact in any order, so the plan may
+# follow M.
+INT8_MM_TILES = ((16, 128), (32, 128), (128, 128))
+INT8_MM_BK = TILE_INT8[1]
+INT8_MM_TARGET_BLOCKS = 264
+INT8_MM_MIN_SPLIT = 4
+INT8_MM_MAX_SPLIT = 8
+# The bytes a copy of wq (vec_w): 16 or 8 where N and wq's address allow,
+# else 0 (gathered byte by byte).
+INT8_MM_W_COPIES = (16, 8)
 
 
 def gfid_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -300,9 +318,9 @@ def gfid_matmul_int8_plain(xq: torch.Tensor, wq: torch.Tensor,
     return dequant_epilogue(quant.int8_matmul_i32(xq, wq), sx * sw, bias, act)
 
 
-# xq, wq, sx, sw, bias, out, ws, tickets; M, K, N, splits, chunks_per_split,
-# act, vec_x, vec_w; stream.
-INT8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# xq, wq, sx, sw, bias, out; M, K, N, bm, bn, splits, chunks_per_split, act,
+# vec_x, vec_w; stream.
+INT8_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -312,6 +330,37 @@ def _launcher_int8():
     fn.argtypes = INT8_ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def int8_mm_plan(m: int, k: int, n: int, x_ptr: int = 0, w_ptr: int = 0,
+                 sms: int = 132) -> build.MmaPlan:
+    """The launch of `gfid_matmul_int8` for xq (m, k) @ wq (k, n) at those
+    base addresses on a card of `sms` SMs: the tile from INT8_MM_TILES by m,
+    a split of K (one cluster of up to INT8_MM_MAX_SPLIT blocks a tile)
+    where the tiles leave the card idle; 16-byte copies of xq where
+    k % 16 == 0 and xq is 16-byte aligned; `vec_w` the bytes a copy of wq,
+    16 or 8 where n and wq's address are multiples of it, else 0 (bytes
+    gathered)."""
+    bm, bn, splits, per, grid = _int8_mm_tiling(m, k, n, sms)
+    vec_w = next((c for c in INT8_MM_W_COPIES
+                  if n % c == 0 and w_ptr % c == 0), 0)
+    return build.MmaPlan(bm, bn, splits, per, k % 16 == 0 and x_ptr % 16 == 0,
+                         vec_w, grid)
+
+
+@functools.lru_cache(maxsize=1024)
+def _int8_mm_tiling(m: int, k: int, n: int, sms: int
+                    ) -> Tuple[int, int, int, int, Tuple[int, int, int]]:
+    """int8_mm_plan's (bm, bn, splits, chunks per split, grid): shapes
+    alone, cached (the launch path runs it at every call)."""
+    bm, bn = next((t for t in INT8_MM_TILES if m <= t[0]), INT8_MM_TILES[-1])
+    tiles = max(-(-m // bm) * -(-n // bn), 1)
+    want = 1 if tiles >= sms else min(-(-INT8_MM_TARGET_BLOCKS // tiles),
+                                      INT8_MM_MAX_SPLIT)
+    splits, per = build.mma_split(k, want, INT8_MM_MIN_SPLIT, INT8_MM_BK)
+    grid = (-(-m // bm), -(-n // bn), splits)
+    build.check_grid("gfid_matmul_int8", grid)
+    return bm, bn, splits, per, grid
 
 
 def _check_int8(xq, wq, sx, sw, bias, act) -> None:
@@ -327,9 +376,7 @@ def _check_int8(xq, wq, sx, sw, bias, act) -> None:
         raise ValueError(f"bias must have shape ({n},); "
                          f"got {tuple(bias.shape)}")
     build.check_int8_depth("gfid_matmul_int8", xq.shape[1])
-    i8, f32 = torch.int8, torch.float32
-    build.check_operands("gfid_matmul_int8", xq=(xq, i8), wq=(wq, i8),
-                         sx=(sx, f32), sw=(sw, f32), bias=(bias, f32))
+    build.check_int8_operands("gfid_matmul_int8", xq, wq, sx, sw, bias)
 
 
 def gfid_matmul_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
@@ -340,35 +387,40 @@ def gfid_matmul_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     `sw` (1, N), with the optional `bias` (N,) and `act` ("relu" | "gelu")
     fused into the same epilogue."""
     _check_int8(xq, wq, sx, sw, bias, act)
-    (m, k), n = xq.shape, wq.shape[1]
+    m, n = xq.shape[0], wq.shape[1]
+    if xq.is_cuda:
+        out = xq.new_empty((m, n), dtype=torch.float32)
+        if out.numel():
+            _launch_int8(xq, wq, sx, sw, bias, act, out)
+        return out
     kind = xq.device.type
     if kind == "cpu":
         return gfid_matmul_int8_plain(xq, wq, sx, sw, bias=bias, act=act)
     if kind == "meta":
         return torch.empty((m, n), device="meta")
-    if kind != "cuda":
-        raise ValueError(f"gfid_matmul_int8 runs on CUDA or CPU tensors, "
-                         f"not {kind}")
-    out = torch.empty((m, n), device=xq.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out
-    bm, kt, bn = TILE_INT8
-    tiles = -(-n // bn) * -(-m // bm)
-    splits, per = build.split_k(tiles, -(-k // kt),
-                                build.sm_count(xq.device.index or 0))
-    ws, ws_ptr, tickets_ptr = build.split_workspace(splits, m * n, tiles,
-                                                    xq.device)
+    raise ValueError(f"gfid_matmul_int8 runs on CUDA or CPU tensors, "
+                     f"not {kind}")
+
+
+def _launch_int8(xq, wq, sx, sw, bias, act, out) -> None:
+    """`gfid_matmul_int8` on CUDA tensors into `out` with its plan, on the
+    current stream of xq's device (made current only when it is another);
+    raise on a refused launch, count it. One launch, nothing allocated
+    beside the output."""
+    m, k = xq.shape
+    n = wq.shape[1]
+    index = xq.get_device()
+    x_ptr, w_ptr = xq.data_ptr(), wq.data_ptr()
+    plan = int8_mm_plan(m, k, n, x_ptr, w_ptr, build.sm_count(index))
     lib, fn = _launcher_int8()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+    with build.on_device(index):
+        err = fn(x_ptr, w_ptr, sx.data_ptr(), sw.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 ws_ptr, tickets_ptr, m, k, n, splits, per, ACT_CODES[act],
-                 int(k % 4 == 0 and xq.data_ptr() % 4 == 0),
-                 int(n % 4 == 0 and wq.data_ptr() % 4 == 0), stream)
+                 m, k, n, plan.bm, plan.bn, plan.splits,
+                 plan.chunks_per_split, ACT_CODES[act], int(plan.vec_x),
+                 plan.vec_w, build.raw_stream(index))
     build.check(lib, err, "gfid_matmul_int8")
     gfid_matmul_int8.launches += 1
-    return out
 
 
 gfid_matmul_int8.launches = 0

@@ -50,7 +50,15 @@ hold the plans to the kernels' contracts:
     entry's kMaxSplit) and
     grid at AlexNet's five convs at batch 1 and 32 and ragged shapes; the
     wrapper's CUDA branch (library faked) passing its plan in the C
-    signature's order, counting, refusing; its lean checks still refusing.
+    signature's order, counting, refusing; its lean checks still refusing;
+  * the int8 GEMM on the same core (`csrc/gfid_matmul_int8.cu`):
+    `int8_mm_plan`'s tile, split (one cluster of at most INT8_MM_MAX_SPLIT)
+    and load paths at AlexNet's FC shapes and ragged ones; the source's
+    tiles, split cap and the absence of `__dp4a`, workspace, ticket and
+    atomic; a numpy mirror of its loader, B transpose and cluster sum
+    bitwise equal to the Pallas `gfid_matmul_int8` in interpret mode; the
+    wrapper's CUDA branch (one allocation, the C order, counting,
+    refusing) and its lean checks.
 """
 import ctypes
 import re
@@ -62,10 +70,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import quant as jax_quant
 from repro.kernels import gfid_matmul as jax_matmul
 from repro_torch.kernels import (build, conv1d, flash_attention, gfid_conv,
                                  gfid_matmul, paged)
-from repro_torch.kernels.epilogue import ACT_CODES, apply_epilogue
+from repro_torch.kernels.epilogue import (ACT_CODES, apply_epilogue,
+                                         dequant_epilogue)
 from repro_torch.models import cnn
 
 jax.config.update("jax_platform_name", "cpu")
@@ -1250,3 +1260,311 @@ def test_flash_launch_passes_its_plan_and_raises_when_refused(monkeypatch,
     with pytest.raises(RuntimeError, match="launch failed: CUDA error 98"):
         flash_attention._launch(q, k, k, out, True, None)
     assert counter.launches == before + 1
+
+
+# The int8 GEMM on the int8 tensor cores (`csrc/gfid_matmul_int8.cu` through
+# `csrc/mma_int8.cuh`, `gfid_matmul.int8_mm_plan`) and its lean launch path.
+
+# (M, K, N) -> (bm, bn, splits, 16-byte x, bytes a copy of w): AlexNet's
+# fc6-8 at batch 1 and 32, the tile boundaries at M = 16 and 17, and the
+# ragged shapes chip_smoke.py checks.
+INT8_MM_PLAN_CASES = [
+    ((1, 9216, 4096), (16, 128, 8, True, 16)),
+    ((1, 4096, 4096), (16, 128, 8, True, 16)),
+    ((1, 4096, 1000), (16, 128, 8, True, 8)),
+    ((32, 9216, 4096), (32, 128, 8, True, 16)),
+    ((32, 4096, 4096), (32, 128, 8, True, 16)),
+    ((32, 4096, 1000), (32, 128, 8, True, 8)),
+    ((16, 1024, 4096), (16, 128, 4, True, 16)),
+    ((17, 1024, 4096), (32, 128, 4, True, 16)),
+    ((3, 1025, 1000), (16, 128, 4, False, 8)),
+    ((5, 300, 70), (16, 128, 1, False, 0)),
+    ((17, 257, 129), (32, 128, 1, False, 0)),
+    ((1, 1000, 33), (16, 128, 4, False, 0)),
+    ((4, 1028, 100), (16, 128, 4, False, 0)),
+    ((600, 256, 4096), (128, 128, 1, True, 16)),
+    ((300, 512, 4096), (128, 128, 2, True, 16)),
+    ((20000, 4096, 4096), (128, 128, 1, True, 16)),
+]
+
+
+@pytest.mark.parametrize("shape,want", INT8_MM_PLAN_CASES)
+def test_int8_mm_plan_fills_the_card_or_splits_k(shape, want):
+    """The tile (the first of INT8_MM_TILES whose rows hold M, else the
+    last), the split and the load paths of each shape; K cut into at most
+    INT8_MM_MAX_SPLIT (a portable cluster) non-empty runs of at least
+    INT8_MM_MIN_SPLIT chunks, only where the tiles leave the card idle, and
+    then as far as the cluster and K allow towards INT8_MM_TARGET_BLOCKS;
+    the grid (row tiles, column tiles, splits) within CUDA's limits."""
+    m, k, n = shape
+    plan = gfid_matmul.int8_mm_plan(m, k, n)
+    assert (plan.bm, plan.bn, plan.splits, plan.vec_x, plan.vec_w) == want
+    rows = [bm for bm, _ in gfid_matmul.INT8_MM_TILES]
+    assert plan.bm == min([r for r in rows if r >= m], default=rows[-1])
+    n_chunks = -(-k // gfid_matmul.INT8_MM_BK)
+    assert (plan.splits - 1) * plan.chunks_per_split < n_chunks \
+        <= plan.splits * plan.chunks_per_split
+    assert plan.splits <= gfid_matmul.INT8_MM_MAX_SPLIT
+    assert plan.splits == 1 or plan.chunks_per_split >= gfid_matmul.INT8_MM_MIN_SPLIT
+    tiles = -(-m // plan.bm) * -(-n // plan.bn)
+    assert plan.grid == (-(-m // plan.bm), -(-n // plan.bn), plan.splits)
+    if tiles >= 132:
+        assert plan.splits == 1
+    else:
+        blocks = tiles * plan.splits
+        assert blocks >= gfid_matmul.INT8_MM_TARGET_BLOCKS \
+            or plan.splits == gfid_matmul.INT8_MM_MAX_SPLIT \
+            or n_chunks // gfid_matmul.INT8_MM_MIN_SPLIT < plan.splits + 1
+    assert all(g <= lim for g, lim in zip(plan.grid, build.GRID_LIMITS))
+
+
+def test_int8_mm_plan_fills_the_card_at_fc6_and_fc7():
+    """fc6 and fc7 (32 column tiles) make 256 blocks at batch 1 and 32,
+    about two an SM, each keeping 2 chunks of 64 x 128 bytes of w in flight:
+    4 MB in flight over the card."""
+    for m in (1, 32):
+        for k in (9216, 4096):
+            plan = gfid_matmul.int8_mm_plan(m, k, 4096)
+            blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+            assert blocks == 256 and blocks * 2 * 64 * plan.bn == 4 << 20
+
+
+def test_int8_mm_load_flags_follow_alignment():
+    args = (32, 4096, 4096)
+    assert gfid_matmul.int8_mm_plan(*args, 16, 16).vec_x
+    assert not gfid_matmul.int8_mm_plan(*args, 1, 16).vec_x
+    assert not gfid_matmul.int8_mm_plan(32, 4100, 4096, 16, 16).vec_x
+    assert gfid_matmul.int8_mm_plan(*args, 16, 8).vec_w == 8
+    assert gfid_matmul.int8_mm_plan(*args, 16, 4).vec_w == 0
+    assert gfid_matmul.int8_mm_plan(32, 4096, 1000, 16, 16).vec_w == 8
+    assert gfid_matmul.int8_mm_plan(32, 4096, 1004, 16, 16).vec_w == 0
+    with pytest.raises(ValueError, match="launch grid"):
+        gfid_matmul.int8_mm_plan(16, 64, 128 * 70000)
+
+
+def test_int8_mm_tiles_and_split_match_the_source():
+    """INT8_MM_TILES are the tiles the GEMM's `with_mm_tile` builds, each a
+    tile of the int8 core; INT8_MM_MAX_SPLIT is the entry's kMaxSplit, at
+    most a portable cluster; the source multiplies on the int8 tensor cores
+    through the core with no `__dp4a`, no workspace, no ticket and no atomic,
+    and copies w by 16 or 8 bytes."""
+    source = (build.CSRC / "gfid_matmul_int8.cu").read_text()
+    built = [(int(m), int(n)) for n, m in
+             re.findall(r"if \(bn == (\w+) && bm == (\w+)\)", source.replace(
+                 "kBN", str(gfid_matmul.TILE_INT8[2])).replace(
+                 "kBM", str(gfid_matmul.TILE_INT8[0])))]
+    assert built == list(gfid_matmul.INT8_MM_TILES)
+    assert gfid_matmul.INT8_MM_TILES[-1] == gfid_matmul.TILE_INT8[::2]
+    assert f"constexpr int kMaxSplit = {gfid_matmul.INT8_MM_MAX_SPLIT};" in source
+    core = (build.CSRC / "mma_int8.cuh").read_text()
+    cluster = int(re.search(r"constexpr int kMaxCluster = (\d+);", core).group(1))
+    assert gfid_matmul.INT8_MM_MAX_SPLIT <= cluster
+    assert f"constexpr int kKT = {gfid_matmul.INT8_MM_BK};" in source
+    assert f"constexpr int kKc = {gfid_matmul.INT8_MM_BK};" in core
+    assert '#include "mma_int8.cuh"' in source
+    for needle in ("mma8::mainloop<T>(", "mma8::cluster_sum<T>(",
+                   "mma8::launch<T, true>", "smem::cp_async8(", "mma8::cp_async16("):
+        assert needle in source
+    code = re.sub(r"//[^\n]*", "", source)
+    for banned in ("__dp4a", "atomicAdd", "tickets", "ws", "__threadfence"):
+        assert banned not in re.findall(r"\w+", code), banned
+    assert "cp.async.ca.shared.global [%0], [%1], 8, %2;" in (
+        build.CSRC / "smem.cuh").read_text()
+    assert gfid_matmul.INT8_MM_W_COPIES == (16, 8)
+
+
+def _mm8_mirror(xq, wq, sx, sw, bias, act, plan):
+    """The kernel's arithmetic in numpy, block by block of `plan`: the
+    loader's A chunk (bm rows x 64 K bytes, zeros past M and K) and B chunk
+    (64 K rows x bn columns of wq as it lies, zeros past K and N); the B
+    chunk's words transposed by `transpose4` (the source's selectors) at the
+    slots of `b_block` into a channel-major buffer at `b_offset`, read back
+    by column; a chunk's products summed in int32; the splits of a tile
+    added (the cluster's blocks each add a share of the slots: integers, so
+    any order); then the dequant epilogue (sx * sw, bias, act)."""
+    xq, wq = np.asarray(xq, np.int8), np.asarray(wq, np.int8)
+    m, k = xq.shape
+    n = wq.shape[1]
+    bm, bn, kc = plan.bm, plan.bn, gfid_matmul.INT8_MM_BK
+    n_chunks = -(-k // kc)
+    idx = np.arange(16 * (bn // 4))
+    kq, cq = (idx // bn) * 4 + idx % 4, (idx // 4) % (bn // 4)
+    acc = np.zeros((m, n), np.int64)
+    for i0 in range(0, m, bm):
+        for n0 in range(0, n, bn):
+            parts = []
+            for z in range(plan.splits):
+                part = np.zeros((bm, bn), np.int64)
+                for chunk in range(z * plan.chunks_per_split,
+                                   min(n_chunks, (z + 1) * plan.chunks_per_split)):
+                    k0 = chunk * kc
+                    a = np.zeros((bm, kc), np.int8)
+                    blk = xq[i0:i0 + bm, k0:k0 + kc]
+                    a[:blk.shape[0], :blk.shape[1]] = blk
+                    b = np.zeros((kc, bn), np.int8)
+                    blk = wq[k0:k0 + kc, n0:n0 + bn]
+                    b[:blk.shape[0], :blk.shape[1]] = blk
+                    words = b.view(np.uint8).reshape(kc, bn // 4, 4).view("<u4")[..., 0]
+                    cols = _transpose4_mirror([words[4 * kq + i, cq] for i in range(4)])
+                    buf = np.zeros(bn * kc, np.uint8)
+                    for i in range(4):
+                        off = _b_offset(4 * cq + i, 4 * kq)
+                        for e in range(4):
+                            buf[off + e] = (cols[i] >> np.uint32(8 * e)) & np.uint32(0xFF)
+                    nn, kb = np.meshgrid(np.arange(bn), np.arange(kc), indexing="ij")
+                    bt = buf[_b_offset(nn, kb)].view(np.int8)        # (bn, kc)
+                    prod = a.astype(np.int64) @ bt.T.astype(np.int64)
+                    assert np.abs(prod).max(initial=0) < 2 ** 31
+                    part += prod
+                parts.append(part)
+            total = parts[0]
+            for other in parts[1:]:                 # the cluster's sum: any order
+                total = total + other
+            assert np.abs(total).max(initial=0) < 2 ** 31
+            rows, cols_ = min(bm, m - i0), min(bn, n - n0)
+            acc[i0:i0 + rows, n0:n0 + cols_] = total[:rows, :cols_]
+    return dequant_epilogue(torch.from_numpy(acc.astype(np.int32)),
+                            torch.from_numpy(np.array(sx)) * torch.from_numpy(np.array(sw)),
+                            None if bias is None else torch.from_numpy(bias), act)
+
+
+# (M, K, N, bias, act): the 16-row tile with K split across 4 (M = 1, K not
+# a multiple of 16), the 32-row tile in one split with two column tiles,
+# the 128-row tile with K split in 2, gelu, and a tile boundary.
+MM8_MIRROR_CASES = [
+    (1, 1025, 70, True, "relu"),
+    (17, 257, 129, False, None),
+    (40, 600, 130, True, "relu"),
+    (4, 300, 33, True, "gelu"),
+    (16, 512, 256, False, None),
+]
+
+
+@pytest.mark.parametrize("m,k,n,has_bias,act", MM8_MIRROR_CASES)
+def test_int8_mm_mirror_is_bitwise_the_pallas_kernel(m, k, n, has_bias, act):
+    """The mirror of the kernel's loader, B transpose and split sum, at the
+    plan `int8_mm_plan` picks (132 SMs), is bitwise equal to the JAX
+    `gfid_matmul_int8` run in interpret mode for act None and relu, within
+    1e-6 of max for gelu (tanh differs by about an ulp between the
+    libraries), and bitwise equal to the port's plain version always."""
+    rng = np.random.default_rng(m * 7 + k)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32) if has_bias else None
+    xq, wq, sx, sw = jax_quant.quantize_matmul_operands(jnp.asarray(x), jnp.asarray(w))
+    plan = gfid_matmul.int8_mm_plan(m, k, n)
+    got = _mm8_mirror(xq, wq, sx, sw, b, act, plan)
+    want = np.asarray(jax_matmul.gfid_matmul_int8(
+        xq, wq, sx, sw, bias=None if b is None else jnp.asarray(b), act=act,
+        interpret=True))
+    if act == "gelu":
+        assert np.abs(got.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+    t = [torch.from_numpy(np.array(a)) for a in (xq, wq, sx, sw)]
+    plain = gfid_matmul.gfid_matmul_int8_plain(
+        *t, bias=None if b is None else torch.from_numpy(b), act=act)
+    assert torch.equal(got, plain)
+
+
+def _mm8_args(m=3, k=40, n=24, bias=True):
+    rng = np.random.default_rng(n)
+    xq = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    sx, sw = torch.rand(m, 1) + 0.5, torch.rand(1, n) + 0.5
+    return xq, wq, sx, sw, (torch.randn(n) if bias else None)
+
+
+def _fake_int8_cuda(monkeypatch, calls, err=0):
+    """Fake the int8 GEMM's library, the SM count, the device context and
+    the raw stream, and make every tensor claim to be on CUDA, so that the
+    wrapper's CUDA branch runs on CPU tensors here."""
+    def fake_library(name):
+        assert name == "gfid_matmul_int8"
+
+        def fn(*args):
+            calls.append(args)
+            return err
+        return types.SimpleNamespace(gfid_matmul_int8=fn,
+                                     repro_cuda_error_string=lambda e: b"refused")
+
+    monkeypatch.setattr(build, "library", fake_library)
+    monkeypatch.setattr(build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(build, "on_device", lambda index: _NullContext())
+    monkeypatch.setattr(build, "raw_stream", lambda index: 7)
+    monkeypatch.setattr(gfid_matmul, "_launcher_int8",
+                        gfid_matmul._launcher_int8.__wrapped__)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+
+
+def _count_allocations(monkeypatch):
+    """Record every tensor the wrapper allocates through torch.empty,
+    torch.zeros, Tensor.new_empty or Tensor.new_zeros."""
+    made = []
+    for owner, name in ((torch, "empty"), (torch, "zeros"),
+                        (torch.Tensor, "new_empty"), (torch.Tensor, "new_zeros")):
+        real = getattr(owner, name)
+
+        def wrapped(*a, _real=real, _name=name, **kw):
+            made.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(owner, name, wrapped)
+    return made
+
+
+@pytest.mark.parametrize("m,k,n,act,bias", [(3, 40, 24, "relu", True),
+                                            (1, 1025, 70, None, False),
+                                            (40, 600, 130, "gelu", True)])
+def test_int8_mm_launch_passes_its_plan(monkeypatch, m, k, n, act, bias):
+    """The CUDA branch of `gfid_matmul_int8` calls the C entry once with its
+    plan in the signature's order (pointers with no workspace, shapes,
+    tile, split, act, load flags, stream), allocates nothing but the
+    output, and counts the launch."""
+    calls = []
+    xq, wq, sx, sw, b = _mm8_args(m, k, n, bias)
+    _fake_int8_cuda(monkeypatch, calls)
+    made = _count_allocations(monkeypatch)
+    before = gfid_matmul.gfid_matmul_int8.launches
+    out = gfid_matmul.gfid_matmul_int8(xq, wq, sx, sw, bias=b, act=act)
+    assert made == ["new_empty"]
+    (args,) = calls
+    assert len(args) == len(gfid_matmul.INT8_ARGTYPES)
+    assert tuple(out.shape) == (m, n) and out.dtype == torch.float32
+    assert args[:6] == (xq.data_ptr(), wq.data_ptr(), sx.data_ptr(),
+                        sw.data_ptr(), None if b is None else b.data_ptr(),
+                        out.data_ptr())
+    plan = gfid_matmul.int8_mm_plan(m, k, n, xq.data_ptr(), wq.data_ptr())
+    assert args[6:] == (m, k, n, plan.bm, plan.bn, plan.splits,
+                        plan.chunks_per_split, ACT_CODES[act], int(plan.vec_x),
+                        plan.vec_w, 7)
+    assert gfid_matmul.gfid_matmul_int8.launches == before + 1
+
+
+def test_int8_mm_refused_launch_raises_and_is_not_counted(monkeypatch):
+    _fake_int8_cuda(monkeypatch, [], err=98)
+    before = gfid_matmul.gfid_matmul_int8.launches
+    with pytest.raises(RuntimeError, match="gfid_matmul_int8 launch failed: "
+                                           "CUDA error 98 \\(refused\\)"):
+        gfid_matmul.gfid_matmul_int8(*_mm8_args()[:4])
+    assert gfid_matmul.gfid_matmul_int8.launches == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "scale_dtype", "contiguous",
+                                  "device", "bias_dtype", "bias_device"])
+def test_int8_mm_lean_checks_still_refuse(case):
+    xq, wq, sx, sw, b = _mm8_args()
+    if case == "dtype":
+        xq = xq.to(torch.int16)
+    elif case == "scale_dtype":
+        sw = sw.double()
+    elif case == "contiguous":
+        wq = wq.t().contiguous().t()
+    elif case == "device":
+        sx = sx.to("meta")
+    elif case == "bias_dtype":
+        b = b.to(torch.bfloat16)
+    else:
+        b = b.to("meta")
+    with pytest.raises((TypeError, ValueError), match="gfid_matmul_int8"):
+        gfid_matmul.gfid_matmul_int8(xq, wq, sx, sw, bias=b)
+    build.check_int8_operands("gfid_matmul_int8", *_mm8_args())

@@ -15,11 +15,26 @@
   * a `conv1d_dw` op is captured into programs and replayed strictly.
 
 The CUDA kernel itself (`csrc/conv1d_depthwise.cu`) runs only on the card;
-`chip_smoke.py` holds it there against this plain version, bitwise.
+`chip_smoke.py` holds it there against this plain version, bitwise. Here:
+
+  * a torch-op mirror of its tile walk (tiles of TILE positions, the
+    tile's rows with their halo in registers and a window of W_f rows
+    sliding down them up to REG_TAPS taps, or the rows staged TAP_CHUNK
+    taps at a time) is bitwise equal to the plain version and within 2e-5
+    of the Pallas kernel in interpret mode;
+  * `launch_plan`: the grid (tiles of L, tiles of D, B) with at least 132
+    blocks at the xLSTM prefill's convs, the path by W_f, vector loads by
+    D and alignment;
+  * the wrapper's CUDA branch (library, device and stream faked) passes
+    its plan in the C signature's order, allocates only the output, counts,
+    and raises on a refused launch; the lean operand test still refuses.
+
 Inputs are made with numpy from a seed and handed to both packages.
 """
+import contextlib
 import ctypes
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -216,8 +231,12 @@ def test_ctypes_signature_and_block_match_the_source():
 
     assert conv1d.ARGTYPES == [ctype(p) for p in params]
     assert "conv1d_depthwise" in build.SOURCES
-    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
-    assert conv1d.TILE == (1, 1, threads)
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+             for name in ("kT", "kC", "kRegTaps", "kTapChunk")}
+    assert conv1d.TILE == (1, const["kT"], const["kC"])
+    assert (conv1d.REG_TAPS, conv1d.TAP_CHUNK) == (const["kRegTaps"],
+                                                   const["kTapChunk"])
+    assert "constexpr int kThreads = kC / 4;" in src
     assert "__fmul_rn" in src and "__fadd_rn" in src
 
 
@@ -230,3 +249,179 @@ def test_pad_rule(w_f, causal, lpad):
     xp = gfid.pad_seq(x, w_f, causal)
     assert xp.shape == (1, 3 + w_f - 1, 2)
     assert torch.equal(xp[:, lpad:lpad + 3], x)
+
+
+def _walk(x, w, causal):
+    """The kernel's tile walk in torch ops (every channel at once: the
+    channel tiles and the load width change no value): for each sequence
+    and tile of TILE[1] positions, W_f <= REG_TAPS through the register
+    tile (rows[u] holds row t0 - lpad - (REG_TAPS - W_f) + u, the rows
+    below REG_TAPS - W_f never loaded; output t0 + j sums rows[j + s] x
+    tap s - (REG_TAPS - W_f)), else the rows staged TAP_CHUNK taps at a
+    time with a tile's sums carried across the pieces; zeros outside the
+    sequence; each product and sum rounded on its own, taps in ascending
+    order from 0.0."""
+    b, l, d = x.shape
+    w_f = w.shape[0]
+    kt, k_reg, chunk = conv1d.TILE[1], conv1d.REG_TAPS, conv1d.TAP_CHUNK
+    lpad = gfid.conv1d_lpad(w_f, causal)
+    xf, wf = x.float(), w.float()
+    zero = torch.zeros(d)
+    out = torch.full((b, l, d), float("nan"))
+
+    def row(bi, r):
+        return xf[bi, r] if 0 <= r < l else zero
+
+    for bi in range(b):
+        for t0 in range(0, l, kt):
+            if w_f <= k_reg:
+                skip = k_reg - w_f
+                rows = [row(bi, t0 - lpad - skip + u) if u >= skip else None
+                        for u in range(kt + k_reg - 1)]
+                for j in range(min(kt, l - t0)):
+                    acc = zero
+                    for s in range(skip, k_reg):
+                        acc = acc + rows[j + s] * wf[s - skip]
+                    out[bi, t0 + j] = acc
+            else:
+                acc = [zero] * kt
+                for i0 in range(0, w_f, chunk):
+                    n = min(chunk, w_f - i0)
+                    tile = [row(bi, t0 - lpad + i0 + r) for r in range(kt + n - 1)]
+                    for i in range(n):
+                        acc = [acc[j] + tile[j + i] * wf[i0 + i] for j in range(kt)]
+                for j in range(min(kt, l - t0)):
+                    out[bi, t0 + j] = acc[j]
+    return out
+
+
+# (B, L, D, W_f, causal): the register window at 1 to REG_TAPS taps in both
+# modes, L shorter than a tile, than the taps and ragged past a tile; the
+# staged path just past REG_TAPS, at two pieces of TAP_CHUNK and at 128
+# centred taps (hubert's).
+WALK_CASES = [(2, 40, 8, 4, True), (2, 40, 8, 4, False), (1, 33, 6, 1, True),
+              (2, 17, 5, 2, False), (1, 5, 3, 7, True), (3, 37, 10, 8, False),
+              (1, 50, 4, 8, True), (2, 40, 8, 9, False), (1, 45, 3, 40, True),
+              (2, 40, 8, 128, False)]
+
+
+@pytest.mark.parametrize("b,l,d,w_f,causal", WALK_CASES)
+def test_tile_walk_is_bitwise_the_plain_version(b, l, d, w_f, causal):
+    x, w = _inputs((b, l, d), w_f, seed=b * 100 + l + w_f)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got = _walk(xt, wt, causal)
+    assert torch.equal(got, conv1d.gfid_conv1d_depthwise_plain(xt, wt, causal=causal))
+    xb, wb = xt.to(torch.bfloat16), wt.to(torch.bfloat16)
+    assert torch.equal(_walk(xb, wb, causal),
+                       conv1d.gfid_conv1d_depthwise_plain(xb, wb, causal=causal))
+
+
+@pytest.mark.parametrize("w_f,causal", [(4, True), (8, False), (9, True),
+                                        (128, False)])
+def test_tile_walk_matches_the_pallas_kernel_in_interpret_mode(w_f, causal):
+    x, w = _inputs((2, 40, 8), w_f, seed=w_f + 50)
+    want = np.asarray(jax_conv1d.gfid_conv1d_depthwise(
+        jnp.asarray(x), jnp.asarray(w), causal=causal, interpret=True))
+    got = _walk(torch.from_numpy(x), torch.from_numpy(w), causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=PALLAS_ATOL)
+
+
+# (B, L, D, W_f, causal, x address) -> (lpad, staged, vec, grid)
+LAUNCH_PLAN_CASES = [
+    ((1, 384, 1536, 4, True, 0), (3, False, True, (48, 12, 1))),
+    ((1, 384, 768, 4, True, 0), (3, False, True, (48, 6, 1))),
+    ((1, 243, 1536, 4, True, 0), (3, False, True, (31, 12, 1))),
+    ((3, 37, 100, 5, False, 0), (2, False, True, (5, 1, 3))),
+    ((2, 21, 30, 4, True, 0), (3, False, False, (3, 1, 2))),
+    ((2, 21, 32, 4, True, 4), (3, False, False, (3, 1, 2))),
+    ((2, 64, 1280, 128, False, 0), (63, True, True, (8, 10, 2))),
+    ((1, 9, 8, 9, True, 0), (8, True, True, (2, 1, 1))),
+]
+
+
+@pytest.mark.parametrize("args,want", LAUNCH_PLAN_CASES)
+def test_launch_plan_path_vectors_and_grid(args, want):
+    plan = conv1d.launch_plan(*args)
+    assert tuple(plan) == want
+    b, l, d = args[:3]
+    if (l, d) in ((384, 768), (384, 1536)):
+        assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= 132
+    with pytest.raises(ValueError, match="launch grid"):
+        conv1d.launch_plan(70000, 16, 128, 4, True)
+
+
+def _fake_conv1d_cuda(monkeypatch, calls, err=0):
+    def fake_library(name):
+        assert name == "conv1d_depthwise"
+
+        def fn(*args):
+            calls.append(args)
+            return err
+        return types.SimpleNamespace(conv1d_depthwise=fn,
+                                     repro_cuda_error_string=lambda e: b"refused")
+
+    monkeypatch.setattr(build, "library", fake_library)
+    monkeypatch.setattr(build, "on_device", lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(build, "raw_stream", lambda index: 7)
+    monkeypatch.setattr(conv1d, "_launcher", conv1d._launcher.__wrapped__)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+
+
+@pytest.mark.parametrize("w_f,causal,dtypes", [
+    (4, True, (torch.float32, torch.float32)),
+    (128, False, (torch.bfloat16, torch.float32)),
+    (3, False, (torch.float32, torch.bfloat16))])
+def test_launch_passes_its_plan(monkeypatch, w_f, causal, dtypes):
+    """The CUDA branch calls the C entry once with its plan in the
+    signature's order (pointers, shape, taps, lpad, operand dtypes, vector
+    flag, stream), allocates nothing but the output, and counts the
+    launch."""
+    calls, made = [], []
+    x = torch.randn(2, 21, 32).to(dtypes[0])
+    w = torch.randn(w_f, 32).to(dtypes[1])
+    _fake_conv1d_cuda(monkeypatch, calls)
+    real = torch.Tensor.new_empty
+    monkeypatch.setattr(torch.Tensor, "new_empty",
+                        lambda t, *a, **kw: made.append("new_empty") or real(t, *a, **kw))
+    for name in ("empty", "zeros"):
+        monkeypatch.setattr(torch, name, lambda *a, _n=name, **kw: made.append(_n))
+    before = conv1d.gfid_conv1d_depthwise.launches
+    out = conv1d.gfid_conv1d_depthwise(x, w, causal=causal)
+    assert made == ["new_empty"]
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    (args,) = calls
+    assert len(args) == len(conv1d.ARGTYPES)
+    plan = conv1d.launch_plan(2, 21, 32, w_f, causal, x.data_ptr())
+    assert args == (x.data_ptr(), w.data_ptr(), out.data_ptr(), 2, 21, 32,
+                    w_f, plan.lpad, int(dtypes[0] == torch.bfloat16),
+                    int(dtypes[1] == torch.bfloat16), int(plan.vec), 7)
+    assert conv1d.gfid_conv1d_depthwise.launches == before + 1
+
+
+def test_refused_launch_raises_and_is_not_counted(monkeypatch):
+    _fake_conv1d_cuda(monkeypatch, [], err=98)
+    before = conv1d.gfid_conv1d_depthwise.launches
+    with pytest.raises(RuntimeError, match="gfid_conv1d_depthwise launch "
+                                           "failed: CUDA error 98"):
+        conv1d.gfid_conv1d_depthwise(torch.zeros(1, 5, 8), torch.zeros(4, 8))
+    assert conv1d.gfid_conv1d_depthwise.launches == before
+
+
+@pytest.mark.parametrize("case", ["x_dtype", "w_dtype", "contiguous",
+                                  "device", "shape"])
+def test_lean_checks_still_refuse(case):
+    x, w = torch.zeros(1, 5, 6), torch.zeros(4, 6)
+    if case == "x_dtype":
+        x = x.double()
+    elif case == "w_dtype":
+        w = w.to(torch.float16)
+    elif case == "contiguous":
+        x = torch.zeros(1, 6, 5).transpose(1, 2)
+    elif case == "device":
+        w = w.to("meta")
+    else:
+        w = torch.zeros(4, 5)
+    assert not conv1d._operands_ok(x, w)
+    with pytest.raises((TypeError, ValueError), match="gfid_conv1d_depthwise"):
+        conv1d.gfid_conv1d_depthwise(x, w)
+    assert conv1d._operands_ok(torch.zeros(1, 5, 6), torch.zeros(4, 6))

@@ -367,20 +367,6 @@ def test_gfid_matmul_int8_rejects_what_the_kernel_does_not_take(bad):
                                      kw.pop("sx"), kw.pop("sw"), **kw)
 
 
-@pytest.mark.parametrize("tiles,n_chunks", [
-    (16, 16), (64, 36), (4 * 64, 36), (18, 72), (96, 12), (3072, 12),
-    (1, 1), (5, 0)])
-def test_split_k_fills_the_card_without_empty_parts(tiles, n_chunks):
-    sms = 132
-    splits, per = build.split_k(tiles, n_chunks, sms)
-    assert splits >= 1 and per >= 1
-    assert (splits - 1) * per < max(n_chunks, 1) <= splits * per
-    if tiles >= 2 * sms:
-        assert splits == 1
-    elif n_chunks >= 2:
-        assert splits > 1
-
-
 @pytest.mark.parametrize("name,symbol,argtypes", [
     ("gfid_matmul_int8", "gfid_matmul_int8", gfid_matmul.INT8_ARGTYPES),
     ("gfid_conv_int8", "gfid_conv2d_nhwc_int8", gfid_conv.INT8_ARGTYPES),
