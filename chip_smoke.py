@@ -714,9 +714,9 @@ def ragged_int8_cases(gen, dev, quant):
     """int8 shapes off the main path: C_in = 3 with stride 4 and pad 2,
     groups 2, gelu, no bias, rows wider than a pixel tile; K = 1025 (past
     the 1024 fp32 chunk, not a multiple of 4), N = 1000, N not a multiple of
-    4, one row, M = 16 and 17, K = 1028, N = 100 and 520, the GEMM's
-    128-row tile in one split and in a cluster, and an xq that is not
-    16-byte aligned."""
+    4, one row, M = 16 and 17, K = 1028, N = 100 and 520, M = 600 (many
+    row blocks of the GEMM's 32-row tile), and an xq that is not 16-byte
+    aligned."""
     def t(*shape):
         return torch.randn(shape, generator=gen).to(dev)
     conv = [
@@ -740,9 +740,8 @@ def ragged_int8_cases(gen, dev, quant):
         # K % 16 != 0 with K % 4 == 0; N % 8 != 0 with N % 4 == 0; N % 16 != 0
         dict(x=t(4, 1028), w=t(1028, 100), bias=t(100), act="relu"),
         dict(x=t(2, 2048), w=t(2048, 520), bias=None, act=None),
-        # the 128-row tile in one split and in a cluster
+        # many rows: 19 row blocks of the 32-row tile
         dict(x=t(600, 256), w=t(256, 4096), bias=t(4096), act="relu"),
-        dict(x=t(300, 512), w=t(512, 4096), bias=None, act=None),
     ]
     mm8 = [quantized("fc", kw, quant) for kw in mm]
     # xq a contiguous view 1 byte past a 16-byte boundary: gathered A words
@@ -2233,7 +2232,7 @@ def launch_path_timing(dev, G, paged, C, build):
             ("conv1d_pieces_us", f"gfid_conv1d_depthwise (1, {SSM_PREFILL}, 1536)", (
                 ("operand checks", lambda: build.check_operands(
                     "gfid_conv1d_depthwise", x=(x1, x1.dtype), w=(w1, w1.dtype)),
-                 lambda: C._operands_ok(x1, w1)),
+                 lambda: C._check(x1, w1)),
                 ("plan (before: none; uncached)",
                  lambda: C._tiling.__wrapped__(1, SSM_PREFILL, 1536, 4, True),
                  lambda: C.launch_plan(1, SSM_PREFILL, 1536, 4, True, x1.data_ptr())),

@@ -18,9 +18,10 @@
 //
 // What the design does about it: a block owns a tile of kT = 8 consecutive
 //   positions x kC = 128 channels of one sequence, one warp, each thread 4
-//   consecutive channels; the grid is (tiles of L, tiles of D, B), so
-//   (1, 384, 768) and (1, 384, 1536) give 288 and 576 blocks, and no thread
-//   divides (on an H100, tiles of 4 and 8 positions ran level, 16 and 32
+//   consecutive channels; the grid is (tiles of L x B, tiles of D), so
+//   (1, 384, 768) and (1, 384, 1536) give 288 and 576 blocks, and a block
+//   finds its sequence and tile with one division, a thread never divides
+//   in its loop (on an H100, tiles of 4 and 8 positions ran level, 16 and 32
 //   slower: more, shorter chains of loads win). A thread loads its W_f x 4 taps once and the tile's
 //   kT + W_f - 1 rows of its channels into registers, every load issued
 //   before the first sum (a launch this short is bound by the latency of
@@ -129,10 +130,12 @@ __global__ void __launch_bounds__(kThreads)
 conv1d_window_kernel(const TX* __restrict__ x, const void* __restrict__ w, int w_bf16,
                      float* __restrict__ out, int l, int d, int w_f, int lpad) {
   constexpr int kRows = kT + kRegTaps - 1;
-  const int t0 = blockIdx.x * kT;
+  const int tiles = (l + kT - 1) / kT;
+  const int bi = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - bi * tiles) * kT;
   const int c = blockIdx.y * kC + 4 * threadIdx.x;
   if (c >= d) return;
-  const Idx seq = (Idx)blockIdx.z * (Idx)l;
+  const Idx seq = (Idx)bi * (Idx)l;
   const int skip = kRegTaps - w_f;  // slots before the first tap
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float4 taps[kRegTaps], rows[kRows];
@@ -162,10 +165,12 @@ __global__ void __launch_bounds__(kThreads)
 conv1d_staged_kernel(const TX* __restrict__ x, const void* __restrict__ w, int w_bf16,
                      float* __restrict__ out, int l, int d, int w_f, int lpad) {
   __shared__ float4 tile[kT + kTapChunk - 1][kThreads];
-  const int t0 = blockIdx.x * kT;
+  const int tiles = (l + kT - 1) / kT;
+  const int bi = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - bi * tiles) * kT;
   const int c = blockIdx.y * kC + 4 * threadIdx.x;
   if (c >= d) return;
-  const Idx seq = (Idx)blockIdx.z * (Idx)l;
+  const Idx seq = (Idx)bi * (Idx)l;
   float4 acc[kT];
 #pragma unroll
   for (int j = 0; j < kT; ++j) acc[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -188,7 +193,7 @@ conv1d_staged_kernel(const TX* __restrict__ x, const void* __restrict__ w, int w
 template <class TX, bool kVec, class Idx>
 int launch(const void* x, const void* w, int w_bf16, float* out, int b, int l, int d, int w_f,
            int lpad, cudaStream_t stream) {
-  const dim3 grid((l + kT - 1) / kT, (d + kC - 1) / kC, b);
+  const dim3 grid((l + kT - 1) / kT * b, (d + kC - 1) / kC);
   const TX* xt = static_cast<const TX*>(x);
   if (w_f <= kRegTaps)
     conv1d_window_kernel<TX, kVec, Idx><<<grid, kThreads, 0, stream>>>(xt, w, w_bf16, out, l, d,

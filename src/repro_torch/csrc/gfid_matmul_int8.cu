@@ -30,9 +30,9 @@
 //     (fc8's N = 1000), zero-filled past K and N; else words of 4 columns
 //     gathered byte by byte.
 //   The tile follows M (kernels/gfid_matmul.py::int8_mm_plan): 16 rows up to
-//   M = 16 (batch 1: a stream of weights, one m16 tile of the mma), 32 rows
-//   up to 32 (batch 32: every weight byte read and transposed once a
-//   forward), else 128. The columns alone give few blocks (fc6 and fc7 32,
+//   M = 16 (batch 1: a stream of weights, one m16 tile of the mma), else 32
+//   rows (batch 32: every weight byte read and transposed once a forward;
+//   more rows take more row blocks). The columns alone give few blocks (fc6 and fc7 32,
 //   fc8 8), so K is split across up to kMaxSplit = 8 blocks that form one
 //   thread block cluster along grid z, about two blocks an SM, each keeping
 //   2 chunks of 64 x 128 bytes of w in flight; each block of a cluster adds
@@ -60,22 +60,13 @@ namespace {
 
 // The widest block tile (kernels/gfid_matmul.py TILE_INT8, the engine plan's
 // tiling): rows of x, K bytes a chunk, columns.
-constexpr int kBM = 128;
+constexpr int kBM = 32;
 constexpr int kKT = 64;
 constexpr int kBN = 128;
 static_assert(kKT == mma8::kKc, "the chunk is the core's");
 // The most splits of K (kernels/gfid_matmul.py INT8_MM_MAX_SPLIT), one cluster.
 constexpr int kMaxSplit = 8;
 static_assert(kMaxSplit <= mma8::kMaxCluster, "a tile's splits are one portable cluster");
-// Blocks an SM, for the register budget: three of 4 warps (the 16-row
-// tile's 57 KB ring fits three), two of 8. A tile's splits are one
-// cluster, and a grid of more clusters than the card holds at once runs in
-// two waves (cudaOccupancyMaxActiveClusters): three blocks an SM hold
-// fc6's and fc7's 32 clusters of 8 at once on an H100, two do not.
-template <class T>
-constexpr int min_blocks() {
-  return T::kThreads <= 128 ? 3 : 2;
-}
 
 // The B chunk of K rows k0 .. k0 + kKT - 1 and columns n0 .. n0 + BN - 1 as
 // it lies in w, by `cp.async` copies of kBytes (16 or 8) columns, zeros past
@@ -100,7 +91,7 @@ __device__ __forceinline__ void load_b(const int8_t* __restrict__ w, uint8_t* Bn
 }
 
 template <class T, bool kCluster>
-__global__ void __launch_bounds__(T::kThreads, min_blocks<T>())
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
 gfid_matmul_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                         const float* __restrict__ sx, const float* __restrict__ sw,
                         const float* __restrict__ bias, float* __restrict__ out, int M, int K,
@@ -191,17 +182,20 @@ gfid_matmul_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__
     }
 }
 
-// Run f(Tile<...>{}) for the tile of (bm, bn), one of the three that
+// Run f(Tile<...>{}) for the tile of (bm, bn), one of the two that
 // kernels/gfid_matmul.py::int8_mm_plan picks from (INT8_MM_TILES): 16 x 128
 // on 4 warps side by side along N (warp tiles of 16 x 32), 32 x 128 on 8
 // warps (16 x 32 each: on an H100 batch 32's fc8 ran faster this way than on 4
-// warps of 32 x 32) and 128 x 128 on 8 warps (64 x 32);
-// cudaErrorInvalidValue for any other.
+// warps of 32 x 32); cudaErrorInvalidValue for any other. Blocks an SM, for
+// the register budget: three of the 16-row tile (its 57 KB ring fits three),
+// two of the 32-row one. A tile's splits are one cluster, and a grid of more
+// clusters than the card holds at once runs in two waves
+// (cudaOccupancyMaxActiveClusters): three 16-row blocks an SM hold fc6's and
+// fc7's 32 clusters of 8 at once on an H100, two do not.
 template <class F>
 int with_mm_tile(int bm, int bn, F&& f) {
-  if (bn == 128 && bm == 16) return f(mma8::Tile<16, 128, 1, 4>{});
-  if (bn == 128 && bm == 32) return f(mma8::Tile<32, 128, 2, 4>{});
-  if (bn == kBN && bm == kBM) return f(mma8::Tile<kBM, kBN, 2, 4>{});
+  if (bn == 128 && bm == 16) return f(mma8::Tile<16, 128, 1, 4, 3>{});
+  if (bn == kBN && bm == kBM) return f(mma8::Tile<kBM, kBN, 2, 4, 2>{});
   return (int)cudaErrorInvalidValue;
 }
 

@@ -49,8 +49,9 @@ constexpr int kAStride = kKc + 16;   // bytes an A row: conflict-free ldmatrix
 constexpr int kMaxCluster = 8;       // the portable cluster size
 
 // A block tile of BM rows x BN columns on WM x WN warps, each warp MT x NT
-// mma tiles of 16 x 8.
-template <int BM_, int BN_, int WM_, int WN_>
+// mma tiles of 16 x 8; kMinBlocks of it an SM (the kernels' launch bounds),
+// by default 128 registers a thread: two 8-warp or four 4-warp blocks.
+template <int BM_, int BN_, int WM_, int WN_, int MinBlocks_ = 512 / (32 * WM_ * WN_)>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
   static constexpr int kThreads = 32 * WM * WN;
@@ -64,8 +65,7 @@ struct Tile {
   static constexpr int kBPer = kBBlocks / kThreads;      // blocks a thread
   static constexpr size_t kRing = (size_t)kStages * kStage + 2 * kBBuf;
   static constexpr size_t kSums = sizeof(int) * MT * NT * 4 * kThreads;
-  // 128 registers a thread: two 8-warp or four 4-warp blocks an SM
-  static constexpr int kMinBlocks = 512 / kThreads;
+  static constexpr int kMinBlocks = MinBlocks_;
   static_assert(MT >= 1 && NT % 2 == 0, "B fragments load two n8 tiles at a time");
   static_assert(kBBlocks % kThreads == 0, "every thread stages the same number of B blocks");
   static_assert(kThreads % 16 == 0, "a thread's A word (or piece) of a chunk is fixed");

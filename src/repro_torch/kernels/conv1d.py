@@ -63,7 +63,7 @@ class Conv1dPlan(NamedTuple):
     """One launch of `conv1d_depthwise`: the zero rows before the sequence,
     the shared-memory path (`staged`, for W_f above REG_TAPS) or the
     register window, float4 loads and stores (`vec`), and the grid (tiles
-    of L, tiles of D, B)."""
+    of L times B, tiles of D, 1): any B, and D up to 65,535 x TILE[2]."""
     lpad: int
     staged: bool
     vec: bool
@@ -84,21 +84,9 @@ def _tiling(b: int, l: int, d: int, w_f: int,
             causal: bool) -> Tuple[int, bool, Tuple[int, int, int]]:
     """launch_plan's shape part, cached (the launch path runs it at every
     call)."""
-    grid = (-(-l // TILE[1]), -(-d // TILE[2]), b)
+    grid = (-(-l // TILE[1]) * b, -(-d // TILE[2]), 1)
     build.check_grid("gfid_conv1d_depthwise", grid)
     return gfid.conv1d_lpad(w_f, causal), w_f > REG_TAPS, grid
-
-
-def _operands_ok(x: torch.Tensor, w: torch.Tensor) -> bool:
-    """What `_check` asks, in one short test (a launch's host time): x
-    (B, L, D) and w (W_f >= 1, D), each fp32 or bf16, contiguous, on one
-    device. False sends them through `_check`, which names what is
-    wrong."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    return (x.ndim == 3 and w.ndim == 2 and w.shape[1] == x.shape[2]
-            and w.shape[0] >= 1 and (x.dtype is f32 or x.dtype is bf16)
-            and (w.dtype is f32 or w.dtype is bf16) and x.is_contiguous()
-            and w.is_contiguous() and w.device == x.device)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -119,8 +107,7 @@ def gfid_conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,
                           causal: bool = True) -> torch.Tensor:
     """x (B, L, D), w (W_f, D), each fp32 or bf16 -> fp32 (B, L, D): the
     depthwise conv, causal or centred, any D and any W_f."""
-    if not _operands_ok(x, w):
-        _check(x, w)
+    _check(x, w)
     if x.is_cuda:
         out = x.new_empty(x.shape, dtype=torch.float32)
         if out.numel():

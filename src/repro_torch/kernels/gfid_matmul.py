@@ -31,7 +31,7 @@ from repro_torch.kernels.epilogue import (ACT_CODES, apply_epilogue,
 TILE = (128, 8, 128)
 # (rows of x, K chunk in bytes, columns) of the widest block tile of
 # csrc/gfid_matmul_int8.cu: kBM, kKT, kBN in that source.
-TILE_INT8 = (128, 64, 128)
+TILE_INT8 = (32, 64, 128)
 # csrc/gfid_matmul.cu's block tiles (rows, columns), TILE's first. Up to
 # F32_FEW_ROWS rows, the first of 8, 32 or 64 rows that holds M, 64 columns
 # wide, or as wide as F32_WIDE_COLUMNS gives where w holds F32_WIDE_BYTES
@@ -73,16 +73,16 @@ BF16_TILES = ((16, 64), (32, 64), (64, 64))
 # BF16_MIN_SPLIT chunks (1024 of K: smollm's K <= 1536 never splits).
 BF16_TARGET_BLOCKS = 264
 BF16_MIN_SPLIT = 32
-# csrc/gfid_matmul_int8.cu's block tiles (rows, columns): the first whose
-# rows hold M, else the last. 16 rows up to M = 16 (batch 1: a stream of
-# weights), 32 up to 32 (batch 32: each weight byte read once a forward).
+# csrc/gfid_matmul_int8.cu's block tiles (rows, columns): 16 rows up to
+# M = 16 (batch 1: a stream of weights), else 32 (batch 32: each weight byte
+# read once a forward; more rows take more row blocks).
 # Where the tiles leave the card idle, K is split for about
 # INT8_MM_TARGET_BLOCKS blocks (two an SM of 132), at most INT8_MM_MAX_SPLIT
 # splits (a tile's splits are one thread block cluster whose blocks add
 # them; the entry's kMaxSplit), each at least INT8_MM_MIN_SPLIT chunks of
 # INT8_MM_BK bytes. Integer sums are exact in any order, so the plan may
 # follow M.
-INT8_MM_TILES = ((16, 128), (32, 128), (128, 128))
+INT8_MM_TILES = ((16, 128), (32, 128))
 INT8_MM_BK = TILE_INT8[1]
 INT8_MM_TARGET_BLOCKS = 264
 INT8_MM_MIN_SPLIT = 4

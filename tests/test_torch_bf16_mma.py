@@ -1282,9 +1282,9 @@ INT8_MM_PLAN_CASES = [
     ((17, 257, 129), (32, 128, 1, False, 0)),
     ((1, 1000, 33), (16, 128, 4, False, 0)),
     ((4, 1028, 100), (16, 128, 4, False, 0)),
-    ((600, 256, 4096), (128, 128, 1, True, 16)),
-    ((300, 512, 4096), (128, 128, 2, True, 16)),
-    ((20000, 4096, 4096), (128, 128, 1, True, 16)),
+    ((600, 256, 4096), (32, 128, 1, True, 16)),
+    ((300, 512, 4096), (32, 128, 1, True, 16)),
+    ((20000, 4096, 4096), (32, 128, 1, True, 16)),
 ]
 
 
@@ -1430,7 +1430,7 @@ def _mm8_mirror(xq, wq, sx, sw, bias, act, plan):
 
 # (M, K, N, bias, act): the 16-row tile with K split across 4 (M = 1, K not
 # a multiple of 16), the 32-row tile in one split with two column tiles,
-# the 128-row tile with K split in 2, gelu, and a tile boundary.
+# two row blocks of it with K split in 2, gelu, and a tile boundary.
 MM8_MIRROR_CASES = [
     (1, 1025, 70, True, "relu"),
     (17, 257, 129, False, None),

@@ -22,12 +22,12 @@ The CUDA kernel itself (`csrc/conv1d_depthwise.cu`) runs only on the card;
     sliding down them up to REG_TAPS taps, or the rows staged TAP_CHUNK
     taps at a time) is bitwise equal to the plain version and within 2e-5
     of the Pallas kernel in interpret mode;
-  * `launch_plan`: the grid (tiles of L, tiles of D, B) with at least 132
-    blocks at the xLSTM prefill's convs, the path by W_f, vector loads by
+  * `launch_plan`: the grid (tiles of L x B, tiles of D, 1) with at least
+    132 blocks at the xLSTM prefill's convs, any B, the path by W_f, vector loads by
     D and alignment;
   * the wrapper's CUDA branch (library, device and stream faked) passes
     its plan in the C signature's order, allocates only the output, counts,
-    and raises on a refused launch; the lean operand test still refuses.
+    and raises on a refused launch; the operand check still refuses.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -331,10 +331,10 @@ LAUNCH_PLAN_CASES = [
     ((1, 384, 1536, 4, True, 0), (3, False, True, (48, 12, 1))),
     ((1, 384, 768, 4, True, 0), (3, False, True, (48, 6, 1))),
     ((1, 243, 1536, 4, True, 0), (3, False, True, (31, 12, 1))),
-    ((3, 37, 100, 5, False, 0), (2, False, True, (5, 1, 3))),
-    ((2, 21, 30, 4, True, 0), (3, False, False, (3, 1, 2))),
-    ((2, 21, 32, 4, True, 4), (3, False, False, (3, 1, 2))),
-    ((2, 64, 1280, 128, False, 0), (63, True, True, (8, 10, 2))),
+    ((3, 37, 100, 5, False, 0), (2, False, True, (15, 1, 1))),
+    ((2, 21, 30, 4, True, 0), (3, False, False, (6, 1, 1))),
+    ((2, 21, 32, 4, True, 4), (3, False, False, (6, 1, 1))),
+    ((2, 64, 1280, 128, False, 0), (63, True, True, (16, 10, 1))),
     ((1, 9, 8, 9, True, 0), (8, True, True, (2, 1, 1))),
 ]
 
@@ -346,8 +346,9 @@ def test_launch_plan_path_vectors_and_grid(args, want):
     b, l, d = args[:3]
     if (l, d) in ((384, 768), (384, 1536)):
         assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= 132
+    assert conv1d.launch_plan(70000, 16, 128, 4, True).grid == (140000, 1, 1)
     with pytest.raises(ValueError, match="launch grid"):
-        conv1d.launch_plan(70000, 16, 128, 4, True)
+        conv1d.launch_plan(1, 16, 65536 * 128, 4, True)
 
 
 def _fake_conv1d_cuda(monkeypatch, calls, err=0):
@@ -421,7 +422,8 @@ def test_lean_checks_still_refuse(case):
         w = w.to("meta")
     else:
         w = torch.zeros(4, 5)
-    assert not conv1d._operands_ok(x, w)
+    with pytest.raises((TypeError, ValueError), match="gfid_conv1d_depthwise"):
+        conv1d._check(x, w)
     with pytest.raises((TypeError, ValueError), match="gfid_conv1d_depthwise"):
         conv1d.gfid_conv1d_depthwise(x, w)
-    assert conv1d._operands_ok(torch.zeros(1, 5, 6), torch.zeros(4, 6))
+    conv1d._check(torch.zeros(1, 5, 6), torch.zeros(4, 6))
