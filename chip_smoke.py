@@ -44,7 +44,14 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      last and other tiles' and warps' rows, bitwise equal to the row alone
      in one K order at every M: on bf16 operands in both stores at each
      smollm GEMM shape and a ragged one, on fp32 operands at those shapes
-     and AlexNet's fc6-fc8.
+     and AlexNet's fc6-fc8. Then the conv's batch invariance: one fixed
+     image, first, in the middle and last of batches of 1, 2, 4, 8, 16 and
+     32, bitwise equal to the image alone, on fp32 and bf16 operands (both
+     stores) at every AlexNet conv shape and every distinct VGG-16 and
+     ResNet-50 conv shape, and on int8 operands at AlexNet's (the checked
+     fp32 and bf16 plans must reach a split through the workspace and a
+     fold); and, read only, whether ResNet-50's global average pool gives
+     an image other bits in a batch.
   4. AlexNet (full width, random weights from a seed) end to end through
      `compile(program("alexnet", batch=B), EngineConfig(backend="cuda"))
      .apply(params, x)` at B = 1 and 32: every op on "cuda", 5 conv and 3
@@ -122,11 +129,11 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      requests with prompts of 16-256 tokens and 16, 32 or 64 steps from a
      seeded `torch.Generator`, served by `ContinuousScheduler` under
      `EngineConfig(backend="cuda", row_align=8)` with admission
-     "continuous", then "drain", then solo (max_batch 1). Checks: every
-     request done without preemption; every decode step at the one
-     8-row bucket (the scheduler's row_align floor); tokens bitwise equal
-     across the three runs and equal to the dense-cache `greedy_generate`
-     for 4 requests; every op of every compiled program on "cuda"; the programs
+     "continuous", then "drain", then solo (max_batch 1; the first 4
+     requests only). Checks: every request done without preemption; every
+     decode step at the one 8-row bucket (the scheduler's row_align floor);
+     tokens bitwise equal across the three runs and equal to the
+     dense-cache `greedy_generate` for the first 4 requests; every op of every compiled program on "cuda"; the programs
      record 2 + 30 x 7 + 1 ops; each decode step launches 2 `paged_gather`
      and 211 `gfid_matmul` kernels and nothing else; one decode step at
      bucket 8 replayed on the "torch" backend on the same pool snapshot
@@ -150,7 +157,7 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      full width and depth (12 layers, mLSTM x 5 + sLSTM a group, d_model
      768, 155.7 M fp32 parameters from seed 0) is served on the same pool
      geometry and 16-request workload as phase 6, continuous, drain and
-     solo. Every decode-state leaf is a slot store, so nothing is paged.
+     solo (the first 4 requests). Every decode-state leaf is a slot store, so nothing is paged.
      Checks: every request done without preemption; one 8-row decode
      bucket; tokens bitwise equal across the three runs and to
      `greedy_generate` for 4 requests; every compiled op on "cuda", 67 GEMMs
@@ -189,7 +196,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      against GEMM device time, and the decode step with 8 and 1 live rows.
   9. smollm-135m with its config's bf16 parameters (`init_params(cfg,
      seed=0, device="cuda", dtype=torch.bfloat16)`, 269 MB), phase 6's pool
-     and 16 requests, served continuous, drain and solo: the checks and
+     and 16 requests, served continuous, drain and solo (the first 4): the
+     checks and
      numbers of phase 6 with 211 `gfid_matmul_bf16` launches a decode step
      and a prefill, no fp32 `gfid_matmul`, and "torch" logits within
      2.5e-2 of "cuda" (bf16 roundings of each projection, in other sum
@@ -201,6 +209,29 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      "torch" logits: within 2.5e-2 of each other in bf16, within 1e-4 from
      the same weights widened to fp32, and each about as far from those
      fp32 logits as the other (ratio within 1.5 either way).
+ 10. the static `Scheduler`: one for AlexNet under `EngineConfig(backend=
+     "cuda", row_align=8)`, one under the same with `precision="int8"` and
+     one for `program("alexnet", dtype=torch.bfloat16)`, each `max_batch`
+     8 (buckets 1, 2, 4, 8), each run once under "spf" and once under
+     "fifo"; the fp32 one also serves smollm-135m (fp32, full width and
+     depth) through `decode_program(cfg, batch=1, max_len=256)` (shared
+     parameters and position 64, a per-request dense state from a seeded
+     64-token prefill and its next token) and `prefill_program(cfg,
+     batch=1, seq=128, logits_only=True)` (scoring), in one queue with the
+     AlexNet requests. Four waves of seeded requests, each submitted at once
+     and drained, make every program run every bucket and pad a batch.
+     Checks: every AlexNet result (fp32, int8, bf16) bitwise equal to the
+     request alone through the batch-1 `CompiledNet.apply`; every compiled
+     op on "cuda"; each AlexNet dispatch launches 5 conv and 3 matmul
+     kernels of its precision and nothing else, each smollm dispatch 211
+     fp32 `gfid_matmul`; every ticket's ledger the batch-1 plan's ops; spf
+     serves a wave's programs in order of their batch-1 plan latency, fifo
+     in order of arrival; the smollm results within 5e-4 x max|logits| of
+     the request alone with the same argmax (the largest gap printed). Prints
+     requests/s of dispatch time, p50/p95 latency and bucket occupancy per
+     program and policy, and AlexNet at bucket 8 through the scheduler
+     against `compile(program.with_batch(8)).apply` on the same images.
+     Last, each phase's seconds.
 
 The last lines are the card's name and power limit, a JSON object listing
 the kernels, and `{"ok": true, "device": {...}}`.
@@ -246,6 +277,8 @@ BF16_FLASH_TOL = 8e-3       # flash on bf16 operands: max|Δ| / max|plain|
 # gfid_matmul_bf16's row invariance: the row counts a fixed row is computed
 # at (every block-row tile of the plan, and a prompt-1984 prefill's M)
 INVARIANCE_ROWS = (1, 8, 13, 20, 40, 1024, 8 * LONG_PREFILL)
+# the conv's batch invariance: the batches a fixed image is computed in
+INVARIANCE_BATCHES = (1, 2, 4, 8, 16, 32)
 # bf16 GEMM and conv kernels: an fp32 store within TOL of the plain version;
 # a bf16 store within one bf16 step of the plain version's bf16 element (the
 # step at the larger magnitude, TOL * max|plain| near zero): the two fp32
@@ -266,6 +299,18 @@ BF16_LOGITS_TOL = 2.5e-2
 # BF16_FP32_RATIO] (read 0.917-1.190)
 BF16_FP32_RATIO = 1.5
 OTHER_NETS = ("vgg16", "resnet50")   # driven at batch 1 after AlexNet
+# Phase 10: the static Scheduler. smollm-135m decode rows (a dense state of
+# SCHED_MAX_LEN slots after a SCHED_DECODE_POS-token prompt) and scoring
+# prefills of SCHED_SCORE_LEN tokens beside AlexNet; each wave's requests
+# (alexnet, decode, score) are submitted at once, then drained, so that
+# every program runs every bucket and pads at least one batch
+SCHED_MAX_LEN, SCHED_DECODE_POS, SCHED_SCORE_LEN = 256, 64, 128
+SCHED_BUCKETS = (1, 2, 4, 8)
+SCHED_WAVES = ((8, 3, 2), (3, 2, 1), (2, 1, 8), (1, 8, 3))
+# a smollm request in a bucket against the request alone: the decode
+# attention's batched products run on cuBLAS, whose algorithm may follow the
+# row count (read 1.106e-04 at 2048 slots); the argmax must not move
+SCHED_LM_TOL = 5e-4
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
 # tensor cores, bf16 and int8 in them, and device-memory bandwidth. A bound
@@ -525,24 +570,30 @@ def launch_plan(kind, kw):
     h_f, w_f, cg, c_out = w.shape
     s, p, groups = kw["stride"], kw["pad"], kw["groups"]
     pixels = b * ((h + 2 * p - h_f) // s + 1) * ((wd + 2 * p - w_f) // s + 1)
-    plan = {torch.bfloat16: gfid_conv.bf16_plan, torch.int8: gfid_conv.int8_plan}.get(
-        x.dtype, gfid_conv.f32_plan)
+    if x.dtype == torch.int8:
+        return gfid_conv.int8_plan(pixels, h_f * w_f * cg, c_out // groups,
+                                   groups, cg, x.data_ptr(), w.data_ptr(), sms)
+    plan = gfid_conv.bf16_plan if x.dtype == torch.bfloat16 else gfid_conv.f32_plan
     return plan(pixels, h_f * w_f * cg, c_out // groups, groups, cg,
-                x.data_ptr(), w.data_ptr(), sms)
+                x.data_ptr(), w.data_ptr(), sms, image_pixels=pixels // b)
 
 
-def require_plan_coverage(kname, plans, tiles):
-    """Every block tile of `tiles`, one and several splits of K, and both
+def require_plan_coverage(kname, plans, tiles, fold=False):
+    """Every block tile of `tiles`, one and several splits of K (with
+    `fold`, both through the workspace and folded in each block), and both
     load paths of x and of w were among the checked `plans`."""
     seen = dict(tile={(p.bm, p.bn) for p in plans},
-                split={p.splits > 1 for p in plans},
+                split={"fold" if getattr(p, "fold", False) else
+                       "split" if p.splits > 1 else "one" for p in plans},
                 vec_x={p.vec_x for p in plans}, vec_w={p.vec_w for p in plans})
-    want = dict(tile=set(tiles), split={False, True}, vec_x={False, True},
-                vec_w={False, True})
+    want = dict(tile=set(tiles),
+                split={"one", "split"} | ({"fold"} if fold else set()),
+                vec_x={False, True}, vec_w={False, True})
     require(seen == want, f"{kname}: the checked cases reach {seen}, not {want}")
     print(f"[check] {kname}: the cases reach block tiles "
-          f"{', '.join(f'{m}x{n}' for m, n in sorted(seen['tile']))}, one and "
-          f"several K splits, element and 16-byte loads of x and w")
+          f"{', '.join(f'{m}x{n}' for m, n in sorted(seen['tile']))}, K in "
+          f"{', '.join(sorted(seen['split']))} split(s), element and 16-byte "
+          "loads of x and w")
 
 
 def require_int8_conv_coverage(plans):
@@ -695,6 +746,103 @@ def row_invariance_check(dev, mm, gen, dtype=torch.bfloat16):
               f"{orders.pop()}) bitwise equal to the row alone, "
               f"{' and '.join(str(dt)[6:] for dt in stores)} stores")
     return checks
+
+
+def batch_invariance_check(dev, cnn, conv, conv8, quant, gen):
+    """The conv's hard rule for the static Scheduler, on the kernels
+    themselves: one fixed image, placed first, in the middle and last of
+    batches of INVARIANCE_BATCHES images, comes out bitwise equal to the
+    image alone. On fp32 and on bf16 operands (fp32 and bf16 stores) at
+    every AlexNet conv shape and every distinct VGG-16 and ResNet-50 conv
+    shape of the functional path (strides and projections included); the
+    int8 conv (operands quantized by `core/quant`, a scale per image) at
+    AlexNet's. Also reads, without failing, whether ResNet-50's global
+    average pool (`x.mean(dim=(1, 2))` at (B, 7, 7, 2048)) gives the image
+    other bits in a batch. Returns (checks, the fp32 plans, the bf16
+    plans)."""
+    shapes = {}
+    for net in ("alexnet", "vgg16", "resnet50"):
+        for sp in cnn.analytics_layers(net, main_path_only=False)[0]:
+            key = (sp.h_in, sp.w_in, sp.c_in, sp.c_out, sp.h_f, sp.w_f, sp.s,
+                   sp.pad, sp.groups)
+            shapes.setdefault(key, (f"{net} {sp.name}", net == "alexnet"))
+    checks, plans = 0, {torch.float32: [], torch.bfloat16: []}
+    n_max = max(INVARIANCE_BATCHES)
+    t0 = time.perf_counter()
+    for (h, wd, c_in, c_out, h_f, w_f, st, pad, groups), (label, alex) \
+            in shapes.items():
+        cg = c_in // groups
+        fan_in = h_f * w_f * cg
+        # image 0 is the fixed one; the others fill the batches around it
+        xs = torch.randn((n_max + 1, h, wd, c_in), generator=gen).to(dev)
+        w = (torch.randn((h_f, w_f, cg, c_out), generator=gen)
+             * (2.0 / fan_in) ** 0.5).to(dev)
+        bias = (0.1 * torch.randn(c_out, generator=gen)).to(dev)
+        geo = dict(stride=st, pad=pad, groups=groups, act="relu")
+        variants = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                    (torch.bfloat16, torch.bfloat16)]
+        for dtype, out_dtype in variants:
+            xd, wdt, bd = xs.to(dtype), w.to(dtype), bias.to(dtype)
+            kw = dict(geo, out_dtype=out_dtype) if dtype == torch.bfloat16 else geo
+            alone = conv(xd[:1], wdt, bias=bd, **kw)
+            for b in INVARIANCE_BATCHES:
+                at = sorted({0, b // 2, b - 1})
+                x = xd[1:b + 1].clone()
+                x[at] = xd[:1]
+                got = conv(x, wdt, bias=bd, **kw)[at]
+                require(torch.equal(got, alone.expand_as(got)),
+                        f"gfid_conv2d_nhwc {label} {str(dtype)[6:]} -> "
+                        f"{str(out_dtype)[6:]}: images {at} of a batch of {b} "
+                        "differ from the image alone")
+                if out_dtype == torch.float32:
+                    plans[dtype].append(launch_plan("conv", dict(
+                        geo, x=x, w=wdt)))
+                checks += 1
+        if alex:
+            q = lambda x: quantized("conv", dict(geo, x=x, w=w, bias=bias), quant)
+            alone = conv8(**q(xs[:1]))
+            for b in INVARIANCE_BATCHES:
+                at = sorted({0, b // 2, b - 1})
+                x = xs[1:b + 1].clone()
+                x[at] = xs[:1]
+                got = conv8(**q(x))[at]
+                require(torch.equal(got, alone.expand_as(got)),
+                        f"gfid_conv2d_nhwc_int8 {label}: images {at} of a batch "
+                        f"of {b} differ from the image alone")
+                checks += 1
+        del xs
+    torch.cuda.synchronize()
+    for dtype, ps in plans.items():
+        modes = sorted({(p.bm, p.bn, "fold" if p.fold else
+                         "split" if p.splits > 1 else "one") for p in ps})
+        require(any(m[2] == "fold" for m in modes)
+                and any(m[2] == "split" for m in modes),
+                f"batch invariance {dtype}: the cases reach {modes}, not a fold "
+                "and a split through the workspace")
+        print(f"[check] gfid_conv2d_nhwc batch invariance {str(dtype)[6:]}: the "
+              f"cases reach tile and K-split modes "
+              f"{', '.join(f'{m}x{n} {md}' for m, n, md in modes)}")
+    print(f"[check] gfid_conv2d_nhwc batch invariance: {len(shapes)} conv shapes "
+          f"(AlexNet, VGG-16, ResNet-50), one image first, middle and last in "
+          f"batches of {', '.join(map(str, INVARIANCE_BATCHES))} bitwise equal "
+          f"to the image alone, fp32 and bf16 (fp32 and bf16 stores), int8 at "
+          f"AlexNet's; {checks} checks in {time.perf_counter() - t0:.1f} s")
+    # ResNet-50's pooled features: a torch reduction, read here, not required
+    feats = torch.randn((n_max + 1, 7, 7, 2048), generator=gen).to(dev)
+    alone = feats[:1].mean(dim=(1, 2))
+    moved = []
+    for b in INVARIANCE_BATCHES:
+        at = sorted({0, b // 2, b - 1})
+        x = feats[1:b + 1].clone()
+        x[at] = feats[:1]
+        got = x.mean(dim=(1, 2))[at]
+        if not torch.equal(got, alone.expand_as(got)):
+            moved.append((b, (got - alone).abs().max().item()))
+    print("[check] resnet50 global average pool (B, 7, 7, 2048).mean((1, 2)): "
+          + ("one image bitwise the same in every batch" if not moved else
+             "the image's pooled features move in batches "
+             + ", ".join(f"{b} (max|d| {d:.3e})" for b, d in moved)))
+    return checks, plans[torch.float32], plans[torch.bfloat16]
 
 
 def quantized(kind, kw, quant):
@@ -885,8 +1033,12 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
             ("continuous", SERVE_BATCH, "continuous"),
             ("drain", SERVE_BATCH, "drain"), ("solo", 1, "continuous")):
         s = scheduler(max_batch, admission)
+        # solo (one row a step, host-bound) serves only the requests that
+        # greedy_generate checks too
+        served = work[:SERVE_DENSE_CHECKS] if mode == "solo" else work
         t0 = time.perf_counter()
-        prefills = [s.prefill_compiled(n) for n in sorted({len(p) for p, _ in work})]
+        prefills = [s.prefill_compiled(n)
+                    for n in sorted({len(p) for p, _ in served})]
         decodes = [s.decode_compiled(b) for b in s.buckets]
         compile_s = time.perf_counter() - t0
         for c, want_ops in [(c, per_pass) for c in prefills] \
@@ -898,7 +1050,7 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
                     f"{mode} {c.program.name}: backends {set(c.backends())}, "
                     f"{len(kinds)} ops, expected {want_ops}")
         compiled = prefills + decodes
-        tickets = [s.submit(p, n) for p, n in work]
+        tickets = [s.submit(p, n) for p, n in served]
         zero_counts(counted, gather, *other_kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -933,8 +1085,8 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
               f"free low-water {st['pool']['free_low_water']}")
     base = runs["continuous"]["tokens"]
     for mode in ("drain", "solo"):
-        require(runs[mode]["tokens"] == base, f"{mode} tokens differ from "
-                "the continuous run")
+        require(runs[mode]["tokens"] == base[:len(runs[mode]["tokens"])],
+                f"{mode} tokens differ from the continuous run")
     with E.using_config(conf):
         for i, (prompt, steps) in enumerate(work[:SERVE_DENSE_CHECKS]):
             dense = SE.greedy_generate(cfg, params, {"tokens": torch.tensor(
@@ -1259,8 +1411,12 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
         s = scheduler(max_batch, admission)
         require(not any(sp.paged for sp in _leaves(s.layout.specs)),
                 "an xLSTM state leaf is paged")
+        # solo (one row a step, host-bound) serves only the requests that
+        # greedy_generate checks too
+        served = work[:SERVE_DENSE_CHECKS] if mode == "solo" else work
         t0 = time.perf_counter()
-        prefills = [s.prefill_compiled(n) for n in sorted({len(p) for p, _ in work})]
+        prefills = [s.prefill_compiled(n)
+                    for n in sorted({len(p) for p, _ in served})]
         decodes = [s.decode_compiled(b) for b in s.buckets]
         compile_s = time.perf_counter() - t0
         for c, want_ops, want_convs in [(c, per_pass + convs, convs) for c in prefills] \
@@ -1273,7 +1429,7 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
                     f"{mode} {c.program.name}: backends {set(c.backends())}, "
                     f"{len(kinds)} ops ({kinds.count('conv1d_dw')} convs), "
                     f"expected {want_ops} ({want_convs})")
-        tickets = [s.submit(p, n) for p, n in work]
+        tickets = [s.submit(p, n) for p, n in served]
         zero_counts(*kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1309,8 +1465,8 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
         del s
     base = runs["continuous"]["tokens"]
     for mode in ("drain", "solo"):
-        require(runs[mode]["tokens"] == base, f"{mode} tokens differ from "
-                "the continuous run")
+        require(runs[mode]["tokens"] == base[:len(runs[mode]["tokens"])],
+                f"{mode} tokens differ from the continuous run")
     with E.using_config(conf):
         for i, (prompt, steps) in enumerate(work[:SERVE_DENSE_CHECKS]):
             dense = SE.greedy_generate(cfg, params, {"tokens": torch.tensor(
@@ -1935,6 +2091,259 @@ def long_prefill_bf16(dev, E, gfid_matmul, paged, flash, other_kernels, params):
     return dict(prefill_ms=prefill_ms, launches=launches, err=err, split=split)
 
 
+def scheduler_phase(dev, E, cnn, kernels, other_kernels):
+    """Phase 10: the static `Scheduler` (see the module docstring). `kernels`
+    maps "fp32", "int8" and "bf16" to the (conv, matmul) launch counters of
+    that precision's AlexNet kernels; `other_kernels` (the gather, both
+    flash kernels, the depthwise conv) must launch nothing. Returns the
+    launches of each counter over the phase's served dispatches and the
+    numbers of its summary."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import engine as SE
+    from repro_torch.serve.scheduler import Scheduler, latency_percentiles
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_MODEL)
+    per_pass = cfg.n_layers * 7 + 1    # GEMMs of a decode step or a prefill
+    fp32_mm = kernels["fp32"][1]
+    counters = tuple(dict.fromkeys(
+        [k for pair in kernels.values() for k in pair] + [fp32_mm]
+        + list(other_kernels)))
+    conf32 = E.EngineConfig(backend="cuda", row_align=8)
+    configs = {"fp32": conf32, "int8": conf32.replace(precision="int8"),
+               "bf16": conf32}
+    gen = torch.Generator().manual_seed(10)
+    cnn_params = {"fp32": cnn.init_cnn("alexnet", seed=0, device=DEVICE)}
+    cnn_params["int8"] = cnn_params["fp32"]
+    cnn_params["bf16"] = cnn.init_cnn("alexnet", seed=0, device=DEVICE,
+                                      dtype=torch.bfloat16)
+    programs = {"fp32": cnn.program("alexnet"), "int8": cnn.program("alexnet"),
+                "bf16": cnn.program("alexnet", dtype=torch.bfloat16)}
+    lm = T.init_params(cfg, seed=0, device=DEVICE, dtype=torch.float32)
+    dec_prog = SE.decode_program(cfg, batch=1, max_len=SCHED_MAX_LEN,
+                                 param_dtype=torch.float32)
+    score_prog = SE.prefill_program(cfg, batch=1, seq=SCHED_SCORE_LEN,
+                                    logits_only=True, param_dtype=torch.float32)
+    pos = torch.tensor(SCHED_DECODE_POS, dtype=torch.int32, device=dev)
+    print(f"[sched] programs: alexnet (fp32, int8, bf16), {cfg.name} "
+          f"decode at max_len {SCHED_MAX_LEN} (position {SCHED_DECODE_POS}) and "
+          f"scoring prefill of {SCHED_SCORE_LEN} tokens, both fp32; buckets "
+          f"{SCHED_BUCKETS}; waves of (alexnet, decode, score) requests "
+          f"{SCHED_WAVES}")
+
+    # the requests, seeded: images, decode rows (a dense state from a prefill
+    # of a seeded prompt, and the next token) and scoring prompts
+    n_req = {m: sum(w[i] for w in SCHED_WAVES)
+             for i, m in enumerate(("alexnet", "decode", "score"))}
+    images = [torch.randn((1, *cnn.ALEXNET_INPUT), generator=gen).to(dev)
+              for _ in range(n_req["alexnet"])]
+    rows = []
+    with E.using_config(conf32), torch.no_grad():
+        for _ in range(n_req["decode"]):
+            prompt = torch.randint(0, cfg.vocab_size, (1, SCHED_DECODE_POS),
+                                   generator=gen).to(dev)
+            logits, state = T.prefill(cfg, lm, {"tokens": prompt},
+                                      SCHED_MAX_LEN)
+            rows.append((state, torch.argmax(logits, -1, keepdim=True).to(
+                torch.int32)))
+    prompts = [torch.randint(0, cfg.vocab_size, (1, SCHED_SCORE_LEN),
+                             generator=gen, dtype=torch.int32).to(dev)
+               for _ in range(n_req["score"])]
+
+    # each request alone through its program's batch-1 CompiledNet
+    solo = {}
+    for prec, prog in programs.items():
+        one = E.compile(prog, configs[prec])
+        require(set(one.backends()) == {"cuda"}
+                and set(one.precisions()) == {"int8" if prec == "int8" else "fp32"},
+                f"sched alexnet {prec}: backends {set(one.backends())}, "
+                f"precisions {set(one.precisions())}")
+        solo[prec] = [one.apply(cnn_params[prec], x.to(
+            torch.bfloat16 if prec == "bf16" else torch.float32)) for x in images]
+    dec1, score1 = E.compile(dec_prog, conf32), E.compile(score_prog, conf32)
+    # a decode step writes its key and value into the state it is given
+    solo["decode"] = [dec1.apply(lm, tree_map(torch.clone, st), tok, pos)
+                      for st, tok in rows]
+    solo["score"] = [score1.apply(lm, {"tokens": p}) for p in prompts]
+    torch.cuda.synchronize()
+
+    def requests(prec, k):
+        """Wave k's requests, the programs interleaved in arrival order."""
+        n_a, n_d, n_s = SCHED_WAVES[k]
+        lists = [[("alexnet", (images[i].to(torch.bfloat16 if prec == "bf16"
+                                            else torch.float32),), i)
+                  for i in range(sum(w[0] for w in SCHED_WAVES[:k]),
+                                 sum(w[0] for w in SCHED_WAVES[:k]) + n_a)]]
+        if prec == "fp32":
+            d0 = sum(w[1] for w in SCHED_WAVES[:k])
+            s0 = sum(w[2] for w in SCHED_WAVES[:k])
+            lists.append([("decode", (rows[i][0], rows[i][1]), i)
+                          for i in range(d0, d0 + n_d)])
+            lists.append([("score", ({"tokens": prompts[i]},), i)
+                          for i in range(s0, s0 + n_s)])
+        out = []
+        for j in range(max(len(x) for x in lists)):
+            out += [x[j] for x in lists if j < len(x)]
+        return out
+
+    want_launch = {}
+    for prec, (conv_k, mm_k) in kernels.items():
+        want_launch[("alexnet", prec)] = tuple(
+            5 if c is conv_k else 3 if c is mm_k else 0 for c in counters)
+    want_launch[("lm", "fp32")] = tuple(per_pass if c is fp32_mm else 0
+                                        for c in counters)
+    totals = [0] * len(counters)
+    summary = {}
+    gaps = {}
+    for prec in ("fp32", "int8", "bf16"):
+        for policy in ("spf", "fifo"):
+            sched = Scheduler(config=configs[prec], policy=policy, max_batch=8)
+            require(sched.buckets == SCHED_BUCKETS, f"buckets {sched.buckets}")
+            units = {"alexnet": sched.register(
+                "alexnet", programs[prec],
+                shared_args=(cnn_params[prec],)).unit_plan}
+            if prec == "fp32":
+                units["decode"] = sched.register(
+                    "decode", dec_prog, shared_args=(lm, pos)).unit_plan
+                units["score"] = sched.register(
+                    "score", score_prog, shared_args=(lm,)).unit_plan
+            t0 = time.perf_counter()
+            sched.warmup()
+            warm_s = time.perf_counter() - t0
+            for name in units:
+                for b in SCHED_BUCKETS:
+                    c = sched.compiled(name, b)
+                    require(set(c.backends()) == {"cuda"},
+                            f"sched {prec} {name} bucket {b}: backends "
+                            f"{set(c.backends())}")
+            served, walls, order = [], {m: 0.0 for m in units}, []
+            for k in range(len(SCHED_WAVES)):
+                tickets = [(m, i, sched.submit(m, *args))
+                           for m, args, i in requests(prec, k)]
+                served += tickets
+                while sched.pending():
+                    zero_counts(*counters)
+                    t0 = time.perf_counter()
+                    batch = sched.step()
+                    walls[batch[0].model] += time.perf_counter() - t0
+                    got = counts(*counters)
+                    model = batch[0].model
+                    want = want_launch[("alexnet", prec) if model == "alexnet"
+                                       else ("lm", "fp32")]
+                    require(got == want, f"sched {prec} {policy} {model} bucket "
+                            f"{batch[0].batch_bucket}: launches {got}, expected "
+                            f"{want}")
+                    totals = [a + b for a, b in zip(totals, got)]
+                    order.append((k, model))
+                # spf: within a wave, the programs in order of their batch-1
+                # plan latency; fifo: in order of first arrival
+                wave_models = [m for kk, m in order if kk == k]
+                if policy == "spf":
+                    lat = [units[m].total_latency_s for m in wave_models]
+                    require(lat == sorted(lat), f"sched {prec} spf wave {k}: "
+                            f"served {wave_models} by plan latency {lat}")
+                else:
+                    first = list(dict.fromkeys(m for m, _, _ in requests(prec, k)))
+                    require(list(dict.fromkeys(wave_models)) == first,
+                            f"sched {prec} fifo wave {k}: served {wave_models}")
+            st = sched.stats()
+            buckets_run = {m: sorted({t.batch_bucket for mm, _, t in served
+                                      if mm == m}) for m in units}
+            require(all(b == list(SCHED_BUCKETS) for b in buckets_run.values())
+                    and all(st["models"][m]["padded_slots"] > 0 for m in units),
+                    f"sched {prec} {policy}: buckets served {buckets_run}, "
+                    f"padded {[st['models'][m]['padded_slots'] for m in units]}")
+            for m, i, t in served:
+                unit = units[m]
+                require(t.done and len(t.ledger) == len(unit.plans)
+                        and [r.plan for r in t.ledger] == list(unit.plans),
+                        f"sched {prec} {m} request {i}: ledger is not the "
+                        "batch-1 plan")
+                want = solo[prec][i] if m == "alexnet" else solo[m][i]
+                if m == "alexnet":
+                    require(torch.equal(t.result, want), f"sched {prec} {policy} "
+                            f"alexnet request {i} (bucket {t.batch_bucket}, row "
+                            f"{t.batch_index}): result differs from the request "
+                            "alone")
+                else:
+                    gap = (t.result.float() - want.float()).abs().max().item() \
+                        / want.float().abs().max().item()
+                    same = torch.equal(t.result.argmax(-1), want.argmax(-1))
+                    gaps.setdefault(m, []).append((gap, t.batch_bucket))
+                    require(gap <= SCHED_LM_TOL and same, f"sched {policy} {m} "
+                            f"request {i} (bucket {t.batch_bucket}): logits "
+                            f"{gap:.3e} of max from the request alone (limit "
+                            f"{SCHED_LM_TOL}), argmax equal {same}")
+            for m in units:
+                ts = [t for mm, _, t in served if mm == m]
+                lat = latency_percentiles(ts)
+                rps = len(ts) / walls[m]
+                summary[(prec, policy, m)] = dict(
+                    rps=rps, p50=lat["p50_ms"], p95=lat["p95_ms"],
+                    occupancy=st["models"][m]["occupancy"])
+                print(f"[sched] {prec} {policy} {m}: {len(ts)} requests in "
+                      f"{st['models'][m]['batches']} batches (buckets "
+                      f"{buckets_run[m]}, occupancy "
+                      f"{st['models'][m]['occupancy']:.3f}), {rps:.1f} requests/s "
+                      f"of dispatch time, latency p50 {lat['p50_ms']:.2f} ms, p95 "
+                      f"{lat['p95_ms']:.2f} ms; batch-1 plan "
+                      f"{units[m].total_latency_s * 1e3:.4f} ms (MMIE)")
+            print(f"[sched] {prec} {policy}: {st['served']} served in "
+                  f"{st['batches']} batches, {st['throughput_rps']:.1f} requests/s "
+                  f"of dispatch time; order {[m for _, m in order]}; warm-up "
+                  f"(every bucket compiled and run once) {warm_s:.2f} s")
+            if policy == "spf":
+                # bucket 8 through the scheduler against the compiled
+                # batch-8 apply on the same images (the cost of packing)
+                xs = [x.to(torch.bfloat16 if prec == "bf16" else torch.float32)
+                      for x in images[:8]]
+                c8 = sched.compiled("alexnet", 8)
+                x8 = torch.cat(xs)
+
+                def direct():
+                    c8.apply(cnn_params[prec], x8)
+                    torch.cuda.synchronize()
+
+                def through():
+                    for x in xs:
+                        sched.submit("alexnet", x)
+                    sched.step()
+
+                sched_ms = host_us(through, calls=10) / 1e3
+                direct_ms = host_us(direct, calls=10) / 1e3
+                summary[(prec, "bucket8")] = dict(sched_ms=sched_ms,
+                                                  direct_ms=direct_ms)
+                print(f"[sched] {prec} alexnet bucket 8: {sched_ms:.4f} ms a "
+                      f"batch through the scheduler ({8e3 / sched_ms:.1f} "
+                      f"images/s) against {direct_ms:.4f} ms for "
+                      f"compile(program.with_batch(8)).apply on the same "
+                      f"images ({8e3 / direct_ms:.1f} images/s); packing and "
+                      f"unpacking {sched_ms - direct_ms:.4f} ms (host clock, "
+                      "least of 5 runs of 10 synchronized batches)")
+            del sched
+    for m, gs in gaps.items():
+        worst_gap = max(gs)
+        exact = all(g == 0.0 for g, _ in gs)
+        summary[("gap", m)] = worst_gap[0]
+        print(f"[sched] {cfg.name} {m}: " + (
+            "every request bitwise equal to the request alone" if exact else
+            f"largest gap {worst_gap[0]:.3e} of max|logits| (bucket "
+            f"{worst_gap[1]}) from the request alone, argmax equal (limit "
+            f"{SCHED_LM_TOL}); bitwise in {sum(g == 0.0 for g, _ in gs)} of "
+            f"{len(gs)}"))
+    launched = dict(zip((getattr(k, "__name__", None) or k.kernel
+                         for k in counters), totals))
+    for prec, (conv_k, mm_k) in kernels.items():
+        require(totals[counters.index(conv_k)] > 0
+                and totals[counters.index(mm_k)] > 0,
+                f"sched: the {prec} kernels were not launched")
+    print(f"[sched] launches over the phase's served dispatches: {launched}")
+    print(f"[sched] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launched, summary=summary)
+
+
 def flash_timing(dev, flash, worst):
     """Phase 5's flash rows: the kernels at smollm's longest served prefill
     shape (1, LONG_PREFILL, 9/3, 64) causal, on fp32 q/k/v (entry
@@ -2295,7 +2704,9 @@ def _leaves(tree):
 
 
 def main():
+    started = {}                    # phase -> its start on the host clock
     # -- phase 1: the card ---------------------------------------------------
+    started["1"] = time.perf_counter()
     require(torch.cuda.is_available(), "no CUDA device: this script runs "
             "only on a GPU")
     sys.path.insert(0, str(ROOT / "src"))
@@ -2339,6 +2750,7 @@ def main():
     del src, dst
 
     # -- phase 2: build --------------------------------------------------------
+    started["2"] = time.perf_counter()
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s wall "
@@ -2349,6 +2761,7 @@ def main():
         print(f"[build] {kname}: {secs:.2f} s; " + " | ".join(usage))
 
     # -- phase 3: kernel vs plain on the card ----------------------------------
+    started["3"] = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
     checks = 0
     worst = {}                                  # max |kernel - plain|
@@ -2422,7 +2835,7 @@ def main():
                 plan = (f", tile {plans[-1].bm}x{plans[-1].bn}, K splits "
                         f"{plans[-1].splits}"
                         + (f" ({f32_mode(plans[-1])})" if kname == "gfid_matmul"
-                           else "")
+                           else " (fold)" if plans[-1].fold else "")
                         + f", 16-byte loads x {int(plans[-1].vec_x)} "
                         f"w {int(plans[-1].vec_w)}")
             print(f"[check] {kname} {label}: out {tuple(got.shape)}, act "
@@ -2432,7 +2845,7 @@ def main():
             worst[kname] = max(worst[kname], abs_err)
             checks += 1
         if kname == "gfid_conv2d_nhwc":
-            require_plan_coverage(kname, plans, gfid_conv.F32_TILES)
+            require_plan_coverage(kname, plans, gfid_conv.F32_TILES, fold=True)
             print(f"[check] gfid_conv2d_nhwc: {len(plans)} cases in "
                   f"{time.perf_counter() - t_conv:.1f} s")
         if kname == "gfid_matmul":
@@ -2485,10 +2898,12 @@ def main():
                         f"> {limit}")
                 worst[kname] = max(worst[kname], abs_err)
                 checks += 1
-        require_plan_coverage(kname, plans, tiles)
+        require_plan_coverage(kname, plans, tiles, fold=kind == "conv")
     del bf16_cases
     checks += row_invariance_check(dev, mm32, gen)
     checks += row_invariance_check(dev, mm32, gen32, torch.float32)
+    checks += batch_invariance_check(dev, cnn, conv32, conv8, quant,
+                                     torch.Generator().manual_seed(33))[0]
     worst["paged_gather"] = 0.0
     for label, pool, table in paged_cases(gen, dev):
         got = paged.paged_gather(pool, table)
@@ -2584,6 +2999,7 @@ def main():
           f"{BF16_FLASH_TOL})")
 
     # -- phase 4: AlexNet end to end -------------------------------------------
+    started["4"] = time.perf_counter()
     golden = json.loads((ROOT / "tests/goldens/table4_alexnet.json").read_text())
     params = cnn.init_cnn("alexnet", seed=0, device=DEVICE)
     main_launches = {}
@@ -2625,6 +3041,7 @@ def main():
               f"{ms_torch:.4f} ms/forward (median of 5)")
 
     # -- phase 4a: AlexNet int8 end to end --------------------------------------
+    started["4a"] = time.perf_counter()
     int8_cfg = E.EngineConfig(backend="cuda", precision="int8")
     for batch in BATCHES:
         x = torch.randn((batch, *cnn.ALEXNET_INPUT),
@@ -2687,6 +3104,7 @@ def main():
               f"forward {forward_ms[('fp32', batch)]:.4f} ms")
 
     # -- phase 4b: VGG-16 and ResNet-50 through the same kernels, batch 1 -------
+    started["4b"] = time.perf_counter()
     del params
     for net in OTHER_NETS:
         golden_net = json.loads((ROOT / f"tests/goldens/table4_{net}.json").read_text())
@@ -2737,6 +3155,7 @@ def main():
         del params
 
     # -- phase 4c: one layer int8 inside an fp32 AlexNet -------------------------
+    started["4c"] = time.perf_counter()
     params = cnn.init_cnn("alexnet", seed=0, device=DEVICE)
     x = torch.randn((1, *cnn.ALEXNET_INPUT),
                     generator=torch.Generator().manual_seed(1)).to(dev)
@@ -2756,6 +3175,7 @@ def main():
     del params
 
     # -- phase 4d: AlexNet with bf16 parameters ----------------------------------
+    started["4d"] = time.perf_counter()
     bf16 = torch.bfloat16
     params = cnn.init_cnn("alexnet", seed=0, device=DEVICE, dtype=bf16)
     params32 = {kind: {name: {k: v.float() for k, v in layer.items()}
@@ -2806,6 +3226,7 @@ def main():
     del params, params32
 
     # -- phase 5: kernel times at the main path's shapes -----------------------
+    started["5"] = time.perf_counter()
     def lib_conv(x, w, bias, stride, pad, groups, act):
         out = F.conv2d(x, w, bias, stride=stride, padding=pad, groups=groups)
         return torch.relu(out) if act == "relu" else out
@@ -2923,6 +3344,7 @@ def main():
     launch_path = launch_path_timing(dev, gfid_matmul, paged, conv1d, build)
 
     # -- phase 6: serving smollm-135m on the paged pool -----------------------
+    started["6"] = time.perf_counter()
     flash_kernels = (flash_attention.flash_attention,
                      flash_attention.flash_attention_bf16)
     others = all_kernels[:1] + all_kernels[2:] + bf16_kernels + flash_kernels
@@ -2932,10 +3354,12 @@ def main():
     del served["params"]
 
     # -- phase 7: serving xlstm-125m (the depthwise conv kernel's path) -------
+    started["7"] = time.perf_counter()
     torch.cuda.empty_cache()
     ssm = ssm_phase(dev, E, gfid_matmul, conv1d, paged, others, worst)
 
     # -- phase 8: smollm-135m on prompts of 1025-1984 tokens (flash) ----------
+    started["8"] = time.perf_counter()
     torch.cuda.empty_cache()
     long = long_phase(dev, E, gfid_matmul, paged, flash_attention,
                       all_kernels[:1] + all_kernels[2:] + bf16_kernels
@@ -2943,6 +3367,7 @@ def main():
                          flash_attention.flash_attention_bf16), worst)
 
     # -- phase 9: smollm-135m with its config's bf16 parameters ---------------
+    started["9"] = time.perf_counter()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     served16 = serve_phase(dev, E, gfid_matmul, paged,
@@ -2954,6 +3379,18 @@ def main():
                                               flash_attention.flash_attention),
                                served16.pop("params"))
     print(f"[serve bf16] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+    # -- phase 10: the static Scheduler over AlexNet and smollm-135m ----------
+    started["10"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    sched = scheduler_phase(
+        dev, E, cnn, {"fp32": (conv32, mm32), "int8": (conv8, mm8),
+                      "bf16": (conv16, mm16)},
+        (paged.paged_gather, conv1d.gfid_conv1d_depthwise) + flash_kernels)
+    ends = list(started.values())[1:] + [time.perf_counter()]
+    print("[time] phases (s): " + ", ".join(
+        f"{name} {end - start:.1f}" for (name, start), end
+        in zip(started.items(), ends)))
 
     sources = {
         "gfid_conv2d_nhwc": ("src/repro_torch/csrc/gfid_conv.cu",

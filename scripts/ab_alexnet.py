@@ -1,26 +1,28 @@
 #!/usr/bin/env python3
-"""Time AlexNet's int8 forward on one card for several checkouts of the
-repo, one process each, in the order given, so that two versions are
-compared on one machine (run them as A, B, B, A, A, B, ...:
+"""Time AlexNet's forward in int8, fp32 or bf16 on one card for several
+checkouts of the repo, one process each, in the order given, so that two
+versions are compared on one machine (run them as A, B, B, A, A, B, ...:
 the host's speed drifts between processes):
 
-    python3 scripts/ab_alexnet_int8.py [--batches 1,32] [--out FILE] \\
-        LABEL=TREE [LABEL=TREE ...]
+    python3 scripts/ab_alexnet.py [--precision int8|fp32|bf16] \\
+        [--batches 1,32] [--out FILE] LABEL=TREE [LABEL=TREE ...]
 
 TREE is the root of a checkout (its `src/` holds `repro_torch`). Each run
-builds that checkout's two int8 kernels, compiles AlexNet through
-`engine.compile` for backend "cuda" at precision int8 with seeded random
-weights, requires 5 int8 conv and 3 int8 GEMM calls a forward and logits
-bitwise equal to the "torch" backend's, then times, at each batch:
+builds that checkout's conv and GEMM kernels of the precision, compiles
+AlexNet through `engine.compile` for backend "cuda" (int8: at precision
+int8; bf16: `program(dtype=torch.bfloat16)` on bf16 weights) with seeded
+random weights, requires 5 conv and 3 GEMM calls a forward and logits equal
+to the "torch" backend's (int8 bitwise, fp32 within 1e-4 and bf16 within
+2e-2 of max|logits|), then times, at each batch:
 
   * forward_ms: `CompiledNet.apply` with the host (median of 20 CUDA-event
     timings after 3 warm-up calls);
-  * quant_ms: the forward's `core/quant` calls alone, replayed on the
+  * quant_ms (int8): the forward's `core/quant` calls alone, replayed on the
     operands one forward gave them (the same median);
-  * conv8_ms / mm8_ms: the forward's int8 conv / GEMM calls replayed on the
+  * conv_ms / mm_ms: the forward's conv / GEMM calls replayed on the
     operands one forward gave them, each with the host (the same median),
     summed;
-  * conv8_alone_ms / mm8_alone_ms: the same calls on the device alone (a
+  * conv_alone_ms / mm_alone_ms: the same calls on the device alone (a
     CUDA graph of 100 calls replayed, median of 10, over 100), summed.
 
 Prints the card's name and power limit, one JSON line a run, a table of
@@ -72,7 +74,18 @@ def graph_ms(fn, calls=100):
     return time_ms(graph.replay, iters=10) / calls
 
 
-def child(tree: str, batches) -> dict:
+# precision -> (kernel sources, (module, wrapper) of the conv and the GEMM)
+KERNELS = {"int8": (("gfid_conv_int8", "gfid_matmul_int8"),
+                    ("gfid_conv2d_nhwc_int8", "gfid_matmul_int8")),
+           "fp32": (("gfid_conv", "gfid_matmul"),
+                    ("gfid_conv2d_nhwc", "gfid_matmul")),
+           "bf16": (("gfid_conv_bf16", "gfid_matmul_bf16"),
+                    ("gfid_conv2d_nhwc", "gfid_matmul"))}
+# the logits against the "torch" backend's: max|d| / max|torch|
+LOGITS_TOL = {"int8": 0.0, "fp32": 1e-4, "bf16": 2e-2}
+
+
+def child(tree: str, batches, precision: str) -> dict:
     """One checkout's numbers (see the module's docstring)."""
     import torch
     from concurrent.futures import ThreadPoolExecutor
@@ -84,23 +97,28 @@ def child(tree: str, batches) -> dict:
     from repro_torch.kernels import build, gfid_conv, gfid_matmul
     from repro_torch.models import cnn
 
+    sources, (conv_name, mm_name) = KERNELS[precision]
     with ThreadPoolExecutor(max_workers=2) as pool:
-        list(pool.map(build.library, ("gfid_conv_int8", "gfid_matmul_int8")))
+        list(pool.map(build.library, sources))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    params = cnn.init_cnn("alexnet", seed=0, device="cuda")
-    hooks = ((gfid_conv, "gfid_conv2d_nhwc_int8", "conv8"),
-             (gfid_matmul, "gfid_matmul_int8", "mm8"),
-             (quant, "quantize_conv_operands", "quant"),
-             (quant, "quantize_matmul_operands", "quant"))
-    out = {"tree": tree, "torch": torch.__version__}
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    params = cnn.init_cnn("alexnet", seed=0, device="cuda", dtype=dtype)
+    hooks = ((gfid_conv, conv_name, "conv"), (gfid_matmul, mm_name, "mm"))
+    if precision == "int8":
+        hooks += ((quant, "quantize_conv_operands", "quant"),
+                  (quant, "quantize_matmul_operands", "quant"))
+    cfg = E.EngineConfig(backend="cuda", precision=(
+        "int8" if precision == "int8" else "fp32"))
+    out = {"tree": tree, "torch": torch.__version__, "precision": precision}
     for batch in batches:
         x = torch.randn((batch, *cnn.ALEXNET_INPUT),
-                        generator=torch.Generator().manual_seed(batch)).to(dev)
-        compiled = E.compile(cnn.program("alexnet", batch=batch),
-                             E.EngineConfig(backend="cuda", precision="int8"))
-        calls = {"conv8": [], "mm8": [], "quant": []}
+                        generator=torch.Generator().manual_seed(batch)).to(
+                            dev, dtype)
+        program = cnn.program("alexnet", batch=batch, dtype=dtype)
+        compiled = E.compile(program, cfg)
+        calls = {"conv": [], "mm": [], "quant": []}
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in hooks]
 
         def recorder(fn, kind):
@@ -118,22 +136,24 @@ def child(tree: str, batches) -> dict:
                 setattr(mod, name, fn)
         torch.cuda.synchronize()
         got = {k: len(v) for k, v in calls.items()}
-        if got != {"conv8": 5, "mm8": 3, "quant": 8}:
-            raise SystemExit(f"B={batch}: calls a forward {got}, expected 5 "
-                             "int8 convs, 3 int8 GEMMs, 8 quantizations")
-        ref = E.compile(cnn.program("alexnet", batch=batch),
-                        E.EngineConfig(backend="torch", precision="int8")
-                        ).apply(params, x)
-        n_diff = int((logits != ref).sum().item())
-        if n_diff:
-            raise SystemExit(f"B={batch}: {n_diff} int8 logits differ from "
-                             "the torch backend's")
+        want = {"conv": 5, "mm": 3, "quant": 8 if precision == "int8" else 0}
+        if got != want:
+            raise SystemExit(f"B={batch}: calls a forward {got}, expected "
+                             f"{want}")
+        ref = E.compile(program, cfg.replace(backend="torch")).apply(params, x)
+        err = ((logits.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        if not err <= LOGITS_TOL[precision]:
+            raise SystemExit(f"B={batch}: {precision} logits {err:.3e} of max "
+                             f"from the torch backend's (limit "
+                             f"{LOGITS_TOL[precision]})")
         row = {"forward_ms": time_ms(lambda: compiled.apply(params, x))}
 
         def replay(kind):
             return lambda: [fn(*a, **kw) for fn, a, kw in calls[kind]]
-        row["quant_ms"] = time_ms(replay("quant"))
-        for kind in ("conv8", "mm8"):
+        if precision == "int8":
+            row["quant_ms"] = time_ms(replay("quant"))
+        for kind in ("conv", "mm"):
             row[f"{kind}_ms"] = sum(time_ms(lambda c=c: c[0](*c[1], **c[2]))
                                     for c in calls[kind])
             row[f"{kind}_alone_ms"] = sum(graph_ms(lambda c=c: c[0](*c[1], **c[2]))
@@ -145,13 +165,15 @@ def child(tree: str, batches) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("runs", nargs="*", help="LABEL=TREE, in run order")
+    parser.add_argument("--precision", default="int8",
+                        choices=sorted(KERNELS))
     parser.add_argument("--batches", default="1,32",
                         type=lambda v: [int(b) for b in v.split(",")])
     parser.add_argument("--out", help="also write the JSON lines here")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
-        print(json.dumps(child(args.child, args.batches)))
+        print(json.dumps(child(args.child, args.batches, args.precision)))
         return
     if not args.runs:
         parser.error("give at least one LABEL=TREE")
@@ -163,6 +185,7 @@ def main() -> None:
     for run in args.runs:
         label, _, tree = run.partition("=")
         proc = subprocess.run([sys.executable, __file__, "--child", tree,
+                               "--precision", args.precision,
                                "--batches", ",".join(map(str, args.batches))],
                               capture_output=True, text=True)
         if proc.returncode != 0:
@@ -175,8 +198,9 @@ def main() -> None:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in lines))
-    keys = ("forward_ms", "quant_ms", "conv8_ms", "conv8_alone_ms", "mm8_ms",
-            "mm8_alone_ms")
+    keys = (("forward_ms",) + (("quant_ms",) if args.precision == "int8"
+                               else ())
+            + ("conv_ms", "conv_alone_ms", "mm_ms", "mm_alone_ms"))
     print("run | batch | " + " | ".join(keys))
     for r in lines:
         for batch in args.batches:

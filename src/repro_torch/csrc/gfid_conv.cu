@@ -36,14 +36,23 @@
 //   In a warp the A reads hit two rows 12 floats apart and the B reads one
 //   contiguous 256-byte span, so neither conflicts on the banks. The
 //   wrapper's plan (kernels/gfid_conv.py::f32_plan) picks the tile that
-//   fills the 132 SMs and, where even the smallest does not (batch 1's
-//   169-pixel conv3-5), splits K across blocks; split_k.cuh adds the
-//   partials in split order (no atomics). The epilogue adds the bias,
-//   applies the activation and stores once.
+//   fills the 132 SMs and takes the split of K from one image's plan: where
+//   one image's blocks leave the card idle (batch 1's 169-pixel conv3-5), K
+//   is split, at every batch the same. Where the batch's blocks leave the
+//   card idle, each split is a block on grid z and split_k.cuh's reduction
+//   adds the partials in split order (no atomics); where they fill it, each
+//   block runs every split and adds them itself in the same order (a fold,
+//   split_k.cuh's fold_split: running sums in shared memory after the ring,
+//   no workspace). The epilogue adds the bias, applies the activation and
+//   stores once.
 //
-// Sum order: an output element is one fmaf chain over K in order, chunk by
-//   chunk (within a split), whatever the tile; the splits are then added in
-//   split order. Plain fp32 FMA: no TF32, no tensor cores.
+// Sum order (the serving Scheduler's bitwise batches rest on it): an output
+//   element is one fmaf chain over K in order, chunk by chunk, within a
+//   split, whatever the tile; the splits are then added in split order, by
+//   the reduction or the fold, which add alike. The split comes from one
+//   image's geometry, so an image's result does not depend on the batch,
+//   on the tile or on the images beside it. Plain fp32 FMA: no TF32, no
+//   tensor cores.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -75,7 +84,13 @@ constexpr int kOffRow = -(1 << 29);  // h0 of a row past the last pixel: every t
 using simt::cp_async16;
 using simt::cp_async4;
 
+// The shared memory a fold adds after the ring: a thread's running sums.
 template <class T>
+constexpr size_t kFoldSums = sizeof(float) * T::TM * T::TN * T::kThreads;
+
+// kFold: the block runs every split of K and folds them (grid z is 1);
+// otherwise it runs split blockIdx.z.
+template <class T, bool kFold>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
 gfid_conv2d_nhwc_kernel(splitk::Epilogue e, const float* __restrict__ x,
                         const float* __restrict__ w, Geometry d, int chunks_per_split,
@@ -96,8 +111,8 @@ gfid_conv2d_nhwc_kernel(splitk::Epilogue e, const float* __restrict__ x,
   const int P = d.B * d.H_out * d.W_out;
   const int K = d.H_f * d.W_f * cg;
   const int n_chunks = (K + kBK - 1) / kBK;
-  const int begin = blockIdx.z * chunks_per_split;
-  const int end = min(n_chunks, begin + chunks_per_split);
+  const int begin = kFold ? 0 : blockIdx.z * chunks_per_split;
+  const int end = kFold ? n_chunks : min(n_chunks, begin + chunks_per_split);
   const float* xg = x + (size_t)g * cg;
   const float* wg = w + (size_t)g * og;
 
@@ -163,7 +178,16 @@ gfid_conv2d_nhwc_kernel(splitk::Epilogue e, const float* __restrict__ x,
   };
 
   float acc[T::TM][T::TN];
-  simt::run_chunks<T>(smem, begin, end - begin, ty, tx, acc, load, [](int) {});
+  auto& flat = reinterpret_cast<float(&)[T::TM * T::TN]>(acc);
+  float* sum = smem + T::kStages * T::kStage;  // under a fold, after the ring
+  int split_end = chunks_per_split;
+  simt::run_chunks<T>(smem, begin, end - begin, ty, tx, acc, load, [&](int t) {
+    if constexpr (kFold)
+      splitk::fold_split<T::kThreads>(sum, flat, t + 1, end - begin, chunks_per_split,
+                                      split_end);
+  });
+  if constexpr (kFold)
+    splitk::fold_finish<T::kThreads>(sum, flat, end - begin, chunks_per_split);
 
   float* ws = e.ws == nullptr ? nullptr : e.ws + (size_t)blockIdx.z * P * d.C_out;
 #pragma unroll
@@ -198,11 +222,13 @@ int with_tile(int bm, int bn, F&& f) {
 // x (B, H_in, W_in, C_in) NHWC and w (H_f, W_f, C_in / groups, C_out) HWIO,
 // bias (C_out,) or null, out (B, H_out, W_out, C_out); all fp32. (bm, bn) is
 // a block tile of with_tile; K = H_f W_f C_in / groups is cut into splits
-// runs of chunks_per_split chunks of kBK. With splits > 1, ws is an fp32
+// runs of chunks_per_split chunks of kBK. With splits > 1 and ws an fp32
 // workspace of splits x B H_out W_out x C_out (not zeroed: every element is
-// written); with splits == 1 it may be null. vec_x (vec_w): 16-byte copies of
-// x (w), for C_in / groups (C_out / groups) a multiple of 4 on a 16-byte
-// aligned pointer. act: 0 none, 1 relu, 2 gelu (tanh). Launches on `stream`
+// written), each split is a block on grid z and a second kernel adds them;
+// with splits > 1 and ws null, each block runs every split and adds them
+// itself (a fold); with splits == 1, ws is not read. vec_x (vec_w): 16-byte
+// copies of x (w), for C_in / groups (C_out / groups) a multiple of 4 on a
+// 16-byte aligned pointer. act: 0 none, 1 relu, 2 gelu (tanh). Launches on `stream`
 // and returns cudaGetLastError() (0 when the launch was accepted;
 // cudaErrorInvalidValue for another tile).
 extern "C" int gfid_conv2d_nhwc_f32(const float* x, const float* w, const float* bias,
@@ -219,9 +245,14 @@ extern "C" int gfid_conv2d_nhwc_f32(const float* x, const float* w, const float*
     const long long tiles =
         groups * ((C_out / groups + T::BN - 1) / T::BN) * ((P + T::BM - 1) / T::BM);
     if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (splits > 1 && ws == nullptr)  // a fold: one block a tile, no reduction
+      return splitk::launch<splitk::WithSmem<T, kFoldSums<T>>>(
+          gfid_conv2d_nhwc_kernel<T, true>, dim3((unsigned)tiles, 1, 1),
+          (cudaStream_t)stream, e, 1, P * C_out, C_out, x, w, d, chunks_per_split, vec_x,
+          vec_w);
     const dim3 grid((unsigned)tiles, 1, splits);
-    return splitk::launch<T>(gfid_conv2d_nhwc_kernel<T>, grid, (cudaStream_t)stream, e,
-                             splits, P * C_out, C_out, x, w, d, chunks_per_split, vec_x,
+    return splitk::launch<T>(gfid_conv2d_nhwc_kernel<T, false>, grid, (cudaStream_t)stream,
+                             e, splits, P * C_out, C_out, x, w, d, chunks_per_split, vec_x,
                              vec_w);
   });
 }

@@ -26,9 +26,16 @@
 //   tiles, the 4-stage ring and the bf16 `mma.sync.m16n8k16` with fp32
 //   accumulators are csrc/mma_bf16.cuh's. The group is a grid axis beside
 //   the column blocks. The wrapper picks the tile (128 x 128, 64 x 64 or
-//   32 x 64) to fill the 132 SMs and, when even 32-row tiles do not (batch
-//   1's 169-pixel conv3-5), splits K across blocks, reduced in split order
-//   by split_reduce_kernel: no atomics, so a result is deterministic.
+//   32 x 64) to fill the 132 SMs and takes the split of K from one
+//   image's plan: where one image's blocks leave the card idle (batch 1's
+//   169-pixel conv3-5), K is split, at every batch the same. Where the
+//   batch's blocks leave the card idle, each split is a block on grid z,
+//   reduced in split order by split_reduce_kernel; where they fill it, each
+//   block runs every split and adds them in the same order itself (a fold,
+//   split_k.cuh's fold_split, on the 64- and 32-row tiles: the 128 x 128
+//   tile's ring leaves no room for its running sums). No atomics, so a
+//   result is deterministic, and an image's sums are the same at any
+//   batch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -48,7 +55,13 @@ struct Geometry {
 
 constexpr int kOffRow = -(1 << 29);  // h0 of a row past the last pixel: every tap misses
 
+// The shared memory a fold adds after the ring: a thread's running sums.
 template <class T>
+constexpr size_t kFoldSums = sizeof(float) * T::MT * T::NT * 4 * T::kThreads;
+
+// kFold: the block runs every split of K and folds them (grid z is 1);
+// otherwise it runs split blockIdx.z.
+template <class T, bool kFold>
 __global__ void __launch_bounds__(T::kThreads)
 gfid_conv_bf16_kernel(mma::Epilogue e, const uint16_t* __restrict__ x,
                       const uint16_t* __restrict__ w, Geometry d, int chunks_per_split,
@@ -65,8 +78,8 @@ gfid_conv_bf16_kernel(mma::Epilogue e, const uint16_t* __restrict__ x,
   const int P = d.B * d.H_out * d.W_out;
   const int K = d.H_f * d.W_f * cg;
   const int n_chunks = (K + kBK - 1) / kBK;
-  const int begin = blockIdx.z * chunks_per_split;
-  const int end = min(n_chunks, begin + chunks_per_split);
+  const int begin = kFold ? 0 : blockIdx.z * chunks_per_split;
+  const int end = kFold ? n_chunks : min(n_chunks, begin + chunks_per_split);
   const uint16_t* xg = x + (size_t)g * cg;
   const uint16_t* wg = w + (size_t)g * og;
 
@@ -140,7 +153,17 @@ gfid_conv_bf16_kernel(mma::Epilogue e, const uint16_t* __restrict__ x,
   };
 
   float acc[T::MT][T::NT][4];
-  mma::mainloop<T>(load, begin, end, smem, acc);
+  auto& flat = reinterpret_cast<float(&)[T::MT * T::NT * 4]>(acc);
+  // under a fold, after the ring (the ring's bf16 stages end 16-byte aligned)
+  float* sum = reinterpret_cast<float*>(smem + mma::kStages * T::kStage);
+  int split_end = chunks_per_split;
+  mma::mainloop<T>(load, begin, end, smem, acc, [&](int t) {
+    if constexpr (kFold)
+      splitk::fold_split<T::kThreads>(sum, flat, t + 1, end - begin, chunks_per_split,
+                                      split_end);
+  });
+  if constexpr (kFold)
+    splitk::fold_finish<T::kThreads>(sum, flat, end - begin, chunks_per_split);
   float* ws = e.ws == nullptr ? nullptr : e.ws + (size_t)blockIdx.z * P * d.C_out;
   mma::store_tile<T>(acc, e, ws, m0, P, n0, og, g * og, d.C_out);
 }
@@ -150,11 +173,13 @@ gfid_conv_bf16_kernel(mma::Epilogue e, const uint16_t* __restrict__ x,
 // x (B, H_in, W_in, C_in) NHWC and w (H_f, W_f, C_in / groups, C_out) HWIO
 // bf16; bias (C_out,) fp32 (bias_bf16 = 0), bf16 (1) or null; out (B, H_out,
 // W_out, C_out) fp32 (out_bf16 = 0) or bf16 (1). (bm, bn) is a block tile of
-// mma::with_tile. With splits > 1, ws is an fp32 workspace of splits x B H_out
-// W_out x C_out (not zeroed: every element is written); with splits == 1 it
-// may be null. act: 0 none, 1 relu, 2 gelu. Launches on `stream` and returns
-// cudaGetLastError() (0 when accepted; cudaErrorInvalidValue for another
-// tile).
+// mma::with_tile. With splits > 1 and ws an fp32 workspace of splits x B
+// H_out W_out x C_out (not zeroed: every element is written), each split is
+// a block on grid z and a second kernel adds them; with splits > 1 and ws
+// null, each block runs every split and adds them itself (a fold); with
+// splits == 1, ws is not read. act: 0 none, 1 relu, 2 gelu. Launches on
+// `stream` and returns cudaGetLastError() (0 when accepted;
+// cudaErrorInvalidValue for another tile).
 extern "C" int gfid_conv2d_nhwc_bf16(const void* x, const void* w, const void* bias,
                                      void* out, float* ws, int bias_bf16, int out_bf16,
                                      int B, int H_in, int W_in, int C_in, int H_f, int W_f,
@@ -169,9 +194,15 @@ extern "C" int gfid_conv2d_nhwc_bf16(const void* x, const void* w, const void* b
   const long long P = (long long)B * H_out * W_out;
   return mma::with_tile(bm, bn, [&](auto tile) {
     using T = decltype(tile);
+    const bool fold = splits > 1 && ws == nullptr;
     const dim3 grid(groups * ((C_out / groups + T::BN - 1) / T::BN),
-                    (unsigned)((P + T::BM - 1) / T::BM), splits);
-    return mma::launch<T>(gfid_conv_bf16_kernel<T>, grid, (cudaStream_t)stream, e, splits,
-                          P * C_out, C_out, xb, wb, d, chunks_per_split, vec_x, vec_w);
+                    (unsigned)((P + T::BM - 1) / T::BM), fold ? 1 : splits);
+    if (fold)  // one block a tile, no reduction
+      return mma::launch<splitk::WithSmem<T, kFoldSums<T>>>(
+          gfid_conv_bf16_kernel<T, true>, grid, (cudaStream_t)stream, e, 1, P * C_out, C_out,
+          xb, wb, d, chunks_per_split, vec_x, vec_w);
+    return mma::launch<T>(gfid_conv_bf16_kernel<T, false>, grid, (cudaStream_t)stream, e,
+                          splits, P * C_out, C_out, xb, wb, d, chunks_per_split, vec_x,
+                          vec_w);
   });
 }

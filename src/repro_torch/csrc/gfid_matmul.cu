@@ -142,23 +142,15 @@ gfid_matmul_kernel(splitk::Epilogue e, const float* __restrict__ x,
     }
   };
 
-  // Under a fold: this thread's sum of the finished splits, sum[i][tid]
-  // (conflict-free), after the ring.
+  // Under a fold: this thread's running sum of the finished splits after
+  // the ring (split_k.cuh's fold_split).
   float* sum = smem + T::kStages * T::kStage;
   float acc[T::TM][T::TN];
+  auto& flat = reinterpret_cast<float(&)[T::TM * T::TN]>(acc);
+  int split_end = chunks_per_split;
   simt::run_chunks<T>(smem, begin, n, ty, tx, acc, load, [&](int t) {
-    if constexpr (kMode == kFold) {
-      const int done = t + 1;
-      if (done % chunks_per_split != 0 || done == n) return;  // inside a split, or the last
-#pragma unroll
-      for (int s = 0; s < T::TM; ++s)
-#pragma unroll
-        for (int c = 0; c < T::TN; ++c) {
-          float* p = sum + (s * T::TN + c) * T::kThreads + tid;
-          *p = done == chunks_per_split ? acc[s][c] : *p + acc[s][c];
-          acc[s][c] = 0.0f;
-        }
-    }
+    if constexpr (kMode == kFold)
+      splitk::fold_split<T::kThreads>(sum, flat, t + 1, n, chunks_per_split, split_end);
   });
 
   if constexpr (kMode == kCluster) {
@@ -187,7 +179,7 @@ gfid_matmul_kernel(splitk::Epilogue e, const float* __restrict__ x,
     if (cluster.block_rank() != 0) return;
   }
 
-  const bool folded = kMode == kFold && n > chunks_per_split;
+  if constexpr (kMode == kFold) splitk::fold_finish<T::kThreads>(sum, flat, n, chunks_per_split);
   float* ws = e.ws == nullptr ? nullptr : e.ws + (size_t)blockIdx.z * M * N;
 #pragma unroll
   for (int s = 0; s < T::TM; ++s) {
@@ -197,13 +189,11 @@ gfid_matmul_kernel(splitk::Epilogue e, const float* __restrict__ x,
     for (int c = 0; c < T::TN; ++c) {
       const int col = n0 + (c / 4) * 4 * T::kColThreads + tx * 4 + c % 4;
       if (col >= N) continue;
-      float v = acc[s][c];
-      if (folded) v = sum[(s * T::TN + c) * T::kThreads + tid] + v;
       const size_t idx = (size_t)r * N + col;
       if (ws != nullptr)
-        ws[idx] = v;
+        ws[idx] = acc[s][c];
       else
-        splitk::finish(e, idx, col, v);
+        splitk::finish(e, idx, col, acc[s][c]);
     }
   }
 }

@@ -21,13 +21,15 @@
 //   * `store_tile`: bias, act and the fp32 or bf16 store straight from the
 //     accumulator fragments, or, under a split of K, the fp32 partial into
 //     a workspace that `split_reduce_kernel` sums in split order (both of
-//     split_k.cuh, which the fp32 conv shares).
+//     split_k.cuh, which the fp32 conv shares); a conv block that runs
+//     every split folds them in the same order first (`fold_split`).
 //
 // The sum order of an output element: chunk by chunk in K order, inside a
 // chunk the two k16 steps in order, inside a step the tensor core's own
 // fixed reduction over 16 products of that row and that column alone. None
 // of it depends on BM, on the rows beside it or on the block that owns it:
-// only the split of K does, and its partials are added in split order.
+// only the split of K does, and its partials are added in split order,
+// whether by the reduction or by a fold.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,10 +116,11 @@ __device__ __forceinline__ void mma_chunk(const uint16_t* As, const uint16_t* Bs
 }
 
 // Chunks [begin, end) of K through the ring. load(chunk, As, Bs) fills one
-// stage; it may issue cp.async copies or store directly.
-template <class T, class Load>
+// stage; it may issue cp.async copies or store directly. after(t) runs once
+// chunk begin + t is in acc (a fold's hook, split_k.cuh's fold_split).
+template <class T, class Load, class After>
 __device__ __forceinline__ void mainloop(Load&& load, int begin, int end, uint16_t* smem,
-                                         float (&acc)[T::MT][T::NT][4]) {
+                                         float (&acc)[T::MT][T::NT][4], After&& after) {
 #pragma unroll
   for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
@@ -141,8 +144,15 @@ __device__ __forceinline__ void mainloop(Load&& load, int begin, int end, uint16
     cp_async_commit();
     const uint16_t* st = smem + (t % kStages) * T::kStage;
     mma_chunk<T>(st, st + T::BM * kAStride, acc);
+    after(t);
   }
   cp_async_wait<0>();
+}
+
+template <class T, class Load>
+__device__ __forceinline__ void mainloop(Load&& load, int begin, int end, uint16_t* smem,
+                                         float (&acc)[T::MT][T::NT][4]) {
+  mainloop<T>(load, begin, end, smem, acc, [](int) {});
 }
 
 // The block tile's accumulators to rows [m0, m0 + BM) of `rows` and columns

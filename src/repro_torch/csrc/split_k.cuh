@@ -1,10 +1,12 @@
 // The end of a block-tiled kernel, shared by the bf16 tensor-core GEMM and
-// conv (through mma_bf16.cuh) and the fp32 implicit-GEMM conv (gfid_conv.cu):
-// where a block's results go (`Epilogue`: bias, act and the fp32 or bf16
-// store, or the fp32 partial sums of one split of K), the split reduction
-// that adds those partials in split order (no atomics, so a result does not
-// change from run to run), and the launch of a tile kernel with its dynamic
-// shared memory followed, under a split, by that reduction.
+// conv (through mma_bf16.cuh) and the fp32 implicit-GEMM conv and GEMM
+// (gfid_conv.cu, gfid_matmul.cu): where a block's results go (`Epilogue`:
+// bias, act and the fp32 or bf16 store, or the fp32 partial sums of one
+// split of K), the split reduction that adds those partials in split order
+// (no atomics, so a result does not change from run to run), the fold that
+// adds them in the same order inside one block, and the launch of a tile
+// kernel with its dynamic shared memory followed, under a split, by that
+// reduction.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +49,47 @@ split_reduce_kernel(const float* __restrict__ ws, int splits, long long n_out, i
     finish(e, (size_t)i, (int)(i % ldc), v);
   }
 }
+
+// A fold: a block that runs every split of K itself adds the finished
+// splits in split order, exactly as split_reduce_kernel does. The first
+// split's sums start a running sum that each thread keeps in shared memory
+// (sum[i][thread], conflict-free; kThreads x N floats after the ring), each
+// later split but the last is added to it, and fold_finish adds the last as
+// the block stores. acc is a thread's N accumulators, viewed flat.
+//
+// After `done` of a block's n chunks: at the end of each split but the
+// last, add acc to the running sum and restart acc from zero. split_end is
+// the chunk count at which the current split ends (chunks_per_split at
+// first; moved on here), so a chunk costs one comparison.
+template <int kThreads, int N>
+__device__ __forceinline__ void fold_split(float* sum, float (&acc)[N], int done, int n,
+                                           int chunks_per_split, int& split_end) {
+  if (done != split_end || done == n) return;  // inside a split, or the last
+  split_end += chunks_per_split;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float* p = sum + i * kThreads + threadIdx.x;
+    *p = done == chunks_per_split ? acc[i] : *p + acc[i];
+    acc[i] = 0.0f;
+  }
+}
+
+// The folded sums: the running sum plus the last split's, into acc.
+template <int kThreads, int N>
+__device__ __forceinline__ void fold_finish(const float* sum, float (&acc)[N], int n,
+                                            int chunks_per_split) {
+  if (n <= chunks_per_split) return;  // one split: nothing was folded
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = sum[i * kThreads + threadIdx.x] + acc[i];
+}
+
+// The launch shape of a tile kernel T (its threads and dynamic shared
+// memory) with kExtra bytes more after T's ring (a fold's running sums).
+template <class T, size_t kExtra>
+struct WithSmem {
+  static constexpr int kThreads = T::kThreads;
+  static constexpr size_t kSmem = T::kSmem + kExtra;
+};
 
 // Launch a tile kernel (T names its kThreads and kSmem) with its dynamic shared memory, then, under a split of
 // K, the reduction. Returns cudaGetLastError(). Without the opt-in a block

@@ -12,7 +12,8 @@ from repro_torch.engine.plan import (EnginePlan, OpSpec, dense_spec,
                                      plan_conv2d, plan_einsum, plan_gather,
                                      plan_op, supports_int8, with_precision)
 from repro_torch.engine.program import (CompiledNet, NetworkPlan, Program,
-                                        compile, plan_network, trace_program)
+                                        compile, infer_batch_axes,
+                                        plan_network, trace_program)
 from repro_torch.kernels.epilogue import ACT_CODES
 
 # Activations the GEMM kernels apply in their epilogue (others, such as
@@ -23,7 +24,7 @@ __all__ = [
     "CompiledNet", "EngineBackend", "EngineConfig", "EnginePlan", "Ledger",
     "NetworkPlan", "OpSpec", "Program", "compile", "conv1d_depthwise",
     "conv2d", "current_config", "dense", "dense_spec", "einsum",
-    "get_backend", "matmul", "paged_gather", "parse_einsum",
+    "get_backend", "infer_batch_axes", "matmul", "paged_gather", "parse_einsum",
     "plan_conv1d_depthwise", "plan_conv2d", "plan_einsum", "plan_gather",
     "plan_network", "plan_op", "proj", "register_backend", "supports_int8",
     "trace_program", "tracking", "using_backend", "using_config",

@@ -41,6 +41,9 @@ class Ledger:
     def __iter__(self) -> Iterator[OpRecord]:
         return iter(self.records)
 
+    def __len__(self) -> int:
+        return len(self.records)
+
     def record_plan(self, plan: EnginePlan) -> None:
         kind = "matmul" if plan.kind == "dense" else plan.kind
         self.records.append(OpRecord(kind, plan.mode, plan.cycles,

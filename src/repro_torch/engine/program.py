@@ -19,6 +19,12 @@ model's layer groups is traced once (so its programs record one group),
 the port runs layers in a Python loop: its programs record every executed
 op, and a compiled program's strict replay sees each of them.
 
+A program that carries batch metadata (`batch_size` and per-leaf
+`batch_axes`, see `infer_batch_axes`) is re-batchable: `with_batch(B)`
+rewrites its op graph and its `meta` inputs to batch B without running the
+model again, so a serving scheduler plans and compiles one traced program at
+any batch bucket.
+
 Capture and execution both run through `api.capturing` / `api.replaying`,
 so a compiled network and an eager call see the exact same planning logic.
 A program may update tensors it is given in place (the serving programs
@@ -35,11 +41,35 @@ import torch
 from repro_torch.core import modes
 from repro_torch.engine import api
 from repro_torch.engine.config import EngineConfig, current_config, using_config
-from repro_torch.engine.plan import (EnginePlan, OpSpec, plan_op,
-                                     with_precision)
+from repro_torch.engine.plan import (EnginePlan, OpSpec, parse_einsum,
+                                     plan_op, with_precision)
 
 # Plans priced on the conv side of the Table-4 rollup (the 200 MHz clock).
 _CONV_KINDS = ("conv2d", "conv1d_dw")
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Map `fn` over the leaves of nested dicts, tuples and lists (the
+    argument and output trees of a program, and their batch-axis trees),
+    with the same places of `rest` alongside; dicts keep their key
+    order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree of nested dicts, tuples and lists, in the
+    order `tree_map` visits them."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,17 +78,110 @@ class Program:
 
     `ops` alone determines the `NetworkPlan`; `fn` / `in_avals` (pytrees of
     `meta` tensors) carry the executable forward for `CompiledNet.apply`
-    and are excluded from equality and hashing."""
+    and are excluded from equality and hashing.
+
+    Batch metadata makes the program re-batchable: `batch_size` is the
+    batch the avals were built at, and `batch_axes` a tuple (one entry per
+    positional argument) of trees matching `in_avals`, with an int leaf per
+    tensor leaf: the axis that carries the batch, or -1 for unbatched
+    leaves (weights, scalars); see `infer_batch_axes`. Both stay outside
+    equality and hashing."""
 
     name: str
     ops: Tuple[OpSpec, ...]
     fn: Optional[Callable[..., Any]] = dataclasses.field(
         default=None, compare=False)
     in_avals: Tuple[Any, ...] = dataclasses.field(default=(), compare=False)
+    batch_size: Optional[int] = dataclasses.field(default=None,
+                                                  compare=False)
+    batch_axes: Optional[Tuple[Any, ...]] = dataclasses.field(
+        default=None, compare=False)
+
+    def with_batch(self, batch: int) -> "Program":
+        """The same program at batch `batch`: op shapes and `meta` inputs
+        rewritten along the recorded batch axes, the model not run again.
+
+        A conv op carries the batch on x's axis 0 (NHWC, (B, L, D)); a dense
+        op is rebatched where its leading x axis is a pure row label of size
+        `batch_size`; a gather's batch is its block table's leading axis.
+        Ops that fold the batch elsewhere keep their shapes; only the
+        analytic plan sees that, since `engine.compile` captures the
+        executed ops from `fn` at the new inputs."""
+        if self.batch_size is None or self.batch_axes is None:
+            raise ValueError(
+                f"program {self.name!r} carries no batch metadata; build it "
+                "with cnn.program / serve.prefill_program / serve."
+                "decode_program, or pass batch_size= and batch_axes= to "
+                "trace_program (see engine.infer_batch_axes)")
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        if batch == self.batch_size:
+            return self
+        ops = tuple(_rebatch_op(op, self.batch_size, batch)
+                    for op in self.ops)
+        in_avals = tuple(
+            tree_map(lambda aval, ax: _rebatch_aval(aval, ax,
+                                                     self.batch_size, batch),
+                      arg, axes)
+            for arg, axes in zip(self.in_avals, self.batch_axes))
+        return dataclasses.replace(self, ops=ops, in_avals=in_avals,
+                                   batch_size=batch)
+
+
+def infer_batch_axes(avals_a: Tuple[Any, ...], avals_b: Tuple[Any, ...],
+                     ) -> Tuple[Any, ...]:
+    """Per-leaf batch axes from the same argument trees built at two batch
+    sizes: the one axis whose size changed is the batch axis; a leaf whose
+    shape did not change (a weight, a scalar) gets -1, so the axes tree
+    keeps the structure of the argument tree."""
+    def leaf(a, b):
+        sa, sb = tuple(a.shape), tuple(b.shape)
+        if sa == sb:
+            return -1
+        if len(sa) != len(sb):
+            raise ValueError(f"rank changed with batch: {sa} vs {sb}")
+        diffs = [i for i, (x, y) in enumerate(zip(sa, sb)) if x != y]
+        if len(diffs) != 1:
+            raise ValueError(
+                f"ambiguous batch axis: {sa} vs {sb} differ on axes {diffs}")
+        return diffs[0]
+
+    return tuple(tree_map(leaf, a, b) for a, b in zip(avals_a, avals_b))
+
+
+def _rebatch_aval(aval: torch.Tensor, axis: int, old: int,
+                  new: int) -> torch.Tensor:
+    if axis < 0:
+        return aval
+    shape = list(aval.shape)
+    if shape[axis] != old:
+        raise ValueError(
+            f"batch axis {axis} of aval {tuple(aval.shape)} has size "
+            f"{shape[axis]}, expected batch_size={old}")
+    shape[axis] = new
+    return torch.empty(shape, dtype=aval.dtype, device="meta")
+
+
+def _rebatch_op(op: OpSpec, old: int, new: int) -> OpSpec:
+    """Rewrite one op's batch dim (leading x axis) from `old` to `new`."""
+    if op.kind == "gather":
+        # the batch lives on the block table's (w's) leading axis; x is the
+        # pool, whose block count may equal the old batch by chance
+        if op.w_shape and op.w_shape[0] == old:
+            return dataclasses.replace(op, w_shape=(new,) + op.w_shape[1:])
+        return op
+    if not op.x_shape or op.x_shape[0] != old:
+        return op
+    if op.kind == "dense":
+        st = parse_einsum(op.spec, len(op.x_shape), len(op.w_shape))
+        if st.x_labels[0] not in st.x_free:
+            return op                   # the leading axis is not a row axis
+    return dataclasses.replace(op, x_shape=(new,) + op.x_shape[1:])
 
 
 def trace_program(fn: Callable[..., Any], *avals: Any,
-                  name: str = "traced") -> Program:
+                  name: str = "traced", batch_size: Optional[int] = None,
+                  batch_axes: Optional[Tuple[Any, ...]] = None) -> Program:
     """Capture `fn`'s engine ops into a `Program` by running it on `meta`
     tensors (`avals`: pytrees of them, the analogue of the reference's
     `jax.ShapeDtypeStruct`s). No arithmetic runs and no device memory is
@@ -66,11 +189,15 @@ def trace_program(fn: Callable[..., Any], *avals: Any,
     its static shapes, and ops outside the engine (elementwise math,
     softmax, indexing) run on `meta` without being recorded.
 
-    The reference's `batch_size`/`batch_axes` (re-batching with
-    `Program.with_batch`) are not ported: ROADMAP queue 1, item 2."""
+    Pass `batch_size` (the batch the avals were built at) together with
+    `batch_axes` (per-argument axis trees, see `infer_batch_axes`) to make
+    the program re-batchable with `Program.with_batch`."""
+    if (batch_size is None) != (batch_axes is None):
+        raise ValueError("pass batch_size and batch_axes together")
     return Program(name=name,
                    ops=_capture_ops(fn, avals, current_config())[0], fn=fn,
-                   in_avals=tuple(avals))
+                   in_avals=tuple(avals), batch_size=batch_size,
+                   batch_axes=batch_axes)
 
 
 def _capture_ops(fn: Callable[..., Any], avals: Tuple[Any, ...],
@@ -232,17 +359,6 @@ def plan_network(program: Program,
 # compile -> CompiledNet
 # ---------------------------------------------------------------------------
 
-def _leaves(tree: Any):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    elif isinstance(tree, torch.Tensor):
-        yield tree
-
-
 class CompiledNet:
     """A network compiled against one `EngineConfig`.
 
@@ -271,7 +387,8 @@ class CompiledNet:
             raise ValueError(
                 f"program {self.program.name!r} carries no executable fn "
                 "(analytic op tables only)")
-        devices = {t.device for t in _leaves(args)}
+        devices = {t.device for t in tree_leaves(args)
+                   if isinstance(t, torch.Tensor)}
         if len(devices) != 1:
             raise ValueError(f"CompiledNet.apply needs every tensor on one "
                              f"device; got {sorted(map(str, devices))}")

@@ -223,9 +223,10 @@ class MmaPlan(NamedTuple):
     """One launch of a block-tiled GEMM or implicit-GEMM kernel (the bf16
     tensor-core pair, the fp32 conv, the int8 pair): a block tile of `bm`
     rows x `bn` columns, K cut into `splits` runs of `chunks_per_split`
-    chunks of the kernel's depth (one split: no workspace), 16-byte copies
-    of x and of w where `vec_x` and `vec_w` allow (the int8 GEMM's `vec_w`
-    is the bytes a copy of w, 16, 8 or 0), and the launch grid."""
+    chunks of the kernel's depth (one split, or a fold: no workspace),
+    16-byte copies of x and of w where `vec_x` and `vec_w` allow (the int8
+    GEMM's `vec_w` is the bytes a copy of w, 16, 8 or 0), and the launch
+    grid."""
     bm: int
     bn: int
     splits: int
@@ -233,6 +234,12 @@ class MmaPlan(NamedTuple):
     vec_x: bool
     vec_w: Union[bool, int]
     grid: Tuple[int, int, int]
+
+    @property
+    def fold(self) -> bool:
+        """Whether each block runs every split of K and adds them itself, in
+        split order (grid z is 1 under several splits): no workspace."""
+        return self.splits > 1 and self.grid[2] == 1
 
 
 def mma_split(k: int, want: int, min_chunks: int,
@@ -256,8 +263,9 @@ def check_grid(kernel: str, grid: Tuple[int, int, int]) -> None:
 def mma_workspace(plan: MmaPlan, rows: int, cols: int,
                   device: torch.device) -> Optional[torch.Tensor]:
     """The fp32 partial sums of a split launch, (splits, rows, cols), not
-    zeroed (the kernel writes every element); None for one split."""
-    if plan.splits == 1:
+    zeroed (the kernel writes every element); None for one split or a
+    fold."""
+    if plan.splits == 1 or plan.fold:
         return None
     return torch.empty((plan.splits, rows, cols), dtype=torch.float32,
                        device=device)

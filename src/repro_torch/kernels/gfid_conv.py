@@ -38,12 +38,16 @@ from repro_torch.kernels.epilogue import (ACT_CODES, apply_epilogue,
 # (output pixels, K chunk, C_out) of the fp32 kernel's widest block tile:
 # kPixTile, kBK, kCoutTile in csrc/gfid_conv.cu (the engine plan's tiling).
 TILE = (128, 8, 128)
-# csrc/gfid_conv.cu's block tiles (output pixels, C_out of a group), most
-# work a block first: the first whose blocks fill the card, else the last;
-# then, if the blocks still do not fill it, K is split for about two blocks
-# an SM, each split at least F32_MIN_SPLIT chunks of F32_BK deep. The wide
-# tile is skipped where a group has no more than 64 columns (half of it
-# would idle).
+# csrc/gfid_conv.cu's block tiles (output pixels, C_out of a group),
+# most work a block first: the first whose blocks fill the card, else the
+# last. K is split where one image's blocks do not fill the card, for about
+# two blocks an SM, each split at least F32_MIN_SPLIT chunks of F32_BK deep:
+# the split comes from the image's geometry, never from the batch, so an
+# image's sums run in one order at every batch. Where the batch's blocks
+# fill the card, each block runs every split and adds them in split order
+# (a fold). The wide tile is taken only where it wastes no columns (og a
+# multiple of 128) or where x is gathered element by element (cg % 4 != 0)
+# and more columns share each gather (AlexNet's conv1).
 F32_TILES = ((128, 128), (64, 64), (32, 64))
 F32_BK = TILE[1]
 F32_MIN_SPLIT = 8
@@ -67,11 +71,12 @@ INT8_MIN_SPLIT = 3
 INT8_MAX_SPLIT = 4
 # csrc/gfid_conv_bf16.cu's block tiles (output pixels, C_out of a group),
 # most work a block first: the first whose blocks fill the card, else the
-# last; then, if the blocks still do not fill it, K is split for about two
-# blocks an SM, each split at least BF16_MIN_SPLIT chunks deep. The wide
-# tile is taken only where it wastes no columns (og a multiple of 128) or
-# where the A tile is gathered element by element (cg % 8 != 0) and more
-# columns share each gather (AlexNet's conv1 and conv2 at batch 32).
+# last; K split as for the fp32 conv, from one image's geometry (at least
+# BF16_MIN_SPLIT chunks a split). The wide tile is taken only where it
+# wastes no columns (og a multiple of 128) or where the A tile is gathered
+# element by element (cg % 8 != 0) and more columns share each gather
+# (AlexNet's conv1 at batch 32), and never for a split: beside its ring a
+# fold's running sums would leave one block an SM.
 BF16_TILES = ((128, 128), (64, 64), (32, 64))
 BF16_MIN_SPLIT = 8
 
@@ -119,48 +124,69 @@ def _launcher_bf16():
     return lib, fn
 
 
+def _pick_tile(tiles_: Tuple[Tuple[int, int], ...], pixels: int, og: int,
+               groups: int, sms: int) -> Tuple[int, int, int, int]:
+    """(bm, bn, column blocks, blocks) of the first tile of `tiles_` whose
+    blocks fill the card's `sms` SMs, else of the last."""
+    for bm, bn in tiles_:
+        col_blocks = groups * -(-og // bn)
+        blocks = max(-(-pixels // bm) * col_blocks, 1)
+        if blocks >= sms:
+            break
+    return bm, bn, col_blocks, blocks
+
+
+def _image_split(tiles_: Tuple[Tuple[int, int], ...], image_pixels: int,
+                 k: int, og: int, groups: int, sms: int, min_split: int,
+                 chunk: int) -> Tuple[int, int]:
+    """(splits, chunks per split) of K from one image's plan: split where
+    one image's blocks leave the card idle, for about two blocks an SM."""
+    blocks = _pick_tile(tiles_, image_pixels, og, groups, sms)[3]
+    want = 1 if blocks >= sms else -(-2 * sms // blocks)
+    return build.mma_split(k, want, min_split, chunk)
+
+
 def f32_plan(pixels: int, k: int, og: int, groups: int, cg: int,
-             x_ptr: int = 0, w_ptr: int = 0, sms: int = 132) -> build.MmaPlan:
+             x_ptr: int = 0, w_ptr: int = 0, sms: int = 132,
+             image_pixels: Optional[int] = None) -> build.MmaPlan:
     """The launch of `gfid_conv2d_nhwc_f32` for an implicit GEMM of
     `pixels` output rows (B x H_out x W_out), depth k = H_f x W_f x cg and
-    og columns a group, on a card of `sms` SMs: the tile from F32_TILES, a
-    split of K where the blocks leave the card idle; 16-byte copies of x
-    where cg % 4 == 0 and x is 16-byte aligned, of w where og % 4 == 0 and
-    w is."""
-    for bm, bn in F32_TILES:
-        if bn > 64 and og <= 64:
-            continue
-        col_blocks = groups * -(-og // bn)
-        tiles = max(-(-pixels // bm) * col_blocks, 1)
-        if tiles >= sms:
-            break
-    want = 1 if tiles >= sms else -(-2 * sms // tiles)
-    splits, per = build.mma_split(k, want, F32_MIN_SPLIT, F32_BK)
-    grid = (tiles, 1, splits)   # column blocks fastest, then row tiles
+    og columns a group, on a card of `sms` SMs: the split of K from one
+    image of `image_pixels` output rows (H_out x W_out; default `pixels`,
+    one image), so that an image's sums run in one order at any batch; the
+    tile from F32_TILES at `pixels`; a fold where the batch's blocks fill
+    the card; 16-byte copies of x where cg % 4 == 0 and x is 16-byte
+    aligned, of w where og % 4 == 0 and w is."""
+    tiles_ = tuple(t for t in F32_TILES
+                   if t[1] == 64 or og % t[1] == 0 or (og > 64 and cg % 4))
+    splits, per = _image_split(tiles_, image_pixels or pixels, k, og, groups,
+                               sms, F32_MIN_SPLIT, F32_BK)
+    bm, bn, _, blocks = _pick_tile(tiles_, pixels, og, groups, sms)
+    # column blocks fastest, then row tiles; grid z the splits, or 1 (fold)
+    grid = (blocks, 1, 1 if blocks >= sms else splits)
     build.check_grid("gfid_conv2d_nhwc", grid)
     return build.MmaPlan(bm, bn, splits, per, cg % 4 == 0 and x_ptr % 16 == 0,
                          og % 4 == 0 and w_ptr % 16 == 0, grid)
 
 
 def bf16_plan(pixels: int, k: int, og: int, groups: int, cg: int,
-              x_ptr: int = 0, w_ptr: int = 0,
-              sms: int = 132) -> build.MmaPlan:
+              x_ptr: int = 0, w_ptr: int = 0, sms: int = 132,
+              image_pixels: Optional[int] = None) -> build.MmaPlan:
     """The launch of `gfid_conv2d_nhwc_bf16` for an implicit GEMM of
     `pixels` output rows (B x H_out x W_out), depth k = H_f x W_f x cg and
-    og columns a group, on a card of `sms` SMs: the tile from BF16_TILES,
-    a split of K where the blocks leave the card idle; 16-byte copies of x
-    where cg % 8 == 0 and x is 16-byte aligned, of w where og % 8 == 0 and
-    w is."""
-    for bm, bn in BF16_TILES:
-        if bn > 64 and not (og % bn == 0 or (og > 64 and cg % 8)):
-            continue
-        col_blocks = groups * -(-og // bn)
-        tiles = max(-(-pixels // bm) * col_blocks, 1)
-        if tiles >= sms:
-            break
-    want = 1 if tiles >= sms else -(-2 * sms // tiles)
-    splits, per = build.mma_split(k, want, BF16_MIN_SPLIT)
-    grid = (col_blocks, -(-pixels // bm), splits)
+    og columns a group, on a card of `sms` SMs: the split of K from one
+    image of `image_pixels` output rows (default `pixels`), the tile from
+    BF16_TILES at `pixels` (not the wide one under a split), a fold where
+    the batch's blocks fill the card; 16-byte copies of x where cg % 8 == 0
+    and x is 16-byte aligned, of w where og % 8 == 0 and w is."""
+    tiles_ = tuple(t for t in BF16_TILES
+                   if t[1] == 64 or og % t[1] == 0 or (og > 64 and cg % 8))
+    splits, per = _image_split(tiles_, image_pixels or pixels, k, og, groups,
+                               sms, BF16_MIN_SPLIT, build.MMA_BK)
+    if splits > 1:
+        tiles_ = tuple(t for t in tiles_ if t[1] == 64)
+    bm, bn, col_blocks, blocks = _pick_tile(tiles_, pixels, og, groups, sms)
+    grid = (col_blocks, -(-pixels // bm), 1 if blocks >= sms else splits)
     build.check_grid("gfid_conv2d_nhwc_bf16", grid)
     return build.MmaPlan(bm, bn, splits, per, cg % 8 == 0 and x_ptr % 16 == 0,
                          og % 8 == 0 and w_ptr % 16 == 0, grid)
@@ -239,7 +265,8 @@ def _launch(x, w, bias, out, stride, pad, groups, act, is_bf16) -> None:
     pixels = out.numel() // c_out
     plan = (bf16_plan if is_bf16 else f32_plan)(
         pixels, h_f * w_f * cg, c_out // groups, groups, cg, x.data_ptr(),
-        w.data_ptr(), build.sm_count(x.device.index or 0))
+        w.data_ptr(), build.sm_count(x.device.index or 0),
+        image_pixels=pixels // x.shape[0])
     ws = build.mma_workspace(plan, pixels, c_out, x.device)
     ptrs = (x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), None if ws is None else ws.data_ptr())

@@ -337,6 +337,11 @@ def program(name: str, *, batch: int = 1,
     `program(dtype=)`). The op graph, and so the plan, does not depend on
     it.
 
+    The program carries batch metadata, so the batched path is
+    `engine.compile(program(net).with_batch(B), cfg).apply(params, xB)`:
+    planned again, never traced again; the serving `Scheduler` packs
+    requests into batch buckets that way.
+
     `precisions` bakes per-layer precision overrides into the forward: the
     named layers issue an explicit `precision=` at every execution, which
     wins over the compile config's `precision`."""
@@ -355,8 +360,15 @@ def program(name: str, *, batch: int = 1,
         ops.append(E.OpSpec(
             "dense", (batch, fs.n), (fs.n, fs.m),
             spec=E.dense_spec(2), name=fs.name))
-    x_meta = torch.empty((batch, h, w, c), device="meta", dtype=dtype)
+    params_meta = _meta_params(net, dtype)
+
+    def x_meta(b):
+        return torch.empty((b, h, w, c), device="meta", dtype=dtype)
+
     fn = (functools.partial(_forward, net) if precisions is None
           else functools.partial(_forward, net, precisions=dict(precisions)))
+    batch_axes = E.infer_batch_axes((params_meta, x_meta(batch)),
+                                    (params_meta, x_meta(batch + 1)))
     return E.Program(name=name, ops=tuple(ops), fn=fn,
-                     in_avals=(_meta_params(net, dtype), x_meta))
+                     in_avals=(params_meta, x_meta(batch)),
+                     batch_size=batch, batch_axes=batch_axes)

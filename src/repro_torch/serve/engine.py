@@ -1,10 +1,12 @@
-"""Serving programs over the paged KV pool, and the dense-cache greedy
-baseline. A copy of the JAX package's `serve/engine.py`, the parts this
-port runs: `paged_decode_program`, `prefill_ingest_program` (both without
-the reference's numerics-guard variant, ROADMAP queue 1, item 9) and
-`greedy_generate`. The mesh-sharded `build_serve_step`/`build_prefill` and
-the re-batchable `prefill_program`/`decode_program` are not ported
-(ROADMAP queue 1, items 2 and 11).
+"""Serving programs, and the dense-cache greedy baseline. A copy of the
+JAX package's `serve/engine.py`, the parts this port runs: the
+re-batchable `prefill_program` and `decode_program` over a dense decode
+state (the static `Scheduler`'s programs), `paged_decode_program` and
+`prefill_ingest_program` over the paged KV pool (the
+`ContinuousScheduler`'s; both without the reference's numerics-guard
+variant, ROADMAP queue 1, item 9), `decode_state_shapes` and
+`greedy_generate`. The mesh-sharded `build_serve_step`/`build_prefill` are
+not ported (ROADMAP queue 1, item 11).
 
 The programs are captured on `meta` tensors (`engine.trace_program`) and
 record every executed engine op: unlike the reference's scanned layers,
@@ -22,6 +24,71 @@ import torch
 from repro_torch import engine as E
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+
+
+def decode_state_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    """The dense decode state of `batch` rows and `max_len` slots as
+    `meta` tensors (`T.init_decode_state`'s tree and dtypes)."""
+    return T.init_decode_state(cfg, batch, max_len, device="meta")
+
+
+def prefill_program(cfg: ModelConfig, batch: int, seq: int,
+                    max_len: Optional[int] = None, logits_only: bool = False,
+                    param_dtype: Optional[torch.dtype] = None) -> E.Program:
+    """The serving prefill forward as a re-batchable `engine.Program`:
+    (params, {"tokens": (B, seq) int32}) -> (last-token logits (B, V),
+    dense decode state of `max_len` slots, default `seq`).
+
+    `logits_only=True` drops the decode state (a scoring service: tokens
+    in, last-token logits out), the request shape the static `Scheduler`
+    packs into batches. The parameters' `meta` stand-ins take
+    `T.param_dtype(cfg, param_dtype)`."""
+    max_len = seq if max_len is None else max_len
+    params_sh = T.param_shapes(cfg, param_dtype)
+
+    def batch_sh(b):
+        return {"tokens": torch.empty((b, seq), dtype=torch.int32,
+                                      device="meta")}
+
+    if logits_only:
+        def fn(params, batch_in):
+            return T.prefill(cfg, params, batch_in, max_len)[0]
+    else:
+        def fn(params, batch_in):
+            return T.prefill(cfg, params, batch_in, max_len)
+
+    axes = E.infer_batch_axes((params_sh, batch_sh(batch)),
+                              (params_sh, batch_sh(batch + 1)))
+    # the two variants return different outputs: keep their names apart
+    # (a Program's equality and hash are its name and ops)
+    suffix = "-logits" if logits_only else ""
+    return E.trace_program(fn, params_sh, batch_sh(batch),
+                           name=f"{cfg.name}-prefill{seq}{suffix}",
+                           batch_size=batch, batch_axes=axes)
+
+
+def decode_program(cfg: ModelConfig, batch: int, max_len: int,
+                   param_dtype: Optional[torch.dtype] = None) -> E.Program:
+    """One greedy decode step (one token against a dense `max_len`-slot
+    cache) as a re-batchable `engine.Program`: (params, state, tokens
+    (B, 1) int32, pos () int32) -> logits (B, 1, V). The step writes its
+    key and value into `state` in place (the scheduler gives it a packed
+    copy). `param_dtype` as for `prefill_program`."""
+    params_sh = T.param_shapes(cfg, param_dtype)
+    pos_sh = torch.empty((), dtype=torch.int32, device="meta")
+
+    def avals(b):
+        return (params_sh, decode_state_shapes(cfg, b, max_len),
+                torch.empty((b, 1), dtype=torch.int32, device="meta"),
+                pos_sh)
+
+    def fn(params, state, tok, pos):
+        return T.decode_step(cfg, params, state, tok, pos)[0]
+
+    axes = E.infer_batch_axes(avals(batch), avals(batch + 1))
+    return E.trace_program(fn, *avals(batch),
+                           name=f"{cfg.name}-decode{max_len}",
+                           batch_size=batch, batch_axes=axes)
 
 
 def paged_decode_program(cfg: ModelConfig, layout, batch: int,

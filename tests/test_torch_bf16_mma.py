@@ -130,7 +130,7 @@ def _conv_plan(spec, batch, sms=132):
     return gfid_conv.bf16_plan(batch * spec.h_out * spec.w_out,
                                spec.h_f * spec.w_f * cg,
                                spec.c_out // spec.groups, spec.groups, cg,
-                               sms=sms)
+                               sms=sms, image_pixels=spec.h_out * spec.w_out)
 
 
 @pytest.mark.parametrize("batch", [1, 32])
@@ -144,22 +144,27 @@ def test_conv_plan_fills_the_card_and_covers_the_gemm(spec, batch):
     n_chunks = -(-spec.h_f * spec.w_f * cg // build.MMA_BK)
     assert (plan.bm, plan.bn) in gfid_conv.BF16_TILES
     assert plan.bn == 64 or og > 64
+    tiles = spec.groups * -(-og // plan.bn) * -(-pixels // plan.bm)
     assert plan.grid == (spec.groups * -(-og // plan.bn),
-                         -(-pixels // plan.bm), plan.splits)
+                         -(-pixels // plan.bm),
+                         1 if tiles >= sms else plan.splits)
     assert (plan.splits - 1) * plan.chunks_per_split < n_chunks \
         <= plan.splits * plan.chunks_per_split
-    tiles = plan.grid[0] * plan.grid[1]
-    if tiles >= sms:
-        assert plan.splits == 1
+    # the split of K is one image's, at every batch
+    one = _conv_plan(spec, 1, sms)
+    assert (plan.splits, plan.chunks_per_split) \
+        == (one.splits, one.chunks_per_split)
+    if tiles >= sms:    # one block a tile, a split folded on a 64-wide tile
+        assert plan.splits == 1 or (plan.fold and plan.bn == 64)
     else:       # the smallest tile, and K split unless too shallow to
         assert (plan.bm, plan.bn) == gfid_conv.BF16_TILES[-1]
         assert plan.splits > 1 or n_chunks < 2 * gfid_conv.BF16_MIN_SPLIT
-    # at batch 32 every layer fills the card unsplit, conv1 (cg = 3, og = 96)
-    # and conv2 (og = 128) with the wide tile; at batch 1 conv3-5 (169
-    # pixels) split K
+    # at batch 32 every layer fills the card, conv1 (cg = 3, og = 96) unsplit
+    # on the wide tile, conv2-5 folding the split they take at batch 1,
+    # where conv3-5 (169 pixels) split K
     if batch == 32:
-        wide = spec.name in ("conv1", "conv2")
-        assert plan.splits == 1 and (plan.bn == 128) == wide
+        assert tiles >= sms and (plan.bn == 128) == (spec.name == "conv1")
+        assert plan.fold == (spec.name != "conv1")
     elif spec.name in ("conv3", "conv4", "conv5"):
         assert plan.splits > 1
 
@@ -229,7 +234,7 @@ def _f32_plan(spec, batch, sms=132):
     return gfid_conv.f32_plan(batch * spec.h_out * spec.w_out,
                               spec.h_f * spec.w_f * cg,
                               spec.c_out // spec.groups, spec.groups, cg,
-                              sms=sms)
+                              sms=sms, image_pixels=spec.h_out * spec.w_out)
 
 
 @pytest.mark.parametrize("batch", [1, 32])
@@ -237,7 +242,9 @@ def _f32_plan(spec, batch, sms=132):
 def test_f32_conv_plan_fills_the_card_or_splits_k(spec, batch):
     """At each conv the plan's blocks fill the 132 SMs on the first tile
     that does, or, on the smallest tile, K is split (unless too shallow to);
-    the splits cover K's chunks with none empty; the grid is the tile's."""
+    the split is one image's at every batch, folded where the blocks fill
+    the card; the splits cover K's chunks with none empty; the grid is the
+    tile's."""
     sms = 132
     plan = _f32_plan(spec, batch, sms)
     cg = spec.c_in // spec.groups
@@ -247,15 +254,19 @@ def test_f32_conv_plan_fills_the_card_or_splits_k(spec, batch):
     assert (plan.bm, plan.bn) in gfid_conv.F32_TILES
     assert plan.bn == 64 or og > 64
     tiles = spec.groups * -(-og // plan.bn) * -(-pixels // plan.bm)
-    assert plan.grid == (tiles, 1, plan.splits)
+    assert plan.grid == (tiles, 1, 1 if tiles >= sms else plan.splits)
     assert all(g <= lim for g, lim in zip(plan.grid, build.GRID_LIMITS))
     assert (plan.splits - 1) * plan.chunks_per_split < n_chunks \
         <= plan.splits * plan.chunks_per_split
     assert plan.splits == 1 or plan.chunks_per_split >= gfid_conv.F32_MIN_SPLIT
+    one = _f32_plan(spec, 1, sms)
+    assert (plan.splits, plan.chunks_per_split) \
+        == (one.splits, one.chunks_per_split)
     if tiles >= sms:
-        assert plan.splits == 1
+        assert plan.splits == 1 or plan.fold
         wider = [t for t in gfid_conv.F32_TILES[:gfid_conv.F32_TILES.index(
-            (plan.bm, plan.bn))] if t[1] == 64 or og > 64]
+            (plan.bm, plan.bn))] if t[1] == 64 or og % t[1] == 0
+            or (og > 64 and cg % 4)]
         for bm, bn in wider:   # a wider tile would not have filled the card
             assert spec.groups * -(-og // bn) * -(-pixels // bm) < sms
     else:
@@ -271,11 +282,14 @@ def test_f32_conv_plans_reach_every_tile_and_split_on_the_paths():
     plans = [_f32_plan(spec, batch) for spec in CNN_CONVS for batch in (1, 32)]
     assert {(p.bm, p.bn) for p in plans} == set(gfid_conv.F32_TILES)
     assert {p.splits > 1 for p in plans} == {False, True}
-    # AlexNet at batch 1: conv3-5 (169 pixels) split K; at batch 32 nothing does
+    # AlexNet at batch 1: conv3-5 (169 pixels) split K; at batch 32 conv2-5
+    # fold the split they take at batch 1
     alex = {spec.name: spec for spec in ALEXNET_CONVS}
     for name in ("conv3", "conv4", "conv5"):
         assert _f32_plan(alex[name], 1).splits > 1
-    assert all(_f32_plan(spec, 32).splits == 1 for spec in ALEXNET_CONVS)
+    assert {spec.name for spec in ALEXNET_CONVS
+            if _f32_plan(spec, 32).fold} == {"conv2", "conv3", "conv4",
+                                             "conv5"}
 
 
 @pytest.mark.parametrize("cg,og,vec", [(3, 96, (False, True)),
