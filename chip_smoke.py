@@ -76,7 +76,20 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      launches and no other per forward, bf16 logits within 2e-2 *
      max|logits| of the "torch" backend, SNR >= 28 dB against the fp32
      forward from the same weights, the Table-4 row still the golden; ms per
-     forward and images/s.
+     forward and images/s. Then (4e) the same bf16 parameters under
+     `EngineConfig(backend="cuda", precision="int8")` at B = 1 and 32: every
+     op int8 on "cuda", 5 `gfid_conv2d_nhwc_int8` and 3 `gfid_matmul_int8`
+     launches and no other per forward, bf16 logits bitwise equal to the
+     "torch" backend under int8, SNR >= 28 dB against the fp32 forward from
+     the same weights; ms per forward beside phase 4a's int8 forward on fp32
+     inputs, and the quantization's share. Then (4f) AlexNet fp32 under
+     `EngineConfig(backend=<fallback>, policy="auto")` for the fallbacks
+     "torch" and "ref" at B = 1 and 32: `backends()` equal to
+     `auto_backend` of each op, conv and matmul launches equal to the count
+     of "cuda" ops, logits within 1e-4 x max|logits| of the all-fallback
+     apply; ms per forward beside phase 4's all-"cuda" forward; and each
+     AlexNet layer as one engine op on "cuda", "torch" and "ref" (the
+     rule's grounds).
      Phase 3 also holds `paged_gather` against its plain version, bitwise:
      smollm-135m's full-width pool (257, 16, 30, 3, 64) bf16 with tables of
      1 and 8 rows x 32 blocks, the four cases of tests/test_kv_pool.py, an
@@ -231,6 +244,33 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      requests/s of dispatch time, p50/p95 latency and bucket occupancy per
      program and policy, and AlexNet at bucket 8 through the scheduler
      against `compile(program.with_batch(8)).apply` on the same images.
+     Then the int8 AlexNet scheduler again (fifo) under `Scheduler(faults=
+     FaultInjector(10, rates={"latency": 0.25}, schedule={("kernel",
+     "conv2d:cuda"): (17,)}), config=EngineConfig(backend="cuda",
+     row_align=8, precision="int8", fallback="chain"))`: the fault meets
+     bucket 8's conv3 in warm-up's first apply and hops to "torch" (bitwise
+     for int8 with relu), pinned in that bucket's `backends()` and in
+     `stats()["fallbacks"]`; bucket 8's dispatches launch 4 int8 convs, the
+     others 5; every result bitwise equal to the request alone through the
+     batch-1 apply; the latency spikes counted.
+ 11. smollm-135m fp32 at full width under faults: phase 6's 16 requests,
+     pool and max_batch 8, continuous, under `EngineConfig(backend="cuda",
+     row_align=8, fallback="chain")` and a `FaultInjector(2, rates=
+     {"numerics": 0.01, "pool": 0.02, "latency": 0.05}, max_fires=4)`
+     whose schedule pins two kernel faults: the first `gather:cuda` visit
+     (it hops to "torch", bitwise) and `dense:cuda` visit 20, a GEMM of the
+     first prefill's first apply (fp32: no hop; the admission is retried).
+     Checks: every ticket terminates exactly once, "done" or "failed"; the
+     allocator and slots back to fresh; every "done" ticket not preempted
+     (the retried ones included) bitwise equal to phase 6's continuous
+     run; the gather hop the only fallback, pinned in the decode program;
+     a guarded decode step launches 211 `gfid_matmul` + 1 `paged_gather`;
+     phase 6's clean schedulers compiled no `-guard` program. First the
+     same work runs with the guard programs and no injector: tokens
+     bitwise phase 6's. Prints the goodput (tokens/s of "done" tickets)
+     beside that guarded clean run's tokens/s, retries, failures,
+     fallbacks, spikes, and a guarded decode step's ms beside phase 6's
+     clean step.
      Last, each phase's seconds.
 
 The last lines are the card's name and power limit, a JSON object listing
@@ -311,6 +351,17 @@ SCHED_WAVES = ((8, 3, 2), (3, 2, 1), (2, 1, 8), (1, 8, 3))
 # attention's batched products run on cuBLAS, whose algorithm may follow the
 # row count (read 1.106e-04 at 2048 slots); the argmax must not move
 SCHED_LM_TOL = 5e-4
+# Phase 10's faulted int8 scheduler: the "kernel" point's visit of site
+# "conv2d:cuda" that faults (warm-up's first applies of buckets 1, 2, 4 and
+# 8 visit it 0-4, 5-9, 10-14 and 15-19: 17 is bucket 8's conv3) and the
+# rate of latency spikes a step
+SCHED_FAULT_VISIT, SCHED_FAULT_OP, SCHED_SPIKE_RATE = 17, 2, 0.25
+# Phase 11: phase 6's workload under faults: a seeded injector with these
+# rates and fire cap, and two pinned kernel faults: the first gather visit
+# (it hops) and a GEMM visit of the first prefill's first apply (no hop:
+# that admission is retried)
+CHAOS_SEED, CHAOS_MAX_FIRES, CHAOS_DENSE_VISIT = 2, 4, 20
+CHAOS_RATES = {"numerics": 0.01, "pool": 0.02, "latency": 0.05}
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
 # tensor cores, bf16 and int8 in them, and device-memory bandwidth. A bound
@@ -1029,6 +1080,7 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
             admission=admission)
 
     runs = {}
+    guard_programs = 0          # a clean scheduler compiles none
     for mode, max_batch, admission in (
             ("continuous", SERVE_BATCH, "continuous"),
             ("drain", SERVE_BATCH, "drain"), ("solo", 1, "continuous")):
@@ -1059,6 +1111,8 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
         wall = time.perf_counter() - t0
         st = s.stats()
         launches = counts(counted, gather, *other_kernels)
+        guard_programs += sum("-guard" in c.program.name for c in
+                              list(s._decode.values()) + list(s._prefill.values()))
         require(all(t.status == "done" and t.preemptions == 0 for t in tickets)
                 and st["evicted"] == 0, f"{mode}: not every request done "
                 "without preemption")
@@ -1252,7 +1306,8 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
     return dict(gather=g, mm_rows=mm_rows, step_ms=step_ms, prefill_ms=prefill_ms,
                 per_pass=per_pass, step_launches=step_launches[SERVE_BATCH],
                 capture_s=capture_s, tps=cont["n_tok"] / cont["wall"],
-                lat=cont["lat"], copy_ms=copy_ms, params=params)
+                lat=cont["lat"], copy_ms=copy_ms, params=params, work=work,
+                tokens=base, guard_programs=guard_programs)
 
 
 def ssm_conv_cases(gen, dev):
@@ -2102,6 +2157,7 @@ def scheduler_phase(dev, E, cnn, kernels, other_kernels):
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import tree_map
     from repro_torch.serve import engine as SE
+    from repro_torch.serve.faults import FaultInjector
     from repro_torch.serve.scheduler import Scheduler, latency_percentiles
 
     t_phase = time.perf_counter()
@@ -2323,6 +2379,59 @@ def scheduler_phase(dev, E, cnn, kernels, other_kernels):
                       f"unpacking {sched_ms - direct_ms:.4f} ms (host clock, "
                       "least of 5 runs of 10 synchronized batches)")
             del sched
+
+    # the int8 scheduler again, under faults: latency spikes, and one kernel
+    # fault in warm-up's first apply of bucket 8, which the chain answers by
+    # a hop of that conv to "torch" (bitwise for int8 with relu), pinned
+    conv8, mm8 = kernels["int8"]
+    inj = FaultInjector(10, rates={"latency": SCHED_SPIKE_RATE}, latency_s=0.001,
+                        schedule={("kernel", "conv2d:cuda"): (SCHED_FAULT_VISIT,)})
+    sched = Scheduler(config=configs["int8"].replace(fallback="chain"),
+                      policy="fifo", max_batch=8, faults=inj)
+    sched.register("alexnet", programs["int8"], shared_args=(cnn_params["int8"],))
+    sched.warmup()
+    hopped = ["cuda"] * 8
+    hopped[SCHED_FAULT_OP] = "torch"
+    for b in SCHED_BUCKETS:
+        want_b = tuple(hopped) if b == 8 else ("cuda",) * 8
+        require(sched.compiled("alexnet", b).backends() == want_b,
+                f"faulted sched bucket {b}: backends "
+                f"{sched.compiled('alexnet', b).backends()}, expected {want_b}")
+    require(sched.stats()["fallbacks"] == [("conv2d", "cuda", "torch")],
+            f"faulted sched: fallbacks {sched.stats()['fallbacks']}")
+    fault_launches = {}
+    for k in range(len(SCHED_WAVES)):
+        tickets = [(i, sched.submit(m, *args)) for m, args, i in requests("int8", k)]
+        while sched.pending():
+            zero_counts(*counters)
+            batch = sched.step()
+            got = counts(*counters)
+            bucket = batch[0].batch_bucket
+            want = tuple((4 if bucket == 8 else 5) if c is conv8 else 3 if c is mm8
+                         else 0 for c in counters)
+            require(got == want, f"faulted sched bucket {bucket}: launches {got}, "
+                    f"expected {want}")
+            fault_launches[bucket] = (got[counters.index(conv8)],
+                                      got[counters.index(mm8)])
+        for i, t in tickets:
+            require(t.done and torch.equal(t.result, solo["int8"][i]),
+                    f"faulted sched alexnet request {i} (bucket {t.batch_bucket}): "
+                    "result differs from the request alone")
+    st = sched.stats()
+    require(st["latency_spikes"] == inj.fired["latency"] > 0,
+            f"faulted sched: {st['latency_spikes']} spikes counted, "
+            f"{inj.fired['latency']} fired")
+    summary["faults"] = dict(spikes=st["latency_spikes"], fallbacks=st["fallbacks"],
+                             launches=fault_launches, served=st["served"])
+    print(f"[sched] int8 under faults (fifo, fallback chain): {st['served']} "
+          f"requests bitwise equal to the request alone; fallbacks "
+          f"{st['fallbacks']}, pinned in bucket 8's backends "
+          f"{' '.join(sched.compiled('alexnet', 8).backends())}; launches (conv "
+          f"int8, matmul int8) a dispatch by bucket {fault_launches}; "
+          f"{st['latency_spikes']} latency spikes of {inj.latency_s * 1e3:.1f} ms "
+          f"({st['dispatch_wall_s']:.4f} s of dispatch time); injector "
+          f"{st['faults']}")
+    del sched
     for m, gs in gaps.items():
         worst_gap = max(gs)
         exact = all(g == 0.0 for g, _ in gs)
@@ -2342,6 +2451,156 @@ def scheduler_phase(dev, E, cnn, kernels, other_kernels):
     print(f"[sched] launches over the phase's served dispatches: {launched}")
     print(f"[sched] phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launched, summary=summary)
+
+
+def chaos_phase(dev, E, gfid_matmul, paged, other_kernels, served, params):
+    """Phase 11: phase 6's smollm-135m workload (fp32 parameters `params`,
+    the same pool) served continuous under a seeded `FaultInjector` (see the
+    module docstring). `served` is phase 6's return; `other_kernels` must
+    launch nothing. Returns the numbers of its summary."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serve.faults import FaultInjector
+    from repro_torch.serve.scheduler import ContinuousScheduler
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_MODEL)
+    per_pass = cfg.n_layers * 7 + 1    # GEMMs of a decode step or a prefill
+    mm, gather = gfid_matmul.gfid_matmul, paged.paged_gather
+    work, clean = served["work"], served["tokens"]
+    require(served["guard_programs"] == 0, "phase 6's clean schedulers "
+            f"compiled {served['guard_programs']} -guard programs")
+    inj = FaultInjector(CHAOS_SEED, rates=CHAOS_RATES, latency_s=0.001,
+                        max_fires=CHAOS_MAX_FIRES, schedule={
+                            ("kernel", "gather:cuda"): (0,),
+                            ("kernel", "dense:cuda"): (CHAOS_DENSE_VISIT,)})
+    conf = E.EngineConfig(backend="cuda", row_align=8, fallback="chain")
+
+    def scheduler(faults, guard):
+        sched = ContinuousScheduler(
+            cfg, params, max_len=SERVE_MAX_LEN, num_blocks=SERVE_BLOCKS,
+            block_size=SERVE_BLOCK, max_batch=SERVE_BATCH, config=conf,
+            faults=faults, guard=guard)
+        # captured beforehand, as in phase 6: capture is not served time
+        for n in sorted({len(p) for p, _ in work}):
+            sched.prefill_compiled(n)
+        for b in sched.buckets:
+            sched.decode_compiled(b)
+        return sched, [sched.submit(p, n) for p, n in work]
+
+    # the guard alone (no injector): the guard programs at zero poison must
+    # give phase 6's tokens, and the run sets the goodput's clean baseline
+    g, g_tickets = scheduler(None, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g.run()
+    torch.cuda.synchronize()
+    g_wall = time.perf_counter() - t0
+    require(all(t.status == "done" for t in g_tickets)
+            and [t.tokens for t in g_tickets] == clean,
+            "chaos: the guard programs with no fault changed a token")
+    g_tps = sum(len(t.tokens) for t in g_tickets) / g_wall
+    del g, g_tickets
+    s, tickets = scheduler(inj, None)
+    require(s.guard, "a scheduler with faults compiles the guard programs")
+    fresh = (s.pool.allocator.free_blocks, len(s.pool._free_slots))
+    zero_counts(mm, gather, *other_kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finished = s.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = s.stats()
+    require(counts(*other_kernels) == (0,) * len(other_kernels),
+            f"chaos: other kernels launched {counts(*other_kernels)}")
+    events = [(e.point, e.site, e.visit) for e in inj.events]
+    require(("kernel", "gather:cuda", 0) in events
+            and ("kernel", "dense:cuda", CHAOS_DENSE_VISIT) in events,
+            f"chaos: the pinned kernel faults did not both fire: {events}")
+    # exactly once; no leaks
+    require(all(t.status in ("done", "failed") for t in tickets)
+            and sorted(id(t) for t in finished) == sorted(id(t) for t in tickets)
+            and sorted(s._terminated) == sorted(t.rid for t in tickets),
+            "chaos: not every ticket terminated exactly once: "
+            f"{[t.status for t in tickets]}")
+    require((s.pool.allocator.free_blocks, len(s.pool._free_slots)) == fresh
+            and not s.pool.allocator.tables
+            and s.pool.allocator.free_blocks == SERVE_BLOCKS - 1,
+            "chaos: the allocator or the slots are not back to fresh")
+    # the tokens: every done ticket not preempted (retried or not) is phase
+    # 6's continuous run, bit for bit
+    checked = 0
+    for i, t in enumerate(tickets):
+        if t.status == "done" and t.preemptions == 0:
+            require(t.tokens == clean[i], f"chaos: request {i} (retries "
+                    f"{t.retries}) tokens differ from phase 6's")
+            checked += 1
+    retried = [t for t in tickets if t.status == "done" and t.retries
+               and t.preemptions == 0]
+    require(retried, "chaos: no retried request finished to compare")
+    require(st["fallbacks"] == [("gather", "cuda", "torch")],
+            f"chaos: fallbacks {st['fallbacks']}")
+    dec = s.decode_compiled(SERVE_BATCH)
+    hop = [i for i, b in enumerate(dec.backends()) if b != "cuda"]
+    require(len(hop) == 1 and dec.exec_pairs[hop[0]][0].kind == "gather"
+            and dec.backends()[hop[0]] == "torch",
+            f"chaos: decode backends {set(dec.backends())}, hop at {hop}")
+    good = sum(len(t.tokens) for t in tickets if t.status == "done")
+    print(f"[chaos] {cfg.name}, phase 6's {len(work)} requests, continuous, under "
+          f"FaultInjector(seed {CHAOS_SEED}, rates {CHAOS_RATES}, max_fires "
+          f"{CHAOS_MAX_FIRES}, kernel faults pinned at gather:cuda 0 and dense:cuda "
+          f"{CHAOS_DENSE_VISIT}), EngineConfig(backend='cuda', row_align=8, "
+          "fallback='chain'), guard on")
+    print(f"[chaos] {sum(t.status == 'done' for t in tickets)} done, "
+          f"{st['failed']} failed ({[t.error for t in tickets if t.error]}); "
+          f"retries {st['retries']} (tickets "
+          f"{[(t.rid, t.retries) for t in tickets if t.retries]}), preemptions "
+          f"{sum(t.preemptions for t in tickets)}, decode faults "
+          f"{st['decode_faults']}, fallbacks {st['fallbacks']}, latency spikes "
+          f"{st['latency_spikes']}; fired {events}")
+    print(f"[chaos] every ticket terminated once; allocator and slots fresh; "
+          f"{checked} done tickets bitwise equal to phase 6's continuous run, "
+          f"the retried ones included; decode bucket {SERVE_BATCH} runs its "
+          f"gather {hop[0]} on torch (pinned on its first apply); phase 6 compiled "
+          "no -guard program")
+    print(f"[chaos] goodput {good} tokens of done tickets in {wall:.3f} s = "
+          f"{good / wall:.1f} tokens/s; the same work with the guard and no "
+          f"injector {g_wall:.3f} s = {g_tps:.1f} tokens/s, tokens bitwise phase "
+          f"6's; phase 6's clean continuous run {served['tps']:.1f} tokens/s; "
+          f"{st['steps']} decode steps")
+
+    # one guarded decode step at 8 live rows, with the hop pinned: launches
+    # and time beside phase 6's clean step
+    s.faults = None                    # no more faults: the step is timed
+    rows = [s.submit(work[i][0], SERVE_MAX_LEN - len(work[i][0]))
+            for i in range(SERVE_BATCH)]
+    s.step()
+    require(s.running() == SERVE_BATCH, f"chaos: {s.running()} rows running")
+    rids = [t.rid for t in rows]
+    args = (params, s.pool.arrays, s.pool.table_rows(rids, SERVE_BATCH),
+            s.pool.slot_rows(rids, SERVE_BATCH),
+            torch.tensor([[t.tokens[-1]] for t in rows], dtype=torch.int32,
+                         device=dev),
+            torch.tensor([t.pos for t in rows], dtype=torch.int32, device=dev),
+            torch.zeros(SERVE_BATCH, device=dev))
+    zero_counts(mm, gather, *other_kernels)
+    tok, ok, _ = dec.apply(*args)
+    torch.cuda.synchronize()
+    one = counts(mm, gather, *other_kernels)
+    require(one == (per_pass, 1) + (0,) * len(other_kernels) and bool(ok.all()),
+            f"chaos: a guarded decode step launched {one}, expected "
+            f"({per_pass}, 1) and no other kernel")
+    step_ms = time_ms(lambda: dec.apply(*args))
+    for t in rows:
+        s.cancel(t)
+    print(f"[chaos] a guarded decode step at bucket {SERVE_BATCH} (8 live rows, "
+          f"the gather hop pinned): {per_pass} gfid_matmul + 1 paged_gather "
+          f"launches; {step_ms:.4f} ms (median of 20) against phase 6's clean step "
+          f"{served['step_ms'][SERVE_BATCH]:.4f} ms")
+    print(f"[chaos] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(goodput_tps=good / wall, wall_s=wall, guard_tps=g_tps,
+                retries=st["retries"],
+                failed=st["failed"], fallbacks=st["fallbacks"],
+                spikes=st["latency_spikes"], step_ms=step_ms)
 
 
 def flash_timing(dev, flash, worst):
@@ -3223,7 +3482,129 @@ def main():
         print(f"[alexnet bf16] B={batch}: {ms:.4f} ms/forward (median of 20), "
               f"{batch / ms * 1e3:.1f} images/s; fp32 forward "
               f"{forward_ms[('fp32', batch)]:.4f} ms")
+
+    # -- phase 4e: AlexNet int8 on bf16 parameters -------------------------------
+    started["4e"] = time.perf_counter()
+    for batch in BATCHES:
+        x = torch.randn((batch, *cnn.ALEXNET_INPUT),
+                        generator=torch.Generator().manual_seed(batch)).to(dev)
+        x = x.to(bf16)
+        prog = cnn.program("alexnet", batch=batch, dtype=bf16)
+        compiled = E.compile(prog, int8_cfg)
+        require(compiled.backends() == ("cuda",) * 8
+                and compiled.precisions() == ("int8",) * 8,
+                f"int8 on bf16: backends {compiled.backends()}, precisions "
+                f"{compiled.precisions()}")
+        zero_counts(*all_kernels, *bf16_kernels)
+        logits = compiled.apply(params, x)
+        torch.cuda.synchronize()
+        launches = counts(*all_kernels, *bf16_kernels)
+        require(launches == (0, 0, 5, 3, 0, 0), f"int8 on bf16 B={batch}: "
+                f"launches (conv, matmul, conv int8, matmul int8, conv bf16, "
+                f"matmul bf16) = {launches}, expected (0, 0, 5, 3, 0, 0)")
+        main_launches.setdefault("int8 bf16", launches[2:4])
+        require(tuple(logits.shape) == (batch, 1000) and logits.dtype == bf16
+                and bool(torch.isfinite(logits).all()), "bad int8 bf16 logits")
+        ref = E.compile(prog, int8_cfg.replace(backend="torch")).apply(params, x)
+        n_diff = int((logits != ref).sum().item())
+        require(n_diff == 0, f"int8 on bf16 B={batch}: {n_diff} logits differ "
+                "from the torch backend under int8")
+        f32 = E.compile(cnn.program("alexnet", batch=batch),
+                        E.EngineConfig(backend="cuda")).apply(params32, x.float())
+        snr = quant.snr_db(f32, logits).item()
+        require(snr >= SNR_FLOOR_DB, f"int8 on bf16 B={batch}: SNR {snr:.2f} dB "
+                f"< {SNR_FLOOR_DB}")
+        ms = time_ms(lambda: compiled.apply(params, x))
+        forward_ms[("int8 bf16", batch)] = ms
+        # the forward's quantization alone, from bf16 inputs
+        q16 = [(kind, qx.to(bf16), qw.to(bf16)) for kind, qx, qw in (
+            [("conv", kw["x"], kw["w"]) for _, _, kw in conv_main[batch]]
+            + [("fc", kw["x"], kw["w"]) for _, _, kw in fc_main[batch]])]
+
+        def quantize_all16():
+            for kind, qx, qw in q16:
+                if kind == "conv":
+                    quant.quantize_conv_operands(qx, qw)
+                else:
+                    quant.quantize_matmul_operands(qx, qw)
+
+        q_ms = time_ms(quantize_all16)
+        forward_ms[("quant bf16", batch)] = q_ms
+        print(f"[alexnet int8 bf16] B={batch}: bf16 parameters under int8, every op "
+              f"int8 on cuda, launches conv int8={launches[2]} matmul int8="
+              f"{launches[3]} (others {sum(launches) - launches[2] - launches[3]}), "
+              f"logits bf16 bitwise equal to the torch backend, SNR vs the fp32 "
+              f"forward from the same weights {snr:.2f} dB (floor {SNR_FLOOR_DB})")
+        print(f"[alexnet int8 bf16] B={batch}: {ms:.4f} ms/forward (median of 20), "
+              f"{batch / ms * 1e3:.1f} images/s; quantization alone {q_ms:.4f} ms "
+              f"({100 * q_ms / ms:.1f}% of the forward); phase 4a's int8 forward on "
+              f"fp32 inputs {forward_ms[('int8', batch)]:.4f} ms (quantization "
+              f"{forward_ms[('quant', batch)]:.4f} ms)")
     del params, params32
+
+    # -- phase 4f: AlexNet fp32 under policy="auto" ------------------------------
+    started["4f"] = time.perf_counter()
+    params = cnn.init_cnn("alexnet", seed=0, device=DEVICE)
+    for fallback in ("torch", "ref"):
+        for batch in BATCHES:
+            x = torch.randn((batch, *cnn.ALEXNET_INPUT),
+                            generator=torch.Generator().manual_seed(batch)).to(dev)
+            prog = cnn.program("alexnet", batch=batch)
+            compiled = E.compile(prog, E.EngineConfig(backend=fallback,
+                                                      policy="auto"))
+            ops = [op for op, _ in compiled.exec_pairs]
+            chosen = tuple(E.auto_backend(op, fallback) for op in ops)
+            require(compiled.backends() == chosen, f"auto {fallback}: backends "
+                    f"{compiled.backends()}, auto_backend {chosen}")
+            on_cuda = [op.kind for op, b in zip(ops, chosen) if b == "cuda"]
+            want = (on_cuda.count("conv2d"), on_cuda.count("dense"), 0, 0)
+            zero_counts(*all_kernels)
+            logits = compiled.apply(params, x)
+            torch.cuda.synchronize()
+            launches = counts(*all_kernels)
+            require(launches == want, f"auto {fallback} B={batch}: launches "
+                    f"{launches}, expected {want}")
+            plain = E.compile(prog, E.EngineConfig(backend=fallback))
+            err = rel_err(logits, plain.apply(params, x))
+            require(err <= TOL, f"auto {fallback} B={batch}: logits vs the "
+                    f"all-{fallback} apply {err:.3e} > {TOL}")
+            ms = time_ms(lambda: compiled.apply(params, x))
+            ms_plain = time_ms(lambda: plain.apply(params, x), iters=5)
+            forward_ms[("auto " + fallback, batch)] = ms
+            print(f"[alexnet auto] fallback {fallback} B={batch}: backends "
+                  f"{' '.join(compiled.backends())} (auto_backend of each op), "
+                  f"launches conv={launches[0]} matmul={launches[1]}, logits "
+                  f"max|d|/max|ref| vs the all-{fallback} apply {err:.3e}; "
+                  f"{ms:.4f} ms/forward (median of 20) against phase 4's all-cuda "
+                  f"{forward_ms[('fp32', batch)]:.4f} and all-{fallback} "
+                  f"{ms_plain:.4f} (median of 5)")
+    # the rule's grounds: each AlexNet layer through the engine on each backend
+    for batch in BATCHES:
+        for label, spec, kw in conv_main[batch] + fc_main[batch]:
+            conv = "stride" in kw
+
+            def op_call():
+                if conv:
+                    return E.conv2d(kw["x"], kw["w"], stride=kw["stride"],
+                                    pad=kw["pad"], groups=kw["groups"],
+                                    bias=kw["bias"], act=kw["act"])
+                return E.dense(kw["x"], kw["w"], bias=kw["bias"], act=kw["act"])
+
+            per = {}
+            for backend in E.backend_names():
+                with E.using_config(E.EngineConfig(backend=backend)):
+                    per[backend] = time_ms(op_call, iters=20 if backend == "cuda"
+                                           else 5)
+            op = E.OpSpec("conv2d" if conv else "dense", tuple(kw["x"].shape),
+                          tuple(kw["w"].shape), spec="" if conv
+                          else E.dense_spec(kw["x"].ndim),
+                          stride=kw.get("stride", 1), pad=kw.get("pad", 0),
+                          groups=kw.get("groups", 1))
+            print(f"[auto] {label}: the engine op on cuda {per['cuda']:.4f} ms, "
+                  f"torch {per['torch']:.4f} ms, ref {per['ref']:.4f} ms (median of "
+                  f"20 / 5 / 5); auto_backend picks {E.auto_backend(op, 'torch')} "
+                  f"over torch, {E.auto_backend(op, 'ref')} over ref")
+    del params
 
     # -- phase 5: kernel times at the main path's shapes -----------------------
     started["5"] = time.perf_counter()
@@ -3351,7 +3732,7 @@ def main():
     torch.cuda.empty_cache()
     served = serve_phase(dev, E, gfid_matmul, paged, others, worst,
                          dtype=torch.float32)
-    del served["params"]
+    lm_params = served.pop("params")        # phase 11 serves them again
 
     # -- phase 7: serving xlstm-125m (the depthwise conv kernel's path) -------
     started["7"] = time.perf_counter()
@@ -3387,6 +3768,12 @@ def main():
         dev, E, cnn, {"fp32": (conv32, mm32), "int8": (conv8, mm8),
                       "bf16": (conv16, mm16)},
         (paged.paged_gather, conv1d.gfid_conv1d_depthwise) + flash_kernels)
+
+    # -- phase 11: smollm-135m fp32 under faults ------------------------------
+    started["11"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    chaos = chaos_phase(dev, E, gfid_matmul, paged, others, served, lm_params)
+    del lm_params
     ends = list(started.values())[1:] + [time.perf_counter()]
     print("[time] phases (s): " + ", ".join(
         f"{name} {end - start:.1f}" for (name, start), end

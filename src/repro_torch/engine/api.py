@@ -13,9 +13,13 @@ PEs" contract):
 Every call builds the op's `OpSpec` from its static shapes, computes the
 pure `EnginePlan` (cached), records it into any active `tracking()` ledger,
 and dispatches to the selected backend: the plan's backend inside an
-executing `CompiledNet` (program replay), else the ambient `EngineConfig`'s.
-The op's precision resolves likewise (`_pin_precision`): an explicit
-`precision=` argument, else the replayed plan's, else the config's.
+executing `CompiledNet` (program replay), else the ambient `EngineConfig`'s
+(per op under `policy="auto"`, `plan.auto_backend`). The op's precision
+resolves likewise (`_pin_precision`): an explicit `precision=` argument,
+else the replayed plan's, else the config's. Dispatch goes through
+`dispatch.run_op` (the kernel-fault hook and the fallback chain), except
+in a compiled program's replays after its first complete apply, which call
+the pinned backend directly.
 
 Numerics follow the reference's API contract (what its "xla" and "ref"
 backends implement) on every backend, "cuda" included. `dense`
@@ -25,9 +29,12 @@ operands, `accum_dtype=None` keeps the operands' dtype, and `out_dtype=`
 casts the result. `conv2d` accumulates in fp32 and returns x's dtype. The
 kernels accumulate in fp32 either way and store the dtype the op returns.
 (The reference's "pallas" backend drops `accum_dtype` and returns x's
-dtype: ROADMAP section 3.) `accum_dtype` takes None or fp32 only, and the
-ambient `EngineConfig.accum` knob is not ported (ROADMAP queue 1, item 4).
-int8 ops take fp32 inputs (int8 on bf16 parameters: the same item).
+dtype: ROADMAP section 3.) An unset `accum_dtype` resolves from the
+ambient `EngineConfig.accum` (`_resolve_accum`); on "cuda", whose kernels
+sum in fp32, an accumulator other than fp32 or native raises rather than
+being ignored, and `conv2d` sums in fp32 on every backend. An int8 op
+quantizes fp32 or bf16 inputs and returns x's dtype, as the reference's
+(its accumulator is the exact int32 sum, whatever `accum` says).
 Under `EngineConfig(row_align=R)`
 a dense op whose leading x axis is a pure row dim pads it with zeros to a
 multiple of R and slices the result back (`_row_pad_amount`), as the
@@ -44,8 +51,48 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.engine import dispatch, ledger as ledger_mod, plan as planlib
-from repro_torch.engine.config import current_config
+from repro_torch.engine.config import accum_dtype_of, current_config
 from repro_torch.kernels.epilogue import check_act
+
+
+class _Unset:
+    def __repr__(self) -> str:      # keeps signatures readable in help()
+        return "<per-op default>"
+
+
+_UNSET = _Unset()
+
+# Each op's accumulator when neither the call nor the config names one.
+_ACCUM_DEFAULTS = {"conv2d": torch.float32, "dense": torch.float32,
+                   "einsum": None}
+
+
+def _resolve_accum(arg, op_kind: str) -> Optional[torch.dtype]:
+    """An op's accumulator: an explicit `accum_dtype=` (None = native), else
+    the config's `accum` (None: the op's default; "native"; a dtype
+    name)."""
+    if not isinstance(arg, _Unset):
+        if arg is not None and not isinstance(arg, torch.dtype):
+            raise ValueError(f"accum_dtype={arg!r} is not a torch dtype "
+                             "(or None, native)")
+        return arg
+    accum = current_config().accum
+    if accum is None:
+        return _ACCUM_DEFAULTS[op_kind]
+    return None if accum == "native" else accum_dtype_of(accum)
+
+
+def _check_accum(accum: Optional[torch.dtype],
+                 plan: planlib.EnginePlan, what: str) -> None:
+    """The accumulators a plan can honour: any on "torch" and "ref" (and
+    none matters on an int8 plan, whose sums are exact); on "cuda", whose
+    kernels sum in fp32, only fp32 or native."""
+    if plan.backend == "cuda" and plan.precision != "int8" \
+            and accum not in (None, torch.float32):
+        raise ValueError(
+            f"accum_dtype={accum} on {what}: the 'cuda' kernels sum in "
+            "fp32; take accum_dtype None (native) or torch.float32, or "
+            "backend='torch'")
 
 # ---------------------------------------------------------------------------
 # Program capture & replay (used by engine/program.py)
@@ -60,12 +107,21 @@ class _ProgramState(threading.local):
 
 
 class _Cursor:
-    """Mutable position over a compiled (OpSpec, EnginePlan) sequence."""
+    """Mutable position over a compiled (OpSpec, EnginePlan) sequence.
+    `hooks` is True on a program's first complete apply: its ops go
+    through the kernel-fault hook, and a hop is pinned into `pairs`."""
 
     def __init__(self, pairs: Sequence[Tuple[planlib.OpSpec,
-                                             planlib.EnginePlan]]):
-        self.pairs = tuple(pairs)
+                                             planlib.EnginePlan]],
+                 hooks: bool = False):
+        self.pairs = list(pairs)
         self.index = 0
+        self.hooks = hooks
+
+    def pin(self, plan: planlib.EnginePlan) -> None:
+        """Replace the plan of the op just issued (a fallback hop)."""
+        op, _ = self.pairs[self.index - 1]
+        self.pairs[self.index - 1] = (op, plan)
 
     def next_for(self, op: planlib.OpSpec) -> planlib.EnginePlan:
         if self.index >= len(self.pairs):
@@ -109,11 +165,12 @@ def capturing(into: List[planlib.OpSpec],
 
 @contextlib.contextmanager
 def replaying(pairs: Sequence[Tuple[planlib.OpSpec, planlib.EnginePlan]],
-              ) -> Iterator[_Cursor]:
+              hooks: bool = False) -> Iterator[_Cursor]:
     """Execute the block against a compiled plan sequence: each engine call
     consumes the next (OpSpec, EnginePlan) pair and runs on the plan's
-    backend. Divergence from the captured sequence raises."""
-    cur = _Cursor(pairs)
+    backend, through the kernel-fault hook where `hooks` is set, else
+    directly. Divergence from the captured sequence raises."""
+    cur = _Cursor(pairs, hooks)
     _PROG.replay.append(cur)
     try:
         yield cur
@@ -134,9 +191,21 @@ def _plan_for(op: planlib.OpSpec) -> planlib.EnginePlan:
             precs.append(None)          # _pin_precision fills in an explicit arg
     if _PROG.replay:
         return _PROG.replay[-1].next_for(op)
-    name = current_config().backend
+    name = planlib.select_backend(op, current_config())
     dispatch.get_backend(name)          # validate before caching a plan
     return planlib.plan_op(op, name)
+
+
+def _run(op: planlib.OpSpec, plan: planlib.EnginePlan, call,
+         act: Optional[str] = None):
+    """Dispatch one op. In a compiled program's replays after its first
+    complete apply: the pinned backend, directly. Otherwise through
+    `dispatch.run_op`, a hop on a first apply pinned into the program."""
+    cur = _PROG.replay[-1] if _PROG.replay else None
+    if cur is not None and not cur.hooks:
+        return call(dispatch.get_backend(plan.backend), plan)
+    return dispatch.run_op(op, plan, call, act=act,
+                           on_hop=None if cur is None else cur.pin)
 
 
 def _pin_precision(op: planlib.OpSpec, plan: planlib.EnginePlan,
@@ -178,12 +247,6 @@ def _row_pad_amount(structure: planlib.EinsumStructure,
     return -x_shape[0] % align
 
 
-def _check_accum(accum_dtype) -> None:
-    if accum_dtype not in (None, torch.float32):
-        raise ValueError(f"accum_dtype={accum_dtype} is not taken: None "
-                         "(native) or torch.float32")
-
-
 def _result_dtype(x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor],
                   accum: Optional[torch.dtype]) -> torch.dtype:
@@ -192,13 +255,6 @@ def _result_dtype(x: torch.Tensor, w: torch.Tensor,
     the reference's `apply_epilogue` promotes)."""
     dt = accum if accum is not None else torch.promote_types(x.dtype, w.dtype)
     return dt if bias is None else torch.promote_types(dt, bias.dtype)
-
-
-def _check_int8_input(plan: planlib.EnginePlan, x: torch.Tensor) -> None:
-    if plan.precision == "int8" and x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"precision='int8' on {x.dtype} inputs is not ported (the int8 "
-            "path takes fp32 inputs); see ROADMAP queue 1, item 4")
 
 
 def _check_epilogue(bias: Optional[torch.Tensor], act: Optional[str],
@@ -220,7 +276,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, pad: int = 0,
            precision: Optional[str] = None) -> torch.Tensor:
     """Conv mode. x: (B,H,W,C_in) NHWC; w: (H_f,W_f,C_in/g,C_out) HWIO.
     Returns (B,H_out,W_out,C_out) in x's dtype, accumulated in fp32 (the
-    reference's default; its "native" conv accumulates in fp32 too).
+    reference's default; its "native" conv accumulates in fp32 too; a
+    config `accum` of another dtype raises).
 
     `bias` ((C_out,)) and `act` ("relu" | "gelu") form the op's fused
     epilogue: conv+bias+activation is one kernel launch on the "cuda"
@@ -231,12 +288,15 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, pad: int = 0,
                         tuple(map(int, w.shape)), stride=int(stride),
                         pad=int(pad), groups=int(groups))
     _check_epilogue(bias, act, op.w_shape[3], "conv2d")
+    accum = _resolve_accum(_UNSET, "conv2d")
     plan = _pin_precision(op, _plan_for(op), precision)
-    _check_int8_input(plan, x)
+    if plan.precision != "int8" and accum not in (None, torch.float32):
+        raise ValueError(f"accum={accum} on conv2d: the port's conv sums in "
+                         "fp32 on every backend")
     ledger_mod.record(plan)
-    return dispatch.run_op(plan, lambda be, pl: be.conv2d(
+    return _run(op, plan, lambda be, pl: be.conv2d(
         x, w, pl, stride=stride, pad=pad, groups=groups, out_dtype=x.dtype,
-        bias=bias, act=act))
+        bias=bias, act=act), act)
 
 
 def conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,
@@ -248,7 +308,7 @@ def conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,
                         tuple(map(int, w.shape)), causal=bool(causal))
     plan = _plan_for(op)
     ledger_mod.record(plan)
-    out = dispatch.run_op(plan, lambda be, pl: be.conv1d_depthwise(
+    out = _run(op, plan, lambda be, pl: be.conv1d_depthwise(
         x, w, pl, causal=causal))
     return out.to(x.dtype)
 
@@ -256,7 +316,7 @@ def conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,
 def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
            bias: Optional[torch.Tensor] = None,
            act: Optional[str] = None,
-           accum_dtype: Optional[torch.dtype] = None,
+           accum_dtype=_UNSET,
            out_dtype: Optional[torch.dtype] = None,
            precision: Optional[str] = None) -> torch.Tensor:
     """FC mode for any two-operand dense contraction (weights second).
@@ -264,8 +324,9 @@ def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
     `bias` ((n_out,), one entry per trailing output feature) and `act`
     form the fused epilogue; the trailing output label must be a
     weight-side (w-free) dim for a bias to be well-defined. Native numerics
-    by default (bf16 in, bf16 out); `accum_dtype=torch.float32` returns the
-    fp32 sums, and `out_dtype` casts the result."""
+    by default (bf16 in, bf16 out; or the config's `accum`);
+    `accum_dtype=torch.float32` returns the fp32 sums, and `out_dtype`
+    casts the result. An int8 op returns x's dtype before `out_dtype`."""
     op = planlib.OpSpec("dense", tuple(map(int, x.shape)),
                         tuple(map(int, w.shape)), spec=spec)
     structure = planlib.parse_einsum(spec, x.ndim, w.ndim)
@@ -281,33 +342,42 @@ def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
         _check_epilogue(bias, act, n_out, f"einsum {spec!r}")
     else:
         check_act(act)
-    _check_accum(accum_dtype)
-    want = out_dtype if out_dtype is not None \
-        else _result_dtype(x, w, bias, accum_dtype)
+    accum = _resolve_accum(accum_dtype, "einsum")
     plan = _pin_precision(op, _plan_for(op), precision)
-    _check_int8_input(plan, x)
+    _check_accum(accum, plan, f"einsum {spec!r}")
+    int8 = plan.precision == "int8"
+    if int8:
+        want = x.dtype              # the dequantized sums, cast to x's dtype
+    else:
+        want = out_dtype if out_dtype is not None \
+            else _result_dtype(x, w, bias, accum)
     ledger_mod.record(plan)
     pad = _row_pad_amount(structure, op.x_shape)
     if pad:
         x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-    out = dispatch.run_op(plan, lambda be, pl: be.einsum(
-        spec, x, w, pl, structure, accum_dtype=accum_dtype, out_dtype=want,
-        bias=bias, act=act))
+    out = _run(op, plan, lambda be, pl: be.einsum(
+        spec, x, w, pl, structure, accum_dtype=accum, out_dtype=want,
+        bias=bias, act=act), act)
     if pad:
         ax = structure.out_labels.index(structure.x_labels[0])
         out = out.narrow(ax, 0, op.x_shape[0])
+    if int8 and out_dtype is not None:
+        out = out.to(out_dtype)
     return out
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, *,
           bias: Optional[torch.Tensor] = None,
           act: Optional[str] = None,
-          accum_dtype: Optional[torch.dtype] = torch.float32,
+          accum_dtype=_UNSET,
           out_dtype: Optional[torch.dtype] = None,
           precision: Optional[str] = None) -> torch.Tensor:
     """FC mode (W_f = 1): x (..., n) @ w (n, m) -> (..., m), with an
     optional fused bias ((m,)) / activation epilogue. Accumulates in fp32
-    and returns fp32 by default (bf16 operands included)."""
+    and returns fp32 by default (bf16 operands included), unless the
+    config's `accum` says otherwise."""
+    if isinstance(accum_dtype, _Unset):
+        accum_dtype = _resolve_accum(accum_dtype, "dense")
     return einsum(planlib.dense_spec(x.ndim), x, w, bias=bias, act=act,
                   accum_dtype=accum_dtype, out_dtype=out_dtype,
                   precision=precision)
@@ -338,7 +408,7 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                         tuple(map(int, table.shape)))
     plan = _plan_for(op)
     ledger_mod.record(plan)
-    return dispatch.run_op(plan, lambda be, pl: be.gather(pool, table, pl))
+    return _run(op, plan, lambda be, pl: be.gather(pool, table, pl))
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -346,6 +416,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
            act: Optional[str] = None,
            precision: Optional[str] = None) -> torch.Tensor:
     """FC mode with the result cast back to x's dtype (the reference's
-    `engine.matmul` contract; the "cuda" kernels store it directly)."""
-    return dense(x, w, bias=bias, act=act, out_dtype=x.dtype,
-                 precision=precision)
+    `engine.matmul` contract: fp32 sums whatever the config's `accum`; the
+    "cuda" kernels store it directly)."""
+    return dense(x, w, bias=bias, act=act, accum_dtype=torch.float32,
+                 out_dtype=x.dtype, precision=precision)

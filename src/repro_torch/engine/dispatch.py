@@ -11,9 +11,18 @@ A backend implements the engine's op kinds against a precomputed
   * ``"ref"``   — the library's own convolution and matrix product: the
                   "direct engine" baseline the paper compares against.
 
-`run_op` calls the planned backend directly. The reference's
-pallas -> xla -> ref degradation chain is not ported: a backend's error
-propagates (see `EngineConfig.fallback`).
+`run_op` is the kernel-fault chokepoint. With no `serve.faults` injector
+installed and `EngineConfig.fallback="none"` it calls the planned backend
+directly. An installed injector may fire the "kernel" point for an
+(op kind, backend) visit, raising `KernelFault` where the kernel would
+have run. Under `fallback="chain"` an injected fault sends the op down
+`fallback_chain`, which is narrower than the reference's pallas -> xla ->
+ref: the port's "cuda" and "torch" fp32 and bf16 paths are only allclose,
+so a backend is listed only where a test holds the pair bitwise equal for
+that op kind, precision and activation, and a hop changes where an op ran,
+never what it returned. Where the chain is empty the fault propagates. A
+real build or launch error is never caught: "launch or raise, no quiet
+fallback" (the reference's chain catches any exception).
 
 The paged-KV gather (`engine.paged_gather`) is a copy: "cuda" launches the
 `paged_gather` kernel, "torch" and "ref" run its plain version
@@ -25,30 +34,37 @@ The 1-D depthwise conv (`engine.conv1d_depthwise`): "cuda" launches the
 <= 8) and "ref" the library's grouped conv.
 
 A plan pinned to `precision="int8"` runs the shared quantized contract on
-every backend: quantize both operands (`core.quant`), an exact int32
-product, then `dequant_epilogue`. "torch" and "ref" lower it here; "cuda"
-runs the int8 kernels. Exact integer sums make the three bitwise equal.
+every backend: quantize both operands (`core.quant`, fp32 or bf16 inputs
+widened to fp32), an exact int32 product, then `dequant_epilogue` in fp32,
+cast to x's dtype (the reference's `.astype(x.dtype)`). "torch" and "ref"
+lower it here; "cuda" runs the int8 kernels, whose wrapper casts their
+fp32 store (one rounding to nearest even, as the reference's cast). Exact
+integer sums make the three bitwise equal.
 
 `conv2d` and `einsum` receive the `out_dtype` the op returns and return
-that dtype; `einsum` also receives its `accum_dtype` (None: the operands'
-own, native; or fp32). "torch" and "ref" follow the reference's "xla"
-lowering: a conv and an fp32 accumulation sum the operands widened to
-fp32 (exact for bf16), a native one runs in the operands' dtype, and the
-epilogue runs in the result's dtype before the cast. "cuda" always
-accumulates in fp32 and its kernels store `out_dtype` from their fp32
-epilogue.
+that dtype; `einsum` also receives its resolved `accum_dtype` (None: the
+operands' own, native; or a dtype). "torch" and "ref" follow the
+reference's "xla" lowering: a conv and an fp32 accumulation sum the
+operands widened to fp32 (exact for bf16), a native one runs in the
+operands' dtype, a narrower accumulator stores the wider sums rounded to
+it, and the epilogue runs in the result's dtype before the cast. "cuda"
+always accumulates in fp32 and its kernels store `out_dtype` from their
+fp32 epilogue (`api._check_accum` refuses any other accumulator there).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import gfid, quant
+from repro_torch.engine import ledger as _ledger
+from repro_torch.engine.config import current_config
 from repro_torch.engine.plan import canonical_gemm
 from repro_torch.kernels import ops, paged
 from repro_torch.kernels.epilogue import apply_epilogue, dequant_epilogue
+from repro_torch.serve import faults as _faults
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +101,87 @@ def get_backend(name: str) -> EngineBackend:
                        f"{sorted(_REGISTRY)}") from None
 
 
-def run_op(plan, call):
-    """Execute one planned op: `call(backend, plan)` on the plan's backend."""
-    return call(get_backend(plan.backend), plan)
+def backend_names() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+# ---------------------------------------------------------------------------
+# Execution chokepoint: the kernel-fault hook and the fallback chain
+# ---------------------------------------------------------------------------
+
+# Activations whose epilogue the int8 kernels compute bitwise as the plain
+# `dequant_epilogue` does (gelu's tanh agrees to about an ulp only).
+_EXACT_ACTS = (None, "relu")
+
+
+def fallback_chain(name: str, kind: str, precision: str = "fp32",
+                   act: Optional[str] = None, taps: int = 0
+                   ) -> Tuple[str, ...]:
+    """The backends an op on `name` may hop to under `fallback="chain"`, in
+    order: only those held bitwise equal to it for this op kind, precision
+    and activation (`taps` is a depthwise conv's W_f).
+
+      * the gather: "cuda" -> "torch" -> "ref" (a copy on each);
+      * int8 conv2d and dense with act None or relu: "cuda" -> "torch" ->
+        "ref" (exact int32 sums, the same dequant epilogue);
+      * the depthwise conv with W_f <= 8: "cuda" -> "torch" (the kernel's
+        sum order; "ref" is the library's grouped conv);
+      * dense from "torch": -> "ref" (one function); int8 conv2d from
+        "torch": -> "ref" (exact sums);
+      * nothing else hops: fp32 and bf16 conv and GEMM kernels sum in
+        other orders than the torch lowerings."""
+    int8 = kind in ("conv2d", "dense") and precision == "int8"
+    if name == "cuda":
+        if kind == "gather" or (int8 and act in _EXACT_ACTS):
+            return ("torch", "ref")
+        if kind == "conv1d_dw" and taps <= 8:
+            return ("torch",)
+    elif name == "torch":
+        if kind in ("gather", "dense") or (kind == "conv2d" and int8):
+            return ("ref",)
+    return ()
+
+
+def run_op(op, plan, call, *, act: Optional[str] = None,
+           on_hop: Optional[Callable] = None):
+    """Execute one planned op: `call(backend, plan)` on the plan's backend,
+    through the kernel-fault hook and the fallback chain.
+
+    With no injector installed and `fallback="none"` (the default) this is
+    a direct call. Otherwise each backend of the op's chain (its planned
+    backend, then `fallback_chain` under "chain") meets the "kernel" point
+    at site "<kind>:<backend>"; a fired visit raises `KernelFault` there,
+    and the chain moves on. A hop is recorded into every active ledger, onto
+    the injector, and through `on_hop(plan)` (a compiled program pins it).
+    Only the injected fault is answered: a backend's own error propagates.
+    """
+    inj = _faults.active()
+    chained = current_config().fallback == "chain"
+    if inj is None and not chained:
+        return call(get_backend(plan.backend), plan)
+    chain = (plan.backend,)
+    if chained:
+        chain += fallback_chain(plan.backend, op.kind, plan.precision, act,
+                                op.w_shape[0] if op.kind == "conv1d_dw"
+                                else 0)
+    fault = None
+    for name in chain:
+        if inj is not None and inj.fire("kernel", site=f"{op.kind}:{name}"):
+            fault = _faults.KernelFault(
+                f"injected kernel fault: {op.kind} on backend {name!r}")
+            continue
+        pl = plan if name == plan.backend else dataclasses.replace(
+            plan, backend=name)
+        out = call(get_backend(name), pl)
+        if fault is not None:
+            _ledger.record_fallback(_ledger.FallbackRecord(
+                op.kind, plan.backend, name, str(fault)))
+            if inj is not None:
+                inj.note_fallback(op.kind, plan.backend, name)
+            if on_hop is not None:
+                on_hop(pl)
+        return out
+    raise fault
 
 
 # ---------------------------------------------------------------------------
@@ -95,9 +189,9 @@ def run_op(plan, call):
 # ---------------------------------------------------------------------------
 
 def _quant_conv2d(conv_i32, x, w, *, stride, pad, groups, bias, act):
-    """Quantize (the shared rule), an exact int32 conv (`conv_i32`: the GFID
-    shifted GEMM or the library's conv), then the dequant epilogue (fp32
-    inputs only: `api._check_int8_input`)."""
+    """Quantize (the shared rule, from fp32 or bf16 inputs widened), an
+    exact int32 conv (`conv_i32`: the GFID shifted GEMM or the library's
+    conv), then the fp32 dequant epilogue; the caller casts to x's dtype."""
     xq, wq, sx, sw = quant.quantize_conv_operands(x, w)
     acc = conv_i32(xq, wq, stride, pad, groups)
     return dequant_epilogue(acc, sx * sw, bias, act)
@@ -138,10 +232,15 @@ def _torch_einsum(spec, x, w, plan, structure, *, accum_dtype, out_dtype,
     if plan.precision == "int8":
         out = _quant_canonical_einsum(x, w, structure, bias=bias, act=act)
     else:
-        dt = accum_dtype if accum_dtype is not None \
-            else torch.promote_types(x.dtype, w.dtype)
-        out = apply_epilogue(torch.einsum(spec, x.to(dt), w.to(dt)), bias,
-                             act)
+        # the operands widened to the accumulator where it is wider, the
+        # sums stored in it (the reference's `preferred_element_type`)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        if accum_dtype is not None:
+            dt = torch.promote_types(dt, accum_dtype)
+        prod = torch.einsum(spec, x.to(dt), w.to(dt))
+        if accum_dtype is not None:
+            prod = prod.to(accum_dtype)
+        out = apply_epilogue(prod, bias, act)
     return out.to(out_dtype)
 
 

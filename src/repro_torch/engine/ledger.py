@@ -32,11 +32,27 @@ class OpRecord:
     plan: Optional[EnginePlan] = None
 
 
+@dataclasses.dataclass
+class FallbackRecord:
+    """One backend hop: an op whose planned backend met an injected kernel
+    fault and that ran further down the dispatch fallback chain
+    (`EngineConfig.fallback="chain"`). Recorded when the hop is made: on
+    every call of an eager op, on the first complete apply of a compiled
+    program (which then replays the hop with no record)."""
+
+    kind: str                       # op kind ("dense", "conv2d", ...)
+    src: str                        # the backend that faulted
+    dst: str                        # the backend that ran instead
+    error: str                      # str() of the fault that forced it
+
+
 class Ledger:
-    """An append-only list of `OpRecord`s with the paper's rollups."""
+    """An append-only list of `OpRecord`s with the paper's rollups, and the
+    backend hops (`FallbackRecord`) observed while it was active."""
 
     def __init__(self) -> None:
         self.records: List[OpRecord] = []
+        self.fallbacks: List[FallbackRecord] = []
 
     def __iter__(self) -> Iterator[OpRecord]:
         return iter(self.records)
@@ -99,6 +115,10 @@ def tracking(ledger: Optional[Ledger] = None) -> Iterator[Ledger]:
         _TLS.stack.remove(led)
 
 
+def is_tracking() -> bool:
+    return bool(_TLS.stack)
+
+
 @contextlib.contextmanager
 def paused() -> Iterator[None]:
     """Suspend this thread's active ledgers for the block (program
@@ -115,3 +135,9 @@ def record(plan: EnginePlan) -> None:
     """Record `plan` into every ledger active on this thread."""
     for led in _TLS.stack:
         led.record_plan(plan)
+
+
+def record_fallback(rec: FallbackRecord) -> None:
+    """Record a backend hop into every ledger active on this thread."""
+    for led in _TLS.stack:
+        led.fallbacks.append(rec)

@@ -24,6 +24,9 @@ import math
 from typing import Dict, Tuple
 
 from repro_torch.core import analytics, modes
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import gfid_conv as _gfid_conv
+from repro_torch.kernels import gfid_matmul as _gfid_matmul
 from repro_torch.kernels.conv1d import TILE as CONV1D_TILE
 from repro_torch.kernels.gfid_conv import TILE as CONV_TILE
 from repro_torch.kernels.gfid_conv import TILE_INT8 as CONV_TILE_INT8
@@ -296,6 +299,61 @@ def with_precision(plan: EnginePlan, op: OpSpec,
     contract."""
     return pinned(plan, "int8" if precision == "int8" and supports_int8(op)
                   else "fp32")
+
+
+# The "auto" policy's fill test. Every conv and GEMM kernel's narrowest
+# block tile is 64 columns wide (the fp32 GEMM's (8, 64), the fp32 and int8
+# convs' (32, 64), the bf16 core's (16, 64)), and the fp32 tiles take K in
+# chunks of 8: an op narrower than one such tile, or shallower than one
+# chunk, leaves most of the tile's lanes idle.
+AUTO_MIN_COLUMNS = min(bn for tiles in (
+    _gfid_matmul.F32_TILES, _gfid_conv.F32_TILES, _gfid_conv.INT8_TILES,
+    _build.MMA_TILES) for _, bn in tiles)
+AUTO_MIN_K = _gfid_matmul.F32_BK
+
+
+def auto_backend(op: OpSpec, fallback: str = "torch") -> str:
+    """The "auto" backend-selection policy: "cuda" or `fallback` per op,
+    from the weight's shape alone (never the rows or the batch, so a
+    request's ops run on the same backends in every bucket).
+
+      * a conv2d, and a dense op that is one canonical (M, K) @ (K, N)
+        GEMM, go to "cuda" when their columns (C_out of a group, N) and
+        their depth (H_f * W_f * C_in of a group, K) each fill one of the
+        kernels' narrowest tiles (`AUTO_MIN_COLUMNS`, `AUTO_MIN_K`): on
+        the card the kernels outrun the "torch" lowering at every layer
+        timed (PERF.md, "auto_backend");
+      * a dense op that does not canonicalize goes to `fallback`: "cuda"
+        has no batched-weight GEMM (`dispatch._cuda_einsum` raises);
+      * the paged gather goes to `fallback`: `index_select` copies as fast
+        as the kernel on the card (PERF.md);
+      * the depthwise 1-D conv goes to "cuda", which outruns both the
+        shifted sum in torch ops and the library's grouped conv.
+    """
+    if op.kind == "gather":
+        return fallback
+    if op.kind == "conv1d_dw":
+        return "cuda"
+    if op.kind == "conv2d":
+        h_f, w_f, cg, c_out = op.w_shape
+        cols, k = c_out // op.groups, h_f * w_f * cg
+    else:
+        st = parse_einsum(op.spec, len(op.x_shape), len(op.w_shape))
+        if not canonical_gemm(st, len(op.w_shape)):
+            return fallback
+        c = st.contract[0]
+        k = op.w_shape[st.w_labels.index(c)]
+        cols = op.w_shape[1 - st.w_labels.index(c)]
+    return "cuda" if cols >= AUTO_MIN_COLUMNS and k >= AUTO_MIN_K \
+        else fallback
+
+
+def select_backend(op: OpSpec, cfg) -> str:
+    """The backend an `EngineConfig` runs `op` on: its `backend`, or under
+    `policy="auto"` the rule's choice with `backend` as the fallback."""
+    if cfg.policy == "auto":
+        return auto_backend(op, cfg.backend)
+    return cfg.backend
 
 
 def dense_spec(x_ndim: int) -> str:

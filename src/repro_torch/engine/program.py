@@ -27,6 +27,13 @@ any batch bucket.
 
 Capture and execution both run through `api.capturing` / `api.replaying`,
 so a compiled network and an eager call see the exact same planning logic.
+Under `policy="auto"` each op's backend is `plan.auto_backend`'s choice.
+A compiled program's ops meet the kernel-fault hook (`engine.dispatch.
+run_op`) on its first complete `apply` only, the counterpart of the
+reference's jit trace: a fallback hop made there is pinned into
+`exec_pairs` (and shows in `backends()`), and later applies replay the
+pinned backends with no hook. An apply that raises leaves the program as
+it was, to meet the hook again on the next apply.
 A program may update tensors it is given in place (the serving programs
 write the paged KV pool with `index_put_`); that takes the place of the
 reference's `compile(donate_argnums=)`.
@@ -42,7 +49,7 @@ from repro_torch.core import modes
 from repro_torch.engine import api
 from repro_torch.engine.config import EngineConfig, current_config, using_config
 from repro_torch.engine.plan import (EnginePlan, OpSpec, parse_einsum,
-                                     plan_op, with_precision)
+                                     plan_op, select_backend, with_precision)
 
 # Plans priced on the conv side of the Table-4 rollup (the 200 MHz clock).
 _CONV_KINDS = ("conv2d", "conv1d_dw")
@@ -348,10 +355,12 @@ class NetworkPlan:
 def plan_network(program: Program,
                  cfg: Optional[EngineConfig] = None) -> NetworkPlan:
     """Plan every op of `program` under `cfg` (no execution, no tensors),
-    each at the config's precision where the int8 contract covers it."""
+    each on its selected backend and at the config's precision where the
+    int8 contract covers it."""
     cfg = current_config() if cfg is None else cfg
     return NetworkPlan(program.name, tuple(
-        with_precision(plan_op(op, cfg.backend), op, cfg.precision)
+        with_precision(plan_op(op, select_backend(op, cfg)), op,
+                       cfg.precision)
         for op in program.ops))
 
 
@@ -367,7 +376,9 @@ class CompiledNet:
     .apply  — executor: every engine op runs on its planned backend, in the
               captured order, on the device of the tensors given (all of
               them on one device). Executing with shapes that change the op
-              sequence raises (recompile instead).
+              sequence raises (recompile instead). The first complete apply
+              runs each op through the kernel-fault hook and pins any
+              fallback hop; later applies call the pinned backends.
     """
 
     def __init__(self, program: Program, config: EngineConfig,
@@ -377,6 +388,7 @@ class CompiledNet:
         self.config = config
         self.plan = plan
         self.exec_pairs = exec_pairs
+        self.hooked = True          # the next apply meets the fault hook
 
     @property
     def cost(self) -> Dict[str, Any]:
@@ -392,9 +404,15 @@ class CompiledNet:
         if len(devices) != 1:
             raise ValueError(f"CompiledNet.apply needs every tensor on one "
                              f"device; got {sorted(map(str, devices))}")
-        with using_config(self.config), api.replaying(self.exec_pairs), \
+        hooks = self.hooked
+        with using_config(self.config), \
+                api.replaying(self.exec_pairs, hooks) as cur, \
                 torch.no_grad():
-            return self.program.fn(*args)
+            out = self.program.fn(*args)
+        if hooks:
+            self.exec_pairs = tuple(cur.pairs)  # hops, pinned
+            self.hooked = False
+        return out
 
     __call__ = apply
 
@@ -429,7 +447,7 @@ def compile(program: Program,  # noqa: A001 (mirrors the reference's API)
     if program.fn is not None:
         ops, precs = _capture_ops(program.fn, program.in_avals, cfg)
         exec_pairs = tuple(
-            (op, with_precision(plan_op(op, cfg.backend), op,
+            (op, with_precision(plan_op(op, select_backend(op, cfg)), op,
                                 prec or cfg.precision))
             for op, prec in zip(ops, precs))
     return CompiledNet(program, cfg, net_plan, exec_pairs)

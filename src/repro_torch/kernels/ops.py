@@ -8,7 +8,10 @@ one grid. The matmul flattens the leading dims of x into rows.
 
 `precision="int8"` quantizes both operands with the shared rule of
 `core.quant` (plain torch ops, as the reference quantizes outside its
-Pallas kernels) and runs the int8 kernel, whose epilogue dequantizes. The
+Pallas kernels; bf16 inputs widened to fp32) and runs the int8 kernel,
+whose epilogue dequantizes in fp32 (a bf16 bias widened, exactly, to the
+kernel's fp32 bias); `out_dtype` is then a cast of that fp32 store, the
+reference's `.astype`, so no int8 kernel has a bf16 store. The
 conv quantizes before any padding, so the scales never see the zero pad;
 its per-example `sx` covers every group and its per-output-channel `sw`
 runs across the groups.
@@ -40,6 +43,10 @@ def _contig(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.contiguous()
 
 
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.float().contiguous()
+
+
 def _check_precision(precision: str) -> None:
     if precision not in ("fp32", "int8"):
         raise ValueError(f"unknown precision {precision!r}; expected 'fp32' "
@@ -63,7 +70,7 @@ def gfid_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     xq, wq, sx, sw = quant.quantize_conv_operands(x, w)
     out = _conv.gfid_conv2d_nhwc_int8(
         xq, wq, sx.reshape(x.shape[0], 1), sw.reshape(1, w.shape[3]),
-        stride=stride, pad=pad, groups=groups, bias=_contig(bias), act=act)
+        stride=stride, pad=pad, groups=groups, bias=_f32(bias), act=act)
     return out if out_dtype is None else out.to(out_dtype)
 
 
@@ -83,7 +90,7 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
         return out.reshape(*lead, w.shape[-1])
     xq, wq, sx, sw = quant.quantize_matmul_operands(x2, w)
     out = _matmul.gfid_matmul_int8(xq, wq.contiguous(), sx, sw,
-                                   bias=_contig(bias), act=act)
+                                   bias=_f32(bias), act=act)
     out = out if out_dtype is None else out.to(out_dtype)
     return out.reshape(*lead, w.shape[-1])
 

@@ -3,9 +3,8 @@ JAX package's `serve/engine.py`, the parts this port runs: the
 re-batchable `prefill_program` and `decode_program` over a dense decode
 state (the static `Scheduler`'s programs), `paged_decode_program` and
 `prefill_ingest_program` over the paged KV pool (the
-`ContinuousScheduler`'s; both without the reference's numerics-guard
-variant, ROADMAP queue 1, item 9), `decode_state_shapes` and
-`greedy_generate`. The mesh-sharded `build_serve_step`/`build_prefill` are
+`ContinuousScheduler`'s, each with its numerics-guard variant),
+`decode_state_shapes` and `greedy_generate`. The mesh-sharded `build_serve_step`/`build_prefill` are
 not ported (ROADMAP queue 1, item 11).
 
 The programs are captured on `meta` tensors (`engine.trace_program`) and
@@ -91,9 +90,16 @@ def decode_program(cfg: ModelConfig, batch: int, max_len: int,
                            batch_size=batch, batch_axes=axes)
 
 
+def _poisoned(logits: torch.Tensor, poison: torch.Tensor) -> torch.Tensor:
+    """The numerics guard's poison: NaN where `poison` is NaN, the logits
+    selected bit for bit elsewhere (`torch.where` copies them, signed zeros
+    included)."""
+    return torch.where(torch.isnan(poison), float("nan"), logits)
+
+
 def paged_decode_program(cfg: ModelConfig, layout, batch: int,
-                         param_dtype: Optional[torch.dtype] = None
-                         ) -> E.Program:
+                         param_dtype: Optional[torch.dtype] = None,
+                         guard: bool = False) -> E.Program:
     """One continuous-batching decode step over a paged KV pool, as an
     `engine.Program`.
 
@@ -108,14 +114,28 @@ def paged_decode_program(cfg: ModelConfig, layout, batch: int,
     positions, and writes back, in place, only the slot each row wrote.
     `layout` is a `serve.kv_pool.PagedLayout`; the parameters' `meta`
     stand-ins take `T.param_dtype(cfg, param_dtype)`, the dtype of the
-    parameters the program will run on."""
+    parameters the program will run on.
+
+    `guard=True` builds the numerics-guard variant that a fault-injecting
+    `ContinuousScheduler` compiles: a trailing `poison (B,) fp32` argument
+    (0.0 clean, NaN to poison a row) and an `ok (B,) bool` output before
+    the pool (each row's last-token logits all finite). The poison reaches
+    the logits only, through `torch.where` after the step, so a clean row
+    keeps its logits bit for bit, and the pool is always written with the
+    step's own finite state. The engine ops are the unguarded program's,
+    and the pool write is the last op of both: a fault in any engine op
+    leaves the pool as it was."""
     npb = layout.blocks_per_req
 
-    def fn(params, arrays, tables, slots, tokens, pos):
+    def fn(params, arrays, tables, slots, tokens, pos, poison=None):
         state = layout.gather(arrays, tables, slots)
         logits, new_state = T.decode_step(cfg, params, state, tokens, pos)
         out = layout.scatter_step(arrays, new_state, tables, slots, pos)
-        return torch.argmax(logits[:, -1], dim=-1), out
+        if poison is None:
+            return torch.argmax(logits[:, -1], dim=-1), out
+        last = _poisoned(logits[:, -1], poison[:, None])
+        return (torch.argmax(last, dim=-1), torch.isfinite(last).all(-1),
+                out)
 
     def meta(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device="meta")
@@ -123,15 +143,17 @@ def paged_decode_program(cfg: ModelConfig, layout, batch: int,
     avals = (T.param_shapes(cfg, param_dtype), layout.array_avals(),
              meta(batch, npb),
              meta(batch), meta(batch, 1), meta(batch))
+    if guard:
+        avals += (meta(batch, dtype=torch.float32),)
     return E.trace_program(
         fn, *avals,
         name=f"{cfg.name}-paged-decode{layout.max_len}"
-             f"x{layout.block_size}b{batch}")
+             f"x{layout.block_size}b{batch}{'-guard' if guard else ''}")
 
 
 def prefill_ingest_program(cfg: ModelConfig, layout, seq: int,
-                           param_dtype: Optional[torch.dtype] = None
-                           ) -> E.Program:
+                           param_dtype: Optional[torch.dtype] = None,
+                           guard: bool = False) -> E.Program:
     """Prefill one request at its exact prompt length and ingest the
     resulting dense state into the paged pool, in place (the continuous
     scheduler's admission path; compiled per distinct prompt length, so a
@@ -139,23 +161,33 @@ def prefill_ingest_program(cfg: ModelConfig, layout, seq: int,
 
     Signature: (params, pool_arrays, table_row (blocks_per_req,) int32,
     slot () int32, tokens (1, seq) int32) -> (first_token (1,) int64,
-    pool_arrays). `param_dtype` as for `paged_decode_program`."""
+    pool_arrays). `param_dtype` as for `paged_decode_program`; `guard=True`
+    is its numerics-guard variant: a trailing `poison () fp32` and an
+    `ok () bool` output, the poison on the logits only, never on the
+    ingested state."""
     n_blocks = -(-seq // layout.block_size)
 
-    def fn(params, arrays, table_row, slot, tokens):
+    def fn(params, arrays, table_row, slot, tokens, poison=None):
         logits, state = T.prefill(cfg, params, {"tokens": tokens},
                                   layout.max_len)
         out = layout.scatter_prefill(arrays, state, table_row, slot,
                                      n_blocks)
-        return torch.argmax(logits, dim=-1), out
+        if poison is None:
+            return torch.argmax(logits, dim=-1), out
+        logits = _poisoned(logits, poison)
+        return (torch.argmax(logits, dim=-1), torch.isfinite(logits).all(),
+                out)
 
-    def meta(*shape):
-        return torch.empty(shape, dtype=torch.int32, device="meta")
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
 
     avals = (T.param_shapes(cfg, param_dtype), layout.array_avals(),
              meta(layout.blocks_per_req), meta(), meta(1, seq))
-    return E.trace_program(fn, *avals,
-                           name=f"{cfg.name}-prefill-ingest{seq}")
+    if guard:
+        avals += (meta(dtype=torch.float32),)
+    return E.trace_program(
+        fn, *avals,
+        name=f"{cfg.name}-prefill-ingest{seq}{'-guard' if guard else ''}")
 
 
 def greedy_generate(cfg: ModelConfig, params, batch_in: Dict, steps: int,

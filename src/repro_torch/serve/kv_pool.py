@@ -41,6 +41,7 @@ from repro_torch import engine as E
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import resolve_device, tree_map
+from repro_torch.serve import faults
 
 
 class PoolExhausted(RuntimeError):
@@ -324,6 +325,9 @@ class KVBlockPool:
         # slot 0 reserved for pad rows, like block 0
         self._free_slots: List[int] = list(range(max_slots - 1, 0, -1))
         self._slot_of: Dict[int, int] = {}
+        # prefix of this pool's fault-injection sites (the reference's
+        # ReplicaSpread sets "r<i>:" a replica)
+        self.fault_site = ""
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -341,8 +345,19 @@ class KVBlockPool:
 
     def ensure(self, rid: int, pos: int) -> List[int]:
         """Blocks covering positions [0, pos] — allocate the missing ones.
-        (The reference's fault-injection hook here is not ported: ROADMAP
-        queue 1, item 9.)"""
+
+        An installed `serve.faults` injector may fire the "pool" point here
+        (an injected exhaustion storm, site "<fault_site><rid>"): the raise
+        looks like a real empty free list, with no side effect, so the
+        schedulers' preempt and retry paths run as under real pressure."""
+        inj = faults.active()
+        if inj is not None and inj.fire("pool",
+                                        site=f"{self.fault_site}{rid}"):
+            s = self.snapshot()
+            raise PoolExhausted(
+                f"injected pool-exhaustion storm for request {rid} "
+                f"({s['live_blocks']}/{s['num_blocks'] - 1} blocks live, "
+                f"{s['live_requests']} live requests)")
         return self.allocator.ensure(rid, pos, self.layout.block_size)
 
     def release(self, rid: int) -> List[int]:

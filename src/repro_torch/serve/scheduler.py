@@ -1,12 +1,15 @@
 """Serving schedulers over compiled engine programs. A copy of the JAX
 package's `serve/scheduler.py`: the static `Scheduler` with `Ticket` and
 `AdmissionError`, and, for its LM path, `GenTicket`, `latency_percentiles`
-and `ContinuousScheduler`. Not ported (ROADMAP queue 1): fault injection,
-the numerics guard and retries (item 9), the `mesh=` path and
-`ReplicaSpread` (item 11), kernel tuning (item 6). The reference's default
-config, `EngineConfig(row_align=8, fallback="chain")`, becomes
-`EngineConfig(row_align=8)` in both schedulers: a fallback chain would hide
-a kernel failure behind another backend's result.
+and `ContinuousScheduler`, each with fault injection (`faults=`, a
+`serve.faults.FaultInjector`), and the continuous one with the numerics
+guard and retries with backoff. Not ported (ROADMAP queue 1): the `mesh=`
+path and `ReplicaSpread` (item 11), kernel tuning (item 6). The
+reference's default config, `EngineConfig(row_align=8, fallback="chain")`,
+becomes `EngineConfig(row_align=8)` in both schedulers: a kernel failure
+raises on the main path, and the fallback chain (which hops only between
+backends held bitwise equal, `engine.dispatch.fallback_chain`) runs only
+where the caller's config asks for it.
 
 `Scheduler` is the paper's one-engine-for-heterogeneous-work claim at
 serving granularity: requests for different programs (CNN forwards built by
@@ -44,6 +47,7 @@ steps it replaces, so preemptions are counted (`GenTicket.preemptions`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -56,7 +60,26 @@ from repro_torch.engine import ledger as _ledger
 from repro_torch.engine.program import tree_leaves, tree_map
 from repro_torch.models.layers import resolve_device
 from repro_torch.serve import engine as serve_engine
+from repro_torch.serve import faults as _faults
+from repro_torch.serve.faults import FatalError, TransientError, backoff_s
 from repro_torch.serve.kv_pool import KVBlockPool, PoolExhausted
+
+
+def _fault_ctx(faults: Optional[_faults.FaultInjector]):
+    """The scheduler's injector installed for a dispatch, so the hook sites
+    of dispatch and the pool see it (a null context when it runs clean)."""
+    if faults is None:
+        return contextlib.nullcontext()
+    return _faults.injecting(faults)
+
+
+def _hop_ctx(compiled: E.CompiledNet, fault_ledger: E.Ledger):
+    """`fault_ledger` active for an apply that may make a fallback hop: a
+    program's first complete apply (later applies replay the pinned
+    backends and record nothing)."""
+    if compiled.hooked:
+        return E.tracking(fault_ledger)
+    return contextlib.nullcontext()
 
 
 def latency_percentiles(tickets: Sequence[Any],
@@ -159,8 +182,12 @@ class Scheduler:
     max_queue_cost_s — admission budget: `submit` raises `AdmissionError`
                        once the queue's summed plan latency would pass it
                        (None admits everything).
-    mesh, faults     — not ported: a value other than None raises (ROADMAP
-                       queue 1, items 11 and 9).
+    faults           — an optional `serve.faults.FaultInjector`, installed
+                       for every dispatch (so the kernel hook sees it) and
+                       asked for a latency spike at each step. None leaves
+                       every hook idle.
+    mesh             — not ported: a value other than None raises (ROADMAP
+                       queue 1, item 11).
 
     Batches run on the device of each program's shared arguments."""
 
@@ -168,15 +195,12 @@ class Scheduler:
                  policy: str = "fifo", max_batch: int = 8,
                  buckets: Optional[Sequence[int]] = None,
                  max_queue_cost_s: Optional[float] = None,
-                 mesh: Optional[Any] = None, faults: Optional[Any] = None):
+                 mesh: Optional[Any] = None,
+                 faults: Optional[_faults.FaultInjector] = None):
         if mesh is not None:
             raise NotImplementedError(
                 "Scheduler(mesh=...) is not ported: multi-device serving is "
                 "ROADMAP queue 1, item 11")
-        if faults is not None:
-            raise NotImplementedError(
-                "Scheduler(faults=...) is not ported: fault injection is "
-                "ROADMAP queue 1, item 9")
         if policy not in _POLICIES:
             raise ValueError(f"unknown policy {policy!r}; expected one of "
                              f"{_POLICIES}")
@@ -193,7 +217,11 @@ class Scheduler:
             raise ValueError(f"buckets {self.buckets} must end at "
                              f"max_batch={max_batch}")
         self.max_queue_cost_s = max_queue_cost_s
+        self.faults = faults
         self.ledger = E.Ledger()        # batch-1 plans of everything served
+        # the ops of each bucket's first apply: its fallback hops
+        self.fault_ledger = E.Ledger()
+        self._spikes = 0                # injected latency spikes absorbed
         self._entries: Dict[str, _Entry] = {}
         self._queue: List[Ticket] = []
         self._next_rid = 0
@@ -306,7 +334,9 @@ class Scheduler:
         packed = iter(self._pack_fn(entry)(per))
         args = [entry.shared[pos] if pos in entry.shared else next(packed)
                 for pos in range(len(entry.program.in_avals))]
-        out = self.compiled(entry.name, bucket).apply(*args)
+        compiled = self.compiled(entry.name, bucket)
+        with _fault_ctx(self.faults), _hop_ctx(compiled, self.fault_ledger):
+            out = compiled.apply(*args)
         results = self._unpack_fn(entry, bucket)(out)
         if entry.device.type == "cuda":
             torch.cuda.synchronize(entry.device)
@@ -425,6 +455,11 @@ class Scheduler:
         self._expire()
         if not self._queue:
             return []
+        if self.faults is not None:
+            spike = self.faults.latency("step")
+            if spike:
+                self._spikes += 1
+                time.sleep(spike)
         name = self._pick_model()
         entry = self._entries[name]
         batch = [t for t in self._queue if t.model == name][:self.max_batch]
@@ -466,8 +501,8 @@ class Scheduler:
 
     def stats(self) -> Dict[str, Any]:
         """The reference's counters; those of unported items keep their
-        idle values (`tuning` "off", one replica, no fallbacks, spikes or
-        faults)."""
+        idle values (`tuning` "off", one replica). `fallbacks` lists the
+        (kind, from, to) hops made on the buckets' first applies."""
         per_model = {
             n: {
                 "served": e.served,
@@ -494,14 +529,16 @@ class Scheduler:
             "pending": len(self._queue),
             "plan_macs_served": self.ledger.total_macs,
             "plan_cycles_served": self.ledger.total_cycles,
-            "fallbacks": [],
-            "latency_spikes": 0,
-            "faults": None,
+            "fallbacks": [(f.kind, f.src, f.dst)
+                          for f in self.fault_ledger.fallbacks],
+            "latency_spikes": self._spikes,
+            "faults": (self.faults.summary()
+                       if self.faults is not None else None),
             "models": per_model,
         }
 
 
-_TERMINAL = ("done", "cancelled", "expired")
+_TERMINAL = ("done", "cancelled", "expired", "failed")
 
 
 @dataclasses.dataclass(eq=False)
@@ -512,7 +549,12 @@ class GenTicket:
     request's cache currently encodes (it grows past `prompt` only when a
     preemption folds generated tokens back through prefill). `tokens` is
     every token generated so far; `status` walks queued -> running ->
-    done | cancelled | expired.
+    done | cancelled | expired | failed.
+
+    "failed" is terminal: the numerics guard quarantined the request
+    (non-finite logits) or its retry budget ran out; `error` says why.
+    `retries` counts backoff-and-requeue cycles (an admission's pool storm
+    or transient kernel fault), surfaced like `preemptions`.
     """
 
     rid: int
@@ -525,6 +567,9 @@ class GenTicket:
     status: str = "queued"
     pos: int = 0                    # next cache position to be written
     preemptions: int = 0
+    retries: int = 0                # transient-failure requeues
+    error: Optional[str] = None     # why status == "failed"
+    not_before_s: float = 0.0       # backoff: earliest re-admission time
     done_s: float = 0.0
 
     @property
@@ -559,7 +604,22 @@ class ContinuousScheduler:
         is the whole step's.
 
     Everything runs on the device of `params` (the pool is allocated
-    there); the compiled programs write the pool in place.
+    there); the compiled programs write the pool in place, as their last
+    op, so an apply that raises leaves the pool as it was (the reference
+    relies on a failed trace never consuming its donated pool arrays).
+
+    Fault tolerance (the reference's): `faults` is this scheduler's
+    injector, installed for its dispatches so the kernel and pool hooks see
+    it, and asked for latency spikes each step; `guard` (default: whether
+    `faults` is given, so a clean scheduler compiles no guard program)
+    compiles the numerics-guard programs, whose per-row verdict quarantines
+    a request with non-finite logits (scrubbed and released, the ticket
+    "failed") while its batchmates' tokens stay untouched; `max_retries`
+    bounds the requeues, with backoff, of an admission that met a pool
+    storm or a `TransientError`; a decode step that raises a
+    `TransientError` is retried with the same rows next step, and 8 in a
+    row raise `FatalError`. Its fault sites take the pool's `fault_site`
+    prefix.
     """
 
     def __init__(self, cfg, params, *, max_len: int, num_blocks: int,
@@ -569,7 +629,9 @@ class ContinuousScheduler:
                  admission: str = "continuous",
                  max_live_cost_s: Optional[float] = None,
                  max_slots: int = 64,
-                 state_dtype: torch.dtype = torch.bfloat16):
+                 state_dtype: torch.dtype = torch.bfloat16,
+                 faults: Optional[_faults.FaultInjector] = None,
+                 guard: Optional[bool] = None, max_retries: int = 3):
         if admission not in ("continuous", "drain"):
             raise ValueError(f"unknown admission {admission!r}; expected "
                              "'continuous' or 'drain'")
@@ -590,6 +652,10 @@ class ContinuousScheduler:
         # the row_align floor: one decode shape up to row_align live rows
         floor = self.config.row_align or 1
         self.buckets = tuple(sorted({max(int(b), floor) for b in buckets}))
+        self.faults = faults
+        self.guard = (faults is not None) if guard is None else bool(guard)
+        self.max_retries = int(max_retries)
+        self.fault_ledger = E.Ledger()  # first applies' fallback hops
         self.device = tree_leaves(params)[0].device
         self.param_dtype = params["embed"].dtype    # the programs' stand-ins
         self.pool = KVBlockPool(cfg, max_len=max_len, block_size=block_size,
@@ -615,40 +681,57 @@ class ContinuousScheduler:
         self._evicted = 0
         self._expired = 0
         self._cancelled = 0
+        self._failed = 0                # quarantined or out of retries
+        self._retries = 0               # transient requeues
+        self._spikes = 0                # injected latency spikes absorbed
+        self._decode_faults = 0         # decode steps that raised
+        self._consec_decode_faults = 0
         self._admit_history: List[int] = []
         self._evict_history: List[int] = []
         self._wall_s = 0.0
+        # exactly-once termination: rid -> terminal status, written only by
+        # _mark_terminal, which raises FatalError on a second termination
         self._terminated: Dict[int, str] = {}
 
-    def _mark_terminal(self, t: GenTicket, status: str) -> None:
+    def _mark_terminal(self, t: GenTicket, status: str,
+                       error: Optional[str] = None) -> None:
         """The single gate to a terminal status: records the completion
-        time, bumps the matching counter, and raises if a ticket would
-        terminate twice."""
-        if t.rid in self._terminated or t.status in _TERMINAL:
-            raise RuntimeError(
+        time, bumps the matching counter, and raises `FatalError` if a
+        ticket would terminate twice."""
+        if t.rid in self._terminated:
+            raise FatalError(
                 f"request {t.rid} terminated twice: already "
-                f"{self._terminated.get(t.rid, t.status)!r}, now {status!r}")
+                f"{self._terminated[t.rid]!r}, now {status!r}")
+        if t.status in _TERMINAL:
+            raise FatalError(
+                f"request {t.rid} re-terminated: {t.status!r} -> {status!r}")
         self._terminated[t.rid] = status
         t.status = status
+        t.error = error
         t.done_s = time.perf_counter()
+        self._failed += status == "failed"
         self._expired += status == "expired"
         self._cancelled += status == "cancelled"
 
     # -- compiled-program caches --------------------------------------------
 
     def decode_compiled(self, bucket: int) -> E.CompiledNet:
-        """The paged decode step at `bucket` rows."""
+        """The paged decode step at `bucket` rows (its numerics-guard
+        variant under `guard`)."""
         if bucket not in self._decode:
-            prog = serve_engine.paged_decode_program(self.cfg, self.layout,
-                                                     bucket, self.param_dtype)
+            prog = serve_engine.paged_decode_program(
+                self.cfg, self.layout, bucket, self.param_dtype,
+                guard=self.guard)
             self._decode[bucket] = E.compile(prog, self.config)
         return self._decode[bucket]
 
     def prefill_compiled(self, seq: int) -> E.CompiledNet:
-        """Batch-1 prefill-ingest at exact prompt length `seq`."""
+        """Batch-1 prefill-ingest at exact prompt length `seq` (its
+        numerics-guard variant under `guard`)."""
         if seq not in self._prefill:
-            prog = serve_engine.prefill_ingest_program(self.cfg, self.layout,
-                                                       seq, self.param_dtype)
+            prog = serve_engine.prefill_ingest_program(
+                self.cfg, self.layout, seq, self.param_dtype,
+                guard=self.guard)
             self._prefill[seq] = E.compile(prog, self.config)
         return self._prefill[seq]
 
@@ -753,22 +836,73 @@ class ContinuousScheduler:
     def _int32(self, values) -> torch.Tensor:
         return torch.tensor(values, dtype=torch.int32, device=self.device)
 
-    def _admit(self, t: GenTicket) -> None:
+    def _admit(self, t: GenTicket) -> bool:
         """Prefill-ingest `t` into the pool and join the running set
-        (`_can_admit` has checked that its blocks are free)."""
+        (`_can_admit` has checked that its blocks are free).
+
+        Atomic under failure: a pool storm or a `TransientError` mid-
+        admission returns every claimed resource and re-raises for the
+        caller's retry path (the prefill writes the pool last, so a fault
+        leaves it untouched). Returns False when the numerics guard
+        quarantined the admission (the ticket is then "failed")."""
         seq = len(t.context)
         self.pool.register(t.rid)
-        self.pool.ensure(t.rid, seq)          # prompt + next decode write
-        pre = self.prefill_compiled(seq)
-        tok, _ = pre.apply(self.params, self.pool.arrays,
-                           self._int32(self.pool.allocator.tables[t.rid]),
-                           self._int32(self.pool._slot_of[t.rid]),
-                           self._int32([t.context]))
+        try:
+            with _fault_ctx(self.faults):
+                self.pool.ensure(t.rid, seq)  # prompt + next decode write
+            pre = self.prefill_compiled(seq)
+            args = (self.params, self.pool.arrays,
+                    self._int32(self.pool.allocator.tables[t.rid]),
+                    self._int32(self.pool._slot_of[t.rid]),
+                    self._int32([t.context]))
+            with _fault_ctx(self.faults), _hop_ctx(pre, self.fault_ledger):
+                if self.guard:
+                    fire = self.faults is not None and self.faults.fire(
+                        "numerics", site=f"{self.pool.fault_site}pre:{t.rid}")
+                    poison = torch.tensor(float("nan") if fire else 0.0,
+                                          device=self.device)
+                    tok, ok, _ = pre.apply(*args, poison)
+                else:
+                    ok = None
+                    tok, _ = pre.apply(*args)
+        except (PoolExhausted, TransientError):
+            self.pool.release(t.rid)
+            raise
+        if ok is not None and not bool(ok):
+            self._quarantine(t, "non-finite prefill logits")
+            return False
         t.tokens.append(int(tok[0]))
         t.pos = seq
         t.status = "running"
         self._running.append(t)
         self._admitted += 1
+        return True
+
+    def _quarantine(self, t: GenTicket, reason: str) -> None:
+        """Numerics-guard quarantine: scrub and release the request's pool
+        state (no non-finite value may recycle into another request's
+        blocks) and fail the ticket. Its batchmates are untouched: the
+        guard poisons logits row by row (`torch.where`)."""
+        self.pool.scrub_release(t.rid)
+        self._mark_terminal(t, "failed", error=reason)
+
+    def _retry(self, t: GenTicket, err: str) -> None:
+        """A transient admission failure: requeue at the front with capped
+        exponential backoff (deterministic jitter keyed by the rid), or fail
+        once the retry budget is spent."""
+        t.retries += 1
+        if t.retries > self.max_retries:
+            self._mark_terminal(
+                t, "failed",
+                error=f"retry budget exhausted ({self.max_retries}): {err}")
+            return
+        self._retries += 1
+        t.not_before_s = time.perf_counter() + backoff_s(
+            t.retries, base=0.002, cap=0.1,
+            seed=self.faults.seed if self.faults is not None else 0,
+            token=f"{self.pool.fault_site}{t.rid}")
+        t.status = "queued"
+        self._waiting.insert(0, t)
 
     def _preempt(self, t: GenTicket) -> None:
         """Evict a running request: free its blocks and requeue it at the
@@ -801,19 +935,39 @@ class ContinuousScheduler:
         drain: only once the running set empties), ensure every running
         row's next block (preempting youngest-first on exhaustion), run
         one batched paged decode step, retire finished requests. Returns
-        the tickets that finished this step."""
+        the tickets that reached a terminal status this step (done, or
+        failed by the numerics guard or the retry budget)."""
         t0 = time.perf_counter()
+        if self.faults is not None:
+            spike = self.faults.latency(f"{self.pool.fault_site}step")
+            if spike:
+                self._spikes += 1
+                time.sleep(spike)
         self._expire_deadlines()
         admitted_now = 0
         finished: List[GenTicket] = []
         if self.admission == "continuous" or not self._running:
+            now = time.perf_counter()
             for t in list(self._waiting):
                 if len(self._running) >= self.max_batch:
                     break
+                if t.not_before_s > now:
+                    continue        # backing off: not the head of the line
                 if not self._can_admit(t):
                     break           # head-of-line blocking preserved
                 self._waiting.remove(t)
-                self._admit(t)
+                try:
+                    ok = self._admit(t)
+                except (PoolExhausted, TransientError) as e:
+                    # atomic: _admit returned every resource; requeue with
+                    # backoff, or fail once the budget is spent
+                    self._retry(t, str(e))
+                    if t.status == "failed":
+                        finished.append(t)
+                    continue
+                if not ok:          # the guard quarantined the admission
+                    finished.append(t)
+                    continue
                 admitted_now += 1
                 if len(t.tokens) >= t.steps:
                     # finished at prefill: never occupies a decode row
@@ -823,21 +977,30 @@ class ContinuousScheduler:
         self._admit_history.append(admitted_now)
         evicted_now = 0
 
+        if not self._running:
+            self._evict_history.append(evicted_now)
+            self._wall_s += time.perf_counter() - t0
+            return finished
+
         # grow each running row's table to cover its next write; on
         # exhaustion evict the youngest admit until the older ones fit
         i = 0
         while i < len(self._running):
             t = self._running[i]
             try:
-                self.pool.ensure(t.rid, t.pos)
+                with _fault_ctx(self.faults):
+                    self.pool.ensure(t.rid, t.pos)
                 i += 1
             except PoolExhausted:
                 victim = self._running[-1]
-                if victim is t and len(self._running) == 1:
+                if victim is t and len(self._running) == 1 \
+                        and self.faults is None:
                     raise RuntimeError(
                         "single running request exhausted the pool — "
                         "impossible when submit()'s whole-request fit "
                         "check passed")  # pragma: no cover
+                # under an injector a lone request can meet a storm:
+                # preemption (not failure) keeps it alive
                 self._preempt(victim)
                 evicted_now += 1
                 if victim is t:
@@ -852,18 +1015,53 @@ class ContinuousScheduler:
                                + [0] * (bucket - k))[:, None]
             pos = self._int32([t.pos for t in self._running]
                               + [0] * (bucket - k))
-            tok, _ = self.decode_compiled(bucket).apply(
-                self.params, self.pool.arrays,
-                self.pool.table_rows(rids, bucket),
-                self.pool.slot_rows(rids, bucket), toks, pos)
+            dec = self.decode_compiled(bucket)
+            args = (self.params, self.pool.arrays,
+                    self.pool.table_rows(rids, bucket),
+                    self.pool.slot_rows(rids, bucket), toks, pos)
+            try:
+                with _fault_ctx(self.faults), \
+                        _hop_ctx(dec, self.fault_ledger):
+                    if self.guard:
+                        mask = [float("nan") if (
+                            self.faults is not None and self.faults.fire(
+                                "numerics",
+                                site=f"{self.pool.fault_site}{t.rid}"))
+                            else 0.0 for t in self._running]
+                        poison = torch.tensor(mask + [0.0] * (bucket - k),
+                                              device=self.device)
+                        tok, okv, _ = dec.apply(*args, poison)
+                    else:
+                        okv = None
+                        tok, _ = dec.apply(*args)
+            except TransientError as e:
+                # a kernel fault with no hop left: the step wrote nothing
+                # (the pool write is the program's last op), so the same
+                # rows retry next step
+                self._decode_faults += 1
+                self._consec_decode_faults += 1
+                if self._consec_decode_faults >= 8:
+                    raise FatalError(
+                        f"{self._consec_decode_faults} consecutive decode "
+                        f"steps failed; last: {e}") from e
+                self._wall_s += time.perf_counter() - t0
+                return finished
+            self._consec_decode_faults = 0
             tok = tok.tolist()
+            okl = None if okv is None else okv.tolist()
             self._steps += 1
             self._fill_sum += k / bucket
             for i, t in enumerate(self._running):
+                if okl is not None and not okl[i]:
+                    # the guard poisoned this row's logits only
+                    self._quarantine(t, "non-finite decode logits")
+                    finished.append(t)
+                    continue
                 t.tokens.append(int(tok[i]))
                 t.pos += 1
                 self._tokens_out += 1
-            for t in [t for t in self._running if len(t.tokens) >= t.steps]:
+            for t in [t for t in self._running
+                      if t.status == "running" and len(t.tokens) >= t.steps]:
                 self._finish(t)
                 finished.append(t)
             self._running = [t for t in self._running
@@ -873,17 +1071,25 @@ class ContinuousScheduler:
 
     def run(self) -> List[GenTicket]:
         """Serve until queue and batch are empty; terminal tickets in
-        completion order."""
+        completion order. Sleeps through backoff windows: when every
+        waiting request is backing off, it waits for the earliest
+        `not_before_s` rather than declaring no progress."""
         done: List[GenTicket] = []
         while self._waiting or self._running:
             before = (len(self._waiting), len(self._running),
                       self._tokens_out, self._admitted, self._expired,
-                      self._cancelled)
+                      self._cancelled, self._failed, self._retries)
             done.extend(self.step())
             after = (len(self._waiting), len(self._running),
                      self._tokens_out, self._admitted, self._expired,
-                     self._cancelled)
+                     self._cancelled, self._failed, self._retries)
             if before == after and self._waiting and not self._running:
+                now = time.perf_counter()
+                wake = [t.not_before_s for t in self._waiting
+                        if t.not_before_s > now]
+                if wake:
+                    time.sleep(min(0.25, min(wake) - now))
+                    continue
                 raise RuntimeError(
                     f"no progress: {len(self._waiting)} waiting but none "
                     "admittable (pool or live-cost budget too small for "
@@ -909,6 +1115,16 @@ class ContinuousScheduler:
             "evicted": self._evicted,
             "expired": self._expired,
             "cancelled": self._cancelled,
+            "failed": self._failed,
+            "retries": self._retries,
+            "latency_spikes": self._spikes,
+            "decode_faults": self._decode_faults,
+            "guard": self.guard,
+            # the fallback hops made on the programs' first applies
+            "fallbacks": [(f.kind, f.src, f.dst)
+                          for f in self.fault_ledger.fallbacks],
+            "faults": (self.faults.summary()
+                       if self.faults is not None else None),
             "admitted_per_step": list(self._admit_history),
             "evicted_per_step": list(self._evict_history),
             "pending": len(self._waiting),

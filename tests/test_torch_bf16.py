@@ -294,11 +294,19 @@ def test_ops_store_the_asked_dtype_and_refuse_int8_on_bf16():
     out32 = ops.gfid_matmul(_t(x, torch.float32), _t(w, torch.float32),
                             out_dtype=BF16)
     assert out32.dtype == BF16
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TE.dense(_t(x), _t(w), precision="int8")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TE.conv2d(torch.ones((1, 4, 4, 2), dtype=BF16),
-                  torch.ones((1, 1, 2, 3), dtype=BF16), precision="int8")
+    # int8 on bf16 inputs (refused before it was ported): quantized from
+    # the inputs widened, dequantized in fp32, cast to bf16, bitwise the
+    # reference's "xla" int8
+    with jax_engine.using_config(jax_engine.EngineConfig(precision="int8")):
+        want = jax_engine.dense(_j(x), _j(w), bias=_j(b), act="relu")
+    got = TE.dense(_t(x), _t(w), bias=_t(b), act="relu", precision="int8")
+    assert got.dtype == BF16 and str(want.dtype) == "bfloat16"
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  np.asarray(want).view(np.int16))
+    xc = np.ones((1, 4, 4, 2), np.float32)
+    wc = np.ones((1, 1, 2, 3), np.float32)
+    out = TE.conv2d(_t(xc), _t(wc), precision="int8")
+    assert out.dtype == BF16 and tuple(out.shape) == (1, 4, 4, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +497,9 @@ def test_alexnet_bf16_full_width_matches_jax(alexnet_bf16, backend):
 
 def test_alexnet_bf16_program_plans_as_fp32_and_refuses_int8():
     """Dtype does not enter the analytics: the bf16 program's Table-4 row
-    is the golden; its stand-ins are bf16; int8 on it raises."""
+    is the golden; its stand-ins are bf16; under int8 (refused before int8
+    on bf16 inputs was ported) it compiles with every op int8 and the same
+    Table-4 row."""
     import json
     from pathlib import Path
     golden = json.loads((Path(__file__).parent / "goldens"
@@ -500,5 +510,191 @@ def test_alexnet_bf16_program_plans_as_fp32_and_refuses_int8():
     assert {a.dtype for a in stand_ins} == {BF16}
     params = t_cnn.init_cnn("alexnet", seed=0, device="cpu", dtype=BF16)
     assert {a.dtype for a in layers.tree_leaves(params)} == {BF16}
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TE.compile(prog, TE.EngineConfig(precision="int8"))
+    int8 = TE.compile(prog, TE.EngineConfig(precision="int8"))
+    assert int8.precisions() == ("int8",) * 8 and int8.cost == golden
+
+
+# ---------------------------------------------------------------------------
+# The ambient accumulator (`EngineConfig.accum`): the dtypes and values of
+# JAX "xla"
+# ---------------------------------------------------------------------------
+
+ACCUMS = (None, "native", "float32", "bfloat16")
+
+
+def _accum_cases():
+    x, w, b = _bf16_arrays(41, (3, 5, 64), (64, 48), (48,))
+    xc, wc = _bf16_arrays(42, (2, 6, 6, 4), (3, 3, 4, 8))
+    return [
+        ("dense", lambda E, a: E.dense(a(x), a(w))),
+        ("dense bias", lambda E, a: E.dense(a(x), a(w), bias=a(b))),
+        ("einsum", lambda E, a: E.einsum("bsn,nm->bsm", a(x), a(w))),
+        ("proj", lambda E, a: E.proj(a(x), a(w))),
+        ("matmul", lambda E, a: E.matmul(a(x[0]), a(w))),
+        ("conv2d", lambda E, a: E.conv2d(a(xc), a(wc), pad=1)),
+    ]
+
+
+class _Cast:
+    """An operand maker in one dtype, for either package."""
+
+    def __init__(self, make, dtype):
+        self.make, self.dtype = make, dtype
+
+    def __call__(self, arr):
+        return self.make(np.ascontiguousarray(arr), self.dtype)
+
+
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_config_accum_resolves_as_jax_xla(accum, dtype):
+    """Each op's result dtype under the config's `accum` is the reference's
+    "xla" one on fp32 and bf16 inputs on both backends, and the values of
+    "torch" (the "xla" lowering) agree; on "cuda" an accumulator the
+    kernels cannot honour raises by name, and the port's conv sums in fp32
+    whatever `accum` asks for."""
+    jcfg = jax_engine.EngineConfig(accum=accum)
+    jmk = _Cast(_j, getattr(jnp, dtype))
+    tmk = _Cast(_t, getattr(torch, dtype))
+    for name, fn in _accum_cases():
+        with jax_engine.using_config(jcfg):
+            want = fn(jax_engine, jmk)
+        narrow = accum == "bfloat16"
+        for backend in ("torch", "cuda"):
+            with TE.using_config(TE.EngineConfig(backend=backend,
+                                                 accum=accum)):
+                refuses = narrow and (name == "conv2d" or (
+                    backend == "cuda" and name not in ("proj", "matmul")))
+                if refuses:
+                    with pytest.raises(ValueError, match="accum"):
+                        fn(TE, tmk)
+                    continue
+                got = fn(TE, tmk)
+            assert str(got.dtype)[6:] == str(want.dtype), (name, backend)
+            if backend == "cuda":
+                continue
+            if got.dtype == BF16:
+                close_bf16(got, want)
+            else:
+                close_fp32(got, want)
+
+
+def test_config_accum_is_validated_as_the_reference():
+    for accum in ("float16", "int8", "float64"):
+        TE.EngineConfig(accum=accum)
+        jax_engine.EngineConfig(accum=accum)
+    for bad in ("nope", "fp32"):
+        with pytest.raises(ValueError, match="accum"):
+            TE.EngineConfig(accum=bad)
+        with pytest.raises(ValueError, match="accum"):
+            jax_engine.EngineConfig(accum=bad)
+
+
+# ---------------------------------------------------------------------------
+# int8 on bf16 inputs: bitwise the reference's "xla" int8
+# ---------------------------------------------------------------------------
+
+def _int8_cases():
+    x, w, b = _bf16_arrays(51, (3, 5, 64), (64, 48), (48,))
+    xc, wc, bc = _bf16_arrays(52, (2, 9, 9, 8), (3, 3, 4, 16), (16,))
+    return [
+        ("dense bias relu", lambda E, a: E.dense(a(x), a(w), bias=a(b),
+                                                 act="relu")),
+        ("dense out fp32", lambda E, a: E.dense(a(x), a(w),
+                                                out_dtype=a.f32)),
+        ("einsum tied", lambda E, a: E.einsum("bsd,vd->bsv", a(x), a(w.T))),
+        ("matmul", lambda E, a: E.matmul(a(x[0]), a(w), bias=a(b))),
+        ("proj", lambda E, a: E.proj(a(x), a(w))),
+        ("conv2d", lambda E, a: E.conv2d(a(xc), a(wc), stride=2, pad=1,
+                                         groups=2, bias=a(bc), act="relu")),
+        ("conv2d plain", lambda E, a: E.conv2d(a(xc), a(wc[..., :8]),
+                                               groups=2)),
+    ]
+
+
+INT8_NAMES = [name for name, _ in _int8_cases()]
+
+
+def _same_bits(got, want):
+    want = np.asarray(want)
+    assert str(got.dtype)[6:] == str(want.dtype)
+    if got.dtype == BF16:
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      want.view(np.int16))
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("name", INT8_NAMES)
+def test_int8_ops_on_bf16_bitwise_equal_to_jax_xla(backend, name):
+    """Quantized from bf16 widened to fp32, exact int32 sums, the fp32
+    dequant epilogue, then one cast to bf16: the reference's "xla" int8 run
+    eagerly, bit for bit, on every backend."""
+    fn = dict(_int8_cases())[name]
+    with jax_engine.using_config(jax_engine.EngineConfig(precision="int8")):
+        want = fn(jax_engine, _Jax())
+    with TE.using_config(TE.EngineConfig(backend=backend, precision="int8")):
+        got = fn(TE, _Torch())
+    _same_bits(got, want)
+
+
+def _tiny_net(mod):
+    """2 convs (the second grouped and strided) + 2 FCs at 32x32x3."""
+    convs = (mod.ConvDef("a", 3, 8, 3, stride=1, pad=1, pool=2),
+             mod.ConvDef("b", 8, 12, 3, stride=2, pad=1, groups=2))
+    fcs = (mod.FCDef("fc1", 8 * 8 * 12, 32), mod.FCDef("fc2", 32, 10,
+                                                        relu=False))
+    return mod.CNNDef("tiny", (32, 32, 3), convs, fcs, "plain")
+
+
+def _bf16_cnn_params(convs, fcs, seed):
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(BF16).float().numpy()
+
+    params = {"conv": {}, "fc": {}}
+    for cd in convs:
+        cg = cd.c_in // cd.groups
+        params["conv"][cd.name] = {
+            "w": normal((cd.k, cd.k, cg, cd.c_out),
+                        (2.0 / (cd.k * cd.k * cg)) ** 0.5),
+            "b": normal((cd.c_out,), 0.05)}
+    for fd in fcs:
+        params["fc"][fd.name] = {"w": normal((fd.n, fd.m), (2.0 / fd.n) ** 0.5),
+                                 "b": normal((fd.m,), 0.05)}
+    return params
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_tiny_cnn_int8_on_bf16_bitwise_equal_to_jax(backend):
+    net_j, net_t = _tiny_net(jax_cnn), _tiny_net(t_cnn)
+    params = _bf16_cnn_params(net_j.convs, net_j.fcs, 53)
+    x = _bf16_arrays(54, (2, 32, 32, 3))[0]
+    with jax_engine.using_config(jax_engine.EngineConfig(precision="int8")):
+        want = jax_cnn._forward(net_j, jax.tree_util.tree_map(_j, params),
+                                _j(x))
+    with TE.using_config(TE.EngineConfig(backend=backend, precision="int8")), \
+            torch.no_grad():
+        got = t_cnn._forward(net_t, layers.tree_map(_t, params), _t(x))
+    _same_bits(got, want)
+
+
+def test_alexnet_bf16_int8_full_width_bitwise_equal_to_jax():
+    """AlexNet with bf16 parameters under int8: every op int8 on "cuda",
+    the logits bitwise the reference's "xla" int8 (jitted with excess
+    precision off: the reference as its code reads)."""
+    params, x = _alexnet_bf16()
+    cfg = jax_engine.EngineConfig(precision="int8")
+    fwd = jax.jit(lambda p, v: jax_engine.compile(
+        jax_cnn.program("alexnet", dtype=jnp.bfloat16), cfg).apply(p, v),
+        compiler_options={"xla_allow_excess_precision": False})
+    want = fwd(jax.tree_util.tree_map(_j, params), _j(x))
+    compiled = TE.compile(t_cnn.program("alexnet", dtype=BF16),
+                          TE.EngineConfig(backend="cuda", precision="int8"))
+    assert compiled.backends() == ("cuda",) * 8
+    assert compiled.precisions() == ("int8",) * 8
+    got = compiled.apply(layers.tree_map(_t, params), _t(x))
+    _same_bits(got, want)

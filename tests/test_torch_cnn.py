@@ -217,8 +217,7 @@ def test_init_cnn_is_seeded_and_in_reference_layouts():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(fallback="chain"), dict(tuning="cached"),
-    dict(parallel=object()), dict(policy="auto"),
+    dict(tuning="cached"), dict(parallel=object()),
 ])
 def test_unported_config_knobs_raise_naming_the_roadmap(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -259,3 +258,108 @@ def test_ledger_records_the_forward_without_launching():
     assert ledger.total_macs == sum(p.macs for _, p in compiled.exec_pairs)
     assert (gfid_conv.gfid_conv2d_nhwc.launches,
             gfid_matmul.gfid_matmul.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# policy="auto" (`plan.auto_backend`) and the config's public names
+# ---------------------------------------------------------------------------
+
+# Every executed op of each net and the backend "auto" gives it, whatever
+# the fallback: each conv and FC fills the kernels' tiles.
+AUTO_OPS = {"alexnet": (5, 3), "vgg16": (13, 3), "resnet50": (53, 1)}
+
+
+@pytest.mark.parametrize("net", sorted(AUTO_OPS))
+@pytest.mark.parametrize("fallback", ["torch", "ref"])
+def test_auto_backend_pins_every_layer_and_keeps_table4(net, fallback):
+    import json
+    from pathlib import Path
+    golden = json.loads((Path(__file__).parent / "goldens"
+                         / f"table4_{net}.json").read_text())
+    prog = t_cnn.program(net)
+    cfg = TE.EngineConfig(backend=fallback, policy="auto")
+    compiled = TE.compile(prog, cfg)
+    kinds = [op.kind for op, _ in compiled.exec_pairs]
+    assert (kinds.count("conv2d"), kinds.count("dense")) == AUTO_OPS[net]
+    assert compiled.backends() == ("cuda",) * len(kinds)
+    assert compiled.backends() == tuple(
+        TE.auto_backend(op, fallback) for op, _ in compiled.exec_pairs)
+    assert {p.backend for p in compiled.plan.plans} == {"cuda"}
+    assert compiled.cost == golden
+    assert TE.plan_network(prog, cfg).table4_row() \
+        == TE.plan_network(prog, TE.EngineConfig()).table4_row()
+
+
+def test_auto_backend_rule_at_its_edges():
+    def spec(kind, x, w, **kw):
+        return TE.OpSpec(kind, x, w, **kw)
+
+    cases = [
+        (spec("dense", (8, 576), (576, 64), spec="...n,nm->...m"), "cuda"),
+        (spec("dense", (8, 576), (576, 63), spec="...n,nm->...m"), "torch"),
+        (spec("dense", (8, 7), (7, 512), spec="...n,nm->...m"), "torch"),
+        (spec("dense", (1, 3, 576), (49152, 576), spec="bsd,vd->bsv"),
+         "cuda"),
+        (spec("dense", (4, 2, 8, 32), (4, 32, 64), spec="ebcd,edf->ebcf"),
+         "torch"),                              # batched weights
+        (spec("conv2d", (1, 9, 9, 8), (3, 3, 4, 128), groups=2), "cuda"),
+        (spec("conv2d", (1, 9, 9, 8), (3, 3, 4, 96), groups=2), "torch"),
+        (spec("conv2d", (1, 9, 9, 1), (1, 1, 1, 128)), "torch"),
+        (spec("conv1d_dw", (1, 16, 64), (4, 64)), "cuda"),
+        (spec("gather", (9, 4, 2, 3), (2, 3)), "torch"),
+    ]
+    for op, want in cases:
+        assert TE.auto_backend(op, "torch") == want, op
+        assert TE.auto_backend(op, "ref") == want.replace("torch", "ref")
+    assert TE.auto_backend(cases[0][0]) == "cuda"
+
+
+def test_auto_policy_runs_eagerly_and_compiled_alike():
+    net = _tiny(t_cnn)
+    params = t_cnn.params_from_jax(_numpy_params(net.convs, net.fcs, 10),
+                                   "cpu")
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(11))
+    cfg = TE.EngineConfig(backend="ref", policy="auto")
+    prog = TE.Program("tiny", (), fn=lambda p, v: t_cnn._forward(net, p, v),
+                      in_avals=(t_cnn._meta_params(net),
+                                torch.empty(2, 32, 32, 3, device="meta")))
+    compiled = TE.compile(prog, cfg)
+    # conv a (8 columns), conv b (6 a group) and fc2 (10) are too narrow
+    assert compiled.backends() == ("ref", "ref", "ref", "ref")
+    with TE.using_config(cfg), TE.tracking() as led, torch.no_grad():
+        eager = t_cnn._forward(net, params, x)
+    assert [r.plan.backend for r in led] == list(compiled.backends())
+    assert torch.equal(compiled.apply(params, x), eager)
+
+
+def test_auto_policy_is_validated_as_the_reference():
+    for bad in ("fastest", "AUTO"):
+        with pytest.raises(ValueError, match="policy"):
+            TE.EngineConfig(policy=bad)
+        with pytest.raises(ValueError, match="policy"):
+            jax_engine.EngineConfig(policy=bad)
+
+
+def test_public_config_names_behave_as_the_reference():
+    assert TE.PRECISIONS == jax_engine.PRECISIONS
+    assert TE.backend_names() == ("cuda", "ref", "torch")
+    assert jax_engine.backend_names() == ("pallas", "ref", "xla")
+    for E, cfg in ((TE, TE.EngineConfig(backend="ref")),
+                   (jax_engine, jax_engine.EngineConfig(backend="ref"))):
+        base = E.current_config()
+        assert not E.in_config_context() and not E.is_tracking()
+        with E.using_config(cfg):
+            assert E.in_config_context() and E.default_backend() == "ref"
+            with pytest.raises(RuntimeError, match="shadowed"):
+                E.set_default_config(cfg)
+        with E.tracking():
+            assert E.is_tracking()
+        E.set_default_config(cfg)
+        try:
+            assert E.current_config() is cfg and E.default_backend() == "ref"
+            assert not E.in_config_context()
+        finally:
+            E.set_default_config(base)
+        assert E.current_config() is base
+        with pytest.raises(KeyError, match="unknown engine backend"):
+            E.set_default_config(cfg.replace(backend="nope"))

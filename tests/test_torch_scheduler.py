@@ -417,10 +417,14 @@ def test_admission_refuses_the_same_request_as_reference():
 
 
 def test_mesh_and_faults_name_their_roadmap_items():
+    """`mesh=` still names its item; `faults=` is ported (it raised, naming
+    item 9, before the fault layer was)."""
+    from repro_torch.serve.faults import FaultInjector
     with pytest.raises(NotImplementedError, match="item 11"):
         SCH.Scheduler(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SCH.Scheduler(faults=object())
+    inj = FaultInjector(seed=1)
+    sched = SCH.Scheduler(faults=inj)
+    assert sched.faults is inj and sched.stats()["faults"] == inj.summary()
 
 
 # ---------------------------------------------------------------------------

@@ -359,3 +359,22 @@ def test_gen_ticket_latency_and_percentiles():
     assert pct["p50_ms"] == pytest.approx(750.0)
     assert latency_percentiles([]) == {"p50_ms": 0.0, "p95_ms": 0.0,
                                        "p99_ms": 0.0}
+
+
+@pytest.mark.parametrize("fallback", ["torch", "ref"])
+def test_auto_backend_pins_the_full_width_decode_ops(fallback):
+    """smollm-135m's full-width paged decode step on `meta` under
+    `policy="auto"`: every GEMM (the tied unembedding's included) on
+    "cuda", both gathers on the fallback, the Table-4 row unchanged."""
+    from repro_torch.configs.base import get_config
+    full = get_config("smollm_135m")
+    layout = PagedLayout.build(full, max_len=512, block_size=16,
+                               num_blocks=257)
+    prog = SE.paged_decode_program(full, layout, 8, torch.float32)
+    cfg = TE.EngineConfig(backend=fallback, policy="auto", row_align=8)
+    net = TE.compile(prog, cfg)
+    kinds = [op.kind for op, _ in net.exec_pairs]
+    assert kinds.count("gather") == 2 and kinds.count("dense") == 211
+    assert net.backends() == tuple(fallback if k == "gather" else "cuda"
+                                   for k in kinds)
+    assert net.cost == TE.compile(prog, TE.EngineConfig(row_align=8)).cost
