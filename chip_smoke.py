@@ -51,7 +51,16 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      ResNet-50 conv shape, and on int8 operands at AlexNet's (the checked
      fp32 and bf16 plans must reach a split through the workspace and a
      fold); and, read only, whether ResNet-50's global average pool gives
-     an image other bits in a batch.
+     an image other bits in a batch. Then the grouped launch of both GEMM
+     entries (x (G, M, K) @ w (G, K, N), one launch, counted on the
+     entry's and the grouped counter) at granite-moe-1b's expert GEMMs
+     (32 experts, (1024, 512) and (512, 1024)) at T = 8 and 1,024 rows
+     and a ragged (3, 5, 72) @ (3, 72, 40) with a bias and relu, fp32 and
+     bf16 (both stores): within 1e-4 of the plain version (bf16 stores
+     one bf16 step), bitwise equal to the G separate 2-D launches, the
+     fp32 cases reaching the workspace, the fold and the cluster
+     (required); and a row at T = 1 bitwise the same row at T = 8 and
+     1,024.
   4. AlexNet (full width, random weights from a seed) end to end through
      `compile(program("alexnet", batch=B), EngineConfig(backend="cuda"))
      .apply(params, x)` at B = 1 and 32: every op on "cuda", 5 conv and 3
@@ -271,6 +280,33 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      beside that guarded clean run's tokens/s, retries, failures,
      fallbacks, spikes, and a guarded decode step's ms beside phase 6's
      clean step.
+ 12. granite-moe-1b (ibm-granite/granite-3.0-1b-a400m-base: 24 layers,
+     d_model 1024, 16/8 heads of 64, 32 experts top-8 of d_ff 512,
+     vocabulary 49,155, tied; 1,334.6 M parameters from seed 0) at full
+     width and depth, fp32, then the same parameters rounded to bf16,
+     each served through `ContinuousScheduler` on phase 6's pool and its
+     first 8 requests, continuous, drain and solo (the first 2; the three
+     schedulers share their compiled programs). The MoE
+     block is the reference's dense dispatch: every expert sees every
+     token, its three GEMMs a grouped launch each. Checks: every request
+     done in the 8-row bucket; every compiled op on "cuda", 193 GEMMs a
+     pass (4 projections, the router, 3 grouped a layer; the
+     unembedding), 72 grouped; launches per decode step and prefill
+     exactly those (fp32: 193 `gfid_matmul`; bf16: 24 fp32 router GEMMs +
+     169 `gfid_matmul_bf16`), 2 gathers a step, nothing else; tokens
+     bitwise across the three modes; each of 8 tokens through layer 0's
+     MoE block alone bitwise that token in the 8-row bucket; 2 requests
+     and one 1,100-token request (phase 8's pool of max_len 2048: 24
+     flash launches, 16 query heads over 8 kv heads) against
+     `greedy_generate` at one row: equal tokens, or else the first
+     expert choice that differs (step, layer, the gap between the 8th and
+     9th router probability) must be a near tie, its gap under the two
+     runs' largest router-logit difference there. Prints tokens/s,
+     p50/p95, a decode step's wall and device time (`torch.profiler`)
+     beside its bound (every parameter read once), the 1,100-token
+     prefill, and the grouped launches at a decode step's rows and a
+     prompt-256 prefill's beside the plain version, `torch.bmm` (TF32
+     off; also alone) and their bounds.
      Last, each phase's seconds.
 
 The last lines are the card's name and power limit, a JSON object listing
@@ -362,6 +398,18 @@ SCHED_FAULT_VISIT, SCHED_FAULT_OP, SCHED_SPIKE_RATE = 17, 2, 0.25
 # that admission is retried)
 CHAOS_SEED, CHAOS_MAX_FIRES, CHAOS_DENSE_VISIT = 2, 4, 20
 CHAOS_RATES = {"numerics": 0.01, "pool": 0.02, "latency": 0.05}
+# Phase 3's grouped GEMM (an MoE layer's stacked experts) and phase 12:
+# granite-moe-1b on phase 6's pool and first MOE_REQUESTS requests (solo and
+# against greedy_generate the first MOE_DENSE_CHECKS), then one
+# MOE_LONG_PROMPT-token request (MOE_LONG_STEPS steps) on phase 8's pool; its
+# grouped GEMMs timed at a decode step's rows and a prompt-MOE_TIMED_PROMPT
+# prefill's
+MOE_MODEL = "granite_moe_1b"
+GROUPED_ROWS = (8, 1024)
+GROUPED_RAGGED = (3, 5, 72, 40)     # groups, M, K, N
+MOE_REQUESTS, MOE_DENSE_CHECKS = 8, 2
+MOE_LONG_PROMPT, MOE_LONG_STEPS = 1100, 8
+MOE_TIMED_PROMPT = 256
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
 # tensor cores, bf16 and int8 in them, and device-memory bandwidth. A bound
@@ -1081,10 +1129,14 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
 
     runs = {}
     guard_programs = 0          # a clean scheduler compiles none
+    # the three schedulers share one geometry and config, so they share the
+    # compiled programs: each is captured once
+    programs = ({}, {})
     for mode, max_batch, admission in (
             ("continuous", SERVE_BATCH, "continuous"),
             ("drain", SERVE_BATCH, "drain"), ("solo", 1, "continuous")):
         s = scheduler(max_batch, admission)
+        s._prefill, s._decode = programs
         # solo (one row a step, host-bound) serves only the requests that
         # greedy_generate checks too
         served = work[:SERVE_DENSE_CHECKS] if mode == "solo" else work
@@ -1134,9 +1186,10 @@ def serve_phase(dev, E, gfid_matmul, paged, other_kernels, worst,
               f"{n_tok / wall:.1f} tokens/s; latency p50 {lat['p50_ms']:.1f} ms, "
               f"p95 {lat['p95_ms']:.1f} ms; launches {mm_name} {launches[0]}, "
               f"paged_gather {launches[1]} (= {per_pass} per step and prefill, 2 "
-              f"per step), others {sum(launches[2:])}; {len(compiled)} programs "
-              f"captured and compiled in {compile_s:.2f} s beforehand; pool "
-              f"free low-water {st['pool']['free_low_water']}")
+              f"per step), others {sum(launches[2:])}; its {len(compiled)} programs "
+              f"ready in {compile_s:.2f} s beforehand (each captured and compiled "
+              f"once for the three modes); pool free low-water "
+              f"{st['pool']['free_low_water']}")
     base = runs["continuous"]["tokens"]
     for mode in ("drain", "solo"):
         require(runs[mode]["tokens"] == base[:len(runs[mode]["tokens"])],
@@ -1460,10 +1513,14 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
 
     runs = {}
     kernels = (mm, gather, conv) + tuple(other_kernels)
+    # the three schedulers share one geometry and config, so they share the
+    # compiled programs: each is captured once
+    programs = ({}, {})
     for mode, max_batch, admission in (
             ("continuous", SERVE_BATCH, "continuous"),
             ("drain", SERVE_BATCH, "drain"), ("solo", 1, "continuous")):
         s = scheduler(max_batch, admission)
+        s._prefill, s._decode = programs
         require(not any(sp.paged for sp in _leaves(s.layout.specs)),
                 "an xLSTM state leaf is paged")
         # solo (one row a step, host-bound) serves only the requests that
@@ -1515,8 +1572,9 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
               f"p95 {lat['p95_ms']:.1f} ms; launches gfid_matmul {launches[0]}, "
               f"paged_gather {launches[1]}, gfid_conv1d_depthwise {launches[2]} "
               f"(= {per_pass} GEMMs a step and a prefill, {convs} convs a "
-              f"prefill), others {sum(launches[3:])}; {len(prefills) + len(decodes)} "
-              f"programs captured and compiled in {compile_s:.2f} s beforehand")
+              f"prefill), others {sum(launches[3:])}; its {len(prefills) + len(decodes)} "
+              f"programs ready in {compile_s:.2f} s beforehand (each captured and "
+              "compiled once for the three modes)")
         del s
     base = runs["continuous"]["tokens"]
     for mode in ("drain", "solo"):
@@ -2811,7 +2869,7 @@ def launch_path_timing(dev, G, paged, C, build):
     args = (x.data_ptr(), w.data_ptr(), None, o.data_ptr(), None, 8, 576,
             576, plan.bm, plan.bn, plan.splits, plan.chunks_per_split,
             G.F32_MODES[plan.mode], 0, int(plan.vec_x), int(plan.vec_w),
-            build.raw_stream(index))
+            1, 8 * 576, 576 * 576, build.raw_stream(index))
     ctypes_us = host_us(lambda: fn(*args))
     out["gemm_pieces_us"]["ctypes call with its launch"] = dict(before=None,
                                                                  after=ctypes_us)
@@ -2952,6 +3010,455 @@ def device_profile(fn, steps=3):
     rows.sort(key=lambda r: -r[2])
     return (sum(r[2] for r in rows), int(round(sum(r[1] for r in rows))),
             rows)
+
+
+def grouped_shapes(cfg):
+    """(label, groups, k, n) of an MoE layer's grouped expert GEMMs: w_in
+    and w_gate (E, D, F), and w_out (E, F, D)."""
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    return (("w_in/w_gate", e, d, f), ("w_out", e, f, d))
+
+
+def grouped_check(dev, gfid_matmul, gen, worst):
+    """Phase 3's grouped launch, fp32 and bf16 (both stores): granite's
+    expert GEMMs at GROUPED_ROWS tokens and the ragged GROUPED_RAGGED (with
+    a bias and relu): one launch a call; within TOL of the plain version
+    (bf16 stores within one bf16 step); bitwise equal to the groups'
+    separate 2-D launches; the fp32 cases reaching the workspace, the fold
+    and the cluster. Then a row at T = 1 bitwise the same row at every
+    GROUPED_ROWS. Folds the errors into `worst`; returns the checks run."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    mm, plain = gfid_matmul.gfid_matmul, gfid_matmul.gfid_matmul_plain
+    cfg = get_config(MOE_MODEL)
+    checks, modes = 0, set()
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        kname = "gfid_matmul_bf16_grouped" if bf16 else "gfid_matmul_grouped"
+        counted = (getattr(gfid_matmul, "gfid_matmul_bf16" if bf16 else "gfid_matmul"),
+                   getattr(gfid_matmul, kname))
+        worst[kname] = 0.0
+        stores = (torch.float32, torch.bfloat16) if bf16 else (None,)
+        cases, rows = [], []
+        for label, g, k, n in grouped_shapes(cfg):
+            w = (torch.randn((g, k, n), generator=gen) / math.sqrt(k)).to(dev, dtype)
+            x = torch.randn((g, max(GROUPED_ROWS), k), generator=gen).to(dev, dtype)
+            rows.append((label, x, w))
+            cases += [(f"{label} T={m}", x[:, :m].contiguous(), w, None, None)
+                      for m in GROUPED_ROWS]
+        g, m, k, n = GROUPED_RAGGED
+        cases.append((f"ragged ({g}, {m}, {k}) @ ({g}, {k}, {n})",
+                      torch.randn((g, m, k), generator=gen).to(dev, dtype),
+                      torch.randn((g, k, n), generator=gen).to(dev, dtype),
+                      torch.randn(n, generator=gen).to(dev), "relu"))
+        for label, x, w, bias, act in cases:
+            g, m, k = x.shape
+            n = w.shape[2]
+            if bf16:
+                plan = gfid_matmul.bf16_plan(m, k, n, x.data_ptr(), w.data_ptr(), g)
+                how = f"K splits {plan.splits}"
+            else:
+                plan = gfid_matmul.f32_plan(m, k, n, x.data_ptr(), w.data_ptr(),
+                                            build.sm_count(dev.index or 0), g)
+                alone = gfid_matmul.f32_plan(m, k, n, sms=build.sm_count(dev.index or 0))
+                modes.add(plan.mode)
+                how = (f"K splits {plan.splits} ({plan.mode}; a group alone "
+                       f"{alone.mode})")
+            for store in stores:
+                kw = dict(bias=bias, act=act)
+                if store is not None:
+                    kw["out_dtype"] = store
+                zero_counts(*counted)
+                got = mm(x, w, **kw)
+                torch.cuda.synchronize()
+                one = counts(*counted)
+                require(one == (1, 1), f"{kname} {label}: launches (entry, grouped) "
+                        f"= {one}, expected one grouped launch")
+                want = plain(x, w, **kw)
+                require(got.shape == (g, m, n) and got.dtype == want.dtype
+                        and bool(torch.isfinite(got).all()), f"{kname} {label}: bad output")
+                ok, abs_err, reading, limit = kernel_check(got, want)
+                apart = torch.stack([mm(x[i], w[i], **kw) for i in range(g)])
+                same = torch.equal(got, apart)
+                print(f"[check] {kname} {label} -> {str(got.dtype)[6:]}: tile "
+                      f"{plan.bm}x{plan.bn}, {how}, grid {plan.grid}, 16-byte loads x "
+                      f"{int(plan.vec_x)} w {int(plan.vec_w)}; vs plain max|d| = "
+                      f"{abs_err:.3e}, {reading:.3e} (limit {limit:g}"
+                      f"{' bf16 steps' if limit == 1.0 else ''}); bitwise equal to "
+                      f"{g} separate 2-D launches: {same}")
+                require(ok, f"{kname} {label}: {reading:.3e} > {limit}")
+                require(same, f"{kname} {label}: differs from the groups' 2-D launches")
+                worst[kname] = max(worst[kname], abs_err)
+                checks += 2
+        for label, x, w in rows:
+            for store in stores:
+                kw = {} if store is None else dict(out_dtype=store)
+                one = mm(x[:, :1].contiguous(), w, **kw)[:, 0]
+                same = all(torch.equal(one, mm(x[:, :m].contiguous(), w, **kw)[:, 0])
+                           for m in GROUPED_ROWS)
+                print(f"[check] {kname} {label}: row 0 at T = 1 bitwise the same "
+                      f"row at T = {', '.join(map(str, GROUPED_ROWS))}: {same}")
+                require(same, f"{kname} {label}: a row's bits follow T")
+                checks += 1
+    require(modes == {"split", "fold", "cluster"}, f"gfid_matmul_grouped: the "
+            f"fp32 cases reach modes {modes}, not the workspace, fold and cluster")
+    print("[check] gfid_matmul_grouped: the fp32 cases reach the workspace, the "
+          "fold and the cluster")
+    return checks
+
+
+def grouped_timing(dev, gfid_matmul, cfg, dtype):
+    """An MoE layer's grouped GEMMs at a decode step's rows (the 8-row
+    bucket) and at a prompt-MOE_TIMED_PROMPT prefill's, as on the path
+    (w_in and w_gate store fp32, w_out the parameters' dtype): the kernel
+    with the host and for the device alone, its plain version, `torch.bmm`
+    (TF32 off; with the host and alone) and the bound. Returns
+    {rows: [a row a GEMM of the layer]}."""
+    mm, plain = gfid_matmul.gfid_matmul, gfid_matmul.gfid_matmul_plain
+    bf16 = dtype == torch.bfloat16
+    gen = torch.Generator().manual_seed(12)
+    shapes = grouped_shapes(cfg)
+    layer = (shapes[0], shapes[0], shapes[1])        # w_in, w_gate, w_out
+    out = {}
+    for t in (SERVE_BATCH, MOE_TIMED_PROMPT):
+        rows = []
+        for i, (label, g, k, n) in enumerate(layer):
+            x = torch.randn((g, t, k), generator=gen).to(dev, dtype)
+            w = (torch.randn((g, k, n), generator=gen) / math.sqrt(k)).to(dev, dtype)
+            store = dtype if i == 2 else torch.float32
+            kw = dict(out_dtype=store) if bf16 else {}
+            el, out_el = x.element_size(), store.itemsize
+            b_ms, by = bound_ms(el * (g * t * k + g * k * n) + out_el * g * t * n,
+                                2 * g * t * k * n,
+                                PEAK_BF16_FLOP_S if bf16 else PEAK_FP32_FLOP_S)
+            row = dict(label=label, t=t, g=g, k=k, n=n, ops=2 * g * t * k * n,
+                       n_bytes=el * (g * t * k + g * k * n) + out_el * g * t * n,
+                       ms=time_ms(lambda: mm(x, w, **kw)),
+                       device_ms=graph_ms(lambda: mm(x, w, **kw)),
+                       plain_ms=time_ms(lambda: plain(x, w, **kw), iters=5),
+                       library_ms=time_ms(lambda: torch.bmm(x, w)),
+                       library_device_ms=graph_ms(lambda: torch.bmm(x, w)),
+                       bound_ms=b_ms, bound_by=by)
+            rows.append(row)
+            print(f"[time] {'gfid_matmul_bf16' if bf16 else 'gfid_matmul'} grouped "
+                  f"{label} ({g}, {t}, {k}) @ ({g}, {k}, {n}) -> {str(store)[6:]}: "
+                  f"kernel {row['ms']:.4f} ms, the device alone {row['device_ms']:.4f} "
+                  f"ms, plain {row['plain_ms']:.4f} ms, library torch.bmm "
+                  f"{row['library_ms']:.4f} ms, the device alone "
+                  f"{row['library_device_ms']:.4f} ms, bound {b_ms:.4f} ms ({by}); "
+                  f"{(el * g * k * n) / row['device_ms'] / 1e9:.3f} TB/s of weights "
+                  "for the device alone")
+        out[t] = rows
+    return out
+
+
+def route_trace(moe_mod, fn):
+    """fn() with every router's logits recorded on the host, (T, E) fp32 a
+    call in call order (the `meta` calls of a program's capture skipped)."""
+    calls, softmax = [], moe_mod._softmax
+
+    def record(logits):
+        if logits.device.type != "meta":
+            calls.append(logits.detach().float().cpu())
+        return softmax(logits)
+
+    moe_mod._softmax = record
+    try:
+        fn()
+    finally:
+        moe_mod._softmax = softmax
+    return calls
+
+
+def first_route_difference(cfg, a, b):
+    """The first router call where two runs' traces (`route_trace`) choose
+    other experts, compared over the rows both hold (a decode step's first
+    row): {step (-1 for the prefill), layer, row, gap (the k-th less the
+    (k+1)-th probability, the smaller of the two runs'), logit_diff (the
+    two runs' largest router-logit difference at that call)}; None where
+    every choice agrees."""
+    k, layers = cfg.moe.n_active, cfg.n_layers
+    for c, (la, lb) in enumerate(zip(a, b)):
+        r = min(la.shape[0], lb.shape[0])
+        la, lb = la[:r], lb[:r]
+        pa, pb = torch.softmax(la, -1), torch.softmax(lb, -1)
+        sa, ia = torch.sort(pa, dim=-1, descending=True, stable=True)
+        sb, ib = torch.sort(pb, dim=-1, descending=True, stable=True)
+        differ = (ia[:, :k].sort(-1).values != ib[:, :k].sort(-1).values).any(-1)
+        if bool(differ.any()):
+            row = int(differ.nonzero()[0])
+            gap = min(float(s[row, k - 1] - s[row, k]) for s in (sa, sb))
+            return dict(step=c // layers - 1, layer=c % layers, row=row, gap=gap,
+                        logit_diff=float((la - lb).abs().max()))
+    return None
+
+
+def moe_phase(dev, E, gfid_matmul, paged, flash, other_kernels):
+    """Phase 12: granite-moe-1b at full width and depth served through
+    `ContinuousScheduler`, fp32 parameters from seed 0, then the same
+    parameters rounded to bf16 (what `init_params(..., dtype=torch.bfloat16)`
+    makes: it draws in fp32 and casts). `other_kernels` must launch
+    nothing. Returns {dtype: the numbers the kernels line and the summary
+    print}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_MODEL)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=DEVICE, dtype=torch.float32)
+    print(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of {cfg.head_dim}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.n_active} of d_ff "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}; "
+          f"{sum(p.numel() for p in _leaves(params))} fp32 parameters made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    out = {torch.float32: moe_serve(dev, E, cfg, params, gfid_matmul, paged, flash,
+                                    other_kernels)}
+    params = tree_map(lambda a: a.to(torch.bfloat16), params)
+    torch.cuda.empty_cache()
+    out[torch.bfloat16] = moe_serve(dev, E, cfg, params, gfid_matmul, paged, flash,
+                                    other_kernels)
+    del params
+    print(f"[moe] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def moe_serve(dev, E, cfg, params, gfid_matmul, paged, flash, other_kernels):
+    """Phase 12 for one parameter dtype (see the module docstring)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as SE
+    from repro_torch.serve.scheduler import (ContinuousScheduler,
+                                             latency_percentiles)
+
+    dtype = params["embed"].dtype
+    bf16 = dtype == torch.bfloat16
+    tag = "[moe bf16]" if bf16 else "[moe]"
+    n_layers, n_experts = cfg.n_layers, cfg.moe.n_experts
+    # the counters: the fp32 and bf16 entries, their grouped launches, the
+    # gather, both flash kernels and the rest
+    counted = (gfid_matmul.gfid_matmul, gfid_matmul.gfid_matmul_bf16,
+               gfid_matmul.gfid_matmul_grouped, gfid_matmul.gfid_matmul_bf16_grouped,
+               paged.paged_gather, flash.flash_attention,
+               flash.flash_attention_bf16) + tuple(other_kernels)
+    # a pass (a decode step or a prefill): 4 projections, the router (fp32
+    # on every parameter dtype) and 3 grouped GEMMs a layer, the unembedding
+    per_pass = n_layers * 8 + 1
+    grouped = 3 * n_layers
+
+    def want(steps, prefills, long_prefills=0):
+        passes = steps + prefills + long_prefills
+        gemm = (n_layers * passes, (per_pass - n_layers) * passes) if bf16 \
+            else (per_pass * passes, 0)
+        groups = (0, grouped * passes) if bf16 else (grouped * passes, 0)
+        fa = (0, n_layers * long_prefills) if bf16 else (n_layers * long_prefills, 0)
+        return gemm + groups + (2 * steps,) + fa + (0,) * len(other_kernels)
+
+    n_params = sum(p.numel() for p in _leaves(params))
+    w_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    gen = torch.Generator().manual_seed(0)
+    work = []
+    for _ in range(SERVE_REQUESTS):
+        n = int(torch.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, (1,),
+                              generator=gen))
+        steps = SERVE_STEPS[int(torch.randint(len(SERVE_STEPS), (1,),
+                                              generator=gen))]
+        work.append((torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(),
+                     steps))
+    work = work[:MOE_REQUESTS]
+    print(f"{tag} {n_params} {str(dtype)[6:]} parameters ({w_bytes / 1e9:.3f} GB); "
+          f"phase 6's pool and first {len(work)} requests, prompts "
+          f"{sorted(len(p) for p, _ in work)} tokens, steps {[n for _, n in work]}")
+    conf = E.EngineConfig(backend="cuda", row_align=8)
+
+    def scheduler(max_batch, admission, max_len=SERVE_MAX_LEN, blocks=SERVE_BLOCKS):
+        return ContinuousScheduler(
+            cfg, params, max_len=max_len, num_blocks=blocks, block_size=SERVE_BLOCK,
+            max_batch=max_batch, config=conf, admission=admission)
+
+    def check_programs(s, lens):
+        compiled = [s.prefill_compiled(n) for n in lens] \
+            + [s.decode_compiled(b) for b in s.buckets]
+        for c in compiled:
+            kinds = [op.kind for op in c.program.ops]
+            specs = [op.spec for op in c.program.ops]
+            n_gather = 2 if "decode" in c.program.name else 0
+            require(set(c.backends()) == {"cuda"} and len(kinds) == per_pass + n_gather
+                    and kinds.count("gather") == n_gather
+                    and sum(s_ in ("ecd,edf->ecf", "ecf,efd->ecd") for s_ in specs)
+                    == grouped, f"{tag} {c.program.name}: backends "
+                    f"{set(c.backends())}, {len(kinds)} ops, expected "
+                    f"{per_pass + n_gather} with {grouped} grouped")
+        return len(compiled)
+
+    runs = {}
+    # the three modes' schedulers share one geometry and config, so they
+    # share the compiled programs: each is captured once
+    programs = ({}, {})
+    for mode, max_batch, admission in (
+            ("continuous", SERVE_BATCH, "continuous"),
+            ("drain", SERVE_BATCH, "drain"), ("solo", 1, "continuous")):
+        s = scheduler(max_batch, admission)
+        s._prefill, s._decode = programs
+        served = work[:MOE_DENSE_CHECKS] if mode == "solo" else work
+        t0 = time.perf_counter()
+        n_compiled = check_programs(s, sorted({len(p) for p, _ in served}))
+        compile_s = time.perf_counter() - t0
+        tickets = [s.submit(p, n) for p, n in served]
+        zero_counts(*counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = s.stats()
+        launches = counts(*counted)
+        require(all(t.status == "done" and t.preemptions == 0 for t in tickets)
+                and st["compiled_decode_buckets"] == [SERVE_BATCH],
+                f"{tag} {mode}: not every request done in the {SERVE_BATCH}-row bucket")
+        require(launches == want(st["steps"], st["admitted"]), f"{tag} {mode}: "
+                f"launches {launches}, expected {want(st['steps'], st['admitted'])} "
+                "(gfid_matmul, gfid_matmul_bf16, grouped fp32, grouped bf16, "
+                "paged_gather, flash fp32, flash bf16, others)")
+        n_tok = sum(len(t.tokens) for t in tickets)
+        lat = latency_percentiles(tickets)
+        runs[mode] = dict(tokens=[t.tokens for t in tickets], wall=wall, n_tok=n_tok,
+                          lat=lat, steps=st["steps"], launches=launches)
+        print(f"{tag} {mode}: {st['steps']} decode steps (fill "
+              f"{st['decode_fill']:.3f}), {st['admitted']} prefills, {n_tok} tokens "
+              f"in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; latency p50 "
+              f"{lat['p50_ms']:.1f} ms, p95 {lat['p95_ms']:.1f} ms; launches "
+              f"{launches[:5]} (gfid_matmul, gfid_matmul_bf16, grouped fp32, grouped "
+              f"bf16, paged_gather), others {sum(launches[5:])}; its {n_compiled} "
+              f"programs ready in {compile_s:.2f} s beforehand (each captured and "
+              "compiled once for the three modes)")
+    base = runs["continuous"]["tokens"]
+    for mode in ("drain", "solo"):
+        require(runs[mode]["tokens"] == base[:len(runs[mode]["tokens"])],
+                f"{tag} {mode} tokens differ from the continuous run")
+    print(f"{tag} tokens bitwise equal across continuous, drain and solo")
+
+    def dense_check(prompt, steps, served, max_len, blocks, what):
+        """greedy_generate at one row against the served tokens; where they
+        differ, the first router choice that differs must be a near tie."""
+        tokens = {"tokens": torch.tensor([prompt], device=dev)}
+        with E.using_config(conf):
+            dense = SE.greedy_generate(cfg, params, tokens, steps, max_len)[0].tolist()
+        if dense == served:
+            return True
+        with E.using_config(conf), torch.no_grad():
+            a = route_trace(moe_mod, lambda: SE.greedy_generate(
+                cfg, params, tokens, steps, max_len))
+        s = scheduler(1, "continuous", max_len, blocks)
+        b = route_trace(moe_mod, lambda: (s.submit(prompt, steps), s.run()))
+        dif = first_route_difference(cfg, a, b)
+        require(dif is not None, f"{tag} {what}: tokens differ from greedy_generate "
+                "with every router choice equal")
+        print(f"{tag} {what}: tokens differ from greedy_generate's at one row from "
+              f"step {next(i for i, (u, v) in enumerate(zip(dense, served)) if u != v)}; "
+              f"the first expert choice that differs: step {dif['step']} (-1: the "
+              f"prefill), layer {dif['layer']}, row {dif['row']}: the {cfg.moe.n_active}th "
+              f"less the {cfg.moe.n_active + 1}th router probability {dif['gap']:.3e}, "
+              f"the two runs' largest router-logit difference there "
+              f"{dif['logit_diff']:.3e}")
+        require(dif["gap"] < dif["logit_diff"], f"{tag} {what}: an expert choice "
+                "differs where the router's gap exceeds the runs' logit difference")
+        return False
+
+    equal = sum(dense_check(p, n, base[i], SERVE_MAX_LEN, SERVE_BLOCKS, f"request {i}")
+                for i, (p, n) in enumerate(work[:MOE_DENSE_CHECKS]))
+    print(f"{tag} greedy_generate at one row: {equal} of {MOE_DENSE_CHECKS} "
+          "requests bitwise the served tokens (the rest a near tie, above)")
+
+    # an MoE block: one token alone bitwise that token in the 8-row bucket
+    p0 = {k: v[0] for k, v in params["groups"]["0"]["moe"].items()}
+    x = torch.randn((SERVE_BATCH, 1, cfg.d_model), generator=gen).to(dev, dtype)
+    with E.using_config(conf), torch.no_grad():
+        y8, _ = moe_mod.moe_forward_dense(cfg, p0, x)
+        alone = [torch.equal(moe_mod.moe_forward_dense(cfg, p0, x[i:i + 1])[0][0],
+                             y8[i]) for i in range(SERVE_BATCH)]
+    require(all(alone), f"{tag} MoE block: rows {alone} alone differ from the bucket")
+    print(f"{tag} MoE block (layer 0): each of {SERVE_BATCH} tokens alone bitwise "
+          f"equal to that token in the {SERVE_BATCH}-row bucket")
+
+    # one decode step at the bucket with 8 live rows: launches, wall and
+    # device time, the bound
+    s8 = scheduler(SERVE_BATCH, "continuous")
+    rows = [s8.submit(work[i % len(work)][0],
+                      SERVE_MAX_LEN - len(work[i % len(work)][0]))
+            for i in range(SERVE_BATCH)]
+    s8.step()
+    require(s8.running() == SERVE_BATCH, f"{tag} {s8.running()} rows running")
+    dec = s8.decode_compiled(SERVE_BATCH)
+    rids = [t.rid for t in rows]
+    args = (params, s8.pool.arrays, s8.pool.table_rows(rids, SERVE_BATCH),
+            s8.pool.slot_rows(rids, SERVE_BATCH),
+            torch.tensor([[t.tokens[-1]] for t in rows], dtype=torch.int32, device=dev),
+            torch.tensor([t.pos for t in rows], dtype=torch.int32, device=dev))
+    zero_counts(*counted)
+    dec.apply(*args)
+    torch.cuda.synchronize()
+    step_launches = counts(*counted)
+    require(step_launches == want(1, 0), f"{tag} one decode step launched "
+            f"{step_launches}, expected {want(1, 0)}")
+    step_ms = time_ms(lambda: dec.apply(*args), iters=10)
+    prof = device_profile(lambda: dec.apply(*args))
+    step_bound, _ = bound_ms(w_bytes, 0)
+    if prof is None:
+        busy = None
+        print(f"[profile] {tag} decode step: the profiler recorded no device time")
+    else:
+        busy, n_kernels, top = prof
+        print(f"[profile] {tag} decode step with {SERVE_BATCH} live rows: {n_kernels} "
+              f"device kernels, {busy:.4f} ms of device time (torch.profiler, 3 "
+              f"steps) = {100 * busy / step_ms:.1f}% of the step; by kernel: "
+              + "; ".join(f"{nm[:50]} x{c:g} {ms:.4f} ms" for nm, c, ms in top[:6]))
+    print(f"{tag} decode step at bucket {SERVE_BATCH}, {SERVE_BATCH} live rows: "
+          f"{sum(step_launches[:2])} GEMM launches ({sum(step_launches[2:4])} grouped) "
+          f"+ {step_launches[4]} paged_gather; {step_ms:.4f} ms wall (median of 10), "
+          f"{'not measured' if busy is None else f'{busy:.4f} ms'} of device time; "
+          f"bound {step_bound:.4f} ms (the {w_bytes / 1e9:.3f} GB of parameters, "
+          f"every expert's, read once at {PEAK_BYTES_S / 1e12:.2f} TB/s)")
+    del s8, dec, args
+
+    # one MOE_LONG_PROMPT-token request on phase 8's pool: flash at 16 query
+    # heads over 8 kv heads
+    prompt = torch.randint(0, cfg.vocab_size, (MOE_LONG_PROMPT,), generator=gen).tolist()
+    s = scheduler(SERVE_BATCH, "continuous", LONG_MAX_LEN, LONG_BLOCKS)
+    check_programs(s, [MOE_LONG_PROMPT])
+    t = s.submit(prompt, MOE_LONG_STEPS)
+    zero_counts(*counted)
+    s.run()
+    torch.cuda.synchronize()
+    long_launches = counts(*counted)
+    st = s.stats()
+    require(t.status == "done" and long_launches == want(st["steps"], 0, 1),
+            f"{tag} prompt {MOE_LONG_PROMPT}: launches {long_launches}, expected "
+            f"{want(st['steps'], 0, 1)}")
+    long_equal = dense_check(prompt, MOE_LONG_STEPS, t.tokens, LONG_MAX_LEN,
+                             LONG_BLOCKS, f"prompt {MOE_LONG_PROMPT}")
+    pre = s.prefill_compiled(MOE_LONG_PROMPT)
+    row = torch.arange(1, s.layout.blocks_per_req + 1, dtype=torch.int32, device=dev)
+    ptoks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    prefill_ms = time_ms(lambda: pre.apply(params, s.pool.arrays, row,
+                                           torch.tensor(1, dtype=torch.int32,
+                                                        device=dev), ptoks),
+                         iters=5, warmup=1)
+    print(f"{tag} prompt {MOE_LONG_PROMPT} on a pool of max_len {LONG_MAX_LEN}: "
+          f"prefill {sum(long_launches[:2]) - st['steps'] * per_pass} GEMM + "
+          f"{sum(long_launches[5:7])} flash launches, {st['steps']} decode steps; "
+          f"tokens {'bitwise' if long_equal else 'not'} equal to greedy_generate; "
+          f"prefill {prefill_ms:.4f} ms (median of 5, CUDA events around "
+          "CompiledNet.apply)")
+    del s, pre
+    timing = grouped_timing(dev, gfid_matmul, cfg, dtype)
+    cont = runs["continuous"]
+    return dict(tps=cont["n_tok"] / cont["wall"], lat=cont["lat"], step_ms=step_ms,
+                busy_ms=busy, step_bound_ms=step_bound, prefill_ms=prefill_ms,
+                step_launches=step_launches, launches=cont["launches"],
+                timing=timing)
 
 
 def _leaves(tree):
@@ -3161,6 +3668,8 @@ def main():
     del bf16_cases
     checks += row_invariance_check(dev, mm32, gen)
     checks += row_invariance_check(dev, mm32, gen32, torch.float32)
+    checks += grouped_check(dev, gfid_matmul, torch.Generator().manual_seed(28),
+                            worst)
     checks += batch_invariance_check(dev, cnn, conv32, conv8, quant,
                                      torch.Generator().manual_seed(33))[0]
     worst["paged_gather"] = 0.0
@@ -3774,6 +4283,13 @@ def main():
     torch.cuda.empty_cache()
     chaos = chaos_phase(dev, E, gfid_matmul, paged, others, served, lm_params)
     del lm_params
+
+    # -- phase 12: granite-moe-1b, the grouped GEMM's path ----------------------
+    started["12"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    moe = moe_phase(dev, E, gfid_matmul, paged, flash_attention,
+                    all_kernels[:1] + all_kernels[2:]
+                    + (conv16, conv1d.gfid_conv1d_depthwise))
     ends = list(started.values())[1:] + [time.perf_counter()]
     print("[time] phases (s): " + ", ".join(
         f"{name} {end - start:.1f}" for (name, start), end
@@ -3889,6 +4405,41 @@ def main():
     kernels[-1]["prefill_ms"] = {str(m): v["ms"] for m, v in prefill_mm16.items()}
     kernels[-1]["prefill_device_ms"] = {str(m): v["device_ms"]
                                         for m, v in prefill_mm16.items()}
+    for kname, dtype in (("gfid_matmul_grouped", torch.float32),
+                         ("gfid_matmul_bf16_grouped", torch.bfloat16)):
+        m, slot = moe[dtype], 3 if dtype == torch.bfloat16 else 2
+        sums = {t: {key: sum(r[key] for r in rows) for key in (
+            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "n_bytes", "ops")} for t, rows in m["timing"].items()}
+        peak = PEAK_BF16_FLOP_S if dtype == torch.bfloat16 else PEAK_FP32_FLOP_S
+        dec = sums[SERVE_BATCH]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/csrc/" + ("gfid_matmul_bf16.cu" if slot == 3
+                                                  else "gfid_matmul.cu"),
+            "replaces": "src/repro/kernels/gfid_matmul.py:85",
+            # phase 12's continuous run; a decode step's
+            "launches": m["launches"][slot],
+            "launches_per_decode_step": m["step_launches"][slot],
+            "max_abs_err": worst[kname],
+            # one layer's three grouped launches at a decode step's 8 rows
+            **dict.fromkeys(("ms", "kernel_ms"), dec["ms"]),
+            "device_ms": dec["device_ms"], "plain_ms": dec["plain_ms"],
+            "bound_ms": dec["bound_ms"],
+            "bound_by": bound_ms(dec["n_bytes"], dec["ops"], peak)[1],
+            "library_ms": dec["library_ms"],
+            "library_device_ms": dec["library_device_ms"],
+            f"prompt{MOE_TIMED_PROMPT}": {key: sums[MOE_TIMED_PROMPT][key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                "library_device_ms")}})
+    for dtype, m in moe.items():
+        print(f"[moe{' bf16' if dtype == torch.bfloat16 else ''}] summary: "
+              f"{m['tps']:.1f} tokens/s, p50 {m['lat']['p50_ms']:.1f} ms, p95 "
+              f"{m['lat']['p95_ms']:.1f} ms; decode step {m['step_ms']:.4f} ms with "
+              f"{SERVE_BATCH} live rows, device time "
+              + ("not measured" if m["busy_ms"] is None else f"{m['busy_ms']:.4f} ms")
+              + f", bound {m['step_bound_ms']:.4f} ms; prefill({MOE_LONG_PROMPT}) "
+              f"{m['prefill_ms']:.4f} ms")
     print(f"[serve bf16] summary: {served16['tps']:.1f} tokens/s, p50 "
           f"{served16['lat']['p50_ms']:.1f} ms, p95 {served16['lat']['p95_ms']:.1f} "
           f"ms; decode step {served16['step_ms'][SERVE_BATCH]:.4f} ms with "

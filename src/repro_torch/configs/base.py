@@ -128,9 +128,10 @@ class ModelConfig:
 
 # The configs this port runs; the rest of the reference's registry comes
 # with their model families.
-PORTED = ("smollm_135m", "xlstm_125m")
+PORTED = ("smollm_135m", "xlstm_125m", "granite_moe_1b")
 
-ALIASES = {"smollm-135m": "smollm_135m", "xlstm-125m": "xlstm_125m"}
+ALIASES = {"smollm-135m": "smollm_135m", "xlstm-125m": "xlstm_125m",
+           "granite-moe-1b-a400m": "granite_moe_1b"}
 
 
 def _module(name: str):

@@ -47,7 +47,9 @@
 //   kernel, the cluster's first block or the fold, which add alike. The
 //   split comes from (K, N)
 //   alone, so a row's result does not depend on M, on the tile M selects or
-//   on the rows beside it. The epilogue adds the bias, applies the
+//   on the rows beside it. A grouped launch (the stacked experts of an MoE
+//   layer: x (G, M, K) @ w (G, K, N), one launch, the group on grid y) runs
+//   each group with that split, so a group's bits are its own launch's. The epilogue adds the bias, applies the
 //   activation and stores once. Plain fp32 FMA: no TF32, no tensor cores.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -95,13 +97,19 @@ template <class T, int kMode>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
 gfid_matmul_kernel(splitk::Epilogue e, const float* __restrict__ x,
                    const float* __restrict__ w, int M, int K, int N, int chunks_per_split,
-                   int vec_x, int vec_w) {
+                   int vec_x, int vec_w, long long stride_x, long long stride_w) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int ty = tid / T::kColThreads;
   const int tx = tid % T::kColThreads;
   const int n0 = blockIdx.x * T::BN;
-  const int m0 = blockIdx.y * T::BM;
+  // grid y is group x row blocks + row block: group g reads x + g * stride_x
+  // and w + g * stride_w and writes rows g * M + [0, M) of the output
+  const int row_blocks = (M + T::BM - 1) / T::BM;
+  const int g = blockIdx.y / row_blocks;
+  const int m0 = (blockIdx.y - g * row_blocks) * T::BM;
+  x += g * stride_x;
+  w += g * stride_w;
   const int n_chunks = (K + kKT - 1) / kKT;
   // a fold runs every split; otherwise the block runs split blockIdx.z
   const int begin = kMode == kFold ? 0 : blockIdx.z * chunks_per_split;
@@ -180,7 +188,10 @@ gfid_matmul_kernel(splitk::Epilogue e, const float* __restrict__ x,
   }
 
   if constexpr (kMode == kFold) splitk::fold_finish<T::kThreads>(sum, flat, n, chunks_per_split);
-  float* ws = e.ws == nullptr ? nullptr : e.ws + (size_t)blockIdx.z * M * N;
+  // the workspace is (splits, groups, M, N), the output (groups, M, N)
+  const size_t group_out = (size_t)M * N;
+  float* ws = e.ws == nullptr ? nullptr
+                              : e.ws + ((size_t)blockIdx.z * (gridDim.y / row_blocks) + g) * group_out;
 #pragma unroll
   for (int s = 0; s < T::TM; ++s) {
     const int r = m0 + ty + s * T::kRowThreads;
@@ -193,7 +204,7 @@ gfid_matmul_kernel(splitk::Epilogue e, const float* __restrict__ x,
       if (ws != nullptr)
         ws[idx] = acc[s][c];
       else
-        splitk::finish(e, idx, col, acc[s][c]);
+        splitk::finish(e, g * group_out + idx, col, acc[s][c]);
     }
   }
 }
@@ -253,23 +264,29 @@ int launch_cluster(Kernel kernel, dim3 grid, cudaStream_t stream, Args... args) 
 
 }  // namespace
 
-// x (M, K), w (K, N), bias (N,) or null, out (M, N); all fp32. (bm, bn) is a
-// block tile of with_tile; K is cut into splits runs of chunks_per_split
-// chunks of kKT. mode 0: split z of K on grid z, then, with splits > 1, the
-// partial sums in ws (fp32, splits x M x N, not zeroed: every element is
-// written) added in split order by split_k.cuh; mode 1 (fold): each block
-// runs every split and adds them itself; mode 2 (cluster, 2 to kMaxCluster
-// splits): the splits of a tile as one cluster, added in split order by its
-// first block. ws may be null but in mode 0 with splits > 1. vec_x
-// (vec_w): 16-byte copies of x (w), for K (N) a multiple of 4 on a 16-byte
-// aligned pointer. act: 0 none, 1 relu, 2 gelu (tanh). Launches on `stream`
+// x (groups, M, K) with groups stride_x elements apart, w (groups, K, N) with
+// groups stride_w apart, bias (N,) or null, shared by the groups, out
+// (groups, M, N) contiguous; all fp32. Each group is the 2-D product of its
+// x and w with the split of K of a launch of that group alone, added in the
+// same order whatever the mode: its bits are that launch's. Group g's blocks
+// are y = g x row blocks + row block of the grid. (bm, bn) is a block tile
+// of with_tile; K is cut into splits runs of chunks_per_split chunks of kKT.
+// mode 0: split z of K on grid z, then, with splits > 1, the partial sums in
+// ws (fp32, splits x groups x M x N, not zeroed: every element is written)
+// added in split order by split_k.cuh; mode 1 (fold): each block runs every
+// split and adds them itself; mode 2 (cluster, 2 to kMaxCluster splits): the
+// splits of a tile as one cluster, added in split order by its first block.
+// ws may be null but in mode 0 with splits > 1. vec_x (vec_w): 16-byte
+// copies of x (w), for K (N) and stride_x (stride_w) multiples of 4 on a
+// 16-byte aligned pointer. act: 0 none, 1 relu, 2 gelu (tanh). Launches on `stream`
 // and returns cudaGetLastError() (0 when the launch was accepted;
 // cudaErrorInvalidValue for another tile or mode).
 extern "C" int gfid_matmul_f32(const float* x, const float* w, const float* bias,
                                float* out, float* ws, int M, int K, int N, int bm, int bn,
                                int splits, int chunks_per_split, int mode, int act,
-                               int vec_x, int vec_w, void* stream) {
-  if (mode == kCluster && (splits < 2 || splits > kMaxCluster))
+                               int vec_x, int vec_w, int groups, long long stride_x,
+                               long long stride_w, void* stream) {
+  if ((mode == kCluster && (splits < 2 || splits > kMaxCluster)) || groups < 1)
     return (int)cudaErrorInvalidValue;
   const splitk::Epilogue e{bias, 0, out, 0, mode == kSplit ? ws : nullptr, act};
   return with_tile(bm, bn, mode, [&](auto tile, auto mode_c) {
@@ -277,13 +294,15 @@ extern "C" int gfid_matmul_f32(const float* x, const float* w, const float* bias
     constexpr int kMode = decltype(mode_c)::value;
     using L = Launch<T, kMode>;
     const int grid_splits = kMode == kFold ? 1 : splits;
-    const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, grid_splits);
+    const dim3 grid((N + T::BN - 1) / T::BN, groups * ((M + T::BM - 1) / T::BM),
+                    grid_splits);
     if constexpr (kMode == kCluster)
       return launch_cluster<L>(gfid_matmul_kernel<T, kMode>, grid, (cudaStream_t)stream,
-                               e, x, w, M, K, N, chunks_per_split, vec_x, vec_w);
+                               e, x, w, M, K, N, chunks_per_split, vec_x, vec_w, stride_x,
+                               stride_w);
     else
       return splitk::launch<L>(gfid_matmul_kernel<T, kMode>, grid, (cudaStream_t)stream,
-                               e, grid_splits, (long long)M * N, N, x, w, M, K, N,
-                               chunks_per_split, vec_x, vec_w);
+                               e, grid_splits, (long long)groups * M * N, N, x, w, M, K, N,
+                               chunks_per_split, vec_x, vec_w, stride_x, stride_w);
   });
 }

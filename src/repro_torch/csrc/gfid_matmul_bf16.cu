@@ -30,7 +30,10 @@
 //
 // Row invariance: a row's sums run in one order whatever M is and wherever
 //   the row lands in a tile (mma_bf16.cuh): the serving scheduler's tokens
-//   are bitwise across batchings on it.
+//   are bitwise across batchings on it. A grouped launch (the stacked
+//   experts of an MoE layer: x (G, M, K) @ w (G, K, N), one launch, the
+//   group on grid y) runs each group with that split, so a group's bits are
+//   its own launch's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -48,11 +51,18 @@ template <class T>
 __global__ void __launch_bounds__(T::kThreads)
 gfid_matmul_bf16_kernel(mma::Epilogue e, const uint16_t* __restrict__ x,
                         const uint16_t* __restrict__ w, int M, int K, int N,
-                        int chunks_per_split, int vec_x, int vec_w) {
+                        int chunks_per_split, int vec_x, int vec_w, long long stride_x,
+                        long long stride_w) {
   extern __shared__ __align__(16) uint16_t smem[];
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * T::BN;
-  const int m0 = blockIdx.y * T::BM;
+  // grid y is group x row blocks + row block: group g reads x + g * stride_x
+  // and w + g * stride_w and writes rows g * M + [0, M) of the output
+  const int row_blocks = (M + T::BM - 1) / T::BM;
+  const int g = blockIdx.y / row_blocks;
+  const int m0 = (blockIdx.y - g * row_blocks) * T::BM;
+  x += g * stride_x;
+  w += g * stride_w;
   const int n_chunks = (K + kBK - 1) / kBK;
   const int begin = blockIdx.z * chunks_per_split;
   const int end = min(n_chunks, begin + chunks_per_split);
@@ -95,31 +105,44 @@ gfid_matmul_bf16_kernel(mma::Epilogue e, const uint16_t* __restrict__ x,
 
   float acc[T::MT][T::NT][4];
   mma::mainloop<T>(load, begin, end, smem, acc);
-  float* ws = e.ws == nullptr ? nullptr : e.ws + (size_t)blockIdx.z * M * N;
-  mma::store_tile<T>(acc, e, ws, m0, M, n0, N, 0, N);
+  // the workspace is (splits, groups, M, N), the output (groups, M, N)
+  const size_t group_out = (size_t)M * N;
+  float* ws = e.ws == nullptr ? nullptr
+                              : e.ws + ((size_t)blockIdx.z * (gridDim.y / row_blocks) + g) * group_out;
+  mma::Epilogue eg = e;
+  eg.out = static_cast<char*>(e.out) + g * group_out * (e.out_bf16 ? 2 : 4);
+  mma::store_tile<T>(acc, eg, ws, m0, M, n0, N, 0, N);
 }
 
 }  // namespace
 
-// x (M, K) and w (K, N) bf16; bias (N,) fp32 (bias_bf16 = 0), bf16 (1) or
-// null; out (M, N) fp32 (out_bf16 = 0) or bf16 (1). (bm, bn) is a block tile
-// of mma::with_tile. With splits > 1, ws is an fp32 workspace of splits x M x
-// N (not zeroed: every element is written); with splits == 1 it may be null.
-// act: 0 none, 1 relu, 2 gelu. Launches on `stream` and returns
+// x (groups, M, K) bf16 with groups stride_x elements apart, w (groups, K,
+// N) bf16 with groups stride_w apart; bias (N,) fp32 (bias_bf16 = 0), bf16
+// (1) or null, shared by the groups; out (groups, M, N) contiguous, fp32
+// (out_bf16 = 0) or bf16 (1). Each group is the 2-D product of its x and w
+// with the split of a launch of that group alone: its bits are that
+// launch's. Group g's blocks are y = g x row blocks + row block of the grid.
+// (bm, bn) is a block tile of mma::with_tile. With splits > 1, ws is an fp32
+// workspace of splits x groups x M x N (not zeroed: every element is
+// written); with splits == 1 it may be null. vec_x (vec_w): 16-byte copies
+// of x (w), for K (N) and stride_x (stride_w) multiples of 8 on a 16-byte
+// aligned pointer. act: 0 none, 1 relu, 2 gelu. Launches on `stream` and returns
 // cudaGetLastError() (0 when accepted; cudaErrorInvalidValue for another
 // tile).
 extern "C" int gfid_matmul_bf16(const void* x, const void* w, const void* bias, void* out,
                                 float* ws, int bias_bf16, int out_bf16, int M, int K, int N,
                                 int bm, int bn, int splits, int chunks_per_split, int act,
-                                int vec_x, int vec_w, void* stream) {
+                                int vec_x, int vec_w, int groups, long long stride_x,
+                                long long stride_w, void* stream) {
+  if (groups < 1) return (int)cudaErrorInvalidValue;
   const mma::Epilogue e{bias, bias_bf16, out, out_bf16, ws, act};
   const uint16_t* xb = static_cast<const uint16_t*>(x);
   const uint16_t* wb = static_cast<const uint16_t*>(w);
   return mma::with_tile(bm, bn, [&](auto tile) {
     using T = decltype(tile);
-    const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
+    const dim3 grid((N + T::BN - 1) / T::BN, groups * ((M + T::BM - 1) / T::BM), splits);
     return mma::launch<T>(gfid_matmul_bf16_kernel<T>, grid, (cudaStream_t)stream, e, splits,
-                          (long long)M * N, N, xb, wb, M, K, N, chunks_per_split, vec_x,
-                          vec_w);
+                          (long long)groups * M * N, N, xb, wb, M, K, N, chunks_per_split,
+                          vec_x, vec_w, stride_x, stride_w);
   });
 }

@@ -37,8 +37,11 @@ quantizes fp32 or bf16 inputs and returns x's dtype, as the reference's
 (its accumulator is the exact int32 sum, whatever `accum` says).
 Under `EngineConfig(row_align=R)`
 a dense op whose leading x axis is a pure row dim pads it with zeros to a
-multiple of R and slices the result back (`_row_pad_amount`), as the
-reference does.
+multiple of R and slices the result back (`_row_pad_axis`), as the
+reference does; a grouped GEMM (`plan.grouped_gemm`: an MoE layer's
+experts) pads its rows, the x axis after the group, the same way, where
+the reference pads nothing: its plain version on the CPU then sums a token
+alone as in a bucket of R.
 
 Ops run on the device of the tensors they are given.
 """
@@ -233,18 +236,22 @@ def _pin_precision(op: planlib.OpSpec, plan: planlib.EnginePlan,
     return planlib.with_precision(plan, op, current_config().precision)
 
 
-def _row_pad_amount(structure: planlib.EinsumStructure,
-                    x_shape: Tuple[int, ...]) -> int:
-    """Rows to zero-pad onto x's leading axis under `cfg.row_align`: only
-    when that axis is a pure row dim (an x-free label, so rows are
-    independent and the output can be sliced back). A fixed GEMM row count
-    keeps each row's arithmetic independent of the batch size."""
+def _row_pad_axis(structure: planlib.EinsumStructure,
+                  x_shape: Tuple[int, ...], w_ndim: int) -> Tuple[int, int]:
+    """(axis, rows) to zero-pad onto x under `cfg.row_align`: its leading
+    axis where that is a pure row dim (an x-free label, so rows are
+    independent and the output can be sliced back), a grouped GEMM's row
+    axis (the one after the group), else none (rows 0). A fixed GEMM row
+    count keeps each row's arithmetic independent of the batch size."""
     align = current_config().row_align
-    if not align or not x_shape or x_shape[0] == 0:
-        return 0
-    if structure.x_labels[0] not in structure.x_free:
-        return 0
-    return -x_shape[0] % align
+    if not align or not x_shape or 0 in x_shape:
+        return 0, 0
+    if structure.x_labels[0] in structure.x_free:
+        return 0, -x_shape[0] % align
+    if planlib.grouped_gemm(structure, w_ndim) \
+            and structure.x_labels[1] in structure.x_free:
+        return 1, -x_shape[1] % align
+    return 0, 0
 
 
 def _result_dtype(x: torch.Tensor, w: torch.Tensor,
@@ -352,15 +359,17 @@ def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
         want = out_dtype if out_dtype is not None \
             else _result_dtype(x, w, bias, accum)
     ledger_mod.record(plan)
-    pad = _row_pad_amount(structure, op.x_shape)
+    axis, pad = _row_pad_axis(structure, op.x_shape, w.ndim)
     if pad:
-        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        zeros = list(x.shape)
+        zeros[axis] = pad
+        x = torch.cat([x, x.new_zeros(zeros)], dim=axis)
     out = _run(op, plan, lambda be, pl: be.einsum(
         spec, x, w, pl, structure, accum_dtype=accum, out_dtype=want,
         bias=bias, act=act), act)
     if pad:
-        ax = structure.out_labels.index(structure.x_labels[0])
-        out = out.narrow(ax, 0, op.x_shape[0])
+        ax = structure.out_labels.index(structure.x_labels[axis])
+        out = out.narrow(ax, 0, op.x_shape[axis])
     if int8 and out_dtype is not None:
         out = out.to(out_dtype)
     return out

@@ -61,7 +61,7 @@ import torch
 from repro_torch.core import gfid, quant
 from repro_torch.engine import ledger as _ledger
 from repro_torch.engine.config import current_config
-from repro_torch.engine.plan import canonical_gemm
+from repro_torch.engine.plan import canonical_gemm, grouped_gemm
 from repro_torch.kernels import ops, paged
 from repro_torch.kernels.epilogue import apply_epilogue, dequant_epilogue
 from repro_torch.serve import faults as _faults
@@ -281,16 +281,26 @@ def _cuda_conv2d(x, w, plan, *, stride, pad, groups, out_dtype, bias=None,
 def _cuda_einsum(spec, x, w, plan, structure, *, accum_dtype, out_dtype,
                  bias=None, act=None):
     """Canonicalize to (M, K) @ (K, N) for the GEMM kernel, which sums in
-    fp32 whatever `accum_dtype` is and stores `out_dtype`. A contraction
-    that does not canonicalize (batched weights) raises: the reference sends
-    it to its XLA lowering, which would hide a library call behind the
-    "cuda" name."""
+    fp32 whatever `accum_dtype` is and stores `out_dtype`; a contraction
+    over stacked weights that is one grouped GEMM (`grouped_gemm`: an MoE
+    layer's experts) to (G, M, K) @ (G, K, N), one launch of the same
+    kernel, where the reference sends it to XLA. Any other batched-weight
+    contraction raises: a library product behind the "cuda" name would hide
+    it."""
     st = structure
+    if grouped_gemm(st, w.ndim):
+        c = st.contract[0]
+        xm = torch.movedim(x, st.x_labels.index(c), -1)
+        w3 = w if st.w_labels[1] == c else w.transpose(1, 2)
+        return ops.gfid_matmul_grouped(xm, w3, bias=bias, act=act,
+                                       precision=plan.precision,
+                                       out_dtype=out_dtype)
     if not canonical_gemm(st, w.ndim):
         raise NotImplementedError(
-            f"einsum {spec!r} is not a single (M, K) @ (K, N) GEMM; the "
-            "batched-weight GEMM kernel is not ported (ROADMAP queue 1, "
-            "item 10) — use backend='torch'")
+            f"einsum {spec!r} is neither a single (M, K) @ (K, N) GEMM nor "
+            "one grouped (G, M, K) @ (G, K, N) GEMM; its batched-weight "
+            "kernel is not ported (ROADMAP queue 1, item 10: MLA) — use "
+            "backend='torch'")
     c = st.contract[0]
     xm = torch.movedim(x, st.x_labels.index(c), -1)
     w2 = w if st.w_labels[0] == c else w.T

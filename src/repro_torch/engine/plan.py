@@ -162,6 +162,20 @@ def canonical_gemm(structure: EinsumStructure, w_ndim: int) -> bool:
             and structure.out_labels == structure.x_free + structure.w_free)
 
 
+def grouped_gemm(structure: EinsumStructure, w_ndim: int) -> bool:
+    """True when a contraction with batched weights lowers to ONE grouped
+    GEMM, (G, M, K) @ (G, K, N) -> (G, M, N): one batch label, leading in
+    x, w and out; one contract label; 3-D weights; output laid out batch,
+    x-free rows, w-free cols — the stacked-expert GEMMs of an MoE layer
+    ("ecd,edf->ecf", "ecf,efd->ecd") that the "cuda" backend's GEMM kernel
+    runs as one launch."""
+    st = structure
+    return (w_ndim == 3 and len(st.batch) == 1 and len(st.contract) == 1
+            and st.x_labels[0] == st.w_labels[0] == st.out_labels[0]
+            == st.batch[0]
+            and st.out_labels == st.batch + st.x_free + st.w_free)
+
+
 @functools.lru_cache(maxsize=1024)
 def parse_einsum(spec: str, x_ndim: int, w_ndim: int) -> EinsumStructure:
     """Parse `spec` for operands of the given ranks. Ellipses in the spec are
@@ -323,8 +337,10 @@ def auto_backend(op: OpSpec, fallback: str = "torch") -> str:
         kernels' narrowest tiles (`AUTO_MIN_COLUMNS`, `AUTO_MIN_K`): on
         the card the kernels outrun the "torch" lowering at every layer
         timed (PERF.md, "auto_backend");
-      * a dense op that does not canonicalize goes to `fallback`: "cuda"
-        has no batched-weight GEMM (`dispatch._cuda_einsum` raises);
+      * a dense op that does not canonicalize goes to `fallback`, as the
+        reference sends batched weights to its fallback: "cuda" runs the
+        grouped GEMMs (`grouped_gemm`) when asked to, and raises on any
+        other batched-weight contraction (`dispatch._cuda_einsum`);
       * the paged gather goes to `fallback`: `index_select` copies as fast
         as the kernel on the card (PERF.md);
       * the depthwise 1-D conv goes to "cuda", which outruns both the

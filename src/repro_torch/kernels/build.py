@@ -263,8 +263,8 @@ def check_grid(kernel: str, grid: Tuple[int, int, int]) -> None:
 def mma_workspace(plan: MmaPlan, rows: int, cols: int,
                   device: torch.device) -> Optional[torch.Tensor]:
     """The fp32 partial sums of a split launch, (splits, rows, cols), not
-    zeroed (the kernel writes every element); None for one split or a
-    fold."""
+    zeroed (the kernel writes every element; a grouped GEMM's rows are its
+    groups' rows, group after group); None for one split or a fold."""
     if plan.splits == 1 or plan.fold:
         return None
     return torch.empty((plan.splits, rows, cols), dtype=torch.float32,

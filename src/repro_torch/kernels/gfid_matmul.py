@@ -12,6 +12,12 @@ version for CPU tensors, and only allocates the output for `meta` tensors
 (program capture). `gfid_matmul` launches the fp32 or the bf16 entry by
 the operands' dtype; `gfid_matmul.launches`, `gfid_matmul_bf16.launches`
 and `gfid_matmul_int8.launches` count each kernel's launches.
+
+`gfid_matmul` also takes stacked operands, x (G, M, K) @ w (G, K, N) ->
+(G, M, N): the grouped GEMMs of an MoE layer's experts, one launch of the
+same entry with the group on grid y, counted on the entry's counter and on
+`gfid_matmul_grouped` or `gfid_matmul_bf16_grouped`. Each group takes the
+split of K of a launch of that group alone, so its bits are that launch's.
 """
 from __future__ import annotations
 
@@ -100,17 +106,25 @@ def gfid_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
     (`core.gfid.fc_gfid`) on the operands widened to fp32 (exact), then
     bias (widened) and activation in fp32, then the cast to `out_dtype`
     (default fp32)."""
+    if x.ndim == 3:             # grouped: each group's own 2-D product
+        return torch.stack([gfid_matmul_plain(xg, wg, bias=bias, act=act,
+                                              out_dtype=out_dtype)
+                            for xg, wg in zip(x, w)])
     out = apply_epilogue(gfid.fc_gfid(x.float(), w.float()),
                          None if bias is None else bias.float(), act)
     return out if out_dtype is None else out.to(out_dtype)
 
 
+# The group count and the elements between groups of x and of w.
+GROUP_ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
 # x, w, bias, out, ws; M, K, N, bm, bn, splits, chunks_per_split, mode, act,
-# vec_x, vec_w; stream.
-F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# vec_x, vec_w; groups, stride_x, stride_w; stream.
+F32_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + GROUP_ARGTYPES
+                + [ctypes.c_void_p])
 # x, w, bias, out, ws; bias_bf16, out_bf16, M, K, N, bm, bn, splits,
-# chunks_per_split, act, vec_x, vec_w; stream.
-BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# chunks_per_split, act, vec_x, vec_w; groups, stride_x, stride_w; stream.
+BF16_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + GROUP_ARGTYPES
+                 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,20 +168,31 @@ class F32Plan(NamedTuple):
         return self.splits > 1 and self.mode == "split"
 
 
+def _vec(width: int, ptr: int, stride: int, elems: int) -> bool:
+    """Whether an operand takes 16-byte copies of `elems` values: its row
+    width a multiple of them, its base 16-byte aligned, and (stacked) its
+    groups a multiple of them apart, so that every group's base is too."""
+    return width % elems == 0 and ptr % 16 == 0 and stride % elems == 0
+
+
 def f32_plan(m: int, k: int, n: int, x_ptr: int = 0, w_ptr: int = 0,
-             sms: int = 132) -> F32Plan:
-    """The launch of `gfid_matmul_f32` for x (m, k) @ w (k, n) at those
-    base addresses on a card of `sms` SMs: the split of K from (k, n)
-    alone, so that every row's sums run in one order at any m; the tile
-    and the mode from m; 16-byte loads of x where k % 4 == 0 and x is
-    16-byte aligned, of w where n % 4 == 0 and w is."""
-    return _f32_plan(m, k, n, k % 4 == 0 and x_ptr % 16 == 0,
-                     n % 4 == 0 and w_ptr % 16 == 0, sms)
+             sms: int = 132, groups: int = 1) -> F32Plan:
+    """The launch of `gfid_matmul_f32` for x (m, k) @ w (k, n), or for
+    `groups` such products stacked (x (groups, m, k) and w (groups, k, n),
+    contiguous), at those base addresses on a card of `sms` SMs: the split
+    of K from (k, n) alone, so that every row's sums run in one order at
+    any m and in any group; the tile and the mode from m and from how many
+    blocks the groups give the card (the splits are added in split order in
+    every mode, so neither changes a bit); 16-byte loads of x where k % 4 ==
+    0 and x and every group of it are 16-byte aligned, of w likewise with
+    n. The grid's y is groups x row blocks."""
+    return _f32_plan(m, k, n, _vec(k, x_ptr, m * k, 4),
+                     _vec(n, w_ptr, k * n, 4), sms, groups)
 
 
 @functools.lru_cache(maxsize=4096)
 def _f32_plan(m: int, k: int, n: int, vec_x: bool, vec_w: bool,
-              sms: int) -> F32Plan:
+              sms: int, groups: int = 1) -> F32Plan:
     wide = 4 * k * n >= F32_WIDE_BYTES
     width = 512 if wide else 64
     splits, per = build.mma_split(
@@ -178,9 +203,9 @@ def _f32_plan(m: int, k: int, n: int, vec_x: bool, vec_w: bool,
         bn = F32_WIDE_COLUMNS.get(bm, 64) if wide else 64
     else:
         bm, bn = F32_TILES[0]
-        if -(-m // bm) * -(-n // bn) < F32_FOLD_WAVES * sms:
+        if groups * -(-m // bm) * -(-n // bn) < F32_FOLD_WAVES * sms:
             bm, bn = F32_TILES[1]
-    grid = (-(-n // bn), -(-m // bm), splits)
+    grid = (-(-n // bn), groups * -(-m // bm), splits)
     if splits > 1 and m > F32_FEW_ROWS \
             and grid[0] * grid[1] >= F32_FOLD_WAVES * sms:
         mode, grid = "fold", grid[:2] + (1,)
@@ -193,23 +218,25 @@ def _f32_plan(m: int, k: int, n: int, vec_x: bool, vec_w: bool,
 
 
 def bf16_plan(m: int, k: int, n: int, x_ptr: int = 0,
-              w_ptr: int = 0) -> build.MmaPlan:
-    """The launch of `gfid_matmul_bf16` for x (m, k) @ w (k, n) at those
-    base addresses: BM from m; the split of K from (k, n) alone, so that
-    every row's sums run in one order at any m; 16-byte loads of x where
-    k % 8 == 0 and x is 16-byte aligned, of w where n % 8 == 0 and w is."""
-    return _bf16_plan(m, k, n, k % 8 == 0 and x_ptr % 16 == 0,
-                      n % 8 == 0 and w_ptr % 16 == 0)
+              w_ptr: int = 0, groups: int = 1) -> build.MmaPlan:
+    """The launch of `gfid_matmul_bf16` for x (m, k) @ w (k, n), or for
+    `groups` such products stacked, at those base addresses: BM from m; the
+    split of K from (k, n) alone, so that every row's sums run in one order
+    at any m and in any group; 16-byte loads of x where k % 8 == 0 and x
+    and every group of it are 16-byte aligned, of w likewise with n. The
+    grid's y is groups x row blocks."""
+    return _bf16_plan(m, k, n, _vec(k, x_ptr, m * k, 8),
+                      _vec(n, w_ptr, k * n, 8), groups)
 
 
 @functools.lru_cache(maxsize=4096)
 def _bf16_plan(m: int, k: int, n: int, vec_x: bool,
-               vec_w: bool) -> build.MmaPlan:
+               vec_w: bool, groups: int = 1) -> build.MmaPlan:
     bm, bn = next((t for t in BF16_TILES if m <= t[0]), BF16_TILES[-1])
     col_blocks = -(-n // bn)
     splits, per = build.mma_split(
         k, -(-BF16_TARGET_BLOCKS // max(col_blocks, 1)), BF16_MIN_SPLIT)
-    grid = (col_blocks, -(-m // bm), splits)
+    grid = (col_blocks, groups * -(-m // bm), splits)
     build.check_grid("gfid_matmul_bf16", grid)
     return build.MmaPlan(bm, bn, splits, per, vec_x, vec_w, grid)
 
@@ -217,11 +244,13 @@ def _bf16_plan(m: int, k: int, n: int, vec_x: bool,
 def _check_shapes(x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor], act: Optional[str]) -> None:
     check_act(act)
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"gfid_matmul takes (M, K) @ (K, N); got "
-                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
-    if bias is not None and tuple(bias.shape) != (w.shape[1],):
-        raise ValueError(f"bias must have shape ({w.shape[1]},); "
+    if not ((x.ndim == w.ndim == 2 and x.shape[1] == w.shape[0])
+            or (x.ndim == w.ndim == 3 and x.shape[0] == w.shape[0]
+                and x.shape[2] == w.shape[1])):
+        raise ValueError(f"gfid_matmul takes (M, K) @ (K, N) or (G, M, K) @ "
+                         f"(G, K, N); got {tuple(x.shape)} @ {tuple(w.shape)}")
+    if bias is not None and tuple(bias.shape) != (w.shape[-1],):
+        raise ValueError(f"bias must have shape ({w.shape[-1]},); "
                          f"got {tuple(bias.shape)}")
 
 
@@ -231,27 +260,31 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x (M, K) @ w (K, N) -> (M, N) in `out_dtype` (default fp32),
     accumulated in fp32, with the optional fused epilogue in fp32: `bias`
-    (N,) added to the accumulator, then `act` ("relu" | "gelu").
+    (N,) added to the accumulator, then `act` ("relu" | "gelu"). Stacked
+    operands x (G, M, K) @ w (G, K, N) give (G, M, N), every group's product
+    in one launch, the bias shared by the groups.
 
     x and w are both fp32 (entry `gfid_matmul_f32`, counted by
     `gfid_matmul.launches`) or both bf16 (entry `gfid_matmul_bf16`, counted
-    by `gfid_matmul_bf16.launches`; the bias may be bf16 too, widened). The
-    kernel stores `build.stored_dtype`: bf16 on bf16 operands when asked
-    (the fp32 result rounded once to nearest even), else fp32, cast here to
-    any other `out_dtype`."""
+    by `gfid_matmul_bf16.launches`; the bias may be bf16 too, widened); a
+    grouped launch is counted by `gfid_matmul_grouped` or
+    `gfid_matmul_bf16_grouped` too. The kernel stores
+    `build.stored_dtype`: bf16 on bf16 operands when asked (the fp32 result
+    rounded once to nearest even), else fp32, cast here to any other
+    `out_dtype`."""
     _check_shapes(x, w, bias, act)
     is_bf16 = build.check_float_operands("gfid_matmul", x, w, bias)
     store = build.stored_dtype(is_bf16, out_dtype)
-    m, n = x.shape[0], w.shape[1]
+    shape = x.shape[:-1] + w.shape[-1:]
     if x.is_cuda:
-        out = _launch(x, w, bias, act, is_bf16, store) if m and n \
-            else x.new_empty((m, n), dtype=store)
+        out = _launch(x, w, bias, act, is_bf16, store) if shape.numel() \
+            else x.new_empty(shape, dtype=store)
     else:
         kind = x.device.type
         if kind == "cpu":
             out = gfid_matmul_plain(x, w, bias=bias, act=act, out_dtype=store)
         elif kind == "meta":
-            out = torch.empty((m, n), device="meta", dtype=store)
+            out = torch.empty(shape, device="meta", dtype=store)
         else:
             raise ValueError(f"gfid_matmul runs on CUDA or CPU tensors, "
                              f"not {kind}")
@@ -260,22 +293,25 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def _launch(x, w, bias, act, is_bf16, store) -> torch.Tensor:
-    """Allocate the (M, N) output in `store` and launch the entry of the
-    operands' dtype into it with its plan, on the current stream of x's
-    device (made current only when it is another); raise on a refused
-    launch, count it, and return the output. A split fp32 launch's
-    workspace shares the output's allocation (one allocation on the host's
-    path, freed with the output)."""
-    m, k = x.shape
-    n = w.shape[1]
+    """Allocate the (M, N) or (G, M, N) output in `store` and launch the
+    entry of the operands' dtype into it with its plan, on the current
+    stream of x's device (made current only when it is another); raise on
+    a refused launch, count it, and return the output. A split launch's
+    fp32 workspace, (splits, G, M, N), shares the output's allocation (one
+    allocation on the host's path, freed with the output); the bf16
+    entry's is an allocation of its own."""
+    groups = x.shape[0] if x.ndim == 3 else 1
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    size = groups * m * n
     index = x.get_device()
     x_ptr, w_ptr = x.data_ptr(), w.data_ptr()
     b_ptr = None if bias is None else bias.data_ptr()
     if is_bf16:
         lib, fn = _launcher_bf16()
-        plan = bf16_plan(m, k, n, x_ptr, w_ptr)
-        out = x.new_empty((m, n), dtype=store)
-        ws = build.mma_workspace(plan, m, n, out.device)
+        plan = bf16_plan(m, k, n, x_ptr, w_ptr, groups)
+        out = x.new_empty(size, dtype=store)
+        ws = build.mma_workspace(plan, groups * m, n, out.device)
         args = (x_ptr, w_ptr, b_ptr, out.data_ptr(),
                 None if ws is None else ws.data_ptr(),
                 int(bias is not None and bias.dtype == torch.bfloat16),
@@ -284,25 +320,31 @@ def _launch(x, w, bias, act, is_bf16, store) -> torch.Tensor:
                 int(plan.vec_x), int(plan.vec_w))
     else:
         lib, fn = _launcher()
-        plan = f32_plan(m, k, n, x_ptr, w_ptr, build.sm_count(index))
+        plan = f32_plan(m, k, n, x_ptr, w_ptr, build.sm_count(index), groups)
         if plan.workspace:     # the output, then the splits' partial sums
-            out = x.new_empty((plan.splits + 1, m, n))[0]
-            ws_ptr = out.data_ptr() + 4 * m * n
+            out = x.new_empty((plan.splits + 1) * size)[:size]
+            ws_ptr = out.data_ptr() + 4 * size
         else:
-            out, ws_ptr = x.new_empty((m, n)), None
+            out, ws_ptr = x.new_empty(size), None
         args = (x_ptr, w_ptr, b_ptr, out.data_ptr(), ws_ptr, m, k, n, plan.bm,
                 plan.bn, plan.splits, plan.chunks_per_split,
                 F32_MODES[plan.mode], ACT_CODES[act], int(plan.vec_x),
                 int(plan.vec_w))
     with build.on_device(index):
-        err = fn(*args, build.raw_stream(index))
+        err = fn(*args, groups, m * k, k * n, build.raw_stream(index))
     build.check(lib, err, "gfid_matmul_bf16" if is_bf16 else "gfid_matmul")
     (gfid_matmul_bf16 if is_bf16 else gfid_matmul).launches += 1
-    return out
+    if x.ndim == 3:
+        (gfid_matmul_bf16_grouped if is_bf16
+         else gfid_matmul_grouped).launches += 1
+    return out.view(x.shape[:-1] + w.shape[-1:])
 
 
 gfid_matmul.launches = 0
 gfid_matmul_bf16 = build.Launches("gfid_matmul_bf16")
+# the grouped launches among each entry's
+gfid_matmul_grouped = build.Launches("gfid_matmul_grouped")
+gfid_matmul_bf16_grouped = build.Launches("gfid_matmul_bf16_grouped")
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,9 @@ stores bf16 itself, in the same launch.
 Attention keeps the reference's layout, q (B, Sq, H, D) and k, v
 (B, Skv, KV, D); the kernel reads the GQA kv head as an index, so the
 reference's `jnp.repeat` of the kv heads has no counterpart here.
+
+Stacked-expert GEMMs (G, ..., K) @ (G, K, N) flatten x's middle dims into
+rows and run the matmul's grouped launch: one launch for every group.
 """
 from __future__ import annotations
 
@@ -93,6 +96,26 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
                                    bias=_f32(bias), act=act)
     out = out if out_dtype is None else out.to(out_dtype)
     return out.reshape(*lead, w.shape[-1])
+
+
+def gfid_matmul_grouped(x: torch.Tensor, w: torch.Tensor, *,
+                        bias: Optional[torch.Tensor] = None,
+                        act: Optional[str] = None,
+                        precision: str = "fp32",
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """(G, ..., K) @ (G, K, N) -> (G, ..., N) through the FC mode, every
+    group in one launch, in `out_dtype` (default: the kernel's fp32). fp32
+    only: the int8 contract covers canonical GEMMs alone
+    (`plan.supports_int8`), as in the reference."""
+    if precision != "fp32":
+        raise ValueError(f"precision {precision!r}: the grouped GEMM runs "
+                         "fp32 or bf16 operands; int8 covers canonical GEMMs "
+                         "only")
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
+    out = _matmul.gfid_matmul(x3, w.contiguous(), bias=_contig(bias), act=act,
+                              out_dtype=out_dtype)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def gfid_conv1d_depthwise(x: torch.Tensor, w: torch.Tensor, *,

@@ -142,19 +142,19 @@ def stack_defs(defs: DefTree, n: int) -> DefTree:
 # Norms / activations (fp32 internals, cast back)
 # ---------------------------------------------------------------------------
 
-def row_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, keeping it, in an order fixed by the axis
-    length alone: halve while the length is even, then add the odd rest in
-    order. Every step is elementwise, so a row's sum has the same bits
-    whatever other rows share the tensor. `torch.sum`'s CUDA reduction
-    splits a row over threads by the count of rows, so its bits follow the
-    batch (ROADMAP section 3)."""
-    while x.shape[-1] % 2 == 0:
-        half = x.shape[-1] // 2
-        x = x[..., :half] + x[..., half:]
-    acc = x[..., :1]
-    for i in range(1, x.shape[-1]):
-        acc = acc + x[..., i:i + 1]
+def row_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over axis `dim` (the last by default), keeping it, in an order
+    fixed by the axis length alone: halve while the length is even, then
+    add the odd rest in order. Every step is elementwise, so a row's sum has
+    the same bits whatever other rows share the tensor. `torch.sum`'s CUDA
+    reduction splits a row over threads by the count of rows, so its bits
+    follow the batch (ROADMAP section 3)."""
+    while x.shape[dim] % 2 == 0:
+        half = x.shape[dim] // 2
+        x = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
+    acc = x.narrow(dim, 0, 1)
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.narrow(dim, i, 1)
     return acc
 
 

@@ -1,8 +1,11 @@
 """Top-level model assembly: parameter trees, full-sequence forward and
 prefill, and single-token decode over an explicit state tree. A copy of the
-JAX package's `models/transformer.py` for two families: dense decoders
-whose layers are GLOBAL_ATTN blocks with a dense FFN, and the SSM family's
-xLSTM, whose MLSTM and SLSTM blocks carry their own projections (no FFN).
+JAX package's `models/transformer.py` for three families: dense decoders
+whose layers are GLOBAL_ATTN blocks with a dense FFN, MoE decoders whose
+GLOBAL_ATTN blocks carry the MoE FFN of `models/moe.py` (the dense
+dispatch; `forward(..., return_aux=True)` returns its load-balancing loss
+as the reference's `forward` does), and the SSM family's xLSTM, whose
+MLSTM and SLSTM blocks carry their own projections (no FFN).
 
 The reference runs the layer groups under `jax.lax.scan`; the port loops
 over the stacked group axis in Python, so each layer's engine ops are
@@ -33,6 +36,7 @@ from repro_torch import engine
 from repro_torch.configs.base import MLSTM, SLSTM, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     D_MODEL, VOCAB, DefTree, ParamDef, embed_def, embed_lookup, init_tree,
@@ -49,13 +53,15 @@ _SSM_DECODE = {MLSTM: ssm.mlstm_decode, SLSTM: ssm.slstm_decode}
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's model code does not run yet: it runs dense
-    decoders of GLOBAL_ATTN layers and the SSM family's mLSTM/sLSTM blocks
-    (xLSTM), not Mamba, MoE or the other families."""
-    if cfg.family not in ("dense", "ssm") or cfg.moe is not None \
+    and MoE decoders of GLOBAL_ATTN layers and the SSM family's
+    mLSTM/sLSTM blocks (xLSTM), not Mamba, MLA or the other families."""
+    if cfg.family not in ("dense", "moe", "ssm") \
+            or (cfg.family == "moe") != (cfg.moe is not None) \
             or (cfg.family == "ssm") != (cfg.ssm is not None):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported to repro_torch yet: "
-            "only dense decoder LMs and xLSTM; see ROADMAP queue 1, item 10")
+            "only dense and MoE decoder LMs and xLSTM; see ROADMAP queue 1, "
+            "item 10")
     for kind in cfg.layer_kinds:
         if kind in SSM_KINDS:
             continue
@@ -96,9 +102,6 @@ def _apply_norm(cfg: ModelConfig, p: Dict, name: str,
 
 
 def block_defs(cfg: ModelConfig, kind: str, use_moe: bool) -> DefTree:
-    if use_moe:
-        raise NotImplementedError("MoE layers are not ported to repro_torch "
-                                  "yet; see ROADMAP queue 1, item 10")
     defs: Dict[str, Any] = {}
     defs.update(_norm_defs(cfg, "pre"))
     if kind in SSM_KINDS:
@@ -107,18 +110,21 @@ def block_defs(cfg: ModelConfig, kind: str, use_moe: bool) -> DefTree:
         defs["attn"] = attn.attention_defs(cfg, kind)
     if cfg.post_block_norm:
         defs.update(_norm_defs(cfg, "post"))
-    if _has_ffn(cfg, kind):
+    if _has_ffn(cfg, kind, use_moe):
         defs.update(_norm_defs(cfg, "pre_ffn"))
-        defs["ffn"] = ffn_mod.ffn_defs(cfg)
+        if use_moe:
+            defs["moe"] = moe_mod.moe_defs(cfg)
+        else:
+            defs["ffn"] = ffn_mod.ffn_defs(cfg)
         if cfg.post_block_norm:
             defs.update(_norm_defs(cfg, "post_ffn"))
     return defs
 
 
-def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
-    """Dense FFN after the mixer: not for the xLSTM blocks, which carry
-    their own projections."""
-    return cfg.d_ff > 0 and kind not in SSM_KINDS
+def _has_ffn(cfg: ModelConfig, kind: str, use_moe: bool) -> bool:
+    """A dense or MoE FFN after the mixer: not for the xLSTM blocks, which
+    carry their own projections."""
+    return (cfg.d_ff > 0 or use_moe) and kind not in SSM_KINDS
 
 
 def _group_layout(cfg: ModelConfig) -> Tuple[List[Tuple[str, bool]],
@@ -215,29 +221,41 @@ def _mixer_forward(cfg: ModelConfig, kind: str, p: Dict, h: torch.Tensor,
     return attn.attention_forward(cfg, p["attn"], h, positions, kind)
 
 
-def _ffn_residual(cfg: ModelConfig, kind: str, p: Dict,
-                  x: torch.Tensor) -> torch.Tensor:
-    if _has_ffn(cfg, kind):
+def _ffn_residual(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
+                  x: torch.Tensor, decode: bool = False,
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFN's residual step. Returns (x, aux): an MoE layer's
+    load-balancing loss, else None. A decode step runs the MoE's dense
+    dispatch, a full sequence `moe_forward`, as the reference does."""
+    aux = None
+    if _has_ffn(cfg, kind, use_moe):
         h = _apply_norm(cfg, p, "pre_ffn", x)
-        sub = ffn_mod.ffn_forward(cfg, p["ffn"], h)
+        if use_moe:
+            moe_fn = moe_mod.moe_forward_dense if decode \
+                else moe_mod.moe_forward
+            sub, aux = moe_fn(cfg, p["moe"], h)
+        else:
+            sub = ffn_mod.ffn_forward(cfg, p["ffn"], h)
         if cfg.post_block_norm:
             sub = _apply_norm(cfg, p, "post_ffn", sub)
         x = x + sub
-    return x
+    return x, aux
 
 
 def block_forward(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
                   x: torch.Tensor, positions: torch.Tensor,
                   state_dtype: Optional[torch.dtype] = None,
-                  ) -> Tuple[torch.Tensor, Any]:
-    """One residual block. Returns (x, piece): the mixer's (k, v) for an
-    attention layer, its decode state for an xLSTM layer when
-    `state_dtype` is given (else None)."""
+                  ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+    """One residual block. Returns (x, piece, aux): the mixer's (k, v) for
+    an attention layer, its decode state for an xLSTM layer when
+    `state_dtype` is given (else None); an MoE layer's load-balancing loss
+    (else None)."""
     h = _apply_norm(cfg, p, "pre", x)
     sub, piece = _mixer_forward(cfg, kind, p, h, positions, state_dtype)
     if cfg.post_block_norm:
         sub = _apply_norm(cfg, p, "post", sub)
-    return _ffn_residual(cfg, kind, p, x + sub), piece
+    x, aux = _ffn_residual(cfg, kind, use_moe, p, x + sub)
+    return x, piece, aux
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict,
@@ -270,13 +288,20 @@ def _at(tree: Dict, path, i: Optional[int]) -> Any:
     return sub if i is None else _layer(sub, i)
 
 
-def forward(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
-    """Full-sequence forward. Returns the final hidden state (B, S, D)."""
+def forward(cfg: ModelConfig, params: Dict, batch: Dict,
+            return_aux: bool = False):
+    """Full-sequence forward. Returns the final hidden state (B, S, D), or
+    with `return_aux` the reference's (hidden, aux): the MoE layers'
+    load-balancing losses summed in layer order (fp32 zero without MoE)."""
     x, positions = embed_inputs(cfg, params, batch)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for path, i, kind, use_moe in _blocks(cfg):
-        x, _ = block_forward(cfg, kind, use_moe, _at(params, path, i), x,
-                             positions)
-    return _apply_norm(cfg, params, "final", x)
+        x, _, aux = block_forward(cfg, kind, use_moe, _at(params, path, i),
+                                  x, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
+    x = _apply_norm(cfg, params, "final", x)
+    return (x, aux_total) if return_aux else x
 
 
 def logits_fn(cfg: ModelConfig, params: Dict,
@@ -341,7 +366,7 @@ def _block_decode(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
         sub, _ = attn.attention_decode(cfg, p["attn"], h, st, pos, kind)
     if cfg.post_block_norm:
         sub = _apply_norm(cfg, p, "post", sub)
-    return _ffn_residual(cfg, kind, p, x + sub)
+    return _ffn_residual(cfg, kind, use_moe, p, x + sub, decode=True)[0]
 
 
 def decode_step(cfg: ModelConfig, params: Dict, state: Dict,
@@ -370,8 +395,8 @@ def _block_prefill(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
     (cast to the cache dtype) into the first S slots for attention, the
     whole recurrent state (conv tail in the cache dtype) for xLSTM."""
     s = x.shape[1]
-    x, piece = block_forward(cfg, kind, use_moe, p, x, positions,
-                             state_dtype=state_dtype)
+    x, piece, _ = block_forward(cfg, kind, use_moe, p, x, positions,
+                                state_dtype=state_dtype)
     if kind in SSM_KINDS:
         _write_state(st, piece)
     else:

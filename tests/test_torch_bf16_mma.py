@@ -736,7 +736,8 @@ def test_f32_launch_passes_its_plan(monkeypatch, m, k, n, act, mode):
     """The fp32 branch of `_launch` calls `gfid_matmul_f32` with its plan
     in the C signature's order: pointers (a workspace exactly when the plan
     needs one, the (splits, M, N) fp32 right after the output in one
-    allocation), M, K, N, tile, split, mode, act, load flags, stream."""
+    allocation), M, K, N, tile, split, mode, act, load flags, one group
+    and its strides, stream."""
     calls = []
     _fake_cuda(monkeypatch, calls)
     x, w = torch.zeros((m, k)), torch.zeros((k, n))
@@ -760,7 +761,7 @@ def test_f32_launch_passes_its_plan(monkeypatch, m, k, n, act, mode):
     assert args[5:] == (m, k, n, plan.bm, plan.bn, plan.splits,
                         plan.chunks_per_split, gfid_matmul.F32_MODES[plan.mode],
                         ACT_CODES[act],
-                        int(plan.vec_x), int(plan.vec_w), 7)
+                        int(plan.vec_x), int(plan.vec_w), 1, m * k, k * n, 7)
     assert gfid_matmul.gfid_matmul.launches == before + 1
 
 
@@ -778,7 +779,7 @@ def test_bf16_launch_keeps_its_signature(monkeypatch):
     assert len(args) == len(gfid_matmul.BF16_ARGTYPES)
     assert args[5:] == (0, 1, 8, 576, 576, plan.bm, plan.bn, plan.splits,
                         plan.chunks_per_split, 0, int(plan.vec_x),
-                        int(plan.vec_w), 7)
+                        int(plan.vec_w), 1, 8 * 576, 576 * 576, 7)
     assert gfid_matmul.gfid_matmul_bf16.launches == before + 1
 
 
