@@ -115,7 +115,15 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      (within 8e-3, two calls bitwise equal), with bf16 cases at D = 40, at
      D = 20 and on unaligned views that must reach every padded head dim
      (16, 32, 64, 128) and both copy paths; and that an input which
-     requires grad raises.
+     requires grad raises. The flash cases include llama-3.2-vision's cross
+     layer at Skv != Sq, not causal: q (1, 1100, 32/8, 128) and (4, 1100,
+     ...) against k, v of 1,601 image tokens, a short q (Sq 17) against
+     1,601, and a ragged pair (Sq 333, Skv 77), on both kernels. The bf16
+     GEMM cases include llama's five GEMM shapes ((4096, 4096), (4096,
+     1024), (4096, 14336), (14336, 4096) and the lm_head (4096, 128256)) at
+     a decode step's M = 4 and a prompt's M = 1,100, and the image K/V at
+     M = 1,601, both stores; and its row invariance at those shapes at M =
+     1, 4, 13, 1,100, 1,601 and 4,400.
   5. per kernel: its time over the main path's shapes beside its bound, its
      plain version's time and one library call's time where one PyTorch call
      computes the same function (`F.conv2d` on NCHW and `torch.addmm`, each
@@ -176,15 +184,17 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      with float4 and scalar loads, and bf16 x on both (required); and
      `gfid_matmul` within TOL at every xLSTM GEMM shape, at
      M = 8 and at a prompt-384 prefill's padded rows. Then xlstm-125m at
-     full width and depth (12 layers, mLSTM x 5 + sLSTM a group, d_model
-     768, 155.7 M fp32 parameters from seed 0) is served on the same pool
+     full width, its depth cut to SSM_LAYERS = 6 of 12 (one group, mLSTM x
+     5 + sLSTM; d_model 768, 97.1 M fp32 parameters from seed 0; cut for
+     the script's time) is served on the same pool
      geometry and 16-request workload as phase 6, continuous, drain and
      solo (the first 4 requests). Every decode-state leaf is a slot store, so nothing is paged.
      Checks: every request done without preemption; one 8-row decode
      bucket; tokens bitwise equal across the three runs and to
-     `greedy_generate` for 4 requests; every compiled op on "cuda", 67 GEMMs
-     a program and 12 depthwise convs a prefill program; launches of 67
-     `gfid_matmul` a decode step, 67 + 12 `gfid_conv1d_depthwise` a prefill
+     `greedy_generate` for 4 requests; every compiled op on "cuda", 34 GEMMs
+     a program and 6 depthwise convs a prefill program (67 and 12 at the
+     full 12 layers); launches of 34
+     `gfid_matmul` a decode step, 34 + 6 `gfid_conv1d_depthwise` a prefill
      and no `paged_gather`; a decode step of one row alone bitwise equal,
      logits and new state, to that row in the 8-row bucket; "torch" logits
      within TOL of "cuda" for a prompt-384 prefill and for a bucket-8
@@ -282,21 +292,23 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      clean step.
  12. granite-moe-1b (ibm-granite/granite-3.0-1b-a400m-base: 24 layers,
      d_model 1024, 16/8 heads of 64, 32 experts top-8 of d_ff 512,
-     vocabulary 49,155, tied; 1,334.6 M parameters from seed 0) at full
-     width and depth, fp32, then the same parameters rounded to bf16,
+     vocabulary 49,155, tied) at full width, its depth cut to MOE_LAYERS =
+     12 (692.5 M parameters from seed 0; cut for the script's time), fp32,
+     then the same parameters rounded to bf16,
      each served through `ContinuousScheduler` on phase 6's pool and its
      first 8 requests, continuous, drain and solo (the first 2; the three
      schedulers share their compiled programs). The MoE
      block is the reference's dense dispatch: every expert sees every
      token, its three GEMMs a grouped launch each. Checks: every request
-     done in the 8-row bucket; every compiled op on "cuda", 193 GEMMs a
+     done in the 8-row bucket; every compiled op on "cuda", 97 GEMMs a
      pass (4 projections, the router, 3 grouped a layer; the
-     unembedding), 72 grouped; launches per decode step and prefill
-     exactly those (fp32: 193 `gfid_matmul`; bf16: 24 fp32 router GEMMs +
-     169 `gfid_matmul_bf16`), 2 gathers a step, nothing else; tokens
+     unembedding), 36 grouped (193 and 72 at the full 24 layers); launches
+     per decode step and prefill exactly those (fp32: 97 `gfid_matmul`;
+     bf16: 12 fp32 router GEMMs + 85 `gfid_matmul_bf16`), 2 gathers a
+     step, nothing else; tokens
      bitwise across the three modes; each of 8 tokens through layer 0's
      MoE block alone bitwise that token in the 8-row bucket; 2 requests
-     and one 1,100-token request (phase 8's pool of max_len 2048: 24
+     and one 1,100-token request (phase 8's pool of max_len 2048: 12
      flash launches, 16 query heads over 8 kv heads) against
      `greedy_generate` at one row: equal tokens, or else the first
      expert choice that differs (step, layer, the gap between the 8th and
@@ -307,11 +319,43 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      prefill, and the grouped launches at a decode step's rows and a
      prompt-256 prefill's beside the plain version, `torch.bmm` (TF32
      off; also alone) and their bounds.
+ 13. llama-3.2-vision-11b (meta-llama/Llama-3.2-11B-Vision's text
+     backbone: 40 layers, 32 self-attention and 8 gated cross-attention
+     layers at 3, 8, ..., d_model 4096, 32/8 heads of 128, d_ff 14,336,
+     vocabulary 128,256, untied lm_head; 1,601 precomputed image
+     embeddings a request) at full width and depth, 9.77 B bf16 parameters
+     from seed 0 drawn by the card's generator (`layers.init_tree`),
+     holding at most one leaf in fp32 beside the bf16 ones (peak
+     allocation checked). First the gate: at the
+     config's zero gate two images give bitwise equal logits; then every
+     cross gate is set to 1.0 (this phase's own data) and they differ.
+     Then `repro_torch.launch.serve.main` (the reference's `launch/serve.py`)
+     with `--batch 4 --prompt-len 1100 --gen 16` on those weights: one
+     compiled prefill (297 `gfid_matmul_bf16`, 40 `flash_attention_bf16`:
+     32 causal, 8 non-causal at Sq 1,100 against Skv 1,601) and 15 compiled
+     decode steps (265 each), nothing else. Each request alone through
+     `greedy_generate`: equal tokens, or else at the first step that
+     differs the top two logits lie closer than the two runs' largest
+     logit difference there. "torch" logits within 5e-2 (VLM_BF16_TOL) of
+     "cuda" for the prefill and a decode step, argmax equal, and the
+     full-depth witness for request 0: from the same weights widened to
+     fp32 the two backends within 1e-4, and each bf16 path's distance
+     from those fp32 logits within 1.5 times the other's. Then fp32 at full width
+     on the first group (4 self layers and the cross layer, 8.6 GB):
+     "torch" within 1e-4 of "cuda" for a prompt-1100 prefill and a decode
+     step (38 and 34 fp32 `gfid_matmul`, 5 fp32 flash a prefill), and
+     phase 9's bf16 witness on the same weights. Prints a decode step's
+     wall and device time (`torch.profiler`) beside its bound (the weights
+     read once and the caches), the prefill's ms and tokens/s, the GEMM at
+     llama's shapes (the lm_head beside bf16 `torch.mm`) and the cross
+     flash launch beside SDPA (`enable_gqa`, non-causal), each with its
+     bound.
      Last, each phase's seconds.
 
 The last lines are the card's name and power limit, a JSON object listing
 the kernels, and `{"ok": true, "device": {...}}`.
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -340,6 +384,7 @@ SERVE_DENSE_CHECKS = 4      # requests also run through greedy_generate
 SERVE_PREFILL = 128         # the prompt length of the timed prefill
 # Phase 7: xlstm-125m on the same pool geometry and workload.
 SSM_MODEL = "xlstm_125m"
+SSM_LAYERS = 6              # one of its two groups: cut for the script's time
 SSM_SLOTS = 2 * SERVE_BATCH + 1   # state slots (slot 0 is the reserved dummy)
 SSM_PREFILL = 384           # the timed prefill: two 256-token mLSTM chunks
 SSM_CONV_LENS = (16, 243, 384)    # prefill lengths of the conv checks
@@ -405,11 +450,29 @@ CHAOS_RATES = {"numerics": 0.01, "pool": 0.02, "latency": 0.05}
 # grouped GEMMs timed at a decode step's rows and a prompt-MOE_TIMED_PROMPT
 # prefill's
 MOE_MODEL = "granite_moe_1b"
+MOE_LAYERS = 12             # half its 24 layers: cut for the script's time
 GROUPED_ROWS = (8, 1024)
 GROUPED_RAGGED = (3, 5, 72, 40)     # groups, M, K, N
 MOE_REQUESTS, MOE_DENSE_CHECKS = 8, 2
 MOE_LONG_PROMPT, MOE_LONG_STEPS = 1100, 8
 MOE_TIMED_PROMPT = 256
+# Phase 3's cross-attention flash cases and llama GEMMs, and phase 13:
+# llama-3.2-vision-11b served by `launch/serve.py` at VLM_BATCH requests of
+# VLM_PROMPT tokens (past the dense attention's 1024) and VLM_GEN steps,
+# every cross gate set to VLM_GATE (the config's 0 would hide the image);
+# the GEMM's row invariance at its shapes at VLM_INVARIANCE_ROWS rows
+VLM_MODEL = "llama32_vision_11b"
+VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_GATE = 4, 1100, 16, 1.0
+VLM_INVARIANCE_ROWS = (1, 4, 13, 1100, 1601, 4 * 1100)
+# Its "torch" logits against "cuda" with bf16 parameters at full depth. On
+# the H100 the two backends read 3.9e-6 apart from the same weights in
+# fp32 (one function), and each bf16 path lay 2.0e-2 to 2.1e-2 from those
+# fp32 logits: their own bf16 rounding puts them 2.4e-2 apart, at
+# BF16_LOGITS_TOL (set on smollm's 30 layers of width 576), and another
+# draw of the weights read above it. The limit is the reference's own
+# bf16 bound; the full-depth witness (fp32 within TOL, the two distances
+# within BF16_FP32_RATIO of each other) holds that the gap is rounding
+VLM_BF16_TOL = 5e-2
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
 # tensor cores, bf16 and int8 in them, and device-memory bandwidth. A bound
@@ -622,6 +685,35 @@ def bf16_mm_cases(gen, dev):
     return cases
 
 
+def vlm_gemm_shapes(cfg):
+    """(label, k, n) of llama-3.2-vision-11b's GEMMs: a layer's four (wq and
+    wo, wk and wv, which a cross layer runs on the image, w_in and w_gate,
+    w_out) and the untied lm_head."""
+    return serve_gemm_shapes(cfg)[:4] + (("lm_head", cfg.d_model, cfg.vocab_size),)
+
+
+def vlm_mm_cases(dev):
+    """(label, kwargs) for `gfid_matmul` on bf16 operands at llama's GEMM
+    shapes: each at a decode step's M = VLM_BATCH and a prompt's M =
+    VLM_PROMPT, and the image K/V projection at M = 1,601 (no multiple of
+    any tile); drawn on the card from a seed of their own."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(VLM_MODEL)
+    dgen = torch.Generator(device=dev).manual_seed(29)
+
+    def t(*shape):
+        return torch.randn(shape, generator=dgen, device=dev).to(torch.bfloat16)
+
+    cases = []
+    for lbl, k, n in vlm_gemm_shapes(cfg):
+        w = t(k, n)
+        rows = (VLM_BATCH, VLM_PROMPT) + ((cfg.n_img_tokens,) if lbl == "wk/wv"
+                                          else ())
+        cases += [(f"llama {lbl} M={m}", dict(x=t(m, k), w=w, bias=None, act=None))
+                  for m in rows]
+    return cases
+
+
 def bf16_conv_cases(gen, dev):
     """(label, kwargs) for `gfid_conv2d_nhwc` on bf16 operands beyond the
     AlexNet and ragged cases: cg = 3 at stride 4 with og = 20 (element loads
@@ -791,37 +883,51 @@ def f32_mm_cases(gen, dev):
     ]
 
 
-def row_invariance_check(dev, mm, gen, dtype=torch.bfloat16):
+def row_invariance_check(dev, mm, gen, dtype=torch.bfloat16, shapes=None,
+                         rows=INVARIANCE_ROWS, dgen=None):
     """The GEMM's hard rule, on the kernel itself: one fixed row of x,
-    placed in other rows of an x of every M in INVARIANCE_ROWS (first and
+    placed in other rows of an x of every M in `rows` (first and
     last rows, other warps and tiles), comes out bitwise equal to the same
     row alone (M = 1), in one K order at every M. On bf16 operands
     (`gfid_matmul_bf16`): in fp32 and bf16 stores, at each smollm-135m GEMM
     shape and a ragged one. On fp32 operands (`gfid_matmul_f32`): at the
-    same shapes and AlexNet's fc6-fc8. Returns the count of checks."""
+    same shapes and AlexNet's fc6-fc8. `shapes` ((label, k, n), ...)
+    replaces those; operands are drawn on the card from `dgen` where it is
+    given. Returns the count of checks."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import gfid_matmul as G
     bf16 = dtype == torch.bfloat16
     kname = "gfid_matmul_bf16" if bf16 else "gfid_matmul"
     stores = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
-    shapes = serve_gemm_shapes(get_config(SERVE_MODEL)) + (("ragged", 300, 70),)
-    if not bf16:
-        shapes += (("alexnet fc6", 9216, 4096), ("alexnet fc7", 4096, 4096),
-                   ("alexnet fc8", 4096, 1000))
+    if shapes is None:
+        shapes = serve_gemm_shapes(get_config(SERVE_MODEL)) + (("ragged", 300, 70),)
+        if not bf16:
+            shapes += (("alexnet fc6", 9216, 4096), ("alexnet fc7", 4096, 4096),
+                       ("alexnet fc8", 4096, 1000))
     # fp32's large operands (fc6's x at M = 15,872 is 585 MB) are drawn on
     # the card, from a seed of their own
-    dgen = None if bf16 else torch.Generator(device=dev).manual_seed(32)
+    if dgen is None and not bf16:
+        dgen = torch.Generator(device=dev).manual_seed(32)
     sms = build.sm_count(dev.index or 0) if dev.type == "cuda" else 132
     checks = 0
+
+    def host(*shape):
+        return torch.randn(shape, generator=gen).to(dev).to(dtype)
+
+    def card(*shape):
+        return torch.randn(shape, generator=dgen, device=dev).to(dtype)
+
+    # fp32: w and the row from the host, x on the card; bf16: all from the
+    # host, or all on the card where `dgen` is given
+    draw_w = card if bf16 and dgen is not None else host
+    draw_x = host if dgen is None else card
     for label, k, n in shapes:
-        w = torch.randn((k, n), generator=gen).to(dev).to(dtype)
-        row = torch.randn((1, k), generator=gen).to(dev).to(dtype)
+        w, row = draw_w(k, n), draw_w(1, k)
         want = {dt: mm(row, w, out_dtype=dt) for dt in stores}
         orders, tiles = set(), set()
-        for m in INVARIANCE_ROWS:
-            x = (torch.randn((m, k), generator=gen).to(dev).to(dtype) if bf16
-                 else torch.randn((m, k), generator=dgen, device=dev))
+        for m in rows:
+            x = draw_x(m, k)
             at = sorted({0, m - 1} | {r for r in (5, 17, 70, 200, 5000) if r < m})
             x[at] = row
             if bf16:
@@ -840,7 +946,7 @@ def row_invariance_check(dev, mm, gen, dtype=torch.bfloat16):
             del x
         require(len(orders) == 1, f"{kname} {label}: K order by M {orders}")
         print(f"[check] {kname} row invariance {label} ({k}, {n}): one row "
-              f"at M = {', '.join(map(str, INVARIANCE_ROWS))} (block "
+              f"at M = {', '.join(map(str, rows))} (block "
               f"{'rows' if bf16 else 'tiles'} {sorted(tiles)}; splits, chunks "
               f"{orders.pop()}) bitwise equal to the row alone, "
               f"{' and '.join(str(dt)[6:] for dt in stores)} stores")
@@ -1439,7 +1545,7 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
 
     mm, conv, gather = (gfid_matmul.gfid_matmul, conv1d.gfid_conv1d_depthwise,
                         paged.paged_gather)
-    cfg = get_config(SSM_MODEL)
+    cfg = dataclasses.replace(get_config(SSM_MODEL), n_layers=SSM_LAYERS)
     gen = torch.Generator().manual_seed(7)
 
     # the kernels against their plain versions at the path's shapes
@@ -1835,6 +1941,25 @@ def flash_cases(gen, dev):
     return cases
 
 
+def flash_cross_cases(gen, dev):
+    """(label, q, k, v, causal) at Skv != Sq, not causal: llama-3.2-vision's
+    cross layer, q (B, Sq, 32, 128) against the image's k and v (B, 1601,
+    8, 128), at B = 1 and 4 for Sq = VLM_PROMPT, a short q (Sq = 17), and
+    a ragged pair (Sq 333, Skv 77). Phase 3 runs each on fp32 and on bf16
+    operands."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(VLM_MODEL)
+    h, kv, d, n = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_img_tokens
+
+    def qkv(b, sq, skv):
+        return tuple(torch.randn(shape, generator=gen).to(dev)
+                     for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+    return [(f"cross ({b}, {sq}, {h}/{kv}, {d}) x Skv {skv} non-causal",
+             *qkv(b, sq, skv), False)
+            for b, sq, skv in ((1, VLM_PROMPT, n), (VLM_BATCH, VLM_PROMPT, n),
+                               (1, 17, n), (1, 333, 77))]
+
+
 def flash_bf16_cases(gen, dev):
     """(label, q, k, v, causal) on bf16 operands only: D = 40 (padded to
     64), D = 20 (element loads: D % 8 != 0) and q, k, v as views one element
@@ -2093,45 +2218,63 @@ def long_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
 
 def bf16_logits_witness(E, T, cfg, conf, params, prompt):
     """What the "cuda" and "torch" bf16 logits' gap is made of, at each of
-    LONG_LENS (prefixes of `prompt`): the gap itself (held to
-    BF16_LOGITS_TOL); the same prefill from the same weights widened to fp32
-    (held to TOL: the two backends compute one function); and each bf16
-    backend's distance from those fp32 logits (their ratio held within
-    BF16_FP32_RATIO either way: neither path rounds more than the other).
-    Returns the gap at the longest prompt."""
+    LONG_LENS (prefixes of `prompt`): `witness_check`. Returns the gap at
+    the longest prompt."""
     from repro_torch.models.layers import tree_map
     params32 = tree_map(lambda a: a.float(), params)
     gap = None
     for n in LONG_LENS:
-        logits = {}
-        for name, tree in (("bf16", params), ("fp32", params32)):
-            for backend in ("cuda", "torch"):
-                with E.using_config(conf.replace(backend=backend)), \
-                        torch.no_grad():
-                    out, _ = T.prefill(cfg, tree, {"tokens": prompt[:, :n]},
-                                       LONG_MAX_LEN)
-                logits[(name, backend)] = out.float()
-        require(all(bool(torch.isfinite(v).all()) for v in logits.values()),
-                f"bf16 witness at prompt {n}: logits not finite")
-        ref32 = logits[("fp32", "torch")]
-        gap = rel_err(logits[("bf16", "cuda")], logits[("bf16", "torch")])
-        gap32 = rel_err(logits[("fp32", "cuda")], ref32)
-        dist = {b: rel_err(logits[("bf16", b)], ref32) for b in ("cuda", "torch")}
-        print(f"[serve bf16] logits at prompt {n}: cuda vs torch backend "
-              f"{gap:.3e} in bf16 (limit {BF16_LOGITS_TOL}), {gap32:.3e} from "
-              f"the same weights in fp32 (limit {TOL}); distance from those "
-              f"fp32 logits: cuda {dist['cuda']:.3e}, torch {dist['torch']:.3e} "
-              f"(ratio {dist['cuda'] / dist['torch']:.3f}, limits "
-              f"{1 / BF16_FP32_RATIO:.3f} and {BF16_FP32_RATIO})")
-        require(gap <= BF16_LOGITS_TOL, f"long bf16 prefill({n}): cuda logits "
-                f"vs torch backend {gap:.3e} > {BF16_LOGITS_TOL}")
-        require(gap32 <= TOL, f"long prefill({n}) from the bf16 weights in "
-                f"fp32: cuda vs torch {gap32:.3e} > {TOL}")
-        require(1 / BF16_FP32_RATIO <= dist["cuda"] / dist["torch"]
-                <= BF16_FP32_RATIO, f"long bf16 prefill({n}): cuda is "
-                f"{dist['cuda']:.3e} from the fp32 logits, torch "
-                f"{dist['torch']:.3e}")
+        batch = {"tokens": prompt[:, :n]}
+        gap = witness_check(E, T, cfg, conf, params, params32, batch, batch,
+                            LONG_MAX_LEN, "[serve bf16]", f"prompt {n}")
     del params32
+    return gap
+
+
+def witness_logits(E, T, cfg, conf, params, params32, batch16, batch32, max_len,
+                   what):
+    """The witness's readings for one prefill: (the bf16 "cuda" vs "torch"
+    gap, the same from the fp32 weights, each bf16 backend's distance from
+    the fp32 "torch" logits), each as max|d| / max|ref|."""
+    logits = {}
+    for name, tree, batch in (("bf16", params, batch16), ("fp32", params32, batch32)):
+        for backend in ("cuda", "torch"):
+            with E.using_config(conf.replace(backend=backend)), torch.no_grad():
+                out, _ = T.prefill(cfg, tree, batch, max_len)
+            logits[(name, backend)] = out.float()
+    require(all(bool(torch.isfinite(v).all()) for v in logits.values()),
+            f"{what}: logits not finite")
+    ref32 = logits[("fp32", "torch")]
+    dist = {b: rel_err(logits[("bf16", b)], ref32) for b in ("cuda", "torch")}
+    return (rel_err(logits[("bf16", "cuda")], logits[("bf16", "torch")]),
+            rel_err(logits[("fp32", "cuda")], ref32), dist)
+
+
+def witness_check(E, T, cfg, conf, params, params32, batch16, batch32, max_len,
+                  tag, what):
+    """One prefill's bf16 witness: the "cuda" and "torch" logits from bf16
+    `params` on `batch16` (held to BF16_LOGITS_TOL of each other); the same
+    prefill from the weights widened to fp32, `params32`, on `batch32` (held
+    to TOL: the two backends compute one function); and each bf16 backend's
+    distance from those fp32 logits (their ratio held within
+    BF16_FP32_RATIO either way: neither path rounds more than the other).
+    Returns the bf16 gap."""
+    gap, gap32, dist = witness_logits(E, T, cfg, conf, params, params32, batch16,
+                                      batch32, max_len, f"{tag} bf16 witness at {what}")
+    print(f"{tag} logits at {what}: cuda vs torch backend "
+          f"{gap:.3e} in bf16 (limit {BF16_LOGITS_TOL}), {gap32:.3e} from "
+          f"the same weights in fp32 (limit {TOL}); distance from those "
+          f"fp32 logits: cuda {dist['cuda']:.3e}, torch {dist['torch']:.3e} "
+          f"(ratio {dist['cuda'] / dist['torch']:.3f}, limits "
+          f"{1 / BF16_FP32_RATIO:.3f} and {BF16_FP32_RATIO})")
+    require(gap <= BF16_LOGITS_TOL, f"{tag} bf16 prefill at {what}: cuda logits "
+            f"vs torch backend {gap:.3e} > {BF16_LOGITS_TOL}")
+    require(gap32 <= TOL, f"{tag} prefill at {what} from the bf16 weights in "
+            f"fp32: cuda vs torch {gap32:.3e} > {TOL}")
+    require(1 / BF16_FP32_RATIO <= dist["cuda"] / dist["torch"]
+            <= BF16_FP32_RATIO, f"{tag} bf16 prefill at {what}: cuda is "
+            f"{dist['cuda']:.3e} from the fp32 logits, torch "
+            f"{dist['torch']:.3e}")
     return gap
 
 
@@ -3194,7 +3337,7 @@ def first_route_difference(cfg, a, b):
 
 
 def moe_phase(dev, E, gfid_matmul, paged, flash, other_kernels):
-    """Phase 12: granite-moe-1b at full width and depth served through
+    """Phase 12: granite-moe-1b at full width (MOE_LAYERS deep) served through
     `ContinuousScheduler`, fp32 parameters from seed 0, then the same
     parameters rounded to bf16 (what `init_params(..., dtype=torch.bfloat16)`
     makes: it draws in fp32 and casts). `other_kernels` must launch
@@ -3205,7 +3348,7 @@ def moe_phase(dev, E, gfid_matmul, paged, flash, other_kernels):
     from repro_torch.models.layers import tree_map
 
     t_phase = time.perf_counter()
-    cfg = get_config(MOE_MODEL)
+    cfg = dataclasses.replace(get_config(MOE_MODEL), n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device=DEVICE, dtype=torch.float32)
     print(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -3461,6 +3604,422 @@ def moe_serve(dev, E, cfg, params, gfid_matmul, paged, flash, other_kernels):
                 timing=timing)
 
 
+def top2_gap(logits):
+    """Per row, the largest logit less the second."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def greedy_logits(T, cfg, params, batch, steps, max_len):
+    """`greedy_generate`'s loop (eager, the ambient config) with each
+    step's fp32 logits (B, V) returned in order, the prefill's first."""
+    with torch.no_grad():
+        logits, state = T.prefill(cfg, params, batch, max_len)
+        out = [logits.float()]
+        tok, pos0 = torch.argmax(logits, dim=-1)[:, None], batch["tokens"].shape[1]
+        for i in range(steps - 1):
+            logits_i, state = T.decode_step(cfg, params, state, tok, pos0 + i)
+            out.append(logits_i[:, -1].float())
+            tok = torch.argmax(logits_i[:, -1], dim=-1)[:, None]
+    return out
+
+
+def vlm_gemm_timing(dev, gfid_matmul, cfg):
+    """Phase 13's GEMM rows: `gfid_matmul_bf16` at llama's shapes as the
+    path runs them (bf16 in; bf16 stored, the lm_head fp32), a decode
+    step's at M = VLM_BATCH and a prefill's at M = VLM_BATCH x VLM_PROMPT
+    (the image K/V at VLM_BATCH x 1,601), with the host and for the device
+    alone, beside the plain version, bf16 `torch.mm` (timed only here) and
+    the bound. Returns {"decode"|"prefill": {label: row}}."""
+    dgen = torch.Generator(device=dev).manual_seed(35)
+
+    def t(*shape):
+        return torch.randn(shape, generator=dgen, device=dev).to(torch.bfloat16)
+
+    shapes = dict((lbl, (k, n)) for lbl, k, n in vlm_gemm_shapes(cfg))
+    rows = {"decode": [(lbl, VLM_BATCH) for lbl in shapes],
+            "prefill": [(lbl, VLM_BATCH * VLM_PROMPT) for lbl in list(shapes)[:4]]
+            + [("image K/V", VLM_BATCH * cfg.n_img_tokens)]}
+    out = {}
+    for kind, cases in rows.items():
+        out[kind] = {}
+        for lbl, m in cases:
+            k, n = shapes["wk/wv" if lbl == "image K/V" else lbl]
+            x, w = t(m, k), t(k, n)
+            store = torch.float32 if lbl == "lm_head" else torch.bfloat16
+
+            def kernel():
+                return gfid_matmul.gfid_matmul(x, w, out_dtype=store)
+
+            def lib():
+                return torch.mm(x, w)
+
+            n_bytes = 2 * (m * k + k * n) + m * n * (4 if store == torch.float32 else 2)
+            b_ms, by = bound_ms(n_bytes, 2 * m * k * n, PEAK_BF16_FLOP_S)
+            row = dict(ms=time_ms(kernel), device_ms=graph_ms(kernel),
+                       plain_ms=time_ms(lambda: gfid_matmul.gfid_matmul_plain(
+                           x, w, out_dtype=store), iters=5),
+                       library_ms=time_ms(lib), library_device_ms=graph_ms(lib),
+                       bound_ms=b_ms, bound_by=by, n_bytes=n_bytes, ops=2 * m * k * n)
+            out[kind][lbl] = row
+            print(f"[time] gfid_matmul_bf16 llama {kind} {lbl} ({m}, {k}) @ ({k}, {n}) -> "
+                  f"{str(store)[6:]}: kernel {row['ms']:.4f} ms, alone "
+                  f"{row['device_ms']:.4f}; plain {row['plain_ms']:.4f}; bf16 torch.mm "
+                  f"{row['library_ms']:.4f}, alone {row['library_device_ms']:.4f}; "
+                  f"bound {b_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB, "
+                  f"{2 * m * k * n / 1e9:.2f} GFLOP)")
+            del x, w
+    return out
+
+
+def vlm_flash_timing(dev, flash, cfg, worst):
+    """Phase 13's flash rows: the cross layer's launch, q (VLM_BATCH,
+    VLM_PROMPT, 32, 128) against k, v (VLM_BATCH, 1601, 8, 128), not
+    causal, on fp32 and bf16 operands, with the host and for the device
+    alone, beside the plain version, `F.scaled_dot_product_attention(
+    enable_gqa=True)` in the same dtype (TF32 off; timed only here) and the
+    bound. Returns {dtype name: row}."""
+    b, sq, skv = VLM_BATCH, VLM_PROMPT, cfg.n_img_tokens
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dgen = torch.Generator(device=dev).manual_seed(36)
+    out = {}
+    for dtype, tol, peak in ((torch.float32, TOL, PEAK_FP32_FLOP_S),
+                             (torch.bfloat16, BF16_FLASH_TOL, PEAK_BF16_FLOP_S)):
+        kname = "flash_attention_bf16" if dtype == torch.bfloat16 else "flash_attention"
+        q, k, v = (torch.randn(shape, generator=dgen, device=dev).to(dtype)
+                   for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+        got = flash.flash_attention(q, k, v, causal=False)
+        want = flash.flash_attention_plain(q, k, v, causal=False)
+        err = rel_err(got, want)
+        require(err <= tol, f"{kname} at the cross shape: {err:.3e} > {tol}")
+        worst[kname] = max(worst[kname], (got.float() - want.float()).abs().max().item())
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+
+        def kernel():
+            return flash.flash_attention(q, k, v, causal=False)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=False,
+                                                  enable_gqa=True)
+
+        b_ms, by = flash_bound(b, sq, skv, h, kv, d, False, q.element_size(), peak)
+        row = dict(ms=time_ms(kernel), device_ms=graph_ms(kernel),
+                   plain_ms=time_ms(lambda: flash.flash_attention_plain(
+                       q, k, v, causal=False), iters=3),
+                   library_ms=time_ms(sdpa), library_device_ms=graph_ms(sdpa),
+                   bound_ms=b_ms, bound_by=by)
+        out[str(dtype)[6:]] = row
+        print(f"[time] {kname} cross ({b}, {sq}, {h}/{kv}, {d}) x Skv {skv} non-causal: "
+              f"kernel {row['ms']:.4f} ms, alone {row['device_ms']:.4f}; plain "
+              f"{row['plain_ms']:.4f}; sdpa(enable_gqa) {row['library_ms']:.4f}, alone "
+              f"{row['library_device_ms']:.4f}; bound {b_ms:.4f} ms ({by}); "
+              f"max|d|/max|ref| vs plain {err:.3e} (limit {tol:g})")
+        del q, k, v, qt, kt, vt, got, want
+    return out
+
+
+def vlm_phase(dev, E, gfid_matmul, flash, other_kernels, worst):
+    """Phase 13: llama-3.2-vision-11b at full width (see the module
+    docstring). `other_kernels` must launch nothing. Returns the numbers
+    the kernels line and the summary print."""
+    from repro_torch.configs.base import CROSS_ATTN, GLOBAL_ATTN, get_config
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_tree, tree_map
+    from repro_torch.serve import engine as SE
+
+    t_phase = time.perf_counter()
+    cfg = get_config(VLM_MODEL)
+    cuda = dev.type == "cuda"
+    mm16, mm32 = gfid_matmul.gfid_matmul_bf16, gfid_matmul.gfid_matmul
+    fa16, fa32 = flash.flash_attention_bf16, flash.flash_attention
+    counted = (mm16, fa16, mm32, fa32) + tuple(other_kernels)
+    kinds = cfg.layer_kinds
+    n_self, n_cross = kinds.count(GLOBAL_ATTN), kinds.count(CROSS_ATTN)
+    # a decode step: 7 GEMMs a self layer, a cross layer's wq, wo and FFN, the
+    # lm_head; a prefill adds the cross layer's wk, wv twice (the attention's
+    # and the cache's, as the reference projects them) and one flash a layer
+    per_step, per_prefill = (n_self * 7 + n_cross * 5 + 1, n_self * 7 + n_cross * 9 + 1)
+
+    def want(steps, prefills, per=(per_step, per_prefill), layers=cfg.n_layers,
+             bf16=True):
+        gemm = per[0] * steps + per[1] * prefills
+        fa = layers * prefills if VLM_PROMPT > 1024 else 0   # flash past 1024
+        run = (gemm, fa, 0, 0) if bf16 else (0, 0, gemm, fa)
+        return run + (0,) * len(other_kernels)
+
+    conf = E.EngineConfig(backend="cuda")
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    # drawn by the card's generator (`init_params` draws on the host: some
+    # 90 s for this tree)
+    params = init_tree(T.model_defs(cfg), torch.Generator(device=dev).manual_seed(0),
+                       T.param_dtype(cfg), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(p.numel() for p in leaves)
+    w_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    largest32 = 4 * max(p.numel() for p in leaves)
+    if cuda:
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        require(peak <= w_bytes + largest32 + 64 * 2**20, f"[vlm] initialising the "
+                f"parameters held {peak / 1e9:.3f} GB on the card, more than the "
+                f"{w_bytes / 1e9:.3f} GB of bf16 weights and one fp32 leaf "
+                f"({largest32 / 1e9:.3f} GB)")
+        print(f"[vlm] parameters made on the card with a peak of {peak / 1e9:.3f} GB "
+              f"allocated: the bf16 weights {w_bytes / 1e9:.3f} GB + at most the "
+              f"largest leaf in fp32 ({largest32 / 1e9:.3f} GB)")
+    print(f"[vlm] {cfg.name}: {cfg.n_layers} layers ({n_self} self, {n_cross} cross), "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads "
+          f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (untied "
+          f"lm_head), {cfg.n_img_tokens} image tokens; {n_params} bf16 parameters "
+          f"({w_bytes / 1e9:.3f} GB) from seed 0, drawn on the card, in "
+          f"{init_s:.2f} s")
+
+    # the gate: at the config's 0 an image moves nothing, bitwise; at
+    # VLM_GATE two images give other logits
+    gen = torch.Generator().manual_seed(13)
+    short = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                          dtype=torch.int32).to(dev)
+    imgs = [(torch.randn((1, cfg.n_img_tokens, cfg.d_model), generator=gen)
+             .to(torch.bfloat16) * 0.1).to(dev) for _ in range(2)]
+
+    def two_images():
+        with E.using_config(conf), torch.no_grad():
+            return [T.prefill(cfg, params, {"tokens": short, "image_embeds": im},
+                              64)[0] for im in imgs]
+
+    a, b = two_images()
+    require(torch.equal(a, b), "[vlm] at the zero gate two images give other logits")
+    gates = [p["attn"]["gate"] for p in params["groups"].values()
+             if "gate" in p.get("attn", {})]
+    require(sum(g.shape[0] for g in gates) == n_cross, "[vlm] gates")
+    for g in gates:
+        g.fill_(VLM_GATE)
+    a, b = two_images()
+    require(not torch.equal(a, b), f"[vlm] at gate {VLM_GATE} two images give "
+            "equal logits")
+    print(f"[vlm] gate: at the config's 0 two images give bitwise equal logits "
+          f"(prompt 64); with every cross gate set to {VLM_GATE} they differ by "
+          f"{rel_err(a, b):.3e} of max|logits|")
+    del a, b
+
+    # the reference's `launch/serve.py` at full depth: VLM_BATCH requests of
+    # VLM_PROMPT tokens, VLM_GEN greedy steps
+    argv = ["--arch", VLM_MODEL, "--batch", str(VLM_BATCH), "--prompt-len",
+            str(VLM_PROMPT), "--gen", str(VLM_GEN), "--seed", "0", "--device",
+            dev.type]
+    zero_counts(*counted)
+    t0 = time.perf_counter()
+    tokens = LS.main(argv, params=params)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = counts(*counted)
+    require(launches == want(VLM_GEN - 1, 1), f"[vlm] launch/serve.py launched "
+            f"{launches}, expected {want(VLM_GEN - 1, 1)} (gfid_matmul_bf16, "
+            "flash_attention_bf16, gfid_matmul, flash_attention, others)")
+    print(f"[vlm] launch/serve.py main ({' '.join(argv)}) in {main_s:.2f} s with its "
+          f"two captures: {launches[0]} gfid_matmul_bf16 = {per_prefill} a prefill + "
+          f"{VLM_GEN - 1} x {per_step} a decode step, {launches[1]} "
+          f"flash_attention_bf16 ({n_self} causal, {n_cross} at Skv "
+          f"{cfg.n_img_tokens}), nothing else")
+
+    # each request alone through greedy_generate
+    max_len = VLM_PROMPT + VLM_GEN + 8
+    batch = LS.make_batch(cfg, VLM_BATCH, VLM_PROMPT, 0, dev)
+    rows = [{k: v[i:i + 1] for k, v in batch.items()} for i in range(VLM_BATCH)]
+    with E.using_config(conf):
+        alone = [SE.greedy_generate(cfg, params, r, VLM_GEN, max_len)[0] for r in rows]
+    differ = [i for i in range(VLM_BATCH) if not torch.equal(alone[i], tokens[i])]
+    if differ:
+        record = []
+        again, _, _ = LS.generate(cfg, params, batch, VLM_GEN, conf, record=record)
+        require(torch.equal(again, tokens), "[vlm] a second batched run differs")
+        for i in differ:
+            step = int((alone[i] != tokens[i]).nonzero()[0])
+            with E.using_config(conf):
+                solo = greedy_logits(T, cfg, params, rows[i], step + 1, max_len)[step][0]
+            batched = record[step][i]
+            gap = min(float(top2_gap(batched)), float(top2_gap(solo)))
+            diff = float((batched - solo).abs().max())
+            print(f"[vlm] request {i}: tokens differ from the row alone from step "
+                  f"{step}; the top two logits there {gap:.4e} apart, the two runs' "
+                  f"largest logit difference {diff:.4e}")
+            require(gap < diff, f"[vlm] request {i}: a token differs where the top "
+                    "two logits lie further apart than the runs' logits")
+    print(f"[vlm] each of {VLM_BATCH} requests alone through greedy_generate: "
+          f"{VLM_BATCH - len(differ)} bitwise the batched tokens, the rest at a "
+          "near tie (above)")
+
+    # "torch" against "cuda": the prefill and one decode step from one state
+    pre = E.compile(LS.prefill_program(cfg, batch, max_len, torch.bfloat16), conf)
+    dec = E.compile(SE.decode_program(cfg, VLM_BATCH, max_len,
+                                      param_dtype=torch.bfloat16), conf)
+    zero_counts(*counted)
+    logits_c, state = pre.apply(params, batch)
+    torch.cuda.synchronize()
+    require(counts(*counted) == want(0, 1), f"[vlm] one prefill launched "
+            f"{counts(*counted)}, expected {want(0, 1)}")
+    with E.using_config(conf.replace(backend="torch")), torch.no_grad():
+        logits_t, _ = T.prefill(cfg, params, batch, max_len)
+    tok = torch.argmax(logits_c, dim=-1)[:, None].to(torch.int32)
+    pos = torch.tensor(VLM_PROMPT, dtype=torch.int32, device=dev)
+    state_t = tree_map(lambda a: a.clone(), state)
+    zero_counts(*counted)
+    step_c = dec.apply(params, state, tok, pos)
+    torch.cuda.synchronize()
+    step_launches = counts(*counted)
+    require(step_launches == want(1, 0), f"[vlm] one decode step launched "
+            f"{step_launches}, expected {want(1, 0)}")
+    with E.using_config(conf.replace(backend="torch")), torch.no_grad():
+        step_t, _ = T.decode_step(cfg, params, state_t, tok, pos)
+    del state_t
+    gaps = {}
+    for what, c, t in (("prefill", logits_c, logits_t),
+                       ("decode step", step_c[:, -1], step_t[:, -1])):
+        gaps[what] = rel_err(c, t)
+        same = torch.equal(c.argmax(-1), t.argmax(-1))
+        print(f"[vlm] {what} at prompt {VLM_PROMPT}, {VLM_BATCH} rows: torch backend "
+              f"within {gaps[what]:.3e} of cuda (limit {VLM_BF16_TOL}), argmax "
+              f"{'equal' if same else 'differs'}")
+        gaps[what + " argmax"] = same
+    for what in ("prefill", "decode step"):
+        require(gaps[what] <= VLM_BF16_TOL and gaps[what + " argmax"],
+                f"[vlm] {what}: torch vs cuda {gaps[what]:.3e}, argmax equal "
+                f"{gaps[what + ' argmax']}")
+    del logits_t, step_t
+
+    # times: a decode step (wall, device, bound), the prefill, a profile
+    step_ms = time_ms(lambda: dec.apply(params, state, tok, pos), iters=10)
+    prof = device_profile(lambda: dec.apply(params, state, tok, pos))
+    group = cfg.pattern
+    unread = params["embed"].numel() * 2 + sum(
+        params["groups"][str(j)]["attn"][w].numel() * 2
+        for j, kind in enumerate(group) if kind == CROSS_ATTN for w in ("wk", "wv"))
+    cache = 2 * VLM_BATCH * cfg.n_kv_heads * cfg.head_dim * 2 * (
+        n_self * (VLM_PROMPT + 1) + n_cross * cfg.n_img_tokens)
+    step_bytes = w_bytes - unread + VLM_BATCH * cfg.d_model * 2 + cache
+    step_bound, _ = bound_ms(step_bytes, 2 * VLM_BATCH * (n_params - unread // 2),
+                             PEAK_BF16_FLOP_S)
+    busy = None
+    if prof is None:
+        print("[profile] [vlm] decode step: the profiler recorded no device time")
+    else:
+        busy, n_kernels, top = prof
+        print(f"[profile] [vlm] decode step with {VLM_BATCH} rows at depth "
+              f"{VLM_PROMPT}: {n_kernels} device kernels, {busy:.4f} ms of device "
+              f"time (torch.profiler, 3 steps) = {100 * busy / step_ms:.1f}% of the "
+              f"step; by kernel: "
+              + "; ".join(f"{nm[:50]} x{c:g} {ms:.4f} ms" for nm, c, ms in top[:8]))
+    prefill_ms = time_ms(lambda: pre.apply(params, batch), iters=3, warmup=1)
+    print(f"[vlm] decode step, {VLM_BATCH} rows: {step_ms:.4f} ms wall (median of "
+          f"10), {'not measured' if busy is None else f'{busy:.4f} ms'} of device "
+          f"time; bound {step_bound:.4f} ms ({step_bytes / 1e9:.3f} GB read: the "
+          f"weights but the embedding table and the cross wk/wv, "
+          f"{(w_bytes - unread) / 1e9:.3f} GB, and the caches, {cache / 1e9:.3f} GB, "
+          f"at {PEAK_BYTES_S / 1e12:.2f} TB/s); {VLM_BATCH / step_ms * 1e3:.1f} "
+          f"tokens/s decoding")
+    print(f"[vlm] prefill, {VLM_BATCH} x {VLM_PROMPT} tokens and {VLM_BATCH} x "
+          f"{cfg.n_img_tokens} image tokens: {prefill_ms:.4f} ms (median of 3), "
+          f"{VLM_BATCH * VLM_PROMPT / prefill_ms * 1e3:.1f} prompt tokens/s")
+    del pre, dec, state, logits_c, step_c
+    torch.cuda.empty_cache()
+    gemm = vlm_gemm_timing(dev, gfid_matmul, cfg)
+    lm = gemm["decode"]["lm_head"]
+    print(f"[time] lm_head alone ({VLM_BATCH}, {cfg.d_model}) @ ({cfg.d_model}, "
+          f"{cfg.vocab_size}): gfid_matmul_bf16 {lm['device_ms']:.4f} ms against bf16 "
+          f"torch.mm {lm['library_device_ms']:.4f} ms, bound {lm['bound_ms']:.4f} ms")
+    cross = vlm_flash_timing(dev, flash, cfg, worst)
+
+    # what the full-depth gap is made of: request 0's prefill from the
+    # weights widened to fp32 (39 GB beside the bf16 ones) on both backends
+    params32 = tree_map(lambda a: a.float(), params)
+    b16 = rows[0]
+    b32 = dict(b16, image_embeds=b16["image_embeds"].float())
+    deep = witness_logits(E, T, cfg, conf, params, params32, b16, b32, max_len,
+                          "[vlm] full-depth witness")
+    ratio = deep[2]["cuda"] / deep[2]["torch"]
+    print(f"[vlm] full depth, request 0 at prompt {VLM_PROMPT}: cuda vs torch "
+          f"{deep[0]:.3e} in bf16 (limit {VLM_BF16_TOL}), {deep[1]:.3e} from the "
+          f"same weights in fp32 (limit {TOL}); distance from those fp32 logits: "
+          f"cuda {deep[2]['cuda']:.3e}, torch {deep[2]['torch']:.3e} (ratio "
+          f"{ratio:.3f}, limits {1 / BF16_FP32_RATIO:.3f} and {BF16_FP32_RATIO})")
+    require(deep[0] <= VLM_BF16_TOL and deep[1] <= TOL
+            and 1 / BF16_FP32_RATIO <= ratio <= BF16_FP32_RATIO,
+            f"[vlm] full-depth witness: bf16 gap {deep[0]:.3e}, fp32 gap "
+            f"{deep[1]:.3e}, ratio {ratio:.3f}")
+
+    # fp32 at full width, one group (4 self layers and the cross layer): the
+    # first group's weights widened; "torch" within TOL of "cuda", then the
+    # bf16 witness on the same weights
+    cfg1 = dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+    p16 = dict(params, groups=tree_map(lambda a: a[:1], params["groups"]))
+    p32 = dict(params32, groups=tree_map(lambda a: a[:1], params32["groups"]))
+    n32 = sum(a.numel() * 4 for a in _leaves(p32))
+    per1 = (4 * 7 + 5 + 1, 4 * 7 + 9 + 1)
+    zero_counts(*counted)
+    with E.using_config(conf), torch.no_grad():
+        l32c, st32 = T.prefill(cfg1, p32, b32, max_len)
+    torch.cuda.synchronize()
+    want1 = want(0, 1, per1, len(cfg.pattern), bf16=False)
+    require(counts(*counted) == want1, f"[vlm fp32] prefill launched "
+            f"{counts(*counted)}, expected {want1}")
+    with E.using_config(conf.replace(backend="torch")), torch.no_grad():
+        l32t, _ = T.prefill(cfg1, p32, b32, max_len)
+    tok1 = torch.argmax(l32c, dim=-1)[:, None]
+    st32t = tree_map(lambda a: a.clone(), st32)
+    zero_counts(*counted)
+    with E.using_config(conf), torch.no_grad():
+        d32c, _ = T.decode_step(cfg1, p32, st32, tok1, VLM_PROMPT)
+    torch.cuda.synchronize()
+    want1 = want(1, 0, per1, len(cfg.pattern), bf16=False)
+    require(counts(*counted) == want1, f"[vlm fp32] decode step launched "
+            f"{counts(*counted)}, expected {want1}")
+    with E.using_config(conf.replace(backend="torch")), torch.no_grad():
+        d32t, _ = T.decode_step(cfg1, p32, st32t, tok1, VLM_PROMPT)
+    err32 = {"prefill": rel_err(l32c, l32t), "decode step": rel_err(d32c, d32t)}
+    for what, err in err32.items():
+        print(f"[vlm fp32] one group ({n32 / 1e9:.3f} GB of fp32 weights), {what} at "
+              f"prompt {VLM_PROMPT}: torch backend within {err:.3e} of cuda (limit "
+              f"{TOL})")
+        require(err <= TOL, f"[vlm fp32] {what}: {err:.3e} > {TOL}")
+    del st32, st32t, l32c, l32t, d32c, d32t
+    gap1 = witness_check(E, T, cfg1, conf, p16, p32, b16, b32, max_len, "[vlm]",
+                         f"one group, prompt {VLM_PROMPT}")
+    del p32, p16, params, params32
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[vlm] phase 13 took {phase_s:.1f} s (parameters {init_s:.1f} s)")
+    return dict(init_s=init_s, main_s=main_s, launches=launches,
+                step_launches=step_launches, step_ms=step_ms, busy_ms=busy,
+                step_bound_ms=step_bound, prefill_ms=prefill_ms, gemm=gemm,
+                cross=cross, gaps=gaps, err32=err32, witness_gap=gap1,
+                per_step=per_step, per_prefill=per_prefill, n_cross=n_cross,
+                n_self=n_self, deep=deep)
+
+
+def vlm_step_counts(n_self, n_cross):
+    """How many launches of each timed GEMM row a llama decode step and a
+    prefill make: a self layer's wq, wo, wk, wv, w_in, w_gate, w_out; a
+    cross layer's wq, wo and FFN, at a prefill its wk and wv twice on the
+    image."""
+    layers = n_self + n_cross
+    body = {"wq/wo": 2 * layers, "w_in/w_gate": 2 * layers, "w_out": layers}
+    return {"decode": dict(body, **{"wk/wv": 2 * n_self, "lm_head": 1}),
+            "prefill": dict(body, **{"wk/wv": 2 * n_self, "image K/V": 4 * n_cross})}
+
+
+def vlm_sum(rows, n):
+    """The timed rows summed over a pass's launches (`vlm_step_counts`)."""
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms")
+    return {key: sum(rows[lbl][key] * c for lbl, c in n.items()) for key in keys}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -3636,7 +4195,7 @@ def main():
             (lbl, as_bf16(kw)) for b in BATCHES for lbl, _, kw in fc_main[b]]
             + [(f"ragged matmul {i}", as_bf16(kw, keep_bias=True))
                for i, kw in enumerate(ragged_mm)]
-            + bf16_mm_cases(gen, dev))}
+            + bf16_mm_cases(gen, dev) + vlm_mm_cases(dev))}
     for kname, (kernel, plain, kind, tiles, cases) in bf16_cases.items():
         worst[kname] = 0.0
         plans = []
@@ -3667,6 +4226,10 @@ def main():
         require_plan_coverage(kname, plans, tiles, fold=kind == "conv")
     del bf16_cases
     checks += row_invariance_check(dev, mm32, gen)
+    from repro_torch.configs.base import get_config
+    checks += row_invariance_check(
+        dev, mm32, gen, shapes=vlm_gemm_shapes(get_config(VLM_MODEL)),
+        rows=VLM_INVARIANCE_ROWS, dgen=torch.Generator(device=dev).manual_seed(31))
     checks += row_invariance_check(dev, mm32, gen32, torch.float32)
     checks += grouped_check(dev, gfid_matmul, torch.Generator().manual_seed(28),
                             worst)
@@ -3695,7 +4258,8 @@ def main():
     t_flash = time.perf_counter()
     fa32, fa16 = flash_attention.flash_attention, flash_attention.flash_attention_bf16
     worst["flash_attention"] = worst["flash_attention_bf16"] = 0.0
-    fp32_cases = flash_cases(gen, dev)
+    fp32_cases = flash_cases(gen, dev) + flash_cross_cases(
+        torch.Generator().manual_seed(30), dev)
     bf16_cases = [(lbl, *(t.to(torch.bfloat16) for t in (q, k, v)), c)
                   for lbl, q, k, v, c in fp32_cases] + flash_bf16_cases(gen, dev)
     launches16, launches32 = [], []
@@ -4290,6 +4854,15 @@ def main():
     moe = moe_phase(dev, E, gfid_matmul, paged, flash_attention,
                     all_kernels[:1] + all_kernels[2:]
                     + (conv16, conv1d.gfid_conv1d_depthwise))
+
+    # -- phase 13: llama-3.2-vision-11b, cross attention at full width ---------
+    started["13"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    vlm = vlm_phase(dev, E, gfid_matmul, flash_attention,
+                    all_kernels[2:] + (conv16, conv1d.gfid_conv1d_depthwise,
+                                       paged.paged_gather,
+                                       gfid_matmul.gfid_matmul_grouped,
+                                       gfid_matmul.gfid_matmul_bf16_grouped), worst)
     ends = list(started.values())[1:] + [time.perf_counter()]
     print("[time] phases (s): " + ", ".join(
         f"{name} {end - start:.1f}" for (name, start), end
@@ -4384,6 +4957,11 @@ def main():
             "library_device_ms": per["library_device_ms"]})
         if "b4" in timing["launch"]:    # one launch at B = 4, the device alone
             kernels[-1]["batch4_launch"] = timing["launch"]["b4"]
+        # phase 13's cross-attention launch, q (4, 1100, 32, 128) against k,
+        # v (4, 1601, 8, 128); bf16: 8 a llama prefill, fp32: 1 a one-group one
+        bf16 = kname.endswith("bf16")
+        kernels[-1]["cross"] = dict(vlm["cross"]["bfloat16" if bf16 else "float32"],
+                                    launches_per_prefill=vlm["n_cross"] if bf16 else 1)
     for kname, source, replaces, k in (
             ("gfid_conv2d_nhwc_bf16", "src/repro_torch/csrc/gfid_conv_bf16.cu",
              "src/repro/kernels/gfid_conv.py:79", 0),
@@ -4405,6 +4983,15 @@ def main():
     kernels[-1]["prefill_ms"] = {str(m): v["ms"] for m, v in prefill_mm16.items()}
     kernels[-1]["prefill_device_ms"] = {str(m): v["device_ms"]
                                         for m, v in prefill_mm16.items()}
+    # phase 13: llama-3.2-vision-11b's GEMMs, a decode step's (265 launches)
+    # and a prefill's layer GEMMs, each summed over the step's launches
+    counts_step = vlm_step_counts(vlm["n_self"], vlm["n_cross"])
+    kernels[-1]["llama"] = dict(
+        launches=vlm["launches"][0], launches_per_decode_step=vlm["step_launches"][0],
+        launches_per_prefill=vlm["per_prefill"],
+        decode_step=vlm_sum(vlm["gemm"]["decode"], counts_step["decode"]),
+        prefill=vlm_sum(vlm["gemm"]["prefill"], counts_step["prefill"]),
+        lm_head=vlm["gemm"]["decode"]["lm_head"])
     for kname, dtype in (("gfid_matmul_grouped", torch.float32),
                          ("gfid_matmul_bf16_grouped", torch.bfloat16)):
         m, slot = moe[dtype], 3 if dtype == torch.bfloat16 else 2
@@ -4432,6 +5019,14 @@ def main():
             f"prompt{MOE_TIMED_PROMPT}": {key: sums[MOE_TIMED_PROMPT][key] for key in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                 "library_device_ms")}})
+    print(f"[vlm] summary: decode step {vlm['step_ms']:.4f} ms with {VLM_BATCH} rows, "
+          "device time " + ("not measured" if vlm["busy_ms"] is None
+                            else f"{vlm['busy_ms']:.4f} ms")
+          + f", bound {vlm['step_bound_ms']:.4f} ms; prefill({VLM_BATCH} x "
+          f"{VLM_PROMPT}) {vlm['prefill_ms']:.4f} ms; torch vs cuda "
+          f"{vlm['gaps']['prefill']:.3e} (prefill), {vlm['gaps']['decode step']:.3e} "
+          f"(step); fp32 one group {vlm['err32']['prefill']:.3e}, "
+          f"{vlm['err32']['decode step']:.3e}; parameters {vlm['init_s']:.1f} s")
     for dtype, m in moe.items():
         print(f"[moe{' bf16' if dtype == torch.bfloat16 else ''}] summary: "
               f"{m['tps']:.1f} tokens/s, p50 {m['lat']['p50_ms']:.1f} ms, p95 "

@@ -128,10 +128,12 @@ class ModelConfig:
 
 # The configs this port runs; the rest of the reference's registry comes
 # with their model families.
-PORTED = ("smollm_135m", "xlstm_125m", "granite_moe_1b")
+PORTED = ("smollm_135m", "xlstm_125m", "granite_moe_1b",
+          "llama32_vision_11b")
 
 ALIASES = {"smollm-135m": "smollm_135m", "xlstm-125m": "xlstm_125m",
-           "granite-moe-1b-a400m": "granite_moe_1b"}
+           "granite-moe-1b-a400m": "granite_moe_1b",
+           "llama-3.2-vision-11b": "llama32_vision_11b"}
 
 
 def _module(name: str):

@@ -1,14 +1,18 @@
-"""Attention: GQA with global causal masking, full-sequence (prefill) and
-single-token (decode) paths. A copy of the JAX package's
-`models/attention.py` for GLOBAL_ATTN layers.
+"""Attention: GQA with global causal masking and the VLM's gated cross
+attention, full-sequence (prefill) and single-token (decode) paths. A copy
+of the JAX package's `models/attention.py` for GLOBAL_ATTN and CROSS_ATTN
+layers.
 
 All projections are FC-mode GEMMs of the multi-mode engine; the score and
 value contractions are plain tensor ops, as in the reference, in fp32 with
-TF32 off. A prefill over 1024 tokens runs the chunked attention of
-`models/flash.py` instead of the dense one, as the reference does; on the
-"cuda" backend that is the hand-written flash kernel. Not ported (each
-raises, naming its ROADMAP item): MLA, cross-attention and the sliding
-window.
+TF32 off. A prefill over 1024 tokens (the query's length) runs the chunked
+attention of `models/flash.py` instead of the dense one, as the reference
+does; on the "cuda" backend that is the hand-written flash kernel, for a
+cross layer at Sq = the prompt against Skv = the image tokens, not causal.
+A cross layer's keys and values come from the image embeddings, without
+rope; its output is scaled by tanh(gate) and its decode reads the image
+K/V cache that the prefill filled. Not ported (each raises, naming its
+ROADMAP item): MLA and the sliding window.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import engine
-from repro_torch.configs.base import GLOBAL_ATTN, ModelConfig
+from repro_torch.configs.base import CROSS_ATTN, GLOBAL_ATTN, ModelConfig
 from repro_torch.core.quant import no_tf32
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (D_MODEL, HEADS, ParamDef, apply_rope,
@@ -32,10 +36,10 @@ def check_supported(cfg: ModelConfig, kind: str) -> None:
     if cfg.mla is not None:
         raise NotImplementedError("MLA attention is not ported to repro_torch "
                                   "yet; see ROADMAP queue 1, item 10")
-    if kind != GLOBAL_ATTN:
+    if kind not in (GLOBAL_ATTN, CROSS_ATTN):
         raise NotImplementedError(
             f"{kind!r} attention layers are not ported to repro_torch yet "
-            "(global only); see ROADMAP queue 1, item 8")
+            "(global and cross only); see ROADMAP queue 1, item 8")
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +58,12 @@ def attention_defs(cfg: ModelConfig, kind: str) -> Dict[str, ParamDef]:
     if cfg.qk_norm:
         defs["q_norm"] = ParamDef((hd,), (None,), "ones")
         defs["k_norm"] = ParamDef((hd,), (None,), "ones")
+    if kind == CROSS_ATTN:
+        dv = cfg.d_frontend or cfg.d_model
+        defs["wk"] = ParamDef((dv, kv * hd), (D_MODEL, None))
+        defs["wv"] = ParamDef((dv, kv * hd), (D_MODEL, None))
+        defs["gate"] = ParamDef((1,), (None,), "zeros")   # tanh-gated residual
+        defs["k_norm_cross"] = ParamDef((hd,), (None,), "ones")
     return defs
 
 
@@ -99,28 +109,47 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                       positions: torch.Tensor, kind: str,
+                      img_embeds: Optional[torch.Tensor] = None,
                       use_chunked: Optional[bool] = None,
-                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Returns (out, (k, v)) — k and v returned so prefill can seed the
-    cache. The attention is chunked (`models/flash.py`) when `use_chunked`
-    says so, else past 1024 tokens, as in the reference."""
+                      ) -> Tuple[torch.Tensor,
+                                 Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Returns (out, kv): a self-attention layer's (k, v), so prefill can
+    seed the cache; None for a cross layer, whose keys and values are
+    projected from `img_embeds` (B, n_img, d_model) without rope and
+    attended without a mask. The attention is chunked (`models/flash.py`)
+    when `use_chunked` says so, else past 1024 query tokens, as in the
+    reference."""
     check_supported(cfg, kind)
     b, s, _ = x.shape
     hd = cfg.head_dim
+    cross = kind == CROSS_ATTN
     q = _split_heads(engine.proj(x, p["wq"]), cfg.n_heads)
-    k = _split_heads(engine.proj(x, p["wk"]), cfg.n_kv_heads)
-    v = _split_heads(engine.proj(x, p["wv"]), cfg.n_kv_heads)
+    if cross and img_embeds is None:
+        raise ValueError("a cross-attention layer needs img_embeds")
+    src = img_embeds if cross else x
+    k = _split_heads(engine.proj(src, p["wk"]), cfg.n_kv_heads)
+    v = _split_heads(engine.proj(src, p["wv"]), cfg.n_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.use_rope:
+        k = rms_norm(k, p["k_norm_cross" if cross else "k_norm"],
+                     cfg.norm_eps)
+    if cfg.use_rope and not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     chunked = use_chunked if use_chunked is not None else s > 1024
     fn = flash_attention if chunked else dense_attention
-    o = fn(q, k, v, causal=not cfg.is_encoder, softcap_val=cfg.attn_softcap)
+    o = fn(q, k, v, causal=not (cross or cfg.is_encoder),
+           softcap_val=cfg.attn_softcap)
     out = engine.proj(o.reshape(b, s, cfg.n_heads * hd), p["wo"])
+    if cross:
+        return _gated(out, p["gate"]), None
     return out, (k, v)
+
+
+def _gated(out: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """A cross layer's output scaled by tanh(gate): tanh in fp32, cast to
+    the output's dtype, then the product, in the reference's order."""
+    return torch.tanh(gate.float()).to(out.dtype) * out
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +163,16 @@ def init_kv_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     device)."""
     check_supported(cfg, kind)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Zero image K/V cache for one cross layer: (B, n_img_tokens,
+    kv_heads, head_dim) each, filled once by prefill."""
+    shape = (batch, cfg.n_img_tokens, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -163,7 +202,9 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict,
     """x: (B, 1, D); pos: a scalar int position, or a (B,) int vector of
     per-row positions (continuous batching: every row at its own depth).
     Writes the new key and value into `cache` in place (row b at slot
-    pos[b], cast to the cache dtype) and returns (out, cache).
+    pos[b], cast to the cache dtype) and returns (out, cache). A cross
+    layer attends to its image cache (`init_cross_cache`) and returns it
+    unchanged.
 
     A scalar position runs as the vector of B copies of it, so the two
     paths are the same arithmetic. Masked scores are NEG_INF, whose softmax
@@ -173,6 +214,15 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict,
     b = x.shape[0]
     hd = cfg.head_dim
     q = _split_heads(engine.proj(x, p["wq"]), cfg.n_heads)
+    if kind == CROSS_ATTN:
+        # the image keys and values were projected at prefill and stay
+        # in the cache unchanged; no rope, no mask
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        o = dense_attention(q, cache["k"], cache["v"], causal=False,
+                            softcap_val=cfg.attn_softcap)
+        out = engine.proj(o.reshape(b, 1, cfg.n_heads * hd), p["wo"])
+        return _gated(out, p["gate"]), cache
     k = _split_heads(engine.proj(x, p["wk"]), cfg.n_kv_heads)
     v = _split_heads(engine.proj(x, p["wv"]), cfg.n_kv_heads)
     if cfg.qk_norm:

@@ -11,9 +11,11 @@ Masked scores are NEG_INF = -2e38 and the softmax sum is clamped at 1e-37.
 
 Backends (the ambient `EngineConfig`):
   * "cuda"  — global attention (no window, softcap or q offset) is one
-    launch of the hand-written kernel (`kernels.ops.flash_attention`); the
-    rest raises `NotImplementedError` (ROADMAP queue 1, item 8), never a
-    quiet run of the plain version;
+    launch of the hand-written kernel (`kernels.ops.flash_attention`):
+    causal self attention, or a cross layer's unmasked attention of Sq
+    prompt tokens against Skv image tokens (the kernel takes the two
+    lengths apart); the rest raises `NotImplementedError` (ROADMAP queue
+    1, item 8), never a quiet run of the plain version;
   * "torch" and "ref" — the chunked forward below, in plain torch ops (fp32
     with TF32 off), which also runs on `meta` tensors for program capture.
 

@@ -109,15 +109,19 @@ def _leaf_init(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
         if len(d.shape) >= 3:  # stacked/expert weights: fan-in is 2nd-to-last
             fan_in = d.shape[-2]
         std = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
-        w = torch.randn(d.shape, generator=gen, dtype=torch.float32) * std
+        w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device).mul_(std)
         return w.to(device=device, dtype=dt)
     raise ValueError(d.init)
 
 
 def init_tree(defs: DefTree, gen: torch.Generator, dtype: torch.dtype,
               device: torch.device) -> Any:
-    """Real tensors for a def tree, drawn in key order from `gen` (on the
-    host, then moved to `device`)."""
+    """Real tensors for a def tree, drawn in fp32 in key order from `gen`
+    on the generator's device (the host's: the same numbers for every
+    target device; the GPU's: far faster for a multi-GB tree, other
+    numbers), then cast and moved to `device` one leaf at a time: at most
+    one leaf is ever held in fp32."""
     return tree_map(lambda d: _leaf_init(d, gen, dtype, device), defs)
 
 

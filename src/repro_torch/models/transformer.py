@@ -1,11 +1,13 @@
 """Top-level model assembly: parameter trees, full-sequence forward and
 prefill, and single-token decode over an explicit state tree. A copy of the
-JAX package's `models/transformer.py` for three families: dense decoders
+JAX package's `models/transformer.py` for four families: dense decoders
 whose layers are GLOBAL_ATTN blocks with a dense FFN, MoE decoders whose
 GLOBAL_ATTN blocks carry the MoE FFN of `models/moe.py` (the dense
 dispatch; `forward(..., return_aux=True)` returns its load-balancing loss
-as the reference's `forward` does), and the SSM family's xLSTM, whose
-MLSTM and SLSTM blocks carry their own projections (no FFN).
+as the reference's `forward` does), the SSM family's xLSTM, whose
+MLSTM and SLSTM blocks carry their own projections (no FFN), and the VLM
+(llama-3.2-vision), whose CROSS_ATTN blocks attend to a batch's
+`image_embeds` (B, n_img_tokens, d_model) through a tanh gate.
 
 The reference runs the layer groups under `jax.lax.scan`; the port loops
 over the stacked group axis in Python, so each layer's engine ops are
@@ -13,9 +15,11 @@ called (and captured into programs) one by one. Parameter and state trees
 keep the reference's layout: `params["groups"][j]` stacks layer j of every
 group on axis 0, and the decode state is `{"groups": {j: leaves}, "rem":
 {}}`: an attention layer's `{"k", "v"}` of `(n_groups, B, max_len,
-kv_heads, head_dim)`, an xLSTM layer's conv tail and fp32 memory
-(`models/ssm.py`), each stacked over the groups. Decode and prefill write
-the state in place.
+kv_heads, head_dim)`, a cross layer's image cache of `(n_groups, B,
+n_img_tokens, kv_heads, head_dim)` (filled by prefill, read unchanged by
+decode), an xLSTM layer's conv tail and fp32 memory (`models/ssm.py`),
+each stacked over the groups. Decode and prefill write the state in
+place.
 
 Parameter dtypes: the dense family's default is the config's
 `param_dtype` (bf16 for every LM config), as in the reference; its
@@ -33,7 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import engine
-from repro_torch.configs.base import MLSTM, SLSTM, ModelConfig
+from repro_torch.configs.base import CROSS_ATTN, MLSTM, SLSTM, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
@@ -53,15 +57,17 @@ _SSM_DECODE = {MLSTM: ssm.mlstm_decode, SLSTM: ssm.slstm_decode}
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's model code does not run yet: it runs dense
-    and MoE decoders of GLOBAL_ATTN layers and the SSM family's
-    mLSTM/sLSTM blocks (xLSTM), not Mamba, MLA or the other families."""
-    if cfg.family not in ("dense", "moe", "ssm") \
+    and MoE decoders of GLOBAL_ATTN layers, the VLM's GLOBAL_ATTN and
+    CROSS_ATTN layers over precomputed image embeddings and the SSM
+    family's mLSTM/sLSTM blocks (xLSTM), not Mamba, MLA, front ends,
+    encoders or the other families."""
+    if cfg.family not in ("dense", "moe", "ssm", "vlm") \
             or (cfg.family == "moe") != (cfg.moe is not None) \
             or (cfg.family == "ssm") != (cfg.ssm is not None):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported to repro_torch yet: "
-            "only dense and MoE decoder LMs and xLSTM; see ROADMAP queue 1, "
-            "item 10")
+            "only dense, MoE and VLM decoder LMs and xLSTM; see ROADMAP "
+            "queue 1, item 10")
     for kind in cfg.layer_kinds:
         if kind in SSM_KINDS:
             continue
@@ -70,10 +76,15 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: {kind!r} layers of the SSM family (Mamba) are "
                 "not ported to repro_torch yet; see ROADMAP queue 1, item 10")
         attn.check_supported(cfg, kind)
-    if cfg.d_frontend or cfg.n_img_tokens or cfg.is_encoder:
+    if cfg.d_frontend or cfg.is_encoder:
         raise NotImplementedError(
-            f"{cfg.name}: front ends, image tokens and encoders are not "
-            "ported to repro_torch yet; see ROADMAP queue 1, item 10")
+            f"{cfg.name}: front ends (d_frontend, in_proj) and encoders are "
+            "not ported to repro_torch yet; see ROADMAP queue 1, item 10")
+    if (CROSS_ATTN in cfg.layer_kinds) != (cfg.family == "vlm") \
+            or (cfg.family == "vlm") != bool(cfg.n_img_tokens):
+        raise NotImplementedError(
+            f"{cfg.name}: cross-attention layers and image tokens run only "
+            "together, in the VLM family; see ROADMAP queue 1, item 10")
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +194,8 @@ def param_dtype(cfg: ModelConfig,
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random parameters in `param_dtype(cfg, dtype)` from an explicit
-    `torch.Generator` seeded with `seed` (drawn in fp32, then cast), on
-    `device` (default: the GPU; raises when there is none)."""
+    `torch.Generator` seeded with `seed` (drawn in fp32 on the host, then
+    cast), on `device` (default: the GPU; raises when there is none)."""
     dev = resolve_device(device)
     return init_tree(model_defs(cfg), torch.Generator().manual_seed(seed),
                      param_dtype(cfg, dtype), dev)
@@ -207,18 +218,26 @@ def _layer(tree: Any, i: int) -> Any:
 # ---------------------------------------------------------------------------
 
 def _mixer_forward(cfg: ModelConfig, kind: str, p: Dict, h: torch.Tensor,
-                   positions: torch.Tensor, state_dtype) -> Tuple[Any, Any]:
+                   positions: torch.Tensor, img: Optional[torch.Tensor],
+                   state_dtype) -> Tuple[Any, Any]:
     """The block's sequence mixer on the normed input. Returns (sub, piece):
-    for attention the (k, v) it computed, for an xLSTM block its decode
-    state when `state_dtype` is given (the conv tail in that dtype), else
-    None."""
+    for self attention the (k, v) it computed; for cross attention, when
+    `state_dtype` is given, the image's (k, v) projected a second time for
+    the decode cache, as the reference's prefill does (else None); for an
+    xLSTM block its decode state when `state_dtype` is given (the conv tail
+    in that dtype), else None."""
     if kind in SSM_KINDS:
         fwd = _SSM_FORWARD[kind]
         if state_dtype is None:
             return fwd(cfg, p[kind], h), None
         return fwd(cfg, p[kind], h, return_state=True,
                    state_dtype=state_dtype)
-    return attn.attention_forward(cfg, p["attn"], h, positions, kind)
+    sub, kv = attn.attention_forward(cfg, p["attn"], h, positions, kind,
+                                     img_embeds=img)
+    if kind == CROSS_ATTN and state_dtype is not None:
+        kv = tuple(attn._split_heads(engine.proj(img, p["attn"][w]),
+                                     cfg.n_kv_heads) for w in ("wk", "wv"))
+    return sub, kv
 
 
 def _ffn_residual(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
@@ -244,14 +263,16 @@ def _ffn_residual(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
 
 def block_forward(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
                   x: torch.Tensor, positions: torch.Tensor,
+                  img_embeds: Optional[torch.Tensor] = None,
                   state_dtype: Optional[torch.dtype] = None,
                   ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
     """One residual block. Returns (x, piece, aux): the mixer's (k, v) for
-    an attention layer, its decode state for an xLSTM layer when
-    `state_dtype` is given (else None); an MoE layer's load-balancing loss
-    (else None)."""
+    a self-attention layer, the image cache's (k, v) for a cross layer and
+    its decode state for an xLSTM layer when `state_dtype` is given (else
+    None); an MoE layer's load-balancing loss (else None)."""
     h = _apply_norm(cfg, p, "pre", x)
-    sub, piece = _mixer_forward(cfg, kind, p, h, positions, state_dtype)
+    sub, piece = _mixer_forward(cfg, kind, p, h, positions, img_embeds,
+                                state_dtype)
     if cfg.post_block_norm:
         sub = _apply_norm(cfg, p, "post", sub)
     x, aux = _ffn_residual(cfg, kind, use_moe, p, x + sub)
@@ -259,9 +280,15 @@ def block_forward(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict,
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (x, positions), from `batch["tokens"]` (B, S) and optional
-    `batch["positions"]`."""
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Optional[torch.Tensor]]:
+    """-> (x, positions, img), from `batch["tokens"]` (B, S), optional
+    `batch["positions"]` and, for a VLM, `batch["image_embeds"]` (B,
+    n_img_tokens, d_model) (None for the other families). Images narrower
+    than the parameters (bf16 beside fp32) are widened to their dtype,
+    exactly, where the reference's products promote them; the kernels take
+    one dtype. The reference's `in_proj` of the image applies only with a
+    `d_frontend`, which `check_supported` refuses."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -269,7 +296,17 @@ def embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict,
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    return x, positions
+    img = None
+    if cfg.n_img_tokens:
+        img = batch.get("image_embeds")
+        want = (b, cfg.n_img_tokens, cfg.d_model)
+        if img is None or tuple(img.shape) != want:
+            raise ValueError(
+                f"{cfg.name}: a batch needs image_embeds of shape {want}, got "
+                f"{None if img is None else tuple(img.shape)}")
+        if torch.promote_types(img.dtype, x.dtype) == x.dtype:
+            img = img.to(x.dtype)
+    return x, positions, img
 
 
 def _blocks(cfg: ModelConfig):
@@ -293,11 +330,11 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict,
     """Full-sequence forward. Returns the final hidden state (B, S, D), or
     with `return_aux` the reference's (hidden, aux): the MoE layers'
     load-balancing losses summed in layer order (fp32 zero without MoE)."""
-    x, positions = embed_inputs(cfg, params, batch)
+    x, positions, img = embed_inputs(cfg, params, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for path, i, kind, use_moe in _blocks(cfg):
         x, _, aux = block_forward(cfg, kind, use_moe, _at(params, path, i),
-                                  x, positions)
+                                  x, positions, img)
         if aux is not None:
             aux_total = aux_total + aux
     x = _apply_norm(cfg, params, "final", x)
@@ -331,6 +368,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     def layer_state(kind):
         if kind in SSM_KINDS:
             return _SSM_INIT[kind](cfg, batch, dtype, device)
+        if kind == CROSS_ATTN:
+            return attn.init_cross_cache(cfg, batch, dtype, device)
         return attn.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
 
     state: Dict[str, Any] = {"groups": {}, "rem": {}}
@@ -390,19 +429,21 @@ def decode_step(cfg: ModelConfig, params: Dict, state: Dict,
 
 def _block_prefill(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
                    st: Dict, x: torch.Tensor, positions: torch.Tensor,
+                   img: Optional[torch.Tensor],
                    state_dtype: torch.dtype) -> torch.Tensor:
     """One residual block; writes its state into `st` in place: k and v
-    (cast to the cache dtype) into the first S slots for attention, the
-    whole recurrent state (conv tail in the cache dtype) for xLSTM."""
-    s = x.shape[1]
-    x, piece, _ = block_forward(cfg, kind, use_moe, p, x, positions,
+    (cast to the cache dtype) into the first S slots for self attention and
+    into the whole image cache for cross attention, the whole recurrent
+    state (conv tail in the cache dtype) for xLSTM."""
+    x, piece, _ = block_forward(cfg, kind, use_moe, p, x, positions, img,
                                 state_dtype=state_dtype)
     if kind in SSM_KINDS:
         _write_state(st, piece)
     else:
         k, v = piece
-        st["k"][:, :s] = k.to(st["k"].dtype)
-        st["v"][:, :s] = v.to(st["v"].dtype)
+        n = k.shape[1]
+        st["k"][:, :n] = k.to(st["k"].dtype)
+        st["v"][:, :n] = v.to(st["v"].dtype)
     return x
 
 
@@ -411,7 +452,7 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, max_len: int,
             ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence prefill filling a fresh decode state of `max_len`
     slots. Returns (last-token logits (B, V), state)."""
-    x, positions = embed_inputs(cfg, params, batch)
+    x, positions, img = embed_inputs(cfg, params, batch)
     if x.shape[1] > max_len:
         raise ValueError(f"prompt of {x.shape[1]} tokens exceeds "
                          f"max_len={max_len}")
@@ -419,6 +460,7 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, max_len: int,
                               x.device)
     for path, i, kind, use_moe in _blocks(cfg):
         x = _block_prefill(cfg, kind, use_moe, _at(params, path, i),
-                           _at(state, path, i), x, positions, state_dtype)
+                           _at(state, path, i), x, positions, img,
+                           state_dtype)
     x = _apply_norm(cfg, params, "final", x)
     return logits_fn(cfg, params, x[:, -1]), state

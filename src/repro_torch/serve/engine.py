@@ -12,7 +12,12 @@ record every executed engine op: unlike the reference's scanned layers,
 whose trace records one layer group, a full-depth smollm-135m decode
 program records 2 gathers, 30 x 7 GEMMs and the unembedding, and an
 xlstm-125m one 67 GEMMs and no gather (its prefill adds 12 depthwise
-convs).
+convs), and a llama-3.2-vision-11b one 32 x 7 + 8 x 5 + 1 GEMMs (a cross
+layer reads its image cache: no wk, wv).
+A VLM's batch carries `image_embeds` beside its tokens: `greedy_generate`
+and `T.prefill` take it, `decode_state_shapes` holds the image caches.
+`prefill_program` takes tokens alone, as the reference's does;
+`launch/serve.py` traces the VLM's prefill over both.
 """
 from __future__ import annotations
 
@@ -196,7 +201,9 @@ def greedy_generate(cfg: ModelConfig, params, batch_in: Dict, steps: int,
     baseline the paged path is held against), on the device of
     `batch_in["tokens"]`, under the ambient `EngineConfig` (wrap the call
     in `engine.tracking()` to collect the MMIE-projected cost of every op).
-    Returns (B, steps) int64."""
+    `batch_in` holds "tokens" (B, S) and, for a VLM, "image_embeds"; the
+    decode starts at position S, as the reference's does. Returns (B,
+    steps) int64."""
     with torch.no_grad():
         logits, state = T.prefill(cfg, params, batch_in, max_len)
         pos0 = batch_in["tokens"].shape[1]

@@ -637,6 +637,11 @@ class ContinuousScheduler:
                              "'continuous' or 'drain'")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if cfg.n_img_tokens:
+            raise NotImplementedError(
+                f"{cfg.name}: the continuous scheduler takes tokens only, as "
+                "the reference's does; serve a VLM with serve.engine."
+                "greedy_generate or launch/serve.py")
         self.cfg = cfg
         self.params = params
         self.config = config if config is not None \
