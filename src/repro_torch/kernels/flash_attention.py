@@ -16,7 +16,9 @@ and k) or not, returned in q's dtype as (B, Sq, H, D).
 tensors, uses the plain version for CPU tensors, and only allocates the
 output for `meta` tensors (program capture). `flash_attention.launches`
 counts the fp32 kernel's launches, `flash_attention_bf16.launches` the bf16
-kernel's.
+kernel's; `flash_attention_noncausal.launches` and
+`flash_attention_bf16_noncausal.launches` count those of each that were
+not causal (cross attention) once more.
 There is no backward: an input that requires a gradient raises (ROADMAP
 queue 1, item 13).
 """
@@ -207,7 +209,12 @@ def _launch(q, k, v, out, causal, scale) -> None:
         err = fn(*ptrs, *dims, torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "flash_attention_bf16" if is_bf16 else "flash_attention")
     (flash_attention_bf16 if is_bf16 else flash_attention).launches += 1
+    if not causal:
+        (flash_attention_bf16_noncausal if is_bf16
+         else flash_attention_noncausal).launches += 1
 
 
 flash_attention.launches = 0
 flash_attention_bf16 = build.Launches("flash_attention_bf16")
+flash_attention_noncausal = build.Launches("flash_attention")
+flash_attention_bf16_noncausal = build.Launches("flash_attention_bf16")

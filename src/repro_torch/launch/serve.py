@@ -4,13 +4,14 @@ A copy of the JAX package's `launch/serve.py`.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
       --reduced --batch 4 --prompt-len 64 --gen 32 --device cpu
 
-Parameters come from `--seed` (`T.init_params`); the tokens and, for a VLM,
-the image embeddings (normal x 0.1 in bf16, as the reference draws them)
-from explicit `torch.Generator`s seeded with it. The reference jits its
-prefill and its decode step; here each is an `engine.compile` of a
-`trace_program` over the same arguments (tokens and image embeddings;
-state, token and position), run under the "cuda" backend: the hand-written
-kernels on a GPU, their plain versions on CPU tensors (`--device cpu`).
+Parameters come from `--seed` (`T.init_params`, drawn on the serving
+device); the tokens and, for a VLM, the image embeddings (normal x 0.1 in
+bf16, as the reference draws them) from explicit `torch.Generator`s seeded
+with it. The reference jits its prefill and its decode step; here each is
+an `engine.compile` of a `trace_program` over the same arguments (tokens
+and image embeddings; state, token and position), run under the "cuda"
+backend: the hand-written kernels on a GPU, their plain versions on CPU
+tensors (`--device cpu`).
 `--device` defaults to the GPU and raises where there is none.
 """
 from __future__ import annotations
@@ -101,11 +102,10 @@ def generate(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     return torch.cat(out, dim=1), t_prefill, t_decode
 
 
-def main(argv=None, params=None) -> torch.Tensor:
+def main(argv=None) -> torch.Tensor:
     """Parse `argv` (the reference's flags and `--device`), serve one batch
-    and print what the reference prints. `params` replaces the weights of
-    `--seed` (a caller's own tree for the same config). Returns the
-    generated tokens (B, gen) int64."""
+    and print what the reference prints. Returns the generated tokens
+    (B, gen) int64."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--reduced", action="store_true")
@@ -124,8 +124,7 @@ def main(argv=None, params=None) -> torch.Tensor:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to run the port's plain CPU path explicitly")
-    if params is None:
-        params = T.init_params(cfg, seed=args.seed, device=dev)
+    params = T.init_params(cfg, seed=args.seed, device=dev)
     b, s = args.batch, args.prompt_len
     batch = make_batch(cfg, b, s, args.seed, dev)
     gen, t_prefill, t_decode = generate(cfg, params, batch, args.gen)

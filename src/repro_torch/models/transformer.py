@@ -193,11 +193,12 @@ def param_dtype(cfg: ModelConfig,
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """Random parameters in `param_dtype(cfg, dtype)` from an explicit
-    `torch.Generator` seeded with `seed` (drawn in fp32 on the host, then
-    cast), on `device` (default: the GPU; raises when there is none)."""
+    """Random parameters in `param_dtype(cfg, dtype)` on `device` (default:
+    the GPU; raises when there is none), drawn in fp32 by a
+    `torch.Generator` on that device seeded with `seed`, then cast one leaf
+    at a time. A GPU's generator draws other numbers than the host's."""
     dev = resolve_device(device)
-    return init_tree(model_defs(cfg), torch.Generator().manual_seed(seed),
+    return init_tree(model_defs(cfg), torch.Generator(device=dev).manual_seed(seed),
                      param_dtype(cfg, dtype), dev)
 
 

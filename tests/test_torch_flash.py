@@ -312,7 +312,8 @@ def test_wrapper_dispatches_by_dtype(monkeypatch, dtype, entry):
     """The CUDA branch of the wrapper (run here on CPU tensors with the
     library and the stream faked) calls the entry of q's dtype with the C
     signature's arguments (the copy flag from that entry's plan) and counts
-    that entry's launch alone."""
+    that entry's launch alone: a non-causal launch (a cross layer's) once
+    more on that entry's non-causal counter, a causal one not."""
     calls = []
 
     def fake_library(name):
@@ -329,7 +330,9 @@ def test_wrapper_dispatches_by_dtype(monkeypatch, dtype, entry):
                         lambda: types.SimpleNamespace(cuda_stream=0))
     q, k, v = (t.to(dtype) for t in _t(*_qkv(2, 33, 6, 2, 40, seed=1)))
     out = torch.empty_like(q)
-    before = (FA.flash_attention.launches, FA.flash_attention_bf16.launches)
+    counters = (FA.flash_attention, FA.flash_attention_bf16,
+                FA.flash_attention_noncausal, FA.flash_attention_bf16_noncausal)
+    before = tuple(c.launches for c in counters)
     FA._launch(q, k, v, out, False, None)
     assert [name for name, _ in calls] == [entry]
     args = calls[0][1]
@@ -339,9 +342,13 @@ def test_wrapper_dispatches_by_dtype(monkeypatch, dtype, entry):
     assert args[10] == pytest.approx(1 / math.sqrt(40)) and args[11] == 0
     plan = FA.bf16_launch if dtype == torch.bfloat16 else FA.f32_launch
     assert args[12] == int(plan(2, 33, 6, 40, *args[:3]).vec)
-    after = (FA.flash_attention.launches, FA.flash_attention_bf16.launches)
     bumped = (1, 0) if dtype == torch.float32 else (0, 1)
-    assert tuple(a - b for a, b in zip(after, before)) == bumped
+    after = tuple(c.launches for c in counters)
+    assert tuple(a - b for a, b in zip(after, before)) == bumped * 2
+    FA._launch(q, k, v, out, True, None)
+    assert calls[1][1][11] == 1
+    again = tuple(c.launches for c in counters)
+    assert tuple(a - b for a, b in zip(again, after)) == bumped + (0, 0)
 
 
 class _Null:
