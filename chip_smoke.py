@@ -351,6 +351,28 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      trace beside its bound, the GEMM at llama's shapes alone (the lm_head
      beside bf16 `torch.mm`) and the cross flash launch beside SDPA
      (`enable_gqa`, non-causal), each with its bound.
+ 14. the kernel tuner (`engine/tune.py`), its cache in a fresh temporary
+     directory: `engine.compile(tuning="autotune")` of AlexNet in fp32,
+     int8 and bf16 at batch 1 and, on a second, empty cache, at batch 32,
+     and of VGG-16 and ResNet-50 in fp32 at batch 1 (every conv and GEMM
+     gets a tile); a line a tuned op (candidates, the rule's tile and its
+     µs, the winner and its µs: CUDA-graph replays of the kernel alone).
+     Every candidate of every tuned op bitwise equal to the rule's tile's
+     output of the same launch on seeded operands. A compile under
+     "cached" (memo dropped): `tiles()` the cache's winners, `backends()`
+     and `precisions()` those of "off", 5 conv + 3 matmul launches of the
+     precision's entries a forward, logits bitwise equal to the untuned
+     net's, at batch 1 and 32 in each precision. The static `Scheduler`
+     under "cached" (buckets 1-8, phase 10's AlexNet waves) in each
+     precision: every result bitwise the request alone through the untuned
+     batch-1 apply, every bucket on the batch-1 tiles, `stats()["tuning"]`
+     "cached". A corrupted and a stale-versioned cache: `tiles()` all
+     None, logits bitwise the untuned ones. Then AlexNet's forward tuned
+     against untuned (median of 20 CUDA-event timings) at batch 1 and 32
+     in each precision, and at batch 32 on the tiles tuned at batch 1 (the
+     cost of keys that drop M), and `tune_program` over smollm-135m's fp32
+     decode program at bucket 8 (its five GEMM shapes), recorded, not
+     claimed.
      Last, each phase's seconds.
 
 The last lines are the card's name and power limit, a JSON object listing
@@ -473,6 +495,13 @@ VLM_INVARIANCE_ROWS = (1, 4, 13, 1100, 1601, 4 * 1100)
 # layer 0's seven weights rounded through fp8 read 7.10e-2 (card's draw)
 # and 7.39e-2 (host's)
 VLM_BF16_TOL = 3.5e-2
+# Phase 14: the tuner. The nets tuned in fp32 at batch 1 beside AlexNet
+# (cut VGG-16 first if the script nears its time limit), the precisions
+# AlexNet is tuned and held in, and the decode bucket of smollm-135m's
+# tuned program
+TUNE_OTHER_NETS = ("vgg16", "resnet50")
+TUNE_PRECISIONS = ("fp32", "int8", "bf16")
+TUNE_DECODE_BUCKET = 8
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
 # tensor cores, bf16 and int8 in them, and device-memory bandwidth. A bound
@@ -4125,6 +4154,239 @@ def vlm_pass_counts(n_self, n_cross):
             "prefill": prefill}
 
 
+def tuner_phase(dev, E, cnn, kernels):
+    """Phase 14: the kernel tuner (see the module docstring). `kernels`
+    maps "fp32", "int8" and "bf16" to the (conv, matmul) launch counters of
+    that precision's AlexNet entries. Returns the numbers of its
+    summary."""
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.engine import tune
+    from repro_torch.serve import engine as SE
+    from repro_torch.serve.scheduler import Scheduler
+
+    t_phase = time.perf_counter()
+    counters = tuple(c for pair in kernels.values() for c in pair)
+    dtypes = {"fp32": torch.float32, "int8": torch.float32,
+              "bf16": torch.bfloat16}
+    params = {p: cnn.init_cnn("alexnet", seed=0, device=DEVICE, dtype=dtypes[p])
+              for p in TUNE_PRECISIONS}
+
+    def config(prec, tuning, **kw):
+        return E.EngineConfig(backend="cuda", tuning=tuning, precision=(
+            "int8" if prec == "int8" else "fp32"), **kw)
+
+    def image(batch, prec, seed=14):
+        return torch.randn((batch, *cnn.ALEXNET_INPUT), generator=torch.Generator(
+        ).manual_seed(seed + batch)).to(dev).to(dtypes[prec])
+
+    def keyed(net, prec):
+        """{key: (op, precision)} of the net's tuned ops, a key once."""
+        out = {}
+        for op, plan in net.exec_pairs:
+            if plan.tile_config is not None:
+                key = tune.tile_key(op, "cuda", None, plan.precision, dtypes[prec])
+                out.setdefault(key, (op, plan.precision))
+        return out
+
+    def winners(net, prec):
+        """The cache's tile of each op of `net` (None: not in the cache)."""
+        entries = tune.load_cache()["entries"]
+        return tuple(
+            tuple(entries[key]["tile"]) if key in entries else None
+            for key in (tune.tile_key(op, "cuda", None, plan.precision, dtypes[prec])
+                        for op, plan in net.exec_pairs))
+
+    with tempfile.TemporaryDirectory() as root:
+        dirs = {b: Path(root) / f"batch{b}" for b in BATCHES}
+        runs = [("alexnet", p, BATCHES[0]) for p in TUNE_PRECISIONS] \
+            + [(n, "fp32", BATCHES[0]) for n in TUNE_OTHER_NETS] \
+            + [("alexnet", p, b) for b in BATCHES[1:] for p in TUNE_PRECISIONS]
+        # 1. autotune
+        tuned, rows, tune_s = {}, [], {}
+        for net_name, prec, batch in runs:
+            tune.set_cache_dir(dirs[batch])
+            t0 = time.perf_counter()
+            net = E.compile(cnn.program(net_name, batch=batch, dtype=dtypes[prec]),
+                            config(prec, "autotune"))
+            tune_s[(net_name, prec, batch)] = time.perf_counter() - t0
+            require(all(t is not None for t in net.tiles()),
+                    f"tune {net_name} {prec} B={batch}: untuned ops in {net.tiles()}")
+            tuned[(net_name, prec, batch)] = net
+            entries = tune.load_cache()["entries"]
+            for key, (op, p) in keyed(net, prec).items():
+                e = entries[key]
+                own = "x".join(map(str, e["default_tile"]))
+                win = "x".join(map(str, e["tile"]))
+                rows.append(dict(net=net_name, prec=prec, batch=batch, key=key,
+                                 op=op, precision=p, desc=e["desc"],
+                                 candidates=e["candidates"], default=own,
+                                 default_us=e["timings_us"][own], winner=win,
+                                 winner_us=e["device_us"]))
+                print(f"[tune] {net_name} {prec} B={batch}: {e['desc']}, rows "
+                      f"{e['rows']}: {e['candidates']} candidates; rule {own} "
+                      f"{e['timings_us'][own]:.2f} µs, winner {win} "
+                      f"{e['device_us']:.2f} µs; "
+                      + " ".join(f"{t} {us:.2f}" for t, us in e["timings_us"].items()))
+            print(f"[tune] {net_name} {prec} B={batch}: compile with autotune "
+                  f"{tune_s[(net_name, prec, batch)]:.2f} s")
+        # 2. every candidate bitwise the rule's tile
+        n_bitwise = 0
+        for r in rows:
+            run = tune.tile_runner(r["op"], r["precision"], dtypes[r["prec"]],
+                                   device=DEVICE, seed=14)
+            want = run(None)
+            for t in tune.candidates_for(r["op"], precision=r["precision"],
+                                         dtype=dtypes[r["prec"]]):
+                require(torch.equal(run(t), want),
+                        f"tune {r['net']} {r['prec']} B={r['batch']} {r['desc']}: "
+                        f"tile {t} is not bitwise the rule's tile's output")
+                n_bitwise += 1
+            del run, want
+        print(f"[tune] every candidate of {len(rows)} tuned ops bitwise equal to "
+              f"the rule's tile's output ({n_bitwise} launches)")
+        # 3. a cached compile is the tuned net; its logits the untuned ones
+        off, cached = {}, {}
+        for batch in BATCHES:
+            tune.set_cache_dir(dirs[batch])     # the memo dropped
+            for prec in TUNE_PRECISIONS:
+                prog = cnn.program("alexnet", batch=batch, dtype=dtypes[prec])
+                o = E.compile(prog, config(prec, "off"))
+                c = E.compile(prog, config(prec, "cached"))
+                require(c.tiles() == winners(c, prec)
+                        == tuned[("alexnet", prec, batch)].tiles()
+                        and o.tiles() == (None,) * 8,
+                        f"cached {prec} B={batch}: tiles {c.tiles()}, cache "
+                        f"{winners(c, prec)}, off {o.tiles()}")
+                require(c.backends() == o.backends()
+                        and c.precisions() == o.precisions(),
+                        f"cached {prec} B={batch}: backends or precisions moved")
+                x = image(batch, prec)
+                want = o.apply(params[prec], x)
+                zero_counts(*counters)
+                got = c.apply(params[prec], x)
+                torch.cuda.synchronize()
+                launches = counts(*counters)
+                conv_k, mm_k = kernels[prec]
+                expect = tuple(5 if k is conv_k else 3 if k is mm_k else 0
+                               for k in counters)
+                require(launches == expect, f"cached {prec} B={batch}: launches "
+                        f"{launches}, expected {expect}")
+                require(torch.equal(got, want), f"cached {prec} B={batch}: logits "
+                        "not bitwise the untuned net's")
+                off[(prec, batch)], cached[(prec, batch)] = o, c
+        print(f"[tune] cached AlexNet at B={', '.join(map(str, BATCHES))} in "
+              f"{', '.join(TUNE_PRECISIONS)}: tiles() the cache's winners, "
+              "backends and precisions unchanged, 5 + 3 launches, logits bitwise "
+              "the untuned net's")
+        # 4. the static Scheduler under "cached"
+        tune.set_cache_dir(dirs[BATCHES[0]])
+        waves = [w[0] for w in SCHED_WAVES]
+        gen = torch.Generator().manual_seed(140)
+        images = [torch.randn((1, *cnn.ALEXNET_INPUT), generator=gen).to(dev)
+                  for _ in range(sum(waves))]
+        tiles1 = {p: tuned[("alexnet", p, BATCHES[0])].tiles() for p in TUNE_PRECISIONS}
+        for prec in TUNE_PRECISIONS:
+            solo = E.compile(cnn.program("alexnet", dtype=dtypes[prec]),
+                             config(prec, "off", row_align=8))
+            sched = Scheduler(config=config(prec, "cached", row_align=8),
+                              max_batch=8)
+            sched.register("alexnet", cnn.program("alexnet", dtype=dtypes[prec]),
+                           shared_args=(params[prec],))
+            sched.warmup()
+            for b in sched.buckets:
+                require(sched.compiled("alexnet", b).tiles() == tiles1[prec],
+                        f"sched {prec} bucket {b}: tiles "
+                        f"{sched.compiled('alexnet', b).tiles()}")
+            served, i = [], 0
+            for n in waves:
+                served += [(j, sched.submit("alexnet", images[j].to(dtypes[prec])))
+                           for j in range(i, i + n)]
+                i += n
+                sched.drain()
+            for j, t in served:
+                require(t.done and torch.equal(
+                    t.result, solo.apply(params[prec], images[j].to(dtypes[prec]))),
+                    f"sched {prec} cached: request {j} (bucket {t.batch_bucket}) "
+                    "not bitwise the request alone untuned")
+            require(sched.stats()["tuning"] == "cached",
+                    f"sched stats tuning {sched.stats()['tuning']}")
+            print(f"[tune] Scheduler {prec} under cached: {len(served)} requests "
+                  f"in buckets {sorted({t.batch_bucket for _, t in served})}, "
+                  "each bitwise the request alone untuned; every bucket on the "
+                  "batch-1 tiles; stats tuning 'cached'")
+        # 5. a corrupted and a stale cache degrade to the rules
+        good = json.loads(tune.cache_path().read_text())
+        bad = Path(root) / "bad"
+        bad.mkdir()
+        for label, text in (("corrupted", "{not json"), ("stale", json.dumps(
+                dict(good, version=tune.CACHE_VERSION + 1)))):
+            (bad / f"{tune.device_kind()}.json").write_text(text)
+            tune.set_cache_dir(bad)
+            for prec in TUNE_PRECISIONS:
+                c = E.compile(cnn.program("alexnet", dtype=dtypes[prec]),
+                              config(prec, "cached"))
+                x = image(1, prec)
+                require(c.tiles() == (None,) * 8 and torch.equal(
+                    c.apply(params[prec], x), off[(prec, 1)].apply(params[prec], x)),
+                    f"{label} cache {prec}: tiles {c.tiles()} or logits moved")
+            print(f"[tune] a {label} cache: tiles() all None, logits bitwise the "
+                  "untuned net's in each precision")
+        # 6. AlexNet's forward, tuned and untuned
+        fwd = {}
+        for prec in TUNE_PRECISIONS:
+            for batch in BATCHES:
+                x = image(batch, prec)
+                nets = {"untuned": off[(prec, batch)], "tuned": cached[(prec, batch)]}
+                if batch != BATCHES[0]:
+                    tune.set_cache_dir(dirs[BATCHES[0]])
+                    nets["tiles of B=1"] = E.compile(
+                        cnn.program("alexnet", batch=batch, dtype=dtypes[prec]),
+                        config(prec, "cached"))
+                for label, net in nets.items():
+                    fwd[(prec, batch, label)] = time_ms(
+                        lambda: net.apply(params[prec], x))
+                print(f"[tune] alexnet {prec} B={batch}: forward "
+                      + ", ".join(f"{label} {fwd[(prec, batch, label)]:.4f} ms"
+                                  for label in nets)
+                      + " (median of 20)")
+        # 7. smollm-135m's decode GEMMs
+        cfg = get_config(SERVE_MODEL)
+        tune.set_cache_dir(dirs[BATCHES[0]])
+        prog = SE.decode_program(cfg, TUNE_DECODE_BUCKET, SCHED_MAX_LEN,
+                                 param_dtype=torch.float32)
+        t0 = time.perf_counter()
+        n_lm = tune.tune_program(prog.ops, E.EngineConfig(backend="cuda",
+                                                          tuning="autotune"))
+        lm_s = time.perf_counter() - t0
+        entries = tune.load_cache()["entries"]
+        lm_keys = {tune.tile_key(op, "cuda", None) for op in prog.ops} - {None}
+        require(len(lm_keys) == 5 and n_lm == len(
+            [op for op in prog.ops if tune.tile_key(op, "cuda", None)]),
+            f"smollm decode: {len(lm_keys)} GEMM keys, {n_lm} ops tuned")
+        lm_rows = []
+        for key in sorted(lm_keys, key=lambda k: entries[k]["desc"]):
+            e = entries[key]
+            own = "x".join(map(str, e["default_tile"]))
+            lm_rows.append((e["desc"], own, e["timings_us"][own],
+                            "x".join(map(str, e["tile"])), e["device_us"]))
+            print(f"[tune] {cfg.name} decode M={TUNE_DECODE_BUCKET} {e['desc']}: "
+                  f"{e['candidates']} candidates; rule {own} "
+                  f"{e['timings_us'][own]:.2f} µs, winner {lm_rows[-1][3]} "
+                  f"{e['device_us']:.2f} µs")
+        print(f"[tune] {cfg.name} decode program: {n_lm} GEMM ops tuned ({len(lm_keys)} "
+              f"shapes) in {lm_s:.2f} s")
+        tune.set_cache_dir(None)
+    changed = sum(r["winner"] != r["default"] for r in rows)
+    took = time.perf_counter() - t_phase
+    print(f"[tune] phase 14 took {took:.1f} s: {len(rows)} tuned ops, {changed} "
+          f"won by another tile than the rule's; autotune compiles "
+          f"{sum(tune_s.values()):.2f} s")
+    return dict(rows=rows, fwd=fwd, lm=lm_rows, changed=changed,
+                n_bitwise=n_bitwise, tune_s=sum(tune_s.values()), took=took)
+
+
 def kernel_time(prof, name):
     """(device ms, launches) a call of the kernels in a `device_profile`
     whose name holds `name`."""
@@ -4972,6 +5234,12 @@ def main():
                                        paged.paged_gather,
                                        gfid_matmul.gfid_matmul_grouped,
                                        gfid_matmul.gfid_matmul_bf16_grouped), worst)
+
+    # -- phase 14: the kernel tuner --------------------------------------------
+    started["14"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    tuner = tuner_phase(dev, E, cnn, {"fp32": (conv32, mm32), "int8": (conv8, mm8),
+                                      "bf16": (conv16, mm16)})
     ends = list(started.values())[1:] + [time.perf_counter()]
     print("[time] phases (s): " + ", ".join(
         f"{name} {end - start:.1f}" for (name, start), end
@@ -5127,6 +5395,12 @@ def main():
             f"prompt{MOE_TIMED_PROMPT}": {key: sums[MOE_TIMED_PROMPT][key] for key in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                 "library_device_ms")}})
+    print(f"[tune] summary: {len(tuner['rows'])} tuned ops, {tuner['changed']} won by "
+          f"another tile than the rule's, {tuner['n_bitwise']} candidate launches "
+          f"bitwise; AlexNet forward ms untuned/tuned: " + "; ".join(
+              f"{p} B={b} {tuner['fwd'][(p, b, 'untuned')]:.4f}/"
+              f"{tuner['fwd'][(p, b, 'tuned')]:.4f}" for p in TUNE_PRECISIONS
+              for b in BATCHES) + f"; phase {tuner['took']:.1f} s")
     print(f"[vlm] summary: decode step {vlm['step_ms']:.4f} ms with {VLM_BATCH} rows, "
           "device time " + ("not measured" if vlm["busy_ms"] is None
                             else f"{vlm['busy_ms']:.4f} ms")

@@ -1,5 +1,6 @@
-"""The multi-mode engine: plans, backends, the op API and whole-network
-programs (`compile` -> `CompiledNet`)."""
+"""The multi-mode engine: plans, backends, the op API, whole-network
+programs (`compile` -> `CompiledNet`) and the kernel autotuner (`tune`)."""
+from repro_torch.engine import tune  # noqa: F401
 from repro_torch.engine.api import (conv1d_depthwise, conv2d, dense, einsum,
                                     matmul, paged_gather, proj)
 from repro_torch.engine.config import (EngineConfig, current_config,

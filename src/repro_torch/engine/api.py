@@ -54,6 +54,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.engine import dispatch, ledger as ledger_mod, plan as planlib
+from repro_torch.engine import tune as tunelib
 from repro_torch.engine.config import accum_dtype_of, current_config
 from repro_torch.kernels.epilogue import check_act
 
@@ -105,7 +106,8 @@ def _check_accum(accum: Optional[torch.dtype],
 class _ProgramState(threading.local):
     def __init__(self) -> None:
         self.capture: List[Tuple[List[planlib.OpSpec],
-                                 Optional[List[Optional[str]]]]] = []
+                                 Optional[List[Optional[str]]],
+                                 Optional[List[Optional[torch.dtype]]]]] = []
         self.replay: List["_Cursor"] = []
 
 
@@ -150,6 +152,7 @@ _PROG = _ProgramState()
 @contextlib.contextmanager
 def capturing(into: List[planlib.OpSpec],
               precisions_into: Optional[List[Optional[str]]] = None,
+              dtypes_into: Optional[List[Optional[torch.dtype]]] = None,
               ) -> Iterator[List[planlib.OpSpec]]:
     """Record the `OpSpec` of every engine call in the block, in call order
     (ledgers are paused: a capture is a shape trace, not a run).
@@ -157,8 +160,11 @@ def capturing(into: List[planlib.OpSpec],
     `precisions_into`, when given, receives one entry per op: the call's
     explicit `precision=` argument, or None where the op left precision to
     the config. `compile` pins these per-op overrides (e.g. those of
-    `models.cnn.program(..., precisions={"fc6": "int8"})`)."""
-    _PROG.capture.append((into, precisions_into))
+    `models.cnn.program(..., precisions={"fc6": "int8"})`). `dtypes_into`
+    likewise receives the dtype of each conv2d and einsum op's input x
+    (None for the other ops): the tuner keys a tile by it, while `OpSpec`
+    stays the reference's."""
+    _PROG.capture.append((into, precisions_into, dtypes_into))
     try:
         with ledger_mod.paused():
             yield into
@@ -186,12 +192,16 @@ def replaying(pairs: Sequence[Tuple[planlib.OpSpec, planlib.EnginePlan]],
             "op sequence")
 
 
-def _plan_for(op: planlib.OpSpec) -> planlib.EnginePlan:
-    """Capture/replay hook + plan resolution for one issued op."""
-    for ops, precs in _PROG.capture:
+def _plan_for(op: planlib.OpSpec,
+              dtype: Optional[torch.dtype] = None) -> planlib.EnginePlan:
+    """Capture/replay hook + plan resolution for one issued op (`dtype`:
+    its input's, for the captured dtypes)."""
+    for ops, precs, dtypes in _PROG.capture:
         ops.append(op)
         if precs is not None:
             precs.append(None)          # _pin_precision fills in an explicit arg
+        if dtypes is not None:
+            dtypes.append(dtype)
     if _PROG.replay:
         return _PROG.replay[-1].next_for(op)
     name = planlib.select_backend(op, current_config())
@@ -227,13 +237,29 @@ def _pin_precision(op: planlib.OpSpec, plan: planlib.EnginePlan,
                 f"{op.w_shape}, but the int8 contract only covers conv2d "
                 "and canonical-GEMM dense ops")
         # tell an active capture, so a compiled program pins the override
-        for _, precs in _PROG.capture:
+        for _, precs, _ in _PROG.capture:
             if precs:
                 precs[-1] = arg
         return planlib.pinned(plan, arg)
     if _PROG.replay:
         return plan                         # pinned by compile
     return planlib.with_precision(plan, op, current_config().precision)
+
+
+def _maybe_tile(op: planlib.OpSpec, plan: planlib.EnginePlan,
+                dtype: torch.dtype) -> planlib.EnginePlan:
+    """Eager-path tile resolution: pin a *cached* tuned tile under
+    `cfg.tuning != "off"`. Replayed plans (a `CompiledNet` executing) are
+    returned untouched: what `engine.compile` pinned, a None on a cache
+    miss included, is the execution contract, so a cache written after
+    compile never changes a compiled net. Timing candidates happens at
+    compile time only, never per call."""
+    if _PROG.replay:
+        return plan
+    cfg = current_config()
+    if cfg.tuning == "off" or plan.backend != "cuda":
+        return plan
+    return tunelib.attach(op, plan, cfg, dtype=dtype)
 
 
 def _row_pad_axis(structure: planlib.EinsumStructure,
@@ -296,10 +322,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, pad: int = 0,
                         pad=int(pad), groups=int(groups))
     _check_epilogue(bias, act, op.w_shape[3], "conv2d")
     accum = _resolve_accum(_UNSET, "conv2d")
-    plan = _pin_precision(op, _plan_for(op), precision)
+    plan = _pin_precision(op, _plan_for(op, x.dtype), precision)
     if plan.precision != "int8" and accum not in (None, torch.float32):
         raise ValueError(f"accum={accum} on conv2d: the port's conv sums in "
                          "fp32 on every backend")
+    plan = _maybe_tile(op, plan, x.dtype)
     ledger_mod.record(plan)
     return _run(op, plan, lambda be, pl: be.conv2d(
         x, w, pl, stride=stride, pad=pad, groups=groups, out_dtype=x.dtype,
@@ -350,8 +377,9 @@ def einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
     else:
         check_act(act)
     accum = _resolve_accum(accum_dtype, "einsum")
-    plan = _pin_precision(op, _plan_for(op), precision)
+    plan = _pin_precision(op, _plan_for(op, x.dtype), precision)
     _check_accum(accum, plan, f"einsum {spec!r}")
+    plan = _maybe_tile(op, plan, x.dtype)
     int8 = plan.precision == "int8"
     if int8:
         want = x.dtype              # the dequantized sums, cast to x's dtype

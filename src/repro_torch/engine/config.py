@@ -7,9 +7,9 @@ pushes for the dynamic extent of a block; `current_config()` reads the top,
 else the process-wide base config (`set_default_config`, which raises
 inside an active context rather than being shadowed by it).
 
-Two of the reference's knobs are accepted only at their default here:
-`tuning` and `parallel` raise `NotImplementedError` naming the ROADMAP item
-that ports them.
+One of the reference's knobs is accepted only at its default here:
+`parallel` raises `NotImplementedError` naming the ROADMAP item that ports
+it.
 """
 from __future__ import annotations
 
@@ -24,9 +24,9 @@ from repro_torch.engine.plan import PRECISIONS
 
 _POLICIES = ("fixed", "auto")
 _FALLBACKS = ("none", "chain")
+_TUNING_MODES = ("off", "cached", "autotune")
 # knob -> (its only supported value, the ROADMAP item that brings the rest)
 _NOT_YET = {
-    "tuning": ("off", "ROADMAP queue 1, item 6 (autotuner, engine/tune.py)"),
     "parallel": (None, "ROADMAP queue 1, item 11 (multi-device engine)"),
 }
 
@@ -79,8 +79,15 @@ class EngineConfig:
                 starts its decode buckets at R rows, so up to R live rows
                 share one decode shape and a row's tokens do not depend on
                 the batch it rides in.
-    tuning, parallel — the reference's knobs, not ported yet: any value
-                but the default raises `NotImplementedError`.
+    tuning    — the kernel tiles (`engine/tune.py`): "off" (each kernel's
+                own rule), "cached" (a tile from the port's tuning cache
+                where it has one for the op, else the rule) or "autotune"
+                ("cached", and `engine.compile` times the candidates of a
+                miss on the CUDA device and caches the winner; it raises
+                without a device). A tile never changes a bit of the
+                result. Any other value raises `ValueError`.
+    parallel  — the reference's multi-device knob, not ported yet: any
+                value but None raises `NotImplementedError`.
     """
 
     backend: str = "cuda"
@@ -99,6 +106,9 @@ class EngineConfig:
         if self.fallback not in _FALLBACKS:
             raise ValueError(f"unknown fallback policy {self.fallback!r}; "
                              f"expected one of {_FALLBACKS}")
+        if self.tuning not in _TUNING_MODES:
+            raise ValueError(f"unknown tuning mode {self.tuning!r}; "
+                             f"expected one of {_TUNING_MODES}")
         if self.accum is not None and self.accum != "native":
             accum_dtype_of(self.accum)
         if self.precision not in PRECISIONS:

@@ -152,7 +152,8 @@ def run_op(op, plan, call, *, act: Optional[str] = None,
     backend, then `fallback_chain` under "chain") meets the "kernel" point
     at site "<kind>:<backend>"; a fired visit raises `KernelFault` there,
     and the chain moves on. A hop is recorded into every active ledger, onto
-    the injector, and through `on_hop(plan)` (a compiled program pins it).
+    the injector, and through `on_hop(plan)` (a compiled program pins it);
+    the hop's plan drops any tuned tile, which was the "cuda" entry's.
     Only the injected fault is answered: a backend's own error propagates.
     """
     inj = _faults.active()
@@ -171,7 +172,7 @@ def run_op(op, plan, call, *, act: Optional[str] = None,
                 f"injected kernel fault: {op.kind} on backend {name!r}")
             continue
         pl = plan if name == plan.backend else dataclasses.replace(
-            plan, backend=name)
+            plan, backend=name, tile_config=None)
         out = call(get_backend(name), pl)
         if fault is not None:
             _ledger.record_fallback(_ledger.FallbackRecord(
@@ -275,7 +276,7 @@ def _cuda_conv2d(x, w, plan, *, stride, pad, groups, out_dtype, bias=None,
                  act=None):
     return ops.gfid_conv2d(x, w, stride=stride, pad=pad, groups=groups,
                            bias=bias, act=act, precision=plan.precision,
-                           out_dtype=out_dtype)
+                           out_dtype=out_dtype, tile=plan.tile_config)
 
 
 def _cuda_einsum(spec, x, w, plan, structure, *, accum_dtype, out_dtype,
@@ -305,7 +306,8 @@ def _cuda_einsum(spec, x, w, plan, structure, *, accum_dtype, out_dtype,
     xm = torch.movedim(x, st.x_labels.index(c), -1)
     w2 = w if st.w_labels[0] == c else w.T
     return ops.gfid_matmul(xm, w2, bias=bias, act=act,
-                           precision=plan.precision, out_dtype=out_dtype)
+                           precision=plan.precision, out_dtype=out_dtype,
+                           tile=plan.tile_config)
 
 
 def _cuda_conv1d_dw(x, w, plan, *, causal):

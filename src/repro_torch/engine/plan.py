@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core import analytics, modes
 from repro_torch.kernels import build as _build
@@ -84,6 +84,12 @@ class EnginePlan:
     # resolver: "fp32" or "int8". A quantized plan is a replace of the fp32
     # plan, so `ma_words` keeps its Table-4 meaning under every precision.
     precision: str = "fp32"
+    # The block tile (bm, bn) the tuner pinned (`engine/tune.py`: at
+    # `engine.compile`, or by the eager path's cached lookup); None keeps
+    # the kernel's own rule. The planners never set it: a tuned plan is a
+    # replace of the analytic plan, so the plan caches stay independent of
+    # tuning and no analytic field moves with it.
+    tile_config: Optional[Tuple[int, int]] = None
 
     @property
     def exec_ma_words(self) -> int:

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.core import modes
 from repro_torch.engine import api
+from repro_torch.engine import tune as tunelib
 from repro_torch.engine.config import EngineConfig, current_config, using_config
 from repro_torch.engine.plan import (EnginePlan, OpSpec, parse_einsum,
                                      plan_op, select_backend, with_precision)
@@ -209,16 +210,20 @@ def trace_program(fn: Callable[..., Any], *avals: Any,
 
 def _capture_ops(fn: Callable[..., Any], avals: Tuple[Any, ...],
                  cfg: EngineConfig
-                 ) -> Tuple[Tuple[OpSpec, ...], Tuple[Optional[str], ...]]:
+                 ) -> Tuple[Tuple[OpSpec, ...], Tuple[Optional[str], ...],
+                            Tuple[Optional[torch.dtype], ...]]:
     """Run `fn` on `meta` tensors under `cfg` and return its engine ops in
     call order, with each op's explicit precision override (None where the
-    call left precision to the config). Every op only allocates `meta`
+    call left precision to the config) and its input's dtype (conv2d and
+    einsum ops; None for the others). Every op only allocates `meta`
     outputs, so nothing runs."""
     ops: list = []
     precs: list = []
-    with api.capturing(ops, precs), using_config(cfg), torch.no_grad():
+    dtypes: list = []
+    with api.capturing(ops, precs, dtypes), using_config(cfg), \
+            torch.no_grad():
         fn(*avals)
-    return tuple(ops), tuple(precs)
+    return tuple(ops), tuple(precs), tuple(dtypes)
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +432,12 @@ class CompiledNet:
         pairs = self.exec_pairs if self.exec_pairs is not None else ()
         return tuple(plan.precision for _, plan in pairs)
 
+    def tiles(self) -> Tuple[Optional[Tuple[int, int]], ...]:
+        """Per-op tuned block tiles of the execution plan, in call order
+        (None: the kernel's own rule, or an op with no tile knob)."""
+        pairs = self.exec_pairs if self.exec_pairs is not None else ()
+        return tuple(plan.tile_config for _, plan in pairs)
+
 
 def compile(program: Program,  # noqa: A001 (mirrors the reference's API)
             cfg: Optional[EngineConfig] = None) -> CompiledNet:
@@ -440,14 +451,20 @@ def compile(program: Program,  # noqa: A001 (mirrors the reference's API)
 
     Every executed op is pinned to its precision: a per-op override baked
     into the forward (`cnn.program(precisions=...)`) wins over the config's
-    `precision`."""
+    `precision`. Then, under `cfg.tuning` "cached" or "autotune", each
+    "cuda" conv and GEMM is pinned to its tuned tile (`engine/tune.py`;
+    "autotune" times the candidates of a cache miss on the CUDA device
+    here), keyed by that precision; `CompiledNet.tiles()` lists them."""
     cfg = current_config() if cfg is None else cfg
     net_plan = plan_network(program, cfg)
     exec_pairs = None
     if program.fn is not None:
-        ops, precs = _capture_ops(program.fn, program.in_avals, cfg)
+        ops, precs, dtypes = _capture_ops(program.fn, program.in_avals, cfg)
+        # precision pins before tile resolution, so the tuner keys on it
         exec_pairs = tuple(
-            (op, with_precision(plan_op(op, select_backend(op, cfg)), op,
-                                prec or cfg.precision))
-            for op, prec in zip(ops, precs))
+            (op, tunelib.attach(
+                op, with_precision(plan_op(op, select_backend(op, cfg)), op,
+                                   prec or cfg.precision),
+                cfg, allow_autotune=True, dtype=dt))
+            for op, prec, dt in zip(ops, precs, dtypes))
     return CompiledNet(program, cfg, net_plan, exec_pairs)

@@ -254,6 +254,18 @@ def mma_split(k: int, want: int, min_chunks: int,
     return -(-n // per), per
 
 
+def check_tile(kernel: str, tile, tiles: Tuple[Tuple[int, int], ...]
+               ) -> Tuple[int, int]:
+    """`tile`, a (bm, bn) pair as a tuple or a list, as a tuple where it is
+    one of the block tiles `tiles` the kernel's entry launches; ValueError
+    for any other (the entry would refuse the launch)."""
+    t = tuple(tile) if isinstance(tile, (tuple, list)) else tile
+    if t not in tiles:
+        raise ValueError(f"{kernel}: block tile {tile!r} is not one of the "
+                         f"entry's {tiles}")
+    return t
+
+
 def check_grid(kernel: str, grid: Tuple[int, int, int]) -> None:
     if any(g > lim for g, lim in zip(grid, GRID_LIMITS)):
         raise ValueError(f"{kernel}: launch grid {grid} exceeds CUDA's "

@@ -79,6 +79,14 @@ INT8_MAX_SPLIT = 4
 # fold's running sums would leave one block an SM.
 BF16_TILES = ((128, 128), (64, 64), (32, 64))
 BF16_MIN_SPLIT = 8
+# Of the rules above, "the first tile whose blocks fill the card" and "the
+# wide tile only where it wastes no columns or shares a gather" choose for
+# speed alone: a tuned tile (`tile=`) may be any tile of the set, and the
+# tuner orders them by its own score. "Never the wide bf16 tile for a
+# split" guards a resource (the fold's running sums beside its ring): a
+# filter, which `tiles_for` keeps. The split of K of the fp32 and bf16
+# convs stays one image's plan under the default rule whatever the tile,
+# so that a tuned tile changes no bit.
 
 
 def gfid_conv2d_nhwc_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -146,9 +154,20 @@ def _image_split(tiles_: Tuple[Tuple[int, int], ...], image_pixels: int,
     return build.mma_split(k, want, min_split, chunk)
 
 
+def _default_tiles(tiles_: Tuple[Tuple[int, int], ...], og: int, cg: int,
+                   elems: int) -> Tuple[Tuple[int, int], ...]:
+    """The tiles the default rule picks from: the wide one only where it
+    wastes no columns (og a multiple of its width) or where x is gathered
+    element by element (cg % `elems`) and more columns share each
+    gather."""
+    return tuple(t for t in tiles_
+                 if t[1] == 64 or og % t[1] == 0 or (og > 64 and cg % elems))
+
+
 def f32_plan(pixels: int, k: int, og: int, groups: int, cg: int,
              x_ptr: int = 0, w_ptr: int = 0, sms: int = 132,
-             image_pixels: Optional[int] = None) -> build.MmaPlan:
+             image_pixels: Optional[int] = None,
+             tile: Optional[Tuple[int, int]] = None) -> build.MmaPlan:
     """The launch of `gfid_conv2d_nhwc_f32` for an implicit GEMM of
     `pixels` output rows (B x H_out x W_out), depth k = H_f x W_f x cg and
     og columns a group, on a card of `sms` SMs: the split of K from one
@@ -156,11 +175,14 @@ def f32_plan(pixels: int, k: int, og: int, groups: int, cg: int,
     one image), so that an image's sums run in one order at any batch; the
     tile from F32_TILES at `pixels`; a fold where the batch's blocks fill
     the card; 16-byte copies of x where cg % 4 == 0 and x is 16-byte
-    aligned, of w where og % 4 == 0 and w is."""
-    tiles_ = tuple(t for t in F32_TILES
-                   if t[1] == 64 or og % t[1] == 0 or (og > 64 and cg % 4))
+    aligned, of w where og % 4 == 0 and w is. `tile`, one of F32_TILES,
+    replaces the tile the rule picks at `pixels` (ValueError for another);
+    the fold follows from it, the split of K does not."""
+    tiles_ = _default_tiles(F32_TILES, og, cg, 4)
     splits, per = _image_split(tiles_, image_pixels or pixels, k, og, groups,
                                sms, F32_MIN_SPLIT, F32_BK)
+    if tile is not None:
+        tiles_ = (build.check_tile("gfid_conv2d_nhwc", tile, F32_TILES),)
     bm, bn, _, blocks = _pick_tile(tiles_, pixels, og, groups, sms)
     # column blocks fastest, then row tiles; grid z the splits, or 1 (fold)
     grid = (blocks, 1, 1 if blocks >= sms else splits)
@@ -171,20 +193,29 @@ def f32_plan(pixels: int, k: int, og: int, groups: int, cg: int,
 
 def bf16_plan(pixels: int, k: int, og: int, groups: int, cg: int,
               x_ptr: int = 0, w_ptr: int = 0, sms: int = 132,
-              image_pixels: Optional[int] = None) -> build.MmaPlan:
+              image_pixels: Optional[int] = None,
+              tile: Optional[Tuple[int, int]] = None) -> build.MmaPlan:
     """The launch of `gfid_conv2d_nhwc_bf16` for an implicit GEMM of
     `pixels` output rows (B x H_out x W_out), depth k = H_f x W_f x cg and
     og columns a group, on a card of `sms` SMs: the split of K from one
     image of `image_pixels` output rows (default `pixels`), the tile from
     BF16_TILES at `pixels` (not the wide one under a split), a fold where
     the batch's blocks fill the card; 16-byte copies of x where cg % 8 == 0
-    and x is 16-byte aligned, of w where og % 8 == 0 and w is."""
-    tiles_ = tuple(t for t in BF16_TILES
-                   if t[1] == 64 or og % t[1] == 0 or (og > 64 and cg % 8))
+    and x is 16-byte aligned, of w where og % 8 == 0 and w is. `tile`, one
+    of BF16_TILES and not the wide one under a split, replaces the tile the
+    rule picks at `pixels` (ValueError for another); the fold follows from
+    it, the split of K does not."""
+    tiles_ = _default_tiles(BF16_TILES, og, cg, 8)
     splits, per = _image_split(tiles_, image_pixels or pixels, k, og, groups,
                                sms, BF16_MIN_SPLIT, build.MMA_BK)
+    if tile is not None:
+        tiles_ = (build.check_tile("gfid_conv2d_nhwc_bf16", tile,
+                                   BF16_TILES),)
     if splits > 1:
         tiles_ = tuple(t for t in tiles_ if t[1] == 64)
+        if not tiles_:
+            raise ValueError(f"gfid_conv2d_nhwc_bf16: block tile {tile!r} "
+                             f"is wide, and K is split {splits} ways")
     bm, bn, col_blocks, blocks = _pick_tile(tiles_, pixels, og, groups, sms)
     grid = (col_blocks, -(-pixels // bm), 1 if blocks >= sms else splits)
     build.check_grid("gfid_conv2d_nhwc_bf16", grid)
@@ -224,7 +255,8 @@ def gfid_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                      pad: int = 0, groups: int = 1,
                      bias: Optional[torch.Tensor] = None,
                      act: Optional[str] = None,
-                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                     out_dtype: Optional[torch.dtype] = None,
+                     tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Conv of x (B, H_in, W_in, C_in) NHWC with w (H_f, W_f, C_in/groups,
     C_out) HWIO after symmetric zero padding `pad`. Returns (B, H_out,
     W_out, C_out) in `out_dtype` (default fp32), accumulated in fp32, with
@@ -235,12 +267,20 @@ def gfid_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     `gfid_conv2d_nhwc.launches`) or both bf16 (entry
     `gfid_conv2d_nhwc_bf16`, counted by `gfid_conv2d_nhwc_bf16.launches`;
     the bias may be bf16 too, widened). The kernel stores
-    `build.stored_dtype`, cast here to any other `out_dtype`."""
+    `build.stored_dtype`, cast here to any other `out_dtype`.
+
+    `tile` (bm, bn), one of `tiles_for` at these shapes, replaces the block
+    tile of the entry's plan (the engine's tuner pins it); the split of K,
+    and so every bit of the result, stays the plan's. A tile the entry
+    cannot launch raises ValueError. On CPU and `meta` tensors the tile is
+    checked, then ignored."""
     _check_geometry(x, w, stride, pad, groups, bias, act)
     is_bf16 = build.check_float_operands("gfid_conv2d_nhwc", x, w, bias)
     store = build.stored_dtype(is_bf16, out_dtype)
     shape = _out_shape(x, w, stride, pad)
     kind = x.device.type
+    if tile is not None and kind != "cuda":
+        _plan_for(x.dtype, shape, w.shape, groups, tile=tile)
     if kind == "cpu":
         out = gfid_conv2d_nhwc_plain(x, w, stride=stride, pad=pad,
                                      groups=groups, bias=bias, act=act,
@@ -253,11 +293,12 @@ def gfid_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     else:
         out = torch.empty(shape, device=x.device, dtype=store)
         if out.numel():
-            _launch(x, w, bias, out, stride, pad, groups, act, is_bf16)
+            _launch(x, w, bias, out, stride, pad, groups, act, is_bf16, tile)
     return out if out_dtype in (None, store) else out.to(out_dtype)
 
 
-def _launch(x, w, bias, out, stride, pad, groups, act, is_bf16) -> None:
+def _launch(x, w, bias, out, stride, pad, groups, act, is_bf16,
+            tile=None) -> None:
     dims = (*x.shape, *w.shape[:2], w.shape[3], *out.shape[1:3], stride, pad,
             groups)
     lib, fn = _launcher_bf16() if is_bf16 else _launcher()
@@ -266,7 +307,7 @@ def _launch(x, w, bias, out, stride, pad, groups, act, is_bf16) -> None:
     plan = (bf16_plan if is_bf16 else f32_plan)(
         pixels, h_f * w_f * cg, c_out // groups, groups, cg, x.data_ptr(),
         w.data_ptr(), build.sm_count(x.device.index or 0),
-        image_pixels=pixels // x.shape[0])
+        image_pixels=pixels // x.shape[0], tile=tile)
     ws = build.mma_workspace(plan, pixels, c_out, x.device)
     ptrs = (x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), None if ws is None else ws.data_ptr())
@@ -310,27 +351,33 @@ INT8_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
 
 
 def int8_plan(pixels: int, k: int, og: int, groups: int, cg: int,
-              x_ptr: int = 0, w_ptr: int = 0,
-              sms: int = 132) -> build.MmaPlan:
+              x_ptr: int = 0, w_ptr: int = 0, sms: int = 132,
+              tile: Optional[Tuple[int, int]] = None) -> build.MmaPlan:
     """The launch of `gfid_conv2d_nhwc_int8` for an implicit GEMM of
     `pixels` output rows (B x H_out x W_out), depth k = H_f x W_f x cg bytes
     and og columns a group, on a card of `sms` SMs: the tile from
     INT8_TILES, a split of K (one cluster of up to INT8_MAX_SPLIT blocks a
     tile) where the blocks leave the card idle; 16-byte copies of x where
     cg % 16 == 0 and x is 16-byte aligned, of w where og % 16 == 0 and w
-    is."""
-    bm, bn, splits, per, grid = _int8_tiling(pixels, k, og, groups, cg, sms)
+    is. `tile`, one of INT8_TILES, replaces the tile the rule picks
+    (ValueError for another); the split of K then follows the tile, as it
+    may: integer sums are exact in any order, so no split changes a bit."""
+    if tile is not None:
+        tile = build.check_tile("gfid_conv2d_nhwc_int8", tile, INT8_TILES)
+    bm, bn, splits, per, grid = _int8_tiling(pixels, k, og, groups, cg, sms,
+                                             tile)
     return build.MmaPlan(bm, bn, splits, per, cg % 16 == 0 and x_ptr % 16 == 0,
                          og % 16 == 0 and w_ptr % 16 == 0, grid)
 
 
 @functools.lru_cache(maxsize=1024)
 def _int8_tiling(pixels: int, k: int, og: int, groups: int, cg: int,
-                 sms: int) -> Tuple[int, int, int, int, Tuple[int, int, int]]:
+                 sms: int, tile: Optional[Tuple[int, int]] = None
+                 ) -> Tuple[int, int, int, int, Tuple[int, int, int]]:
     """int8_plan's (bm, bn, splits, chunks per split, grid): shapes alone,
     cached (the launch path runs it at every call)."""
-    for bm, bn in INT8_TILES:
-        if bn > 64 and not (og > 64 and cg % 16):
+    for bm, bn in (tile,) if tile else INT8_TILES:
+        if not tile and bn > 64 and not (og > 64 and cg % 16):
             continue
         col_blocks = groups * -(-og // bn)
         tiles = max(-(-pixels // bm) * col_blocks, 1)
@@ -356,13 +403,17 @@ def gfid_conv2d_nhwc_int8(xq: torch.Tensor, wq: torch.Tensor,
                           sx: torch.Tensor, sw: torch.Tensor, *,
                           stride: int = 1, pad: int = 0, groups: int = 1,
                           bias: Optional[torch.Tensor] = None,
-                          act: Optional[str] = None) -> torch.Tensor:
+                          act: Optional[str] = None,
+                          tile: Optional[Tuple[int, int]] = None
+                          ) -> torch.Tensor:
     """Conv of xq (B, H_in, W_in, C_in) NHWC int8 with wq (H_f, W_f,
     C_in/groups, C_out) HWIO int8 after symmetric zero padding `pad` (an
     int8 zero, exact). The int32 sums are dequantized with the per-example
     scales `sx` (B, 1) and the per-output-channel scales `sw` (1, C_out),
     with the optional `bias` (C_out,) and `act` ("relu" | "gelu") fused into
-    the same epilogue. Returns (B, H_out, W_out, C_out) fp32."""
+    the same epilogue. Returns (B, H_out, W_out, C_out) fp32. `tile`, one
+    of INT8_TILES, replaces the plan's block tile (ValueError for another;
+    checked, then ignored, on CPU and `meta` tensors)."""
     _check_geometry(xq, wq, stride, pad, groups, bias, act)
     b, h_in, w_in, c_in = xq.shape
     h_f, w_f, cg, c_out = wq.shape
@@ -373,10 +424,14 @@ def gfid_conv2d_nhwc_int8(xq: torch.Tensor, wq: torch.Tensor,
     build.check_int8_operands("gfid_conv2d_nhwc_int8", xq, wq, sx, sw, bias)
     h_out = (h_in + 2 * pad - h_f) // stride + 1
     w_out = (w_in + 2 * pad - w_f) // stride + 1
+    if tile is not None and not xq.is_cuda:
+        _plan_for(torch.int8, (b, h_out, w_out, c_out), wq.shape, groups,
+                  tile=tile)
     if xq.is_cuda:
         out = xq.new_empty((b, h_out, w_out, c_out), dtype=torch.float32)
         if out.numel():
-            _launch_int8(xq, wq, sx, sw, bias, out, stride, pad, groups, act)
+            _launch_int8(xq, wq, sx, sw, bias, out, stride, pad, groups, act,
+                         tile)
         return out
     kind = xq.device.type
     if kind == "cpu":
@@ -389,7 +444,8 @@ def gfid_conv2d_nhwc_int8(xq: torch.Tensor, wq: torch.Tensor,
                      f"not {kind}")
 
 
-def _launch_int8(xq, wq, sx, sw, bias, out, stride, pad, groups, act) -> None:
+def _launch_int8(xq, wq, sx, sw, bias, out, stride, pad, groups, act,
+                 tile=None) -> None:
     """`gfid_conv2d_nhwc_int8` on CUDA tensors into `out` with its plan, on
     the current stream of xq's device (made current only when it is
     another); raise on a refused launch, count it."""
@@ -399,7 +455,7 @@ def _launch_int8(xq, wq, sx, sw, bias, out, stride, pad, groups, act) -> None:
     index = xq.get_device()
     x_ptr, w_ptr = xq.data_ptr(), wq.data_ptr()
     plan = int8_plan(b * h_out * w_out, h_f * w_f * cg, c_out // groups,
-                     groups, cg, x_ptr, w_ptr, build.sm_count(index))
+                     groups, cg, x_ptr, w_ptr, build.sm_count(index), tile)
     lib, fn = _launcher_int8()
     with build.on_device(index):
         err = fn(x_ptr, w_ptr, sx.data_ptr(), sw.data_ptr(),
@@ -413,3 +469,41 @@ def _launch_int8(xq, wq, sx, sw, bias, out, stride, pad, groups, act) -> None:
 
 
 gfid_conv2d_nhwc_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The tiles a tuner may pin
+# ---------------------------------------------------------------------------
+
+def _plan_for(dtype: torch.dtype, out_shape, w_shape, groups: int,
+              tile: Optional[Tuple[int, int]] = None, sms: int = 132):
+    """The plan of the entry that runs operands of `dtype` (fp32, bf16 or
+    int8) for a conv of output (B, H_out, W_out, C_out) and filter w (H_f,
+    W_f, cg, C_out) at `tile`; ValueError where the entry refuses it."""
+    b, h_out, w_out, c_out = out_shape
+    h_f, w_f, cg, _ = w_shape
+    pixels, k, og = b * h_out * w_out, h_f * w_f * cg, c_out // groups
+    if dtype == torch.int8:
+        return int8_plan(pixels, k, og, groups, cg, sms=sms, tile=tile)
+    plan = bf16_plan if dtype == torch.bfloat16 else f32_plan
+    return plan(pixels, k, og, groups, cg, sms=sms,
+                image_pixels=h_out * w_out, tile=tile)
+
+
+def tiles_for(out_shape, w_shape, groups: int = 1,
+              dtype: torch.dtype = torch.float32,
+              sms: int = 132) -> Tuple[Tuple[int, int], ...]:
+    """The block tiles the entry for `dtype` launches for a conv of output
+    (B, H_out, W_out, C_out) with filter w (H_f, W_f, C_in / groups, C_out)
+    on a card of `sms` SMs: those of its tile set whose plan it accepts
+    (the bf16 entry's wide tile not under a split; a grid within CUDA's
+    limits), the rule's default among them."""
+    out = []
+    for t in {torch.int8: INT8_TILES,
+              torch.bfloat16: BF16_TILES}.get(dtype, F32_TILES):
+        try:
+            _plan_for(dtype, out_shape, w_shape, groups, t, sms)
+        except ValueError:
+            continue
+        out.append(t)
+    return tuple(out)

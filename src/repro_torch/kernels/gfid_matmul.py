@@ -68,6 +68,12 @@ F32_TARGET_BLOCKS = {64: 528, 512: 264}
 F32_MIN_SPLIT = 9
 F32_MAX_CLUSTER = 8
 F32_MODES = {"split": 0, "fold": 1, "cluster": 2}
+# The tiles the source folds in (its many-row two); it clusters the
+# 64-column ones and runs every tile in "split". A tuned tile (`tile=`)
+# takes the same rules of mode, limited to those its kernel runs: these are
+# filters. The choice of tile by M and the fold's F32_FOLD_WAVES above are
+# rules of speed alone, so a tuner may take any tile of F32_TILES.
+F32_FOLD_TILES = F32_TILES[:2]
 # csrc/gfid_matmul_bf16.cu's block tiles (rows, columns): the first whose
 # rows hold M (so that up to M = 64 each weight is read once), else the
 # last. On the H100 a larger tile bought nothing at M = 1024 or 15,872: the
@@ -176,7 +182,8 @@ def _vec(width: int, ptr: int, stride: int, elems: int) -> bool:
 
 
 def f32_plan(m: int, k: int, n: int, x_ptr: int = 0, w_ptr: int = 0,
-             sms: int = 132, groups: int = 1) -> F32Plan:
+             sms: int = 132, groups: int = 1,
+             tile: Optional[Tuple[int, int]] = None) -> F32Plan:
     """The launch of `gfid_matmul_f32` for x (m, k) @ w (k, n), or for
     `groups` such products stacked (x (groups, m, k) and w (groups, k, n),
     contiguous), at those base addresses on a card of `sms` SMs: the split
@@ -185,20 +192,27 @@ def f32_plan(m: int, k: int, n: int, x_ptr: int = 0, w_ptr: int = 0,
     blocks the groups give the card (the splits are added in split order in
     every mode, so neither changes a bit); 16-byte loads of x where k % 4 ==
     0 and x and every group of it are 16-byte aligned, of w likewise with
-    n. The grid's y is groups x row blocks."""
+    n. The grid's y is groups x row blocks. `tile`, one of F32_TILES,
+    replaces the tile the rule picks (ValueError for another); the mode and
+    the grid follow from it, the split of K does not."""
+    if tile is not None:
+        tile = build.check_tile("gfid_matmul", tile, F32_TILES)
     return _f32_plan(m, k, n, _vec(k, x_ptr, m * k, 4),
-                     _vec(n, w_ptr, k * n, 4), sms, groups)
+                     _vec(n, w_ptr, k * n, 4), sms, groups, tile)
 
 
 @functools.lru_cache(maxsize=4096)
 def _f32_plan(m: int, k: int, n: int, vec_x: bool, vec_w: bool,
-              sms: int, groups: int = 1) -> F32Plan:
+              sms: int, groups: int = 1,
+              tile: Optional[Tuple[int, int]] = None) -> F32Plan:
     wide = 4 * k * n >= F32_WIDE_BYTES
     width = 512 if wide else 64
     splits, per = build.mma_split(
         k, -(-F32_TARGET_BLOCKS[width] // max(-(-n // width), 1)),
         F32_MIN_SPLIT, F32_BK)
-    if m <= F32_FEW_ROWS:
+    if tile is not None:
+        bm, bn = tile
+    elif m <= F32_FEW_ROWS:
         bm = next(r for r in (8, 32, 64) if m <= r)
         bn = F32_WIDE_COLUMNS.get(bm, 64) if wide else 64
     else:
@@ -206,7 +220,7 @@ def _f32_plan(m: int, k: int, n: int, vec_x: bool, vec_w: bool,
         if groups * -(-m // bm) * -(-n // bn) < F32_FOLD_WAVES * sms:
             bm, bn = F32_TILES[1]
     grid = (-(-n // bn), groups * -(-m // bm), splits)
-    if splits > 1 and m > F32_FEW_ROWS \
+    if splits > 1 and m > F32_FEW_ROWS and (bm, bn) in F32_FOLD_TILES \
             and grid[0] * grid[1] >= F32_FOLD_WAVES * sms:
         mode, grid = "fold", grid[:2] + (1,)
     elif m <= F32_FEW_ROWS and bn == 64 and 1 < splits <= F32_MAX_CLUSTER:
@@ -218,24 +232,32 @@ def _f32_plan(m: int, k: int, n: int, vec_x: bool, vec_w: bool,
 
 
 def bf16_plan(m: int, k: int, n: int, x_ptr: int = 0,
-              w_ptr: int = 0, groups: int = 1) -> build.MmaPlan:
+              w_ptr: int = 0, groups: int = 1,
+              tile: Optional[Tuple[int, int]] = None) -> build.MmaPlan:
     """The launch of `gfid_matmul_bf16` for x (m, k) @ w (k, n), or for
     `groups` such products stacked, at those base addresses: BM from m; the
     split of K from (k, n) alone, so that every row's sums run in one order
     at any m and in any group; 16-byte loads of x where k % 8 == 0 and x
     and every group of it are 16-byte aligned, of w likewise with n. The
-    grid's y is groups x row blocks."""
+    grid's y is groups x row blocks. `tile`, one of BF16_TILES, replaces
+    the tile that m picks (a rule of speed alone; ValueError for another
+    tile); the split of K stays the rule's."""
+    if tile is not None:
+        tile = build.check_tile("gfid_matmul_bf16", tile, BF16_TILES)
     return _bf16_plan(m, k, n, _vec(k, x_ptr, m * k, 8),
-                      _vec(n, w_ptr, k * n, 8), groups)
+                      _vec(n, w_ptr, k * n, 8), groups, tile)
 
 
 @functools.lru_cache(maxsize=4096)
-def _bf16_plan(m: int, k: int, n: int, vec_x: bool,
-               vec_w: bool, groups: int = 1) -> build.MmaPlan:
+def _bf16_plan(m: int, k: int, n: int, vec_x: bool, vec_w: bool,
+               groups: int = 1, tile: Optional[Tuple[int, int]] = None
+               ) -> build.MmaPlan:
     bm, bn = next((t for t in BF16_TILES if m <= t[0]), BF16_TILES[-1])
-    col_blocks = -(-n // bn)
     splits, per = build.mma_split(
-        k, -(-BF16_TARGET_BLOCKS // max(col_blocks, 1)), BF16_MIN_SPLIT)
+        k, -(-BF16_TARGET_BLOCKS // max(-(-n // bn), 1)), BF16_MIN_SPLIT)
+    if tile is not None:
+        bm, bn = tile
+    col_blocks = -(-n // bn)
     grid = (col_blocks, groups * -(-m // bm), splits)
     build.check_grid("gfid_matmul_bf16", grid)
     return build.MmaPlan(bm, bn, splits, per, vec_x, vec_w, grid)
@@ -257,7 +279,8 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor,
 def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """x (M, K) @ w (K, N) -> (M, N) in `out_dtype` (default fp32),
     accumulated in fp32, with the optional fused epilogue in fp32: `bias`
     (N,) added to the accumulator, then `act` ("relu" | "gelu"). Stacked
@@ -271,14 +294,25 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
     `gfid_matmul_bf16_grouped` too. The kernel stores
     `build.stored_dtype`: bf16 on bf16 operands when asked (the fp32 result
     rounded once to nearest even), else fp32, cast here to any other
-    `out_dtype`."""
+    `out_dtype`.
+
+    `tile` (bm, bn), one of `tiles_for` at these shapes, replaces the block
+    tile of the entry's plan (the engine's tuner pins it); the split of K,
+    and so every bit of the result, stays the plan's. A tile the entry
+    cannot launch, or any tile for stacked operands, raises ValueError.
+    On CPU and `meta` tensors the tile is checked, then ignored."""
     _check_shapes(x, w, bias, act)
     is_bf16 = build.check_float_operands("gfid_matmul", x, w, bias)
     store = build.stored_dtype(is_bf16, out_dtype)
     shape = x.shape[:-1] + w.shape[-1:]
+    if tile is not None:
+        if x.ndim == 3:
+            raise ValueError("gfid_matmul: the grouped launch takes no tile")
+        if not x.is_cuda:
+            _plan_for(x.dtype, *x.shape, w.shape[1], tile)
     if x.is_cuda:
-        out = _launch(x, w, bias, act, is_bf16, store) if shape.numel() \
-            else x.new_empty(shape, dtype=store)
+        out = _launch(x, w, bias, act, is_bf16, store, tile) \
+            if shape.numel() else x.new_empty(shape, dtype=store)
     else:
         kind = x.device.type
         if kind == "cpu":
@@ -292,7 +326,7 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
         else out.to(out_dtype)
 
 
-def _launch(x, w, bias, act, is_bf16, store) -> torch.Tensor:
+def _launch(x, w, bias, act, is_bf16, store, tile=None) -> torch.Tensor:
     """Allocate the (M, N) or (G, M, N) output in `store` and launch the
     entry of the operands' dtype into it with its plan, on the current
     stream of x's device (made current only when it is another); raise on
@@ -309,7 +343,7 @@ def _launch(x, w, bias, act, is_bf16, store) -> torch.Tensor:
     b_ptr = None if bias is None else bias.data_ptr()
     if is_bf16:
         lib, fn = _launcher_bf16()
-        plan = bf16_plan(m, k, n, x_ptr, w_ptr, groups)
+        plan = bf16_plan(m, k, n, x_ptr, w_ptr, groups, tile)
         out = x.new_empty(size, dtype=store)
         ws = build.mma_workspace(plan, groups * m, n, out.device)
         args = (x_ptr, w_ptr, b_ptr, out.data_ptr(),
@@ -320,7 +354,8 @@ def _launch(x, w, bias, act, is_bf16, store) -> torch.Tensor:
                 int(plan.vec_x), int(plan.vec_w))
     else:
         lib, fn = _launcher()
-        plan = f32_plan(m, k, n, x_ptr, w_ptr, build.sm_count(index), groups)
+        plan = f32_plan(m, k, n, x_ptr, w_ptr, build.sm_count(index), groups,
+                        tile)
         if plan.workspace:     # the output, then the splits' partial sums
             out = x.new_empty((plan.splits + 1) * size)[:size]
             ws_ptr = out.data_ptr() + 4 * size
@@ -375,15 +410,20 @@ def _launcher_int8():
 
 
 def int8_mm_plan(m: int, k: int, n: int, x_ptr: int = 0, w_ptr: int = 0,
-                 sms: int = 132) -> build.MmaPlan:
+                 sms: int = 132,
+                 tile: Optional[Tuple[int, int]] = None) -> build.MmaPlan:
     """The launch of `gfid_matmul_int8` for xq (m, k) @ wq (k, n) at those
     base addresses on a card of `sms` SMs: the tile from INT8_MM_TILES by m,
     a split of K (one cluster of up to INT8_MM_MAX_SPLIT blocks a tile)
     where the tiles leave the card idle; 16-byte copies of xq where
     k % 16 == 0 and xq is 16-byte aligned; `vec_w` the bytes a copy of wq,
     16 or 8 where n and wq's address are multiples of it, else 0 (bytes
-    gathered)."""
-    bm, bn, splits, per, grid = _int8_mm_tiling(m, k, n, sms)
+    gathered). `tile`, one of INT8_MM_TILES, replaces the tile that m picks
+    (ValueError for another); the split of K then follows the tile, as it
+    may: integer sums are exact in any order, so no split changes a bit."""
+    if tile is not None:
+        tile = build.check_tile("gfid_matmul_int8", tile, INT8_MM_TILES)
+    bm, bn, splits, per, grid = _int8_mm_tiling(m, k, n, sms, tile)
     vec_w = next((c for c in INT8_MM_W_COPIES
                   if n % c == 0 and w_ptr % c == 0), 0)
     return build.MmaPlan(bm, bn, splits, per, k % 16 == 0 and x_ptr % 16 == 0,
@@ -391,11 +431,13 @@ def int8_mm_plan(m: int, k: int, n: int, x_ptr: int = 0, w_ptr: int = 0,
 
 
 @functools.lru_cache(maxsize=1024)
-def _int8_mm_tiling(m: int, k: int, n: int, sms: int
+def _int8_mm_tiling(m: int, k: int, n: int, sms: int,
+                    tile: Optional[Tuple[int, int]] = None
                     ) -> Tuple[int, int, int, int, Tuple[int, int, int]]:
     """int8_mm_plan's (bm, bn, splits, chunks per split, grid): shapes
     alone, cached (the launch path runs it at every call)."""
-    bm, bn = next((t for t in INT8_MM_TILES if m <= t[0]), INT8_MM_TILES[-1])
+    bm, bn = tile or next((t for t in INT8_MM_TILES if m <= t[0]),
+                          INT8_MM_TILES[-1])
     tiles = max(-(-m // bm) * -(-n // bn), 1)
     want = 1 if tiles >= sms else min(-(-INT8_MM_TARGET_BLOCKS // tiles),
                                       INT8_MM_MAX_SPLIT)
@@ -423,17 +465,22 @@ def _check_int8(xq, wq, sx, sw, bias, act) -> None:
 
 def gfid_matmul_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
                      sw: torch.Tensor, *, bias: Optional[torch.Tensor] = None,
-                     act: Optional[str] = None) -> torch.Tensor:
+                     act: Optional[str] = None,
+                     tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """xq (M, K) int8 @ wq (K, N) int8 -> (M, N) fp32: the exact int32 sum,
     dequantized with the per-row scales `sx` (M, 1) and per-column scales
     `sw` (1, N), with the optional `bias` (N,) and `act` ("relu" | "gelu")
-    fused into the same epilogue."""
+    fused into the same epilogue. `tile`, one of INT8_MM_TILES, replaces
+    the plan's block tile (ValueError for another; checked, then ignored,
+    on CPU and `meta` tensors)."""
     _check_int8(xq, wq, sx, sw, bias, act)
     m, n = xq.shape[0], wq.shape[1]
+    if tile is not None and not xq.is_cuda:
+        int8_mm_plan(m, xq.shape[1], n, tile=tile)
     if xq.is_cuda:
         out = xq.new_empty((m, n), dtype=torch.float32)
         if out.numel():
-            _launch_int8(xq, wq, sx, sw, bias, act, out)
+            _launch_int8(xq, wq, sx, sw, bias, act, out, tile)
         return out
     kind = xq.device.type
     if kind == "cpu":
@@ -444,7 +491,7 @@ def gfid_matmul_int8(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
                      f"not {kind}")
 
 
-def _launch_int8(xq, wq, sx, sw, bias, act, out) -> None:
+def _launch_int8(xq, wq, sx, sw, bias, act, out, tile=None) -> None:
     """`gfid_matmul_int8` on CUDA tensors into `out` with its plan, on the
     current stream of xq's device (made current only when it is another);
     raise on a refused launch, count it. One launch, nothing allocated
@@ -453,7 +500,7 @@ def _launch_int8(xq, wq, sx, sw, bias, act, out) -> None:
     n = wq.shape[1]
     index = xq.get_device()
     x_ptr, w_ptr = xq.data_ptr(), wq.data_ptr()
-    plan = int8_mm_plan(m, k, n, x_ptr, w_ptr, build.sm_count(index))
+    plan = int8_mm_plan(m, k, n, x_ptr, w_ptr, build.sm_count(index), tile)
     lib, fn = _launcher_int8()
     with build.on_device(index):
         err = fn(x_ptr, w_ptr, sx.data_ptr(), sw.data_ptr(),
@@ -466,3 +513,35 @@ def _launch_int8(xq, wq, sx, sw, bias, act, out) -> None:
 
 
 gfid_matmul_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The tiles a tuner may pin
+# ---------------------------------------------------------------------------
+
+def _plan_for(dtype: torch.dtype, m: int, k: int, n: int,
+              tile: Optional[Tuple[int, int]] = None, sms: int = 132):
+    """The plan of the entry that runs operands of `dtype` (fp32, bf16 or
+    int8) for (m, k) @ (k, n) at `tile`; ValueError where the entry refuses
+    it."""
+    if dtype == torch.int8:
+        return int8_mm_plan(m, k, n, sms=sms, tile=tile)
+    if dtype == torch.bfloat16:
+        return bf16_plan(m, k, n, tile=tile)
+    return f32_plan(m, k, n, sms=sms, tile=tile)
+
+
+def tiles_for(m: int, k: int, n: int, dtype: torch.dtype = torch.float32,
+              sms: int = 132) -> Tuple[Tuple[int, int], ...]:
+    """The block tiles the entry for `dtype` launches for (m, k) @ (k, n) on
+    a card of `sms` SMs: those of its tile set whose plan it accepts (a
+    grid within CUDA's limits), the rule's default among them."""
+    out = []
+    for t in {torch.int8: INT8_MM_TILES,
+              torch.bfloat16: BF16_TILES}.get(dtype, F32_TILES):
+        try:
+            _plan_for(dtype, m, k, n, t, sms)
+        except ValueError:
+            continue
+        out.append(t)
+    return tuple(out)

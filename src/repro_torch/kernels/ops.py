@@ -30,7 +30,7 @@ rows and run the matmul's grouped launch: one launch for every group.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,19 +61,23 @@ def gfid_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                 bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
                 precision: str = "fp32",
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """NHWC x HWIO conv through the engine's conv mode (one launch), in
-    `out_dtype` (default: the kernel's fp32)."""
+    `out_dtype` (default: the kernel's fp32), on the block tile `tile` of
+    the precision's entry where one is given (a tuned tile), else on its
+    plan's."""
     _check_precision(precision)
     x, w = x.contiguous(), w.contiguous()
     if precision == "fp32":
         return _conv.gfid_conv2d_nhwc(x, w, stride=stride, pad=pad,
                                       groups=groups, bias=_contig(bias),
-                                      act=act, out_dtype=out_dtype)
+                                      act=act, out_dtype=out_dtype, tile=tile)
     xq, wq, sx, sw = quant.quantize_conv_operands(x, w)
     out = _conv.gfid_conv2d_nhwc_int8(
         xq, wq, sx.reshape(x.shape[0], 1), sw.reshape(1, w.shape[3]),
-        stride=stride, pad=pad, groups=groups, bias=_f32(bias), act=act)
+        stride=stride, pad=pad, groups=groups, bias=_f32(bias), act=act,
+        tile=tile)
     return out if out_dtype is None else out.to(out_dtype)
 
 
@@ -81,19 +85,21 @@ def gfid_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None,
                 precision: str = "fp32",
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(..., K) @ (K, N) through the FC mode, in `out_dtype` (default: the
-    kernel's fp32)."""
+    kernel's fp32), on the block tile `tile` of the precision's entry where
+    one is given (a tuned tile), else on its plan's."""
     _check_precision(precision)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if precision == "fp32":
         out = _matmul.gfid_matmul(x2, w.contiguous(), bias=_contig(bias),
-                                  act=act, out_dtype=out_dtype)
+                                  act=act, out_dtype=out_dtype, tile=tile)
         return out.reshape(*lead, w.shape[-1])
     xq, wq, sx, sw = quant.quantize_matmul_operands(x2, w)
     out = _matmul.gfid_matmul_int8(xq, wq.contiguous(), sx, sw,
-                                   bias=_f32(bias), act=act)
+                                   bias=_f32(bias), act=act, tile=tile)
     out = out if out_dtype is None else out.to(out_dtype)
     return out.reshape(*lead, w.shape[-1])
 

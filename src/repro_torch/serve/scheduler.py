@@ -4,7 +4,7 @@ package's `serve/scheduler.py`: the static `Scheduler` with `Ticket` and
 and `ContinuousScheduler`, each with fault injection (`faults=`, a
 `serve.faults.FaultInjector`), and the continuous one with the numerics
 guard and retries with backoff. Not ported (ROADMAP queue 1): the `mesh=`
-path and `ReplicaSpread` (item 11), kernel tuning (item 6). The
+path and `ReplicaSpread` (item 11). The
 reference's default config, `EngineConfig(row_align=8, fallback="chain")`,
 becomes `EngineConfig(row_align=8)` in both schedulers: a kernel failure
 raises on the main path, and the fallback chain (which hops only between
@@ -170,7 +170,12 @@ class Scheduler:
     """Shared-queue batched scheduler over registered engine programs.
 
     config           — `EngineConfig` every bucket compiles under; default
-                       `EngineConfig(row_align=8)`.
+                       `EngineConfig(row_align=8)`. Its `tuning` mode flows
+                       into every (program, bucket) `CompiledNet`: tile
+                       keys drop the batch (`engine/tune.py`), so every
+                       bucket of a program runs one tile an op, and no tile
+                       changes a bit, so the bitwise contract above holds
+                       under tuning.
     policy           — "fifo" (arrival order) or "spf" (shortest plan
                        first: the program whose batch-1 analytic latency is
                        smallest; arrival order within a program).
@@ -501,8 +506,9 @@ class Scheduler:
 
     def stats(self) -> Dict[str, Any]:
         """The reference's counters; those of unported items keep their
-        idle values (`tuning` "off", one replica). `fallbacks` lists the
-        (kind, from, to) hops made on the buckets' first applies."""
+        idle values (one replica). `tuning` is the config's mode.
+        `fallbacks` lists the (kind, from, to) hops made on the buckets'
+        first applies."""
         per_model = {
             n: {
                 "served": e.served,
@@ -519,7 +525,7 @@ class Scheduler:
         return {
             "policy": self.policy,
             "max_batch": self.max_batch,
-            "tuning": "off",
+            "tuning": self.config.tuning,
             "replicas": 1,
             "buckets": list(self.buckets),
             "served": served,

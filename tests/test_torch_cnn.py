@@ -217,7 +217,7 @@ def test_init_cnn_is_seeded_and_in_reference_layouts():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(tuning="cached"), dict(parallel=object()),
+    dict(parallel="data"), dict(parallel=object()),
 ])
 def test_unported_config_knobs_raise_naming_the_roadmap(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

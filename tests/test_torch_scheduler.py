@@ -676,7 +676,8 @@ def test_bucket_ladder_and_padding():
     assert stats["models"]["mlp"]["padded_slots"] == 1
     assert stats["models"]["mlp"]["occupancy"] == pytest.approx(0.75)
     assert stats["models"]["mlp"]["compiled_buckets"] == [4]
-    # the keys of unported items keep their idle values
+    # the default config's tuning "off", and the idle values of the keys
+    # of unported items (one replica) and of an unfaulted run
     assert (stats["tuning"], stats["replicas"], stats["fallbacks"],
             stats["latency_spikes"], stats["faults"]) == ("off", 1, [], 0,
                                                           None)
