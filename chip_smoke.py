@@ -118,7 +118,17 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      requires grad raises. The flash cases include llama-3.2-vision's cross
      layer at Skv != Sq, not causal: q (1, 1100, 32/8, 128) and (4, 1100,
      ...) against k, v of 1,601 image tokens, a short q (Sq 17) against
-     1,601, and a ragged pair (Sq 333, Skv 77), on both kernels. The bf16
+     1,601, and a ragged pair (Sq 333, Skv 77), on both kernels. Then both
+     flash kernels with a window, a softcap and a q offset
+     (`flash_local_cases`): a window under a kv tile, one that is no
+     multiple of a tile, one >= Skv, q_offset > 0 at Sq < Skv (with and
+     without a window), GQA 8/1, a window without causal masking, and
+     gemma2-27b's shape q (1, 4500, 32, 128) against k, v (1, 4500, 16,
+     128), causal, softcap 50: window 4,096, none, and 512 (the band skip
+     bites); each within 1e-4 (fp32) or 8e-3 (bf16, two calls bitwise
+     equal) of the plain version, counted on the `_local` counters exactly
+     when 0 < window < Skv, and requests 0, 3 and 7 of a batch of 8
+     bitwise the request alone. The bf16
      GEMM cases include llama's five GEMM shapes ((4096, 4096), (4096,
      1024), (4096, 14336), (14336, 4096) and the lm_head (4096, 128256)) at
      a decode step's M = 4 and a prompt's M = 1,100, and the image K/V at
@@ -184,15 +194,17 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      with float4 and scalar loads, and bf16 x on both (required); and
      `gfid_matmul` within TOL at every xLSTM GEMM shape, at
      M = 8 and at a prompt-384 prefill's padded rows. Then xlstm-125m at
-     full width and depth (12 layers, mLSTM x 5 + sLSTM a group, d_model
-     768, 155.7 M fp32 parameters from seed 0) is served on the same pool
+     full width (12 layers, mLSTM x 5 + sLSTM a group, d_model 768, 155.7 M
+     fp32 parameters from seed 0), its depth cut to SSM_LAYERS = 6 (one
+     group) for the script's time, is served on the same pool
      geometry and 16-request workload as phase 6, continuous, drain and
      solo (the first 4 requests). Every decode-state leaf is a slot store, so nothing is paged.
      Checks: every request done without preemption; one 8-row decode
      bucket; tokens bitwise equal across the three runs and to
-     `greedy_generate` for 4 requests; every compiled op on "cuda", 67 GEMMs
-     a program and 12 depthwise convs a prefill program; launches of 67
-     `gfid_matmul` a decode step, 67 + 12 `gfid_conv1d_depthwise` a prefill
+     `greedy_generate` for 4 requests; every compiled op on "cuda", 34 GEMMs
+     a program and 6 depthwise convs a prefill program (67 and 12 at the
+     full 12 layers); launches of 34 `gfid_matmul` a decode step, 34 + 6
+     `gfid_conv1d_depthwise` a prefill
      and no `paged_gather`; a decode step of one row alone bitwise equal,
      logits and new state, to that row in the 8-row bucket; "torch" logits
      within TOL of "cuda" for a prompt-384 prefill and for a bucket-8
@@ -291,7 +303,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
  12. granite-moe-1b (ibm-granite/granite-3.0-1b-a400m-base: 24 layers,
      d_model 1024, 16/8 heads of 64, 32 experts top-8 of d_ff 512,
      vocabulary 49,155, tied; 1,334.6 M parameters from seed 0) at full
-     width and depth, fp32, then the same parameters rounded to bf16,
+     width, its depth cut to MOE_LAYERS = 12 for the script's time (the
+     counts below are the full 24 layers'; each scales with the layers),
+     fp32, then the same parameters rounded to bf16,
      each served through `ContinuousScheduler` on phase 6's pool and its
      first 8 requests, continuous, drain and solo (the first 2; the three
      schedulers share their compiled programs). The MoE
@@ -373,6 +387,33 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      cost of keys that drop M), and `tune_program` over smollm-135m's fp32
      decode program at bucket 8 (its five GEMM shapes), recorded, not
      claimed.
+ 15. gemma2-27b (arXiv:2408.00118: 46 layers alternating local attention,
+     window 4,096, and global attention; d_model 4,608, 32/16 heads of
+     128, d_ff 36,864, vocabulary 256,000, tied; attention logits capped
+     at 50, final logits at 30) at full width, its depth cut to
+     LOCAL_LAYERS = 4 (two (local, global) groups: 3,444,650,496 bf16
+     parameters from seed 0, drawn on the card, peak allocation checked);
+     the full 46 layers captured on `meta` first: 27,227,128,320
+     parameters, 323 GEMMs a decode step and a 4,500-token prefill. Served
+     by `ContinuousScheduler` with max_len 4,608 (the local layers'
+     caches 4,096-slot rings in the slot store, the global ones paged):
+     prompts of 4,500, 1,100, 300 and 40 tokens, 16 steps each,
+     continuous, drain and solo. Checks: tokens bitwise equal across the
+     three modes and to `greedy_generate` for all four; exactly 29
+     `gfid_matmul_bf16` a decode step and a prefill, 4
+     `flash_attention_bf16` a prefill past 1,024 tokens (2 counted as
+     local at 4,500, where the window cuts, none at 1,100), 2
+     `paged_gather` a decode step (the global k and v), no flash in a
+     decode step, nothing else; the "torch" against "cuda" witness at
+     prompts 4,500 and 1,100 (from the same weights in fp32 within 1e-4,
+     each bf16 path's distance from those fp32 logits within 1.5 times
+     the other's; the bf16 gap read, not held). Prints the two flash
+     prefills' ms, a decode step's wall and device time beside its bound,
+     the local flash launch alone beside the global one at gemma2's shape
+     and a band of LOCAL_BAND_WINDOW, each beside its bound (the visible
+     pairs' operations), the plain version and eager `flex_attention`
+     (softcap `score_mod`, window block mask), and the tied
+     unembedding's transpose copy.
      Last, each phase's seconds.
 
 The last lines are the card's name and power limit, a JSON object listing
@@ -410,6 +451,7 @@ SSM_MODEL = "xlstm_125m"
 SSM_SLOTS = 2 * SERVE_BATCH + 1   # state slots (slot 0 is the reserved dummy)
 SSM_PREFILL = 384           # the timed prefill: two 256-token mLSTM chunks
 SSM_CONV_LENS = (16, 243, 384)    # prefill lengths of the conv checks
+SSM_LAYERS = 6              # one of its two groups: cut for the script's time
 # Phase 8: smollm-135m on prompts past the dense attention's 1024 tokens
 # (three at each length, 16 or 32 steps) on a pool of max_len 2048, the
 # model's published context: 128 blocks a request, 8 requests at once.
@@ -477,6 +519,7 @@ GROUPED_RAGGED = (3, 5, 72, 40)     # groups, M, K, N
 MOE_REQUESTS, MOE_DENSE_CHECKS = 8, 2
 MOE_LONG_PROMPT, MOE_LONG_STEPS = 1100, 8
 MOE_TIMED_PROMPT = 256
+MOE_LAYERS = 12             # half its 24 layers: cut for the script's time
 # Phase 3's cross-attention flash cases and llama GEMMs, and phase 13:
 # llama-3.2-vision-11b served by `launch/serve.py` at VLM_BATCH requests of
 # VLM_PROMPT tokens (past the dense attention's 1024) and VLM_GEN steps,
@@ -502,6 +545,18 @@ VLM_BF16_TOL = 3.5e-2
 TUNE_OTHER_NETS = ("vgg16", "resnet50")
 TUNE_PRECISIONS = ("fp32", "int8", "bf16")
 TUNE_DECODE_BUCKET = 8
+# Phase 15: gemma2-27b at full width and LOCAL_LAYERS of its 46 layers (two
+# (local, global) groups, so that the stacked group state is exercised),
+# served by the ContinuousScheduler on a pool of max_len LOCAL_MAX_LEN (the
+# local layers' 4,096-slot rings wrap from the first decode step of the
+# 4,500-token request) to requests of LOCAL_PROMPTS tokens, LOCAL_GEN steps
+# each; phase 3's band case and phase 15's timed band launch take a window
+# of LOCAL_BAND_WINDOW at gemma2's shape, where the band skip bites
+LOCAL_MODEL = "gemma2_27b"
+LOCAL_LAYERS = 4
+LOCAL_MAX_LEN, LOCAL_BLOCK, LOCAL_BATCH = 4608, 16, 4
+LOCAL_PROMPTS, LOCAL_GEN = (4500, 1100, 300, 40), 16
+LOCAL_BAND_WINDOW = 512
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
 # tensor cores, bf16 and int8 in them, and device-memory bandwidth. A bound
@@ -1573,7 +1628,7 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
 
     mm, conv, gather = (gfid_matmul.gfid_matmul, conv1d.gfid_conv1d_depthwise,
                         paged.paged_gather)
-    cfg = get_config(SSM_MODEL)
+    cfg = dataclasses.replace(get_config(SSM_MODEL), n_layers=SSM_LAYERS)
     gen = torch.Generator().manual_seed(7)
 
     # the kernels against their plain versions at the path's shapes
@@ -2005,13 +2060,123 @@ def flash_bf16_cases(gen, dev):
              t(1, 200, 3, 64, skip=1), True)]
 
 
-def flash_bound(b, sq, skv, h, kv, d, causal, elem=4, peak=PEAK_FP32_FLOP_S):
+def flash_local_cases(dev):
+    """(label, (b, sq, skv, h, kv, d), causal, kw) for the window, softcap
+    and q offset of both flash kernels, fp32 shapes checked again on bf16
+    operands: a window under a kv tile (fp32 64, bf16 128 keys), one that
+    is no multiple of a tile, one >= Skv, q_offset > 0 at Sq < Skv (with
+    and without a window), GQA, a window without causal masking, and
+    gemma2-27b's own layers, q (1, 4500, 32, 128) against k, v (1, 4500,
+    16, 128), causal, softcap 50: the local layer (window 4,096), the
+    global one, and LOCAL_BAND_WINDOW, where the band skip bites."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(LOCAL_MODEL)
+    h, kv, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_softcap
+    s = LOCAL_PROMPTS[0]
+    return [
+        ("window 20 < tile (1, 300, 4/2, 64)", (1, 300, 300, 4, 2, 64), True,
+         dict(window=20)),
+        ("window 100 ragged (1, 777, 9/3, 64) softcap 50",
+         (1, 777, 777, 9, 3, 64), True, dict(window=100, softcap=50.0)),
+        ("window 1000 >= Skv (2, 700, 4/2, 32) softcap 30",
+         (2, 700, 700, 4, 2, 32), True, dict(window=1000, softcap=30.0)),
+        ("q_offset 130, Sq 40 < Skv 170 (1, 40, 4/2, 16)",
+         (1, 40, 170, 4, 2, 16), True, dict(q_offset=130)),
+        ("q_offset 1100, window 300, Sq 333 < Skv 1433 (1, 333, 8/2, 128)",
+         (1, 333, 1433, 8, 2, 128), True,
+         dict(window=300, softcap=50.0, q_offset=1100)),
+        ("GQA 8/1 window 200 (1, 1031, 8/1, 128) softcap 50",
+         (1, 1031, 1031, 8, 1, 128), True, dict(window=200, softcap=50.0)),
+        ("non-causal window 90 (1, 333, 4/2, 40) over Skv 400",
+         (1, 333, 400, 4, 2, 40), False, dict(window=90)),
+        (f"gemma2 local (1, {s}, {h}/{kv}, {d}) window {cfg.window_size} "
+         f"softcap {cap:g}", (1, s, s, h, kv, d), True,
+         dict(window=cfg.window_size, softcap=cap)),
+        (f"gemma2 global (1, {s}, {h}/{kv}, {d}) softcap {cap:g}",
+         (1, s, s, h, kv, d), True, dict(softcap=cap)),
+        (f"gemma2 band (1, {s}, {h}/{kv}, {d}) window {LOCAL_BAND_WINDOW} "
+         f"softcap {cap:g}", (1, s, s, h, kv, d), True,
+         dict(window=LOCAL_BAND_WINDOW, softcap=cap))]
+
+
+def local_flash_check(dev, flash, worst):
+    """Phase 3's window, softcap and q offset cases (`flash_local_cases`) on
+    both kernels against their plain versions (fp32 within TOL, bf16
+    within BF16_FLASH_TOL and two calls bitwise equal), each launch counted
+    on its dtype's counter and, where 0 < window < Skv, once more on its
+    `_local` counter; then each case's row invariance: requests 0, 3 and 7
+    of a batch of 8 bitwise the request alone. Returns the checks run."""
+    fa32, fa16 = flash.flash_attention, flash.flash_attention_bf16
+    l32, l16 = flash.flash_attention_local, flash.flash_attention_bf16_local
+    dgen = torch.Generator(device=dev).manual_seed(41)
+    checks = 0
+    t0 = time.perf_counter()
+    for label, (b, sq, skv, h, kv, d), causal, kw in flash_local_cases(dev):
+        for dtype in (torch.float32, torch.bfloat16):
+            is16 = dtype == torch.bfloat16
+            kname = "flash_attention_bf16" if is16 else "flash_attention"
+            q, k, v = (torch.randn(shape, generator=dgen, device=dev).to(dtype)
+                       for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+            zero_counts(fa32, fa16, l32, l16)
+            got = fa32(q, k, v, causal=causal, **kw)
+            torch.cuda.synchronize()
+            local = int(0 < kw.get("window", 0) < skv)
+            want_n = (0, 1, 0, local) if is16 else (1, 0, local, 0)
+            n = counts(fa32, fa16, l32, l16)
+            require(n == want_n, f"{kname} {label}: launches (fp32, bf16, fp32 "
+                    f"local, bf16 local) = {n}, expected {want_n}")
+            want = flash.flash_attention_plain(q, k, v, causal=causal, **kw)
+            require(got.shape == want.shape and got.dtype == want.dtype
+                    and bool(torch.isfinite(got).all()), f"{kname} {label}: bad output")
+            err = rel_err(got, want)
+            limit = BF16_FLASH_TOL if is16 else TOL
+            extra = ""
+            if is16:
+                again = fa32(q, k, v, causal=causal, **kw)
+                require(torch.equal(got, again), f"{kname} {label}: two calls on "
+                        "one input differ")
+                extra = ", a second call bitwise equal"
+            print(f"[check] {kname} {label}: max|d|/max|ref| = {err:.3e} (limit "
+                  f"{limit:g}){extra}; launches counted {n}")
+            require(err <= limit, f"{kname} {label}: error {err:.3e} > {limit}")
+            worst[kname] = max(worst[kname],
+                               (got.float() - want.float()).abs().max().item())
+            # a request's rows are its own at B = 1 and 8
+            q8, k8, v8 = (torch.randn((8,) + tuple(a.shape[1:]), generator=dgen,
+                                      device=dev).to(dtype) for a in (q, k, v))
+            all8 = fa32(q8, k8, v8, causal=causal, **kw)
+            for r in (0, 3, 7):
+                one = fa32(q8[r:r + 1], k8[r:r + 1], v8[r:r + 1], causal=causal, **kw)
+                require(torch.equal(one, all8[r:r + 1]), f"{kname} {label}: request "
+                        f"{r} of 8 differs from the request alone")
+            print(f"[check] {kname} {label}: requests 0, 3 and 7 of a batch of 8 "
+                  "bitwise the request alone")
+            checks += 2
+            del q, k, v, got, want, q8, k8, v8, all8
+    print(f"[check] window, softcap and q_offset: {checks} checks on both flash "
+          f"kernels in {time.perf_counter() - t0:.1f} s")
+    return checks
+
+
+def visible_pairs(sq, skv, causal, window=0):
+    """The (query, key) pairs attention sees: row i sees the keys j < skv
+    with j <= i when causal and i - j < window when windowed."""
+    total = 0
+    for i in range(sq):
+        hi = min(skv - 1, i) if causal else skv - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bound(b, sq, skv, h, kv, d, causal, elem=4, peak=PEAK_FP32_FLOP_S,
+                window=0):
     """(bound ms, bound_by) of one attention forward: q, k, v read once and
     out written once; 4 flops (two multiply-adds) per visible (query, key)
-    pair and column (the causal pairs alone), at the peak of the operands'
-    type."""
+    pair and column (the causal and windowed pairs alone), at the peak of
+    the operands' type. A softcap's tanh is not counted."""
     n_bytes = elem * (2 * b * sq * h * d + 2 * b * skv * kv * d)
-    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    pairs = visible_pairs(sq, skv, causal, window)
     return bound_ms(n_bytes, 4 * b * h * d * pairs, peak)
 
 
@@ -2279,24 +2444,25 @@ def witness_logits(E, T, cfg, conf, params, params32, batch16, batch32, max_len,
 
 
 def witness_check(E, T, cfg, conf, params, params32, batch16, batch32, max_len,
-                  tag, what):
+                  tag, what, limit=BF16_LOGITS_TOL):
     """One prefill's bf16 witness: the "cuda" and "torch" logits from bf16
-    `params` on `batch16` (held to BF16_LOGITS_TOL of each other); the same
-    prefill from the weights widened to fp32, `params32`, on `batch32` (held
-    to TOL: the two backends compute one function); and each bf16 backend's
+    `params` on `batch16` (held to `limit` of each other; read only when
+    None); the same prefill from the weights widened to fp32, `params32`,
+    on `batch32` (held to TOL: the two backends compute one function); and
+    each bf16 backend's
     distance from those fp32 logits (their ratio held within
     BF16_FP32_RATIO either way: neither path rounds more than the other).
     Returns the bf16 gap."""
     gap, gap32, dist = witness_logits(E, T, cfg, conf, params, params32, batch16,
                                       batch32, max_len, f"{tag} bf16 witness at {what}")
     print(f"{tag} logits at {what}: cuda vs torch backend "
-          f"{gap:.3e} in bf16 (limit {BF16_LOGITS_TOL}), {gap32:.3e} from "
+          f"{gap:.3e} in bf16 (limit {limit}), {gap32:.3e} from "
           f"the same weights in fp32 (limit {TOL}); distance from those "
           f"fp32 logits: cuda {dist['cuda']:.3e}, torch {dist['torch']:.3e} "
           f"(ratio {dist['cuda'] / dist['torch']:.3f}, limits "
           f"{1 / BF16_FP32_RATIO:.3f} and {BF16_FP32_RATIO})")
-    require(gap <= BF16_LOGITS_TOL, f"{tag} bf16 prefill at {what}: cuda logits "
-            f"vs torch backend {gap:.3e} > {BF16_LOGITS_TOL}")
+    require(limit is None or gap <= limit, f"{tag} bf16 prefill at {what}: cuda "
+            f"logits vs torch backend {gap:.3e} > {limit}")
     require(gap32 <= TOL, f"{tag} prefill at {what} from the bf16 weights in "
             f"fp32: cuda vs torch {gap32:.3e} > {TOL}")
     require(1 / BF16_FP32_RATIO <= dist["cuda"] / dist["torch"]
@@ -3376,7 +3542,7 @@ def moe_phase(dev, E, gfid_matmul, paged, flash, other_kernels):
     from repro_torch.models.layers import tree_map
 
     t_phase = time.perf_counter()
-    cfg = get_config(MOE_MODEL)
+    cfg = dataclasses.replace(get_config(MOE_MODEL), n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device=DEVICE, dtype=torch.float32)
     print(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -4154,6 +4320,375 @@ def vlm_pass_counts(n_self, n_cross):
             "prefill": prefill}
 
 
+def local_flash_timing(dev, flash, cfg, worst):
+    """Phase 15's flash rows at gemma2-27b's prefill shape, q (1, 4500, 32,
+    128) against k, v (1, 4500, 16, 128), causal, softcap 50: the local
+    layer's launch (window 4,096), the global one, and a band of
+    LOCAL_BAND_WINDOW, on fp32 and bf16 operands, with the host and for the
+    device alone, beside the plain version, the bound (the visible pairs'
+    operations at the operands' peak) and the library call: eager
+    `flex_attention` with the softcap as a `score_mod` and the window as a
+    block mask ("none" where it does not run; SDPA takes no softcap).
+    Returns {dtype name: {"local", "global", "band": row}}."""
+    s, h, kv, d = LOCAL_PROMPTS[0], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cap = cfg.attn_softcap
+    dgen = torch.Generator(device=dev).manual_seed(43)
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    except ImportError:
+        flex_attention = None
+
+    # one mask function each, with code of its own: on the card, one
+    # function read with other captured windows gave the global and band
+    # calls the local call's mask
+    def causal(b, hh, qi, ki):
+        return qi >= ki
+
+    def local(b, hh, qi, ki):
+        return (qi >= ki) & (qi - ki < cfg.window_size)
+
+    def band(b, hh, qi, ki):
+        return (qi >= ki) & (qi - ki < LOCAL_BAND_WINDOW)
+
+    masks = {"local": local, "global": causal, "band": band}
+    out = {}
+    for dtype, tol, peak in ((torch.float32, TOL, PEAK_FP32_FLOP_S),
+                             (torch.bfloat16, BF16_FLASH_TOL, PEAK_BF16_FLOP_S)):
+        kname = "flash_attention_bf16" if dtype == torch.bfloat16 else "flash_attention"
+        q, k, v = (torch.randn(shape, generator=dgen, device=dev).to(dtype)
+                   for shape in ((1, s, h, d), (1, s, kv, d), (1, s, kv, d)))
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        rows = {}
+        for what, window in (("local", cfg.window_size), ("global", 0),
+                             ("band", LOCAL_BAND_WINDOW)):
+            kw = dict(causal=True, window=window, softcap=cap)
+            got = flash.flash_attention(q, k, v, **kw)
+            want = flash.flash_attention_plain(q, k, v, **kw)
+            err = rel_err(got, want)
+            require(err <= tol, f"{kname} gemma2 {what}: {err:.3e} > {tol}")
+            worst[kname] = max(worst[kname],
+                               (got.float() - want.float()).abs().max().item())
+            b_ms, by = flash_bound(1, s, s, h, kv, d, True, q.element_size(), peak,
+                                   window=window)
+            lib_ms = lib_dev = None
+            lib_note = "none (SDPA takes no softcap)"
+            if flex_attention is not None:
+                def score_mod(score, b, hh, qi, ki):
+                    return cap * torch.tanh(score / cap)
+
+                try:
+                    bm = create_block_mask(masks[what], None, None, s, s, device=dev)
+
+                    def lib():
+                        return flex_attention(qt, kt, vt, score_mod=score_mod,
+                                              block_mask=bm, enable_gqa=True)
+                    lerr = rel_err(lib().transpose(1, 2), want)
+                    lib_ms = time_ms(lib, iters=3, warmup=1)
+                    lib_note = (f"flex_attention (eager) {lib_ms:.4f} ms, vs plain "
+                                f"{lerr:.3e}")
+                except Exception as e:      # the library call is read, not held
+                    lib_note = f"none (flex_attention raised {type(e).__name__}: " \
+                               f"{str(e)[:120]})"
+
+            def kernel():
+                return flash.flash_attention(q, k, v, **kw)
+
+            row = dict(ms=time_ms(kernel), device_ms=graph_ms(kernel, calls=20),
+                       plain_ms=time_ms(lambda: flash.flash_attention_plain(
+                           q, k, v, **kw), iters=3, warmup=1),
+                       library_ms=lib_ms, library_device_ms=lib_dev,
+                       bound_ms=b_ms, bound_by=by,
+                       pairs=visible_pairs(s, s, True, window))
+            rows[what] = row
+            print(f"[time] {kname} gemma2 {what} (1, {s}, {h}/{kv}, {d}) causal, "
+                  f"window {window}, softcap {cap:g} ({row['pairs']} visible pairs): "
+                  f"kernel {row['ms']:.4f} ms, alone {row['device_ms']:.4f}; plain "
+                  f"{row['plain_ms']:.4f}; library {lib_note}; bound "
+                  f"{b_ms:.4f} ms ({by}); max|d|/max|ref| vs plain {err:.3e} "
+                  f"(limit {tol:g})")
+            del got, want
+        loc, glo = rows["local"], rows["global"]
+        print(f"[time] {kname} gemma2: the local launch alone {loc['device_ms']:.4f} "
+              f"ms against the global one's {glo['device_ms']:.4f} at the same shape "
+              f"({loc['device_ms'] / glo['device_ms']:.3f}x; visible pairs "
+              f"{loc['pairs'] / glo['pairs']:.3f}x), bound {loc['bound_ms']:.4f} "
+              f"ms; the band of {LOCAL_BAND_WINDOW} {rows['band']['device_ms']:.4f} "
+              f"ms ({rows['band']['pairs'] / glo['pairs']:.3f}x the pairs)")
+        out[str(dtype)[6:]] = rows
+        del q, k, v, qt, kt, vt
+    return out
+
+
+def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
+    """Phase 15: gemma2-27b at full width and LOCAL_LAYERS deep, bf16
+    parameters from seed 0 drawn on the card, served by the
+    ContinuousScheduler (see the module docstring). `other_kernels` must
+    launch nothing. Returns the numbers the kernels line and the summary
+    print."""
+    from repro_torch.configs.base import LOCAL_ATTN, get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import count_params, tree_map
+    from repro_torch.serve import engine as SE
+    from repro_torch.serve.scheduler import (ContinuousScheduler,
+                                             latency_percentiles)
+
+    t_phase = time.perf_counter()
+    full = get_config(LOCAL_MODEL)
+    cfg = dataclasses.replace(full, n_layers=LOCAL_LAYERS)
+    cuda = dev.type == "cuda"
+    mm16, fa16, gather = (gfid_matmul.gfid_matmul_bf16, flash.flash_attention_bf16,
+                          paged.paged_gather)
+    loc16 = flash.flash_attention_bf16_local
+    counted = (mm16, fa16, loc16, gather) + tuple(other_kernels)
+    per_pass = cfg.n_layers * 7 + 1        # GEMMs of a decode step or a prefill
+    n_local = cfg.layer_kinds.count(LOCAL_ATTN)
+    conf = E.EngineConfig(backend="cuda", row_align=8)
+
+    def flash_of(prompt):
+        """(flash, local flash) launches of one prefill: one a layer past
+        1024 tokens, the local layers' counted apart where the window cuts."""
+        if prompt <= 1024:
+            return 0, 0
+        return cfg.n_layers, n_local * (cfg.window_size < prompt)
+
+    # the full model on `meta`: parameters and the 46-layer programs
+    n_full = count_params(T.model_defs(full))
+    dec46 = SE.decode_program(full, 8, LOCAL_MAX_LEN)
+    pre46 = SE.prefill_program(full, 1, LOCAL_PROMPTS[0], max_len=LOCAL_MAX_LEN)
+    for prog in (dec46, pre46):
+        kinds = [op.kind for op in prog.ops]
+        require(kinds == ["dense"] * (full.n_layers * 7 + 1), f"[local] {prog.name}: "
+                f"{len(kinds)} ops ({set(kinds)}), expected {full.n_layers * 7 + 1} "
+                "GEMMs")
+    require(n_full == 27_227_128_320, f"[local] {full.name}: {n_full} parameters")
+    print(f"[local] {full.name} at full depth on meta: {n_full} parameters (the "
+          f"reference's count), {len(dec46.ops)} GEMMs a decode step and "
+          f"{len(pre46.ops)} a {LOCAL_PROMPTS[0]}-token prefill")
+    del dec46, pre46
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mem0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(p.numel() for p in leaves)
+    w_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    largest32 = 4 * max(p.numel() for p in leaves)
+    require(n_params == count_params(T.model_defs(cfg)), "[local] parameters")
+    if cuda:
+        peak = torch.cuda.max_memory_allocated(dev) - mem0
+        require(peak <= w_bytes + largest32 + 64 * 2**20, f"[local] initialising "
+                f"the parameters held {peak / 1e9:.3f} GB on the card, more than "
+                f"the {w_bytes / 1e9:.3f} GB of bf16 weights and one fp32 leaf")
+        print(f"[local] parameters made with a peak of {peak / 1e9:.3f} GB allocated "
+              f"on the card: the bf16 weights {w_bytes / 1e9:.3f} GB + at most the "
+              f"largest leaf in fp32 ({largest32 / 1e9:.3f} GB)")
+    print(f"[local] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+          f"({' '.join(cfg.layer_kinds)}; {cfg.n_groups} groups), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (tied), window "
+          f"{cfg.window_size}, softcaps {cfg.attn_softcap:g} / {cfg.logit_softcap:g}; "
+          f"{n_params} bf16 parameters ({w_bytes / 1e9:.3f} GB) from seed 0 drawn on "
+          f"the card in {init_s:.2f} s")
+
+    gen = torch.Generator().manual_seed(15)
+    work = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(), LOCAL_GEN)
+            for n in LOCAL_PROMPTS]
+    blocks = LOCAL_BATCH * LOCAL_MAX_LEN // LOCAL_BLOCK + 1
+
+    def scheduler(max_batch, admission):
+        return ContinuousScheduler(
+            cfg, params, max_len=LOCAL_MAX_LEN, num_blocks=blocks,
+            block_size=LOCAL_BLOCK, max_batch=max_batch, config=conf,
+            admission=admission, max_slots=2 * LOCAL_BATCH + 1)
+
+    runs, programs = {}, ({}, {})
+    for mode, max_batch, admission in (("continuous", LOCAL_BATCH, "continuous"),
+                                       ("drain", LOCAL_BATCH, "drain"),
+                                       ("solo", 1, "continuous")):
+        s = scheduler(max_batch, admission)
+        s._prefill, s._decode = programs
+        t0 = time.perf_counter()
+        compiled = [s.prefill_compiled(n) for n in sorted(set(LOCAL_PROMPTS))] \
+            + [s.decode_compiled(b) for b in s.buckets]
+        compile_s = time.perf_counter() - t0
+        for c in compiled:
+            kinds = [op.kind for op in c.program.ops]
+            want_ops = per_pass + 2 * ("decode" in c.program.name)
+            require(set(c.backends()) == {"cuda"} and len(kinds) == want_ops
+                    and kinds.count("gather") == want_ops - per_pass,
+                    f"[local] {mode} {c.program.name}: {len(kinds)} ops, expected "
+                    f"{want_ops}")
+        ring = s.layout.specs["groups"]["0"]["k"]
+        require(not ring.paged and s.layout.specs["groups"]["1"]["k"].paged,
+                "[local] the local ring must be a slot store, the global cache paged")
+        tickets = [s.submit(p, n) for p, n in work]
+        zero_counts(*counted)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = s.stats()
+        launches = counts(*counted)
+        require(all(t.status == "done" and t.preemptions == 0 for t in tickets),
+                f"[local] {mode}: not every request done without preemption")
+        fl = [flash_of(len(p)) for p, _ in work]
+        want = (per_pass * (st["steps"] + st["admitted"]), sum(f for f, _ in fl),
+                sum(lf for _, lf in fl), 2 * st["steps"]) + (0,) * len(other_kernels)
+        require(launches == want, f"[local] {mode}: launches (gfid_matmul_bf16, "
+                f"flash_attention_bf16, its local count, paged_gather, others) = "
+                f"{launches}, expected {want} for {st['steps']} decode steps and "
+                f"{st['admitted']} prefills")
+        n_tok = sum(len(t.tokens) for t in tickets)
+        lat = latency_percentiles(tickets)
+        runs[mode] = dict(tokens=[t.tokens for t in tickets], wall=wall, n_tok=n_tok,
+                          lat=lat, stats=st, launches=launches)
+        print(f"[local] {mode}: {st['steps']} decode steps (buckets "
+              f"{st['compiled_decode_buckets']}), {st['admitted']} prefills, {n_tok} "
+              f"tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; latency p50 "
+              f"{lat['p50_ms']:.1f} ms, p95 {lat['p95_ms']:.1f} ms; launches "
+              f"gfid_matmul_bf16 {launches[0]} (= {per_pass} a step and a prefill), "
+              f"flash_attention_bf16 {launches[1]} ({launches[2]} local: window "
+              f"{cfg.window_size} < Skv), paged_gather {launches[3]} (2 a step: the "
+              f"global k and v; the rings are slot rows), others {sum(launches[4:])}; "
+              f"{len(compiled)} programs ready in {compile_s:.2f} s beforehand")
+    base = runs["continuous"]["tokens"]
+    for mode in ("drain", "solo"):
+        require(runs[mode]["tokens"] == base, f"[local] {mode} tokens differ from the "
+                "continuous run")
+    with E.using_config(conf):
+        for i, (prompt, steps) in enumerate(work):
+            dense = SE.greedy_generate(cfg, params, {"tokens": torch.tensor(
+                [prompt], device=dev)}, steps, LOCAL_MAX_LEN)
+            require(dense[0].tolist() == base[i], f"[local] request {i} (prompt "
+                    f"{len(prompt)}): paged tokens differ from greedy_generate's")
+    print(f"[local] tokens bitwise equal across continuous, drain and solo, and "
+          f"equal to greedy_generate for all {len(work)} requests (prompts "
+          f"{LOCAL_PROMPTS})")
+
+    # one decode step with the four requests live at the 8-row bucket, and
+    # the two flash prefills through their compiled ingest programs
+    s8 = scheduler(LOCAL_BATCH, "continuous")
+    s8._prefill, s8._decode = programs
+    rows = [s8.submit(p, LOCAL_MAX_LEN - len(p)) for p, _ in work]
+    s8.step()                               # admits 4, runs one decode step
+    require(s8.running() == LOCAL_BATCH, f"[local] {s8.running()} rows running")
+    dec = s8.decode_compiled(8)
+    rids = [t.rid for t in rows]
+    args = (params, s8.pool.arrays, s8.pool.table_rows(rids, 8),
+            s8.pool.slot_rows(rids, 8),
+            torch.tensor([[t.tokens[-1]] for t in rows] + [[0]] * (8 - LOCAL_BATCH),
+                         dtype=torch.int32, device=dev),
+            torch.tensor([t.pos for t in rows] + [0] * (8 - LOCAL_BATCH),
+                         dtype=torch.int32, device=dev))
+    snap = [a.clone() for a in _leaves(s8.pool.arrays)]
+    zero_counts(*counted)
+    dec.apply(*args)
+    if cuda:
+        torch.cuda.synchronize()
+    step_launches = counts(*counted)
+    require(step_launches == (per_pass, 0, 0, 2) + (0,) * len(other_kernels),
+            f"[local] one decode step launched {step_launches}")
+    step_ms = time_ms(lambda: dec.apply(*args), iters=10)
+    prof = device_profile(lambda: dec.apply(*args))
+    busy = None if prof is None else prof[0]
+    prefill_ms, prefill_bound = {}, {}
+    embed_n = params["embed"].numel()
+    for i, n in enumerate(LOCAL_PROMPTS[:2]):
+        pre = s8.prefill_compiled(n)
+        row = s8.pool.table_rows([rows[i].rid], 1)[0]
+        slot = s8.pool.slot_rows([rows[i].rid], 1)[0]
+        prompt = torch.tensor([work[i][0]], dtype=torch.int32, device=dev)
+        zero_counts(*counted)
+        pre.apply(params, s8.pool.arrays, row, slot, prompt)
+        if cuda:
+            torch.cuda.synchronize()
+        one = counts(*counted)
+        want = (per_pass, *flash_of(n), 0) + (0,) * len(other_kernels)
+        require(one == want, f"[local] a {n}-token prefill launched {one}, expected "
+                f"{want}")
+        prefill_ms[n] = time_ms(lambda: pre.apply(params, s8.pool.arrays, row, slot,
+                                                  prompt), iters=3, warmup=1)
+        # the bound: every weight read once; the layers' GEMMs on the
+        # prompt's rows (not the 8x of the padding), the unembedding on its
+        # last row, and each attention's visible pairs
+        pairs = sum(visible_pairs(n, n, True, cfg.window_size if kind == LOCAL_ATTN
+                                  else 0) for kind in cfg.layer_kinds)
+        ops = 2 * n * (n_params - embed_n) + 2 * embed_n \
+            + 4 * cfg.n_heads * cfg.head_dim * pairs
+        prefill_bound[n] = bound_ms(w_bytes, ops, PEAK_BF16_FLOP_S)[0]
+        print(f"[local] batch-1 prefill at prompt {n}: {prefill_ms[n]:.4f} ms (median "
+              f"of 3; its GEMMs padded to 8 rows by row_align), "
+              f"{n / prefill_ms[n] * 1e3:.1f} prompt tokens/s, bound "
+              f"{prefill_bound[n]:.4f} ms ({ops / 1e12:.3f} TFLOP at the prompt's rows); "
+              f"launches {one[0]} gfid_matmul_bf16, {one[1]} flash_attention_bf16 "
+              f"({one[2]} local)")
+    for a, b in zip(_leaves(s8.pool.arrays), snap):
+        a.copy_(b)
+    del snap
+    # a step reads every weight once (the tied table whole, by the
+    # unembedding) and each live row's visible keys and values once: a
+    # local layer's last min(pos + 1, window), a global layer's pos + 1
+    kv_bytes = 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    cache = kv_bytes * sum(
+        n_local * min(t.pos + 1, cfg.window_size)
+        + (cfg.n_layers - n_local) * (t.pos + 1) for t in rows)
+    step_bytes = w_bytes + cache
+    step_bound, _ = bound_ms(step_bytes, 2 * 8 * n_params, PEAK_BF16_FLOP_S)
+    print(f"[local] decode step, {LOCAL_BATCH} live rows at bucket 8: {step_ms:.4f} ms "
+          f"wall (median of 10), "
+          + ("device time not measured" if busy is None else
+             f"{busy:.4f} ms of device time (torch.profiler, 3 steps) = "
+             f"{100 * busy / step_ms:.1f}% of the step")
+          + f"; bound {step_bound:.4f} ms ({step_bytes / 1e9:.3f} GB: the weights and "
+          f"the visible keys and values, at {PEAK_BYTES_S / 1e12:.2f} TB/s); launches "
+          f"{step_launches[0]} gfid_matmul_bf16 + {step_launches[3]} paged_gather, no "
+          "flash")
+    if prof is not None:
+        print(f"[profile] [local] decode step: {prof[1]} device kernels; by kernel: "
+              + "; ".join(f"{nm[:50]} x{c:g} {ms:.4f} ms" for nm, c, ms in prof[2][:8]))
+    embed = params["embed"]
+    copy_ms = time_ms(lambda: embed.T.contiguous(), iters=5)
+    print(f"[time] [local] tied unembedding: the (vocab, d_model) table's transpose "
+          f"copy before the GEMM (kernels/ops.py) {copy_ms:.4f} ms "
+          f"({embed.numel() * embed.element_size() / 1e9:.3f} GB read and written) of "
+          f"a {step_ms:.4f} ms decode step")
+    del dec, s8, args
+    torch.cuda.empty_cache()
+
+    # "torch" against "cuda": the witness at the two flash prompts, from
+    # the bf16 weights and from the same weights widened to fp32
+    params32 = tree_map(lambda a: a.float(), params)
+    wconf = E.EngineConfig(backend="cuda")
+    witness = {}
+    for i, n in enumerate(LOCAL_PROMPTS[:2]):
+        batch = {"tokens": torch.tensor([work[i][0]], dtype=torch.int32, device=dev)}
+        witness[n] = witness_check(E, T, cfg, wconf, params, params32, batch, batch,
+                                   LOCAL_MAX_LEN, "[local]", f"prompt {n}", limit=None)
+    del params32
+    torch.cuda.empty_cache()
+    timing = local_flash_timing(dev, flash, cfg, worst)
+    del params
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    cont = runs["continuous"]
+    print(f"[local] phase 15 took {phase_s:.1f} s (parameters {init_s:.1f} s)")
+    return dict(launches=cont["launches"], step_launches=step_launches,
+                prefill_launches=per_pass, step_ms=step_ms, busy_ms=busy,
+                step_bound_ms=step_bound, prefill_ms=prefill_ms,
+                prefill_bound_ms=prefill_bound, copy_ms=copy_ms,
+                tps=cont["n_tok"] / cont["wall"], lat=cont["lat"], witness=witness,
+                timing=timing, init_s=init_s, n_params=n_params)
+
+
 def tuner_phase(dev, E, cnn, kernels):
     """Phase 14: the kernel tuner (see the module docstring). `kernels`
     maps "fp32", "int8" and "bf16" to the (conv, matmul) launch counters of
@@ -4684,6 +5219,7 @@ def main():
     print(f"[check] flash_attention_bf16: the cases reach head dims padded to 16, "
           f"32, 64 and 128 and both element and 16-byte copies; flash checks took "
           f"{time.perf_counter() - t_flash:.1f} s")
+    checks += local_flash_check(dev, flash_attention, worst)
     q = q.detach().clone().requires_grad_(True)
     try:
         flash_attention.flash_attention(q, k, v)
@@ -5240,6 +5776,16 @@ def main():
     torch.cuda.empty_cache()
     tuner = tuner_phase(dev, E, cnn, {"fp32": (conv32, mm32), "int8": (conv8, mm8),
                                       "bf16": (conv16, mm16)})
+
+    # -- phase 15: gemma2-27b, local attention at full width -------------------
+    started["15"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    local = local_phase(dev, E, gfid_matmul, paged, flash_attention,
+                        all_kernels + (conv16, conv1d.gfid_conv1d_depthwise,
+                                       flash_attention.flash_attention,
+                                       flash_attention.flash_attention_local,
+                                       gfid_matmul.gfid_matmul_grouped,
+                                       gfid_matmul.gfid_matmul_bf16_grouped), worst)
     ends = list(started.values())[1:] + [time.perf_counter()]
     print("[time] phases (s): " + ", ".join(
         f"{name} {end - start:.1f}" for (name, start), end
@@ -5339,6 +5885,14 @@ def main():
         # the main path's run (bf16) and the one-group fp32 prefill (fp32)
         dt = "bfloat16" if kname.endswith("bf16") else "float32"
         kernels[-1]["cross"] = dict(vlm["cross"][dt], launches=vlm["cross_launches"][dt])
+        # phase 15's gemma2-27b launches, q (1, 4500, 32, 128) against k, v
+        # (1, 4500, 16, 128), causal, softcap 50, each timed alone: the local
+        # layer's (window 4,096), the global one's and a band of
+        # LOCAL_BAND_WINDOW; the launches of phase 15's continuous run (bf16)
+        kernels[-1]["gemma2"] = dict(local["timing"][dt])
+        if dt == "bfloat16":
+            kernels[-1]["gemma2"].update(launches=local["launches"][1],
+                                         local_launches=local["launches"][2])
     for kname, source, replaces, k in (
             ("gfid_conv2d_nhwc_bf16", "src/repro_torch/csrc/gfid_conv_bf16.cu",
              "src/repro/kernels/gfid_conv.py:79", 0),
@@ -5368,6 +5922,10 @@ def main():
         launches_per_prefill=vlm["prefill_launches"][0],
         decode_step=vlm["passes"]["decode"], prefill=vlm["passes"]["prefill"],
         shapes=vlm["gemm"])
+    # phase 15: gemma2-27b's GEMMs (4 layers), counted in its continuous run
+    kernels[-1]["gemma2"] = dict(launches=local["launches"][0],
+                                 launches_per_decode_step=local["step_launches"][0],
+                                 launches_per_prefill=local["prefill_launches"])
     for kname, dtype in (("gfid_matmul_grouped", torch.float32),
                          ("gfid_matmul_bf16_grouped", torch.bfloat16)):
         m, slot = moe[dtype], 3 if dtype == torch.bfloat16 else 2
@@ -5395,6 +5953,16 @@ def main():
             f"prompt{MOE_TIMED_PROMPT}": {key: sums[MOE_TIMED_PROMPT][key] for key in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                 "library_device_ms")}})
+    loc_t = local["timing"]["bfloat16"]
+    print(f"[local] summary: {local['tps']:.1f} tokens/s, p50 "
+          f"{local['lat']['p50_ms']:.1f} ms, p95 {local['lat']['p95_ms']:.1f} ms; "
+          f"decode step {local['step_ms']:.4f} ms with {LOCAL_BATCH} rows, device time "
+          + ("not measured" if local["busy_ms"] is None else f"{local['busy_ms']:.4f} ms")
+          + f", bound {local['step_bound_ms']:.4f} ms; prefill "
+          + ", ".join(f"({n}) {ms:.4f} ms" for n, ms in local["prefill_ms"].items())
+          + f"; bf16 flash alone local {loc_t['local']['device_ms']:.4f} ms, global "
+          f"{loc_t['global']['device_ms']:.4f} ms, bound "
+          f"{loc_t['local']['bound_ms']:.4f} ms; transpose copy {local['copy_ms']:.4f} ms")
     print(f"[tune] summary: {len(tuner['rows'])} tuned ops, {tuner['changed']} won by "
           f"another tile than the rule's, {tuner['n_bitwise']} candidate launches "
           f"bitwise; AlexNet forward ms untuned/tuned: " + "; ".join(

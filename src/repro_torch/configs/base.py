@@ -129,11 +129,12 @@ class ModelConfig:
 # The configs this port runs; the rest of the reference's registry comes
 # with their model families.
 PORTED = ("smollm_135m", "xlstm_125m", "granite_moe_1b",
-          "llama32_vision_11b")
+          "llama32_vision_11b", "gemma2_27b")
 
 ALIASES = {"smollm-135m": "smollm_135m", "xlstm-125m": "xlstm_125m",
            "granite-moe-1b-a400m": "granite_moe_1b",
-           "llama-3.2-vision-11b": "llama32_vision_11b"}
+           "llama-3.2-vision-11b": "llama32_vision_11b",
+           "gemma2-27b": "gemma2_27b"}
 
 
 def _module(name: str):

@@ -1,17 +1,23 @@
-// Online-softmax attention forward, causal or not, for Hopper (sm_90a):
-//   out[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / G])
+// Online-softmax attention forward, causal or not, global or sliding-window,
+// for Hopper (sm_90a):
+//   out[b, i, h] = sum_j softmax_j(cap(scale * q[b, i, h] . k[b, j, h / G]))
 //                  * v[b, j, h / G]
-// over the keys j that row i may see (j <= i when causal, positions from 0
-// for both q and k), with G = H / KV query heads per kv head (GQA as an
-// index: no repeated copy of k and v). q is (B, Sq, H, D), k and v are
-// (B, Skv, KV, D), out is (B, Sq, H, D); all fp32. (bf16 q, k, v go to
-// flash_attention_bf16.cu, on the tensor cores.)
+// over the keys j that row i may see, with G = H / KV query heads per kv
+// head (GQA as an index: no repeated copy of k and v). Row i sits at
+// position p = i + q_offset, key j at j; j is visible when j < Skv, j <= p
+// if causal and p - j < window if window > 0. cap(x) = softcap *
+// tanhf(x / softcap) with a softcap, else x (the scores are capped, then
+// masked). q is (B, Sq, H, D), k and v are (B, Skv, KV, D), out is (B, Sq,
+// H, D); all fp32. (bf16 q, k, v go to flash_attention_bf16.cu, on the
+// tensor cores.)
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/flash_attention.py
 //   flash_attention (_kernel), whose grid (B, H, n_q, n_kv) walks the kv
 //   blocks of one q block in order and carries the running max, sum and
 //   accumulator in VMEM scratch between grid steps; its caller broadcasts
-//   the kv heads with jnp.repeat first.
+//   the kv heads with jnp.repeat first. The window, the softcap and the q
+//   offset are those of src/repro/models/flash.py flash_attention_jnp,
+//   which the reference computes in plain JAX.
 //
 // What bounds it on an H100: operations. A causal (1, S, 9 / 3, 64) prefill
 //   does about 2 * 2 * 9 * 64 * S^2 / 2 flops (4.54 GFLOP at S = 1984) on
@@ -53,17 +59,28 @@
 //     SM would run two long causal tiles one after the other.
 //
 // Masking: a masked score is NEG_INF (-1e30), as in the Pallas kernel, and
-//   the running max starts there. Every row sees key 0 (causal or not), and
-//   the first tile visited is the one that holds key 0, so after it m is a
-//   real score and a masked key adds exp(-1e30 - m) = 0. Hence l >= 1 at the
-//   end, and neither this mask value, the 1e-30 clamp on l, nor the -2e38
-//   and 1e-37 of models/flash.py reaches the result: one kernel serves both
-//   contracts. Under causal masking a kv tile whose first key lies past the
-//   block's last row is not visited. That is bitwise neutral: for every row
-//   of the block such a tile gives a tile max of -1e30 < m, so m stays,
-//   alpha = exp(0) = 1, and l * 1 + 0 and acc * 1 + 0 are exactly l and acc.
-//   The mask is applied only on a tile that reaches past Skv or, when
-//   causal, past the block's first row (the diagonal tile).
+//   the running max starts there. A block visits the kv tiles of its band:
+//   from the tile holding key q0 + q_offset - window + 1 (its first row's
+//   first visible key; key 0 without a window) to, when causal, the one
+//   holding key q_last + q_offset (its last row's last). Once a row has
+//   seen a key, m is a real score and a masked key adds exp(-1e30 - m) = 0.
+//   A later row of the block may see no key in the band's first tile (or
+//   first tiles): there it adds exp(-1e30 - -1e30) = 1 for every key to l
+//   and that key's v to acc. Its first tile with a visible key makes m real
+//   and alpha = expf(-1e30 - m) = 0, which wipes exactly what those tiles
+//   added (acc holds finite sums of v). The wrapper refuses a shape where
+//   some row sees no key at all, so every row ends with l >= 1, and neither
+//   this mask value, the 1e-30 clamp on l, nor the -2e38 and 1e-37 of
+//   models/flash.py reaches the result: one kernel serves both contracts.
+//   A tile past the causal end is not visited; that is bitwise neutral: for
+//   every row of the block such a tile gives a tile max of -1e30 < m, so m
+//   stays, alpha = exp(0) = 1, and l * 1 + 0 and acc * 1 + 0 are exactly l
+//   and acc. A tile before the band holds no key of any row and is not
+//   visited either. The mask is applied only on a tile that reaches past
+//   Skv, past the block's first row's position when causal (the diagonal
+//   tile), or below its last row's band when windowed (the band's lower
+//   edge). Which tiles a row's sums visit depends on its q tile alone, so
+//   a row gets the same bits at any B.
 //
 // Arithmetic: expf (not __expf) and IEEE division; built without
 //   --use_fast_math. fp32 fmaf only: no tensor cores, no TF32. Sums run in
@@ -118,7 +135,7 @@ __global__ void __launch_bounds__(Shape<DMAX>::kThreads, Shape<DMAX>::kMinBlocks
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int batch,
                        int sq, int skv, int h, int n_kv, int d, float scale, int causal,
-                       int vec) {
+                       int window, float softcap, int q_offset, int vec) {
   using S = Shape<DMAX>;
   constexpr int kThreads = S::kThreads, kStride = S::kStride, kOCols = S::kOCols;
   extern __shared__ __align__(16) float smem[];
@@ -138,7 +155,10 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = tid % kColThreads;
   const int q0 = qt * kBQ;
   const int q_last = min(sq, q0 + kBQ) - 1;   // the block's last row
-  const int kv_end = causal ? min(skv, q_last + 1) : skv;
+  // the band: from its first row's first visible key to its last row's last
+  const int kv_begin = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
+  const int kv_end = causal ? min(skv, q_last + q_offset + 1) : skv;
+  const int t_first = kv_begin / kBK;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
   const size_t ldq = (size_t)h * d, ldk = (size_t)n_kv * d;
@@ -166,8 +186,11 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
 
   load_rows(qs, qb, ldq, q0, kBQ, sq);
-  load_rows(kvs, kb, ldk, 0, kBK, skv);
-  load_rows(kvs + S::kTile, vb, ldk, 0, kBK, skv);
+  {
+    float* st = kvs + (t_first & 1) * 2 * S::kTile;
+    load_rows(st, kb, ldk, t_first * kBK, kBK, skv);
+    load_rows(st + S::kTile, vb, ldk, t_first * kBK, kBK, skv);
+  }
   cp_async_commit();
 
   float acc[kTM][kOCols], m[kTM], l[kTM];
@@ -179,7 +202,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kOCols; ++c) acc[i][c] = 0.0f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     cp_async_wait<0>();    // tile t (and q) landed: this thread's copies
     __syncthreads();       // ... and every thread's; tile t - 1 and P consumed
     if (t + 1 < n_tiles) {
@@ -219,17 +242,20 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // online softmax: one expf a score, in the thread that owns it
-    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0);
+    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0 + q_offset) ||
+                      (window > 0 && k0 < q0 + kBQ + q_offset - window);
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
-      const int row = q0 + ty * kTM + i;
+      const int pos = q0 + ty * kTM + i + q_offset;   // this row's position
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < kTN; ++j) {
         float x = s[i][j] * scale;
+        if (softcap != 0.0f) x = softcap * tanhf(x / softcap);
         if (edge) {
           const int key = k0 + tx + j * kColThreads;
-          if (key >= skv || (causal && key > row)) x = kNegInf;
+          if (key >= skv || (causal && key > pos) || (window > 0 && pos - key >= window))
+            x = kNegInf;
         }
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -304,38 +330,46 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DMAX>
 int launch(dim3 grid, cudaStream_t stream, const float* q, const float* k, const float* v,
            float* out, int b, int sq, int skv, int h, int n_kv, int d, float scale, int causal,
-           int vec) {
+           int window, float softcap, int q_offset, int vec) {
   using S = Shape<DMAX>;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
   if (err != cudaSuccess) return (int)err;
   flash_attention_kernel<DMAX><<<grid, S::kThreads, S::kSmem, stream>>>(
-      q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
+      q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, window, softcap, q_offset, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (b, sq, h, d); k, v: (b, skv, n_kv, d); out: (b, sq, h, d); all
-// contiguous fp32. vec: 16-byte copies, for d % 4 == 0 on 16-byte-aligned
-// q, k and v. The caller guarantees b, sq, skv >= 1, 1 <= d <= 128 and h a
-// multiple of n_kv. Launches on `stream` and returns cudaGetLastError() (0
-// when the launch was accepted); arguments out of those ranges return
+// contiguous fp32. window: 0 for none; softcap: 0 for none; q_offset: the
+// position of q row 0. vec: 16-byte copies, for d % 4 == 0 on
+// 16-byte-aligned q, k and v. The caller guarantees b, sq, skv >= 1,
+// 1 <= d <= 128, h a multiple of n_kv, window >= 0, and that every row sees
+// a key (q_offset >= 0 when causal; the last row's band starting below
+// skv). Launches on `stream` and returns cudaGetLastError() (0 when the
+// launch was accepted); arguments out of those ranges return
 // cudaErrorInvalidValue without launching.
 extern "C" int flash_attention(const float* q, const float* k, const float* v,
                                float* out, int b, int sq, int skv, int h,
                                int n_kv, int d, float scale, int causal,
+                               int window, float softcap, int q_offset,
                                int vec, void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || d < 1 || d > 128 || n_kv < 1 ||
-      h % n_kv != 0 || (vec && d % 4 != 0))
+      h % n_kv != 0 || (vec && d % 4 != 0) || window < 0 || (causal && q_offset < 0) ||
+      (window > 0 && (long long)sq + q_offset - window >= skv))
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)((sq + kBQ - 1) / kBQ) * h * b;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   const cudaStream_t s = (cudaStream_t)stream;
   if (d <= 32)
-    return launch<32>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
+    return launch<32>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, window,
+                      softcap, q_offset, vec);
   if (d <= 64)
-    return launch<64>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
-  return launch<128>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec);
+    return launch<64>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, window,
+                      softcap, q_offset, vec);
+  return launch<128>(grid, s, q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, window,
+                     softcap, q_offset, vec);
 }

@@ -1,17 +1,22 @@
-// Online-softmax attention forward on bf16 q, k, v, causal or not, for Hopper
-// (sm_90a), on the tensor cores:
-//   out[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, h / G])
+// Online-softmax attention forward on bf16 q, k, v, causal or not, global or
+// sliding-window, for Hopper (sm_90a), on the tensor cores:
+//   out[b, i, h] = sum_j softmax_j(cap(scale * q[b, i, h] . k[b, j, h / G]))
 //                  * v[b, j, h / G]
-// over the keys j that row i may see (j <= i when causal, positions from 0
-// for both q and k), with G = H / KV query heads per kv head (GQA as an
-// index). q is (B, Sq, H, D), k and v are (B, Skv, KV, D), out is (B, Sq, H,
-// D), all bf16; the scores, the softmax and the sums are fp32, and out is
-// rounded once to bf16. (fp32 q, k, v go to flash_attention.cu.)
+// over the keys j that row i may see, with G = H / KV query heads per kv
+// head (GQA as an index). Row i sits at position p = i + q_offset, key j at
+// j; j is visible when j < Skv, j <= p if causal and p - j < window if
+// window > 0. cap(x) = softcap * tanhf(x / softcap) with a softcap, else x
+// (the scores are capped, then masked). q is (B, Sq, H, D), k and v are (B,
+// Skv, KV, D), out is (B, Sq, H, D), all bf16; the scores, the softmax and
+// the sums are fp32, and out is rounded once to bf16. (fp32 q, k, v go to
+// flash_attention.cu.)
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/flash_attention.py
 //   flash_attention (_kernel) on bf16 operands: s = (q . k^T in fp32) *
 //   scale, masked to NEG_INF, an online softmax, p . v with fp32 sums, then
-//   acc / max(l, 1e-30), cast to q's dtype.
+//   acc / max(l, 1e-30), cast to q's dtype; the window, the softcap and the
+//   q offset of src/repro/models/flash.py flash_attention_jnp, which the
+//   reference computes in plain JAX.
 //
 // What bounds it on an H100: operations. A causal (1, 1984, 9 / 3, 64)
 //   prefill does 4.5 GFLOP on 6.1 MB of bf16 input and output, far above
@@ -45,12 +50,19 @@
 //   p_hi is exact in fp32), and two `mma`s go into the same accumulator:
 //   p is then carried to about 2^-17. That doubles only the P V products.
 //
-// Masking and the causal block skip are those of flash_attention.cu: a
-//   masked score is NEG_INF (-1e30), every row sees key 0 in the first tile,
-//   and a kv tile whose first key lies past the block's last row is not
-//   visited (bitwise neutral). One block computes every output row from
-//   start to end (no split of the kv axis, no atomics), so the result does
-//   not change from run to run and does not depend on the other rows.
+// Masking and the band are those of flash_attention.cu: a masked score is
+//   NEG_INF (-1e30); a block visits the kv tiles from the one holding its
+//   first row's first visible key to, when causal, the one holding its last
+//   row's last (the tiles outside are bitwise neutral or hold no visible
+//   key). A later row of the block that sees no key in the band's first
+//   tile adds exp(0) = 1 a key to l and that key's v to acc there; its first
+//   tile with a visible key rescales both by alpha = expf(-1e30 - m) = 0,
+//   which wipes them exactly. The wrapper refuses a shape where some row
+//   sees no key at all. A warp masks only a tile that reaches past Skv, past
+//   its first row's position when causal, or below its last row's band when
+//   windowed. One block computes every output row from start to end (no
+//   split of the kv axis, no atomics), so the result does not change from
+//   run to run and does not depend on the other rows or on B.
 //
 // Arithmetic: expf (not __expf) and IEEE division; `scale` multiplies the
 //   fp32 scores (q is not rescaled in bf16); built without --use_fast_math.
@@ -122,7 +134,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                             const uint16_t* __restrict__ v, __nv_bfloat16* __restrict__ out,
                             int sq, int skv, int h, int n_kv, int d, float scale, int causal,
-                            int vec) {
+                            int window, float softcap, int q_offset, int vec) {
   using L = Layout<DP>;
   constexpr int kD16 = DP / 16;       // k16 steps of Q K^T
   constexpr int kDT = DP / 8;         // n8 tiles of the output
@@ -143,7 +155,10 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
   const int q0 = qt * kBQ;
   const int row_g = q0 + warp * 16 + lane / 4;  // this thread's rows: row_g, row_g + 8
   const int q_last = min(sq, q0 + kBQ) - 1;     // the block's last row
-  const int kv_end = causal ? min(skv, q_last + 1) : skv;
+  // the band: from its first row's first visible key to its last row's last
+  const int kv_begin = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
+  const int kv_end = causal ? min(skv, q_last + q_offset + 1) : skv;
+  const int t_first = kv_begin / kBK;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
   auto load_kv = [&](int t) {
@@ -153,7 +168,7 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
   };
 
   load_tile<DP>(qs, q + ((size_t)b * sq * h + head) * d, q0, kBQ, sq, h * d, d, vec);
-  load_kv(0);
+  load_kv(t_first);
   mma::cp_async_commit();
 
   uint32_t qf[kD16][4];
@@ -164,12 +179,12 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) load_kv(t + 1);
     mma::cp_async_commit();
     mma::cp_async_wait<1>();   // all but the newest group: q and tile t
     __syncthreads();
-    if (t == 0) {
+    if (t == t_first) {
 #pragma unroll
       for (int kk = 0; kk < kD16; ++kk)
         mma::ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * L::kStride + kk * 16 +
@@ -197,9 +212,12 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
         mma::mma_bf16_16816(s[nt + 1], qf[kk], r[2], r[3]);
       }
 
-    // Only a tile with keys past Skv or (causal) past the warp's first row
-    // masks; elsewhere every key is visible to every row of the warp.
-    const bool masked = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0 + warp * 16);
+    // Only a tile with keys past Skv, (causal) past the warp's first row's
+    // position or (windowed) below its last row's band masks; elsewhere
+    // every key is visible to every row of the warp.
+    const int w0 = q0 + warp * 16 + q_offset;   // the warp's first row's position
+    const bool masked = k0 + kBK > skv || (causal && k0 + kBK - 1 > w0) ||
+                        (window > 0 && k0 < w0 + 16 - window);
     float mx[2] = {kNegInf, kNegInf};
     if (masked) {
 #pragma unroll
@@ -207,9 +225,12 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + nt * 8 + 2 * (lane % 4) + e % 2;
-          const int qi = row_g + (e / 2) * 8;
-          const bool valid = key < skv && (!causal || key <= qi);
-          s[nt][e] = valid ? s[nt][e] * scale : kNegInf;
+          const int pos = row_g + (e / 2) * 8 + q_offset;
+          const bool valid = key < skv && (!causal || key <= pos) &&
+                             (window <= 0 || pos - key < window);
+          float x = s[nt][e] * scale;
+          if (softcap != 0.0f) x = softcap * tanhf(x / softcap);
+          s[nt][e] = valid ? x : kNegInf;
           mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
         }
     } else {
@@ -217,8 +238,10 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
       for (int nt = 0; nt < kKT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[nt][e] *= scale;
-          mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+          float x = s[nt][e] * scale;
+          if (softcap != 0.0f) x = softcap * tanhf(x / softcap);
+          s[nt][e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
         }
     }
     float alpha[2];
@@ -292,7 +315,8 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
 
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int skv,
-           int h, int n_kv, int d, float scale, int causal, int vec, cudaStream_t stream) {
+           int h, int n_kv, int d, float scale, int causal, int window, float softcap,
+           int q_offset, int vec, cudaStream_t stream) {
   using L = Layout<DP>;
   if (L::kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -304,29 +328,41 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
   flash_attention_bf16_kernel<DP><<<grid, kThreads, L::kSmem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<__nv_bfloat16*>(out), sq, skv, h, n_kv, d,
-      scale, causal, vec);
+      scale, causal, window, softcap, q_offset, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (b, sq, h, d); k, v: (b, skv, n_kv, d); out: (b, sq, h, d); all
-// contiguous bf16. vec: 16-byte copies, for d % 8 == 0 on 16-byte aligned q,
-// k and v. The caller guarantees b, sq, skv >= 1, 1 <= d <= 128, h a
-// multiple of n_kv and a grid within CUDA's limits (q tiles x h blocks in x,
-// b in y). Launches on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted); arguments out of those ranges return
-// cudaErrorInvalidValue without launching.
+// contiguous bf16. window: 0 for none; softcap: 0 for none; q_offset: the
+// position of q row 0. vec: 16-byte copies, for d % 8 == 0 on 16-byte
+// aligned q, k and v. The caller guarantees b, sq, skv >= 1, 1 <= d <= 128,
+// h a multiple of n_kv, a grid within CUDA's limits (q tiles x h blocks in
+// x, b in y), window >= 0, and that every row sees a key (q_offset >= 0
+// when causal; the last row's band starting below skv). Launches on
+// `stream` and returns cudaGetLastError() (0 when the launch was accepted);
+// arguments out of those ranges return cudaErrorInvalidValue without
+// launching.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     int b, int sq, int skv, int h, int n_kv, int d,
-                                    float scale, int causal, int vec, void* stream) {
+                                    float scale, int causal, int window, float softcap,
+                                    int q_offset, int vec, void* stream) {
   if (b < 1 || sq < 1 || skv < 1 || d < 1 || d > 128 || n_kv < 1 || h % n_kv != 0 ||
       (long long)((sq + kBQ - 1) / kBQ) * h > 0x7fffffffLL || b > 65535 ||
-      (vec && d % 8 != 0))
+      (vec && d % 8 != 0) || window < 0 || (causal && q_offset < 0) ||
+      (window > 0 && (long long)sq + q_offset - window >= skv))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 16) return launch<16>(q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec, s);
-  if (d <= 32) return launch<32>(q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec, s);
-  if (d <= 64) return launch<64>(q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec, s);
-  return launch<128>(q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, vec, s);
+  if (d <= 16)
+    return launch<16>(q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, window, softcap,
+                      q_offset, vec, s);
+  if (d <= 32)
+    return launch<32>(q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, window, softcap,
+                      q_offset, vec, s);
+  if (d <= 64)
+    return launch<64>(q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, window, softcap,
+                      q_offset, vec, s);
+  return launch<128>(q, k, v, out, b, sq, skv, h, n_kv, d, scale, causal, window, softcap,
+                     q_offset, vec, s);
 }

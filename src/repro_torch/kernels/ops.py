@@ -141,9 +141,13 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    window: int = 0, softcap: float = 0.0,
+                    q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Skv, KV, D), GQA heads read in place ->
-    (B, Sq, H, D) in q's dtype (one launch)."""
+    (B, Sq, H, D) in q's dtype (one launch), with a sliding `window`, a
+    logit `softcap` and query positions from `q_offset` (0: none)."""
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=causal, scale=scale)
+                                  v.contiguous(), causal=causal, scale=scale,
+                                  window=window, softcap=softcap,
+                                  q_offset=q_offset)

@@ -1,7 +1,7 @@
-"""Attention: GQA with global causal masking and the VLM's gated cross
-attention, full-sequence (prefill) and single-token (decode) paths. A copy
-of the JAX package's `models/attention.py` for GLOBAL_ATTN and CROSS_ATTN
-layers.
+"""Attention: GQA with global or sliding-window causal masking and the
+VLM's gated cross attention, full-sequence (prefill) and single-token
+(decode) paths. A copy of the JAX package's `models/attention.py` for
+GLOBAL_ATTN, LOCAL_ATTN and CROSS_ATTN layers.
 
 All projections are FC-mode GEMMs of the multi-mode engine; the score and
 value contractions are plain tensor ops, as in the reference, in fp32 with
@@ -11,8 +11,12 @@ does; on the "cuda" backend that is the hand-written flash kernel, for a
 cross layer at Sq = the prompt against Skv = the image tokens, not causal.
 A cross layer's keys and values come from the image embeddings, without
 rope; its output is scaled by tanh(gate) and its decode reads the image
-K/V cache that the prefill filled. Not ported (each raises, naming its
-ROADMAP item): MLA and the sliding window.
+K/V cache that the prefill filled. A LOCAL_ATTN layer sees the keys less
+than `window_size` positions behind the query, on both paths (the kernels
+take the window and visit only its band); its decode cache is a ring of
+min(max_len, window_size) slots, written at pos % length and masked by
+age, as the reference's. Not ported (it raises, naming its ROADMAP item):
+MLA.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import engine
-from repro_torch.configs.base import CROSS_ATTN, GLOBAL_ATTN, ModelConfig
+from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN,
+                                      ModelConfig)
 from repro_torch.core.quant import no_tf32
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (D_MODEL, HEADS, ParamDef, apply_rope,
@@ -36,10 +41,10 @@ def check_supported(cfg: ModelConfig, kind: str) -> None:
     if cfg.mla is not None:
         raise NotImplementedError("MLA attention is not ported to repro_torch "
                                   "yet; see ROADMAP queue 1, item 10")
-    if kind not in (GLOBAL_ATTN, CROSS_ATTN):
+    if kind not in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN):
         raise NotImplementedError(
-            f"{kind!r} attention layers are not ported to repro_torch yet "
-            "(global and cross only); see ROADMAP queue 1, item 8")
+            f"{kind!r} layers are not ported to repro_torch yet (attention "
+            "layers: global, local and cross); see ROADMAP queue 1, item 10")
 
 
 # ---------------------------------------------------------------------------
@@ -134,16 +139,30 @@ def attention_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         k = rms_norm(k, p["k_norm_cross" if cross else "k_norm"],
                      cfg.norm_eps)
     if cfg.use_rope and not cross:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        theta = _rope_theta(cfg, kind)
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
     chunked = use_chunked if use_chunked is not None else s > 1024
     fn = flash_attention if chunked else dense_attention
     o = fn(q, k, v, causal=not (cross or cfg.is_encoder),
-           softcap_val=cfg.attn_softcap)
+           window=_window(cfg, kind), softcap_val=cfg.attn_softcap)
     out = engine.proj(o.reshape(b, s, cfg.n_heads * hd), p["wo"])
     if cross:
         return _gated(out, p["gate"]), None
     return out, (k, v)
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    """A local layer's sliding window; 0 (none) for the other kinds."""
+    return cfg.window_size if kind == LOCAL_ATTN else 0
+
+
+def _rope_theta(cfg: ModelConfig, kind: str) -> float:
+    """The reference's choice: a local layer's own theta where the config
+    sets one (gemma3), else the config's."""
+    return (cfg.rope_theta_local
+            if (kind == LOCAL_ATTN and cfg.rope_theta_local)
+            else cfg.rope_theta)
 
 
 def _gated(out: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
@@ -160,9 +179,12 @@ def init_kv_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device=None) -> Dict[str, torch.Tensor]:
     """Zero cache for one attention layer (`meta` tensors on the `meta`
-    device)."""
+    device): `max_len` slots, or for a local layer a ring of
+    min(max_len, window_size)."""
     check_supported(cfg, kind)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    window = _window(cfg, kind)
+    shape = (batch, min(max_len, window) if window else max_len,
+             cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -178,18 +200,26 @@ def init_cross_cache(cfg: ModelConfig, batch: int,
 
 
 def _decode_core(qg: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                 pos: torch.Tensor, softcap_val: float) -> torch.Tensor:
+                 pos: torch.Tensor, softcap_val: float,
+                 window: int = 0) -> torch.Tensor:
     """Scores, exact mask, softmax and weighted sum of one decode token per
     row. qg (B, KV, g, hd) fp32; ck, cv (B, L, KV, hd) in the cache dtype,
     upcast exactly to fp32 (the reference's einsum promotes the same way);
-    pos (B,). Row-wise: row b reads only row b of each input."""
+    pos (B,). With a `window`, the cache is a ring written at pos % L: slot
+    i is valid when its age (pos % L - i) % L is under the window and at
+    most pos. Row-wise: row b reads only row b of each input."""
     hd = qg.shape[-1]
     with no_tf32():
         s = torch.einsum("bkgd,bukd->bkgu", qg, ck.float()) / math.sqrt(hd)
         if softcap_val:
             s = softcap_val * torch.tanh(s / softcap_val)
-        idx = torch.arange(ck.shape[1], device=ck.device)
-        valid = idx[None, :] <= pos[:, None]
+        cache_len = ck.shape[1]
+        idx = torch.arange(cache_len, device=ck.device)
+        if window:
+            age = (pos[:, None] % cache_len - idx[None, :]) % cache_len
+            valid = (age < window) & (age <= pos[:, None])
+        else:
+            valid = idx[None, :] <= pos[:, None]
         s = torch.where(valid[:, None, None, :], s,
                         torch.full((), NEG_INF, device=s.device))
         pr = torch.softmax(s, dim=-1)
@@ -202,9 +232,9 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict,
     """x: (B, 1, D); pos: a scalar int position, or a (B,) int vector of
     per-row positions (continuous batching: every row at its own depth).
     Writes the new key and value into `cache` in place (row b at slot
-    pos[b], cast to the cache dtype) and returns (out, cache). A cross
-    layer attends to its image cache (`init_cross_cache`) and returns it
-    unchanged.
+    pos[b], or pos[b] % the ring's length for a local layer, cast to the
+    cache dtype) and returns (out, cache). A cross layer attends to its
+    image cache (`init_cross_cache`) and returns it unchanged.
 
     A scalar position runs as the vector of B copies of it, so the two
     paths are the same arithmetic. Masked scores are NEG_INF, whose softmax
@@ -231,16 +261,19 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict,
     pos = torch.as_tensor(pos, device=x.device)
     posv = (pos.expand(b) if pos.ndim == 0 else pos).long()
     if cfg.use_rope:
-        q = apply_rope(q, posv[:, None], cfg.rope_theta)
-        k = apply_rope(k, posv[:, None], cfg.rope_theta)
+        theta = _rope_theta(cfg, kind)
+        q = apply_rope(q, posv[:, None], theta)
+        k = apply_rope(k, posv[:, None], theta)
 
+    window = _window(cfg, kind)
     ck, cv = cache["k"], cache["v"]
+    slot = posv % ck.shape[1] if window else posv      # ring buffer for SWA
     rows = torch.arange(b, device=x.device)
-    ck.index_put_((rows, posv), k[:, 0].to(ck.dtype))
-    cv.index_put_((rows, posv), v[:, 0].to(cv.dtype))
+    ck.index_put_((rows, slot), k[:, 0].to(ck.dtype))
+    cv.index_put_((rows, slot), v[:, 0].to(cv.dtype))
 
     g = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(b, cfg.n_kv_heads, g, hd).float()
-    o = _decode_core(qg, ck, cv, posv, cfg.attn_softcap)
+    o = _decode_core(qg, ck, cv, posv, cfg.attn_softcap, window)
     out = engine.proj(o.reshape(b, 1, cfg.n_heads * hd).to(x.dtype), p["wo"])
     return out, cache

@@ -10,12 +10,13 @@ position offset; a causal window visits only the kv chunks of its band.
 Masked scores are NEG_INF = -2e38 and the softmax sum is clamped at 1e-37.
 
 Backends (the ambient `EngineConfig`):
-  * "cuda"  — global attention (no window, softcap or q offset) is one
-    launch of the hand-written kernel (`kernels.ops.flash_attention`):
-    causal self attention, or a cross layer's unmasked attention of Sq
-    prompt tokens against Skv image tokens (the kernel takes the two
-    lengths apart); the rest raises `NotImplementedError` (ROADMAP queue
-    1, item 8), never a quiet run of the plain version;
+  * "cuda"  — one launch of the hand-written kernel of the operands' dtype
+    (`kernels.ops.flash_attention`), which takes the window, the softcap
+    and the q offset itself and visits only a block's band of kv tiles:
+    causal self attention, global or sliding-window, or a cross layer's
+    unmasked attention of Sq prompt tokens against Skv image tokens (the
+    kernel takes the two lengths apart); never a quiet run of the plain
+    version;
   * "torch" and "ref" — the chunked forward below, in plain torch ops (fp32
     with TF32 off), which also runs on `meta` tensors for program capture.
 
@@ -115,19 +116,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Chunked attention forward, the counterpart of the reference's
     `flash_attention_jnp`. q: (B, Sq, H, Dk); k/v: (B, Skv, KV, D) ->
     (B, Sq, H, Dv) in q's dtype. On the "cuda" backend the kernel runs with
-    its own tiles (`q_chunk` and `kv_chunk` do not apply)."""
+    its own tiles (`q_chunk` and `kv_chunk` do not apply) and raises
+    `ValueError` where some query row sees no key."""
     b, sq, h, dk = q.shape
     _, skv, n_kv, dv = v.shape
     g = h // n_kv
     scale = scale if scale is not None else 1.0 / math.sqrt(dk)
     if current_config().backend == "cuda":
-        if window or softcap_val or q_offset:
-            raise NotImplementedError(
-                f"flash attention with window={window}, softcap_val="
-                f"{softcap_val}, q_offset={q_offset} has no CUDA kernel yet "
-                "(the kernel runs global causal or unmasked attention); see "
-                "ROADMAP queue 1, item 8 (local attention)")
-        return ops.flash_attention(q, k, v, causal=causal, scale=scale)
+        return ops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   window=window, softcap=softcap_val,
+                                   q_offset=q_offset)
     windowed = bool(window) and window < skv and causal
     if windowed:
         q_chunk = kv_chunk = min(q_chunk, kv_chunk, sq, skv)

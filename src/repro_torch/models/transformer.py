@@ -1,7 +1,8 @@
 """Top-level model assembly: parameter trees, full-sequence forward and
 prefill, and single-token decode over an explicit state tree. A copy of the
 JAX package's `models/transformer.py` for four families: dense decoders
-whose layers are GLOBAL_ATTN blocks with a dense FFN, MoE decoders whose
+whose layers are GLOBAL_ATTN or LOCAL_ATTN (sliding-window) blocks with a
+dense FFN (gemma2's alternation of the two included), MoE decoders whose
 GLOBAL_ATTN blocks carry the MoE FFN of `models/moe.py` (the dense
 dispatch; `forward(..., return_aux=True)` returns its load-balancing loss
 as the reference's `forward` does), the SSM family's xLSTM, whose
@@ -15,10 +16,12 @@ called (and captured into programs) one by one. Parameter and state trees
 keep the reference's layout: `params["groups"][j]` stacks layer j of every
 group on axis 0, and the decode state is `{"groups": {j: leaves}, "rem":
 {}}`: an attention layer's `{"k", "v"}` of `(n_groups, B, max_len,
-kv_heads, head_dim)`, a cross layer's image cache of `(n_groups, B,
-n_img_tokens, kv_heads, head_dim)` (filled by prefill, read unchanged by
-decode), an xLSTM layer's conv tail and fp32 memory (`models/ssm.py`),
-each stacked over the groups. Decode and prefill write the state in
+kv_heads, head_dim)` (a local layer's a ring of min(max_len, window_size)
+slots, which the prefill fills with the prompt's last keys, rolled to the
+slots pos % length, as the reference's), a cross layer's image cache of
+`(n_groups, B, n_img_tokens, kv_heads, head_dim)` (filled by prefill,
+read unchanged by decode), an xLSTM layer's conv tail and fp32 memory
+(`models/ssm.py`), each stacked over the groups. Decode and prefill write the state in
 place.
 
 Parameter dtypes: the dense family's default is the config's
@@ -57,7 +60,8 @@ _SSM_DECODE = {MLSTM: ssm.mlstm_decode, SLSTM: ssm.slstm_decode}
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's model code does not run yet: it runs dense
-    and MoE decoders of GLOBAL_ATTN layers, the VLM's GLOBAL_ATTN and
+    and MoE decoders of GLOBAL_ATTN and LOCAL_ATTN layers, the VLM's
+    GLOBAL_ATTN and
     CROSS_ATTN layers over precomputed image embeddings and the SSM
     family's mLSTM/sLSTM blocks (xLSTM), not Mamba, MLA, front ends,
     encoders or the other families."""
@@ -433,16 +437,22 @@ def _block_prefill(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
                    img: Optional[torch.Tensor],
                    state_dtype: torch.dtype) -> torch.Tensor:
     """One residual block; writes its state into `st` in place: k and v
-    (cast to the cache dtype) into the first S slots for self attention and
-    into the whole image cache for cross attention, the whole recurrent
-    state (conv tail in the cache dtype) for xLSTM."""
+    (cast to the cache dtype) into the first S slots for self attention
+    (into a local layer's shorter ring, its last keys rolled by S %
+    length, so that position p lands at slot p % length) and into the
+    whole image cache for cross attention, the whole recurrent state (conv
+    tail in the cache dtype) for xLSTM."""
     x, piece, _ = block_forward(cfg, kind, use_moe, p, x, positions, img,
                                 state_dtype=state_dtype)
     if kind in SSM_KINDS:
         _write_state(st, piece)
     else:
         k, v = piece
-        n = k.shape[1]
+        n, cl = k.shape[1], st["k"].shape[1]
+        if cl < n:                      # SWA ring cache: keep the tail
+            k = torch.roll(k[:, -cl:], shifts=n % cl, dims=1)
+            v = torch.roll(v[:, -cl:], shifts=n % cl, dims=1)
+            n = cl
         st["k"][:, :n] = k.to(st["k"].dtype)
         st["v"][:, :n] = v.to(st["v"].dtype)
     return x

@@ -1237,8 +1237,8 @@ def test_int8_conv_lean_checks_still_refuse(case):
 def test_flash_launch_passes_its_plan_and_raises_when_refused(monkeypatch,
                                                               dtype):
     """`flash_attention._launch` (library, device and stream faked) passes
-    either entry its copy flag after the causal flag; a refused launch
-    raises and is not counted."""
+    either entry its copy flag after the window, softcap and q offset; a
+    refused launch raises and is not counted."""
     calls, err = [], [0]
 
     def fake_library(name):
@@ -1269,7 +1269,8 @@ def test_flash_launch_passes_its_plan_and_raises_when_refused(monkeypatch,
     plan = (flash_attention.f32_launch if is32 else flash_attention.bf16_launch)(
         4, 1000, 9, 64, *args[:3])
     assert name == ("flash_attention" if is32 else "flash_attention_bf16")
-    assert args[12:] == (int(plan.vec), 7)
+    assert args[12:15] == (0, 0.0, 0)       # no window, softcap or q offset
+    assert args[15:] == (int(plan.vec), 7)
     assert counter.launches == before + 1
     err[0] = 98
     with pytest.raises(RuntimeError, match="launch failed: CUDA error 98"):

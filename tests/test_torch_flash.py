@@ -205,10 +205,24 @@ def test_cuda_backend_runs_the_kernel_wrapper_on_bf16(causal):
 @pytest.mark.parametrize("kw", [dict(window=16), dict(softcap_val=30.0),
                                 dict(q_offset=8)])
 def test_cuda_backend_refuses_what_the_kernel_lacks(kw):
+    """The kernels now take the window, the softcap and the q offset: on
+    "cuda" each reaches the wrapper, whose CPU branch is the plain version
+    with the same arguments (no launch counted), within 1e-5 of the
+    chunked torch path."""
     q, k, v = _t(*_qkv(1, 32, 2, 1, 8))
-    with TE.using_backend("cuda"), \
-            pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        TF.flash_attention(q, k, v, causal=True, **kw)
+    counters = (FA.flash_attention, FA.flash_attention_bf16,
+                FA.flash_attention_local, FA.flash_attention_bf16_local)
+    before = [c.launches for c in counters]
+    with TE.using_backend("cuda"):
+        got = TF.flash_attention(q, k, v, causal=True, **kw)
+    assert [c.launches for c in counters] == before
+    plain_kw = {("softcap" if key == "softcap_val" else key): val
+                for key, val in kw.items()}
+    assert torch.equal(got, FA.flash_attention_plain(q, k, v, causal=True,
+                                                     **plain_kw))
+    with TE.using_backend("torch"):
+        want = TF.flash_attention(q, k, v, causal=True, **kw)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +325,8 @@ def test_source_is_registered_and_built_without_fast_math():
 def test_wrapper_dispatches_by_dtype(monkeypatch, dtype, entry):
     """The CUDA branch of the wrapper (run here on CPU tensors with the
     library and the stream faked) calls the entry of q's dtype with the C
-    signature's arguments (the copy flag from that entry's plan) and counts
+    signature's arguments (no window, softcap or q offset; the copy flag
+    from that entry's plan) and counts
     that entry's launch alone: a non-causal launch (a cross layer's) once
     more on that entry's non-causal counter, a causal one not."""
     calls = []
@@ -340,8 +355,9 @@ def test_wrapper_dispatches_by_dtype(monkeypatch, dtype, entry):
     assert len(args) == len(want)
     assert args[4:10] == (2, 33, 33, 6, 2, 40)
     assert args[10] == pytest.approx(1 / math.sqrt(40)) and args[11] == 0
+    assert args[12:15] == (0, 0.0, 0)       # no window, softcap or q offset
     plan = FA.bf16_launch if dtype == torch.bfloat16 else FA.f32_launch
-    assert args[12] == int(plan(2, 33, 6, 40, *args[:3]).vec)
+    assert args[15] == int(plan(2, 33, 6, 40, *args[:3]).vec)
     bumped = (1, 0) if dtype == torch.float32 else (0, 1)
     after = tuple(c.launches for c in counters)
     assert tuple(a - b for a, b in zip(after, before)) == bumped * 2

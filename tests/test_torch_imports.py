@@ -43,6 +43,7 @@ def test_port_imports_without_triton_nvcc_or_jax():
         "import repro_torch.serve.engine, repro_torch.serve.scheduler\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.configs.llama32_vision_11b\n"
+        "import repro_torch.configs.gemma2_27b\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro')], 'jax or repro was imported'\n"
         "print('ok')\n")

@@ -87,7 +87,7 @@ def test_init_params_draws_from_its_seed(cfgs):
         assert x.dtype == torch.float32 and torch.equal(x, y)
     assert not torch.equal(a["embed"], c["embed"])
     with pytest.raises(NotImplementedError, match="item 10"):
-        get_config("gemma2_27b")
+        get_config("qwen3_32b")
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -170,17 +170,21 @@ def test_row_align_makes_decode_rows_independent_of_the_batch(cfgs, params):
 
 
 def test_unported_parts_raise_naming_the_roadmap(cfgs, params):
-    """Local attention still raises; a 1025-token prefill, which raised
-    before the chunked attention was ported, now runs."""
+    """MLA still raises; a 1025-token prefill, which raised before the
+    chunked attention was ported, now runs, and so do local layers, which
+    raised before the window was ported."""
     import dataclasses
+    from repro_torch.configs.base import MLAConfig
     cfg, _ = cfgs
     tp, _ = params
     long = torch.zeros((1, 1025), dtype=torch.int32)
     logits, _ = T.prefill(cfg, tp, {"tokens": long}, 2048)
     assert tuple(logits.shape) == (1, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.model_defs(dataclasses.replace(cfg, pattern=("local",)))
+    local = T.model_defs(dataclasses.replace(cfg, pattern=("local",)))
+    assert set(local["groups"]["0"]["attn"]) == {"wq", "wk", "wv", "wo"}
+    with pytest.raises(NotImplementedError, match="item 10"):
+        T.model_defs(dataclasses.replace(cfg, mla=MLAConfig()))
 
 
 @pytest.mark.parametrize("bad", [0, -8, "8", 2.0])

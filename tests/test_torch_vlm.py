@@ -197,9 +197,12 @@ def test_init_params_gate_zero_norms_one_bf16(cfgs):
 
 
 def test_refusals_name_their_roadmap_items(cfgs, params):
+    from repro_torch.configs.base import MLAConfig
     cfg = cfgs[0]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TA.check_supported(cfg, LOCAL_ATTN)
+    TA.check_supported(cfg, LOCAL_ATTN)          # ported: no refusal
+    with pytest.raises(NotImplementedError, match="item 10"):
+        TA.check_supported(dataclasses.replace(cfg, mla=MLAConfig()),
+                           LOCAL_ATTN)
     for bad in (dict(d_frontend=32), dict(is_encoder=True)):
         with pytest.raises(NotImplementedError, match="item 10"):
             T.check_supported(dataclasses.replace(cfg, **bad))
@@ -209,9 +212,12 @@ def test_refusals_name_their_roadmap_items(cfgs, params):
         T.check_supported(dataclasses.replace(cfg, family="dense"))
     q = torch.zeros(1, 4, 4, 16)
     with TE.using_config(TE.EngineConfig(backend="cuda")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TF.flash_attention(q, q[:, :, :2], q[:, :, :2], causal=False,
-                               softcap_val=50.0)
+        got = TF.flash_attention(q, q[:, :, :2], q[:, :, :2], causal=False,
+                                 softcap_val=50.0)
+        assert torch.equal(got, torch.zeros_like(q))  # the softcap is ported
+        with pytest.raises(NotImplementedError, match="item 10"):
+            TA.check_supported(dataclasses.replace(cfg, mla=MLAConfig()),
+                               CROSS_ATTN)
     toks, _ = _inputs(cfg, 1, 5)
     with pytest.raises(ValueError, match="image_embeds"):
         T.prefill(cfg, params[0], {"tokens": torch.from_numpy(toks)}, 16)
