@@ -125,7 +125,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      without a window), GQA 8/1, a window without causal masking, and
      gemma2-27b's shape q (1, 4500, 32, 128) against k, v (1, 4500, 16,
      128), causal, softcap 50: window 4,096, none, and 512 (the band skip
-     bites); each within 1e-4 (fp32) or 8e-3 (bf16, two calls bitwise
+     bites), qwen3-32b's GQA group of 8, q (1, 1100, 64, 128) against k, v
+     (1, 1100, 8, 128), causal, and gemma3-27b's local layer, q (1, 2500,
+     32, 128) against k, v (1, 2500, 16, 128), window 1,024; each within
+     1e-4 (fp32) or 8e-3 (bf16, two calls bitwise
      equal) of the plain version, counted on the `_local` counters exactly
      when 0 < window < Skv, and requests 0, 3 and 7 of a batch of 8
      bitwise the request alone. The bf16
@@ -414,6 +417,34 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      pairs' operations), the plain version and eager `flex_attention`
      (softcap `score_mod`, window block mask), and the tied
      unembedding's transpose copy.
+ 16. The reference's last two dense configs at full width, each served as
+     phase 15 serves gemma2 (`lm_phase`, the body both phases share):
+     gemma3-27b (62 layers: ten groups of five local layers, window 1,024
+     at rope theta 1e4, and a global one at 1e6, then two local remainder
+     layers; d_model 5,376, 32/16 heads of 128, qk-norm, d_ff 21,504,
+     vocabulary 262,144 tied) at DENSE_GEMMA_LAYERS = 8 (one group and the
+     remainder: 4,712,480,000 bf16 parameters), max_len 2,560, prompts of
+     2,500, 1,100, 300 and 40 tokens (the rings wrap in both long
+     prefills); then qwen3-32b (64 global layers, d_model 5,120, 64/8
+     heads of 128, qk-norm, d_ff 25,600, vocabulary 151,936, untied
+     lm_head) at DENSE_QWEN_LAYERS = 4 (3,506,223,104 bf16 parameters),
+     max_len 1,152, prompts of 1,100, 300 and 40. Each from seed 0 on the
+     card (peak allocation checked), the full depth on `meta` first
+     (27,009,002,240 and 32,762,123,264 parameters, 435 and 449 GEMMs a
+     pass). Checks as phase 15's: tokens bitwise across continuous, drain
+     and solo and equal to `greedy_generate`; exactly n_layers x 7 + 1
+     `gfid_matmul_bf16` a decode step and a prefill, n_layers
+     `flash_attention_bf16` a prefill past 1,024 (gemma3's 7 local layers
+     counted apart at 2,500 and 1,100), 2 `paged_gather` a decode step
+     (every local ring, the remainder's too, a slot row; every global
+     cache paged), nothing else; the witness at each prompt past 1,024.
+     Then the bf16 flash launch alone at qwen3's (1, 1100, 64/8, 128)
+     causal and gemma3's (1, 2500, 32/16, 128) window 1,024, beside the
+     bound, the plain version, bf16 SDPA (`enable_gqa`; the band as a
+     boolean mask) and eager `flex_attention`; and `gfid_matmul_bf16` at
+     both models' GEMM shapes at M = 8 and at their prefills' padded rows
+     (8 x 1,100 and 8 x 2,500), each held against the plain version and
+     timed beside bf16 `torch.mm` and the bound.
      Last, each phase's seconds.
 
 The last lines are the card's name and power limit, a JSON object listing
@@ -557,6 +588,16 @@ LOCAL_LAYERS = 4
 LOCAL_MAX_LEN, LOCAL_BLOCK, LOCAL_BATCH = 4608, 16, 4
 LOCAL_PROMPTS, LOCAL_GEN = (4500, 1100, 300, 40), 16
 LOCAL_BAND_WINDOW = 512
+# Phase 16: the reference's last two dense configs at full width, served as
+# phase 15 serves gemma2 (blocks of LOCAL_BLOCK, max_batch LOCAL_BATCH,
+# LOCAL_GEN steps a request): gemma3-27b at DENSE_GEMMA_LAYERS of its 62
+# layers (one group of five local layers and a global one, then the two
+# local remainder layers; the 1,024-slot rings wrap in both long
+# prefills) and qwen3-32b at DENSE_QWEN_LAYERS of its 64 (GQA groups of 8)
+DENSE_GEMMA, DENSE_GEMMA_LAYERS = "gemma3_27b", 8
+DENSE_GEMMA_MAX_LEN, DENSE_GEMMA_PROMPTS = 2560, (2500, 1100, 300, 40)
+DENSE_QWEN, DENSE_QWEN_LAYERS = "qwen3_32b", 4
+DENSE_QWEN_MAX_LEN, DENSE_QWEN_PROMPTS = 1152, (1100, 300, 40)
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
 # tensor cores, bf16 and int8 in them, and device-memory bandwidth. A bound
@@ -2068,11 +2109,16 @@ def flash_local_cases(dev):
     and without a window), GQA, a window without causal masking, and
     gemma2-27b's own layers, q (1, 4500, 32, 128) against k, v (1, 4500,
     16, 128), causal, softcap 50: the local layer (window 4,096), the
-    global one, and LOCAL_BAND_WINDOW, where the band skip bites."""
+    global one, and LOCAL_BAND_WINDOW, where the band skip bites; then
+    phase 16's shapes: qwen3-32b's GQA group of 8, q (1, 1100, 64, 128)
+    against k, v (1, 1100, 8, 128), causal, and gemma3-27b's local layer,
+    q (1, 2500, 32, 128) against k, v (1, 2500, 16, 128), window 1,024."""
     from repro_torch.configs.base import get_config
     cfg = get_config(LOCAL_MODEL)
     h, kv, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_softcap
     s = LOCAL_PROMPTS[0]
+    q3, g3 = get_config(DENSE_QWEN), get_config(DENSE_GEMMA)
+    sq3, sg3 = DENSE_QWEN_PROMPTS[0], DENSE_GEMMA_PROMPTS[0]
     return [
         ("window 20 < tile (1, 300, 4/2, 64)", (1, 300, 300, 4, 2, 64), True,
          dict(window=20)),
@@ -2096,22 +2142,30 @@ def flash_local_cases(dev):
          (1, s, s, h, kv, d), True, dict(softcap=cap)),
         (f"gemma2 band (1, {s}, {h}/{kv}, {d}) window {LOCAL_BAND_WINDOW} "
          f"softcap {cap:g}", (1, s, s, h, kv, d), True,
-         dict(window=LOCAL_BAND_WINDOW, softcap=cap))]
+         dict(window=LOCAL_BAND_WINDOW, softcap=cap)),
+        (f"qwen3 GQA {q3.n_heads}/{q3.n_kv_heads} (1, {sq3}, {q3.n_heads}/"
+         f"{q3.n_kv_heads}, {q3.head_dim})",
+         (1, sq3, sq3, q3.n_heads, q3.n_kv_heads, q3.head_dim), True, {}),
+        (f"gemma3 local (1, {sg3}, {g3.n_heads}/{g3.n_kv_heads}, {g3.head_dim}) "
+         f"window {g3.window_size}",
+         (1, sg3, sg3, g3.n_heads, g3.n_kv_heads, g3.head_dim), True,
+         dict(window=g3.window_size))]
 
 
-def local_flash_check(dev, flash, worst):
+def local_flash_check(dev, flash, worst, cases=None):
     """Phase 3's window, softcap and q offset cases (`flash_local_cases`) on
     both kernels against their plain versions (fp32 within TOL, bf16
     within BF16_FLASH_TOL and two calls bitwise equal), each launch counted
     on its dtype's counter and, where 0 < window < Skv, once more on its
     `_local` counter; then each case's row invariance: requests 0, 3 and 7
-    of a batch of 8 bitwise the request alone. Returns the checks run."""
+    of a batch of 8 bitwise the request alone. `cases`: a subset of
+    `flash_local_cases` (default all). Returns the checks run."""
     fa32, fa16 = flash.flash_attention, flash.flash_attention_bf16
     l32, l16 = flash.flash_attention_local, flash.flash_attention_bf16_local
     dgen = torch.Generator(device=dev).manual_seed(41)
     checks = 0
     t0 = time.perf_counter()
-    for label, (b, sq, skv, h, kv, d), causal, kw in flash_local_cases(dev):
+    for label, (b, sq, skv, h, kv, d), causal, kw in cases or flash_local_cases(dev):
         for dtype in (torch.float32, torch.bfloat16):
             is16 = dtype == torch.bfloat16
             kname = "flash_attention_bf16" if is16 else "flash_attention"
@@ -3825,29 +3879,25 @@ def greedy_logits(T, cfg, params, batch, steps, max_len):
     return out
 
 
-def vlm_gemm_timing(dev, gfid_matmul, cfg):
-    """Phase 13's GEMM rows: `gfid_matmul_bf16` at llama's shapes as the
-    path runs them (bf16 in; bf16 stored, the lm_head fp32), a decode
-    step's at M = VLM_BATCH and a prefill's at M = VLM_BATCH x VLM_PROMPT
-    (the image K/V at VLM_BATCH x 1,601), with the host and for the device
-    alone, beside the plain version, bf16 `torch.mm` (timed only here) and
-    the bound. Returns {"decode"|"prefill": {label: row}}."""
+def gemm_timing(dev, gfid_matmul, name, rows, worst):
+    """`gfid_matmul_bf16` at a model's GEMM shapes as the path runs them
+    (bf16 in; bf16 stored, the unembedding fp32), `rows` = {kind: [(label,
+    m, k, n)]}: each held against the plain version (`kernel_check`), then
+    timed with the host and for the device alone (a CUDA graph of 100
+    calls, or of one where a call does over 1e11 operations), beside the
+    plain version, bf16 `torch.mm` (timed only here) and the bound.
+    Returns {kind: {label: row}}."""
     dgen = torch.Generator(device=dev).manual_seed(35)
 
     def t(*shape):
         return torch.randn(shape, generator=dgen, device=dev).to(torch.bfloat16)
 
-    shapes = dict((lbl, (k, n)) for lbl, k, n in vlm_gemm_shapes(cfg))
-    rows = {"decode": [(lbl, VLM_BATCH) for lbl in shapes],
-            "prefill": [(lbl, VLM_BATCH * VLM_PROMPT) for lbl in list(shapes)[:4]]
-            + [("image K/V", VLM_BATCH * cfg.n_img_tokens)]}
     out = {}
     for kind, cases in rows.items():
         out[kind] = {}
-        for lbl, m in cases:
-            k, n = shapes["wk/wv" if lbl == "image K/V" else lbl]
+        for lbl, m, k, n in cases:
             x, w = t(m, k), t(k, n)
-            store = torch.float32 if lbl == "lm_head" else torch.bfloat16
+            store = torch.float32 if lbl in ("lm_head", "unembed") else torch.bfloat16
 
             def kernel():
                 return gfid_matmul.gfid_matmul(x, w, out_dtype=store)
@@ -3855,22 +3905,44 @@ def vlm_gemm_timing(dev, gfid_matmul, cfg):
             def lib():
                 return torch.mm(x, w)
 
+            ok, abs_err, reading, limit = kernel_check(
+                kernel(), gfid_matmul.gfid_matmul_plain(x, w, out_dtype=store))
+            require(ok, f"gfid_matmul_bf16 {name} {kind} {lbl} ({m}, {k}) @ ({k}, "
+                    f"{n}): {reading:.3e} > {limit}")
+            worst["gfid_matmul_bf16"] = max(worst["gfid_matmul_bf16"], abs_err)
+            ops = 2 * m * k * n
+            calls, reps = (100, dict(iters=20)) if ops <= 1e11 else \
+                (1, dict(iters=3, warmup=1))
             n_bytes = 2 * (m * k + k * n) + m * n * (4 if store == torch.float32 else 2)
-            b_ms, by = bound_ms(n_bytes, 2 * m * k * n, PEAK_BF16_FLOP_S)
-            row = dict(ms=time_ms(kernel), device_ms=graph_ms(kernel),
+            b_ms, by = bound_ms(n_bytes, ops, PEAK_BF16_FLOP_S)
+            row = dict(ms=time_ms(kernel, **reps), device_ms=graph_ms(kernel, calls),
                        plain_ms=time_ms(lambda: gfid_matmul.gfid_matmul_plain(
-                           x, w, out_dtype=store), iters=5),
-                       library_ms=time_ms(lib), library_device_ms=graph_ms(lib),
-                       bound_ms=b_ms, bound_by=by, n_bytes=n_bytes, ops=2 * m * k * n)
+                           x, w, out_dtype=store), iters=3, warmup=1),
+                       library_ms=time_ms(lib, **reps),
+                       library_device_ms=graph_ms(lib, calls),
+                       bound_ms=b_ms, bound_by=by, n_bytes=n_bytes, ops=ops,
+                       max_abs_err=abs_err)
             out[kind][lbl] = row
-            print(f"[time] gfid_matmul_bf16 llama {kind} {lbl} ({m}, {k}) @ ({k}, {n}) -> "
-                  f"{str(store)[6:]}: kernel {row['ms']:.4f} ms, alone "
+            print(f"[time] gfid_matmul_bf16 {name} {kind} {lbl} ({m}, {k}) @ ({k}, "
+                  f"{n}) -> {str(store)[6:]}: kernel {row['ms']:.4f} ms, alone "
                   f"{row['device_ms']:.4f}; plain {row['plain_ms']:.4f}; bf16 torch.mm "
                   f"{row['library_ms']:.4f}, alone {row['library_device_ms']:.4f}; "
                   f"bound {b_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB, "
-                  f"{2 * m * k * n / 1e9:.2f} GFLOP)")
+                  f"{ops / 1e9:.2f} GFLOP); vs plain {reading:.3e} (limit {limit:g})")
             del x, w
     return out
+
+
+def vlm_gemm_timing(dev, gfid_matmul, cfg, worst):
+    """Phase 13's GEMM rows (`gemm_timing`): llama's shapes at a decode
+    step's M = VLM_BATCH and a prefill's layer GEMMs at M = VLM_BATCH x
+    VLM_PROMPT, the image K/V at VLM_BATCH x 1,601."""
+    shapes = {lbl: (k, n) for lbl, k, n in vlm_gemm_shapes(cfg)}
+    return gemm_timing(dev, gfid_matmul, "llama", {
+        "decode": [(lbl, VLM_BATCH, k, n) for lbl, (k, n) in shapes.items()],
+        "prefill": [(lbl, VLM_BATCH * VLM_PROMPT, k, n)
+                    for lbl, (k, n) in list(shapes.items())[:4]]
+        + [("image K/V", VLM_BATCH * cfg.n_img_tokens, *shapes["wk/wv"])]}, worst)
 
 
 def vlm_flash_timing(dev, flash, cfg, worst):
@@ -4209,7 +4281,7 @@ def vlm_phase(dev, E, gfid_matmul, flash, other_kernels, worst, host_weights=Fal
                                      for nm, c, ms in pprof[2][:8]))
     del pre, dec, state, logits_c, step_c
     torch.cuda.empty_cache()
-    gemm = vlm_gemm_timing(dev, gfid_matmul, cfg)
+    gemm = vlm_gemm_timing(dev, gfid_matmul, cfg, worst)
     # each pass's GEMMs beside their bound, the timed shapes' bounds summed
     # over the pass's launches
     passes = {}
@@ -4419,12 +4491,15 @@ def local_flash_timing(dev, flash, cfg, worst):
     return out
 
 
-def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
-    """Phase 15: gemma2-27b at full width and LOCAL_LAYERS deep, bf16
-    parameters from seed 0 drawn on the card, served by the
-    ContinuousScheduler (see the module docstring). `other_kernels` must
-    launch nothing. Returns the numbers the kernels line and the summary
-    print."""
+def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
+             prompts, max_len, n_full, tag, phase):
+    """The body of phases 15 and 16: `model` at full width and `layers`
+    deep, bf16 parameters from seed 0 drawn on the card, served by the
+    ContinuousScheduler at `max_len` (blocks of LOCAL_BLOCK, max_batch
+    LOCAL_BATCH) to requests of `prompts` tokens, LOCAL_GEN steps each (see
+    the module docstring). The full depth on `meta` first: `n_full`
+    parameters, n_layers x 7 + 1 GEMMs a pass. `other_kernels` must launch
+    nothing. Returns the numbers the kernels line and the summary print."""
     from repro_torch.configs.base import LOCAL_ATTN, get_config
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import count_params, tree_map
@@ -4433,8 +4508,8 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
                                              latency_percentiles)
 
     t_phase = time.perf_counter()
-    full = get_config(LOCAL_MODEL)
-    cfg = dataclasses.replace(full, n_layers=LOCAL_LAYERS)
+    full = get_config(model)
+    cfg = dataclasses.replace(full, n_layers=layers)
     cuda = dev.type == "cuda"
     mm16, fa16, gather = (gfid_matmul.gfid_matmul_bf16, flash.flash_attention_bf16,
                           paged.paged_gather)
@@ -4442,6 +4517,7 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
     counted = (mm16, fa16, loc16, gather) + tuple(other_kernels)
     per_pass = cfg.n_layers * 7 + 1        # GEMMs of a decode step or a prefill
     n_local = cfg.layer_kinds.count(LOCAL_ATTN)
+    n_req, long = len(prompts), [n for n in prompts if n > 1024]
     conf = E.EngineConfig(backend="cuda", row_align=8)
 
     def flash_of(prompt):
@@ -4451,20 +4527,19 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
             return 0, 0
         return cfg.n_layers, n_local * (cfg.window_size < prompt)
 
-    # the full model on `meta`: parameters and the 46-layer programs
-    n_full = count_params(T.model_defs(full))
-    dec46 = SE.decode_program(full, 8, LOCAL_MAX_LEN)
-    pre46 = SE.prefill_program(full, 1, LOCAL_PROMPTS[0], max_len=LOCAL_MAX_LEN)
-    for prog in (dec46, pre46):
+    # the full model on `meta`: parameters and the full-depth programs
+    n_meta = count_params(T.model_defs(full))
+    for prog in (SE.decode_program(full, 8, max_len),
+                 SE.prefill_program(full, 1, max(prompts), max_len=max_len)):
         kinds = [op.kind for op in prog.ops]
-        require(kinds == ["dense"] * (full.n_layers * 7 + 1), f"[local] {prog.name}: "
+        require(kinds == ["dense"] * (full.n_layers * 7 + 1), f"{tag} {prog.name}: "
                 f"{len(kinds)} ops ({set(kinds)}), expected {full.n_layers * 7 + 1} "
                 "GEMMs")
-    require(n_full == 27_227_128_320, f"[local] {full.name}: {n_full} parameters")
-    print(f"[local] {full.name} at full depth on meta: {n_full} parameters (the "
-          f"reference's count), {len(dec46.ops)} GEMMs a decode step and "
-          f"{len(pre46.ops)} a {LOCAL_PROMPTS[0]}-token prefill")
-    del dec46, pre46
+    require(n_meta == n_full, f"{tag} {full.name}: {n_meta} parameters, expected "
+            f"{n_full}")
+    print(f"{tag} {full.name} at full depth on meta: {n_meta} parameters (the "
+          f"reference's count), {full.n_layers * 7 + 1} GEMMs a decode step and a "
+          f"{max(prompts)}-token prefill")
 
     if cuda:
         torch.cuda.empty_cache()
@@ -4479,31 +4554,38 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
     n_params = sum(p.numel() for p in leaves)
     w_bytes = sum(p.numel() * p.element_size() for p in leaves)
     largest32 = 4 * max(p.numel() for p in leaves)
-    require(n_params == count_params(T.model_defs(cfg)), "[local] parameters")
+    require(n_params == count_params(T.model_defs(cfg)), f"{tag} parameters")
     if cuda:
         peak = torch.cuda.max_memory_allocated(dev) - mem0
-        require(peak <= w_bytes + largest32 + 64 * 2**20, f"[local] initialising "
+        require(peak <= w_bytes + largest32 + 64 * 2**20, f"{tag} initialising "
                 f"the parameters held {peak / 1e9:.3f} GB on the card, more than "
                 f"the {w_bytes / 1e9:.3f} GB of bf16 weights and one fp32 leaf")
-        print(f"[local] parameters made with a peak of {peak / 1e9:.3f} GB allocated "
+        print(f"{tag} parameters made with a peak of {peak / 1e9:.3f} GB allocated "
               f"on the card: the bf16 weights {w_bytes / 1e9:.3f} GB + at most the "
               f"largest leaf in fp32 ({largest32 / 1e9:.3f} GB)")
-    print(f"[local] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
-          f"({' '.join(cfg.layer_kinds)}; {cfg.n_groups} groups), d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (tied), window "
-          f"{cfg.window_size}, softcaps {cfg.attn_softcap:g} / {cfg.logit_softcap:g}; "
-          f"{n_params} bf16 parameters ({w_bytes / 1e9:.3f} GB) from seed 0 drawn on "
-          f"the card in {init_s:.2f} s")
+    attn = ", ".join(filter(None, (
+        cfg.window_size and f"window {cfg.window_size}",
+        cfg.attn_softcap and f"softcaps {cfg.attn_softcap:g} / {cfg.logit_softcap:g}",
+        cfg.qk_norm and "qk-norm",
+        f"rope theta {cfg.rope_theta:g}" + (f" (local {cfg.rope_theta_local:g})"
+                                            if cfg.rope_theta_local else ""))))
+    print(f"{tag} {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+          f"({' '.join(cfg.layer_kinds)}; {cfg.n_groups} groups + "
+          f"{len(T.param_shapes(cfg)['rem'])} remainder), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"({'tied' if cfg.tie_embeddings else 'untied'}), {attn}; {n_params} bf16 "
+          f"parameters ({w_bytes / 1e9:.3f} GB) from seed 0 drawn on the card in "
+          f"{init_s:.2f} s")
 
     gen = torch.Generator().manual_seed(15)
     work = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(), LOCAL_GEN)
-            for n in LOCAL_PROMPTS]
-    blocks = LOCAL_BATCH * LOCAL_MAX_LEN // LOCAL_BLOCK + 1
+            for n in prompts]
+    blocks = LOCAL_BATCH * max_len // LOCAL_BLOCK + 1
 
     def scheduler(max_batch, admission):
         return ContinuousScheduler(
-            cfg, params, max_len=LOCAL_MAX_LEN, num_blocks=blocks,
+            cfg, params, max_len=max_len, num_blocks=blocks,
             block_size=LOCAL_BLOCK, max_batch=max_batch, config=conf,
             admission=admission, max_slots=2 * LOCAL_BATCH + 1)
 
@@ -4514,19 +4596,27 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
         s = scheduler(max_batch, admission)
         s._prefill, s._decode = programs
         t0 = time.perf_counter()
-        compiled = [s.prefill_compiled(n) for n in sorted(set(LOCAL_PROMPTS))] \
+        compiled = [s.prefill_compiled(n) for n in sorted(set(prompts))] \
             + [s.decode_compiled(b) for b in s.buckets]
         compile_s = time.perf_counter() - t0
+        specs = s.layout.specs
+        n_gather = sum(sp.paged for sp in _leaves(specs))
         for c in compiled:
             kinds = [op.kind for op in c.program.ops]
-            want_ops = per_pass + 2 * ("decode" in c.program.name)
+            want_ops = per_pass + n_gather * ("decode" in c.program.name)
             require(set(c.backends()) == {"cuda"} and len(kinds) == want_ops
                     and kinds.count("gather") == want_ops - per_pass,
-                    f"[local] {mode} {c.program.name}: {len(kinds)} ops, expected "
+                    f"{tag} {mode} {c.program.name}: {len(kinds)} ops, expected "
                     f"{want_ops}")
-        ring = s.layout.specs["groups"]["0"]["k"]
-        require(not ring.paged and s.layout.specs["groups"]["1"]["k"].paged,
-                "[local] the local ring must be a slot store, the global cache paged")
+        # a local layer's ring is a slot row where it does not grow with
+        # max_len; every other cache is paged
+        for part, kind_of in (("groups", lambda j: cfg.pattern[int(j)]),
+                              ("rem", lambda j: cfg.remainder[int(j)])):
+            for j, leaf in specs[part].items():
+                ring = kind_of(j) == LOCAL_ATTN and cfg.window_size < 2 * max_len
+                require(all(sp.paged is not ring for sp in _leaves(leaf)),
+                        f"{tag} {part} {j}: the cache must be "
+                        + ("a slot store" if ring else "paged"))
         tickets = [s.submit(p, n) for p, n in work]
         zero_counts(*counted)
         if cuda:
@@ -4539,11 +4629,12 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
         st = s.stats()
         launches = counts(*counted)
         require(all(t.status == "done" and t.preemptions == 0 for t in tickets),
-                f"[local] {mode}: not every request done without preemption")
+                f"{tag} {mode}: not every request done without preemption")
         fl = [flash_of(len(p)) for p, _ in work]
         want = (per_pass * (st["steps"] + st["admitted"]), sum(f for f, _ in fl),
-                sum(lf for _, lf in fl), 2 * st["steps"]) + (0,) * len(other_kernels)
-        require(launches == want, f"[local] {mode}: launches (gfid_matmul_bf16, "
+                sum(lf for _, lf in fl), n_gather * st["steps"]) \
+            + (0,) * len(other_kernels)
+        require(launches == want, f"{tag} {mode}: launches (gfid_matmul_bf16, "
                 f"flash_attention_bf16, its local count, paged_gather, others) = "
                 f"{launches}, expected {want} for {st['steps']} decode steps and "
                 f"{st['admitted']} prefills")
@@ -4551,43 +4642,43 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
         lat = latency_percentiles(tickets)
         runs[mode] = dict(tokens=[t.tokens for t in tickets], wall=wall, n_tok=n_tok,
                           lat=lat, stats=st, launches=launches)
-        print(f"[local] {mode}: {st['steps']} decode steps (buckets "
+        print(f"{tag} {mode}: {st['steps']} decode steps (buckets "
               f"{st['compiled_decode_buckets']}), {st['admitted']} prefills, {n_tok} "
               f"tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; latency p50 "
               f"{lat['p50_ms']:.1f} ms, p95 {lat['p95_ms']:.1f} ms; launches "
               f"gfid_matmul_bf16 {launches[0]} (= {per_pass} a step and a prefill), "
               f"flash_attention_bf16 {launches[1]} ({launches[2]} local: window "
-              f"{cfg.window_size} < Skv), paged_gather {launches[3]} (2 a step: the "
-              f"global k and v; the rings are slot rows), others {sum(launches[4:])}; "
-              f"{len(compiled)} programs ready in {compile_s:.2f} s beforehand")
+              f"{cfg.window_size} < Skv), paged_gather {launches[3]} ({n_gather} a "
+              f"step: the paged k and v; rings are slot rows), others "
+              f"{sum(launches[4:])}; {len(compiled)} programs ready in "
+              f"{compile_s:.2f} s beforehand")
     base = runs["continuous"]["tokens"]
     for mode in ("drain", "solo"):
-        require(runs[mode]["tokens"] == base, f"[local] {mode} tokens differ from the "
+        require(runs[mode]["tokens"] == base, f"{tag} {mode} tokens differ from the "
                 "continuous run")
     with E.using_config(conf):
         for i, (prompt, steps) in enumerate(work):
             dense = SE.greedy_generate(cfg, params, {"tokens": torch.tensor(
-                [prompt], device=dev)}, steps, LOCAL_MAX_LEN)
-            require(dense[0].tolist() == base[i], f"[local] request {i} (prompt "
+                [prompt], device=dev)}, steps, max_len)
+            require(dense[0].tolist() == base[i], f"{tag} request {i} (prompt "
                     f"{len(prompt)}): paged tokens differ from greedy_generate's")
-    print(f"[local] tokens bitwise equal across continuous, drain and solo, and "
-          f"equal to greedy_generate for all {len(work)} requests (prompts "
-          f"{LOCAL_PROMPTS})")
+    print(f"{tag} tokens bitwise equal across continuous, drain and solo, and "
+          f"equal to greedy_generate for all {n_req} requests (prompts {prompts})")
 
-    # one decode step with the four requests live at the 8-row bucket, and
-    # the two flash prefills through their compiled ingest programs
+    # one decode step with every request live at the 8-row bucket, and the
+    # flash prefills through their compiled ingest programs
     s8 = scheduler(LOCAL_BATCH, "continuous")
     s8._prefill, s8._decode = programs
-    rows = [s8.submit(p, LOCAL_MAX_LEN - len(p)) for p, _ in work]
-    s8.step()                               # admits 4, runs one decode step
-    require(s8.running() == LOCAL_BATCH, f"[local] {s8.running()} rows running")
+    rows = [s8.submit(p, max_len - len(p)) for p, _ in work]
+    s8.step()                               # admits them, runs one decode step
+    require(s8.running() == n_req, f"{tag} {s8.running()} rows running")
     dec = s8.decode_compiled(8)
     rids = [t.rid for t in rows]
     args = (params, s8.pool.arrays, s8.pool.table_rows(rids, 8),
             s8.pool.slot_rows(rids, 8),
-            torch.tensor([[t.tokens[-1]] for t in rows] + [[0]] * (8 - LOCAL_BATCH),
+            torch.tensor([[t.tokens[-1]] for t in rows] + [[0]] * (8 - n_req),
                          dtype=torch.int32, device=dev),
-            torch.tensor([t.pos for t in rows] + [0] * (8 - LOCAL_BATCH),
+            torch.tensor([t.pos for t in rows] + [0] * (8 - n_req),
                          dtype=torch.int32, device=dev))
     snap = [a.clone() for a in _leaves(s8.pool.arrays)]
     zero_counts(*counted)
@@ -4595,14 +4686,17 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
     if cuda:
         torch.cuda.synchronize()
     step_launches = counts(*counted)
-    require(step_launches == (per_pass, 0, 0, 2) + (0,) * len(other_kernels),
-            f"[local] one decode step launched {step_launches}")
+    require(step_launches == (per_pass, 0, 0, n_gather) + (0,) * len(other_kernels),
+            f"{tag} one decode step launched {step_launches}")
     step_ms = time_ms(lambda: dec.apply(*args), iters=10)
     prof = device_profile(lambda: dec.apply(*args))
     busy = None if prof is None else prof[0]
     prefill_ms, prefill_bound = {}, {}
-    embed_n = params["embed"].numel()
-    for i, n in enumerate(LOCAL_PROMPTS[:2]):
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    layer_n = n_params - params["embed"].numel() - (0 if cfg.tie_embeddings
+                                                    else table.numel())
+    for n in long:
+        i = prompts.index(n)
         pre = s8.prefill_compiled(n)
         row = s8.pool.table_rows([rows[i].rid], 1)[0]
         slot = s8.pool.slot_rows([rows[i].rid], 1)[0]
@@ -4613,7 +4707,7 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
             torch.cuda.synchronize()
         one = counts(*counted)
         want = (per_pass, *flash_of(n), 0) + (0,) * len(other_kernels)
-        require(one == want, f"[local] a {n}-token prefill launched {one}, expected "
+        require(one == want, f"{tag} a {n}-token prefill launched {one}, expected "
                 f"{want}")
         prefill_ms[n] = time_ms(lambda: pre.apply(params, s8.pool.arrays, row, slot,
                                                   prompt), iters=3, warmup=1)
@@ -4622,28 +4716,28 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
         # last row, and each attention's visible pairs
         pairs = sum(visible_pairs(n, n, True, cfg.window_size if kind == LOCAL_ATTN
                                   else 0) for kind in cfg.layer_kinds)
-        ops = 2 * n * (n_params - embed_n) + 2 * embed_n \
+        ops = 2 * n * layer_n + 2 * table.numel() \
             + 4 * cfg.n_heads * cfg.head_dim * pairs
         prefill_bound[n] = bound_ms(w_bytes, ops, PEAK_BF16_FLOP_S)[0]
-        print(f"[local] batch-1 prefill at prompt {n}: {prefill_ms[n]:.4f} ms (median "
+        print(f"{tag} batch-1 prefill at prompt {n}: {prefill_ms[n]:.4f} ms (median "
               f"of 3; its GEMMs padded to 8 rows by row_align), "
               f"{n / prefill_ms[n] * 1e3:.1f} prompt tokens/s, bound "
-              f"{prefill_bound[n]:.4f} ms ({ops / 1e12:.3f} TFLOP at the prompt's rows); "
-              f"launches {one[0]} gfid_matmul_bf16, {one[1]} flash_attention_bf16 "
-              f"({one[2]} local)")
+              f"{prefill_bound[n]:.4f} ms ({ops / 1e12:.3f} TFLOP at the prompt's "
+              f"rows); launches {one[0]} gfid_matmul_bf16, {one[1]} "
+              f"flash_attention_bf16 ({one[2]} local)")
     for a, b in zip(_leaves(s8.pool.arrays), snap):
         a.copy_(b)
     del snap
-    # a step reads every weight once (the tied table whole, by the
-    # unembedding) and each live row's visible keys and values once: a
-    # local layer's last min(pos + 1, window), a global layer's pos + 1
+    # a step reads every weight once (the unembedding's table whole) and
+    # each live row's visible keys and values once: a local layer's last
+    # min(pos + 1, window), a global layer's pos + 1
     kv_bytes = 2 * cfg.n_kv_heads * cfg.head_dim * 2
     cache = kv_bytes * sum(
         n_local * min(t.pos + 1, cfg.window_size)
         + (cfg.n_layers - n_local) * (t.pos + 1) for t in rows)
     step_bytes = w_bytes + cache
     step_bound, _ = bound_ms(step_bytes, 2 * 8 * n_params, PEAK_BF16_FLOP_S)
-    print(f"[local] decode step, {LOCAL_BATCH} live rows at bucket 8: {step_ms:.4f} ms "
+    print(f"{tag} decode step, {n_req} live rows at bucket 8: {step_ms:.4f} ms "
           f"wall (median of 10), "
           + ("device time not measured" if busy is None else
              f"{busy:.4f} ms of device time (torch.profiler, 3 steps) = "
@@ -4653,40 +4747,174 @@ def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
           f"{step_launches[0]} gfid_matmul_bf16 + {step_launches[3]} paged_gather, no "
           "flash")
     if prof is not None:
-        print(f"[profile] [local] decode step: {prof[1]} device kernels; by kernel: "
+        print(f"[profile] {tag} decode step: {prof[1]} device kernels; by kernel: "
               + "; ".join(f"{nm[:50]} x{c:g} {ms:.4f} ms" for nm, c, ms in prof[2][:8]))
-    embed = params["embed"]
-    copy_ms = time_ms(lambda: embed.T.contiguous(), iters=5)
-    print(f"[time] [local] tied unembedding: the (vocab, d_model) table's transpose "
-          f"copy before the GEMM (kernels/ops.py) {copy_ms:.4f} ms "
-          f"({embed.numel() * embed.element_size() / 1e9:.3f} GB read and written) of "
-          f"a {step_ms:.4f} ms decode step")
+    copy_ms = None
+    if cfg.tie_embeddings:
+        embed = params["embed"]
+        copy_ms = time_ms(lambda: embed.T.contiguous(), iters=5)
+        print(f"[time] {tag} tied unembedding: the (vocab, d_model) table's "
+              f"transpose copy before the GEMM (kernels/ops.py) {copy_ms:.4f} ms "
+              f"({embed.numel() * embed.element_size() / 1e9:.3f} GB read and "
+              f"written) of a {step_ms:.4f} ms decode step")
     del dec, s8, args
-    torch.cuda.empty_cache()
+    if cuda:
+        torch.cuda.empty_cache()
 
-    # "torch" against "cuda": the witness at the two flash prompts, from
-    # the bf16 weights and from the same weights widened to fp32
+    # "torch" against "cuda": the witness at the flash prompts, from the
+    # bf16 weights and from the same weights widened to fp32
     params32 = tree_map(lambda a: a.float(), params)
     wconf = E.EngineConfig(backend="cuda")
     witness = {}
-    for i, n in enumerate(LOCAL_PROMPTS[:2]):
-        batch = {"tokens": torch.tensor([work[i][0]], dtype=torch.int32, device=dev)}
+    for n in long:
+        batch = {"tokens": torch.tensor([work[prompts.index(n)][0]], dtype=torch.int32,
+                                        device=dev)}
         witness[n] = witness_check(E, T, cfg, wconf, params, params32, batch, batch,
-                                   LOCAL_MAX_LEN, "[local]", f"prompt {n}", limit=None)
-    del params32
-    torch.cuda.empty_cache()
-    timing = local_flash_timing(dev, flash, cfg, worst)
-    del params
-    torch.cuda.empty_cache()
+                                   max_len, tag, f"prompt {n}", limit=None)
+    del params32, params
+    if cuda:
+        torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
     cont = runs["continuous"]
-    print(f"[local] phase 15 took {phase_s:.1f} s (parameters {init_s:.1f} s)")
+    print(f"{tag} phase {phase} ({cfg.name}) took {phase_s:.1f} s (parameters "
+          f"{init_s:.1f} s)")
     return dict(launches=cont["launches"], step_launches=step_launches,
                 prefill_launches=per_pass, step_ms=step_ms, busy_ms=busy,
                 step_bound_ms=step_bound, prefill_ms=prefill_ms,
                 prefill_bound_ms=prefill_bound, copy_ms=copy_ms,
                 tps=cont["n_tok"] / cont["wall"], lat=cont["lat"], witness=witness,
-                timing=timing, init_s=init_s, n_params=n_params)
+                init_s=init_s, n_params=n_params, took=phase_s)
+
+
+def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
+    """Phase 15: gemma2-27b at full width and LOCAL_LAYERS deep (`lm_phase`),
+    then its flash launches timed alone (`local_flash_timing`)."""
+    from repro_torch.configs.base import get_config
+    out = lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels,
+                   model=LOCAL_MODEL, layers=LOCAL_LAYERS, prompts=LOCAL_PROMPTS,
+                   max_len=LOCAL_MAX_LEN, n_full=27_227_128_320, tag="[local]",
+                   phase=15)
+    out["timing"] = local_flash_timing(dev, flash, get_config(LOCAL_MODEL), worst)
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_flash_timing(dev, flash, worst):
+    """Phase 16's flash rows on bf16 operands, each launch alone: qwen3's
+    prefill, q (1, 1100, 64, 128) against k, v (1, 1100, 8, 128), causal,
+    and gemma3's local layer, q (1, 2500, 32, 128) against k, v (1, 2500,
+    16, 128), causal with a window of 1,024; beside the plain version, the
+    bound (the visible pairs' operations at 989 TFLOP/s) and two library
+    calls: bf16 SDPA with `enable_gqa` (the band as a boolean `attn_mask`
+    for the window) and eager `flex_attention` (the window as a block
+    mask). Returns {"qwen3"|"gemma3": row}."""
+    from repro_torch.configs.base import get_config
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    except ImportError:
+        flex_attention = None
+    dgen = torch.Generator(device=dev).manual_seed(44)
+    out = {}
+    for what, model, s in (("qwen3", DENSE_QWEN, DENSE_QWEN_PROMPTS[0]),
+                           ("gemma3", DENSE_GEMMA, DENSE_GEMMA_PROMPTS[0])):
+        cfg = get_config(model)
+        h, kv, d, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window_size
+        q, k, v = (torch.randn(shape, generator=dgen, device=dev).to(torch.bfloat16)
+                   for shape in ((1, s, h, d), (1, s, kv, d), (1, s, kv, d)))
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        kw = dict(causal=True, window=window)
+        got = flash.flash_attention(q, k, v, **kw)
+        want = flash.flash_attention_plain(q, k, v, **kw)
+        err = rel_err(got, want)
+        require(err <= BF16_FLASH_TOL, f"flash_attention_bf16 {what}: {err:.3e} > "
+                f"{BF16_FLASH_TOL}")
+        worst["flash_attention_bf16"] = max(
+            worst["flash_attention_bf16"], (got.float() - want.float()).abs().max().item())
+        i = torch.arange(s, device=dev)
+        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window) \
+            if window else None
+
+        def sdpa():
+            if band is None:
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                  enable_gqa=True)
+
+        def kernel():
+            return flash.flash_attention(q, k, v, **kw)
+
+        serr = rel_err(sdpa().transpose(1, 2), want)
+        b_ms, by = flash_bound(1, s, s, h, kv, d, True, 2, PEAK_BF16_FLOP_S,
+                               window=window)
+        row = dict(ms=time_ms(kernel), device_ms=graph_ms(kernel, calls=20),
+                   plain_ms=time_ms(lambda: flash.flash_attention_plain(q, k, v, **kw),
+                                    iters=3, warmup=1),
+                   library_ms=time_ms(sdpa), library_device_ms=graph_ms(sdpa, calls=20),
+                   flex_ms=None, bound_ms=b_ms, bound_by=by,
+                   pairs=visible_pairs(s, s, True, window))
+        flex_note = "none"
+        if flex_attention is not None:
+            def causal(b, hh, qi, ki):
+                return qi >= ki
+
+            def local(b, hh, qi, ki):
+                return (qi >= ki) & (qi - ki < window)
+
+            try:
+                bm = create_block_mask(local if window else causal, None, None, s, s,
+                                       device=dev)
+
+                def flex():
+                    return flex_attention(qt, kt, vt, block_mask=bm, enable_gqa=True)
+                ferr = rel_err(flex().transpose(1, 2), want)
+                row["flex_ms"] = time_ms(flex, iters=3, warmup=1)
+                flex_note = f"{row['flex_ms']:.4f} ms (vs plain {ferr:.3e})"
+            except Exception as e:      # the library call is read, not held
+                flex_note = f"none ({type(e).__name__}: {str(e)[:120]})"
+        out[what] = row
+        print(f"[time] flash_attention_bf16 {what} (1, {s}, {h}/{kv}, {d}) causal"
+              + (f", window {window}" if window else "")
+              + f" ({row['pairs']} visible pairs): kernel {row['ms']:.4f} ms, alone "
+              f"{row['device_ms']:.4f}; plain {row['plain_ms']:.4f}; bf16 "
+              f"sdpa(enable_gqa{', band mask' if window else ''}) "
+              f"{row['library_ms']:.4f}, alone {row['library_device_ms']:.4f} (vs "
+              f"plain {serr:.3e}); eager flex_attention {flex_note}; bound "
+              f"{b_ms:.4f} ms ({by}); max|d|/max|ref| vs plain {err:.3e} (limit "
+              f"{BF16_FLASH_TOL:g})")
+        del q, k, v, qt, kt, vt, got, want, band
+    return out
+
+
+def dense_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
+    """Phase 16: gemma3-27b (DENSE_GEMMA_LAYERS of 62) and qwen3-32b
+    (DENSE_QWEN_LAYERS of 64) at full width through `lm_phase`, then their
+    flash and GEMM shapes timed alone. Returns {"gemma3", "qwen3": lm_phase's
+    numbers, "flash", "gemm": the timing rows, "took"}."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    out = {
+        "gemma3": lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels,
+                           model=DENSE_GEMMA, layers=DENSE_GEMMA_LAYERS,
+                           prompts=DENSE_GEMMA_PROMPTS, max_len=DENSE_GEMMA_MAX_LEN,
+                           n_full=27_009_002_240, tag="[gemma3]", phase=16),
+        "qwen3": lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels,
+                          model=DENSE_QWEN, layers=DENSE_QWEN_LAYERS,
+                          prompts=DENSE_QWEN_PROMPTS, max_len=DENSE_QWEN_MAX_LEN,
+                          n_full=32_762_123_264, tag="[qwen3]", phase=16)}
+    out["flash"] = dense_flash_timing(dev, flash, worst)
+    # each model's GEMMs at a decode step's M = 8 (the row_align bucket)
+    # and its longest prefill's layer GEMMs at 8 x the prompt (row_align)
+    out["gemm"] = {}
+    for model, prompt in ((DENSE_QWEN, DENSE_QWEN_PROMPTS[0]),
+                          (DENSE_GEMMA, DENSE_GEMMA_PROMPTS[0])):
+        shapes = serve_gemm_shapes(get_config(model))
+        out["gemm"][model] = gemm_timing(dev, gfid_matmul, model, {
+            "decode": [(lbl, 8, k, n) for lbl, k, n in shapes],
+            "prefill": [(lbl, 8 * prompt, k, n) for lbl, k, n in shapes[:-1]]}, worst)
+    out["took"] = time.perf_counter() - t0
+    print(f"[dense] phase 16 took {out['took']:.1f} s")
+    return out
 
 
 def tuner_phase(dev, E, cnn, kernels):
@@ -5780,12 +6008,19 @@ def main():
     # -- phase 15: gemma2-27b, local attention at full width -------------------
     started["15"] = time.perf_counter()
     torch.cuda.empty_cache()
-    local = local_phase(dev, E, gfid_matmul, paged, flash_attention,
-                        all_kernels + (conv16, conv1d.gfid_conv1d_depthwise,
-                                       flash_attention.flash_attention,
-                                       flash_attention.flash_attention_local,
-                                       gfid_matmul.gfid_matmul_grouped,
-                                       gfid_matmul.gfid_matmul_bf16_grouped), worst)
+    lm_others = all_kernels + (conv16, conv1d.gfid_conv1d_depthwise,
+                               flash_attention.flash_attention,
+                               flash_attention.flash_attention_local,
+                               gfid_matmul.gfid_matmul_grouped,
+                               gfid_matmul.gfid_matmul_bf16_grouped)
+    local = local_phase(dev, E, gfid_matmul, paged, flash_attention, lm_others,
+                        worst)
+
+    # -- phase 16: gemma3-27b and qwen3-32b at full width ----------------------
+    started["16"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    dense = dense_phase(dev, E, gfid_matmul, paged, flash_attention, lm_others,
+                        worst)
     ends = list(started.values())[1:] + [time.perf_counter()]
     print("[time] phases (s): " + ", ".join(
         f"{name} {end - start:.1f}" for (name, start), end
@@ -5844,6 +6079,12 @@ def main():
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
         "device_ms": g["device_ms"], "library_device_ms": g["library_device_ms"],
         "launch_path": launch_path["paged_gather"]})
+    # phases 15 and 16: the launches of each model's continuous run (2 a
+    # decode step: the paged global k and v)
+    for tag, run in (("gemma2", local), ("gemma3", dense["gemma3"]),
+                     ("qwen3", dense["qwen3"])):
+        kernels[-1][tag] = dict(launches=run["launches"][3],
+                                launches_per_decode_step=run["step_launches"][3])
     ct = ssm["conv_tot"]
     kernels.append({
         "name": "gfid_conv1d_depthwise", "route": "cuda",
@@ -5893,6 +6134,13 @@ def main():
         if dt == "bfloat16":
             kernels[-1]["gemma2"].update(launches=local["launches"][1],
                                          local_launches=local["launches"][2])
+            # phase 16's shapes timed alone: qwen3's GQA group of 8 at
+            # (1, 1100, 64/8, 128), gemma3's window of 1,024 at (1, 2500,
+            # 32/16, 128); the launches of each model's continuous run
+            for tag in ("gemma3", "qwen3"):
+                kernels[-1][tag] = dict(dense["flash"][tag],
+                                        launches=dense[tag]["launches"][1],
+                                        local_launches=dense[tag]["launches"][2])
     for kname, source, replaces, k in (
             ("gfid_conv2d_nhwc_bf16", "src/repro_torch/csrc/gfid_conv_bf16.cu",
              "src/repro/kernels/gfid_conv.py:79", 0),
@@ -5926,6 +6174,14 @@ def main():
     kernels[-1]["gemma2"] = dict(launches=local["launches"][0],
                                  launches_per_decode_step=local["step_launches"][0],
                                  launches_per_prefill=local["prefill_launches"])
+    # phase 16: gemma3-27b's (8 layers) and qwen3-32b's (4) GEMMs, counted in
+    # each continuous run; each shape timed alone at M = 8 and a prefill's rows
+    for tag, model in (("gemma3", DENSE_GEMMA), ("qwen3", DENSE_QWEN)):
+        run = dense[tag]
+        kernels[-1][tag] = dict(launches=run["launches"][0],
+                                launches_per_decode_step=run["step_launches"][0],
+                                launches_per_prefill=run["prefill_launches"],
+                                shapes=dense["gemm"][model])
     for kname, dtype in (("gfid_matmul_grouped", torch.float32),
                          ("gfid_matmul_bf16_grouped", torch.bfloat16)):
         m, slot = moe[dtype], 3 if dtype == torch.bfloat16 else 2
@@ -5953,6 +6209,19 @@ def main():
             f"prompt{MOE_TIMED_PROMPT}": {key: sums[MOE_TIMED_PROMPT][key] for key in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                 "library_device_ms")}})
+    for tag in ("gemma3", "qwen3"):
+        run, fl = dense[tag], dense["flash"][tag]
+        print(f"[{tag}] summary: {run['tps']:.1f} tokens/s, p50 "
+              f"{run['lat']['p50_ms']:.1f} ms, p95 {run['lat']['p95_ms']:.1f} ms; decode "
+              f"step {run['step_ms']:.4f} ms, device time "
+              + ("not measured" if run["busy_ms"] is None else f"{run['busy_ms']:.4f} ms")
+              + f", bound {run['step_bound_ms']:.4f} ms; prefill "
+              + ", ".join(f"({n}) {ms:.4f} ms" for n, ms in run["prefill_ms"].items())
+              + f"; bf16 flash alone {fl['device_ms']:.4f} ms, bound {fl['bound_ms']:.4f} "
+              f"ms, sdpa {fl['library_device_ms']:.4f} ms"
+              + ("" if run["copy_ms"] is None
+                 else f"; transpose copy {run['copy_ms']:.4f} ms")
+              + f"; phase 16 part {run['took']:.1f} s")
     loc_t = local["timing"]["bfloat16"]
     print(f"[local] summary: {local['tps']:.1f} tokens/s, p50 "
           f"{local['lat']['p50_ms']:.1f} ms, p95 {local['lat']['p95_ms']:.1f} ms; "

@@ -42,7 +42,8 @@ def main():
     others = (gfid_conv.gfid_conv2d_nhwc_int8, G.gfid_matmul_int8,
               gfid_conv.gfid_conv2d_nhwc_bf16, conv1d.gfid_conv1d_depthwise,
               paged.paged_gather, G.gfid_matmul_grouped, G.gfid_matmul_bf16_grouped)
-    worst = {"flash_attention": 0.0, "flash_attention_bf16": 0.0}
+    worst = {"flash_attention": 0.0, "flash_attention_bf16": 0.0,
+             "gfid_matmul_bf16": 0.0}
     vlm = C.vlm_phase(torch.device(C.DEVICE), E, G, flash_attention, others, worst,
                       host_weights=args.host_weights)
     print(json.dumps(dict(vlm, worst=worst), default=str))

@@ -15,8 +15,11 @@ K/V cache that the prefill filled. A LOCAL_ATTN layer sees the keys less
 than `window_size` positions behind the query, on both paths (the kernels
 take the window and visit only its band); its decode cache is a ring of
 min(max_len, window_size) slots, written at pos % length and masked by
-age, as the reference's. Not ported (it raises, naming its ROADMAP item):
-MLA.
+age, as the reference's. qk-norm (qwen3, gemma3) normalises each head of
+q and k before rope; gemma3's local layers take their own rope theta
+(`_rope_theta`). `chunked_attention` is the reference's plain scan
+formulation of the same contraction; no model path calls it, in either
+package. Not ported (it raises, naming its ROADMAP item): MLA.
 """
 from __future__ import annotations
 
@@ -106,6 +109,64 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgsu,bukd->bskgd", p, v.float())
     return o.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: int = 0, softcap_val: float = 0.0,
+                      q_offset: int = 0, q_chunk: int = 512,
+                      kv_chunk: int = 1024,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax attention over kv chunks inside a loop over q chunks,
+    with no (Sq, Skv) score matrix: the reference's `chunked_attention`
+    (its two `lax.scan`s as Python loops, in the same order). q: (B, Sq,
+    H, Dk); k: (B, Skv, KV, Dk); v: (B, Skv, KV, Dv) -> (B, Sq, H, Dv) in
+    q's dtype; query i sits at position i + q_offset. Both lengths are
+    padded to whole chunks; padded keys are masked, padded queries cut."""
+    b, sq, h, dk = q.shape
+    _, skv, n_kv, dv = v.shape
+    g = h // n_kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
+    nq, nkv = -(-sq // q_chunk), -(-skv // kv_chunk)
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - sq))
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nkv * kv_chunk - skv))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nkv * kv_chunk - skv))
+    qc = q.reshape(b, nq, q_chunk, n_kv, g, dk).float()
+    kc = k.reshape(b, nkv, kv_chunk, n_kv, dk).float()
+    vc = v.reshape(b, nkv, kv_chunk, n_kv, dv).float()
+    dev = q.device
+    kv_pos = torch.arange(nkv * kv_chunk, device=dev).reshape(nkv, kv_chunk)
+    neg = torch.full((), NEG_INF, device=dev)
+    outs = []
+    with no_tf32():
+        for i in range(nq):
+            qp = torch.arange(q_chunk, device=dev) + i * q_chunk + q_offset
+            o = torch.zeros((b, n_kv, g, q_chunk, dv), device=dev)
+            m_run = torch.full((b, n_kv, g, q_chunk), NEG_INF, device=dev)
+            l_run = torch.zeros((b, n_kv, g, q_chunk), device=dev)
+            for j in range(nkv):
+                kp = kv_pos[j]
+                s = torch.einsum("bckgd,bukd->bkgcu", qc[:, i],
+                                 kc[:, j]) * scale
+                if softcap_val:
+                    s = softcap_val * torch.tanh(s / softcap_val)
+                mask = (kp < skv)[None, :].expand(q_chunk, kv_chunk)
+                if causal:
+                    mask = mask & (qp[:, None] >= kp[None, :])
+                if window:
+                    mask = mask & (qp[:, None] - kp[None, :] < window)
+                s = torch.where(mask, s, neg)
+                m_new = torch.maximum(m_run, s.amax(dim=-1))
+                p = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m_run - m_new)
+                l_run = l_run * alpha + p.sum(dim=-1)
+                o = o * alpha[..., None] + torch.einsum(
+                    "bkgcu,bukd->bkgcd", p, vc[:, j])
+                m_run = m_new
+            o = o / torch.clamp(l_run[..., None], min=1e-37)
+            outs.append(o.permute(0, 3, 1, 2, 4))          # (B, C, KV, g, Dv)
+    out = torch.stack(outs, dim=1).reshape(b, nq * q_chunk, h, dv)
+    return out[:, :sq].to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
