@@ -60,7 +60,14 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      one bf16 step), bitwise equal to the G separate 2-D launches, the
      fp32 cases reaching the workspace, the fold and the cluster
      (required); and a row at T = 1 bitwise the same row at T = 8 and
-     1,024.
+     1,024. Then jamba's shapes in bf16 (`hybrid_kernel_check`): the
+     depthwise conv on x (1, L, 16,384) and taps (4, 16,384), causal, at L
+     = 1, 3, 255, 257 and 1,100, bitwise its plain version, each row of an
+     8-row batch bitwise the row alone; the grouped GEMM at the 16
+     experts' (16, T, 8,192) @ (16, 8,192, 24,576) (fp32 store) and (16,
+     T, 24,576) @ (16, 24,576, 8,192) (bf16 store) at T = 8 and 1,104, one
+     launch each, within 1e-4 (fp32 store) or one bf16 step, a row at T =
+     1 bitwise the same row at both.
   4. AlexNet (full width, random weights from a seed) end to end through
      `compile(program("alexnet", batch=B), EngineConfig(backend="cuda"))
      .apply(params, x)` at B = 1 and 32: every op on "cuda", 5 conv and 3
@@ -445,6 +452,41 @@ Phases, in order; any failure ends the run with a non-zero exit and no result:
      both models' GEMM shapes at M = 8 and at their prefills' padded rows
      (8 x 1,100 and 8 x 2,500), each held against the plain version and
      timed beside bf16 `torch.mm` and the bound.
+ 17. jamba-1.5-large's hybrid stack (arXiv:2403.19887: 72 layers in nine
+     groups of Mamba x 4, attention at offset 4, Mamba x 3; d_model 8,192,
+     64/8 heads of 128 without rope, d_ff 24,576, vocabulary 65,536
+     untied; Mamba d_inner 16,384, d_state 16, d_conv 4, dt_rank 512; 16
+     experts top-2 of d_ff 24,576) at full width. First each block kind
+     alone (Mamba + FFN, Mamba + MoE, attention + FFN), drawn in fp32 on
+     the card from its own seed and freed before the next: `block_forward`
+     at (1, 1,100, 8,192) on "cuda" within 1e-4 of "torch"; on the same
+     weights in bf16 each backend's distance from the fp32 output within
+     1.5 times the other's. Then the path's kernels alone at its shapes:
+     the bf16 depthwise conv at (1, 1,100, 16,384) beside its plain
+     version, bf16 `F.conv1d(groups=16384)` and its bytes bound; the
+     grouped expert GEMMs at 8 and 1,104 rows beside `torch.bmm`; one
+     Mamba layer's selective scan (torch ops) for the device alone. Then
+     HYBRID_LAYERS = 8 of 72 layers (one group) with the MoE on the group's
+     layer 1 alone (HYBRID_MOE_PERIOD = 8: 18,058,977,280 bf16 parameters,
+     36.1 GB; the published period of 2 would put four MoE layers in the
+     group, 90.5 GB) served as phase 15 serves gemma2 (`lm_phase`) at
+     max_len 1,152 to prompts of 1,100, 300 and 40 tokens. The full depth
+     on `meta` first (398,556,143,616 parameters, 541 GEMMs a pass, 63
+     depthwise convs a prefill). Checks: every Mamba state leaf a slot row,
+     the attention k and v paged; tokens bitwise across continuous, drain
+     and solo, and equal to `greedy_generate` or else the first differing
+     expert choice a near tie; exactly 57 `gfid_matmul_bf16` (3 of them
+     grouped) and 1 fp32 `gfid_matmul` (the router) a decode step and a
+     prefill, 2 `paged_gather` a decode step, 7 `gfid_conv1d_depthwise`
+     and 1 `flash_attention_bf16` a 1,100-token prefill, nothing else;
+     one row decoded alone in the bucket bitwise its row among the three
+     live ones, and a Mamba layer's decode of a row at B = 1 bitwise its
+     row at B = 8; the stack's bf16 "torch" against "cuda" logits gap at
+     1,100 read, not held (its fp32 weights do not fit beside the bf16
+     ones). Prints the prefill's ms (wall and device) beside its bound and
+     the scans' share, a 3-row decode step's wall and device time beside
+     its bound (the chosen experts, and every expert as the dense dispatch
+     reads), tokens/s, p50/p95 and the phase's peak allocation.
      Last, each phase's seconds.
 
 The last lines are the card's name and power limit, a JSON object listing
@@ -457,6 +499,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -598,6 +641,18 @@ DENSE_GEMMA, DENSE_GEMMA_LAYERS = "gemma3_27b", 8
 DENSE_GEMMA_MAX_LEN, DENSE_GEMMA_PROMPTS = 2560, (2500, 1100, 300, 40)
 DENSE_QWEN, DENSE_QWEN_LAYERS = "qwen3_32b", 4
 DENSE_QWEN_MAX_LEN, DENSE_QWEN_PROMPTS = 1152, (1100, 300, 40)
+# Phase 17: jamba-1.5-large's hybrid stack at full width, served as phase
+# 15 serves gemma2: HYBRID_LAYERS of its 72 layers (one jamba group: Mamba
+# x 4, attention at offset 4, Mamba x 3) with the MoE on the group's layer
+# 1 alone (HYBRID_MOE_PERIOD; the published period of 2 puts four MoE
+# layers in a group, 90.5 GB of bf16 weights, more than the card holds);
+# phase 3's jamba cases: the depthwise conv at HYBRID_CONV_LENS, the
+# grouped expert GEMMs at HYBRID_GROUPED_ROWS (a decode step's 8-row bucket
+# and the 1,100-token prefill's tokens under row_align)
+HYBRID_MODEL, HYBRID_LAYERS, HYBRID_MOE_PERIOD = "jamba15_large", 8, 8
+HYBRID_MAX_LEN, HYBRID_PROMPTS = 1152, (1100, 300, 40)
+HYBRID_CONV_LENS = (1, 3, 255, 257, 1100)
+HYBRID_GROUPED_ROWS = (8, 1104)
 DEVICE = "cuda"
 # H100 SXM peaks from NVIDIA's data sheet (dense, 700 W): fp32 outside the
 # tensor cores, bf16 and int8 in them, and device-memory bandwidth. A bound
@@ -1673,7 +1728,7 @@ def ssm_phase(dev, E, gfid_matmul, conv1d, paged, other_kernels, worst):
     gen = torch.Generator().manual_seed(7)
 
     # the kernels against their plain versions at the path's shapes
-    worst["gfid_conv1d_depthwise"] = 0.0
+    worst.setdefault("gfid_conv1d_depthwise", 0.0)
     plans = []
     for label, x, w, causal in ssm_conv_cases(gen, dev):
         got = conv(x, w, causal=causal)
@@ -3498,37 +3553,42 @@ def grouped_check(dev, gfid_matmul, gen, worst):
     return checks
 
 
-def grouped_timing(dev, gfid_matmul, cfg, dtype):
+def grouped_timing(dev, gfid_matmul, cfg, dtype, rows_at=None):
     """An MoE layer's grouped GEMMs at a decode step's rows (the 8-row
-    bucket) and at a prompt-MOE_TIMED_PROMPT prefill's, as on the path
-    (w_in and w_gate store fp32, w_out the parameters' dtype): the kernel
-    with the host and for the device alone, its plain version, `torch.bmm`
-    (TF32 off; with the host and alone) and the bound. Returns
-    {rows: [a row a GEMM of the layer]}."""
+    bucket) and at a prompt-MOE_TIMED_PROMPT prefill's (or at `rows_at`),
+    as on the path (w_in and w_gate store fp32, w_out the parameters'
+    dtype): the kernel with the host and for the device alone, its plain
+    version, `torch.bmm` (TF32 off; with the host and alone) and the bound.
+    Returns {rows: [a row a GEMM of the layer]}."""
     mm, plain = gfid_matmul.gfid_matmul, gfid_matmul.gfid_matmul_plain
     bf16 = dtype == torch.bfloat16
-    gen = torch.Generator().manual_seed(12)
+    gen = torch.Generator(device=dev).manual_seed(12)
     shapes = grouped_shapes(cfg)
     layer = (shapes[0], shapes[0], shapes[1])        # w_in, w_gate, w_out
     out = {}
-    for t in (SERVE_BATCH, MOE_TIMED_PROMPT):
+    for t in rows_at or (SERVE_BATCH, MOE_TIMED_PROMPT):
         rows = []
         for i, (label, g, k, n) in enumerate(layer):
-            x = torch.randn((g, t, k), generator=gen).to(dev, dtype)
-            w = (torch.randn((g, k, n), generator=gen) / math.sqrt(k)).to(dev, dtype)
+            x = torch.randn((g, t, k), generator=gen, device=dev).to(dtype)
+            w = (torch.randn((g, k, n), generator=gen, device=dev)
+                 / math.sqrt(k)).to(dtype)
             store = dtype if i == 2 else torch.float32
             kw = dict(out_dtype=store) if bf16 else {}
             el, out_el = x.element_size(), store.itemsize
             b_ms, by = bound_ms(el * (g * t * k + g * k * n) + out_el * g * t * n,
                                 2 * g * t * k * n,
                                 PEAK_BF16_FLOP_S if bf16 else PEAK_FP32_FLOP_S)
+            # a graph of one call where a call does over 1e11 operations
+            calls, reps = (100, {}) if 2 * g * t * k * n <= 1e11 else \
+                (1, dict(iters=3, warmup=1))
             row = dict(label=label, t=t, g=g, k=k, n=n, ops=2 * g * t * k * n,
                        n_bytes=el * (g * t * k + g * k * n) + out_el * g * t * n,
-                       ms=time_ms(lambda: mm(x, w, **kw)),
-                       device_ms=graph_ms(lambda: mm(x, w, **kw)),
-                       plain_ms=time_ms(lambda: plain(x, w, **kw), iters=5),
-                       library_ms=time_ms(lambda: torch.bmm(x, w)),
-                       library_device_ms=graph_ms(lambda: torch.bmm(x, w)),
+                       ms=time_ms(lambda: mm(x, w, **kw), **reps),
+                       device_ms=graph_ms(lambda: mm(x, w, **kw), calls),
+                       plain_ms=time_ms(lambda: plain(x, w, **kw), iters=3 if reps
+                                        else 5, warmup=1 if reps else 3),
+                       library_ms=time_ms(lambda: torch.bmm(x, w), **reps),
+                       library_device_ms=graph_ms(lambda: torch.bmm(x, w), calls),
                        bound_ms=b_ms, bound_by=by)
             rows.append(row)
             print(f"[time] {'gfid_matmul_bf16' if bf16 else 'gfid_matmul'} grouped "
@@ -3561,14 +3621,15 @@ def route_trace(moe_mod, fn):
     return calls
 
 
-def first_route_difference(cfg, a, b):
+def first_route_difference(cfg, a, b, layers=None):
     """The first router call where two runs' traces (`route_trace`) choose
     other experts, compared over the rows both hold (a decode step's first
     row): {step (-1 for the prefill), layer, row, gap (the k-th less the
     (k+1)-th probability, the smaller of the two runs'), logit_diff (the
     two runs' largest router-logit difference at that call)}; None where
-    every choice agrees."""
-    k, layers = cfg.moe.n_active, cfg.n_layers
+    every choice agrees. `layers`: the router calls of a pass (default:
+    every layer's)."""
+    k, layers = cfg.moe.n_active, layers or cfg.n_layers
     for c, (la, lb) in enumerate(zip(a, b)):
         r = min(la.shape[0], lb.shape[0])
         la, lb = la[:r], lb[:r]
@@ -4491,16 +4552,90 @@ def local_flash_timing(dev, flash, cfg, worst):
     return out
 
 
-def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
-             prompts, max_len, n_full, tag, phase):
-    """The body of phases 15 and 16: `model` at full width and `layers`
-    deep, bf16 parameters from seed 0 drawn on the card, served by the
-    ContinuousScheduler at `max_len` (blocks of LOCAL_BLOCK, max_batch
-    LOCAL_BATCH) to requests of `prompts` tokens, LOCAL_GEN steps each (see
-    the module docstring). The full depth on `meta` first: `n_full`
-    parameters, n_layers x 7 + 1 GEMMs a pass. `other_kernels` must launch
-    nothing. Returns the numbers the kernels line and the summary print."""
-    from repro_torch.configs.base import LOCAL_ATTN, get_config
+def pass_gemms(cfg):
+    """(bf16 GEMMs, fp32 GEMMs, grouped GEMMs among the bf16 ones) of one
+    decode step or prefill of an LM on bf16 parameters: 4 projections a
+    layer (attention's q, k, v, o; Mamba's w_in, w_x, w_dt, w_out), a gated
+    FFN's 3, an MoE FFN's router (an fp32 GEMM: `moe.router_probs` widens
+    its operands) and its 3 grouped expert GEMMs, the unembedding."""
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    n_ffn = cfg.n_layers - n_moe if cfg.d_ff > 0 else 0
+    return (4 * cfg.n_layers + (3 if cfg.gated_ffn else 2) * n_ffn + 3 * n_moe + 1,
+            n_moe, 3 * n_moe)
+
+
+def explain_difference(E, T, SE, moe_mod, cfg, conf, params, prompt, served, dense,
+                       solo_run, n_moe, max_len, what):
+    """Where `greedy_generate`'s tokens for `prompt` at one row (`dense`)
+    differ from the served ones (`served`: the 8-row bucket), the first
+    difference must be a near tie. With MoE layers, first the expert
+    choices: where the first choice that differs between `greedy_generate`
+    and `solo_run` (a scheduler serving the request alone;
+    `first_route_difference` over both runs' router traces) comes at or
+    before the pass that made the first differing token, the router's gap
+    there must lie under the two runs' router-logit difference. Else the
+    logits: `greedy_logits` at one row and at the bucket's 8 rows (8 copies
+    of the prompt, whose row 0 must make the served tokens), their top two
+    at the first difference closer than the two runs' largest logit
+    difference there. Returns the reading."""
+    dev = params["embed"].device
+    j = next(k for k, (u, v) in enumerate(zip(dense, served)) if u != v)
+    tokens = {"tokens": torch.tensor([prompt], device=dev)}
+    if cfg.moe is not None:
+        with E.using_config(conf), torch.no_grad():
+            a = route_trace(moe_mod, lambda: SE.greedy_generate(
+                cfg, params, tokens, len(served), max_len))
+        dif = first_route_difference(cfg, a, route_trace(moe_mod, solo_run), n_moe)
+        if dif is not None and dif["step"] + 1 <= j:
+            require(dif["gap"] < dif["logit_diff"], f"{what}: an expert choice "
+                    f"differs where the router's gap exceeds the runs' logit "
+                    f"difference ({dif})")
+            return (f"the first token that differs, {j}, follows the first expert "
+                    f"choice that differs: pass {dif['step'] + 1} (0: the prefill), "
+                    f"MoE layer {dif['layer']}, the {cfg.moe.n_active}th less the "
+                    f"{cfg.moe.n_active + 1}th router probability {dif['gap']:.3e}, "
+                    f"the runs' largest router-logit difference {dif['logit_diff']:.3e}")
+    with E.using_config(conf):
+        one = greedy_logits(T, cfg, params, tokens, j + 1, max_len)
+        eight = greedy_logits(T, cfg, params, {"tokens": tokens["tokens"].repeat(8, 1)},
+                              j + 1, max_len)
+    made = [int(torch.argmax(step[0])) for step in eight]
+    require(made == served[:j + 1], f"{what}: the 8-row replay makes {made}, not the "
+            f"served {served[:j + 1]}")
+    gap = min(float(top2_gap(one[j][0])), float(top2_gap(eight[j][0])))
+    diff = float((one[j][0] - eight[j][0]).abs().max())
+    require(gap < diff, f"{what}: token {j} differs where the top two logits lie "
+            f"{gap:.4e} apart, further than the runs' logits ({diff:.4e})")
+    return (f"every expert choice equal up to token {j}; there the top two logits "
+            f"lie {gap:.4e} apart at one row and at the 8-row bucket (whose replay "
+            f"makes the served tokens), the two runs' largest logit difference "
+            f"{diff:.4e}: the decode attention's batched products follow the row "
+            "count")
+
+
+def lm_phase(dev, E, gfid_matmul, paged, flash, conv1d, other_kernels, *, model,
+             layers, prompts, max_len, n_full, tag, phase, moe_period=None):
+    """The body of phases 15, 16 and 17: `model` at full width and `layers`
+    deep (with `moe_period`, its MoE FFN every `moe_period` layers from the
+    config's first), bf16 parameters from seed 0 drawn on the card, served
+    by the ContinuousScheduler at `max_len` (blocks of LOCAL_BLOCK,
+    max_batch LOCAL_BATCH) to requests of `prompts` tokens, LOCAL_GEN steps
+    each (see the module docstring). The full depth on `meta` first:
+    `n_full` parameters, `pass_gemms` GEMMs a pass and a depthwise conv a
+    Mamba layer a prefill. Counted: the bf16 GEMM (its grouped launches
+    also apart), the fp32 GEMM (an MoE layer's router), the bf16 flash (its
+    local launches also apart), the gather and the depthwise conv;
+    `other_kernels` must launch nothing. Where an MoE or recurrent model's
+    tokens differ from `greedy_generate`'s, the first difference must be a
+    near tie (`explain_difference`). A model with recurrent layers also holds one row
+    decoded alone in the bucket bitwise its row among the live ones, and a
+    Mamba block's decode of a row at B = 1 bitwise its row at B = 8. Where
+    the weights in fp32 do not fit the card beside the bf16 ones, the
+    witness reads the bf16 gap alone. Returns the numbers the kernels line
+    and the summary print."""
+    from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN, MAMBA, get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import count_params, tree_map
     from repro_torch.serve import engine as SE
@@ -4510,36 +4645,52 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
     t_phase = time.perf_counter()
     full = get_config(model)
     cfg = dataclasses.replace(full, n_layers=layers)
+    if moe_period:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(full.moe,
+                                                               period=moe_period))
     cuda = dev.type == "cuda"
     mm16, fa16, gather = (gfid_matmul.gfid_matmul_bf16, flash.flash_attention_bf16,
                           paged.paged_gather)
     loc16 = flash.flash_attention_bf16_local
-    counted = (mm16, fa16, loc16, gather) + tuple(other_kernels)
-    per_pass = cfg.n_layers * 7 + 1        # GEMMs of a decode step or a prefill
-    n_local = cfg.layer_kinds.count(LOCAL_ATTN)
+    mm32, grouped16, conv = (gfid_matmul.gfid_matmul,
+                             gfid_matmul.gfid_matmul_bf16_grouped,
+                             conv1d.gfid_conv1d_depthwise)
+    counted = (mm16, fa16, loc16, gather, mm32, grouped16, conv) + tuple(other_kernels)
+    n16, n32, n_grouped = pass_gemms(cfg)
+    per_pass = n16 + n32                   # GEMMs of a decode step or a prefill
+    kinds_of = cfg.layer_kinds
+    n_local = kinds_of.count(LOCAL_ATTN)
+    n_attn = n_local + kinds_of.count(GLOBAL_ATTN)
+    n_mamba = kinds_of.count(MAMBA)
+    n_moe = n32
     n_req, long = len(prompts), [n for n in prompts if n > 1024]
     conf = E.EngineConfig(backend="cuda", row_align=8)
 
     def flash_of(prompt):
-        """(flash, local flash) launches of one prefill: one a layer past
-        1024 tokens, the local layers' counted apart where the window cuts."""
+        """(flash, local flash) launches of one prefill: one an attention
+        layer past 1024 tokens, the local layers' counted apart where the
+        window cuts."""
         if prompt <= 1024:
             return 0, 0
-        return cfg.n_layers, n_local * (cfg.window_size < prompt)
+        return n_attn, n_local * (cfg.window_size < prompt)
 
     # the full model on `meta`: parameters and the full-depth programs
     n_meta = count_params(T.model_defs(full))
-    for prog in (SE.decode_program(full, 8, max_len),
-                 SE.prefill_program(full, 1, max(prompts), max_len=max_len)):
-        kinds = [op.kind for op in prog.ops]
-        require(kinds == ["dense"] * (full.n_layers * 7 + 1), f"{tag} {prog.name}: "
-                f"{len(kinds)} ops ({set(kinds)}), expected {full.n_layers * 7 + 1} "
-                "GEMMs")
+    full_gemms = sum(pass_gemms(full)[:2])
+    full_mamba = full.layer_kinds.count(MAMBA)
+    for prog, convs in ((SE.decode_program(full, 8, max_len), 0),
+                        (SE.prefill_program(full, 1, max(prompts), max_len=max_len),
+                         full_mamba)):
+        kinds = Counter(op.kind for op in prog.ops)
+        want_ops = +Counter({"dense": full_gemms, "conv1d_dw": convs})
+        require(kinds == want_ops, f"{tag} {prog.name}: ops {dict(kinds)}, expected "
+                f"{dict(want_ops)}")
     require(n_meta == n_full, f"{tag} {full.name}: {n_meta} parameters, expected "
             f"{n_full}")
     print(f"{tag} {full.name} at full depth on meta: {n_meta} parameters (the "
-          f"reference's count), {full.n_layers * 7 + 1} GEMMs a decode step and a "
-          f"{max(prompts)}-token prefill")
+          f"reference's count), {full_gemms} GEMMs a decode step and a "
+          f"{max(prompts)}-token prefill"
+          + (f", {full_mamba} depthwise convs a prefill" if full_mamba else ""))
 
     if cuda:
         torch.cuda.empty_cache()
@@ -4567,8 +4718,15 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
         cfg.window_size and f"window {cfg.window_size}",
         cfg.attn_softcap and f"softcaps {cfg.attn_softcap:g} / {cfg.logit_softcap:g}",
         cfg.qk_norm and "qk-norm",
-        f"rope theta {cfg.rope_theta:g}" + (f" (local {cfg.rope_theta_local:g})"
-                                            if cfg.rope_theta_local else ""))))
+        (f"rope theta {cfg.rope_theta:g}" + (f" (local {cfg.rope_theta_local:g})"
+                                             if cfg.rope_theta_local else ""))
+        if cfg.use_rope else "no rope",
+        cfg.ssm and (f"Mamba d_inner {ssm_mod._d_inner(cfg)}, d_state "
+                     f"{cfg.ssm.d_state}, d_conv {cfg.ssm.d_conv}, dt_rank "
+                     f"{ssm_mod._dt_rank(cfg)}"),
+        cfg.moe and (f"{cfg.moe.n_experts} experts top-{cfg.moe.n_active} of d_ff "
+                     f"{cfg.moe.d_ff_expert} on layers "
+                     f"{[i for i in range(cfg.n_layers) if cfg.is_moe_layer(i)]}"))))
     print(f"{tag} {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
           f"({' '.join(cfg.layer_kinds)}; {cfg.n_groups} groups + "
           f"{len(T.param_shapes(cfg)['rem'])} remainder), d_model {cfg.d_model}, "
@@ -4602,21 +4760,25 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
         specs = s.layout.specs
         n_gather = sum(sp.paged for sp in _leaves(specs))
         for c in compiled:
-            kinds = [op.kind for op in c.program.ops]
-            want_ops = per_pass + n_gather * ("decode" in c.program.name)
-            require(set(c.backends()) == {"cuda"} and len(kinds) == want_ops
-                    and kinds.count("gather") == want_ops - per_pass,
-                    f"{tag} {mode} {c.program.name}: {len(kinds)} ops, expected "
-                    f"{want_ops}")
+            kinds = Counter(op.kind for op in c.program.ops)
+            decode = "decode" in c.program.name
+            want_ops = +Counter({"dense": per_pass, "gather": n_gather * decode,
+                                 "conv1d_dw": n_mamba * (not decode)})
+            require(set(c.backends()) == {"cuda"} and kinds == want_ops,
+                    f"{tag} {mode} {c.program.name}: ops {dict(kinds)}, expected "
+                    f"{dict(want_ops)}")
         # a local layer's ring is a slot row where it does not grow with
-        # max_len; every other cache is paged
+        # max_len, as is a Mamba layer's recurrent state; every other cache
+        # is paged
         for part, kind_of in (("groups", lambda j: cfg.pattern[int(j)]),
                               ("rem", lambda j: cfg.remainder[int(j)])):
             for j, leaf in specs[part].items():
-                ring = kind_of(j) == LOCAL_ATTN and cfg.window_size < 2 * max_len
-                require(all(sp.paged is not ring for sp in _leaves(leaf)),
-                        f"{tag} {part} {j}: the cache must be "
-                        + ("a slot store" if ring else "paged"))
+                kind = kind_of(j)
+                slot = kind == MAMBA or (kind == LOCAL_ATTN
+                                         and cfg.window_size < 2 * max_len)
+                require(all(sp.paged is not slot for sp in _leaves(leaf)),
+                        f"{tag} {part} {j} ({kind}): the state must be "
+                        + ("a slot store" if slot else "paged"))
         tickets = [s.submit(p, n) for p, n in work]
         zero_counts(*counted)
         if cuda:
@@ -4631,11 +4793,13 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
         require(all(t.status == "done" and t.preemptions == 0 for t in tickets),
                 f"{tag} {mode}: not every request done without preemption")
         fl = [flash_of(len(p)) for p, _ in work]
-        want = (per_pass * (st["steps"] + st["admitted"]), sum(f for f, _ in fl),
-                sum(lf for _, lf in fl), n_gather * st["steps"]) \
-            + (0,) * len(other_kernels)
+        passes = st["steps"] + st["admitted"]
+        want = (n16 * passes, sum(f for f, _ in fl), sum(lf for _, lf in fl),
+                n_gather * st["steps"], n32 * passes, n_grouped * passes,
+                n_mamba * st["admitted"]) + (0,) * len(other_kernels)
         require(launches == want, f"{tag} {mode}: launches (gfid_matmul_bf16, "
-                f"flash_attention_bf16, its local count, paged_gather, others) = "
+                f"flash_attention_bf16, its local count, paged_gather, fp32 "
+                f"gfid_matmul, bf16 grouped, gfid_conv1d_depthwise, others) = "
                 f"{launches}, expected {want} for {st['steps']} decode steps and "
                 f"{st['admitted']} prefills")
         n_tok = sum(len(t.tokens) for t in tickets)
@@ -4646,24 +4810,38 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
               f"{st['compiled_decode_buckets']}), {st['admitted']} prefills, {n_tok} "
               f"tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; latency p50 "
               f"{lat['p50_ms']:.1f} ms, p95 {lat['p95_ms']:.1f} ms; launches "
-              f"gfid_matmul_bf16 {launches[0]} (= {per_pass} a step and a prefill), "
-              f"flash_attention_bf16 {launches[1]} ({launches[2]} local: window "
-              f"{cfg.window_size} < Skv), paged_gather {launches[3]} ({n_gather} a "
-              f"step: the paged k and v; rings are slot rows), others "
-              f"{sum(launches[4:])}; {len(compiled)} programs ready in "
-              f"{compile_s:.2f} s beforehand")
+              f"gfid_matmul_bf16 {launches[0]} (= {n16} a step and a prefill, "
+              f"{launches[5]} grouped), fp32 gfid_matmul {launches[4]} (the "
+              f"routers, {n32} a pass), flash_attention_bf16 {launches[1]} "
+              f"({launches[2]} local: window {cfg.window_size} < Skv), paged_gather "
+              f"{launches[3]} ({n_gather} a step: the paged k and v; rings and "
+              f"recurrent states are slot rows), gfid_conv1d_depthwise "
+              f"{launches[6]} ({n_mamba} a prefill), others {sum(launches[7:])}; "
+              f"{len(compiled)} programs ready in {compile_s:.2f} s beforehand")
     base = runs["continuous"]["tokens"]
     for mode in ("drain", "solo"):
         require(runs[mode]["tokens"] == base, f"{tag} {mode} tokens differ from the "
                 "continuous run")
-    with E.using_config(conf):
-        for i, (prompt, steps) in enumerate(work):
-            dense = SE.greedy_generate(cfg, params, {"tokens": torch.tensor(
-                [prompt], device=dev)}, steps, max_len)
-            require(dense[0].tolist() == base[i], f"{tag} request {i} (prompt "
-                    f"{len(prompt)}): paged tokens differ from greedy_generate's")
+    near_ties = 0
+    for i, (prompt, steps) in enumerate(work):
+        tokens = {"tokens": torch.tensor([prompt], device=dev)}
+        with E.using_config(conf):
+            dense = SE.greedy_generate(cfg, params, tokens, steps, max_len)[0].tolist()
+        if dense == base[i]:
+            continue
+        require(cfg.moe is not None or cfg.ssm is not None, f"{tag} request {i} "
+                f"(prompt {len(prompt)}): paged tokens differ from greedy_generate's")
+        s = scheduler(1, "continuous")
+        s._prefill, s._decode = programs
+        why = explain_difference(E, T, SE, moe_mod, cfg, conf, params, prompt, base[i],
+                                 dense, lambda: (s.submit(prompt, steps), s.run()),
+                                 n_moe, max_len, f"{tag} request {i}")
+        print(f"{tag} request {i} (prompt {len(prompt)}): tokens differ from "
+              f"greedy_generate's at one row; {why}")
+        near_ties += 1
     print(f"{tag} tokens bitwise equal across continuous, drain and solo, and "
-          f"equal to greedy_generate for all {n_req} requests (prompts {prompts})")
+          f"equal to greedy_generate for {n_req - near_ties} of {n_req} requests "
+          f"(prompts {prompts}; the rest at a near tie, above)")
 
     # one decode step with every request live at the 8-row bucket, and the
     # flash prefills through their compiled ingest programs
@@ -4682,19 +4860,30 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
                          dtype=torch.int32, device=dev))
     snap = [a.clone() for a in _leaves(s8.pool.arrays)]
     zero_counts(*counted)
-    dec.apply(*args)
+    step_routes = route_trace(moe_mod, lambda: dec.apply(*args))
     if cuda:
         torch.cuda.synchronize()
     step_launches = counts(*counted)
-    require(step_launches == (per_pass, 0, 0, n_gather) + (0,) * len(other_kernels),
+    require(step_launches == (n16, 0, 0, n_gather, n32, n_grouped, 0)
+            + (0,) * len(other_kernels),
             f"{tag} one decode step launched {step_launches}")
+    row_alone = None
+    if cfg.ssm is not None:
+        for a, b in zip(_leaves(s8.pool.arrays), snap):
+            a.copy_(b)
+        row_alone = recurrent_row_check(E, T, ssm_mod, cfg, conf, params, s8, rows,
+                                        tag)
     step_ms = time_ms(lambda: dec.apply(*args), iters=10)
     prof = device_profile(lambda: dec.apply(*args))
     busy = None if prof is None else prof[0]
-    prefill_ms, prefill_bound = {}, {}
+    prefill_ms, prefill_bound, prefill_busy = {}, {}, {}
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     layer_n = n_params - params["embed"].numel() - (0 if cfg.tie_embeddings
                                                     else table.numel())
+    # an MoE layer's experts: a token needs n_active of n_experts
+    expert_n = 3 * cfg.d_model * cfg.moe.d_ff_expert if cfg.moe else 0
+    idle_n = 0 if cfg.moe is None else \
+        n_moe * (cfg.moe.n_experts - cfg.moe.n_active) * expert_n
     for n in long:
         i = prompts.index(n)
         pre = s8.prefill_compiled(n)
@@ -4706,25 +4895,37 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
         if cuda:
             torch.cuda.synchronize()
         one = counts(*counted)
-        want = (per_pass, *flash_of(n), 0) + (0,) * len(other_kernels)
+        want = (n16, *flash_of(n), 0, n32, n_grouped, n_mamba) + (0,) * len(other_kernels)
         require(one == want, f"{tag} a {n}-token prefill launched {one}, expected "
                 f"{want}")
         prefill_ms[n] = time_ms(lambda: pre.apply(params, s8.pool.arrays, row, slot,
                                                   prompt), iters=3, warmup=1)
+        if cfg.ssm is not None:
+            pp = device_profile(lambda: pre.apply(params, s8.pool.arrays, row, slot,
+                                                  prompt), steps=1)
+            prefill_busy[n] = None if pp is None else pp[0]
+            if pp is not None:
+                print(f"[profile] {tag} prefill at prompt {n}: {pp[1]} device "
+                      f"kernels, {pp[0]:.4f} ms of device time; by kernel: "
+                      + "; ".join(f"{nm[:50]} x{c:g} {ms:.4f} ms"
+                                  for nm, c, ms in pp[2][:8]))
         # the bound: every weight read once; the layers' GEMMs on the
-        # prompt's rows (not the 8x of the padding), the unembedding on its
-        # last row, and each attention's visible pairs
+        # prompt's rows (not the 8x of the padding) and an MoE token's
+        # active experts, the unembedding on its last row, and each
+        # attention layer's visible pairs
         pairs = sum(visible_pairs(n, n, True, cfg.window_size if kind == LOCAL_ATTN
-                                  else 0) for kind in cfg.layer_kinds)
-        ops = 2 * n * layer_n + 2 * table.numel() \
+                                  else 0) for kind in cfg.layer_kinds
+                    if kind in (GLOBAL_ATTN, LOCAL_ATTN))
+        ops = 2 * n * (layer_n - idle_n) + 2 * table.numel() \
             + 4 * cfg.n_heads * cfg.head_dim * pairs
         prefill_bound[n] = bound_ms(w_bytes, ops, PEAK_BF16_FLOP_S)[0]
         print(f"{tag} batch-1 prefill at prompt {n}: {prefill_ms[n]:.4f} ms (median "
               f"of 3; its GEMMs padded to 8 rows by row_align), "
               f"{n / prefill_ms[n] * 1e3:.1f} prompt tokens/s, bound "
               f"{prefill_bound[n]:.4f} ms ({ops / 1e12:.3f} TFLOP at the prompt's "
-              f"rows); launches {one[0]} gfid_matmul_bf16, {one[1]} "
-              f"flash_attention_bf16 ({one[2]} local)")
+              f"rows); launches {one[0]} gfid_matmul_bf16 ({one[5]} grouped), "
+              f"{one[4]} fp32 gfid_matmul, {one[1]} flash_attention_bf16 ({one[2]} "
+              f"local), {one[6]} gfid_conv1d_depthwise")
     for a, b in zip(_leaves(s8.pool.arrays), snap):
         a.copy_(b)
     del snap
@@ -4734,18 +4935,35 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
     kv_bytes = 2 * cfg.n_kv_heads * cfg.head_dim * 2
     cache = kv_bytes * sum(
         n_local * min(t.pos + 1, cfg.window_size)
-        + (cfg.n_layers - n_local) * (t.pos + 1) for t in rows)
-    step_bytes = w_bytes + cache
+        + (n_attn - n_local) * (t.pos + 1) for t in rows)
+    if cfg.ssm is not None:
+        # each live row's Mamba state read and written: fp32 h, bf16 conv tail
+        di = ssm_mod._d_inner(cfg)
+        cache += 2 * n_mamba * n_req * (4 * di * cfg.ssm.d_state
+                                        + 2 * (cfg.ssm.d_conv - 1) * di)
+    # the experts that no live row chose need not be read (the dense
+    # dispatch reads them all): this step's routes, its live rows
+    unread = 0
+    for logits in step_routes:
+        chosen = torch.topk(logits[:n_req], cfg.moe.n_active, dim=-1).indices
+        unread += (cfg.moe.n_experts - chosen.unique().numel()) * expert_n * 2
+    dense_bound = bound_ms(w_bytes + cache, 2 * 8 * n_params, PEAK_BF16_FLOP_S)[0]
+    step_bytes = w_bytes + cache - unread
     step_bound, _ = bound_ms(step_bytes, 2 * 8 * n_params, PEAK_BF16_FLOP_S)
     print(f"{tag} decode step, {n_req} live rows at bucket 8: {step_ms:.4f} ms "
           f"wall (median of 10), "
           + ("device time not measured" if busy is None else
              f"{busy:.4f} ms of device time (torch.profiler, 3 steps) = "
              f"{100 * busy / step_ms:.1f}% of the step")
-          + f"; bound {step_bound:.4f} ms ({step_bytes / 1e9:.3f} GB: the weights and "
-          f"the visible keys and values, at {PEAK_BYTES_S / 1e12:.2f} TB/s); launches "
-          f"{step_launches[0]} gfid_matmul_bf16 + {step_launches[3]} paged_gather, no "
-          "flash")
+          + f"; bound {step_bound:.4f} ms ({step_bytes / 1e9:.3f} GB: the weights"
+          + (f" but {unread / 1e9:.3f} GB of experts no live row chose (the dense "
+             f"dispatch reads them all: {dense_bound:.4f} ms)" if cfg.moe else "")
+          + f" and the visible keys and values"
+          + (" and recurrent states" if cfg.ssm else "")
+          + f", at {PEAK_BYTES_S / 1e12:.2f} TB/s); launches "
+          f"{step_launches[0]} gfid_matmul_bf16 ({step_launches[5]} grouped) + "
+          f"{step_launches[4]} fp32 gfid_matmul + {step_launches[3]} paged_gather, "
+          "no flash, no conv")
     if prof is not None:
         print(f"[profile] {tag} decode step: {prof[1]} device kernels; by kernel: "
               + "; ".join(f"{nm[:50]} x{c:g} {ms:.4f} ms" for nm, c, ms in prof[2][:8]))
@@ -4763,14 +4981,29 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
 
     # "torch" against "cuda": the witness at the flash prompts, from the
     # bf16 weights and from the same weights widened to fp32
-    params32 = tree_map(lambda a: a.float(), params)
     wconf = E.EngineConfig(backend="cuda")
     witness = {}
+    # fp32 weights beside the bf16 ones, with a fifth of the card to spare
+    fp32_witness = not cuda or 3 * w_bytes < 0.8 * torch.cuda.get_device_properties(
+        dev).total_memory
+    params32 = tree_map(lambda a: a.float(), params) if fp32_witness else None
     for n in long:
         batch = {"tokens": torch.tensor([work[prompts.index(n)][0]], dtype=torch.int32,
                                         device=dev)}
-        witness[n] = witness_check(E, T, cfg, wconf, params, params32, batch, batch,
-                                   max_len, tag, f"prompt {n}", limit=None)
+        if fp32_witness:
+            witness[n] = witness_check(E, T, cfg, wconf, params, params32, batch,
+                                       batch, max_len, tag, f"prompt {n}", limit=None)
+            continue
+        logits = {}
+        for backend in ("cuda", "torch"):
+            with E.using_config(wconf.replace(backend=backend)), torch.no_grad():
+                logits[backend] = T.prefill(cfg, params, batch, max_len)[0].float()
+        require(all(bool(torch.isfinite(v).all()) for v in logits.values()),
+                f"{tag} prefill at prompt {n}: logits not finite")
+        witness[n] = rel_err(logits["cuda"], logits["torch"])
+        print(f"{tag} logits at prompt {n}: cuda vs torch backend {witness[n]:.3e} "
+              "in bf16 (read, not held: the stack's fp32 weights do not fit the "
+              "card beside its bf16 ones; each block kind's witness holds it)")
     del params32, params
     if cuda:
         torch.cuda.empty_cache()
@@ -4779,18 +5012,21 @@ def lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels, *, model, layers,
     print(f"{tag} phase {phase} ({cfg.name}) took {phase_s:.1f} s (parameters "
           f"{init_s:.1f} s)")
     return dict(launches=cont["launches"], step_launches=step_launches,
-                prefill_launches=per_pass, step_ms=step_ms, busy_ms=busy,
-                step_bound_ms=step_bound, prefill_ms=prefill_ms,
-                prefill_bound_ms=prefill_bound, copy_ms=copy_ms,
+                prefill_launches=n16, prefill_launches_conv=n_mamba,
+                step_ms=step_ms, busy_ms=busy,
+                step_bound_ms=step_bound, dense_dispatch_bound_ms=dense_bound,
+                prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound,
+                prefill_busy_ms=prefill_busy, copy_ms=copy_ms,
                 tps=cont["n_tok"] / cont["wall"], lat=cont["lat"], witness=witness,
-                init_s=init_s, n_params=n_params, took=phase_s)
+                row_alone=row_alone, near_ties=near_ties, init_s=init_s,
+                n_params=n_params, took=phase_s)
 
 
-def local_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
+def local_phase(dev, E, gfid_matmul, paged, flash, conv1d, other_kernels, worst):
     """Phase 15: gemma2-27b at full width and LOCAL_LAYERS deep (`lm_phase`),
     then its flash launches timed alone (`local_flash_timing`)."""
     from repro_torch.configs.base import get_config
-    out = lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels,
+    out = lm_phase(dev, E, gfid_matmul, paged, flash, conv1d, other_kernels,
                    model=LOCAL_MODEL, layers=LOCAL_LAYERS, prompts=LOCAL_PROMPTS,
                    max_len=LOCAL_MAX_LEN, n_full=27_227_128_320, tag="[local]",
                    phase=15)
@@ -4886,7 +5122,7 @@ def dense_flash_timing(dev, flash, worst):
     return out
 
 
-def dense_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
+def dense_phase(dev, E, gfid_matmul, paged, flash, conv1d, other_kernels, worst):
     """Phase 16: gemma3-27b (DENSE_GEMMA_LAYERS of 62) and qwen3-32b
     (DENSE_QWEN_LAYERS of 64) at full width through `lm_phase`, then their
     flash and GEMM shapes timed alone. Returns {"gemma3", "qwen3": lm_phase's
@@ -4894,11 +5130,11 @@ def dense_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
     from repro_torch.configs.base import get_config
     t0 = time.perf_counter()
     out = {
-        "gemma3": lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels,
+        "gemma3": lm_phase(dev, E, gfid_matmul, paged, flash, conv1d, other_kernels,
                            model=DENSE_GEMMA, layers=DENSE_GEMMA_LAYERS,
                            prompts=DENSE_GEMMA_PROMPTS, max_len=DENSE_GEMMA_MAX_LEN,
                            n_full=27_009_002_240, tag="[gemma3]", phase=16),
-        "qwen3": lm_phase(dev, E, gfid_matmul, paged, flash, other_kernels,
+        "qwen3": lm_phase(dev, E, gfid_matmul, paged, flash, conv1d, other_kernels,
                           model=DENSE_QWEN, layers=DENSE_QWEN_LAYERS,
                           prompts=DENSE_QWEN_PROMPTS, max_len=DENSE_QWEN_MAX_LEN,
                           n_full=32_762_123_264, tag="[qwen3]", phase=16)}
@@ -4914,6 +5150,306 @@ def dense_phase(dev, E, gfid_matmul, paged, flash, other_kernels, worst):
             "prefill": [(lbl, 8 * prompt, k, n) for lbl, k, n in shapes[:-1]]}, worst)
     out["took"] = time.perf_counter() - t0
     print(f"[dense] phase 16 took {out['took']:.1f} s")
+    return out
+
+
+def recurrent_row_check(E, T, ssm_mod, cfg, conf, params, s8, rows, tag):
+    """From the pool's state of `rows` (the live requests of `s8`): one
+    decode step of the first row alone in the 8-row bucket (the solo
+    mode's step) bitwise its row among all of `rows`, logits and every
+    state leaf; then the first Mamba layer's decode of each of 8 rows at
+    B = 1 bitwise its row at B = 8, on random input and state in the
+    parameters' dtype (h fp32). Returns the rows held."""
+    from repro_torch.configs.base import MAMBA
+    dev = params["embed"].device
+    outs = []
+    with E.using_config(conf), torch.no_grad():
+        for live in (rows, rows[:1]):
+            rids, pad = [t.rid for t in live], 8 - len(live)
+            state = s8.layout.gather(s8.pool.arrays, s8.pool.table_rows(rids, 8),
+                                     s8.pool.slot_rows(rids, 8))
+            toks = torch.tensor([[t.tokens[-1]] for t in live] + [[0]] * pad,
+                                dtype=torch.int32, device=dev)
+            pos = torch.tensor([t.pos for t in live] + [0] * pad, dtype=torch.int32,
+                               device=dev)
+            logits, state = T.decode_step(cfg, params, state, toks, pos)
+            outs.append((logits[:1], [a[:, :1] for a in _leaves(state["groups"])]
+                         + [a[:1] for a in _leaves(state["rem"])]))
+    same = [torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1], strict=True)]
+    err = (outs[0][0].float() - outs[1][0].float()).abs().max().item()
+    require(torch.equal(outs[0][0], outs[1][0]) and all(same), f"{tag} decode step: "
+            f"row 0 alone in the bucket differs from row 0 among {len(rows)} live "
+            f"rows: logits max|d| {err:.3e}, state leaves equal {same}")
+    j = cfg.pattern.index(MAMBA)
+    pm = {k: v[0] for k, v in params["groups"][str(j)]["mamba"].items()}
+    g = torch.Generator(device=dev).manual_seed(17)
+    di, dtype = ssm_mod._d_inner(cfg), params["embed"].dtype
+    x = torch.randn((8, 1, cfg.d_model), generator=g, device=dev).to(dtype)
+    st = {"conv": torch.randn((8, cfg.ssm.d_conv - 1, di), generator=g,
+                              device=dev).to(dtype),
+          "h": torch.randn((8, di, cfg.ssm.d_state), generator=g, device=dev)}
+    with E.using_config(conf), torch.no_grad():
+        y8, n8 = ssm_mod.mamba_decode(cfg, pm, x, st)
+        alone = []
+        for i in range(8):
+            y1, n1 = ssm_mod.mamba_decode(cfg, pm, x[i:i + 1],
+                                          {k: v[i:i + 1] for k, v in st.items()})
+            alone.append(torch.equal(y1, y8[i:i + 1])
+                         and all(torch.equal(n1[k], n8[k][i:i + 1]) for k in n1))
+    require(all(alone), f"{tag} Mamba decode: rows {alone} at B = 1 differ from "
+            "their rows at B = 8")
+    print(f"{tag} one decode step of row 0 alone in the 8-row bucket bitwise its row "
+          f"among {len(rows)} live rows (logits and {len(same)} state leaves); Mamba "
+          f"layer {j}'s decode ({str(dtype)[6:]}, d_inner {di}) of each of 8 rows at "
+          "B = 1 bitwise its row at B = 8 (output, conv tail and fp32 h)")
+    return len(rows)
+
+
+def _to_bf16(tree):
+    """Round a parameter tree to bf16 in place, one leaf at a time."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_bf16(v)
+        else:
+            tree[k] = v.to(torch.bfloat16)
+
+
+def hybrid_block_witness(dev, E, cfg):
+    """Phase 17's witness, a block kind at a time before the served stack is
+    drawn: Mamba + FFN, Mamba + MoE and attention + FFN at full width, each
+    drawn alone in fp32 on the card (the Mamba + MoE block holds 40.3 GB)
+    and freed before the next. `block_forward` at (1, HYBRID_PROMPTS[0],
+    d_model) on "cuda" within TOL of "torch" on the fp32 weights; on the
+    same weights rounded to bf16, each backend's distance from the fp32
+    "torch" output within BF16_FP32_RATIO of the other's (the bf16 gap is
+    read). Then the bf16 block timed on "cuda" as served (`row_align` 8).
+    Returns {label: readings}."""
+    from repro_torch.configs.base import GLOBAL_ATTN, MAMBA
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_tree
+    n = HYBRID_PROMPTS[0]
+    conf = E.EngineConfig(backend="cuda")
+    out = {}
+    for seed, (label, kind, use_moe) in enumerate((
+            ("mamba+ffn", MAMBA, False), ("mamba+moe", MAMBA, True),
+            ("attention+ffn", GLOBAL_ATTN, False))):
+        t0 = time.perf_counter()
+        p = init_tree(T.block_defs(cfg, kind, use_moe),
+                      torch.Generator(device=dev).manual_seed(100 + seed),
+                      torch.float32, dev)
+        n_p = sum(a.numel() for a in _leaves(p))
+        x = torch.randn((1, n, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(200 + seed))
+        pos = torch.arange(n, device=dev)[None]
+        got = {}
+        for dtype in ("fp32", "bf16"):
+            if dtype == "bf16":
+                _to_bf16(p)
+                x = x.to(torch.bfloat16)
+            for backend in ("cuda", "torch"):
+                with E.using_config(conf.replace(backend=backend)), torch.no_grad():
+                    got[dtype, backend] = T.block_forward(cfg, kind, use_moe, p, x,
+                                                          pos)[0].float()
+        require(all(bool(torch.isfinite(v).all()) for v in got.values()),
+                f"[hybrid] {label} block: output not finite")
+        ref = got["fp32", "torch"]
+        gap32 = rel_err(got["fp32", "cuda"], ref)
+        gap16 = rel_err(got["bf16", "cuda"], got["bf16", "torch"])
+        dist = {b: rel_err(got["bf16", b], ref) for b in ("cuda", "torch")}
+        ratio = dist["cuda"] / dist["torch"]
+        with E.using_config(conf.replace(row_align=8)), torch.no_grad():
+            ms = time_ms(lambda: T.block_forward(cfg, kind, use_moe, p, x, pos),
+                         iters=3, warmup=1)
+        out[label] = dict(params=n_p, gap32=gap32, gap16=gap16, dist=dist,
+                          ratio=ratio, bf16_ms=ms)
+        print(f"[hybrid] {label} block at full width ({n_p} parameters, drawn alone) "
+              f"at (1, {n}, {cfg.d_model}): cuda vs torch {gap32:.3e} on fp32 weights "
+              f"(limit {TOL}); on the same weights in bf16 cuda vs torch {gap16:.3e} "
+              f"(read), distance from the fp32 output cuda {dist['cuda']:.3e}, torch "
+              f"{dist['torch']:.3e} (ratio {ratio:.3f}, limits {1 / BF16_FP32_RATIO:.3f}"
+              f" and {BF16_FP32_RATIO}); the bf16 block on cuda as served (row_align "
+              f"8) {ms:.4f} ms (median of 3); {time.perf_counter() - t0:.1f} s")
+        require(gap32 <= TOL, f"[hybrid] {label} block on fp32 weights: cuda vs "
+                f"torch {gap32:.3e} > {TOL}")
+        require(1 / BF16_FP32_RATIO <= ratio <= BF16_FP32_RATIO, f"[hybrid] {label} "
+                f"block in bf16: cuda is {dist['cuda']:.3e} from the fp32 output, "
+                f"torch {dist['torch']:.3e}")
+        del p, x, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_kernel_check(dev, gfid_matmul, conv1d, worst):
+    """Phase 3's cases at jamba's shapes, bf16: `gfid_conv1d_depthwise` on x
+    (1, L, 16384) and taps (4, 16384), causal, at L in HYBRID_CONV_LENS,
+    bitwise its plain version, each row of an 8-row batch bitwise the row
+    alone; the grouped bf16 GEMM at the 16 experts' (16, T, 8192) @ (16,
+    8192, 24576) (fp32 store: w_in, w_gate) and (16, T, 24576) @ (16, 24576,
+    8192) (bf16 store: w_out) for T in HYBRID_GROUPED_ROWS, one launch each,
+    within the kernel's tolerance of its plain version, a row at T = 1
+    bitwise the same row at each T. Returns the checks run."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(HYBRID_MODEL)
+    di, wf = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_conv
+    conv, cplain = conv1d.gfid_conv1d_depthwise, conv1d.gfid_conv1d_depthwise_plain
+    g = torch.Generator(device=dev).manual_seed(33)
+    checks = 0
+    key = "gfid_conv1d_depthwise"
+    worst.setdefault(key, 0.0)
+    w = (0.5 * torch.randn((wf, di), generator=g, device=dev)).to(torch.bfloat16)
+    for n in HYBRID_CONV_LENS:
+        x = torch.randn((8, n, di), generator=g, device=dev).to(torch.bfloat16)
+        got, want = conv(x[:1], w, causal=True), cplain(x[:1], w, causal=True)
+        batch = conv(x, w, causal=True)
+        rows = [torch.equal(conv(x[i:i + 1], w, causal=True), batch[i:i + 1])
+                for i in range(8)]
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        abs_err = (got.float() - want.float()).abs().max().item()
+        plan = conv1d.launch_plan(1, n, di, wf, True, x.data_ptr())
+        print(f"[check] {key} jamba bf16 (1, {n}, {di}) W_f {wf} causal: bitwise "
+              f"equal {equal} (max|d| = {abs_err:.3e}, limit 0), "
+              f"{'shared-memory tile' if plan.staged else 'register window'}, "
+              f"{'float4' if plan.vec else 'scalar'} loads, grid {plan.grid}; each "
+              f"row of 8 bitwise the row alone: {all(rows)}")
+        require(equal and all(rows), f"{key} jamba (1, {n}, {di}): equal {equal}, "
+                f"rows {rows}")
+        worst[key] = max(worst[key], abs_err)
+        checks += 2
+    mm, plain = gfid_matmul.gfid_matmul, gfid_matmul.gfid_matmul_plain
+    counted = (gfid_matmul.gfid_matmul_bf16, gfid_matmul.gfid_matmul_bf16_grouped)
+    kname = "gfid_matmul_bf16_grouped"
+    worst.setdefault(kname, 0.0)
+    for label, e, k, n in grouped_shapes(cfg):
+        store = torch.float32 if label.startswith("w_in") else torch.bfloat16
+        w = (torch.randn((e, k, n), generator=g, device=dev) / math.sqrt(k)).to(
+            torch.bfloat16)
+        x = torch.randn((e, max(HYBRID_GROUPED_ROWS), k), generator=g,
+                        device=dev).to(torch.bfloat16)
+        for t in HYBRID_GROUPED_ROWS:
+            xt = x[:, :t].contiguous()
+            zero_counts(*counted)
+            got = mm(xt, w, out_dtype=store)
+            torch.cuda.synchronize()
+            one = counts(*counted)
+            want = plain(xt, w, out_dtype=store)
+            ok, abs_err, reading, limit = kernel_check(got, want)
+            plan = gfid_matmul.bf16_plan(t, k, n, xt.data_ptr(), w.data_ptr(), e)
+            print(f"[check] {kname} jamba {label} ({e}, {t}, {k}) @ ({e}, {k}, {n}) -> "
+                  f"{str(store)[6:]}: tile {plan.bm}x{plan.bn}, K splits "
+                  f"{plan.splits}, grid {plan.grid}; launches (entry, grouped) {one}; "
+                  f"vs plain max|d| = {abs_err:.3e}, {reading:.3e} (limit {limit:g}"
+                  f"{' bf16 steps' if limit == 1.0 else ''})")
+            require(one == (1, 1) and ok, f"{kname} jamba {label} T={t}: launches "
+                    f"{one}, {reading:.3e} > {limit}")
+            worst[kname] = max(worst[kname], abs_err)
+            checks += 1
+            del got, want
+        first = mm(x[:, :1].contiguous(), w, out_dtype=store)[:, 0]
+        same = all(torch.equal(first, mm(x[:, :t].contiguous(), w,
+                                         out_dtype=store)[:, 0])
+                   for t in HYBRID_GROUPED_ROWS)
+        print(f"[check] {kname} jamba {label}: row 0 at T = 1 bitwise the same row "
+              f"at T = {', '.join(map(str, HYBRID_GROUPED_ROWS))}: {same}")
+        require(same, f"{kname} jamba {label}: a row's bits follow T")
+        checks += 1
+        del w, x
+        torch.cuda.empty_cache()
+    return checks
+
+
+def hybrid_timing(dev, gfid_matmul, conv1d, ssm_mod, cfg):
+    """Phase 17's kernels timed alone at the served shapes: the depthwise
+    conv on bf16 x (1, HYBRID_PROMPTS[0], d_inner) and taps, beside its
+    plain version, `F.conv1d(groups=d_inner)` on the same bf16 operands and
+    its bound (bytes: x read, the output written, the taps read); the
+    grouped bf16 expert GEMMs at HYBRID_GROUPED_ROWS (`grouped_timing`);
+    and the selective scan of one Mamba layer at the prefill's shape (fp32,
+    chunks of 256), the device alone. Returns {"conv", "grouped", "scan"}."""
+    conv, cplain = conv1d.gfid_conv1d_depthwise, conv1d.gfid_conv1d_depthwise_plain
+    g = torch.Generator(device=dev).manual_seed(34)
+    n, di, wf = HYBRID_PROMPTS[0], ssm_mod._d_inner(cfg), cfg.ssm.d_conv
+    x = torch.randn((1, n, di), generator=g, device=dev).to(torch.bfloat16)
+    w = (0.5 * torch.randn((wf, di), generator=g, device=dev)).to(torch.bfloat16)
+    w_lib = w.T[:, None, :].contiguous()
+    require(torch.equal(conv(x, w), cplain(x, w)), "gfid_conv1d_depthwise jamba "
+            "timing case differs from its plain version")
+
+    def lib():
+        return F.conv1d(x.permute(0, 2, 1), w_lib, padding=wf - 1, groups=di)
+
+    lib_err = rel_err(lib()[..., :n].permute(0, 2, 1), cplain(x, w))
+    n_bytes = 2 * (2 * x.numel() + w.numel())
+    b_ms, by = bound_ms(n_bytes, 2 * wf * x.numel())
+    row = dict(ms=time_ms(lambda: conv(x, w)), device_ms=graph_ms(lambda: conv(x, w)),
+               plain_ms=time_ms(lambda: cplain(x, w)), library_ms=time_ms(lib),
+               library_device_ms=graph_ms(lib), bound_ms=b_ms, bound_by=by,
+               n_bytes=n_bytes)
+    print(f"[time] gfid_conv1d_depthwise jamba bf16 (1, {n}, {di}) W_f {wf}: kernel "
+          f"{row['ms']:.4f} ms (device alone {row['device_ms']:.4f} ms, "
+          f"{n_bytes / row['device_ms'] / 1e9:.3f} TB/s), plain {row['plain_ms']:.4f} "
+          f"ms, library F.conv1d(groups={di}, bf16) {row['library_ms']:.4f} ms (device "
+          f"alone {row['library_device_ms']:.4f} ms; vs plain {lib_err:.3e}), bound "
+          f"{b_ms:.4f} ms ({n_bytes / 1e6:.2f} MB, {by})")
+    del x, w, w_lib
+    grouped = grouped_timing(dev, gfid_matmul, cfg, torch.bfloat16,
+                             rows_at=HYBRID_GROUPED_ROWS)
+    torch.cuda.empty_cache()
+    ds = cfg.ssm.d_state
+    xs = torch.randn((1, n, di), generator=g, device=dev)
+    dt = F.softplus(torch.randn((1, n, di), generator=g, device=dev) - 4)
+    b_in, c_in = (torch.randn((1, n, ds), generator=g, device=dev) for _ in range(2))
+    a = -torch.exp(torch.ones((di, ds), device=dev))
+
+    def scan():
+        return ssm_mod._ssm_scan_chunked(xs, dt, b_in, c_in, a, 256)
+
+    scan_t = dict(ms=time_ms(scan, iters=5, warmup=1), device_ms=graph_ms(scan, calls=3))
+    print(f"[time] selective scan, one Mamba layer at the prefill's shape (1, {n}, "
+          f"{di}) x d_state {ds}, fp32, chunks of 256 (torch ops): "
+          f"{scan_t['ms']:.4f} ms with the host, {scan_t['device_ms']:.4f} ms the device "
+          "alone")
+    del xs, dt, b_in, c_in, a
+    torch.cuda.empty_cache()
+    return dict(conv=row, grouped=grouped, scan=scan_t)
+
+
+def hybrid_phase(dev, E, gfid_matmul, conv1d, paged, flash, other_kernels, worst):
+    """Phase 17: jamba-1.5-large's hybrid stack at full width (see the module
+    docstring): each block kind's witness alone (`hybrid_block_witness`),
+    the path's kernels timed alone at its shapes (`hybrid_timing`), then
+    HYBRID_LAYERS layers served through `lm_phase`. Returns {"blocks",
+    "timing", "serve": lm_phase's numbers, "scan_share", "peak_gb",
+    "took"}."""
+    from repro_torch.configs.base import MAMBA, get_config
+    from repro_torch.models import ssm as ssm_mod
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    full = get_config(HYBRID_MODEL)
+    cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS, moe=dataclasses.replace(
+        full.moe, period=HYBRID_MOE_PERIOD))
+    out = {"blocks": hybrid_block_witness(dev, E, cfg),
+           "timing": hybrid_timing(dev, gfid_matmul, conv1d, ssm_mod, cfg)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    out["serve"] = lm_phase(dev, E, gfid_matmul, paged, flash, conv1d, other_kernels,
+                            model=HYBRID_MODEL, layers=HYBRID_LAYERS,
+                            prompts=HYBRID_PROMPTS, max_len=HYBRID_MAX_LEN,
+                            n_full=398_556_143_616, tag="[hybrid]", phase=17,
+                            moe_period=HYBRID_MOE_PERIOD)
+    out["peak_gb"] = max(peak, torch.cuda.max_memory_allocated(dev)) / 1e9
+    busy = out["serve"]["prefill_busy_ms"].get(HYBRID_PROMPTS[0])
+    n_mamba = cfg.layer_kinds.count(MAMBA)
+    scan = n_mamba * out["timing"]["scan"]["device_ms"]
+    out["scan_share"] = None if busy is None else scan / busy
+    out["took"] = time.perf_counter() - t0
+    print(f"[hybrid] the {HYBRID_PROMPTS[0]}-token prefill's selective scans: "
+          f"{n_mamba} x {out['timing']['scan']['device_ms']:.4f} = {scan:.4f} ms of "
+          "device time alone, "
+          + ("the prefill's device time not measured" if busy is None else
+             f"{100 * out['scan_share']:.1f}% of the prefill's {busy:.4f} ms")
+          + f"; torch.cuda.max_memory_allocated over the phase {out['peak_gb']:.3f} "
+          f"GB; phase 17 took {out['took']:.1f} s")
     return out
 
 
@@ -5367,6 +5903,7 @@ def main():
     checks += row_invariance_check(dev, mm32, 32, torch.float32)
     checks += grouped_check(dev, gfid_matmul, torch.Generator().manual_seed(28),
                             worst)
+    checks += hybrid_kernel_check(dev, gfid_matmul, conv1d, worst)
     checks += batch_invariance_check(dev, cnn, conv32, conv8, quant,
                                      torch.Generator().manual_seed(33))[0]
     worst["paged_gather"] = 0.0
@@ -6008,19 +6545,25 @@ def main():
     # -- phase 15: gemma2-27b, local attention at full width -------------------
     started["15"] = time.perf_counter()
     torch.cuda.empty_cache()
-    lm_others = all_kernels + (conv16, conv1d.gfid_conv1d_depthwise,
-                               flash_attention.flash_attention,
-                               flash_attention.flash_attention_local,
-                               gfid_matmul.gfid_matmul_grouped,
-                               gfid_matmul.gfid_matmul_bf16_grouped)
-    local = local_phase(dev, E, gfid_matmul, paged, flash_attention, lm_others,
-                        worst)
+    # lm_phase counts the bf16 GEMM and flash, the gather, the fp32 GEMM
+    # (a router), the grouped bf16 GEMM and the depthwise conv itself
+    lm_others = (conv32, conv8, mm8, conv16, flash_attention.flash_attention,
+                 flash_attention.flash_attention_local,
+                 gfid_matmul.gfid_matmul_grouped)
+    local = local_phase(dev, E, gfid_matmul, paged, flash_attention, conv1d,
+                        lm_others, worst)
 
     # -- phase 16: gemma3-27b and qwen3-32b at full width ----------------------
     started["16"] = time.perf_counter()
     torch.cuda.empty_cache()
-    dense = dense_phase(dev, E, gfid_matmul, paged, flash_attention, lm_others,
-                        worst)
+    dense = dense_phase(dev, E, gfid_matmul, paged, flash_attention, conv1d,
+                        lm_others, worst)
+
+    # -- phase 17: jamba-1.5-large's hybrid stack at full width ----------------
+    started["17"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    hybrid = hybrid_phase(dev, E, gfid_matmul, conv1d, paged, flash_attention,
+                          lm_others, worst)
     ends = list(started.values())[1:] + [time.perf_counter()]
     print("[time] phases (s): " + ", ".join(
         f"{name} {end - start:.1f}" for (name, start), end
@@ -6079,10 +6622,11 @@ def main():
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
         "device_ms": g["device_ms"], "library_device_ms": g["library_device_ms"],
         "launch_path": launch_path["paged_gather"]})
-    # phases 15 and 16: the launches of each model's continuous run (2 a
+    # phases 15, 16 and 17: the launches of each model's continuous run (2 a
     # decode step: the paged global k and v)
+    jamba = hybrid["serve"]
     for tag, run in (("gemma2", local), ("gemma3", dense["gemma3"]),
-                     ("qwen3", dense["qwen3"])):
+                     ("qwen3", dense["qwen3"]), ("jamba", jamba)):
         kernels[-1][tag] = dict(launches=run["launches"][3],
                                 launches_per_decode_step=run["step_launches"][3])
     ct = ssm["conv_tot"]
@@ -6099,7 +6643,11 @@ def main():
         "library_device_ms": ct["library_device_ms"],
         "plain_ms": ct["plain_ms"], "bound_ms": ct["bound_ms"],
         "bound_by": ct["bound_by"], "library_ms": ct["library_ms"],
-        "launch_path": launch_path["gfid_conv1d_depthwise"]})
+        "launch_path": launch_path["gfid_conv1d_depthwise"],
+        # phase 17: jamba's bf16 conv at (1, 1100, 16384), timed alone; the
+        # launches of its continuous run, 7 a prefill
+        "jamba": dict(hybrid["timing"]["conv"], launches=jamba["launches"][6],
+                      launches_per_prefill=jamba["prefill_launches_conv"])})
     for kname, source, timing, launches in (
             ("flash_attention", "flash_attention.cu", flash_t["float32"],
              long["run_launches"][2]),
@@ -6141,6 +6689,8 @@ def main():
                 kernels[-1][tag] = dict(dense["flash"][tag],
                                         launches=dense[tag]["launches"][1],
                                         local_launches=dense[tag]["launches"][2])
+            # phase 17: jamba's attention layer, one launch a prefill past 1,024
+            kernels[-1]["jamba"] = dict(launches=jamba["launches"][1])
     for kname, source, replaces, k in (
             ("gfid_conv2d_nhwc_bf16", "src/repro_torch/csrc/gfid_conv_bf16.cu",
              "src/repro/kernels/gfid_conv.py:79", 0),
@@ -6182,6 +6732,17 @@ def main():
                                 launches_per_decode_step=run["step_launches"][0],
                                 launches_per_prefill=run["prefill_launches"],
                                 shapes=dense["gemm"][model])
+    # phase 17: jamba's bf16 GEMMs (8 layers), the grouped among them,
+    # counted in its continuous run; a decode step's device time and bound
+    kernels[-1]["jamba"] = dict(
+        launches=jamba["launches"][0], launches_per_decode_step=jamba["step_launches"][0],
+        grouped_launches=jamba["launches"][5], decode_step=dict(
+            ms=jamba["step_ms"], device_ms=jamba["busy_ms"],
+            bound_ms=jamba["step_bound_ms"],
+            dense_dispatch_bound_ms=jamba["dense_dispatch_bound_ms"]),
+        prefill={str(n): dict(ms=ms, device_ms=jamba["prefill_busy_ms"].get(n),
+                              bound_ms=jamba["prefill_bound_ms"][n])
+                 for n, ms in jamba["prefill_ms"].items()})
     for kname, dtype in (("gfid_matmul_grouped", torch.float32),
                          ("gfid_matmul_bf16_grouped", torch.bfloat16)):
         m, slot = moe[dtype], 3 if dtype == torch.bfloat16 else 2
@@ -6209,6 +6770,34 @@ def main():
             f"prompt{MOE_TIMED_PROMPT}": {key: sums[MOE_TIMED_PROMPT][key] for key in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                 "library_device_ms")}})
+    # phase 17: jamba's 16 experts, one layer's three grouped launches at a
+    # decode step's 8 rows and the 1,100-token prefill's 1,104, timed alone;
+    # the launches of its continuous run
+    jt = hybrid["timing"]["grouped"]
+    kernels[-1]["jamba"] = {
+        f"rows{t}": {key: sum(r[key] for r in jt[t]) for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+            "library_device_ms")} for t in HYBRID_GROUPED_ROWS}
+    kernels[-1]["jamba"].update(launches=jamba["launches"][5],
+                                launches_per_decode_step=jamba["step_launches"][5])
+    # the fp32 GEMM on phase 17's path: jamba's router, one a pass
+    next(k for k in kernels if k["name"] == "gfid_matmul")["jamba"] = dict(
+        launches=jamba["launches"][4], launches_per_decode_step=jamba["step_launches"][4])
+    hb = hybrid["blocks"]
+    print(f"[hybrid] summary: {jamba['tps']:.1f} tokens/s, p50 "
+          f"{jamba['lat']['p50_ms']:.1f} ms, p95 {jamba['lat']['p95_ms']:.1f} ms; decode "
+          f"step {jamba['step_ms']:.4f} ms with {len(HYBRID_PROMPTS)} rows, device time "
+          + ("not measured" if jamba["busy_ms"] is None else f"{jamba['busy_ms']:.4f} ms")
+          + f", bound {jamba['step_bound_ms']:.4f} ms (the dense dispatch's "
+          f"{jamba['dense_dispatch_bound_ms']:.4f}); prefill "
+          + ", ".join(f"({n}) {ms:.4f} ms" for n, ms in jamba["prefill_ms"].items())
+          + "; scan share "
+          + ("not measured" if hybrid["scan_share"] is None
+             else f"{100 * hybrid['scan_share']:.1f}%")
+          + "; block witness ratios " + ", ".join(
+              f"{k} {v['ratio']:.3f}" for k, v in hb.items())
+          + f"; bf16 gap {jamba['witness']}; peak {hybrid['peak_gb']:.3f} GB; phase 17 "
+          f"{hybrid['took']:.1f} s")
     for tag in ("gemma3", "qwen3"):
         run, fl = dense[tag], dense["flash"][tag]
         print(f"[{tag}] summary: {run['tps']:.1f} tokens/s, p50 "

@@ -56,12 +56,14 @@ def main():
                                    worst)
     else:
         G = gfid_matmul
-        others = (gfid_conv.gfid_conv2d_nhwc, G.gfid_matmul,
-                  gfid_conv.gfid_conv2d_nhwc_int8, G.gfid_matmul_int8,
-                  gfid_conv.gfid_conv2d_nhwc_bf16, conv1d.gfid_conv1d_depthwise,
+        # lm_phase counts the bf16 and fp32 GEMM, the grouped bf16 GEMM, the
+        # bf16 flash, the gather and the depthwise conv itself
+        others = (gfid_conv.gfid_conv2d_nhwc, gfid_conv.gfid_conv2d_nhwc_int8,
+                  G.gfid_matmul_int8, gfid_conv.gfid_conv2d_nhwc_bf16,
                   flash_attention.flash_attention, flash_attention.flash_attention_local,
-                  G.gfid_matmul_grouped, G.gfid_matmul_bf16_grouped)
-        out = C.local_phase(dev, E, G, paged, flash_attention, others, worst)
+                  G.gfid_matmul_grouped)
+        out = C.local_phase(dev, E, G, paged, flash_attention, conv1d, others,
+                            worst)
     print(json.dumps(dict(out, worst=worst), default=str))
 
 

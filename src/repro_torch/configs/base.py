@@ -129,13 +129,15 @@ class ModelConfig:
 # The configs this port runs; the rest of the reference's registry comes
 # with their model families.
 PORTED = ("smollm_135m", "xlstm_125m", "granite_moe_1b",
-          "llama32_vision_11b", "gemma2_27b", "gemma3_27b", "qwen3_32b")
+          "llama32_vision_11b", "gemma2_27b", "gemma3_27b", "qwen3_32b",
+          "jamba15_large")
 
 ALIASES = {"smollm-135m": "smollm_135m", "xlstm-125m": "xlstm_125m",
            "granite-moe-1b-a400m": "granite_moe_1b",
            "llama-3.2-vision-11b": "llama32_vision_11b",
            "gemma2-27b": "gemma2_27b", "gemma3-27b": "gemma3_27b",
-           "qwen3-32b": "qwen3_32b"}
+           "qwen3-32b": "qwen3_32b",
+           "jamba-1.5-large-398b": "jamba15_large"}
 
 
 def _module(name: str):

@@ -1,31 +1,32 @@
-"""Recurrent blocks of xLSTM: mLSTM (matrix memory, chunkwise-parallel) and
-sLSTM (scalar memory, recurrent with a block-diagonal R). A copy of the JAX
-package's `models/ssm.py` for these two blocks.
+"""State-space and recurrent blocks: Mamba (jamba's selective SSM), mLSTM
+(matrix memory, chunkwise-parallel) and sLSTM (scalar memory, recurrent
+with a block-diagonal R) of xLSTM. A copy of the JAX package's
+`models/ssm.py`.
 
-Both share the repo's execution contract:
+All three share the repo's execution contract:
   * projections are FC-mode GEMMs of the engine (`engine.proj`),
   * the short depthwise conv (W_f = 4, S = 1) is the engine's 1-D conv mode
     (`engine.conv1d_depthwise`), the `gfid_conv1d_depthwise` kernel on the
     "cuda" backend,
-  * the sequence is processed in chunks (mLSTM) or token by token (sLSTM),
-    carrying O(1) state. The reference runs both under `jax.lax.scan`; the
-    port runs Python loops.
+  * the sequence is processed in chunks (Mamba, mLSTM) or token by token
+    (sLSTM), carrying O(1) state. The reference runs them under
+    `jax.lax.scan`; the port runs Python loops. Mamba's selective scan is
+    plain JAX in the reference and plain torch ops here: it reaches no
+    kernel.
 
 Decode carries explicit recurrent state: the conv tail (the last
 `d_conv - 1` *inputs* of the conv, in `state_dtype`) and the fp32 memory
-(`c`, `n`, `m`, and `h` for the sLSTM). A decode step applies the conv
-window itself (outside the engine, as the reference does), taps in
-ascending order from zeros as the 1-D mode sums them. A state is taken
+(Mamba's `h`; `c`, `n`, `m`, and `h` for the sLSTM). A decode step applies
+the conv window itself (outside the engine, as the reference does), taps
+in ascending order from zeros as the 1-D mode sums them. A state is taken
 only from a sequence of at least `d_conv - 1` tokens: the reference cannot
 serve a shorter prompt either (ROADMAP section 3).
 
 A decode row gets the same bits at any batch size: the state contractions
-are a product and a sum over a strided axis, and the norms and the mLSTM's
-denominator sum with `layers.row_sum` (on the card, `einsum` and an
-innermost `torch.sum` pick their algorithm by the count of rows; ROADMAP
-section 3). The reference uses `einsum` and `mean`.
-
-Mamba (jamba's block) is not ported: ROADMAP queue 1, item 10.
+are a product and a sum over a strided axis or `layers.row_sum`, and the
+norms and the mLSTM's denominator sum with `layers.row_sum` (on the card,
+`einsum` and an innermost `torch.sum` pick their algorithm by the count of
+rows; ROADMAP section 3). The reference uses `einsum` and `mean`.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ from repro_torch import engine
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import no_tf32
 from repro_torch.models.layers import (ACTIVATIONS, CONV, D_FF, D_MODEL,
-                                       HEADS, ParamDef, row_sum)
+                                       HEADS, STATE, ParamDef, rms_norm,
+                                       row_sum)
 
 NEG_BIG = -1e30      # the reference's "minus infinity" of the stabilizers
 
@@ -75,6 +77,168 @@ def _group_rms_norm(x: torch.Tensor, scale: torch.Tensor, n_groups: int,
     var = row_sum(xg * xg) / xg.shape[-1]
     xg = xg * torch.rsqrt(var + eps)
     return (xg.reshape(b, l, d) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM)
+# ---------------------------------------------------------------------------
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return cfg.ssm.dt_rank or -(-cfg.d_model // 16)
+
+
+def _d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm.expand * cfg.d_model
+
+
+def mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d, di, ds = cfg.d_model, _d_inner(cfg), cfg.ssm.d_state
+    dr = _dt_rank(cfg)
+    return {
+        "w_in": ParamDef((d, 2 * di), (D_MODEL, D_FF)),
+        "conv_w": ParamDef((cfg.ssm.d_conv, di), (CONV, D_FF), scale=0.5),
+        "conv_b": ParamDef((di,), (D_FF,), "zeros"),
+        "w_x": ParamDef((di, dr + 2 * ds), (D_FF, None)),
+        "w_dt": ParamDef((dr, di), (None, D_FF)),
+        "dt_bias": ParamDef((di,), (D_FF,), "zeros"),
+        "a_log": ParamDef((di, ds), (D_FF, STATE), "ones"),
+        "d_skip": ParamDef((di,), (D_FF,), "ones"),
+        "norm": ParamDef((di,), (D_FF,), "ones"),       # Jamba inner RMSNorm
+        "w_out": ParamDef((di, d), (D_FF, D_MODEL)),
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus` as XLA's CPU compiler computes it: log-add-exp with
+    0, max(x, 0) + log1p(exp(-|x|)), each op rounded to x's dtype.
+    `F.softplus` returns x itself above a threshold and rounds once."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu` as XLA's CPU compiler computes it: x * (1 / (1 +
+    exp(-x))), each op rounded to x's dtype. `F.silu` rounds a bf16 result
+    once, which differs from it in the last bit of about a third of bf16
+    elements."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def _inclusive_scan(decay: torch.Tensor, inject: torch.Tensor,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inclusive scan of (decay, inject) pairs over axis 1 under the
+    reference's combine (a1, u1) . (a2, u2) = (a1 a2, a2 u1 + u2): a
+    Hillis-Steele doubling, step k combining each row with the row 2**k
+    before it, elementwise per (b, d, s). The reference's
+    `associative_scan` pairs the rows in another tree, so the products are
+    associated in another order (within a tolerance, not bitwise)."""
+    n, off = decay.shape[1], 1
+    while off < n:
+        inject = torch.cat([inject[:, :off], decay[:, off:] * inject[:, :-off]
+                            + inject[:, off:]], dim=1)
+        decay = torch.cat([decay[:, :off], decay[:, off:] * decay[:, :-off]],
+                          dim=1)
+        off *= 2
+    return decay, inject
+
+
+def _ssm_scan_chunked(x, dt, b_in, c_in, a, chunk: int):
+    """Selective scan h_t = exp(dt_t a) h_{t-1} + dt_t b_t x_t; y_t = c_t.h_t.
+
+    x, dt: (B, L, Di); b_in, c_in: (B, L, Ds); a: (Di, Ds), all fp32.
+    The chunks of `chunk` rows run in a Python loop carrying h (B, Di, Ds)
+    in fp32; inside a chunk `_inclusive_scan` keeps the (B, Q, Di, Ds)
+    state tensor transient. The last chunk is padded with rows of dt = 0,
+    whose decay is 1 and inject 0, so the final state is the last real
+    row's. y sums over Ds with `row_sum`. Returns (y (B, L, Di), h)."""
+    bsz, l, di = x.shape
+    ds = a.shape[1]
+    q = min(chunk, l)
+    nq = -(-l // q)
+    pad = nq * q - l
+    if pad:
+        x, dt, b_in, c_in = (F.pad(v, (0, 0, 0, pad))
+                             for v in (x, dt, b_in, c_in))
+    h = torch.zeros((bsz, di, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for j in range(nq):
+        sl = slice(j * q, (j + 1) * q)
+        xq, dtq, bq, cq = x[:, sl], dt[:, sl], b_in[:, sl], c_in[:, sl]
+        decay = torch.exp(dtq[..., None] * a)            # (B, Q, Di, Ds)
+        inject = (dtq * xq)[..., None] * bq[:, :, None, :]
+        dec_c, inj_c = _inclusive_scan(decay, inject)
+        hq = dec_c * h[:, None] + inj_c                  # (B, Q, Di, Ds)
+        ys.append(row_sum(hq * cq[:, :, None, :])[..., 0])   # "bqds,bqs->bqd"
+        h = hq[:, -1]
+    y = torch.cat(ys, dim=1) if nq > 1 else ys[0]
+    return y[:, :l], h
+
+
+def _mamba_out(cfg: ModelConfig, p: Dict, y: torch.Tensor, xc: torch.Tensor,
+               z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The block's output from the scan's y (fp32): the skip term in fp32,
+    the inner RMSNorm (fixed-order sum) on y in the block's dtype, the
+    silu(z) gate and the output projection."""
+    y = y + xc.float() * p["d_skip"].float()
+    y = rms_norm(y.to(dtype), p["norm"], cfg.norm_eps, fixed_order=True)
+    return engine.proj(y * _silu(z), p["w_out"])
+
+
+def mamba_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                  chunk: int = 256, return_state: bool = False,
+                  state_dtype: torch.dtype = torch.bfloat16):
+    """x: (B, L, D) -> (B, L, D); with `return_state` also the decode state
+    {"conv": the conv's last d_conv - 1 inputs in `state_dtype`, "h": the
+    scan's final fp32 state}."""
+    di, ds, dr = _d_inner(cfg), cfg.ssm.d_state, _dt_rank(cfg)
+    xz = engine.proj(x, p["w_in"])
+    xm_pre, z = torch.split(xz, di, dim=-1)
+    xm = _silu(engine.conv1d_depthwise(xm_pre, p["conv_w"], causal=True)
+               + p["conv_b"])
+    proj = engine.proj(xm, p["w_x"])
+    dt_in, b_in, c_in = torch.split(proj, [dr, ds, ds], dim=-1)
+    dt = _softplus(engine.proj(dt_in, p["w_dt"]) + p["dt_bias"]).float()
+    a = -torch.exp(p["a_log"].float())
+    with no_tf32():
+        y, h_fin = _ssm_scan_chunked(xm.float(), dt, b_in.float(),
+                                     c_in.float(), a, chunk)
+    out = _mamba_out(cfg, p, y, xm, z, x.dtype)
+    if return_state:
+        return out, {"conv": _conv_tail(cfg, xm_pre, state_dtype),
+                     "h": h_fin}
+    return out
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> Dict:
+    di, ds = _d_inner(cfg), cfg.ssm.d_state
+    return {"conv": torch.zeros((batch, cfg.ssm.d_conv - 1, di), dtype=dtype,
+                                device=device),
+            "h": torch.zeros((batch, di, ds), dtype=torch.float32,
+                             device=device)}
+
+
+def mamba_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, state: Dict,
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, 1, D); O(1) recurrent update. The reference's
+    `einsum("bds,bs->bd")` is a product summed over Ds by `row_sum`."""
+    di, ds, dr = _d_inner(cfg), cfg.ssm.d_state, _dt_rank(cfg)
+    xz = engine.proj(x[:, 0], p["w_in"])
+    xm, z = torch.split(xz, di, dim=-1)
+    window = torch.cat([state["conv"], xm[:, None].to(state["conv"].dtype)],
+                       dim=1)
+    xc = _window_conv(window, p["conv_w"]) + p["conv_b"].float()
+    xc = _silu(xc).to(x.dtype)
+    proj = engine.proj(xc, p["w_x"])
+    dt_in, b_in, c_in = torch.split(proj, [dr, ds, ds], dim=-1)
+    dt = _softplus(engine.proj(dt_in, p["w_dt"]) + p["dt_bias"]).float()
+    a = -torch.exp(p["a_log"].float())
+    decay = torch.exp(dt[..., None] * a)                 # (B, Di, Ds)
+    h = (decay * state["h"]
+         + (dt * xc.float())[..., None] * b_in.float()[:, None, :])
+    y = row_sum(h * c_in.float()[:, None, :])[..., 0]
+    out = _mamba_out(cfg, p, y, xc, z, x.dtype)[:, None]
+    return out, {"conv": window[:, 1:], "h": h}
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,15 @@
 """Top-level model assembly: parameter trees, full-sequence forward and
 prefill, and single-token decode over an explicit state tree. A copy of the
-JAX package's `models/transformer.py` for four families: dense decoders
+JAX package's `models/transformer.py` for five families: dense decoders
 whose layers are GLOBAL_ATTN or LOCAL_ATTN (sliding-window) blocks with a
 dense FFN (gemma2's alternation of the two included), MoE decoders whose
 GLOBAL_ATTN blocks carry the MoE FFN of `models/moe.py` (the dense
 dispatch; `forward(..., return_aux=True)` returns its load-balancing loss
 as the reference's `forward` does), the SSM family's xLSTM, whose
-MLSTM and SLSTM blocks carry their own projections (no FFN), and the VLM
-(llama-3.2-vision), whose CROSS_ATTN blocks attend to a batch's
-`image_embeds` (B, n_img_tokens, d_model) through a tanh gate.
+MLSTM and SLSTM blocks carry their own projections (no FFN), the hybrid
+(jamba), whose MAMBA and GLOBAL_ATTN blocks each carry a dense or MoE FFN,
+and the VLM (llama-3.2-vision), whose CROSS_ATTN blocks attend to a
+batch's `image_embeds` (B, n_img_tokens, d_model) through a tanh gate.
 
 The reference runs the layer groups under `jax.lax.scan`; the port loops
 over the stacked group axis in Python, so each layer's engine ops are
@@ -20,18 +21,19 @@ kv_heads, head_dim)` (a local layer's a ring of min(max_len, window_size)
 slots, which the prefill fills with the prompt's last keys, rolled to the
 slots pos % length, as the reference's), a cross layer's image cache of
 `(n_groups, B, n_img_tokens, kv_heads, head_dim)` (filled by prefill,
-read unchanged by decode), an xLSTM layer's conv tail and fp32 memory
-(`models/ssm.py`), each stacked over the groups. Decode and prefill write the state in
-place.
+read unchanged by decode), a Mamba or xLSTM layer's conv tail and fp32
+memory (`models/ssm.py`), each stacked over the groups. Decode and prefill
+write the state in place.
 
 Parameter dtypes: the dense family's default is the config's
 `param_dtype` (bf16 for every LM config), as in the reference; its
 projections then run on bf16 operands (the bf16 GEMM kernel on "cuda"),
 the norms, rope and attention scores promote to fp32 where the reference's
-do, and the logits come out fp32. The xLSTM keeps fp32 parameters: its
+do, and the logits come out fp32. The hybrid's Mamba blocks take bf16
+parameters too (jamba's default). The xLSTM keeps fp32 parameters: its
 row-invariant decode sums were established in fp32, and bf16 xLSTM
 parameters raise (ROADMAP queue 1, item 10). Caches are bf16
-(`state_dtype`), as in the reference.
+(`state_dtype`), as in the reference; the recurrent memory is fp32.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import engine
-from repro_torch.configs.base import CROSS_ATTN, MLSTM, SLSTM, ModelConfig
+from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN, MAMBA, MLSTM,
+                                      SLSTM, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
@@ -51,34 +54,48 @@ from repro_torch.models.layers import (
     stack_defs, tree_map, unembed)
 from repro_torch.models.layers import params_from_jax  # noqa: F401 (re-exported)
 
-SSM_KINDS = (MLSTM, SLSTM)
-_SSM_DEFS = {MLSTM: ssm.mlstm_defs, SLSTM: ssm.slstm_defs}
-_SSM_FORWARD = {MLSTM: ssm.mlstm_forward, SLSTM: ssm.slstm_forward}
-_SSM_INIT = {MLSTM: ssm.mlstm_init_state, SLSTM: ssm.slstm_init_state}
-_SSM_DECODE = {MLSTM: ssm.mlstm_decode, SLSTM: ssm.slstm_decode}
+SSM_KINDS = (MAMBA, MLSTM, SLSTM)
+XLSTM_KINDS = (MLSTM, SLSTM)        # blocks with their own projections, no FFN
+_SSM_DEFS = {MAMBA: ssm.mamba_defs, MLSTM: ssm.mlstm_defs,
+             SLSTM: ssm.slstm_defs}
+_SSM_FORWARD = {MAMBA: ssm.mamba_forward, MLSTM: ssm.mlstm_forward,
+                SLSTM: ssm.slstm_forward}
+_SSM_INIT = {MAMBA: ssm.mamba_init_state, MLSTM: ssm.mlstm_init_state,
+             SLSTM: ssm.slstm_init_state}
+_SSM_DECODE = {MAMBA: ssm.mamba_decode, MLSTM: ssm.mlstm_decode,
+               SLSTM: ssm.slstm_decode}
+# the layer kinds each family with recurrent blocks runs
+_FAMILY_KINDS = {"ssm": SSM_KINDS, "hybrid": (MAMBA, GLOBAL_ATTN)}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port's model code does not run yet: it runs dense
     and MoE decoders of GLOBAL_ATTN and LOCAL_ATTN layers, the VLM's
-    GLOBAL_ATTN and
-    CROSS_ATTN layers over precomputed image embeddings and the SSM
-    family's mLSTM/sLSTM blocks (xLSTM), not Mamba, MLA, front ends,
-    encoders or the other families."""
-    if cfg.family not in ("dense", "moe", "ssm", "vlm") \
-            or (cfg.family == "moe") != (cfg.moe is not None) \
-            or (cfg.family == "ssm") != (cfg.ssm is not None):
+    GLOBAL_ATTN and CROSS_ATTN layers over precomputed image embeddings,
+    the SSM family's Mamba, mLSTM and sLSTM blocks and the hybrid's
+    (jamba's) MAMBA and GLOBAL_ATTN layers with a dense or MoE FFN; not
+    MLA, front ends, encoders, a hybrid's LOCAL or CROSS layers or the
+    other families."""
+    recurrent = cfg.family in _FAMILY_KINDS
+    if cfg.family not in ("dense", "moe", "ssm", "vlm", "hybrid") \
+            or (cfg.family == "moe" and cfg.moe is None) \
+            or (cfg.moe is not None and cfg.family not in ("moe", "hybrid")) \
+            or recurrent != (cfg.ssm is not None):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported to repro_torch yet: "
-            "only dense, MoE and VLM decoder LMs and xLSTM; see ROADMAP "
-            "queue 1, item 10")
+            "only dense, MoE, VLM and hybrid decoder LMs and the SSM family; "
+            "see ROADMAP queue 1, item 10")
     for kind in cfg.layer_kinds:
-        if kind in SSM_KINDS:
-            continue
-        if cfg.family == "ssm":
+        if recurrent and kind not in _FAMILY_KINDS[cfg.family]:
             raise NotImplementedError(
-                f"{cfg.name}: {kind!r} layers of the SSM family (Mamba) are "
+                f"{cfg.name}: {kind!r} layers of the {cfg.family} family are "
                 "not ported to repro_torch yet; see ROADMAP queue 1, item 10")
+        if kind in SSM_KINDS:
+            if not recurrent:
+                raise NotImplementedError(
+                    f"{cfg.name}: {kind!r} layers run only in the SSM and "
+                    "hybrid families; see ROADMAP queue 1, item 10")
+            continue
         attn.check_supported(cfg, kind)
     if cfg.d_frontend or cfg.is_encoder:
         raise NotImplementedError(
@@ -109,11 +126,12 @@ def _apply_norm(cfg: ModelConfig, p: Dict, name: str,
     if cfg.use_layer_norm:
         return layer_norm(x, p[f"{name}_scale"], p[f"{name}_bias"],
                           cfg.norm_eps)
-    # xLSTM's norms sum in a fixed order: its decode carries a recurrent
-    # state, and served tokens are held bitwise against a one-row decode
+    # the recurrent families' norms sum in a fixed order: their decode
+    # carries a recurrent state, and served tokens are held bitwise against
+    # a one-row decode
     return rms_norm(x, p[f"{name}_scale"], cfg.norm_eps,
                     scale_plus_one=cfg.scale_plus_one_norm,
-                    fixed_order=cfg.family == "ssm")
+                    fixed_order=cfg.family in _FAMILY_KINDS)
 
 
 def block_defs(cfg: ModelConfig, kind: str, use_moe: bool) -> DefTree:
@@ -137,9 +155,9 @@ def block_defs(cfg: ModelConfig, kind: str, use_moe: bool) -> DefTree:
 
 
 def _has_ffn(cfg: ModelConfig, kind: str, use_moe: bool) -> bool:
-    """A dense or MoE FFN after the mixer: not for the xLSTM blocks, which
-    carry their own projections."""
-    return (cfg.d_ff > 0 or use_moe) and kind not in SSM_KINDS
+    """A dense or MoE FFN after the mixer: for attention and Mamba blocks,
+    not for the xLSTM blocks, which carry their own projections."""
+    return (cfg.d_ff > 0 or use_moe) and kind not in XLSTM_KINDS
 
 
 def _group_layout(cfg: ModelConfig) -> Tuple[List[Tuple[str, bool]],
@@ -183,9 +201,8 @@ def model_defs(cfg: ModelConfig) -> DefTree:
 def param_dtype(cfg: ModelConfig,
                 dtype: Optional[torch.dtype] = None) -> torch.dtype:
     """The parameters' dtype: `dtype` when given, else the config's
-    `param_dtype` for the dense family and fp32 for the xLSTM, which takes
-    no other."""
-    if cfg.family == "ssm":
+    `param_dtype`, and fp32 for the xLSTM, which takes no other."""
+    if any(kind in XLSTM_KINDS for kind in cfg.layer_kinds):
         if dtype not in (None, torch.float32):
             raise NotImplementedError(
                 f"{cfg.name}: {dtype} xLSTM parameters are not ported (its "
@@ -228,9 +245,9 @@ def _mixer_forward(cfg: ModelConfig, kind: str, p: Dict, h: torch.Tensor,
     """The block's sequence mixer on the normed input. Returns (sub, piece):
     for self attention the (k, v) it computed; for cross attention, when
     `state_dtype` is given, the image's (k, v) projected a second time for
-    the decode cache, as the reference's prefill does (else None); for an
-    xLSTM block its decode state when `state_dtype` is given (the conv tail
-    in that dtype), else None."""
+    the decode cache, as the reference's prefill does (else None); for a
+    recurrent (Mamba or xLSTM) block its decode state when `state_dtype` is
+    given (the conv tail in that dtype), else None."""
     if kind in SSM_KINDS:
         fwd = _SSM_FORWARD[kind]
         if state_dtype is None:
@@ -273,7 +290,7 @@ def block_forward(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
                   ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
     """One residual block. Returns (x, piece, aux): the mixer's (k, v) for
     a self-attention layer, the image cache's (k, v) for a cross layer and
-    its decode state for an xLSTM layer when `state_dtype` is given (else
+    its decode state for a recurrent layer when `state_dtype` is given (else
     None); an MoE layer's load-balancing loss (else None)."""
     h = _apply_norm(cfg, p, "pre", x)
     sub, piece = _mixer_forward(cfg, kind, p, h, positions, img_embeds,
@@ -417,7 +434,7 @@ def decode_step(cfg: ModelConfig, params: Dict, state: Dict,
                 tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens: (B, 1) int; pos: a scalar absolute
     position, or a (B,) int vector of per-row positions (continuous
-    batching; see `attention.attention_decode`; the xLSTM blocks read no
+    batching; see `attention.attention_decode`; the recurrent blocks read no
     position). Writes each layer's new key and value, or its new recurrent
     state, into `state` in place and returns (logits (B, 1, V), state)."""
     x = embed_lookup(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
@@ -441,7 +458,7 @@ def _block_prefill(cfg: ModelConfig, kind: str, use_moe: bool, p: Dict,
     (into a local layer's shorter ring, its last keys rolled by S %
     length, so that position p lands at slot p % length) and into the
     whole image cache for cross attention, the whole recurrent state (conv
-    tail in the cache dtype) for xLSTM."""
+    tail in the cache dtype) for Mamba and xLSTM."""
     x, piece, _ = block_forward(cfg, kind, use_moe, p, x, positions, img,
                                 state_dtype=state_dtype)
     if kind in SSM_KINDS:

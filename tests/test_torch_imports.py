@@ -45,6 +45,7 @@ def test_port_imports_without_triton_nvcc_or_jax():
         "import repro_torch.configs.llama32_vision_11b\n"
         "import repro_torch.configs.gemma2_27b\n"
         "import repro_torch.configs.gemma3_27b, repro_torch.configs.qwen3_32b\n"
+        "import repro_torch.configs.jamba15_large\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro')], 'jax or repro was imported'\n"
         "print('ok')\n")

@@ -217,12 +217,17 @@ def test_full_width_model_on_meta():
 
 
 def test_mamba_and_other_families_still_raise():
+    """Mamba runs in the SSM and hybrid families; a hybrid's LOCAL or CROSS
+    layers, and an SSM config without its SSM dims, still raise."""
     import dataclasses
-    from repro_torch.configs.base import MAMBA
-    cfg = dataclasses.replace(reduced("xlstm_125m"),
-                              pattern=(MAMBA,) * 5 + ("slstm",))
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        T.param_shapes(cfg)
+    from repro_torch.configs.base import CROSS_ATTN, LOCAL_ATTN, MAMBA
+    jamba = reduced("jamba15_large")
+    for kind in (LOCAL_ATTN, CROSS_ATTN):
+        cfg = dataclasses.replace(
+            jamba, pattern=(MAMBA,) * 4 + (kind,) + (MAMBA,) * 3,
+            window_size=8)
+        with pytest.raises(NotImplementedError, match="hybrid family"):
+            T.param_shapes(cfg)
     with pytest.raises(NotImplementedError, match="item 10"):
         T.param_shapes(dataclasses.replace(reduced("xlstm_125m"), ssm=None))
 

@@ -87,7 +87,7 @@ def test_init_params_draws_from_its_seed(cfgs):
         assert x.dtype == torch.float32 and torch.equal(x, y)
     assert not torch.equal(a["embed"], c["embed"])
     with pytest.raises(NotImplementedError, match="item 10"):
-        get_config("jamba15_large")
+        get_config("deepseek_v3_671b")
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
